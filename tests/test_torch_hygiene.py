@@ -1,0 +1,110 @@
+"""Guards of the port's boundary, for every slice: ``veles_tpu_torch``
+imports neither JAX nor anything of the ``veles_tpu`` package, and
+never falls back to the CPU on its own."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import veles_tpu_torch
+from veles_tpu_torch import device as port_device
+
+# one intra-op thread: these tests share the CPU with the suite's
+# parallel workers, where a thread pool per worker oversubscribes it
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.dirname(os.path.abspath(veles_tpu_torch.__file__))
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [PORT], prefix="veles_tpu_torch."))
+
+
+def test_import_closure_has_no_jax_and_no_veles_tpu():
+    """In a fresh interpreter, importing every module of the port
+    leaves ``jax`` and every module whose top-level name is
+    ``veles_tpu`` out of ``sys.modules`` (compare the first dotted
+    component: ``veles_tpu_torch`` starts with ``veles_tpu``)."""
+    modules = _port_modules()
+    assert "veles_tpu_torch.serve.engine" in modules
+    script = (
+        "import importlib, json, sys\n"
+        "for name in %r:\n"
+        "    importlib.import_module(name)\n"
+        "tops = {m.split('.')[0] for m in sys.modules}\n"
+        "print(json.dumps(sorted(tops & {'jax', 'jaxlib', "
+        "'veles_tpu'})))\n" % (modules,))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_sources_import_no_jax_and_no_veles_tpu():
+    pattern = re.compile(
+        r"^\s*(import\s+(jax|jaxlib|veles_tpu)\b(?!_torch)|"
+        r"from\s+(jax|jaxlib|veles_tpu)\b(?!_torch))", re.M)
+    offenders = []
+    for dirpath, _, files in os.walk(PORT):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(dirpath, name)
+                with open(path) as fin:
+                    if pattern.search(fin.read()):
+                        offenders.append(os.path.relpath(path, REPO))
+    assert offenders == []
+    with open(os.path.join(REPO, "chip_smoke.py")) as fin:
+        assert not pattern.search(fin.read())
+
+
+def test_no_silent_cpu_fallback(monkeypatch):
+    """``device=None`` means the CUDA card; without one it raises and
+    tells the caller to ask for the CPU, which then works."""
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_kv_cache,
+                                                    init_params)
+    from veles_tpu_torch.serve import GenerativeEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = TransformerConfig(vocab=16, embed=16, heads=2, layers=1,
+                               seq_len=8)
+    params = init_params(config, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GenerativeEngine(config, params, max_slots=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_kv_cache(config, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_device.resolve(None)
+    engine = GenerativeEngine(config, params, max_slots=1, device="cpu")
+    assert engine.device == torch.device("cpu")
+    assert engine.generate([np.asarray([1, 2], np.int32)], 2)[0].size == 2
+
+
+def test_compute_dtype_policy():
+    assert port_device.compute_dtype("float32") is torch.float32
+    assert port_device.compute_dtype("bfloat16") is torch.bfloat16
+    with pytest.raises(ValueError, match="bfloat16"):
+        port_device.compute_dtype("float16")
+
+
+def test_kernel_build_is_lazy():
+    """Importing the kernel wrappers builds and loads nothing: the
+    libraries come at the first launch on a CUDA tensor."""
+    script = ("from veles_tpu_torch.ops import _build, flash_attention\n"
+              "print(len(_build._libs), _build.sources())\n")
+    out = subprocess.run([sys.executable, "-c", script],
+                         env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split(None, 1) == [
+        "0", "['flash_decode', 'flash_fwd']\n"]

@@ -1,0 +1,349 @@
+"""Flash attention: blocked online-softmax attention that never
+materializes the ``[B, H, T, T]`` score matrix, and its single-query
+decode form over a KV slab.
+
+Port of ``veles_tpu/ops/flash_attention.py`` (forward and slab decode).
+Two implementations per entry, chosen by the tensors' device or by an
+explicit ``impl=``:
+
+- ``impl="cuda"``: the hand-written Hopper kernels in ``csrc/``
+  (``flash_fwd.cu`` for the forward, ``flash_decode.cu`` for decode),
+  taken for every CUDA tensor. A launch that fails raises; nothing
+  falls back.
+- ``impl="plain"``: the blocked algorithm in plain PyTorch, op for op
+  the JAX package's lax path (``flash_block_update`` looped over K
+  tiles). It runs for CPU tensors, and on the card only when asked
+  for, as the oracle the kernels are checked against.
+
+Shapes follow the repo convention ``[B, T, H, D]``. Both kernel
+wrappers count their launches in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from veles_tpu_torch.ops import _build
+
+#: Default sequence tile of the plain path (the kernels tile on their
+#: own: 64 x 64 for the forward, per-key for decode).
+DEFAULT_BLOCK = 512
+
+#: Default K/V tile of the plain decode path.
+DEFAULT_DECODE_BLOCK = 256
+
+#: Head dims the kernels are instantiated for.
+KERNEL_HEAD_DIMS = (32, 64, 128)
+
+#: Kernel launches since the last :func:`reset_launches`, by kernel.
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _round_up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+def _resolve_impl(impl: Optional[str], x: torch.Tensor, entry: str) -> str:
+    if impl not in (None, "plain", "cuda"):
+        raise ValueError("%s impl must be 'plain', 'cuda' or None, got %r"
+                         % (entry, impl))
+    if impl is None:
+        return "cuda" if x.is_cuda else "plain"
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError("%s impl='cuda' needs CUDA tensors, got %s"
+                         % (entry, x.device))
+    return impl
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch path (the lax formulation of the JAX package)
+# ---------------------------------------------------------------------------
+
+def flash_block_update(q, k_blk, v_blk, q_pos, k_pos, m, l, o,
+                       causal: bool, kv_len=None):
+    """One online-softmax accumulation step against a K/V block.
+
+    q [B,Tq,H,D]; k_blk/v_blk [B,Tk,H,D]; q_pos [Tq]; k_pos [Tk];
+    m/l [B,H,Tq] f32; o [B,Tq,H,D] f32. ``kv_len`` masks keys at
+    positions >= kv_len: an int for the whole batch, a ``[B]`` tensor
+    per sequence, or a ``[B, Tq]`` tensor per query. Returns updated
+    (m, l, o); the caller normalizes o by l at the end.
+    """
+    scale = q.shape[-1] ** -0.5
+    # f32 scores/stats regardless of the operand dtype
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k_blk.float()) * scale
+    mask = None
+    if causal:
+        mask = (q_pos[:, None] >= k_pos[None, :])[None, None]
+    if kv_len is not None:
+        kv = torch.as_tensor(kv_len, device=k_pos.device)
+        if kv.ndim == 0:
+            kmask = (k_pos < kv)[None, None, None, :]
+        elif kv.ndim == 1:          # [B] per-sequence cache lengths
+            kmask = (k_pos[None, :] < kv[:, None])[:, None, None, :]
+        else:                       # [B,Tq] per-query lengths
+            kmask = (k_pos[None, None, :] < kv[:, :, None])[:, None]
+        mask = kmask if mask is None else mask & kmask
+    if mask is not None:
+        scores = scores.masked_fill(~mask, -math.inf)
+    blk_max = scores.amax(dim=-1)                             # [B,H,Tq]
+    new_m = torch.maximum(m, blk_max)
+    # -inf rows (nothing attendable yet) must not NaN
+    safe_m = torch.where(torch.isfinite(new_m), new_m,
+                         torch.zeros_like(new_m))
+    p = torch.exp(scores - safe_m[..., None])                 # [B,H,Tq,Tk]
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    finite_m = torch.isfinite(m)
+    correction = torch.where(finite_m, torch.exp(m - safe_m),
+                             torch.zeros_like(m))
+    new_l = l * correction + p.sum(dim=-1)
+    o_corr = o * correction.transpose(1, 2)[..., None]
+    new_o = o_corr + torch.einsum(
+        "bhqk,bkhd->bqhd", p.to(v_blk.dtype).float(), v_blk.float())
+    return new_m, new_l, new_o
+
+
+def _plain_fwd(q, k, v, causal: bool, block_k: int, kv_len: int):
+    """Blocked forward over K tiles. Inputs are padded [B,T,H,D];
+    returns (o [B,T,H,D] q.dtype, l [B,H,T] f32, m [B,H,T] f32)."""
+    b, t, h, _ = q.shape
+    dev = q.device
+    q_pos = torch.arange(t, device=dev)
+    m = torch.full((b, h, t), -math.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, t), dtype=torch.float32, device=dev)
+    o = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    kv = kv_len if kv_len != t else None
+    for j in range(t // block_k):
+        blk = slice(j * block_k, (j + 1) * block_k)
+        k_pos = torch.arange(blk.start, blk.stop, device=dev)
+        m, l, o = flash_block_update(q, k[:, blk], v[:, blk], q_pos,
+                                     k_pos, m, l, o, causal, kv)
+    l_safe = torch.where(l > 0, l, torch.ones_like(l))
+    out = (o / l_safe.transpose(1, 2)[..., None]).to(q.dtype)
+    # canonical residual stats: finite m (masked-out rows -> 0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return out, l, m
+
+
+def _plain_decode(q, k_cache, v_cache, lengths, block_k: int):
+    """Blocked single-query decode. q [B,1,H,D]; caches [B,S,H,D] (S a
+    multiple of block_k); lengths [B] int32. Returns [B,1,H,D]."""
+    b, s, h, _ = k_cache.shape
+    dev = q.device
+    q_pos = torch.full((1,), s, dtype=torch.int64, device=dev)
+    m = torch.full((b, h, 1), -math.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, 1), dtype=torch.float32, device=dev)
+    o = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    for j in range(s // block_k):
+        blk = slice(j * block_k, (j + 1) * block_k)
+        k_pos = torch.arange(blk.start, blk.stop, device=dev)
+        m, l, o = flash_block_update(q, k_cache[:, blk], v_cache[:, blk],
+                                     q_pos, k_pos, m, l, o, causal=False,
+                                     kv_len=lengths)
+    l_safe = torch.where(l > 0, l, torch.ones_like(l))
+    return (o / l_safe.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_kernel_operands(entry: str, *tensors: torch.Tensor) -> None:
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    if dtype not in _DTYPE_CODES:
+        raise ValueError("%s kernel takes float32 or bfloat16, got %s"
+                         % (entry, dtype))
+    d = tensors[0].shape[-1]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError("%s kernel supports head dims %s, got %d"
+                         % (entry, KERNEL_HEAD_DIMS, d))
+    for x in tensors:
+        if not x.is_cuda or x.device != dev or x.dtype != dtype:
+            raise ValueError("%s kernel operands must share one CUDA "
+                             "device and dtype" % entry)
+        if x.stride(-1) != 1:
+            raise ValueError("%s kernel needs unit stride on the head "
+                             "dim, got strides %r" % (entry, x.stride()))
+
+
+def _rows_aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when every [b, t, h] row starts on a 16-byte
+    boundary, else a fresh contiguous copy: the bf16 forward kernel
+    moves rows 16 bytes at a time."""
+    if x.data_ptr() % 16 == 0 and \
+            all(st * x.element_size() % 16 == 0 for st in x.stride()[:3]):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _fwd_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_fwd")
+    if lib.veles_flash_fwd.argtypes is None:
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.veles_flash_fwd.argtypes = (
+            [p] * 6 + [i64] * 16 +
+            [ctypes.c_int, ctypes.c_float, ctypes.c_int, p])
+        lib.veles_flash_fwd.restype = ctypes.c_int
+    return lib
+
+
+def _decode_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_decode")
+    if lib.veles_flash_decode.argtypes is None:
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.veles_flash_decode.argtypes = (
+            [p] * 5 + [i64] * 14 + [ctypes.c_float, ctypes.c_int, p])
+        lib.veles_flash_decode.restype = ctypes.c_int
+    return lib
+
+
+def flash_fwd_cuda(q, k, v, causal: bool):
+    """K1: the forward kernel on [B,T,H,D] CUDA tensors read in place
+    through their strides (no transpose, no padding copy). Returns
+    (o [B,T,H,D] contiguous, l [B,H,T] f32, m [B,H,T] f32)."""
+    _check_kernel_operands("flash_fwd", q, k, v)
+    q, k, v = (_rows_aligned(x) for x in (q, k, v))
+    b, t, h, d = q.shape
+    o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    l = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    lib = _fwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.veles_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            l.data_ptr(), m.data_ptr(), b, t, h, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], int(bool(causal)), d ** -0.5,
+            _DTYPE_CODES[q.dtype], stream)
+    _build.check(lib, "flash_fwd", rc)
+    LAUNCHES["flash_fwd"] += 1
+    return o, l, m
+
+
+def flash_decode_cuda(q, k_cache, v_cache, lengths):
+    """K4: the decode kernel. q [B,H,D], caches [B,S,H,D] CUDA tensors
+    (any strides with unit head-dim stride, other strides multiples of
+    4 elements, 16-byte aligned bases); lengths [B] int32 on the same
+    device. Returns [B,H,D] contiguous."""
+    _check_kernel_operands("flash_decode", q, k_cache, v_cache)
+    b, s, h, d = k_cache.shape
+    for x in (k_cache, v_cache):
+        if x.data_ptr() % 16 or any(st % 4 for st in x.stride()[:3]):
+            raise ValueError("flash_decode kernel needs 16-byte aligned "
+                             "caches with strides in multiples of 4 "
+                             "elements, got %r" % (x.stride(),))
+    if lengths.device != q.device or lengths.dtype != torch.int32 or \
+            lengths.shape != (b,):
+        raise ValueError("flash_decode kernel needs int32 lengths [B] "
+                         "on the caches' device")
+    lengths = lengths.contiguous()
+    o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    lib = _decode_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.veles_flash_decode(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr(), o.data_ptr(), b, s, h, d,
+            *q.stride()[:2], *k_cache.stride()[:3],
+            *v_cache.stride()[:3], *o.stride()[:2], d ** -0.5,
+            _DTYPE_CODES[q.dtype], stream)
+    _build.check(lib, "flash_decode", rc)
+    LAUNCHES["flash_decode"] += 1
+    return o
+
+
+# ---------------------------------------------------------------------------
+# public entries
+# ---------------------------------------------------------------------------
+
+def flash_attention_fwd(q, k, v, causal: bool = False,
+                        block_q: Optional[int] = None,
+                        block_k: Optional[int] = None,
+                        impl: Optional[str] = None):
+    """Blocked online-softmax attention with its residuals.
+
+    q/k/v ``[B, T, H, D]`` (self-attention: equal shapes). Returns
+    ``(o [B,T,H,D] q.dtype, l [B,H,T] f32, m [B,H,T] f32)``; ``l`` is
+    the unnormalized row sum and ``m`` the row max (0 for a row with
+    nothing to attend). ``impl``: "cuda" (the K1 kernel), "plain", or
+    None = "cuda" for CUDA tensors, else "plain". The plain path pads
+    T to ``lcm(block_q, block_k)`` and masks the pad keys, as the JAX
+    package does; the kernel masks the ragged tail itself.
+    """
+    if q.shape != k.shape or q.shape != v.shape or q.ndim != 4:
+        raise ValueError("flash_attention is self-attention shaped: "
+                         "q/k/v must match [B, T, H, D], got %r/%r/%r"
+                         % (tuple(q.shape), tuple(k.shape),
+                            tuple(v.shape)))
+    impl = _resolve_impl(impl, q, "flash_attention")
+    if impl == "cuda":
+        return flash_fwd_cuda(q, k, v, causal)
+    t = q.shape[1]
+    bq = min(block_q or DEFAULT_BLOCK, _round_up(t, 8))
+    bk = min(block_k or DEFAULT_BLOCK, _round_up(t, 8))
+    t_pad = _round_up(t, int(np.lcm(bq, bk)))
+    if t_pad != t:
+        pad = (0, 0, 0, 0, 0, t_pad - t)
+        q, k, v = F.pad(q, pad), F.pad(k, pad), F.pad(v, pad)
+    o, l, m = _plain_fwd(q, k, v, bool(causal), bk, kv_len=t)
+    return o[:, :t], l[..., :t], m[..., :t]
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None,
+                    impl: Optional[str] = None):
+    """:func:`flash_attention_fwd` without the residuals: returns
+    ``[B, T, H, D]`` in q.dtype."""
+    return flash_attention_fwd(q, k, v, causal, block_q, block_k, impl)[0]
+
+
+def flash_decode(q, k_cache, v_cache, lengths,
+                 block_k: Optional[int] = None,
+                 impl: Optional[str] = None):
+    """One autoregressive decode step: a single new query per sequence
+    attending over its KV cache.
+
+    q ``[B, H, D]``; k_cache/v_cache ``[B, S, H, D]`` slabs;
+    ``lengths`` ``[B]`` int32 — valid cache entries per sequence,
+    INCLUDING the current token's K/V. Entries at positions >=
+    lengths[b] are masked (lengths clamp to S); a sequence with length
+    0 returns zeros. Returns ``[B, H, D]`` in q.dtype. ``impl`` as in
+    :func:`flash_attention_fwd` ("cuda" runs the K4 kernel).
+    """
+    if q.ndim != 3:
+        raise ValueError("flash_decode q is [B, H, D] (one query per "
+                         "sequence), got shape %r" % (tuple(q.shape),))
+    if k_cache.shape != v_cache.shape or k_cache.ndim != 4:
+        raise ValueError("flash_decode caches are [B, S, H, D], got "
+                         "%r/%r" % (tuple(k_cache.shape),
+                                    tuple(v_cache.shape)))
+    impl = _resolve_impl(impl, q, "flash_decode")
+    lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                              device=q.device)
+    if impl == "cuda":
+        return flash_decode_cuda(q, k_cache, v_cache, lengths)
+    s = k_cache.shape[1]
+    bk = min(block_k or DEFAULT_DECODE_BLOCK, _round_up(s, 8))
+    s_pad = _round_up(s, bk)
+    if s_pad != s:
+        pad = (0, 0, 0, 0, 0, s_pad - s)
+        k_cache, v_cache = F.pad(k_cache, pad), F.pad(v_cache, pad)
+    lengths = torch.clamp(lengths, max=s)
+    return _plain_decode(q[:, None], k_cache, v_cache, lengths, bk)[:, 0]

@@ -1,0 +1,171 @@
+"""Named model registry with atomic hot-swap (port of
+``veles_tpu/serve/registry.py``, generative entries only; the
+forward-plane ``ServedModel`` comes with the ``InferenceEngine``
+slice)."""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from veles_tpu_torch.serve.batcher import GenMetrics, TokenBatcher
+
+
+class GenerativeModel:
+    """One registry entry for the decode plane: a
+    :class:`~veles_tpu_torch.serve.engine.GenerativeEngine` behind a
+    continuous :class:`TokenBatcher`. Serves ``POST /generate``."""
+
+    def __init__(self, name: str, engine,
+                 **batcher_kwargs: Any) -> None:
+        self.name = name
+        self.engine = engine
+        self.batcher = TokenBatcher(engine, name=name,
+                                    **batcher_kwargs)
+        self.metrics: GenMetrics = self.batcher.metrics
+
+    def generate(self, prompt, max_tokens: int = 16,
+                 eos: Optional[int] = None, timeout: float = 60.0,
+                 deadline_ms: Optional[float] = None,
+                 ctx=None, temperature=None, top_k=None, top_p=None,
+                 seed=None, draft: bool = False) -> np.ndarray:
+        return self.batcher.submit(prompt, max_tokens=max_tokens,
+                                   eos=eos, timeout=timeout,
+                                   deadline_ms=deadline_ms, ctx=ctx,
+                                   temperature=temperature,
+                                   top_k=top_k, top_p=top_p,
+                                   seed=seed, draft=draft)
+
+    def stream(self, prompt, max_tokens: int = 16,
+               eos: Optional[int] = None, timeout: float = 60.0,
+               deadline_ms: Optional[float] = None, ctx=None,
+               temperature=None, top_k=None, top_p=None, seed=None,
+               draft: bool = False):
+        """Token iterator for the chunked ``"stream": true`` form of
+        ``POST /generate`` (admission errors raise eagerly)."""
+        return self.batcher.stream(prompt, max_tokens=max_tokens,
+                                   eos=eos, timeout=timeout,
+                                   deadline_ms=deadline_ms, ctx=ctx,
+                                   temperature=temperature,
+                                   top_k=top_k, top_p=top_p,
+                                   seed=seed, draft=draft)
+
+    def swap(self, engine):
+        """Hot-swap the engine: active sequences finish on the old one
+        (their KV cache lives in its slab); new admissions land on the
+        new one once it drains."""
+        old = self.engine
+        self.batcher.swap_engine(engine)
+        self.engine = engine
+        return old
+
+    @property
+    def queue_depth(self) -> int:
+        return self.batcher.queue_depth
+
+    @property
+    def stuck_for_s(self) -> float:
+        return self.batcher.stuck_for_s
+
+    @property
+    def drain_rate_rows_per_s(self) -> float:
+        return self.batcher.drain_rate_rows_per_s
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        snap = self.metrics.snapshot(self.queue_depth,
+                                     engine=self.engine)
+        snap["stuck_for_s"] = self.stuck_for_s
+        return snap
+
+    def metrics_samples(self):
+        from veles_tpu_torch.obs import metrics as obs_metrics
+        return obs_metrics.gen_samples(
+            self.name,
+            self.metrics.snapshot(self.queue_depth, engine=self.engine))
+
+    def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
+        self.batcher.stop(drain=drain, timeout=timeout)
+
+
+class ModelRegistry:
+    """Name -> served model; first registration is the default."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._models: Dict[str, Any] = {}
+        self._default: Optional[str] = None
+
+    def add_generative(self, name: str, engine,
+                       **batcher_kwargs: Any) -> GenerativeModel:
+        """Register a GenerativeEngine under ``name`` with its own
+        continuous token batcher (the ``POST /generate`` plane)."""
+        model = GenerativeModel(name, engine, **batcher_kwargs)
+        with self._lock:
+            if name in self._models:
+                model.stop(drain=False)
+                raise ValueError("model %r already registered" % name)
+            self._models[name] = model
+            if self._default is None:
+                self._default = name
+        return model
+
+    def get(self, name: Optional[str] = None):
+        """The named model (default model when name is None/'')."""
+        with self._lock:
+            key = name or self._default
+            if key is None or key not in self._models:
+                raise KeyError(name or "<no models registered>")
+            return self._models[key]
+
+    def swap(self, name: str, engine) -> None:
+        """Hot-swap the named model's engine (KeyError when unknown)."""
+        self.get(name).swap(engine)
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return list(self._models)
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        return {name: self.get(name).metrics_snapshot()
+                for name in self.names()}
+
+    def prometheus_text(self) -> str:
+        """ONE grouped exposition over every model (samples gathered,
+        rendered once, so a metric family never splits)."""
+        from veles_tpu_torch.obs import metrics as obs_metrics
+        samples = []
+        for name in self.names():
+            samples.extend(self.get(name).metrics_samples())
+        return obs_metrics.render(samples)
+
+    def admission_signals(self) -> Dict[str, Any]:
+        """Per-model queue depth / drain rate / watchdog heartbeat plus
+        aggregates — what ``/healthz`` exports for a router."""
+        per_model: Dict[str, Any] = {}
+        depth_total, rate_total, worst_stuck = 0, 0.0, 0.0
+        for name in self.names():
+            model = self.get(name)
+            depth = model.queue_depth
+            rate = model.drain_rate_rows_per_s
+            stuck = model.stuck_for_s
+            per_model[name] = {
+                "queue_depth": depth,
+                "drain_rate_rows_per_s": round(rate, 3),
+                "stuck_for_s": round(stuck, 3),
+            }
+            depth_total += depth
+            rate_total += rate
+            worst_stuck = max(worst_stuck, stuck)
+        return {
+            "queue_depth": depth_total,
+            "drain_rate_rows_per_s": round(rate_total, 3),
+            "stuck_for_s": round(worst_stuck, 3),
+            "models": per_model,
+        }
+
+    def stop_all(self, drain: bool = True,
+                 timeout: float = 30.0) -> None:
+        for name in self.names():
+            self.get(name).stop(drain=drain, timeout=timeout)
