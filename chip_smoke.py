@@ -10,9 +10,13 @@ without them, and on any failed phase. Phases, in order:
    build of every kernel in ``veles_tpu_torch/ops/csrc`` (parallel
    ``nvcc``, timed, with ``ptxas`` register/spill lines);
 2. kernels: each kernel against its plain PyTorch version on the card
-   at the serving path's shapes (max errors against stated
-   tolerances), with the kernel's, the plain version's and one
-   library call's time and the card's lower bound for the work;
+   at the main paths' shapes (max errors against stated tolerances),
+   with the kernel's, the plain version's and one library call's time
+   and the card's lower bound for the work: the forward (K1) and
+   decode (K4) kernels at the serving shapes, the backward kernels
+   (K2 dK/dV, K3 dQ) at batch 2 (bf16 and f32, full and ragged T),
+   then K1, K2 and K3 at the training shape and layout (batch 8, q, k,
+   v strided views of one fused QKV projection);
 3. serving at full width: the repo's largest LM configuration
    (``bench_transformer.py``: vocab 8192, embed 1024, 8 heads of 128,
    12 layers, seq 2048, bf16) with random seeded weights behind
@@ -22,7 +26,19 @@ without them, and on any failed phase. Phases, in order:
    engine directly;
 4. parity on the card: greedy tokens through the kernels equal the
    plain path's over 32 steps on a 2-layer f32 copy of the same width;
-   the bf16 full-width prefill logits against the plain path.
+   the bf16 full-width prefill logits against the plain path;
+5. training at full width: the same configuration with
+   ``remat="attn"`` and the chunked cross-entropy, batch 8, through
+   ``TransformerTrainer`` on one fixed token batch (warm-up steps, a
+   timed window, one ``step_many`` of 4), the launch counters read
+   around the whole run and around one step; ms per step, tokens/s,
+   model TFLOP/s, the device's busy share, peak memory and falling
+   losses; then ``GenerativeEngine.from_trainer`` serves the trained
+   weights;
+6. training parity on the card: a 2-layer f32 trainer of the same
+   width through the kernels and through the plain path from one
+   seed: the first step's gradient of every parameter, then 3 steps'
+   losses and parameters, within stated bounds.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -54,8 +70,16 @@ PEAK_BYTES = 3.35e12
 TOL_OUT = {"float32": 2e-5, "bfloat16": 2e-2}
 TOL_L_REL = 1e-4
 TOL_M = 1e-4
+#: backward kernels vs the plain backward, as a share of the plain
+#: gradient's largest magnitude: f32 differs in the order of sums of up
+#: to T terms; bf16 also rounds p to bf16 before dV where the plain
+#: path keeps it in f32 (a few bf16 ulps of the gradient's scale)
+TOL_GRAD = {"float32": 1e-4, "bfloat16": 2e-2}
 
 FULL = dict(vocab=8192, embed=1024, heads=8, layers=12, seq_len=2048)
+#: the training phase: bench_transformer.py's batch and learning rate
+TRAIN_BATCH = 8
+TRAIN_LR = 1e-4
 
 
 def log(msg):
@@ -85,6 +109,17 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+#: device kernels by class, from the names the profiler records: the
+#: port's own kernels, cuBLAS products, then PyTorch's native kernels
+KERNEL_CLASSES = (
+    ("flash kernels", ("flash_",)),
+    ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("copies and casts", ("copy",)),
+    ("reductions", ("reduce", "softmax", "norm")),
+    ("elementwise", ("elementwise", "vectorized")),
+    ("gather and scatter", ("index", "gather", "scatter", "embedding")))
+
+
 def profile_device(torch, fn, steps):
     """Device time by kernel over ``steps`` calls of ``fn`` (which ends
     on the host, synchronized): torch.profiler's CUDA kernel records,
@@ -107,8 +142,13 @@ def profile_device(torch, fn, steps):
         return None
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    by_class = {}
+    for key, ms, _ in rows:
+        cls = next((c for c, marks in KERNEL_CLASSES
+                    if any(mark in key for mark in marks)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + ms
     return dict(wall_ms=wall_ms, device_ms=device_ms,
-                busy_share=device_ms / wall_ms,
+                busy_share=device_ms / wall_ms, by_class=by_class,
                 top=[dict(kernel=k[:80], ms=ms, launches=n)
                      for k, ms, n in rows[:8]])
 
@@ -214,13 +254,144 @@ def kernel_phase(torch, fa, dev):
                       "lengths %s" % lengths.tolist(),
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    backward_kernels(torch, fa, dev, randn, h, d, rows)
     for row in rows.values():
         log("  %s: kernel %.4f ms, plain %.4f ms, library %.4f ms, "
-            "bound %.4f ms (%s) [%s]" % (
+            "bound %.4f ms (%s), max abs err %.3e [%s]" % (
                 row["name"], row["ms"], row["plain_ms"],
                 row["library_ms"], row["bound_ms"], row["bound_by"],
-                row["shape"]))
+                row["max_abs_err"], row["shape"]))
+    log("  flash_fwd at the training shape: kernel %.4f ms, max abs err "
+        "%.3e [%s]" % (rows["flash_fwd"]["train_ms"],
+                       rows["flash_fwd"]["train_max_abs_err"],
+                       rows["flash_fwd"]["train_shape"]))
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        log("  %s on contiguous copies of q, k, v: kernel %.4f ms"
+            % (name, rows[name]["ms_contiguous"]))
     return rows
+
+
+def _bwd_inputs(torch, fa, randn, shape, dtype):
+    """q, k, v, dO and the forward's residuals (K1) for K2/K3."""
+    q, k, v, do = (randn(shape, dtype) for _ in range(4))
+    o, l, m = fa.flash_fwd_cuda(q, k, v, True)
+    di = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float()).contiguous()
+    return q, k, v, do, o, l, m, di
+
+
+def _check_grads(dn, what, pairs):
+    """Each kernel gradient against the plain one, as a share of the
+    plain gradient's scale; returns the absolute errors by name."""
+    errs = {}
+    for name, a, b in pairs:
+        errs[name] = float((a.float() - b.float()).abs().max())
+        check("flash_bwd %s %s %s (share of scale)" % (dn, what, name),
+              errs[name] / float(b.float().abs().max()), TOL_GRAD[dn])
+    return errs
+
+
+def backward_kernels(torch, fa, dev, randn, h, d, rows):
+    """K2 and K3 against the plain backward (bf16 and f32, T = 2048 and
+    the ragged 1000, batch 2); then K1, K2 and K3 at the training shape
+    and layout, checked and timed; adds the K2/K3 rows to ``rows``."""
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for t in (2048, 1000):
+            q, k, v, do, o, l, m, di = _bwd_inputs(torch, fa, randn,
+                                                   (2, t, h, d), dtype)
+            dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, True)
+            dq = fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, True)
+            # a second launch on the same inputs must agree bitwise
+            # (no race, no read of unwritten memory)
+            dk2, dv2 = fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, True)
+            dq2 = fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, True)
+            # the plain backward's key tile must divide T (it takes the
+            # padded inputs of the autograd core)
+            pq, pk, pv = fa._plain_bwd(q, k, v, o, l, m, do, True,
+                                       512 if t % 512 == 0 else t, t)
+            torch.cuda.synchronize()
+            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2) and
+                    torch.equal(dq, dq2)):
+                raise AssertionError("flash_bwd %s T=%d: two launches on "
+                                     "the same inputs differ" % (dn, t))
+            _check_grads(dn, "T=%d" % t, (("dq", dq, pq), ("dk", dk, pk),
+                                          ("dv", dv, pv)))
+    # the training shape and layout: bench_transformer.py's batch 8,
+    # q, k, v strided views of one fused [B, T, 3, H, D] projection (as
+    # the model's _qkv gives them), dO contiguous (as the core makes it)
+    b, t = TRAIN_BATCH, 2048
+    qkv = randn((b, t, 3, h, d), torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = randn((b, t, h, d), torch.bfloat16)
+    o, l, m = fa.flash_fwd_cuda(q, k, v, True)
+    po, pl, pm = fa.flash_attention_fwd(q, k, v, causal=True, impl="plain")
+    di = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float()).contiguous()
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, True)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, True)
+    pq, pk, pv = fa._plain_bwd(q, k, v, o, l, m, do, True, 512, t)
+    torch.cuda.synchronize()
+    what = "[%d, %d, %d, %d] views" % (b, t, h, d)
+    err_fwd = float((o.float() - po.float()).abs().max())
+    check("flash_fwd bfloat16 %s O" % what, err_fwd, TOL_OUT["bfloat16"])
+    check("flash_fwd bfloat16 %s l (rel)" % what,
+          float(((l - pl).abs() / pl.abs()).max()), TOL_L_REL)
+    check("flash_fwd bfloat16 %s m" % what, float((m - pm).abs().max()),
+          TOL_M)
+    errs = _check_grads("bfloat16", what, (("dq", dq, pq), ("dk", dk, pk),
+                                           ("dv", dv, pv)))
+    del po, pl, pm, pq, pk, pv, dk, dv, dq
+    views = ("q, k, v strided views of one fused [%d, %d, 3, %d, %d] "
+             "projection" % (b, t, h, d))
+    rows["flash_fwd"].update(
+        train_shape="q,k,v [%d, %d, %d, %d] bf16, causal; %s"
+                    % (b, t, h, d, views),
+        train_max_abs_err=err_fwd,
+        train_ms=time_ms(lambda: fa.flash_fwd_cuda(q, k, v, True), 10))
+    pairs = b * h * t * (t + 1) / 2  # causal (query, key) pairs
+    row_bytes = q.numel() * q.element_size()
+    stat_bytes = l.numel() * 4
+    ms_dkv = time_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di,
+                                                   True), 10)
+    ms_dq = time_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di,
+                                                 True), 10)
+    # the same launches on contiguous copies: what the strided layout
+    # costs, within one run
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    ms_contiguous = {
+        "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv_cuda(
+            qc, kc, vc, do, l, m, di, True), 10),
+        "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq_cuda(
+            qc, kc, vc, do, l, m, di, True), 10)}
+    del qc, kc, vc
+    plain_ms = time_ms(lambda: fa._plain_bwd(q, k, v, o, l, m, do, True,
+                                             512, t), 3)
+    # the library yardstick: the backward of causal SDPA alone (its
+    # forward ran once, outside the timed launches)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10)
+    shape = "q,k,v,dO [%d, %d, %d, %d] bf16, causal; %s, dO contiguous" % (
+        b, t, h, d, views)
+    # K2: s, dP, dV, dK (four products); reads q, k, v, dO, l, m, Di and
+    # writes dK, dV. K3: s, dP, dQ (three); writes dQ.
+    for name, ms, n_prod, n_out, err, line in (
+            ("flash_bwd_dkv", ms_dkv, 4, 2, max(errs["dk"], errs["dv"]), 509),
+            ("flash_bwd_dq", ms_dq, 3, 1, errs["dq"], 539)):
+        bms, by = bound(2.0 * d * pairs * n_prod,
+                        (4 + n_out) * row_bytes + 3 * stat_bytes, "bfloat16")
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="veles_tpu_torch/ops/csrc/flash_bwd.cu",
+            replaces="veles_tpu/ops/flash_attention.py:%d" % line,
+            shape=shape, max_abs_err=err, ms=ms,
+            ms_contiguous=ms_contiguous[name], plain_ms=plain_ms,
+            plain_note="plain backward computes dQ, dK and dV together",
+            bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            library_note="SDPA backward alone (dQ, dK, dV together)")
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +625,183 @@ def parity_phase(torch, dev):
                 bf16_prefill_logit_err=err, bf16_logit_scale=scale)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training at full width
+# ---------------------------------------------------------------------------
+
+def train_flops_per_token(config, n_params):
+    """Model FLOPs per trained token, the JAX package's convention
+    (``bench_transformer.py:130-138``, kept here as this script's own
+    copy): 2 * params for the matmuls plus the full causal attention
+    square at 4 * T * E per layer, x3 for forward and backward."""
+    return 3 * (2 * n_params +
+                4 * config.seq_len * config.embed * config.layers)
+
+
+def training_phase(torch, fa, dev, card):
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerTrainer,
+                                                    _ce_chunk, _tree_leaves)
+    from veles_tpu_torch.serve import GenerativeEngine
+
+    config = TransformerConfig(compute="bfloat16", remat="attn", **FULL)
+    b, t = TRAIN_BATCH, config.seq_len
+    log("phase 5: training %s, batch %d, lr %g, ce_chunk %d"
+        % (config, b, TRAIN_LR, _ce_chunk(config, t)))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    trainer = TransformerTrainer(config, device=dev, seed=0,
+                                 learning_rate=TRAIN_LR)
+    n_params = sum(x.numel() for x in _tree_leaves(trainer.params))
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(0, config.vocab,
+                                           (b, t + 1))).to(dev)
+    setup_s = time.monotonic() - t0
+
+    fa.reset_launches()
+    losses = [trainer.step(tokens)["loss"] for _ in range(3)]  # warm-up
+    torch.cuda.synchronize()
+    before = dict(fa.LAUNCHES)
+    losses.append(trainer.step(tokens)["loss"])
+    one_step = {k: fa.LAUNCHES[k] - before[k] for k in before}
+    n_timed = 10
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n_timed):
+        losses.append(trainer.step(tokens)["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) * 1e3 / n_timed
+    k_many = 4
+    t0 = time.monotonic()
+    many = trainer.step_many(tokens[None].expand(k_many, -1, -1))
+    torch.cuda.synchronize()
+    many_ms = (time.monotonic() - t0) * 1e3 / k_many
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(many["loss"].shape) != (k_many,):
+        raise AssertionError("step_many returned losses of shape %s"
+                             % (tuple(many["loss"].shape),))
+    losses = torch.stack(losses + list(many["loss"])).tolist()
+
+    tokens_per_s = b * t * 1e3 / step_ms
+    flops = train_flops_per_token(config, n_params)
+    log("  %d params; set-up %.1f s; ms per step %.3f (window of %d), "
+        "step_many(%d) %.3f ms per step; %.1f tokens/s; model %.1f "
+        "TFLOP/s; peak memory %.2f GB [%s]"
+        % (n_params, setup_s, step_ms, n_timed, k_many, many_ms,
+           tokens_per_s, tokens_per_s * flops / 1e12, peak / 1e9, card))
+    log("  losses: %s" % ", ".join("%.4f" % x for x in losses))
+    log("  launches around one step: %s (need >= %d each of flash_fwd, "
+        "flash_bwd_dkv, flash_bwd_dq)" % (one_step, config.layers))
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        if one_step[name] < config.layers:
+            raise AssertionError("%s launched %d times in one train step, "
+                                 "< %d layers" % (name, one_step[name],
+                                                  config.layers))
+    if not all(np.isfinite(losses)) or trainer.nonfinite_count:
+        raise AssertionError("non-finite training loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        raise AssertionError("loss did not fall on the fixed batch: %s"
+                             % losses)
+
+    prof = profile_device(
+        torch, lambda: float(trainer.step(tokens)["loss"]), 2)
+    if prof is None:
+        log("  profile train step: no device time recorded")
+    else:
+        log("  profile train step: wall %.3f ms, device %.3f ms (busy "
+            "%.0f%%); top kernels: %s" % (
+                prof["wall_ms"], prof["device_ms"],
+                100 * prof["busy_share"],
+                "; ".join("%s %.3f ms x%g" % (r["kernel"][:40], r["ms"],
+                                              r["launches"])
+                          for r in prof["top"][:6])))
+        log("  train step device time by class: %s" % "; ".join(
+            "%s %.3f ms" % kv for kv in sorted(
+                prof["by_class"].items(), key=lambda kv: -kv[1])))
+
+    # serve the trained weights: the engine takes a copy
+    engine = GenerativeEngine.from_trainer(trainer, max_slots=2,
+                                           device=dev)
+    if engine.params["embed"].data_ptr() == \
+            trainer.params["embed"].data_ptr():
+        raise AssertionError("the engine aliases the trainer's weights")
+    prompts = [rng.integers(1, config.vocab, n).astype(np.int32)
+               for n in (12, 300)]
+    gen = [g.tolist() for g in engine.generate(prompts, 8)]
+    if any(len(g) != 8 or not all(0 <= x < config.vocab for x in g)
+           for g in gen):
+        raise AssertionError("generation from the trained weights: %r"
+                             % (gen,))
+    log("  served the trained weights: greedy tokens %s" % gen)
+    del engine, trainer
+    return dict(batch=b, n_params=n_params, learning_rate=TRAIN_LR,
+                setup_s=setup_s, step_ms=step_ms, timed_steps=n_timed,
+                step_many_k=k_many, step_many_ms_per_step=many_ms,
+                tokens_per_s=tokens_per_s,
+                model_tflops=tokens_per_s * flops / 1e12,
+                flops_per_token=flops, peak_mem_bytes=peak,
+                losses=losses, launches_one_step=one_step,
+                profile=prof, generated=gen), launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training parity on the card, kernels vs plain path
+# ---------------------------------------------------------------------------
+
+def train_parity_phase(torch, dev):
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerTrainer,
+                                                    _loss, _tree_leaves)
+
+    small = dict(FULL, layers=2)
+    lr, n_steps = 1e-3, 3
+    log("phase 6: training parity, 2-layer f32 at full width, batch 2, "
+        "%d steps, lr %g" % (n_steps, lr))
+    rng = np.random.default_rng(5)
+    batches = [torch.from_numpy(rng.integers(
+        0, small["vocab"], (2, small["seq_len"] + 1))).to(dev)
+        for _ in range(n_steps)]
+    runs = {}
+    for impl in ("cuda", "plain"):
+        cfg = TransformerConfig(compute="float32", attention_impl=impl,
+                                **small)
+        trainer = TransformerTrainer(cfg, device=dev, seed=3,
+                                     learning_rate=lr)
+        # the first step's gradients, before Adam (which moves every
+        # parameter by about lr whatever its gradient's scale) runs
+        x = batches[0]
+        grads = [g.detach() for g in torch.autograd.grad(
+            _loss(trainer.params, x[:, :-1], x[:, 1:], cfg),
+            _tree_leaves(trainer.params))]
+        losses = [float(trainer.step(x)["loss"]) for x in batches]
+        runs[impl] = (losses, grads, _tree_leaves(trainer.params))
+        del trainer
+    (lk, gk, pk), (lp, gp, pp) = runs["cuda"], runs["plain"]
+    loss_err = max(abs(a - c) / abs(c) for a, c in zip(lk, lp))
+    # each leaf's largest error over its own largest magnitude
+    grad_err = max(float((a - c).abs().max() /
+                         c.abs().max().clamp_min(1e-30))
+                   for a, c in zip(gk, gp))
+    param_err = max(float((a - c).detach().abs().max())
+                    for a, c in zip(pk, pp))
+    log("  losses kernels %s, plain %s" % (lk, lp))
+    # f32 on both sides: the gradients and losses differ in sum order
+    # only (the bound the CPU tests hold the port to against the JAX
+    # package). The gradient check is what holds the kernels: Adam's
+    # first steps move each parameter by about +-lr whatever its
+    # gradient's size, so 2 lr per step bounds the parameters of any
+    # two runs and only guards against a diverged one.
+    check("train grads step 1, kernels vs plain (share of each leaf's "
+          "scale)", grad_err, TOL_GRAD["float32"])
+    check("train loss, kernels vs plain (relative)", loss_err, 1e-4)
+    check("train params, kernels vs plain (2 lr per step)", param_err,
+          2 * lr * n_steps)
+    return dict(losses_kernels=lk, losses_plain=lp, loss_rel_err=loss_err,
+                grad_rel_err=grad_err, param_max_err=param_err, lr=lr,
+                steps=n_steps)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -483,18 +831,27 @@ def main():
                 log("    %s: %s" % (name, line.strip()))
 
     rows = kernel_phase(torch, fa, dev)
-    serve, launches = serving_phase(torch, fa, dev, card)
+    serve, serve_launches = serving_phase(torch, fa, dev, card)
     parity = parity_phase(torch, dev)
+    train, train_launches = training_phase(torch, fa, dev, card)
+    train_parity = train_parity_phase(torch, dev)
 
+    # each main path's launches, counted from 0 around that path alone
+    by_path = {"serving": serve_launches, "training": train_launches}
     kernels = []
     for name, row in rows.items():
-        row = dict(row, launches=launches[name])
+        paths = {p: n[name] for p, n in by_path.items() if n[name]}
+        if not paths:
+            raise AssertionError("%s was launched on no main path" % name)
+        row = dict(row, launches=sum(paths.values()),
+                   launches_by_path=paths)
         row["max_err"] = row["max_abs_err"]
         row["kernel_ms"] = row["ms"]
         kernels.append(row)
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
-                  kernels=kernels, serving=serve, parity=parity)
+                  kernels=kernels, serving=serve, parity=parity,
+                  training=train, training_parity=train_parity)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -12,6 +12,12 @@ exponentials, to 1e-5 relative). At bfloat16 the inputs are exactly
 representable in both, p and the output round to bf16 in both; the
 remaining difference is f32 sum order ahead of a bf16 rounding, one
 bf16 ulp of a unit-scale output (2e-2 absolute).
+
+Gradients: at float32 both sides run the same blocked backward and
+differ in sum order only (2e-5 absolute on unit-scale gradients, sums
+of up to T terms). At bfloat16 dS rounds to bf16 before the dK and dQ
+products on both sides and the gradients round to bf16 at the end:
+2e-2 of the gradient's scale, as for the outputs.
 """
 
 import importlib
@@ -134,6 +140,8 @@ def test_flash_decode_clamps_lengths_to_the_slab():
     (lambda x: P.flash_fwd_cuda(x, x, x, True), "CUDA"),
     (lambda x: P.flash_decode_cuda(x[:, 0], x, x,
                                    torch.ones(2)), "CUDA"),
+    (lambda x: P.flash_bwd_dkv_cuda(x, x, x, x, x, x, x, True), "CUDA"),
+    (lambda x: P.flash_bwd_dq_cuda(x, x, x, x, x, x, x, True), "CUDA"),
 ])
 def test_bad_input_raises(call, match):
     """Bad shapes and bad ``impl`` raise; asking for the kernel on a
@@ -143,3 +151,89 @@ def test_bad_input_raises(call, match):
     with pytest.raises(ValueError, match=match):
         call(x)
     assert P.LAUNCHES == before
+
+
+GRAD_CASES = [(64, True, None, None), (37, True, 16, 8),
+              (37, False, 8, 16), (50, False, 24, 8), (1, True, None, None)]
+
+
+def _jax_grads(q, k, v, do, causal, bq, bk, **impl):
+    import jax
+
+    def f(q, k, v):
+        return (J.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                  block_k=bk, **impl) * do).sum()
+
+    return jax.grad(f, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+
+
+@pytest.mark.parametrize("jax_impl", sorted(JAX_IMPLS))
+@pytest.mark.parametrize("t,causal,bq,bk", GRAD_CASES)
+def test_flash_attention_grads_match_jax_f32(jax_impl, t, causal, bq, bk):
+    """The port's autograd (``_FlashCore`` -> ``_plain_bwd``, with the
+    pad rows sliced off by autograd) against ``jax.grad`` of the
+    reference's custom_vjp."""
+    q, k, v, do = _inputs((2, t, 2, 16), seed=100 + t, n=4)
+    ref = _jax_grads(q, k, v, do, causal, bq, bk, **JAX_IMPLS[jax_impl])
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = P.flash_attention(tq, tk, tv, causal=causal, block_q=bq,
+                            block_k=bk)
+    (out * torch.from_numpy(do)).sum().backward()
+    for ours, theirs in zip((tq, tk, tv), ref):
+        assert ours.grad.shape == (2, t, 2, 16)
+        np.testing.assert_allclose(ours.grad.numpy(), np.asarray(theirs),
+                                   rtol=0, atol=2e-5)
+
+
+def test_flash_attention_grads_match_jax_bf16():
+    q, k, v, do = _inputs((2, 64, 2, 32), seed=9, n=4)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    import jax
+
+    ref = jax.grad(lambda q, k, v: (J.flash_attention(
+        q, k, v, causal=True, block_q=32, block_k=32, impl="lax")
+        .astype(jnp.float32) * jdo.astype(jnp.float32)).sum(),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+                  for x in (q, k, v))
+    out = P.flash_attention(tq, tk, tv, causal=True, block_q=32,
+                            block_k=32)
+    tdo = torch.from_numpy(do).to(torch.bfloat16).float()
+    (out.float() * tdo).sum().backward()
+    for ours, theirs in zip((tq, tk, tv), ref):
+        assert ours.grad.dtype == torch.bfloat16
+        theirs = np.asarray(theirs, np.float32)
+        err = np.abs(ours.grad.float().numpy() - theirs).max()
+        assert err <= 2e-2 * np.abs(theirs).max()
+
+
+def test_grads_reach_fused_qkv_through_views():
+    """q, k, v as strided views of one [B,T,3,H,D] tensor (the
+    transformer's fused projection): the gradient lands in the base
+    and equals the gradient of contiguous copies."""
+    (base,) = _inputs((2, 20, 3, 2, 8), seed=4, n=1)
+    (do,) = _inputs((2, 20, 2, 8), seed=5, n=1)
+    qkv = torch.from_numpy(base).requires_grad_()
+    out = P.flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                            causal=True, block_q=8, block_k=8)
+    (out * torch.from_numpy(do)).sum().backward()
+    parts = [torch.from_numpy(base[:, :, i].copy()).requires_grad_()
+             for i in range(3)]
+    ref = P.flash_attention(*parts, causal=True, block_q=8, block_k=8)
+    (ref * torch.from_numpy(do)).sum().backward()
+    for i in range(3):
+        torch.testing.assert_close(qkv.grad[:, :, i], parts[i].grad,
+                                   rtol=0, atol=0)
+
+
+def test_inference_mode_saves_nothing():
+    """Under ``torch.inference_mode()`` (serving) the forward builds no
+    graph: the output has no grad_fn even for inputs that require
+    grad."""
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _inputs((1, 16, 1, 8), seed=6))
+    with torch.inference_mode():
+        out = P.flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is None
+    assert P.flash_attention(q, k, v, causal=True).grad_fn is not None

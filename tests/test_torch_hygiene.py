@@ -5,6 +5,7 @@ never falls back to the CPU on its own."""
 import os
 import pkgutil
 import re
+import shutil
 import subprocess
 import sys
 
@@ -71,6 +72,7 @@ def test_no_silent_cpu_fallback(monkeypatch):
     """``device=None`` means the CUDA card; without one it raises and
     tells the caller to ask for the CPU, which then works."""
     from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerTrainer,
                                                     init_kv_cache,
                                                     init_params)
     from veles_tpu_torch.serve import GenerativeEngine
@@ -83,6 +85,8 @@ def test_no_silent_cpu_fallback(monkeypatch):
         GenerativeEngine(config, params, max_slots=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_kv_cache(config, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TransformerTrainer(config)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_device.resolve(None)
     engine = GenerativeEngine(config, params, max_slots=1, device="cpu")
@@ -107,4 +111,22 @@ def test_kernel_build_is_lazy():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split(None, 1) == [
-        "0", "['flash_decode', 'flash_fwd']\n"]
+        "0", "['flash_bwd', 'flash_decode', 'flash_fwd']\n"]
+
+
+def test_build_key_covers_shared_headers(tmp_path, monkeypatch):
+    """A kernel's library is keyed by its source and by the shared
+    ``csrc/*.cuh`` headers: an edit of a header rebuilds the kernels
+    that include it, and a header is not built as a kernel of its own."""
+    from veles_tpu_torch.ops import _build
+    for fname in ("flash_fwd.cu", "flash_common.cuh"):
+        shutil.copy(os.path.join(_build.CSRC, fname), tmp_path / fname)
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    assert _build.sources() == ["flash_fwd"]
+    assert _build.headers() == ["flash_common.cuh"]
+    before = _build._paths("flash_fwd")
+    assert _build._paths("flash_fwd") == before
+    with open(tmp_path / "flash_common.cuh", "a") as fout:
+        fout.write("// edited\n")
+    assert _build._paths("flash_fwd") != before

@@ -189,13 +189,8 @@ def test_bf16_logits_within_stated_bound():
 
 
 def test_moe_and_dense_attention_are_refused():
-    cfg = dict(SMALL, moe_experts=2)
-    config = PT.TransformerConfig(**cfg)
-    params = PT.params_from_numpy(PT.init_params(config, seed=0), config,
-                                  "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.prefill(params, torch.ones((1, 4), dtype=torch.long),
-                   torch.tensor([4]), config)
+    """The dense-attention oracle is not ported and is refused (MoE is
+    ported now: tests/test_torch_train.py checks it)."""
     config, params = _port(attention="dense")
     with pytest.raises(ValueError, match="flash"):
         PT.forward(params, torch.ones((1, 4), dtype=torch.long), config)

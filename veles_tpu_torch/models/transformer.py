@@ -1,4 +1,5 @@
-"""Transformer language model, serving half: prefill and slab decode.
+"""Transformer language model: training (loss, Adam,
+:class:`TransformerTrainer`), prefill and slab decode.
 
 Port of ``veles_tpu/models/transformer.py``. Same configuration, the
 same numpy-seeded weights (:func:`init_params` draws in the same
@@ -13,27 +14,31 @@ W)``; ``.to(compute dtype)`` sits where the reference has
 Parameters are a plain dict of tensors (:func:`params_from_numpy`
 builds it from the JAX package's tree as numpy arrays). Attention runs
 through ``ops.flash_attention``: the K1 forward kernel in
-:func:`prefill` and :func:`forward`, the K4 decode kernel in
+:func:`prefill`, :func:`forward` and the training loss, whose gradient
+runs the K2/K3 backward kernels, and the K4 decode kernel in
 :func:`decode_step`, on CUDA tensors; their plain PyTorch versions on
 CPU tensors.
 
-Not ported here: the training half (loss, Adam, ``TransformerTrainer``)
-and the mixture-of-experts FFN, both queued in ROADMAP.md.
+Training is single-device: the reference's mesh paths (sequence ring,
+expert sharding), its scheduler tenancy, AOT dispatch and profiler
+hook are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from veles_tpu_torch.device import compute_dtype as _compute_dtype
 from veles_tpu_torch.device import resolve
 from veles_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_decode)
+from veles_tpu_torch.parallel.fused import NonFiniteSentinel, update_ok
 
 
 @dataclass(frozen=True)
@@ -44,8 +49,9 @@ class TransformerConfig:
     layers: int = 2
     seq_len: int = 128
     mlp_ratio: int = 4
-    #: >0 turns the FFN into a top-1-routed mixture of experts (not
-    #: ported yet: :func:`_ffn` raises).
+    #: >0 turns the FFN into a top-1-routed mixture of experts (the
+    #: dense formulation: every expert runs on every token, the gate
+    #: masks the combine).
     moe_experts: int = 0
     moe_aux_weight: float = 1e-2
     #: "float32" | "bfloat16": the activation dtype (f32 master
@@ -61,10 +67,17 @@ class TransformerConfig:
     #: defaults. The kernels tile on their own.
     block_q: Optional[int] = None
     block_k: Optional[int] = None
-    #: Training-half knobs, kept so a configuration reads the same in
-    #: both packages; the serving path does not read them.
+    #: Kept so a configuration reads the same in both packages: the
+    #: port runs layers as a Python loop either way (the reference's
+    #: ``lax.scan`` changes nothing numerically).
     scan_layers: bool = True
+    #: "attn" keeps only the block inputs and the attention branch's
+    #: output for the backward and recomputes the rest; "none" keeps
+    #: everything.
     remat: str = "attn"
+    #: Cross-entropy sequence chunking: None = auto (chunk when
+    #: T*vocab is material), 0 = always full logits, >0 = chunk size
+    #: (must divide T).
     ce_chunk: Optional[int] = None
 
     @property
@@ -134,8 +147,10 @@ def params_from_numpy(tree, config: TransformerConfig,
     """The JAX package's parameter tree (``init_params`` output, or
     ``jax.tree.map(np.asarray, trainer.params)``) -> the port's tree of
     f32 tensors on ``device``, same structure, same ``[in, out]``
-    layouts. Tensor leaves are moved as they are. Raises
-    ``ValueError`` when the tree does not fit ``config``."""
+    layouts. Tensor leaves are copied (detached), never aliased: a
+    trainer updates its tensors in place, and a tree taken from it
+    must not move with it. Raises ``ValueError`` when the tree does not
+    fit ``config``."""
     device = torch.device(device)
 
     def convert(node, shape, path):
@@ -158,10 +173,11 @@ def params_from_numpy(tree, config: TransformerConfig,
             return [convert(n, s, "%s/%d" % (path, i))
                     for i, (n, s) in enumerate(zip(node, shape))]
         if isinstance(node, torch.Tensor):
-            leaf = node.detach().to(device=device, dtype=torch.float32)
+            leaf = node.detach().to(device=device, dtype=torch.float32,
+                                    copy=True)
         else:
             leaf = torch.from_numpy(
-                np.ascontiguousarray(node, dtype=np.float32)).to(device)
+                np.array(node, dtype=np.float32, order="C")).to(device)
         if tuple(leaf.shape) != tuple(shape):
             raise ValueError("params_from_numpy: %s has shape %s, config "
                              "wants %s" % (path, tuple(leaf.shape), shape))
@@ -187,13 +203,33 @@ def _qkv(x, block, config: TransformerConfig):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
+def _moe_ffn(h, block, config: TransformerConfig):
+    """Top-1-routed mixture-of-experts FFN, single device, in the
+    reference's dense formulation: every expert runs on every token
+    and the gate masks the combine. Returns (y, aux) — aux is the
+    Switch load-balance term E * sum_e(f_e * P_e)."""
+    cd = config.compute_dtype()
+    n_exp = config.moe_experts
+    # gate logits in f32 from compute-dtype operands
+    gates = torch.softmax(h.float() @ block["gate"].to(cd).float(), dim=-1)
+    top1 = torch.argmax(gates, dim=-1)                      # [B,T]
+    mask = F.one_hot(top1, n_exp).float()                   # [B,T,E]
+    combine = (mask * gates).to(cd)
+    hidden = torch.einsum("btd,edh->bteh", h, block["mlp_in"].to(cd))
+    outs = torch.einsum("bteh,ehd->bted", F.gelu(hidden, approximate="tanh"),
+                        block["mlp_out"].to(cd))
+    y = torch.einsum("bted,bte->btd", outs, combine)
+    frac = mask.mean(dim=(0, 1))           # tokens routed per expert
+    prob = gates.mean(dim=(0, 1))          # mean gate mass per expert
+    return y, n_exp * torch.sum(frac * prob)
+
+
 def _ffn(h, block, config: TransformerConfig):
-    """The dense gelu MLP branch; returns the residual delta.
-    ``jax.nn.gelu`` defaults to the tanh approximation, so does this."""
+    """The FFN branch; returns the residual delta: the dense gelu MLP
+    (``jax.nn.gelu`` defaults to the tanh approximation, so does this)
+    or the MoE combine with its aux term dropped."""
     if config.moe_experts > 0:
-        raise NotImplementedError(
-            "the mixture-of-experts FFN is not ported yet (ROADMAP.md "
-            "queue 1: MoE decode)")
+        return _moe_ffn(h, block, config)[0]
     cd = config.compute_dtype()
     h = F.gelu(h @ block["mlp_in"].to(cd), approximate="tanh")
     return h @ block["mlp_out"].to(cd)
@@ -218,9 +254,7 @@ def _block_forward_kv(x, block, config: TransformerConfig):
     """One pre-LN block that also returns its (k, v): the prefill
     body, the same ops in the same order as the full forward."""
     delta, k, v = _attention_forward(x, block, config)
-    x = x + delta
-    h = _layer_norm(x, block["ln2"]["g"], block["ln2"]["b"])
-    return x + _ffn(h, block, config), (k, v)
+    return _mlp_residual(x + delta, block, config), (k, v)
 
 
 def _embed(params, tokens, positions, cd):
@@ -234,16 +268,13 @@ def _lm_head(x, params, cd):
 
 
 def forward(params, tokens, config: TransformerConfig):
-    """tokens [B, T] int -> (logits [B, T, V] f32, aux loss 0). The
-    full-sequence forward (non-MoE, one device): the oracle prefill and
-    decode are checked against."""
-    cd = config.compute_dtype()
-    t = tokens.shape[1]
-    x = _embed(params, tokens, slice(0, t), cd)
-    for block in params["blocks"]:
-        x, _ = _block_forward_kv(x, block, config)
-    x = _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"])
-    return _lm_head(x, params, cd), torch.zeros((), device=x.device)
+    """tokens [B, T] int -> (logits [B, T, V] f32, moe aux loss). The
+    full-sequence forward through :func:`_encode` (the training stack,
+    one device): the oracle prefill and decode are checked against.
+    Materializes the full logits; the loss goes through the chunked
+    head of :func:`_loss`."""
+    x, aux = _encode(params, tokens, config)
+    return _lm_head(x, params, config.compute_dtype()), aux
 
 
 def init_kv_cache(config: TransformerConfig, batch: int,
@@ -339,3 +370,303 @@ def decode_step(params, tokens, cache, lengths,
     if active is not None:
         new_len = torch.where(active, new_len, lengths)
     return logits, cache, new_len
+
+
+# ---------------------------------------------------------------------------
+# training: blocks with remat, chunked loss, Adam, the trainer
+# ---------------------------------------------------------------------------
+
+def _attention_delta(x, block, config: TransformerConfig):
+    return _attention_forward(x, block, config)[0]
+
+
+def _mlp_residual(x, block, config: TransformerConfig):
+    h = _layer_norm(x, block["ln2"]["g"], block["ln2"]["b"])
+    return x + _ffn(h, block, config)
+
+
+def _block_forward(x, block, config: TransformerConfig):
+    """One pre-LN block (attention + MLP residual branches)."""
+    x = x + _attention_delta(x, block, config)
+    return _mlp_residual(x, block, config)
+
+
+def _maybe_remat(config: TransformerConfig):
+    """The block body under the config's remat policy. "attn" runs the
+    attention branch and the MLP branch as two checkpointed regions:
+    the backward keeps only their inputs — the block input and the
+    block input plus the attention output, which is the reference's
+    ``save_only_these_names("attn_out")`` boundary — and recomputes
+    everything else (layer norms, projections, K1's forward)."""
+    if config.remat not in ("attn", "none"):
+        raise ValueError("TransformerConfig.remat must be 'attn' or "
+                         "'none', got %r" % (config.remat,))
+
+    def block_fn(x, block):
+        if config.remat == "none" or not torch.is_grad_enabled():
+            return _block_forward(x, block, config)
+        x = x + checkpoint(_attention_delta, x, block, config,
+                           use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(_mlp_residual, x, block, config,
+                          use_reentrant=False, preserve_rng_state=False)
+
+    return block_fn
+
+
+def _encode(params, tokens, config: TransformerConfig):
+    """tokens [B, T] int -> (final hidden [B, T, E] after ln_f in the
+    compute dtype, moe aux loss f32). The layer stack is a loop (the
+    reference's ``lax.scan`` over stacked blocks computes the same);
+    MoE blocks run unrematerialized, as in the reference."""
+    cd = config.compute_dtype()
+    x = _embed(params, tokens, slice(0, tokens.shape[1]), cd)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if config.moe_experts > 0:
+        for block in params["blocks"]:
+            x = x + _attention_delta(x, block, config)
+            h = _layer_norm(x, block["ln2"]["g"], block["ln2"]["b"])
+            y, aux = _moe_ffn(h, block, config)
+            x = x + y
+            aux_total = aux_total + aux
+    else:
+        step = _maybe_remat(config)
+        for block in params["blocks"]:
+            x = step(x, block)
+    return (_layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"]),
+            aux_total)
+
+
+def _ce_chunk(config: TransformerConfig, t: int) -> int:
+    """Resolved cross-entropy chunk length (0 = full logits)."""
+    if config.ce_chunk == 0:
+        return 0
+    if config.ce_chunk:
+        return config.ce_chunk if t % config.ce_chunk == 0 else 0
+    if t * config.vocab < (1 << 21):  # full f32 logits are immaterial
+        return 0
+    for chunk in (512, 256, 128, 64):
+        if t % chunk == 0:
+            return chunk
+    return 0
+
+
+def _chunk_nll(x, targets, params, cd):
+    """Summed NLL of one sequence chunk: the tied head's f32 logits,
+    log-softmax, the targets' entries."""
+    logp = torch.log_softmax(_lm_head(x, params, cd), dim=-1)
+    return -logp.gather(-1, targets[..., None])[..., 0].sum()
+
+
+def _loss(params, tokens, targets, config: TransformerConfig):
+    """Mean causal cross-entropy + MoE aux. When the full [B, T, V] f32
+    logits would be material the head runs per sequence chunk, each
+    chunk checkpointed: peak logits memory is one chunk, and the
+    backward recomputes each chunk's logits instead of keeping them.
+    The chunk NLLs sum in f32 and divide by ``b * t``."""
+    x, aux = _encode(params, tokens, config)
+    cd = config.compute_dtype()
+    b, t, _ = x.shape
+    chunk = _ce_chunk(config, t)
+    if chunk:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, t, chunk):
+            xc, tc = x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
+            if torch.is_grad_enabled():
+                nll = checkpoint(_chunk_nll, xc, tc, params, cd,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+            else:
+                nll = _chunk_nll(xc, tc, params, cd)
+            total = total + nll
+        nll_mean = total / (b * t)
+    else:
+        nll_mean = _chunk_nll(x, targets, params, cd) / (b * t)
+    return nll_mean + config.moe_aux_weight * aux
+
+
+#: Adam coefficients — module constants so the nan_policy="skip"
+#: gated update (which routes them through scalar selects) can never
+#: drift from the plain path's values.
+_ADAM_B1 = 0.9
+_ADAM_B2 = 0.999
+_ADAM_EPS = 1e-8
+
+
+def _bias_corrections(step: int, b1: float = _ADAM_B1,
+                      b2: float = _ADAM_B2):
+    """(1 - b1**step, 1 - b2**step) in f32, as the reference computes
+    them from its f32 step counter."""
+    s = np.float32(step)
+    one = np.float32(1.0)
+    return (float(one - np.float32(b1) ** s),
+            float(one - np.float32(b2) ** s))
+
+
+@torch.no_grad()
+def _adam_update(p, g, m, v, step: int, lr: float, b1=_ADAM_B1,
+                 b2=_ADAM_B2, eps=_ADAM_EPS):
+    """The reference's Adam, ``p - lr * mhat / (sqrt(vhat) + eps)`` op
+    for op (not ``torch.optim.Adam``, which rounds differently). It
+    writes ``p``, ``m`` and ``v`` in place where the reference returns
+    new arrays from donated buffers."""
+    bc1, bc2 = _bias_corrections(step, b1, b2)
+    m.copy_(b1 * m + (1 - b1) * g)
+    v.copy_(b2 * v + (1 - b2) * g * g)
+    p.copy_(p - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+
+
+@torch.no_grad()
+def _adam_update_gated(p, g, m, v, step: int, lr: float, ok):
+    """``nan_policy="skip"``: Adam neutralized in its own arithmetic on
+    a bad step (sanitized g = 0, betas -> 1, lr -> 0) instead of a
+    branch, so the host never reads ``ok``; a bad step leaves p, m and
+    v bitwise unchanged. Bias correction keeps the constant betas."""
+    bc1, bc2 = _bias_corrections(step)
+    b1_t = torch.where(ok, _ADAM_B1, 1.0)
+    c1_t = torch.where(ok, 1 - _ADAM_B1, 0.0)
+    b2_t = torch.where(ok, _ADAM_B2, 1.0)
+    c2_t = torch.where(ok, 1 - _ADAM_B2, 0.0)
+    lr_t = torch.where(ok, lr, 0.0)
+    g = torch.where(ok, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    m.copy_(b1_t * m + c1_t * g)
+    v.copy_(b2_t * v + c2_t * g * g)
+    p.copy_(p - lr_t * (m / bc1) / (torch.sqrt(v / bc2) + _ADAM_EPS))
+
+
+def _tree_leaves(tree) -> List[torch.Tensor]:
+    """Tensor leaves of a params-shaped tree in a fixed order."""
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in _tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [x for node in tree for x in _tree_leaves(node)]
+    return [tree]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {key: _tree_map(fn, node) for key, node in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, node) for node in tree]
+    return fn(tree)
+
+
+class TransformerTrainer:
+    """Owns f32 master params and Adam state on one device; one train
+    step = forward + chunked loss + backward + Adam, in place.
+
+    >>> trainer = TransformerTrainer(config, device="cuda")
+    >>> metrics = trainer.step(tokens)   # tokens [B, T+1] int
+
+    ``nan_policy`` is "warn" (count on the device, log 4 dispatches
+    late), "skip" (a non-finite step leaves params and m/v bitwise
+    intact, decided on the device) or "raise" (sync and raise). The
+    reference reads its default from ``veles_tpu.config``; the port has
+    no config system yet, so the default is the literal "warn".
+    """
+
+    def __init__(self, config: TransformerConfig, device=None,
+                 learning_rate: float = 3e-4, seed: int = 0,
+                 steps_per_dispatch: int = 1,
+                 nan_policy: str = "warn") -> None:
+        self.device = resolve(device)
+        self.config = config
+        self.learning_rate = learning_rate
+        if steps_per_dispatch < 1:
+            raise ValueError("steps_per_dispatch must be >= 1, got %d" %
+                             steps_per_dispatch)
+        #: accepted for the reference's signature and ignored:
+        #: :meth:`step_many` takes K from its tokens, and PyTorch
+        #: dispatches every op eagerly either way
+        self.steps_per_dispatch = int(steps_per_dispatch)
+        self._sentinel = NonFiniteSentinel(nan_policy,
+                                           "TransformerTrainer")
+        self.nan_policy = nan_policy
+        self._step_count = 0
+        self.load_state(init_params(config, seed))
+
+    def load_state(self, params, opt_m=None, opt_v=None,
+                   step: int = 0) -> None:
+        """Take params (and Adam m, v and the step count) from numpy
+        trees or tensors, e.g. a JAX trainer's state through
+        ``jax.tree.map(np.asarray, ...)``: training continues where
+        that trainer stopped. Missing m/v start at zero."""
+        self.params = params_from_numpy(params, self.config, self.device)
+        for leaf in _tree_leaves(self.params):
+            leaf.requires_grad_(True)
+
+        def state(tree):
+            if tree is None:
+                return _tree_map(torch.zeros_like, self.params)
+            return params_from_numpy(tree, self.config, self.device)
+
+        self.opt_m = state(opt_m)
+        self.opt_v = state(opt_v)
+        self._step_count = int(step)
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        if isinstance(tokens, torch.Tensor):
+            return tokens.to(self.device).long()
+        return torch.from_numpy(np.asarray(tokens, np.int64)).to(
+            self.device)
+
+    def _train_step(self, tokens: torch.Tensor, step: int):
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        params = _tree_leaves(self.params)
+        loss = _loss(self.params, inputs, targets, self.config)
+        grads = torch.autograd.grad(loss, params)
+        loss = loss.detach()
+        with torch.no_grad():
+            ok = update_ok(loss, grads)
+            for p, g, m, v in zip(params, grads, _tree_leaves(self.opt_m),
+                                  _tree_leaves(self.opt_v)):
+                if self.nan_policy == "skip":
+                    _adam_update_gated(p, g, m, v, step,
+                                       self.learning_rate, ok)
+                else:
+                    _adam_update(p, g, m, v, step, self.learning_rate)
+        return loss, (~ok).to(torch.int32)
+
+    # -- non-finite sentinel ------------------------------------------------
+    @property
+    def nonfinite_count(self) -> int:
+        """Train steps whose loss or grads were non-finite so far
+        (reading syncs the device accumulator)."""
+        return self._sentinel.count
+
+    def step(self, tokens) -> Dict[str, Any]:
+        """tokens [B, T+1] int (inputs + shifted targets). Returns
+        ``{"loss", "nonfinite"}`` as device tensors."""
+        self._step_count += 1
+        loss, nonfinite = self._train_step(self._tokens(tokens),
+                                           self._step_count)
+        self._sentinel.note(nonfinite)
+        return {"loss": loss, "nonfinite": nonfinite}
+
+    def step_many(self, tokens_k) -> Dict[str, Any]:
+        """K train steps: ``tokens_k`` [K, B, T+1] int. Returns
+        ``{"loss": [K], "nonfinite": [K]}`` device tensors; numerics
+        equal K sequential :meth:`step` calls (per-step bias
+        correction)."""
+        if isinstance(tokens_k, (list, tuple)):
+            tokens_k = np.stack([np.asarray(t) for t in tokens_k])
+        tokens_k = self._tokens(tokens_k)
+        losses, flags = [], []
+        for tokens in tokens_k:
+            self._step_count += 1
+            loss, nonfinite = self._train_step(tokens, self._step_count)
+            losses.append(loss)
+            flags.append(nonfinite)
+        nonfinite = torch.stack(flags)
+        self._sentinel.note(nonfinite)
+        return {"loss": torch.stack(losses), "nonfinite": nonfinite}
+
+    def generate_logits(self, tokens) -> torch.Tensor:
+        """Full-sequence logits [B, T, V] f32 under the current
+        weights."""
+        with torch.inference_mode():
+            return forward(self.params, self._tokens(tokens),
+                           self.config)[0]
+
+
+#: The LM trainer under its workload name.
+LMTrainer = TransformerTrainer

@@ -4,8 +4,8 @@ Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface, loaded through
 ``ctypes``. Builds start together (one ``nvcc`` per source, in
 parallel) on first use and land in ``ops/csrc/build/``, keyed by a
-hash of the source and the flags, so an unchanged kernel is built once
-per checkout. ``ptxas`` resource usage (registers, shared memory,
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an unchanged kernel is built once per checkout. ``ptxas`` resource usage (registers, shared memory,
 spills) is kept beside each library as ``<name>-<key>.log``.
 
 Nothing here runs at import: the CPU-only test machine has no
@@ -49,9 +49,16 @@ def nvcc() -> str:
                        "or /usr/local/cuda)")
 
 
+def headers() -> List[str]:
+    """The shared headers (``csrc/*.cuh``) every kernel may include."""
+    return sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+
+
 def _paths(name: str):
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fin:
-        digest = hashlib.sha256(fin.read())
+    digest = hashlib.sha256()
+    for fname in [name + ".cu"] + headers():
+        with open(os.path.join(CSRC, fname), "rb") as fin:
+            digest.update(fin.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.join(BUILD_DIR, "%s-%s" % (name, digest.hexdigest()[:16]))
     return stem + ".so", stem + ".log"

@@ -35,72 +35,21 @@
 // input dtype before the P.V product, rows with l == 0 written as
 // zeros with the canonical residual m = 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 64;  // keys per tile
+using namespace veles_flash;
+
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 
-typedef __nv_bfloat16 bf16;
-
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores through mma.sync
+// bfloat16: tensor cores through mma.sync (four warps x 16 query rows)
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;  // four warps x 16 query rows
-
-// smem rows of 16-byte chunks padded by one chunk, so the 8 rows a
-// quad-major fragment load touches fall in distinct banks
 template <int D> struct MmaLayout {
-  static constexpr int LD = D + 8;  // bf16 elements per smem row
-  static constexpr size_t tile = size_t(64) * LD * sizeof(bf16);
-  static constexpr size_t bytes = 3 * tile;  // q, k, v
+  static constexpr size_t bytes = 3 * MmaTile<D>::bytes;  // q, k, v
 };
-
-__device__ inline uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ inline uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ inline uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return uint32_t(__bfloat16_as_ushort(lo)) |
-         (uint32_t(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// c[16x8] += a[16x16] (row) * b[16x8] (col), bf16 in, f32 accumulate
-__device__ inline void mma_bf16(float c[4], const uint32_t a[4],
-                                uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows [r0, r0 + 64) of a [T, D] slice (row stride st elements) into
-// smem, 16 bytes per copy, zeros past t_len
-template <int D>
-__device__ inline void load_tile(bf16* dst, const bf16* src, int64_t st,
-                                 int r0, int t_len, int tid) {
-  constexpr int LD = MmaLayout<D>::LD;
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int idx = tid; idx < 64 * CPR; idx += MMA_THREADS) {
-    const int r = idx / CPR, c = (idx % CPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < t_len)
-      val = *reinterpret_cast<const uint4*>(src + int64_t(r0 + r) * st + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(
@@ -110,7 +59,7 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(
     int n_heads, int64_t qsb, int64_t qst, int64_t qsh, int64_t ksb,
     int64_t kst, int64_t ksh, int64_t vsb, int64_t vst, int64_t vsh,
     int64_t osb, int64_t ost, int64_t osh, int causal, float scale) {
-  constexpr int LD = MmaLayout<D>::LD;
+  constexpr int LD = MmaTile<D>::LD;
   constexpr int KD = D / 16;  // k-steps of S = Q K^T over the head dim
   constexpr int NS = BK / 8;  // 8-key n-tiles of the score tile
   constexpr int NO = D / 8;   // 8-dim n-tiles of the output
@@ -140,13 +89,8 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(
   const int r0 = warp * 16 + g;
   uint32_t qf[KD][4];
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int c = kk * 16 + tq * 2;
-    qf[kk][0] = ld32(qs + r0 * LD + c);
-    qf[kk][1] = ld32(qs + (r0 + 8) * LD + c);
-    qf[kk][2] = ld32(qs + r0 * LD + c + 8);
-    qf[kk][3] = ld32(qs + (r0 + 8) * LD + c + 8);
-  }
+  for (int kk = 0; kk < KD; ++kk)
+    frag_a<LD>(qf[kk], qs + warp * 16 * LD, kk, g, tq);
   // rows of c0,c1 (row[0]) and c2,c3 (row[1]) of every fragment
   const int row[2] = {q0 + r0, q0 + r0 + 8};
 
@@ -172,8 +116,7 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(
       sf[j][0] = sf[j][1] = sf[j][2] = sf[j][3] = 0.f;
       const bf16* kr = ks + (j * 8 + g) * LD + tq * 2;
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        mma_bf16(sf[j], qf[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
+      for (int kk = 0; kk < KD; ++kk) mma_nk(sf[j], qf[kk], kr + kk * 16);
     }
 
     float mx[2] = {MASK_VALUE, MASK_VALUE};
@@ -223,18 +166,11 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(
     // the A fragment of k-step kk; V[key][d] is the col-major B
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_f32(sf[2 * kk][0], sf[2 * kk][1]),
-          pack_f32(sf[2 * kk][2], sf[2 * kk][3]),
-          pack_f32(sf[2 * kk + 1][0], sf[2 * kk + 1][1]),
-          pack_f32(sf[2 * kk + 1][2], sf[2 * kk + 1][3])};
+      uint32_t pa[4];
+      frag_from_acc(pa, sf[2 * kk], sf[2 * kk + 1]);
       const bf16* vr = vs + (kk * 16 + tq * 2) * LD + g;
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const bf16* vc = vr + n * 8;
-        mma_bf16(of[n], pa, pack_bf16(vc[0], vc[LD]),
-                 pack_bf16(vc[8 * LD], vc[9 * LD]));
-      }
+      for (int n = 0; n < NO; ++n) mma_kn<LD>(of[n], pa, vr + n * 8);
     }
   }
 
@@ -260,15 +196,12 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// float32: FMA units over shared-memory tiles
+// float32: FMA units over shared-memory tiles (16 x 16 threads)
 // ---------------------------------------------------------------------------
 
-constexpr int FMA_THREADS = 256;  // 16 x 16
-
-// Padded smem row (floats) for the q and k tiles: one extra word per
-// row, so the 16 keys a warp reads for one d fall in 16 banks.
+// q and k tiles take the padded rows; v is read along rows only
 template <int D> struct FmaLayout {
-  static constexpr int KS = D + 1;
+  static constexpr int KS = FmaTile<D>::KS;
   static constexpr int PS = BK + 1;
   static constexpr size_t q_bytes = size_t(BQ) * KS * sizeof(float);
   static constexpr size_t k_bytes = size_t(BK) * KS * sizeof(float);
@@ -314,11 +247,7 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_fwd_fma_kernel(
   const float* vb = v + b * vsb + h * vsh;
   float* ob = o + b * osb + h * osh;
 
-  for (int idx = tid; idx < BQ * D; idx += FMA_THREADS) {
-    const int r = idx / D, c = idx % D;
-    const int t = q0 + r;
-    qs[r * KS + c] = t < t_len ? qb[int64_t(t) * qst + c] : 0.f;
-  }
+  load_tile_f32<D>(qs, qb, qst, q0, t_len, tid);
   if (tid < BQ) {
     m_s[tid] = MASK_VALUE;
     l_s[tid] = 0.f;
@@ -468,13 +397,8 @@ struct Args {
 template <typename T, typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem_bytes, int threads,
                    bool& configured, const Args& a, cudaStream_t stream) {
-  if (!configured) {  // dynamic smem above 48 KB needs the attribute
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem_bytes));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  const cudaError_t err = configure(kernel, smem_bytes, configured);
+  if (err != cudaSuccess) return err;
   const dim3 grid{unsigned((a.t + BQ - 1) / BQ), unsigned(a.h),
                   unsigned(a.b)};
   kernel<<<grid, threads, smem_bytes, stream>>>(

@@ -1,22 +1,26 @@
 """Flash attention: blocked online-softmax attention that never
-materializes the ``[B, H, T, T]`` score matrix, and its single-query
-decode form over a KV slab.
+materializes the ``[B, H, T, T]`` score matrix, its gradient, and its
+single-query decode form over a KV slab.
 
-Port of ``veles_tpu/ops/flash_attention.py`` (forward and slab decode).
-Two implementations per entry, chosen by the tensors' device or by an
-explicit ``impl=``:
+Port of ``veles_tpu/ops/flash_attention.py`` (forward, backward and
+slab decode). Two implementations per entry, chosen by the tensors'
+device or by an explicit ``impl=``:
 
 - ``impl="cuda"``: the hand-written Hopper kernels in ``csrc/``
-  (``flash_fwd.cu`` for the forward, ``flash_decode.cu`` for decode),
-  taken for every CUDA tensor. A launch that fails raises; nothing
-  falls back.
+  (``flash_fwd.cu`` for the forward, ``flash_bwd.cu`` for the dK/dV
+  and dQ backward, ``flash_decode.cu`` for decode), taken for every
+  CUDA tensor. A launch that fails raises; nothing falls back.
 - ``impl="plain"``: the blocked algorithm in plain PyTorch, op for op
   the JAX package's lax path (``flash_block_update`` looped over K
-  tiles). It runs for CPU tensors, and on the card only when asked
-  for, as the oracle the kernels are checked against.
+  tiles, ``_lax_bwd`` for the gradient). It runs for CPU tensors, and
+  on the card only when asked for, as the oracle the kernels are
+  checked against.
 
-Shapes follow the repo convention ``[B, T, H, D]``. Both kernel
-wrappers count their launches in :data:`LAUNCHES`.
+:func:`flash_attention` is differentiable through one
+``torch.autograd.Function`` (the reference's ``custom_vjp``) whose
+residuals are only ``q, k, v, o, l, m``; the backward recomputes the
+score tiles. Shapes follow the repo convention ``[B, T, H, D]``. Every
+kernel wrapper counts its launches in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ DEFAULT_DECODE_BLOCK = 256
 KERNEL_HEAD_DIMS = (32, 64, 128)
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkv": 0,
+                            "flash_bwd_dq": 0, "flash_decode": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -138,6 +143,51 @@ def _plain_fwd(q, k, v, causal: bool, block_k: int, kv_len: int):
     # canonical residual stats: finite m (masked-out rows -> 0)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     return out, l, m
+
+
+def _plain_bwd(q, k, v, o, l, m, do, causal: bool, block_k: int,
+               kv_len: int):
+    """Blocked backward (the reference's ``_lax_bwd``): recomputes
+    ``p = exp(s - m) / l`` per K tile from the saved stats, with
+    ``di = rowsum(dO * O)`` in f32; never builds the [B,H,T,T] score
+    matrix. Inputs are padded [B,T,H,D]; returns (dq, dk, dv) in the
+    input dtype. dV takes p in f32, dK and dQ take dS rounded to the
+    input dtype, as the reference does."""
+    b, t, h, d = q.shape
+    dev = q.device
+    scale = d ** -0.5
+    q_pos = torch.arange(t, device=dev)
+    l_inv = torch.where(l > 0, 1.0 / torch.where(l > 0, l,
+                                                 torch.ones_like(l)),
+                        torch.zeros_like(l))
+    dof = do.float()
+    di = torch.einsum("bqhd,bqhd->bhq", dof, o.float())
+    qf = q.float()
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for j in range(t // block_k):
+        blk = slice(j * block_k, (j + 1) * block_k)
+        k_pos = torch.arange(blk.start, blk.stop, device=dev)
+        k_blk, v_blk = k[:, blk].float(), v[:, blk].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, k_blk) * scale
+        mask = None
+        if causal:
+            mask = q_pos[:, None] >= k_pos[None, :]
+        if kv_len != t:
+            kmask = (k_pos < kv_len)[None, :]
+            mask = kmask if mask is None else mask & kmask
+        p = torch.exp(s - m[..., None]) * l_inv[..., None]
+        if mask is not None:
+            p = torch.where(mask[None, None], p, torch.zeros_like(p))
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, dof))
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof, v_blk)
+        ds = p * (dp - di[..., None]) * scale
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd",
+                               ds.to(k.dtype).float(), k_blk)
+        dks.append(torch.einsum("bhqk,bqhd->bkhd",
+                                ds.to(q.dtype).float(), qf))
+    return (dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
 
 
 def _plain_decode(q, k_cache, v_cache, lengths, block_k: int):
@@ -236,6 +286,75 @@ def flash_fwd_cuda(q, k, v, causal: bool):
     return o, l, m
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_bwd")
+    if lib.veles_flash_bwd_dkv.argtypes is None:
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        tail = [ctypes.c_int, ctypes.c_float, ctypes.c_int, p]
+        lib.veles_flash_bwd_dkv.argtypes = [p] * 9 + [i64] * 22 + tail
+        lib.veles_flash_bwd_dkv.restype = ctypes.c_int
+        lib.veles_flash_bwd_dq.argtypes = [p] * 8 + [i64] * 19 + tail
+        lib.veles_flash_bwd_dq.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_operands(entry, q, k, v, do, l, m, di):
+    """Checked, 16-byte-row-aligned kernel operands of K2/K3."""
+    _check_kernel_operands(entry, q, k, v, do)
+    b, t, h, _ = q.shape
+    if k.shape != q.shape or v.shape != q.shape or do.shape != q.shape:
+        raise ValueError("%s kernel needs q, k, v, dO of one [B, T, H, D] "
+                         "shape" % entry)
+    for x in (l, m, di):
+        if x.dtype != torch.float32 or x.device != q.device or \
+                tuple(x.shape) != (b, h, t) or not x.is_contiguous():
+            raise ValueError("%s kernel needs contiguous f32 l, m, di "
+                             "[B, H, T] on the operands' device" % entry)
+    return tuple(_rows_aligned(x) for x in (q, k, v, do))
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, l, m, di, causal: bool):
+    """K2: dK and dV from q, k, v, dO [B,T,H,D] CUDA tensors (read in
+    place through their strides) and the f32 stats l, m, di [B,H,T].
+    Returns (dk, dv), [B,T,H,D] contiguous in the input dtype."""
+    q, k, v, do = _bwd_operands("flash_bwd_dkv", q, k, v, do, l, m, di)
+    b, t, h, d = q.shape
+    dk = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.veles_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            l.data_ptr(), m.data_ptr(), di.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, t, h, d,
+            *(st for x in (q, k, v, do, dk, dv) for st in x.stride()[:3]),
+            int(bool(causal)), d ** -0.5, _DTYPE_CODES[q.dtype], stream)
+    _build.check(lib, "flash_bwd_dkv", rc)
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_bwd_dq_cuda(q, k, v, do, l, m, di, causal: bool):
+    """K3: dQ from the same operands as :func:`flash_bwd_dkv_cuda`.
+    Returns dq, [B,T,H,D] contiguous in the input dtype."""
+    q, k, v, do = _bwd_operands("flash_bwd_dq", q, k, v, do, l, m, di)
+    b, t, h, d = q.shape
+    dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.veles_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            l.data_ptr(), m.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            b, t, h, d,
+            *(st for x in (q, k, v, do, dq) for st in x.stride()[:3]),
+            int(bool(causal)), d ** -0.5, _DTYPE_CODES[q.dtype], stream)
+    _build.check(lib, "flash_bwd_dq", rc)
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
 def flash_decode_cuda(q, k_cache, v_cache, lengths):
     """K4: the decode kernel. q [B,H,D], caches [B,S,H,D] CUDA tensors
     (any strides with unit head-dim stride, other strides multiples of
@@ -269,6 +388,51 @@ def flash_decode_cuda(q, k_cache, v_cache, lengths):
 
 
 # ---------------------------------------------------------------------------
+# the differentiable core (the reference's custom_vjp)
+# ---------------------------------------------------------------------------
+
+def _core_fwd(q, k, v, causal, block_k, kv_len, impl):
+    if impl == "cuda":
+        return flash_fwd_cuda(q, k, v, causal)
+    return _plain_fwd(q, k, v, causal, block_k, kv_len)
+
+
+def _core_bwd(q, k, v, o, l, m, do, causal, block_k, kv_len, impl):
+    # autograd may hand over an expanded (zero-stride) gradient, e.g.
+    # the backward of ``out.sum()``; the kernels read rows in place
+    do = do.to(q.dtype).contiguous()
+    if impl == "plain":
+        return _plain_bwd(q, k, v, o, l, m, do, causal, block_k, kv_len)
+    # di = rowsum(dO * O), outside the kernels as in the reference
+    di = torch.einsum("bqhd,bqhd->bhq", do.float(),
+                      o.float()).contiguous()
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, l, m, di, causal)
+    dq = flash_bwd_dq_cuda(q, k, v, do, l, m, di, causal)
+    return dq, dk, dv
+
+
+class _FlashCore(torch.autograd.Function):
+    """o, l, m = attention(q, k, v) with the blocked backward. Saves
+    only ``q, k, v, o, l, m`` (the reference's residuals); l and m are
+    not differentiable. q, k, v may be strided views (of the fused QKV
+    projection): their gradients reach the base through autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_k, kv_len, impl):
+        o, l, m = _core_fwd(q, k, v, causal, block_k, kv_len, impl)
+        ctx.save_for_backward(q, k, v, o, l, m)
+        ctx.spec = (causal, block_k, kv_len, impl)
+        ctx.mark_non_differentiable(l, m)
+        return o, l, m
+
+    @staticmethod
+    def backward(ctx, do, _dl, _dm):
+        q, k, v, o, l, m = ctx.saved_tensors
+        dq, dk, dv = _core_bwd(q, k, v, o, l, m, do, *ctx.spec)
+        return dq, dk, dv, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
 # public entries
 # ---------------------------------------------------------------------------
 
@@ -281,10 +445,14 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     q/k/v ``[B, T, H, D]`` (self-attention: equal shapes). Returns
     ``(o [B,T,H,D] q.dtype, l [B,H,T] f32, m [B,H,T] f32)``; ``l`` is
     the unnormalized row sum and ``m`` the row max (0 for a row with
-    nothing to attend). ``impl``: "cuda" (the K1 kernel), "plain", or
-    None = "cuda" for CUDA tensors, else "plain". The plain path pads
-    T to ``lcm(block_q, block_k)`` and masks the pad keys, as the JAX
-    package does; the kernel masks the ragged tail itself.
+    nothing to attend). ``impl``: "cuda" (the K1 kernel forward, K2
+    and K3 backward), "plain", or None = "cuda" for CUDA tensors, else
+    "plain". The plain path pads T to ``lcm(block_q, block_k)`` and
+    masks the pad keys, as the JAX package does (the pad's gradient is
+    sliced off by autograd); the kernels mask the ragged tail
+    themselves. ``o`` is differentiable when grad mode is on and an
+    input requires grad; otherwise (``torch.inference_mode()``, the
+    serving path) nothing is saved for a backward.
     """
     if q.shape != k.shape or q.shape != v.shape or q.ndim != 4:
         raise ValueError("flash_attention is self-attention shaped: "
@@ -292,17 +460,23 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
                          % (tuple(q.shape), tuple(k.shape),
                             tuple(v.shape)))
     impl = _resolve_impl(impl, q, "flash_attention")
-    if impl == "cuda":
-        return flash_fwd_cuda(q, k, v, causal)
     t = q.shape[1]
-    bq = min(block_q or DEFAULT_BLOCK, _round_up(t, 8))
-    bk = min(block_k or DEFAULT_BLOCK, _round_up(t, 8))
-    t_pad = _round_up(t, int(np.lcm(bq, bk)))
+    bk, t_pad = t, t
+    if impl == "plain":
+        bq = min(block_q or DEFAULT_BLOCK, _round_up(t, 8))
+        bk = min(block_k or DEFAULT_BLOCK, _round_up(t, 8))
+        t_pad = _round_up(t, int(np.lcm(bq, bk)))
     if t_pad != t:
         pad = (0, 0, 0, 0, 0, t_pad - t)
         q, k, v = F.pad(q, pad), F.pad(k, pad), F.pad(v, pad)
-    o, l, m = _plain_fwd(q, k, v, bool(causal), bk, kv_len=t)
-    return o[:, :t], l[..., :t], m[..., :t]
+    args = (q, k, v, bool(causal), bk, t, impl)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        o, l, m = _FlashCore.apply(*args)
+    else:
+        o, l, m = _core_fwd(*args)
+    if t_pad != t:
+        return o[:, :t], l[..., :t], m[..., :t]
+    return o, l, m
 
 
 def flash_attention(q, k, v, causal: bool = False,
