@@ -12,11 +12,13 @@ without them, and on any failed phase. Phases, in order:
 2. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (max errors against stated tolerances),
    with the kernel's, the plain version's and one library call's time
-   and the card's lower bound for the work: the forward (K1) and
-   decode (K4) kernels at the serving shapes, the backward kernels
-   (K2 dK/dV, K3 dQ) at batch 2 (bf16 and f32, full and ragged T),
-   then K1, K2 and K3 at the training shape and layout (batch 8, q, k,
-   v strided views of one fused QKV projection);
+   and the card's lower bound for the work: the forward (K1), slab
+   decode (K4) and paged decode (K5, the same K/V as K4's slab in a
+   scrambled page pool, also compared bitwise with K4) kernels at the
+   serving shapes, the backward kernels (K2 dK/dV, K3 dQ) at batch 2
+   (bf16 and f32, full and ragged T), then K1, K2 and K3 at the
+   training shape and layout (batch 8, q, k, v strided views of one
+   fused QKV projection);
 3. serving at full width: the repo's largest LM configuration
    (``bench_transformer.py``: vocab 8192, embed 1024, 8 heads of 128,
    12 layers, seq 2048, bf16) with random seeded weights behind
@@ -38,7 +40,26 @@ without them, and on any failed phase. Phases, in order:
 6. training parity on the card: a 2-layer f32 trainer of the same
    width through the kernels and through the plain path from one
    seed: the first step's gradient of every parameter, then 3 steps'
-   losses and parameters, within stated bounds.
+   losses and parameters, within stated bounds;
+7. paged serving at full width: the phase 3 configuration behind
+   ``PagedGenerativeEngine`` (8 slots, 16-token pages) -> registry ->
+   server, first over a 1024-page pool (the slab's size), then over a
+   320-page pool (admission backpressure, preemption): the phase 3
+   prompts, one streaming, two sampled, three sharing a 1000-token
+   prefix; K5's launches read around each window; every page back at
+   the end; a sampled request repeated alone is identical; sampled
+   draws from the same f32 logits are equal on the CPU and the card;
+   greedy tokens of one batch of the 8 prompts equal the slab
+   engine's (with prefix sharing and copy-on-write); a pool that must
+   preempt; a paged decode round timed and profiled;
+8. paged parity on the card: on a 2-layer f32 copy of full width,
+   greedy tokens through K5 equal the plain path's and the slab
+   engine's (K4), also on a pool that preempts; speculative decoding
+   (a 4-layer target whose last 2 blocks are residual identities, its
+   first 2 as the draft, K = 4) equals greedy with acceptance 1.0;
+   the same construction at bf16 and full depth (12-layer target,
+   2-layer draft, 8 slots, 64 tokens) against greedy, acceptance at
+   least 0.7.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -77,6 +98,14 @@ TOL_M = 1e-4
 TOL_GRAD = {"float32": 1e-4, "bfloat16": 2e-2}
 
 FULL = dict(vocab=8192, embed=1024, heads=8, layers=12, seq_len=2048)
+#: the serving phases' prompt lengths (3 and 7); the 1250- and
+#: 1500-token prompts extend the 1000-token one (a shared prefix)
+PROMPT_LENS = [16, 100, 250, 500, 777, 1000, 1250, 1500]
+#: phase 7's sampled requests: index -> knobs
+SAMPLED = {2: dict(temperature=0.8, top_k=50, top_p=0.9, seed=101),
+           4: dict(temperature=0.8, top_k=50, top_p=0.9, seed=102)}
+#: speculative acceptance floor at bf16 (bench_serve.py:582's)
+SPEC_ACCEPT_MIN = 0.7
 #: the training phase: bench_transformer.py's batch and learning rate
 TRAIN_BATCH = 8
 TRAIN_LR = 1e-4
@@ -231,6 +260,9 @@ def kernel_phase(torch, fa, dev):
         check("flash_decode %s slab [8,2048,8,128]" % dn, err, TOL_OUT[dn])
         if float(out[0].abs().max()) != 0.0:
             raise AssertionError("flash_decode: length-0 row is not zero")
+        rows["flash_decode_paged"] = paged_kernel(
+            torch, fa, dev, dn, q, kc, vc, lengths, out, rows.get(
+                "flash_decode_paged"))
         if dtype is torch.bfloat16:
             live = int(lengths.sum())
             flops = 4.0 * d * h * live
@@ -269,6 +301,76 @@ def kernel_phase(torch, fa, dev):
         log("  %s on contiguous copies of q, k, v: kernel %.4f ms"
             % (name, rows[name]["ms_contiguous"]))
     return rows
+
+
+def paged_kernel(torch, fa, dev, dn, q, kc, vc, lengths, slab_out, row):
+    """K5 on the same K/V as K4's slab, scattered into a pool of
+    16-token pages in a random order (every block of every sequence
+    has its page; ids past a sequence's last block are the sentinel P):
+    checked against the plain paged path, compared bitwise with K4's
+    output on the slab, and at bf16 timed beside the plain path, the
+    bound and the library yardstick (gather the live pages into a slab,
+    then SDPA with a length mask, the two calls together)."""
+    b, s, h, d = kc.shape
+    ps = 16
+    n_blk = s // ps
+    n_pages = b * n_blk
+    perm = torch.from_numpy(np.random.default_rng(9).permutation(
+        n_pages)).to(dev)
+    kp = torch.empty((n_pages, ps, h, d), dtype=kc.dtype, device=dev)
+    vp = torch.empty_like(kp)
+    kp[perm] = kc.reshape(n_pages, ps, h, d)
+    vp[perm] = vc.reshape(n_pages, ps, h, d)
+    table = perm.reshape(b, n_blk).to(torch.int32)
+    live_blocks = (lengths + ps - 1) // ps
+    table = torch.where(torch.arange(n_blk, device=dev)[None, :] <
+                        live_blocks[:, None], table,
+                        torch.full_like(table, n_pages))
+    out = fa.flash_decode_paged(q, kp, vp, table, lengths, impl="cuda")
+    ref = fa.flash_decode_paged(q, kp, vp, table, lengths, impl="plain")
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    check("flash_decode_paged %s pool [%d,16,8,128]" % (dn, n_pages), err,
+          TOL_OUT[dn])
+    if float(out[0].abs().max()) != 0.0:
+        raise AssertionError("flash_decode_paged: length-0 row is not zero")
+    bitwise = bool(torch.equal(out, slab_out))
+    log("  flash_decode_paged %s == flash_decode on the slab, bitwise: %s "
+        "(max diff %.3e)" % (dn, bitwise,
+                             float((out.float() - slab_out.float())
+                                   .abs().max())))
+    if row is not None:          # the bf16 row, made first
+        row["bitwise_equal_k4_f32"] = bitwise
+        return row
+    live = int(lengths.sum())
+    nbytes = (2 * live * h * d + 2 * b * h * d) * q.element_size() + \
+        4 * b + 4 * table.numel()
+    bms, by = bound(4.0 * d * h * live, nbytes, dn)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = (torch.arange(s, device=dev)[None, :] <
+            lengths[:, None])[:, None, None, :]
+    safe = table.clamp(max=n_pages - 1).long()
+
+    def library():
+        kt = kp[safe].reshape(b, s, h, d).transpose(1, 2)
+        vt = vp[safe].reshape(b, s, h, d).transpose(1, 2)
+        return sdpa(q[:, :, None], kt, vt, attn_mask=mask)
+
+    return dict(
+        name="flash_decode_paged", route="cuda",
+        source="veles_tpu_torch/ops/csrc/flash_decode.cu",
+        replaces="veles_tpu/ops/flash_attention.py:1060",
+        shape="q [8, 8, 128], pool [%d, 16, 8, 128] bf16 (K4's slab in "
+              "scrambled pages), block tables [8, %d] with sentinels, "
+              "lengths %s" % (n_pages, n_blk, lengths.tolist()),
+        max_abs_err=err, bitwise_equal_k4=bitwise,
+        ms=time_ms(lambda: fa.flash_decode_paged_cuda(q, kp, vp, table,
+                                                      lengths), 50),
+        plain_ms=time_ms(lambda: fa.flash_decode_paged(
+            q, kp, vp, table, lengths, impl="plain"), 5),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(library, 50),
+        library_note="gather of the live pages into a slab + SDPA with "
+                     "a length mask")
 
 
 def _bwd_inputs(torch, fa, randn, shape, dtype):
@@ -410,6 +512,17 @@ def _get(url):
         return resp.read().decode()
 
 
+def serving_prompts(vocab):
+    """The serving phases' prompts (PROMPT_LENS, seeded): the 1250- and
+    1500-token ones are the 1000-token one plus their own tokens."""
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, vocab, n).tolist() for n in PROMPT_LENS[:6]]
+    for n in PROMPT_LENS[6:]:
+        prompts.append(prompts[5] + rng.integers(1, vocab, n - 1000)
+                       .tolist())
+    return prompts
+
+
 def serving_phase(torch, fa, dev, card):
     from veles_tpu_torch.models.transformer import (TransformerConfig,
                                                     init_params)
@@ -443,11 +556,9 @@ def serving_phase(torch, fa, dev, card):
         # warm-up request (outside the counted window)
         with _post(url, {"prompt": [1, 2, 3], "max_tokens": 2}) as resp:
             json.loads(resp.read())
-        rng = np.random.default_rng(1)
-        plens = [16, 100, 250, 500, 777, 1000, 1250, 1500]
+        plens = PROMPT_LENS
         n_tok = 32
-        prompts = [rng.integers(1, config.vocab, n).tolist()
-                   for n in plens]
+        prompts = serving_prompts(config.vocab)
         answers = [None] * len(prompts)
         snap0 = model.metrics.snapshot()
 
@@ -521,10 +632,14 @@ def serving_phase(torch, fa, dev, card):
                               tokens_each=n_tok, wall_s=wall,
                               tokens_per_s=len(prompts) * n_tok / wall,
                               prefills=admits, decode_steps=steps,
-                              launches=launches,
+                              launches=launches, answers=answers,
                               metrics=metrics_json["lm"])
     finally:
         server.stop()
+    # greedy tokens of one batch of the 8 prompts (the comparison phase 7
+    # makes with the paged engine at the same prefill and decode shapes)
+    result["batch_tokens"] = [g.tolist() for g in engine.generate(
+        [np.asarray(p, np.int32) for p in prompts[::-1]], n_tok)]
 
     # prefill and decode timed on the engine directly (host clock; the
     # engine hands tokens to the host, so each call ends synchronized)
@@ -802,6 +917,396 @@ def train_parity_phase(torch, dev):
                 steps=n_steps)
 
 
+
+# ---------------------------------------------------------------------------
+# phase 7: paged serving at full width through the HTTP front
+# ---------------------------------------------------------------------------
+
+def _http_window(torch, fa, url, model, prompts, n_tok):
+    """The phase 7 requests, all at once: 0 streams, SAMPLED sample,
+    the rest are greedy. Returns (answers, wall s, launches, snapshot
+    deltas), the launch counters set to 0 just before."""
+    answers = [None] * len(prompts)
+
+    def client(i):
+        doc = dict(prompt=prompts[i], max_tokens=n_tok, **SAMPLED.get(i, {}))
+        try:
+            if i == 0:
+                toks, done = [], None
+                with _post(url, dict(doc, stream=True)) as resp:
+                    for line in resp:
+                        rec = json.loads(line)
+                        if "token" in rec:
+                            toks.append(rec["token"])
+                        elif "done" in rec:
+                            done = rec["tokens"]
+                        else:
+                            raise RuntimeError(rec)
+                if done != toks:
+                    raise RuntimeError("stream record mismatch")
+                answers[i] = toks
+            else:
+                with _post(url, doc) as resp:
+                    answers[i] = json.loads(resp.read())["tokens"][0]
+        except BaseException as e:  # noqa: BLE001 — reported below
+            answers[i] = e
+
+    snap0 = model.metrics.snapshot()
+    fa.reset_launches()
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.monotonic() - t0
+    launches = dict(fa.LAUNCHES)
+    # the engine's gauges, read while its batcher is idle
+    snap1 = model.metrics.snapshot(engine=model.engine)
+    for i, a in enumerate(answers):
+        if not isinstance(a, list) or len(a) != n_tok or \
+                not all(0 <= x < FULL["vocab"] for x in a):
+            raise AssertionError("request %d answered %r" % (i, a))
+    delta = {k: snap1[k] - snap0[k] for k in (
+        "prefills_total", "decode_steps_total", "tokens_total")}
+    return answers, wall, launches, delta, snap1
+
+
+def _agreement(a, b):
+    """Tokens of equal position and value, over all replies."""
+    return sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+
+
+def paged_serving_phase(torch, fa, dev, card, slab):
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params, prefill)
+    from veles_tpu_torch.serve import (ModelRegistry, PagedGenerativeEngine,
+                                       ServeServer)
+    from veles_tpu_torch.serve.engine import _sample_tokens
+
+    config = TransformerConfig(compute="bfloat16", **FULL)
+    log("phase 7: paged serving %s, 8 slots, 16-token pages" % (config,))
+    params = init_params(config, seed=0)
+    prompts = serving_prompts(config.vocab)
+    n_tok = 32
+    greedy_idx = [i for i in range(len(prompts)) if i not in SAMPLED]
+    result, launches_main = {}, None
+    for label, n_pages in (("pool 1024", 1024), ("pool 320", 320)):
+        engine = PagedGenerativeEngine(config, params, max_slots=8,
+                                       page_size=16, n_pages=n_pages,
+                                       device=dev)
+        kv_bytes = sum(x.numel() * x.element_size()
+                       for x in engine._cache.values())
+        registry = ModelRegistry()
+        model = registry.add_generative("lm", engine)
+        server = ServeServer(registry, port=0, timeout=600)
+        try:
+            url = server.url
+            with _post(url, {"prompt": [1, 2, 3], "max_tokens": 2}) as r:
+                json.loads(r.read())                  # warm-up
+            answers, wall, launches, delta, snap = _http_window(
+                torch, fa, url, model, prompts, n_tok)
+            steps = delta["decode_steps_total"]
+            log("  %s (%.0f MB of K/V): 8 requests in %.3f s, %.1f tokens/s "
+                "over HTTP; %d prefills, %d decode rounds, decode ms p50 "
+                "%.3f p99 %.3f; cow %d, preempted %d, shared pages now "
+                "%d; launches %s [%s]" % (
+                    label, kv_bytes / 1e6, wall, len(prompts) * n_tok / wall,
+                    delta["prefills_total"], steps, snap["decode_ms"]["p50"],
+                    snap["decode_ms"]["p99"], snap["cow_total"],
+                    snap["preempted_total"], snap["pages_shared"], launches,
+                    card))
+            if launches["flash_decode_paged"] != config.layers * steps or \
+                    steps < 1:
+                raise AssertionError(
+                    "flash_decode_paged launches %d != %d layers x %d "
+                    "rounds" % (launches["flash_decode_paged"],
+                                config.layers, steps))
+            if launches["flash_fwd"] < config.layers * \
+                    delta["prefills_total"] or launches["flash_decode"]:
+                raise AssertionError("launches %s" % launches)
+            base = "http://%s:%d" % server.endpoint
+            prom = _get(base + "/metrics?format=prometheus")
+            for name in ("pages_free", "pages_shared", "cow_total",
+                         "preempted_total", "oversubscription"):
+                if 'veles_gen_%s{model="lm"}' % name not in prom:
+                    raise AssertionError("/metrics lacks %s" % name)
+            # a sampled request repeated alone gives its tokens again
+            i = min(SAMPLED)
+            doc = dict(prompt=prompts[i], max_tokens=n_tok, **SAMPLED[i])
+            alone = []
+            for _ in range(2):
+                with _post(url, doc) as resp:
+                    alone.append(json.loads(resp.read())["tokens"][0])
+            if alone[0] != alone[1]:
+                raise AssertionError("seeded request not reproduced: %r"
+                                     % alone)
+        finally:
+            server.stop()
+        if engine.pool.free_pages != n_pages or engine.active_slots:
+            raise AssertionError("%s: %d of %d pages back, %d active"
+                                 % (label, engine.pool.free_pages, n_pages,
+                                    engine.active_slots))
+        result[label] = dict(
+            n_pages=n_pages, kv_bytes=kv_bytes, wall_s=wall,
+            tokens_per_s=len(prompts) * n_tok / wall, **delta,
+            decode_ms=snap["decode_ms"], cow_total=snap["cow_total"],
+            preempted_total=snap["preempted_total"], launches=launches,
+            answers=answers, sampled_repeat_equal=True,
+            sampled_in_window_vs_alone=answers[i] == alone[0])
+        if launches_main is None:
+            launches_main = launches
+            roomy = engine
+        else:
+            del engine
+    # greedy agreement over HTTP (bf16: a prefill batch of another shape
+    # may round differently, so this is reported; the exact checks are
+    # the one-batch comparison below and phase 8's at f32)
+    slab_http = [slab["http"]["answers"][i] for i in greedy_idx]
+    for label in result:
+        mine = [result[label]["answers"][i] for i in greedy_idx]
+        result[label]["greedy_agree_slab_http"] = _agreement(mine, slab_http)
+    result["greedy_agree_pools_http"] = _agreement(
+        *([result[lb]["answers"][i] for i in greedy_idx] for lb in result))
+    log("  greedy tokens equal over HTTP: pool 1024 vs slab %d, pool 320 vs "
+        "slab %d, pool 1024 vs pool 320 %d, of %d" % (
+            result["pool 1024"]["greedy_agree_slab_http"],
+            result["pool 320"]["greedy_agree_slab_http"],
+            result["greedy_agree_pools_http"], len(greedy_idx) * n_tok))
+
+    # one batch of the 8 prompts (longest first: the 1000-token prompt's
+    # tail rides a donor page and goes copy-on-write) on the 1024-page
+    # engine: the slab engine's tokens, at the same shapes
+    rows = [np.asarray(p, np.int32) for p in prompts[::-1]]
+    cow0 = roomy.pool.cow_total
+    batch = [g.tolist() for g in roomy.generate(rows, n_tok)]
+    if batch != slab["batch_tokens"]:
+        raise AssertionError("paged greedy batch != slab engine's")
+    if roomy.pool.cow_total == cow0 or not roomy.pool.shared_hits_total:
+        raise AssertionError("no prefix sharing / copy-on-write")
+    log("  one batch of the 8 prompts: paged == slab engine token for "
+        "token (%d COW copies, %d shared-page hits)"
+        % (roomy.pool.cow_total - cow0, roomy.pool.shared_hits_total))
+    # a pool that must preempt: the batch's own pages (216 with the shared
+    # prefix) plus 8, where the 32 tokens need about 17 more
+    tight = PagedGenerativeEngine(config, params, max_slots=8, page_size=16,
+                                  n_pages=224, device=dev)
+    tight_tokens = [g.tolist() for g in tight.generate(rows, n_tok)]
+    if not tight.preempted_total or tight.pool.free_pages != 224:
+        raise AssertionError("224-page pool: %d preempted, %d pages back"
+                             % (tight.preempted_total,
+                                tight.pool.free_pages))
+    agree = _agreement(tight_tokens, batch)
+    log("  224-page pool: %d preemptions; tokens equal to the unpreempted "
+        "batch: %d of %d (a re-prefill recomputes K/V in another shape)"
+        % (tight.preempted_total, agree, len(rows) * n_tok))
+    result["batch"] = dict(equal_slab=True, cow=roomy.pool.cow_total - cow0,
+                           preempting_pool=224,
+                           preempted=tight.preempted_total,
+                           preempted_agree=agree)
+    del tight
+
+    # the sampler on the CPU and on the card, from the same f32 logits
+    tok = torch.zeros((8, 2048), dtype=torch.long, device=dev)
+    for r, p in enumerate(prompts):
+        tok[r, :len(p)] = torch.tensor(p)
+    lengths = torch.tensor([len(p) for p in prompts], device=dev)
+    with torch.inference_mode():
+        logits, _ = prefill(roomy.params, tok, lengths, config)
+    n_ctr = 16
+    knobs = [torch.tensor(x) for x in zip(*(
+        (0.8, 50, 0.9, 101 + r, c) for c in range(n_ctr)
+        for r in range(8)))]
+    rep_logits = logits.repeat(n_ctr, 1)
+    card_draws = _sample_tokens(rep_logits, *(x.to(dev) for x in knobs))
+    cpu_draws = _sample_tokens(rep_logits.cpu(), *knobs)
+    if not torch.equal(card_draws.cpu(), cpu_draws):
+        raise AssertionError("sampled tokens differ between CPU and card")
+    log("  sampler: %d draws from the same f32 logits equal on the CPU and "
+        "the card" % cpu_draws.numel())
+    result["sampler_cpu_card_equal"] = True
+
+    # a paged decode round timed and profiled, as phase 3 times the slab
+    rng = np.random.default_rng(2)
+    batch_1024 = [rng.integers(1, config.vocab, 1024) for _ in range(8)]
+    slots, _ = roomy.admit(batch_1024)
+    torch.cuda.synchronize()
+    roomy.decode_many()
+    n_steps = 32
+    t0 = time.monotonic()
+    for _ in range(n_steps):
+        roomy.decode_many()
+    decode_ms = (time.monotonic() - t0) * 1e3 / n_steps
+    for s_ in slots:
+        roomy.release(s_)
+    t0 = time.monotonic()
+    slots, _ = roomy.admit(batch_1024)
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    prof = profile_device(torch, roomy.decode_many, 8)
+    for s_ in slots:
+        roomy.release(s_)
+    # the same round with 2 of the 8 slots sampled (as over HTTP)
+    slots, _ = roomy.admit(batch_1024, [SAMPLED.get(i) for i in range(8)])
+    roomy.decode_many()
+    t0 = time.monotonic()
+    for _ in range(n_steps):
+        roomy.decode_many()
+    sampled_ms = (time.monotonic() - t0) * 1e3 / n_steps
+    prof_sampled = profile_device(torch, roomy.decode_many, 8)
+    for s_ in slots:
+        roomy.release(s_)
+    log("  engine: prefill 8 x 1024 tokens %.2f ms; decode round over 8 "
+        "slots %.3f ms = %.1f tokens/s (slab engine: %.3f ms), with 2 "
+        "sampled slots %.3f ms [%s]"
+        % (prefill_ms, decode_ms, 8 * 1e3 / decode_ms,
+           slab["engine"]["decode_step_ms"], sampled_ms, card))
+    for what, pr in (("paged decode round", prof),
+                     ("round with 2 sampled slots", prof_sampled)):
+        if pr is not None:
+            log("  profile %s: wall %.3f ms, device %.3f ms (busy %.0f%%); "
+                "by class: %s" % (
+                    what, pr["wall_ms"], pr["device_ms"],
+                    100 * pr["busy_share"], "; ".join(
+                        "%s %.3f ms" % kv for kv in sorted(
+                            pr["by_class"].items(), key=lambda kv: -kv[1]))))
+    result["engine"] = dict(prefill_8x1024_ms=prefill_ms,
+                            decode_round_ms=decode_ms,
+                            decode_tokens_per_s=8 * 1e3 / decode_ms,
+                            sampled_round_ms=sampled_ms,
+                            profile_decode=prof,
+                            profile_sampled=prof_sampled)
+    del roomy
+    return result, launches_main
+
+
+# ---------------------------------------------------------------------------
+# phase 8: paged parity on the card
+# ---------------------------------------------------------------------------
+
+def _spec_pair(config_cls, init_params, width, t_layers, d_layers,
+               compute):
+    """bench_serve.py's speculative construction: the draft's blocks,
+    embeddings and final norm are the target's first ones; the target's
+    later blocks have zero ``proj`` and ``mlp_out`` (residual
+    identities), so target(x) == draft(x) at the target's depth."""
+    dcfg = config_cls(compute=compute, **dict(width, layers=d_layers))
+    tcfg = config_cls(compute=compute, **dict(width, layers=t_layers))
+    dparams = init_params(dcfg, seed=11)
+    tparams = init_params(tcfg, seed=12)
+    for key in ("embed", "pos", "ln_f"):
+        tparams[key] = dparams[key]
+    tparams["blocks"][:d_layers] = dparams["blocks"]
+    for blk in tparams["blocks"][d_layers:]:
+        blk["proj"] = np.zeros_like(blk["proj"])
+        blk["mlp_out"] = np.zeros_like(blk["mlp_out"])
+    return tcfg, tparams, dcfg, dparams
+
+
+def paged_parity_phase(torch, fa, dev, card):
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params)
+    from veles_tpu_torch.serve import GenerativeEngine, PagedGenerativeEngine
+
+    log("phase 8: paged parity on the card")
+    small = dict(FULL, layers=2)
+    params = init_params(TransformerConfig(**small), seed=3)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, small["vocab"], n).astype(np.int32)
+               for n in (10, 100, 700)]
+    gens = {}
+    for impl in ("cuda", "plain"):
+        cfg = TransformerConfig(compute="float32", attention_impl=impl,
+                                **small)
+        engine = PagedGenerativeEngine(cfg, params, max_slots=4, device=dev)
+        fa.reset_launches()
+        gens[impl] = [g.tolist() for g in engine.generate(prompts, 32)]
+        if impl == "cuda" and fa.LAUNCHES["flash_decode_paged"] != 2 * 31:
+            raise AssertionError("K5 launches %s" % fa.LAUNCHES)
+        del engine
+    cfg = TransformerConfig(compute="float32", **small)
+    slab = [g.tolist() for g in GenerativeEngine(
+        cfg, params, max_slots=4, device=dev).generate(prompts, 32)]
+    log("  f32 2-layer greedy, 3 prompts x 32 tokens: K5 == plain %s, "
+        "K5 == slab (K4) %s" % (gens["cuda"] == gens["plain"],
+                                gens["cuda"] == slab))
+    if not gens["cuda"] == gens["plain"] == slab:
+        raise AssertionError("paged greedy tokens differ: %r / %r / %r"
+                             % (gens["cuda"], gens["plain"], slab))
+    # a pool that preempts (max_len 512: 32 pages hold one sequence; the
+    # prompts take 30 and their 32 tokens 6 more)
+    pre = [rng.integers(1, small["vocab"], n).astype(np.int32)
+           for n in (60, 150, 250)]
+    outs = {}
+    for n_pages in (32, None):
+        engine = PagedGenerativeEngine(cfg, params, max_slots=4, max_len=512,
+                                       n_pages=n_pages, device=dev)
+        outs[n_pages] = ([g.tolist() for g in engine.generate(pre, 32)],
+                         engine.preempted_total)
+    log("  f32 32-page pool: %d preemptions, tokens == unpreempted: %s"
+        % (outs[32][1], outs[32][0] == outs[None][0]))
+    if not outs[32][1] or outs[32][0] != outs[None][0]:
+        raise AssertionError("preempted run differs or did not preempt")
+    result = dict(greedy_equal_plain=True, greedy_equal_slab=True,
+                  preempted=outs[32][1], preempted_equal=True)
+
+    # speculative decoding: f32 exact, then bf16 at full depth
+    for compute, t_layers, n_new, slots in (("float32", 4, 32, 4),
+                                            ("bfloat16", 12, 64, 8)):
+        tcfg, tparams, dcfg, dparams = _spec_pair(
+            TransformerConfig, init_params, FULL, t_layers, 2, compute)
+        sprompts = [rng.integers(1, FULL["vocab"], n).astype(np.int32)
+                    for n in (16, 64, 100, 200, 300, 500, 700, 1000)[:slots]]
+        runs = {}
+        for mode in ("greedy", "spec"):
+            kw = dict(draft_params=dparams, draft_config=dcfg,
+                      draft_tokens=4) if mode == "spec" else {}
+            engine = PagedGenerativeEngine(tcfg, tparams, max_slots=slots,
+                                           device=dev, **kw)
+            sampling = [{"draft": mode == "spec"}] * slots
+            engine.generate(sprompts, 2, sampling=sampling)       # warm
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            toks = [g.tolist() for g in engine.generate(
+                sprompts, n_new, sampling=sampling)]
+            wall = time.monotonic() - t0
+            runs[mode] = (toks, slots * n_new / wall,
+                          engine.decode_stats().get("spec_accept_rate"))
+            if compute == "bfloat16":
+                # one round of each, profiled: where a round's time goes
+                engine.admit(sprompts, sampling)
+                prof = profile_device(torch, engine.decode_many, 2)
+                if prof is not None:
+                    log("  profile %s round (bf16, %d layers): wall %.3f ms,"
+                        " device %.3f ms (busy %.0f%%); by class: %s" % (
+                            mode, t_layers, prof["wall_ms"],
+                            prof["device_ms"], 100 * prof["busy_share"],
+                            "; ".join("%s %.3f ms" % kv for kv in sorted(
+                                prof["by_class"].items(),
+                                key=lambda kv: -kv[1]))))
+                result["profile_%s_round" % mode] = prof
+            del engine
+        (gt, g_tps, _), (st, s_tps, acc) = runs["greedy"], runs["spec"]
+        agree = _agreement(st, gt)
+        log("  speculative %s, %d-layer target, 2-layer draft, K = 4, %d "
+            "slots x %d tokens: %.1f tokens/s vs greedy %.1f (%.2fx), "
+            "acceptance %.4f, tokens equal to greedy %d of %d [%s]" % (
+                compute, t_layers, slots, n_new, s_tps, g_tps, s_tps / g_tps,
+                acc, agree, slots * n_new, card))
+        if compute == "float32" and (st != gt or acc != 1.0):
+            raise AssertionError("f32 speculative != greedy or acceptance "
+                                 "%r != 1.0" % acc)
+        if compute == "bfloat16" and acc < SPEC_ACCEPT_MIN:
+            raise AssertionError("bf16 acceptance %.4f < %.2f"
+                                 % (acc, SPEC_ACCEPT_MIN))
+        result["spec_%s" % compute] = dict(
+            target_layers=t_layers, draft_layers=2, k=4, slots=slots,
+            tokens=n_new, spec_tokens_per_s=s_tps,
+            greedy_tokens_per_s=g_tps, acceptance=acc,
+            tokens_equal_greedy=agree)
+    return result
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -818,6 +1323,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.monotonic()
     card = card_line()
     log("phase 1: card %s; torch %s, CUDA %s" % (
         card, torch.__version__, torch.version.cuda))
@@ -835,9 +1341,12 @@ def main():
     parity = parity_phase(torch, dev)
     train, train_launches = training_phase(torch, fa, dev, card)
     train_parity = train_parity_phase(torch, dev)
+    paged, paged_launches = paged_serving_phase(torch, fa, dev, card, serve)
+    paged_parity = paged_parity_phase(torch, fa, dev, card)
 
     # each main path's launches, counted from 0 around that path alone
-    by_path = {"serving": serve_launches, "training": train_launches}
+    by_path = {"serving": serve_launches, "training": train_launches,
+               "paged serving": paged_launches}
     kernels = []
     for name, row in rows.items():
         paths = {p: n[name] for p, n in by_path.items() if n[name]}
@@ -851,7 +1360,9 @@ def main():
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
                   kernels=kernels, serving=serve, parity=parity,
-                  training=train, training_parity=train_parity)
+                  training=train, training_parity=train_parity,
+                  paged_serving=paged, paged_parity=paged_parity,
+                  wall_s=time.monotonic() - t_start)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every test here needs a GPU and skips without one; the file
+card (and the paged engine and sampler that run beside K5). Every test here needs a GPU and skips without one; the file
 imports no JAX, so the machine with the card runs it alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -171,7 +171,7 @@ def test_kernels_count_launches_and_reject_bad_input(cuda):
     fa.flash_decode(x[:, 0], x, x, torch.ones(1, dtype=torch.int32,
                                               device=cuda))
     counts = {"flash_fwd": 1, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
-              "flash_decode": 1}
+              "flash_decode": 1, "flash_decode_paged": 0}
     assert fa.LAUNCHES == counts
     xg = x.clone().requires_grad_()
     fa.flash_attention(xg, xg, xg, causal=True).sum().backward()
@@ -186,3 +186,122 @@ def test_kernels_count_launches_and_reject_bad_input(cuda):
     with pytest.raises(ValueError, match="l, m, di"):
         fa.flash_bwd_dq_cuda(x, x, x, x, stats, stats, stats[..., :4], True)
     assert fa.LAUNCHES == counts
+    pages = torch.zeros((3, 8, 1, 32), device=cuda)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    fa.flash_decode_paged(x[:, 0], pages, pages, table, [5])
+    counts.update(flash_decode_paged=1)
+    assert fa.LAUNCHES == counts
+    with pytest.raises(ValueError, match="power-of-two"):
+        fa.flash_decode_paged(x[:, 0], pages[:, :6], pages[:, :6], table,
+                              [5])
+    with pytest.raises(ValueError, match="int32 block_tables"):
+        fa.flash_decode_paged_cuda(x[:, 0], pages, pages, table.long(),
+                                   table[:, 0])
+    assert fa.LAUNCHES == counts
+
+
+def _paged_case(rng, dtype, d, device, ps=16, n_pages=40):
+    """A pool, a scrambled table with sentinels past each sequence's
+    last block, and lengths 0, 1, a full page, n_blk * ps (the whole
+    table), a ragged one, one reaching into a sentinel block (the id
+    clamps to the last page), and one sequence whose only page is the
+    pool's last."""
+    b, h, n_blk = 7, 3, 6
+    pages = [_randn(rng, (n_pages, ps, h, d), dtype, device)
+             for _ in range(2)]
+    ids = rng.permutation(n_pages - 1)
+    table = np.full((b, n_blk), n_pages, np.int32)
+    lengths = [0, 1, ps, n_blk * ps, 3 * ps + 5, 2 * ps + 3, ps - 2]
+    used = [1, 1, 1, n_blk, 4, 2, 0]   # row 5 reads into a sentinel
+    k = 0
+    for i, n in enumerate(used):
+        table[i, :n] = ids[k:k + n]
+        k += n
+    table[6, 0] = n_pages - 1
+    q = _randn(rng, (b, h, d), dtype, device)
+    return (q, pages[0], pages[1],
+            torch.from_numpy(table).to(device),
+            torch.tensor(lengths, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_decode_paged_kernel_matches_plain(cuda, dtype, d):
+    """K5 against the plain paged path: scrambled table, sentinel ids,
+    lengths of 0 and of n_blk * ps, the pool's last page; two launches
+    agree bitwise."""
+    rng = np.random.default_rng(d + 3)
+    q, kp, vp, table, lengths = _paged_case(rng, dtype, d, cuda)
+    out = fa.flash_decode_paged(q, kp, vp, table, lengths, impl="cuda")
+    again = fa.flash_decode_paged(q, kp, vp, table, lengths, impl="cuda")
+    ref = fa.flash_decode_paged(q, kp, vp, table, lengths, impl="plain")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert torch.equal(out, again)
+    assert float(out[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_paged_kernel_equals_slab_kernel(cuda, dtype):
+    """K5 over pages that hold K4's slab in order runs K4's loop on the
+    same rows: the outputs agree bitwise."""
+    rng = np.random.default_rng(4)
+    b, s, h, d, ps = 5, 256, 4, 128, 16
+    k = _randn(rng, (b, s, h, d), dtype, cuda)
+    v = _randn(rng, (b, s, h, d), dtype, cuda)
+    q = _randn(rng, (b, h, d), dtype, cuda)
+    lengths = torch.tensor([0, 1, 100, 256, 17], dtype=torch.int32,
+                           device=cuda)
+    n_blk = s // ps
+    table = torch.arange(b * n_blk, dtype=torch.int32,
+                         device=cuda).reshape(b, n_blk)
+    slab = fa.flash_decode(q, k, v, lengths, impl="cuda")
+    paged = fa.flash_decode_paged(q, k.reshape(b * n_blk, ps, h, d),
+                                  v.reshape(b * n_blk, ps, h, d), table,
+                                  lengths, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(slab, paged)
+
+
+def test_sampler_draws_equal_on_cpu_and_card(cuda):
+    """The same f32 logits and knobs give the same tokens on the CPU and
+    on the card: the random stream is integer arithmetic and the noise
+    is added in f64."""
+    from veles_tpu_torch.serve.engine import _sample_tokens
+
+    rng = np.random.default_rng(6)
+    n, v = 64, 8192
+    logits = torch.from_numpy(
+        (rng.standard_normal((n, v)) * 3).astype(np.float32))
+    knobs = (torch.from_numpy(rng.uniform(0.0, 1.5, n).astype(np.float32)),
+             torch.from_numpy(rng.integers(0, 60, n).astype(np.int32)),
+             torch.from_numpy(rng.uniform(0.3, 1.0, n).astype(np.float32)),
+             torch.from_numpy(rng.integers(0, 2 ** 32, n)),
+             torch.arange(n, dtype=torch.int64))
+    cpu = _sample_tokens(logits, *knobs)
+    card = _sample_tokens(logits.to(cuda), *(x.to(cuda) for x in knobs))
+    assert torch.equal(cpu, card.cpu())
+
+
+def test_paged_engine_through_the_kernel_equals_plain(cuda):
+    """Greedy decoding through K5 on the card equals the plain paged
+    path token for token (f32, a small model with K5's head dims)."""
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params)
+    from veles_tpu_torch.serve import PagedGenerativeEngine
+
+    small = dict(vocab=97, embed=128, heads=2, layers=2, seq_len=256)
+    params = init_params(TransformerConfig(**small), seed=1)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 97, n).astype(np.int32)
+               for n in (3, 40, 130)]
+    outs = {}
+    for impl in ("cuda", "plain"):
+        engine = PagedGenerativeEngine(
+            TransformerConfig(attention_impl=impl, **small), params,
+            max_slots=4, device=cuda)
+        fa.reset_launches()
+        outs[impl] = [g.tolist() for g in engine.generate(prompts, 24)]
+        launches = fa.LAUNCHES["flash_decode_paged"]
+        assert launches == (2 * 23 if impl == "cuda" else 0)
+    assert outs["cuda"] == outs["plain"]

@@ -1,5 +1,6 @@
 """Transformer language model: training (loss, Adam,
-:class:`TransformerTrainer`), prefill and slab decode.
+:class:`TransformerTrainer`), prefill, slab decode, and paged decode
+with the speculative verify step.
 
 Port of ``veles_tpu/models/transformer.py``. Same configuration, the
 same numpy-seeded weights (:func:`init_params` draws in the same
@@ -15,9 +16,11 @@ Parameters are a plain dict of tensors (:func:`params_from_numpy`
 builds it from the JAX package's tree as numpy arrays). Attention runs
 through ``ops.flash_attention``: the K1 forward kernel in
 :func:`prefill`, :func:`forward` and the training loss, whose gradient
-runs the K2/K3 backward kernels, and the K4 decode kernel in
-:func:`decode_step`, on CUDA tensors; their plain PyTorch versions on
-CPU tensors.
+runs the K2/K3 backward kernels, the K4 decode kernel in
+:func:`decode_step` and the K5 paged decode kernel in
+:func:`paged_decode_step`, on CUDA tensors; their plain PyTorch
+versions on CPU tensors. :func:`verify_step` attends through
+``flash_verify_paged``, plain on every device as in the reference.
 
 Training is single-device: the reference's mesh paths (sequence ring,
 expert sharding), its scheduler tenancy, AOT dispatch and profiler
@@ -37,7 +40,9 @@ from torch.utils.checkpoint import checkpoint
 from veles_tpu_torch.device import compute_dtype as _compute_dtype
 from veles_tpu_torch.device import resolve
 from veles_tpu_torch.ops.flash_attention import (flash_attention,
-                                                 flash_decode)
+                                                 flash_decode,
+                                                 flash_decode_paged,
+                                                 flash_verify_paged)
 from veles_tpu_torch.parallel.fused import NonFiniteSentinel, update_ok
 
 
@@ -370,6 +375,135 @@ def decode_step(params, tokens, cache, lengths,
     if active is not None:
         new_len = torch.where(active, new_len, lengths)
     return logits, cache, new_len
+
+
+# ---------------------------------------------------------------------------
+# paged decode plane (block-table K/V over a shared page pool)
+# ---------------------------------------------------------------------------
+
+def init_paged_kv_cache(config: TransformerConfig, n_pages: int,
+                        page_size: int, dtype=None, device=None):
+    """Zeroed PAGED K/V pool ``{"k", "v"}``, each
+    ``[L, n_pages + 1, page_size, H, Dh]``: one physical pool shared by
+    every sequence, where a per-sequence block table (see
+    ``serve/paging.py``) names which pages, in order, hold that
+    sequence's cache. Page ``n_pages`` is a TRASH page past the ones
+    ``PagePool`` counts: every write the reference drops (``mode=
+    "drop"`` on the out-of-range sentinel page ``n_pages``) lands there
+    instead, so no index the port forms is ever out of range, and no
+    read looks at it (reads clamp page ids to ``n_pages - 1`` and mask
+    by length). ``device`` as in :func:`init_kv_cache`."""
+    shape = (config.layers, int(n_pages) + 1, int(page_size),
+             config.heads, config.head_dim)
+    dtype = dtype if dtype is not None else config.compute_dtype()
+    device = resolve(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _paged_targets(cache, block_tables, pos, active):
+    """(page, offset) of the K/V rows at positions ``pos`` ([B] or
+    [B, K1]) through the block tables; rows of inactive sequences go to
+    the trash page ``n_pages`` (the reference drops them)."""
+    n_pages = cache["k"].shape[1] - 1
+    ps = cache["k"].shape[2]
+    n_blk = block_tables.shape[1]
+    blk_idx = torch.clamp(pos // ps, 0, n_blk - 1).long()
+    tables = block_tables.long()
+    if pos.ndim == 1:
+        page = tables.gather(1, blk_idx[:, None])[:, 0]
+    else:
+        page = tables.gather(1, blk_idx)
+    page = torch.clamp(page, 0, n_pages)
+    if active is not None:
+        mask = active if pos.ndim == 1 else active[:, None]
+        page = torch.where(mask, page, torch.full_like(page, n_pages))
+    return page, (pos % ps).long(), n_pages
+
+
+def paged_decode_step(params, tokens, cache, lengths, block_tables,
+                      config: TransformerConfig, active=None):
+    """One autoregressive step over PAGED K/V: write the new token's
+    K/V IN PLACE into page ``block_tables[b, lengths[b] // page_size]``
+    at offset ``lengths[b] % page_size``, then flash-decode every layer
+    through the block table (the K5 kernel on CUDA tensors).
+
+    tokens/lengths/active as :func:`decode_step`; ``cache`` the
+    :func:`init_paged_kv_cache` pool; ``block_tables`` ``[B,
+    n_blocks]`` int (entry ``n_pages`` = the unallocated sentinel:
+    reads clamp it, an inactive row's write goes to the trash page).
+    Returns ``(logits [B, V] f32, cache, new_lengths)``."""
+    cd = config.compute_dtype()
+    b = tokens.shape[0]
+    ps = cache["k"].shape[2]
+    cap = block_tables.shape[1] * ps
+    dev = tokens.device
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    block_tables = torch.as_tensor(block_tables, dtype=torch.int32,
+                                   device=dev)
+    pos_idx = torch.clamp(lengths, 0, config.seq_len - 1).long()
+    x = _embed(params, tokens, pos_idx, cd)[:, None]
+    page, off, n_pages = _paged_targets(cache, block_tables, lengths,
+                                        active)
+    new_len = torch.clamp(lengths + 1, max=cap)
+    for layer, block in enumerate(params["blocks"]):
+        kc, vc = cache["k"][layer], cache["v"][layer]
+        h = _layer_norm(x, block["ln1"]["g"], block["ln1"]["b"])
+        q, k, v = _qkv(h, block, config)                  # [B,1,H,Dh]
+        kc[page, off] = k[:, 0].to(kc.dtype)
+        vc[page, off] = v[:, 0].to(vc.dtype)
+        attn = flash_decode_paged(q[:, 0], kc[:n_pages], vc[:n_pages],
+                                  block_tables, new_len,
+                                  impl=config.attention_impl)
+        x = x + attn.reshape(b, 1, -1) @ block["proj"].to(cd)
+        h = _layer_norm(x, block["ln2"]["g"], block["ln2"]["b"])
+        x = x + _ffn(h, block, config)
+    x = _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"])[:, 0]
+    logits = _lm_head(x, params, cd)
+    if active is not None:
+        new_len = torch.where(active, new_len, lengths)
+    return logits, cache, new_len
+
+
+def verify_step(params, tokens, cache, lengths, block_tables,
+                config: TransformerConfig, active=None):
+    """The speculative-decode VERIFY step: a ``K1``-token chunk (the
+    last committed token plus K draft proposals) through the target
+    model in ONE batched step over the same pages as
+    :func:`paged_decode_step`, with logits at every chunk position.
+
+    tokens ``[B, K1]`` int; chunk position i sits at sequence position
+    ``lengths[b] + i``: its K/V is written there, and its query attends
+    positions ``< lengths[b] + i + 1`` (chunked causality as per-query
+    lengths). Rejected proposals leave K/V beyond the accepted length;
+    every later read masks it and real tokens overwrite it. Returns
+    ``(logits [B, K1, V] f32, cache)``; lengths are NOT advanced here."""
+    cd = config.compute_dtype()
+    b, k1 = tokens.shape
+    dev = tokens.device
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    block_tables = torch.as_tensor(block_tables, dtype=torch.int32,
+                                   device=dev)
+    pos = lengths[:, None] + torch.arange(k1, dtype=torch.int32,
+                                          device=dev)      # [B,K1]
+    pos_idx = torch.clamp(pos, 0, config.seq_len - 1).long()
+    x = _embed(params, tokens, pos_idx, cd)
+    page, off, n_pages = _paged_targets(cache, block_tables, pos, active)
+    # query i attends its prefix AND itself: lengths + i + 1
+    kv_len = pos + 1
+    for layer, block in enumerate(params["blocks"]):
+        kc, vc = cache["k"][layer], cache["v"][layer]
+        h = _layer_norm(x, block["ln1"]["g"], block["ln1"]["b"])
+        q, k, v = _qkv(h, block, config)                  # [B,K1,H,Dh]
+        kc[page, off] = k.to(kc.dtype)
+        vc[page, off] = v.to(vc.dtype)
+        attn = flash_verify_paged(q, kc[:n_pages], vc[:n_pages],
+                                  block_tables, kv_len)
+        x = x + attn.reshape(b, k1, -1) @ block["proj"].to(cd)
+        h = _layer_norm(x, block["ln2"]["g"], block["ln2"]["b"])
+        x = x + _ffn(h, block, config)
+    x = _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"])
+    return _lm_head(x, params, cd), cache
 
 
 # ---------------------------------------------------------------------------

@@ -146,10 +146,21 @@ def gen_samples(model: str, snap: Dict[str, Any]) -> List[Sample]:
         out.append(Sample("veles_gen_decode_ms", "summary",
                           snap["decode_ms"][key],
                           label + (("quantile", q),)))
-    for gauge in ("active_sequences", "slot_occupancy", "compile_count"):
+    for gauge in ("active_sequences", "slot_occupancy",
+                  "compile_count",
+                  # paged decode plane (PagedGenerativeEngine): the
+                  # page-pool economy + speculative acceptance
+                  "pages_total", "pages_free", "pages_shared",
+                  "token_occupancy", "oversubscription",
+                  "spec_accept_rate"):
         if gauge in snap:
             out.append(Sample("veles_gen_%s" % gauge, "gauge",
                               snap[gauge], label))
+    for counter in ("cow_total", "preempted_total",
+                    "spec_proposed_total", "spec_accepted_total"):
+        if counter in snap:
+            out.append(Sample("veles_gen_%s" % counter, "counter",
+                              snap[counter], label))
     return out
 
 

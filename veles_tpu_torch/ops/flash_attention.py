@@ -1,20 +1,27 @@
 """Flash attention: blocked online-softmax attention that never
 materializes the ``[B, H, T, T]`` score matrix, its gradient, and its
-single-query decode form over a KV slab.
+single-query decode form over a KV slab or through a block table over
+a shared page pool.
 
-Port of ``veles_tpu/ops/flash_attention.py`` (forward, backward and
-slab decode). Two implementations per entry, chosen by the tensors'
-device or by an explicit ``impl=``:
+Port of ``veles_tpu/ops/flash_attention.py`` (forward, backward, slab
+decode, paged decode and the speculative verify chunk). Two
+implementations per entry, chosen by the tensors' device or by an
+explicit ``impl=``:
 
 - ``impl="cuda"``: the hand-written Hopper kernels in ``csrc/``
   (``flash_fwd.cu`` for the forward, ``flash_bwd.cu`` for the dK/dV
-  and dQ backward, ``flash_decode.cu`` for decode), taken for every
-  CUDA tensor. A launch that fails raises; nothing falls back.
+  and dQ backward, ``flash_decode.cu`` for slab and paged decode),
+  taken for every CUDA tensor. A launch that fails raises; nothing
+  falls back.
 - ``impl="plain"``: the blocked algorithm in plain PyTorch, op for op
   the JAX package's lax path (``flash_block_update`` looped over K
   tiles, ``_lax_bwd`` for the gradient). It runs for CPU tensors, and
   on the card only when asked for, as the oracle the kernels are
   checked against.
+
+:func:`flash_verify_paged` has no kernel in the JAX package either: it
+is the plain blocked path on every device, by the reference's own
+choice.
 
 :func:`flash_attention` is differentiable through one
 ``torch.autograd.Function`` (the reference's ``custom_vjp``) whose
@@ -47,7 +54,11 @@ KERNEL_HEAD_DIMS = (32, 64, 128)
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkv": 0,
-                            "flash_bwd_dq": 0, "flash_decode": 0}
+                            "flash_bwd_dq": 0, "flash_decode": 0,
+                            "flash_decode_paged": 0}
+
+#: Table entries K5 stages in shared memory at most (32 KB).
+MAX_PAGED_BLOCKS = 8192
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -209,6 +220,43 @@ def _plain_decode(q, k_cache, v_cache, lengths, block_k: int):
     return (o / l_safe.transpose(1, 2)[..., None]).to(q.dtype)
 
 
+def _plain_paged_attend(q, k_pages, v_pages, block_tables, kv_len):
+    """Blocked attention over PAGED K/V (the reference's
+    ``_lax_paged_attend``): the decode scan with the contiguous slab
+    replaced by a per-step page GATHER, so the block table is data.
+
+    q [B,Tq,H,D]; k_pages/v_pages [P,ps,H,D] (the pool, shared by all
+    sequences); block_tables [B,n_blk] int page ids in block order:
+    out-of-pool ids (the ``P`` sentinel of unallocated blocks) are
+    clamped, and whatever they gather is masked by ``kv_len``; kv_len
+    [B] (decode) or [B,Tq] (per query, the speculative verify chunk).
+    Each step gathers ``max(1, 256 // ps)`` pages where the reference
+    gathers one: the same math, only the f32 sums run in a coarser
+    order (8 steps at a 2048-token capacity and 16-token pages instead
+    of 128). Returns [B,Tq,H,D] in q.dtype.
+    """
+    b, tq, h, d = q.shape
+    p, ps, _, _ = k_pages.shape
+    n_blk = block_tables.shape[1]
+    dev = q.device
+    per_step = max(1, DEFAULT_DECODE_BLOCK // ps)
+    q_pos = torch.arange(tq, device=dev)  # causal=False: unused
+    m = torch.full((b, h, tq), -math.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, tq), dtype=torch.float32, device=dev)
+    o = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    safe = torch.clamp(block_tables.long(), 0, p - 1)
+    for j0 in range(0, n_blk, per_step):
+        ids = safe[:, j0:j0 + per_step]                   # [B,n]
+        n = ids.shape[1]
+        k_blk = k_pages[ids].reshape(b, n * ps, h, d)
+        v_blk = v_pages[ids].reshape(b, n * ps, h, d)
+        k_pos = torch.arange(j0 * ps, (j0 + n) * ps, device=dev)
+        m, l, o = flash_block_update(q, k_blk, v_blk, q_pos, k_pos,
+                                     m, l, o, causal=False, kv_len=kv_len)
+    l_safe = torch.where(l > 0, l, torch.ones_like(l))
+    return (o / l_safe.transpose(1, 2)[..., None]).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -259,6 +307,9 @@ def _decode_lib() -> ctypes.CDLL:
         lib.veles_flash_decode.argtypes = (
             [p] * 5 + [i64] * 14 + [ctypes.c_float, ctypes.c_int, p])
         lib.veles_flash_decode.restype = ctypes.c_int
+        lib.veles_flash_decode_paged.argtypes = (
+            [p] * 6 + [i64] * 17 + [ctypes.c_float, ctypes.c_int, p])
+        lib.veles_flash_decode_paged.restype = ctypes.c_int
     return lib
 
 
@@ -384,6 +435,52 @@ def flash_decode_cuda(q, k_cache, v_cache, lengths):
             _DTYPE_CODES[q.dtype], stream)
     _build.check(lib, "flash_decode", rc)
     LAUNCHES["flash_decode"] += 1
+    return o
+
+
+def flash_decode_paged_cuda(q, k_pages, v_pages, block_tables, lengths):
+    """K5: the paged decode kernel (K4's loop through a block table).
+    q [B,H,D], pools [P,ps,H,D] CUDA tensors (ps a power of two; strides
+    and alignment as K4's caches); block_tables [B,n_blk] int32 page ids
+    (ids outside [0, P) are clamped in the kernel); lengths [B] int32,
+    clamped to n_blk * ps. Returns [B,H,D] contiguous."""
+    _check_kernel_operands("flash_decode_paged", q, k_pages, v_pages)
+    b, h, d = q.shape
+    p, ps = k_pages.shape[:2]
+    n_blk = block_tables.shape[1]
+    if ps < 1 or ps & (ps - 1):
+        raise ValueError("flash_decode_paged kernel needs a power-of-two "
+                         "page size, got %d" % ps)
+    for x in (k_pages, v_pages):
+        if x.data_ptr() % 16 or any(st % 4 for st in x.stride()[:3]):
+            raise ValueError("flash_decode_paged kernel needs 16-byte "
+                             "aligned pools with strides in multiples of "
+                             "4 elements, got %r" % (x.stride(),))
+    for name, x, shape in (("block_tables", block_tables, (b, n_blk)),
+                           ("lengths", lengths, (b,))):
+        if x.device != q.device or x.dtype != torch.int32 or \
+                tuple(x.shape) != shape:
+            raise ValueError("flash_decode_paged kernel needs int32 %s %r "
+                             "on the pool's device" % (name, shape))
+    if not 0 < n_blk <= MAX_PAGED_BLOCKS or p < 1:
+        raise ValueError("flash_decode_paged kernel takes 1 to %d table "
+                         "entries per sequence over a non-empty pool, got "
+                         "%d over %d pages" % (MAX_PAGED_BLOCKS, n_blk, p))
+    block_tables = block_tables.contiguous()
+    lengths = lengths.contiguous()
+    o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    lib = _decode_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.veles_flash_decode_paged(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+            b, p, ps.bit_length() - 1, n_blk, h, d, *q.stride()[:2],
+            block_tables.stride(0), *k_pages.stride()[:3],
+            *v_pages.stride()[:3], *o.stride()[:2], d ** -0.5,
+            _DTYPE_CODES[q.dtype], stream)
+    _build.check(lib, "flash_decode_paged", rc)
+    LAUNCHES["flash_decode_paged"] += 1
     return o
 
 
@@ -521,3 +618,70 @@ def flash_decode(q, k_cache, v_cache, lengths,
         k_cache, v_cache = F.pad(k_cache, pad), F.pad(v_cache, pad)
     lengths = torch.clamp(lengths, max=s)
     return _plain_decode(q[:, None], k_cache, v_cache, lengths, bk)[:, 0]
+
+
+def _check_paged(entry, q, k_pages, v_pages, block_tables, q_ndim):
+    if q.ndim != q_ndim:
+        raise ValueError("%s q is [B, %sH, D], got shape %r"
+                         % (entry, "" if q_ndim == 3 else "K1, ",
+                            tuple(q.shape)))
+    if k_pages.shape != v_pages.shape or k_pages.ndim != 4:
+        raise ValueError("%s pages are [P, page_size, H, D], got %r/%r"
+                         % (entry, tuple(k_pages.shape),
+                            tuple(v_pages.shape)))
+    if block_tables.ndim != 2 or block_tables.shape[0] != q.shape[0]:
+        raise ValueError("%s block_tables is [B, n_blocks], got %r"
+                         % (entry, tuple(block_tables.shape)))
+
+
+def flash_decode_paged(q, k_pages, v_pages, block_tables, lengths,
+                       impl: Optional[str] = None):
+    """One autoregressive decode step over PAGED K/V: the paged-
+    attention read path. Each sequence's cache is the ordered page list
+    ``block_tables[b]`` into the shared ``[P, page_size, H, D]`` pool;
+    the table is data, so join, retire and copy-on-write change no
+    shape.
+
+    q ``[B, H, D]``; ``lengths`` ``[B]`` int32 valid entries per
+    sequence INCLUDING the current token's K/V (clamped to
+    ``n_blocks * page_size``); table entries at or past the sequence's
+    last block may be the ``P`` sentinel (clamped on gather, masked by
+    length). Returns ``[B, H, D]`` in q.dtype. ``impl`` as in
+    :func:`flash_decode` ("cuda" runs the K5 kernel).
+    """
+    _check_paged("flash_decode_paged", q, k_pages, v_pages, block_tables, 3)
+    impl = _resolve_impl(impl, q, "flash_decode_paged")
+    n_blk, ps = block_tables.shape[1], k_pages.shape[1]
+    lengths = torch.clamp(torch.as_tensor(lengths, dtype=torch.int32,
+                                          device=q.device), max=n_blk * ps)
+    if impl == "cuda":
+        return flash_decode_paged_cuda(
+            q, k_pages, v_pages,
+            torch.as_tensor(block_tables, dtype=torch.int32,
+                            device=q.device), lengths)
+    return _plain_paged_attend(q[:, None], k_pages, v_pages,
+                               torch.as_tensor(block_tables,
+                                               device=q.device),
+                               lengths)[:, 0]
+
+
+def flash_verify_paged(q, k_pages, v_pages, block_tables, kv_len):
+    """Speculative-verify attention: a K+1-token query CHUNK per
+    sequence over paged K/V, causality expressed as per-query lengths
+    (``kv_len[b, i]`` = prefix visible to chunk query i, its own K/V
+    included).
+
+    q ``[B, K1, H, D]``; kv_len ``[B, K1]`` int32. Returns
+    ``[B, K1, H, D]``. The plain blocked path on every device: the
+    JAX package has no kernel for it either ("always the lax blocked
+    path": verify runs once per accepted run of tokens, off the
+    per-token critical path), so this is the reference's own design,
+    not a fallback.
+    """
+    _check_paged("flash_verify_paged", q, k_pages, v_pages, block_tables, 4)
+    n_blk, ps = block_tables.shape[1], k_pages.shape[1]
+    kv_len = torch.clamp(torch.as_tensor(kv_len, dtype=torch.int32,
+                                         device=q.device), max=n_blk * ps)
+    return _plain_paged_attend(q, k_pages, v_pages,
+                               torch.as_tensor(block_tables,
+                                               device=q.device), kv_len)

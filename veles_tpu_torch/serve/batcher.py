@@ -4,9 +4,13 @@ Port of the generative half of ``veles_tpu/serve/batcher.py``: the
 admission exceptions, :class:`GenMetrics`, the sampling validation and
 :class:`TokenBatcher` (Orca-style continuous batching: decode steps
 run back to back, queued requests join at token boundaries, finished
-sequences retire mid-flight). Left out until their slices: scheduler
-tenancy (one quantum per prefill/decode), the profiler's per-step
-hook, and the paged engine's page admission and multi-token rounds.
+sequences retire mid-flight) over either decode plane. Over the paged
+engine it also trims each admission to what the page pool holds,
+requeues preempted tickets at the queue head (they re-prefill prompt
++ emitted tokens and resume their sampling counter), and routes the
+several tokens a speculative round commits per slot. Left out until
+their slices: scheduler tenancy (one quantum per prefill/decode) and
+the profiler's per-step hook.
 
 Threading rides :class:`veles_tpu_torch.thread_pool.ManagedThreads`
 (non-daemon dispatch thread, joined in ``stop()``). Admission control
@@ -191,8 +195,9 @@ def _validate_sampling(engine, temperature=None, top_k=None,
     """Normalize + validate the sampling knobs a request carries.
     Returns the engine-facing options dict, or None for a plain greedy
     request. Raises ``ValueError`` on out-of-range values, and on any
-    sampling/draft ask against an engine that lacks the capability
-    (the slab plane is greedy-only)."""
+    sampling/draft ask against an engine that lacks the capability:
+    the slab plane is greedy-only, the paged plane samples, and only a
+    paged engine with a draft model speculates."""
     opts: Dict[str, Any] = {}
     if temperature is not None:
         temperature = float(temperature)
@@ -240,12 +245,13 @@ class _GenTicket:
 
     __slots__ = ("prompt", "max_tokens", "eos", "tokens", "enqueued",
                  "abandoned", "slot", "generated", "deadline", "ctx",
-                 "queue_ms", "device_ms")
+                 "queue_ms", "device_ms", "sampling", "emitted")
 
     def __init__(self, prompt: np.ndarray, max_tokens: int,
                  eos: Optional[int],
                  deadline: Optional[float] = None,
-                 ctx: Optional[TraceContext] = None) -> None:
+                 ctx: Optional[TraceContext] = None,
+                 sampling: Optional[Dict[str, Any]] = None) -> None:
         self.prompt = prompt
         self.max_tokens = max_tokens
         self.eos = eos
@@ -260,6 +266,12 @@ class _GenTicket:
         self.ctx = ctx
         self.queue_ms = 0.0
         self.device_ms = 0.0
+        #: validated sampling options (None = greedy)
+        self.sampling = sampling
+        #: every token emitted so far: a preempted ticket re-prefills
+        #: prompt + emitted and resumes its sampling counter at
+        #: ``generated``, so its stream continues where it left off
+        self.emitted: List[int] = []
 
     def expired(self, now: float) -> bool:
         return self.deadline is not None and now >= self.deadline
@@ -267,13 +279,16 @@ class _GenTicket:
 
 class TokenBatcher:
     """Continuous batching over a
-    :class:`~veles_tpu_torch.serve.engine.GenerativeEngine`.
+    :class:`~veles_tpu_torch.serve.engine.GenerativeEngine` or a
+    :class:`~veles_tpu_torch.serve.engine.PagedGenerativeEngine`.
 
     - the dispatch loop runs **decode steps back to back** while any
       sequence is active;
     - queued requests JOIN at token boundaries — whenever slots are
       free, the next prefill admits up to ``free_slots`` of them in one
-      bucketed batch, then decoding resumes with the bigger batch;
+      bucketed batch, then decoding resumes with the bigger batch (a
+      paged engine admits only what its page pool holds now; the rest
+      waits at the queue head);
     - finished sequences (EOS or ``max_tokens``) RETIRE mid-flight:
       their slot frees immediately and the next admission reuses it;
     - every generated token streams onto its ticket's queue the step
@@ -281,7 +296,9 @@ class TokenBatcher:
 
     Admission control: a bounded pending queue (:class:`QueueFull` ->
     HTTP 503) and a drain mode that finishes accepted sequences while
-    refusing new ones.
+    refusing new ones. Page-pool exhaustion during decode PREEMPTS
+    sequences: their tickets requeue at the head and re-prefill (prompt
+    + emitted) once pages free; the client only waits.
     """
 
     def __init__(self, engine, *, max_queue: int = 64,
@@ -343,9 +360,9 @@ class TokenBatcher:
             raise ValueError("submit needs a non-empty prompt")
         if max_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
-        _validate_sampling(self.engine, temperature=temperature,
-                           top_k=top_k, top_p=top_p, seed=seed,
-                           draft=draft)
+        sampling = _validate_sampling(
+            self.engine, temperature=temperature, top_k=top_k,
+            top_p=top_p, seed=seed, draft=draft)
         # advisory pre-check against the CURRENT engine; _admit
         # re-validates on the dispatch thread before prefill
         limit = getattr(self.engine, "max_len", None)
@@ -358,7 +375,8 @@ class TokenBatcher:
         if ctx is None and TRACER.enabled:
             ctx = TraceContext.new()
         ticket = _GenTicket(prompt, int(max_tokens), eos,
-                            deadline=deadline, ctx=ctx)
+                            deadline=deadline, ctx=ctx,
+                            sampling=sampling)
         with self._cond:
             if self._draining or self._threads.stop_requested:
                 raise Draining("batcher is draining")
@@ -378,10 +396,13 @@ class TokenBatcher:
                ctx: Optional[TraceContext] = None,
                temperature=None, top_k=None, top_p=None, seed=None,
                draft: bool = False) -> np.ndarray:
-        """Generate up to ``max_tokens`` greedy tokens after ``prompt``
-        (1-D int token array); blocks until the sequence retires and
-        returns the generated tokens (EOS included when hit). Sampling
-        and draft knobs raise ``ValueError`` on this greedy plane.
+        """Generate up to ``max_tokens`` tokens after ``prompt`` (1-D
+        int token array); blocks until the sequence retires and returns
+        the generated tokens (EOS included when hit). Greedy by
+        default; ``temperature`` / ``top_k`` / ``top_p`` / ``seed``
+        turn on sampling and ``draft=True`` speculative decoding, both
+        on a paged engine only (``ValueError`` otherwise; the same seed
+        replays the same tokens whatever the batch around it).
         ``deadline_ms`` is the client's end-to-end budget. Raises
         :class:`QueueFull`, :class:`Draining`,
         :class:`DeadlineExceeded`, :class:`NonFiniteLogits`,
@@ -478,6 +499,7 @@ class TokenBatcher:
             self._retire(slot, ticket)
             return
         ticket.generated += 1
+        ticket.emitted.append(int(token))
         ticket.tokens.put(int(token))
         if (ticket.eos is not None and int(token) == ticket.eos) or \
                 ticket.generated >= ticket.max_tokens:
@@ -529,6 +551,17 @@ class TokenBatcher:
                     ticket.abandoned = True
                     continue
                 batch.append(ticket)
+        # page-pool backpressure: trim the batch to what the pool can
+        # admit RIGHT NOW (conservative, sharing ignored); the tail goes
+        # back to the queue head in order and joins at a later token
+        # boundary, once sequences retire or pages free
+        if batch and hasattr(self.engine, "admit_capacity"):
+            fits = self.engine.admit_capacity(
+                [len(t.prompt) + len(t.emitted) for t in batch])
+            if fits < len(batch):
+                with self._cond:
+                    self._pending.extendleft(reversed(batch[fits:]))
+                batch = batch[:fits]
         if not batch:
             return
         admit_t0 = time.monotonic()
@@ -540,8 +573,22 @@ class TokenBatcher:
         try:
             self._dispatch_t0 = admit_t0
             try:
-                slots, first = self.engine.admit(
-                    [t.prompt for t in batch])
+                # a preempted ticket re-prefills prompt + every token
+                # already emitted (recompute preemption) and resumes
+                # its sampling counter at ``generated``: the client's
+                # stream continues where it left off
+                rows = [np.concatenate(
+                    [t.prompt, np.asarray(t.emitted, np.int32)])
+                    if t.emitted else t.prompt for t in batch]
+                if getattr(self.engine, "supports_sampling", False):
+                    sampling = []
+                    for t in batch:
+                        opts = dict(t.sampling or {})
+                        opts["counter"] = t.generated
+                        sampling.append(opts)
+                    slots, first = self.engine.admit(rows, sampling)
+                else:
+                    slots, first = self.engine.admit(rows)
             finally:
                 self._dispatch_t0 = None
         except BaseException as e:  # noqa: BLE001 — per-batch trap
@@ -578,10 +625,27 @@ class TokenBatcher:
 
     def _decode_once(self) -> None:  # runs-on: dispatch
         t0 = time.monotonic()
+        paged = hasattr(self.engine, "decode_many")
         try:
             self._dispatch_t0 = t0
             try:
-                nxt = self.engine.decode()
+                if paged:
+                    # page admission for this round; pool exhaustion
+                    # PREEMPTS sequences: their tickets requeue at the
+                    # head and re-prefill (prompt + emitted) once pages
+                    # free. The preempted client just waits.
+                    for slot in self.engine.prepare_step():
+                        ticket = self._by_slot.pop(slot, None)
+                        if ticket is None or ticket.abandoned:
+                            continue
+                        ticket.slot = None
+                        with self._cond:
+                            self._pending.appendleft(ticket)
+                    if not self._by_slot:
+                        return
+                    toks2d, counts = self.engine.decode_many()
+                else:
+                    nxt = self.engine.decode()
             finally:
                 self._dispatch_t0 = None
         except BaseException as e:  # noqa: BLE001 — per-step trap
@@ -594,7 +658,10 @@ class TokenBatcher:
             return
         t1 = time.monotonic()
         active = list(self._by_slot.items())
-        self.metrics.observe_decode(elapsed_s(t0), len(active))
+        self.metrics.observe_decode(
+            elapsed_s(t0),
+            int(sum(int(counts[slot]) for slot, _ in active))
+            if paged else len(active))
         for slot, ticket in active:
             ticket.device_ms += (t1 - t0) * 1000.0
             if ticket.ctx is not None:
@@ -613,7 +680,16 @@ class TokenBatcher:
                     ticket.abandoned = True
                 self._retire(slot, ticket)
                 continue
-            self._emit(slot, ticket, nxt[slot])
+            if paged:
+                # one paged round can commit several tokens per slot
+                # (speculative acceptance); the slot may retire
+                # mid-round (EOS / max_tokens): stop routing then
+                for w in range(int(counts[slot])):
+                    if slot not in self._by_slot:
+                        break
+                    self._emit(slot, ticket, toks2d[slot, w])
+            else:
+                self._emit(slot, ticket, nxt[slot])
 
     def _abort_in_flight(self) -> None:  # runs-on: dispatch
         """stop(drain=False) epilogue, on the dispatch thread: fail

@@ -1,12 +1,15 @@
-"""GenerativeEngine: the KV-cache decode plane on one CUDA device.
+"""The KV-cache decode planes on one CUDA device: the slab
+:class:`GenerativeEngine` and the paged :class:`PagedGenerativeEngine`
+with in-graph sampling and speculative decoding.
 
-Port of ``veles_tpu/serve/engine.py:GenerativeEngine`` (with
-``bucket_for`` and ``_validated_swap``), single device: no mesh, no
-AOT plan. PyTorch runs eagerly, so the reference's compile cache
-becomes a record of the shapes served: ``compile_count`` keeps its
-meaning — distinct (batch, length) prefill buckets seen, plus one for
-the decode step — and the bucketing discipline that bounds it stays
-the same. Every tensor lives on ``self.device``; serving runs under
+Port of ``veles_tpu/serve/engine.py`` (``GenerativeEngine``,
+``_sample_tokens``, ``PagedGenerativeEngine``, ``bucket_for``,
+``_validated_swap``), single device: no mesh, no AOT plan, no memory
+plan. PyTorch runs eagerly, so the reference's compile cache becomes a
+record of the shapes served: ``compile_count`` keeps its meaning —
+distinct (batch, length) prefill buckets seen, plus one for each decode
+body that ran — and the bucketing discipline that bounds it stays the
+same. Every tensor lives on ``self.device``; serving runs under
 ``torch.inference_mode()``.
 """
 
@@ -20,8 +23,12 @@ import torch
 from veles_tpu_torch.device import resolve
 from veles_tpu_torch.models.transformer import (decode_step,
                                                 init_kv_cache,
+                                                init_paged_kv_cache,
+                                                paged_decode_step,
                                                 params_from_numpy,
-                                                prefill)
+                                                prefill, verify_step)
+from veles_tpu_torch.serve.paging import (PagePool, PagesExhausted,
+                                          kv_bytes_per_token)
 
 
 def bucket_for(n: int, min_bucket: int = 1) -> int:
@@ -360,4 +367,869 @@ class GenerativeEngine:
     def from_trainer(cls, trainer, **kwargs) -> "GenerativeEngine":
         """Engine over anything with ``.config`` / ``.params``."""
         kwargs.setdefault("name", "generative_lm")
+        return cls(trainer.config, trainer.params, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# sampling: temperature, top-k, top-p over a counter-based random stream
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+#: threefry-2x32's rotation constants (Salmon et al., SC 2011; the
+#: generator JAX keys its PRNG with)
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k0, k1, c0, c1):
+    """threefry-2x32, 20 rounds: key ``(k0, k1)``, counter ``(c0,
+    c1)``, each a broadcastable int64 tensor holding 32-bit values;
+    returns the two 32-bit output words as int64 tensors. Built from
+    64-bit adds, shifts and xors masked to 32 bits, so the CPU and the
+    card compute the same bits."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (c0 + ks[0]) & _M32
+    x1 = (c1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def _gumbel(seed, counter, n: int) -> torch.Tensor:
+    """``[N, n]`` float64 Gumbel noise, a pure function of (seed,
+    counter, column): threefry keyed by the row's ``(seed, counter)``
+    at counter block ``(column, 0)``, the top 24 bits of the first
+    word as a uniform in (0, 1), then ``-log(-log(u))``. No generator
+    state: a row's noise does not depend on its slot, its neighbours
+    or the device."""
+    dev = seed.device
+    col = torch.arange(n, dtype=torch.int64, device=dev)[None]
+    bits, _ = _threefry2x32(seed.long()[:, None] & _M32,
+                            counter.long()[:, None] & _M32, col,
+                            torch.zeros_like(col))
+    u = ((bits >> 8).double() + 0.5) * 2.0 ** -24
+    return -torch.log(-torch.log(u))
+
+
+def _sample_tokens(logits, temp, top_k, top_p, seed, counter):
+    """Token sampling: temperature + top-k + top-p over ``[N, V]`` f32
+    logits, op for op the reference's ``_sample_tokens``, drawing with
+    Gumbel-max from :func:`_gumbel` where the reference draws
+    ``categorical`` from ``fold_in(PRNGKey(seed), counter)``: the draw
+    depends only on the ticket's seed and its token index, never on
+    slot placement or batch composition. ``temp <= 0`` rows take the
+    argmax (the greedy plane's token, no noise drawn); ``top_k <= 0``
+    disables the k filter; ``top_p`` in (0, 1] keeps the smallest
+    nucleus of cumulative probability ``>= top_p`` (the argmax always
+    survives, so no filter empties a row). The filter math runs in f32
+    like the reference's; the noise and the final argmax in f64."""
+    n, v = logits.shape
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    safe_temp = torch.where(temp > 0, temp, torch.ones_like(temp)).float()
+    scaled = logits.float() / safe_temp[:, None]
+    desc = torch.sort(scaled, dim=-1, descending=True).values
+    k_eff = torch.clamp(torch.where(top_k > 0, top_k,
+                                    torch.full_like(top_k, v)), 1, v)
+    kth = desc.gather(-1, (k_eff - 1)[:, None].long())           # [N,1]
+    probs = torch.softmax(desc, dim=-1)
+    csum = torch.cumsum(probs, dim=-1)
+    in_nucleus = (csum - probs) < top_p.float()[:, None]  # exclusive prefix
+    p_thresh = torch.where(in_nucleus, desc, torch.full_like(
+        desc, torch.inf)).amin(dim=-1, keepdim=True)
+    keep = (scaled >= kth) & (scaled >= p_thresh)
+    keep = keep | (scaled >= desc[:, :1])                 # argmax survives
+    masked = torch.where(keep, scaled, torch.full_like(scaled, -torch.inf))
+    sampled = torch.argmax(masked.double() + _gumbel(seed, counter, v),
+                           dim=-1).to(torch.int32)
+    return torch.where(temp > 0, sampled, greedy)
+
+
+class PagedGenerativeEngine:
+    """Paged KV decode plane: the :class:`GenerativeEngine` contract
+    over a shared PAGE POOL instead of a per-slot slab.
+
+    K/V lives in ``serve/paging.py`` pages (``[L, n_pages + 1,
+    page_size, H, Dh]``, the last one the trash page of
+    :func:`~veles_tpu_torch.models.transformer.init_paged_kv_cache`);
+    each slot owns an ordered block table of page ids, admission takes
+    pages for the tokens a prompt ACTUALLY has (sharing common prompt
+    heads by refcount), and decode takes one page every ``page_size``
+    tokens. ``max_slots`` therefore oversubscribes device memory: the
+    pool can be sized well under ``slots x max_len``, with
+    :class:`~veles_tpu_torch.serve.paging.PagesExhausted` backpressure
+    (preempt and requeue at a token boundary) when the bet loses.
+
+    Shape record (the reference's compile census): one prefill per
+    (batch, length) bucket pair, ONE decode step (or, speculating, ONE
+    draft propose + ONE target verify), ONE copy-on-write page copy.
+    The block tables are data, so page assignment never adds a shape.
+
+    Two decode capabilities the slab plane lacks ride the same step:
+
+    - sampling (:func:`_sample_tokens`): per-slot temperature, top-k
+      and top-p with counter-based random streams carried in the
+      per-slot state, deterministic per ticket seed and independent of
+      slot placement and join order;
+    - SPECULATIVE DECODING: a small draft LM (``draft_params`` /
+      ``draft_config``, same vocab) proposes ``draft_tokens`` greedy
+      continuations per slot through its slab ``decode_step`` (K4 on
+      the card); the target verifies the whole chunk in ONE batched
+      step over the same pages and commits the matched run plus one
+      correction token (Leviathan et al., ICML 2023: greedy
+      acceptance). Rejected K/V is masked by length and overwritten in
+      place: no rollback.
+    """
+
+    def __init__(self, config, params, *, max_slots: int = 8,
+                 max_len: Optional[int] = None,
+                 page_size: int = 16,
+                 n_pages: Optional[int] = None,
+                 hbm_bytes: Optional[int] = None,
+                 min_prefill_bucket: int = 8,
+                 draft_params: Any = None,
+                 draft_config: Any = None,
+                 draft_tokens: int = 4,
+                 name: str = "paged_lm",
+                 device=None) -> None:
+        self.device = resolve(device)
+        self.config = config
+        self.name = name
+        self.input_dtype = np.dtype(np.int32)
+        self.max_len = int(min(max_len or config.seq_len,
+                               config.seq_len))
+        if max_slots < 1:
+            raise ValueError("max_slots must be >= 1")
+        self.slots = int(max_slots)
+        self.cache_capacity = bucket_for(self.max_len)
+        self.page_size = int(page_size)
+        if self.page_size > self.cache_capacity:
+            raise ValueError(
+                "page_size %d > cache capacity %d (pow2 of max_len); "
+                "use a smaller page" % (self.page_size,
+                                        self.cache_capacity))
+        self.n_blocks = self.cache_capacity // self.page_size
+        dtype = config.compute_dtype()
+        token_bytes = kv_bytes_per_token(
+            config.layers, config.heads, config.head_dim,
+            torch.empty((), dtype=dtype).element_size())
+        if n_pages is not None:
+            pool_pages = int(n_pages)
+        elif hbm_bytes is not None:
+            pool_pages = int(hbm_bytes) // (self.page_size * token_bytes)
+        else:
+            # un-oversubscribed default: worst case, every slot full
+            pool_pages = self.slots * self.n_blocks
+        if pool_pages < self.n_blocks:
+            raise ValueError(
+                "pool of %d pages cannot hold ONE max-length sequence "
+                "(%d blocks of %d tokens)" % (pool_pages, self.n_blocks,
+                                              self.page_size))
+        self.pool = PagePool(pool_pages, self.page_size)
+        self.min_prefill_bucket = int(min_prefill_bucket)
+        self.params = params_from_numpy(params, config, self.device)
+        self._cache = init_paged_kv_cache(config, self.pool.n_pages,
+                                          self.page_size,
+                                          device=self.device)
+        # speculative plane (optional)
+        self.draft_config = draft_config
+        self.draft_tokens = int(draft_tokens)
+        self.has_draft = draft_params is not None
+        self.draft_params: Dict[str, Any] = {}
+        self._draft_cache: Dict[str, torch.Tensor] = {}
+        if self.has_draft:
+            if draft_config is None:
+                raise ValueError("draft_params needs draft_config")
+            if draft_config.vocab != config.vocab:
+                raise ValueError(
+                    "draft vocab %d != target vocab %d"
+                    % (draft_config.vocab, config.vocab))
+            if draft_config.seq_len < self.max_len:
+                raise ValueError(
+                    "draft seq_len %d < max_len %d (the draft must "
+                    "reach every position the target serves)"
+                    % (draft_config.seq_len, self.max_len))
+            if self.draft_tokens < 1:
+                raise ValueError("draft_tokens must be >= 1")
+            self.draft_params = params_from_numpy(draft_params,
+                                                  draft_config,
+                                                  self.device)
+            # the draft keeps a plain slab: it is small by construction,
+            # so paging it would spend bookkeeping to save little
+            self._draft_cache = init_kv_cache(draft_config, self.slots,
+                                              self.cache_capacity,
+                                              device=self.device)
+        self.supports_sampling = True
+        # per-slot decode state on the device, written at prefill and
+        # advanced IN PLACE by every decode round
+        zeros = dict(dtype=torch.int32, device=self.device)
+        self._state = {
+            "lengths": torch.zeros(self.slots, **zeros),
+            "tokens": torch.zeros(self.slots, **zeros),
+            "counters": torch.zeros(self.slots, dtype=torch.int64,
+                                    device=self.device),
+            "temp": torch.zeros(self.slots, dtype=torch.float32,
+                                device=self.device),
+            "top_k": torch.zeros(self.slots, **zeros),
+            "top_p": torch.ones(self.slots, dtype=torch.float32,
+                                device=self.device),
+            # uint32 seeds, carried in int64 and masked to 32 bits
+            "seed": torch.zeros(self.slots, dtype=torch.int64,
+                                device=self.device),
+            "draft": torch.zeros(self.slots, dtype=torch.bool,
+                                 device=self.device),
+        }
+        # host bookkeeping (owned by the dispatch thread)
+        self._active = np.zeros(self.slots, bool)
+        self._free = list(range(self.slots))
+        self._tables = np.full((self.slots, self.n_blocks),
+                               self.pool.n_pages, np.int32)
+        #: device mirrors of ``_active`` / ``_tables``, uploaded only
+        #: after admit/release/COW changed the host copy. None = stale.
+        self._active_dev: Optional[torch.Tensor] = None
+        self._tables_dev: Optional[torch.Tensor] = None
+        self._slot_pages: List[List[int]] = [[] for _ in
+                                             range(self.slots)]
+        self._host_len = np.zeros(self.slots, np.int64)
+        self._admit_stamp = np.zeros(self.slots, np.int64)
+        self._admit_seq = 0
+        self._temp_np = np.zeros(self.slots, np.float32)
+        self._draft_np = np.zeros(self.slots, bool)
+        self._auto_seed = 0
+        self._prepared = False
+        # the shape record
+        self._prefill_seen: Set[Tuple[int, int]] = set()
+        self._decode_ran = False
+        self._verify_ran = False
+        self._propose_ran = False
+        self._copy_ran = False
+        self._decode_steps = 0
+        self.last_finite = np.ones(self.slots, bool)
+        self.decode_fault_hook: Optional[Callable[[int], Any]] = None
+        # speculative and preemption accounting (host counters)
+        self.spec_proposed_total = 0
+        self.spec_accepted_total = 0
+        self.preempted_total = 0
+
+    # -- device bodies -----------------------------------------------------
+    def _next_tokens(self, logits, opts, sampling: bool) -> torch.Tensor:
+        """The next token per row: :func:`_sample_tokens` when any row
+        of the batch samples (``sampling``, known on the host), else
+        the argmax, which is what every row's ``temp <= 0`` branch
+        takes anyway."""
+        if sampling:
+            return _sample_tokens(logits, opts["temp"], opts["top_k"],
+                                  opts["top_p"], opts["seed"],
+                                  opts["counters"])
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def _prefill_fn(self, tokens, lengths, slots: Sequence[int],
+                    write_tables, req, sampling: bool) -> torch.Tensor:
+        """One bucketed call: target prefill, page scatter, slot state
+        scatter (and the draft's slab prefill when speculating). The
+        first token is drawn here at the ticket's counter (it resumes
+        across preemption). ``write_tables`` carries the ``n_pages``
+        sentinel for SHARED pages (never overwrite a donor) and pad
+        tiles: their writes land on the trash page."""
+        logits, prompt = prefill(self.params, tokens, lengths,
+                                 self.config)
+        nxt = self._next_tokens(logits, req, sampling)
+        bb, tb = tokens.shape
+        ps = self.page_size
+        n_tiles = -(-tb // ps)
+        layers, heads, hd = (self.config.layers, self.config.heads,
+                             self.config.head_dim)
+        for key in ("k", "v"):
+            tiles = torch.nn.functional.pad(
+                prompt[key], (0, 0, 0, 0, 0, n_tiles * ps - tb)).reshape(
+                    layers, bb, n_tiles, ps, heads, hd)
+            self._cache[key][:, write_tables] = tiles.to(
+                self._cache[key].dtype)
+        n = len(slots)
+        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        state = self._state
+        state["lengths"][idx] = lengths[:n].to(torch.int32)
+        state["tokens"][idx] = nxt[:n]
+        state["counters"][idx] = req["counters"][:n] + 1
+        for key in ("temp", "top_k", "top_p", "seed", "draft"):
+            state[key][idx] = req[key][:n]
+        if self.has_draft:
+            # the draft ingests EVERY admitted prompt (speculating or
+            # not), and its slot's tail is zeroed like the slab's
+            _, dprompt = prefill(self.draft_params, tokens, lengths,
+                                 self.draft_config)
+            for key in ("k", "v"):
+                self._draft_cache[key][:, idx, :tb] = dprompt[key][:, :n].to(
+                    self._draft_cache[key].dtype)
+                self._draft_cache[key][:, idx, tb:] = 0
+        return nxt[:n]
+
+    def _decode_fn(self, tables, active, inject, sampling: bool):
+        """The ONE paged decode step: write K/V through the block
+        table, attend through it (K5 on the card), draw, advance the
+        per-slot state in place."""
+        state = self._state
+        logits, self._cache, new_len = paged_decode_step(
+            self.params, state["tokens"], self._cache, state["lengths"],
+            tables, self.config, active=active)
+        if inject is not None:
+            logits = logits.masked_fill(inject[:, None], float("nan"))
+        finite = torch.isfinite(logits).all(dim=-1)
+        nxt = self._next_tokens(logits, state, sampling)
+        ok = active & finite
+        state["lengths"].copy_(new_len)
+        state["tokens"].copy_(torch.where(ok, nxt, state["tokens"]))
+        state["counters"].add_(ok.to(torch.int64))
+        return nxt, finite
+
+    def _propose_fn(self, active) -> torch.Tensor:
+        """Draft proposal: K greedy slab decode steps, then one more
+        that only writes the K-th proposal's K/V. With it the draft's
+        valid prefix equals the target length at every round start
+        (accepted tokens are exactly the proposals it ingested), so the
+        TARGET lengths drive it. The reference runs K steps only: after
+        a round that accepts all K proposals its draft attends one
+        position it never wrote, and acceptance drops below what the
+        draft can give (ROADMAP.md, queue 3)."""
+        state = self._state
+        lengths, tok = state["lengths"], state["tokens"]
+        props = []
+        for _ in range(self.draft_tokens + 1):
+            logits, self._draft_cache, lengths = decode_step(
+                self.draft_params, tok, self._draft_cache, lengths,
+                self.draft_config, active=active)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            tok = torch.where(active, nxt, tok)
+            props.append(nxt)
+        return torch.stack(props[:-1], dim=1)            # [slots, K]
+
+    def _verify_fn(self, tables, proposals, active, inject,
+                   sampling: bool):
+        """Target verification: ONE batched step over the chunk
+        ``[last_token, p_1..p_K]``. Greedy acceptance: the accepted run
+        is the longest prefix where the proposal equals the target's
+        argmax, plus one correction token; sampled (``temp > 0``) or
+        draft-less slots get exactly the plain decode semantics (count
+        1, position 0 drawn at the slot's counter)."""
+        state = self._state
+        k = self.draft_tokens
+        chunk = torch.cat([state["tokens"][:, None], proposals], dim=1)
+        logits, self._cache = verify_step(
+            self.params, chunk, self._cache, state["lengths"], tables,
+            self.config, active=active)
+        if inject is not None:
+            logits = logits.masked_fill(inject[:, None, None],
+                                        float("nan"))
+        finite = torch.isfinite(logits).all(dim=-1).all(dim=-1)
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        match = (proposals == greedy[:, :k]).to(torch.int32)
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+        spec_row = state["draft"] & (state["temp"] <= 0.0) & active
+        n_acc = torch.where(spec_row, n_acc, torch.zeros_like(n_acc))
+        # accepted proposals ARE the greedy tokens; a sampled slot
+        # re-draws position 0 at its counter (the plain step's draw)
+        emitted = greedy.clone()
+        emitted[:, 0] = self._next_tokens(logits[:, 0], state, sampling)
+        ok = active & finite
+        counts = torch.where(ok, n_acc + 1, active.to(torch.int32))
+        cap = self.n_blocks * self.page_size
+        last = emitted.gather(1, torch.clamp(counts - 1, 0, k)[:, None]
+                              .long())[:, 0]
+        state["lengths"].copy_(torch.clamp(state["lengths"] + counts,
+                                           max=cap))
+        state["tokens"].copy_(torch.where(ok, last, state["tokens"]))
+        state["counters"].add_(torch.where(ok, counts,
+                                           torch.zeros_like(counts)))
+        return emitted, counts, finite, n_acc
+
+    def _copy_pages(self, src: np.ndarray, dst: np.ndarray) -> None:
+        """Copy-on-write page copies for every layer's K and V in one
+        indexed copy (the rows a COW re-pointed; none is a no-op)."""
+        if len(dst):
+            s = torch.as_tensor(src, dtype=torch.long, device=self.device)
+            d = torch.as_tensor(dst, dtype=torch.long, device=self.device)
+            for key in ("k", "v"):
+                self._cache[key][:, d] = self._cache[key][:, s]
+        self._copy_ran = True
+
+    # -- the shape record --------------------------------------------------
+    @property
+    def compile_count(self) -> int:
+        """Distinct shapes served: one per (batch, length) prefill
+        bucket pair + ONE decode (or propose + verify) + ONE COW page
+        copy (the reference's count of compiled executables)."""
+        return (len(self._prefill_seen) + int(self._decode_ran) +
+                int(self._verify_ran) + int(self._propose_ran) +
+                int(self._copy_ran))
+
+    @property
+    def prefill_buckets(self) -> List[Tuple[int, int]]:
+        return sorted(self._prefill_seen)
+
+    # -- slots -------------------------------------------------------------
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    @property
+    def active_slots(self) -> int:
+        return int(self._active.sum())
+
+    def release(self, slot: int) -> None:
+        """Retire a sequence: decref its pages (shared pages survive in
+        their donors; private ones return to the pool) and free the
+        slot."""
+        if not self._active[slot]:
+            raise ValueError("slot %d is not active" % slot)
+        self.pool.release(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+        self._tables[slot, :] = self.pool.n_pages
+        self._host_len[slot] = 0
+        self._active[slot] = False
+        self._active_dev = None
+        self._tables_dev = None
+        self._free.append(slot)
+
+    # -- admission ---------------------------------------------------------
+    def admit_capacity(self, prompt_lens: Sequence[int]) -> int:
+        """How many of these prompts (in order) the pool can admit
+        RIGHT NOW, ignoring sharing (a conservative floor). The batcher
+        trims its admission batch to this, so :meth:`admit` never fails
+        mid-quantum."""
+        free = self.pool.free_pages
+        n = 0
+        for ln in prompt_lens:
+            need = self.pool.pages_for(int(ln))
+            if need > free:
+                break
+            free -= need
+            n += 1
+        return n
+
+    def admit(self, prompts: Sequence[np.ndarray],
+              sampling: Optional[Sequence[Optional[Dict[str, Any]]]]
+              = None) -> Tuple[List[int], np.ndarray]:
+        """Admit ``prompts`` into fresh slots as ONE bucketed call: page
+        admission (prefix sharing + refcounts) on the host, then
+        prefill + page scatter + state scatter on the device.
+        ``sampling[i]`` optionally carries ``temperature`` / ``top_k``
+        / ``top_p`` / ``seed`` / ``counter`` / ``draft`` for prompt i
+        (defaults: greedy, counter 0, no draft). Raises ``ValueError``
+        on slot/length violations and :class:`PagesExhausted` (nothing
+        leaked) when the pool cannot cover the prompts."""
+        n = len(prompts)
+        if n == 0:
+            raise ValueError("admit needs at least one prompt")
+        if n > self.free_slots:
+            raise ValueError("admit: %d prompts > %d free slots"
+                             % (n, self.free_slots))
+        rows = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
+        lens = [len(r) for r in rows]
+        if min(lens) < 1:
+            raise ValueError("admit: empty prompt")
+        if max(lens) > self.max_len:
+            raise ValueError("admit: prompt length %d > max_len %d"
+                             % (max(lens), self.max_len))
+        sampling = list(sampling) if sampling is not None \
+            else [None] * n
+        if len(sampling) != n:
+            raise ValueError("admit: %d sampling entries for %d "
+                             "prompts" % (len(sampling), n))
+        # page admission first (atomic: any failure rolls everything
+        # back before the raise; slots and pool untouched)
+        page_lists: List[List[Tuple[int, bool]]] = []
+        try:
+            for row in rows:
+                page_lists.append(self.pool.admit_prompt(row.tolist()))
+        except BaseException:
+            for taken_pages in page_lists:
+                self.pool.release([p for p, _ in taken_pages])
+            raise
+        bb = bucket_for(n)
+        tb = min(bucket_for(max(lens), self.min_prefill_bucket),
+                 self.config.seq_len, self.cache_capacity)
+        n_tiles = -(-tb // self.page_size)
+        tokens = np.zeros((bb, tb), np.int32)
+        lengths = np.zeros((bb,), np.int32)
+        write_tables = np.full((bb, n_tiles), self.pool.n_pages, np.int64)
+        req = {"temp": np.zeros(bb, np.float32),
+               "top_k": np.zeros(bb, np.int32),
+               "top_p": np.ones(bb, np.float32),
+               "seed": np.zeros(bb, np.int64),
+               "counters": np.zeros(bb, np.int64),
+               "draft": np.zeros(bb, bool)}
+        taken = [self._free.pop() for _ in range(n)]
+        try:
+            for i, row in enumerate(rows):
+                tokens[i, :lens[i]] = row
+                lengths[i] = lens[i]
+                for j, (pid, shared) in enumerate(page_lists[i]):
+                    if not shared:
+                        write_tables[i, j] = pid
+                opts = sampling[i] or {}
+                req["temp"][i] = float(opts.get("temperature", 0.0))
+                req["top_k"][i] = int(opts.get("top_k", 0))
+                req["top_p"][i] = float(opts.get("top_p", 1.0))
+                seed = opts.get("seed")
+                if seed is None:
+                    seed = self._auto_seed
+                    self._auto_seed += 1
+                req["seed"][i] = int(seed) & 0xFFFFFFFF
+                req["counters"][i] = int(opts.get("counter", 0))
+                req["draft"][i] = bool(opts.get("draft", False)) and \
+                    self.has_draft
+            with torch.inference_mode():
+                dev = {key: torch.from_numpy(val).to(self.device)
+                       for key, val in req.items()}
+                nxt = self._prefill_fn(
+                    torch.from_numpy(tokens).to(self.device).long(),
+                    torch.from_numpy(lengths).to(self.device), taken,
+                    torch.from_numpy(write_tables).to(self.device), dev,
+                    bool((req["temp"] > 0).any()))
+                first = nxt.cpu().numpy()
+        except BaseException:
+            self._free.extend(taken)
+            for taken_pages in page_lists:
+                self.pool.release([p for p, _ in taken_pages])
+            raise
+        self._prefill_seen.add((bb, tb))
+        for i, slot in enumerate(taken):
+            pages = [pid for pid, _ in page_lists[i]]
+            self._slot_pages[slot] = pages
+            self._tables[slot, :] = self.pool.n_pages
+            self._tables[slot, :len(pages)] = pages
+            self._host_len[slot] = lens[i]
+            self._active[slot] = True
+            self._admit_stamp[slot] = self._admit_seq
+            self._admit_seq += 1
+            self._temp_np[slot] = req["temp"][i]
+            self._draft_np[slot] = req["draft"][i]
+        self._active_dev = None
+        self._tables_dev = None
+        self._prepared = False
+        return taken, first
+
+    # -- the decode round --------------------------------------------------
+    def prepare_step(self) -> List[int]:
+        """Host-side page admission for the NEXT decode round: every
+        active slot gets writable pages for the positions this round
+        fills (1, or ``draft_tokens + 1`` when speculating). Shared
+        pages about to be written are COPY-ON-WRITE re-pointed (one
+        indexed copy for all slots at once); pool exhaustion PREEMPTS
+        the most recently admitted other slot (its pages free, its
+        ticket is the caller's to requeue) until the round fits.
+        Returns the preempted slot ids. Idempotent until the next
+        admit/decode."""
+        if self._prepared:
+            return []
+        width = self.draft_tokens + 1 if self.has_draft else 1
+        preempted: List[int] = []
+        cow_src = np.full(self.slots, self.pool.n_pages, np.int64)
+        cow_dst = np.full(self.slots, self.pool.n_pages, np.int64)
+        order = sorted(np.flatnonzero(self._active),
+                       key=lambda s: self._admit_stamp[s])
+        for slot in order:
+            while self._active[slot]:
+                try:
+                    self._ensure_writable(int(slot), width, cow_src,
+                                          cow_dst)
+                    break
+                except PagesExhausted:
+                    victims = [s for s in np.flatnonzero(self._active)
+                               if s != slot]
+                    victim = int(max(
+                        victims, key=lambda s: self._admit_stamp[s])) \
+                        if victims else int(slot)
+                    self._preempt(victim, cow_src, cow_dst)
+                    preempted.append(victim)
+        rows = np.flatnonzero(cow_dst != self.pool.n_pages)
+        if rows.size:
+            with torch.inference_mode():
+                self._copy_pages(cow_src[rows], cow_dst[rows])
+        self._prepared = True
+        return preempted
+
+    def _ensure_writable(self, slot: int, width: int, cow_src,
+                         cow_dst) -> None:
+        ps = self.page_size
+        start = int(self._host_len[slot])
+        for pos in range(start, min(start + width,
+                                    self.n_blocks * ps)):
+            j = pos // ps
+            pages = self._slot_pages[slot]
+            if j >= len(pages):
+                fresh = self.pool.alloc()       # may raise
+                pages.append(fresh)
+                self._tables[slot, j] = fresh
+                self._tables_dev = None
+            else:
+                dst, src = self.pool.writable(pages[j])  # may raise
+                if src is not None:             # COW re-point
+                    pages[j] = dst
+                    self._tables[slot, j] = dst
+                    self._tables_dev = None
+                    cow_src[slot] = src
+                    cow_dst[slot] = dst
+
+    def _preempt(self, slot: int, cow_src, cow_dst) -> None:
+        """Evict a sequence mid-generation (recompute preemption, vLLM's
+        policy): all its pages free at once, the slot returns, and the
+        caller requeues its ticket to re-prefill prompt + generated so
+        far. A COW this round already granted the victim is cancelled
+        (the fresh page frees with the rest)."""
+        if cow_dst[slot] != self.pool.n_pages:
+            cow_src[slot] = self.pool.n_pages
+            cow_dst[slot] = self.pool.n_pages
+        self.release(slot)
+        self.preempted_total += 1
+
+    def _active_mask(self) -> torch.Tensor:
+        """Device-resident active mask, uploaded only after
+        admit/release changed the host copy."""
+        if self._active_dev is None:
+            self._active_dev = torch.from_numpy(self._active).to(
+                self.device)
+        return self._active_dev
+
+    def _tables_device(self) -> torch.Tensor:
+        """Device-resident block tables, uploaded only after
+        admit/release/COW changed the host copy."""
+        if self._tables_dev is None:
+            self._tables_dev = torch.from_numpy(self._tables).to(
+                self.device)
+        return self._tables_dev
+
+    def decode_many(self) -> Tuple[np.ndarray, np.ndarray]:
+        """One decode ROUND for the whole batch. Returns ``(tokens
+        [slots, W] int32, counts [slots] int32)``: slot s emitted
+        ``tokens[s, :counts[s]]`` this round (W == 1 plain,
+        ``draft_tokens + 1`` speculating; counts is 0 for inactive
+        slots). Check :attr:`last_finite` before consuming a slot's
+        tokens. Calls :meth:`prepare_step` when the caller did not (the
+        batcher does, to requeue preempted tickets)."""
+        self.prepare_step()
+        inject = None
+        if self.decode_fault_hook is not None:
+            mask = np.zeros(self.slots, bool)
+            for slot in (self.decode_fault_hook(self._decode_steps)
+                         or ()):
+                mask[int(slot)] = True
+            inject = torch.from_numpy(mask).to(self.device)
+        self._decode_steps += 1
+        sampling = bool((self._temp_np[self._active] > 0).any())
+        with torch.inference_mode():
+            active = self._active_mask()
+            tables = self._tables_device()
+            if self.has_draft:
+                proposals = self._propose_fn(active)
+                self._propose_ran = True
+                emitted, counts, finite, n_acc = self._verify_fn(
+                    tables, proposals, active, inject, sampling)
+                self._verify_ran = True
+                # one transfer: [emitted | counts | finite | n_acc]
+                host = torch.cat([emitted, counts[:, None],
+                                  finite.to(torch.int32)[:, None],
+                                  n_acc[:, None]], dim=1).cpu().numpy()
+                k1 = self.draft_tokens + 1
+                tokens = host[:, :k1]
+                counts = host[:, k1]
+                finite = host[:, k1 + 1].astype(bool)
+                n_acc = host[:, k1 + 2]
+                spec_rows = (self._active & self._draft_np & finite &
+                             (self._temp_np <= 0.0))
+                self.spec_proposed_total += int(
+                    spec_rows.sum()) * self.draft_tokens
+                self.spec_accepted_total += int(n_acc[spec_rows].sum())
+            else:
+                nxt, finite = self._decode_fn(tables, active, inject,
+                                              sampling)
+                self._decode_ran = True
+                host = torch.stack([nxt, finite.to(torch.int32)]
+                                   ).cpu().numpy()
+                tokens = host[0][:, None]
+                counts = self._active.astype(np.int32)
+                finite = host[1].astype(bool)
+        # the host length mirror tracks the device clamp exactly
+        cap = self.n_blocks * self.page_size
+        live = np.flatnonzero(self._active)
+        self._host_len[live] = np.minimum(
+            self._host_len[live] + counts[live], cap)
+        self.last_finite = finite
+        self._prepared = False
+        return tokens, counts
+
+    def generate(self, prompts: Sequence[np.ndarray],
+                 max_new_tokens: int, eos: Optional[int] = None,
+                 sampling: Optional[Sequence[Optional[Dict[str, Any]]]]
+                 = None) -> List[np.ndarray]:
+        """Batch generation (tests and the smoke run; production goes
+        through the TokenBatcher). Handles preemption by re-admitting
+        the victim's prompt + generated tokens at its resumed sampling
+        counter: the backpressure story end to end."""
+        sampling = list(sampling) if sampling is not None \
+            else [None] * len(prompts)
+        slots, first = self.admit(prompts, sampling)
+        by_slot = {slot: i for i, slot in enumerate(slots)}
+        done = [False] * len(prompts)
+        out: List[List[int]] = [[] for _ in prompts]
+        for i, tok in enumerate(first):
+            out[i].append(int(tok))
+            if (eos is not None and int(tok) == eos) or \
+                    max_new_tokens <= 1:
+                done[i] = True
+                self.release(slots[i])
+                del by_slot[slots[i]]
+        pending: List[int] = []
+        while not all(done):
+            # preempted sequences wait here until the pool can take
+            # their resumed prompt back (the batcher's requeue, in
+            # miniature)
+            while pending and self.free_slots > 0:
+                i = pending[0]
+                resumed = np.concatenate(
+                    [np.asarray(prompts[i], np.int32).reshape(-1),
+                     np.asarray(out[i], np.int32)])
+                if len(resumed) >= self.max_len:
+                    raise RuntimeError(
+                        "preempted sequence no longer fits max_len %d"
+                        % self.max_len)
+                opts = dict(sampling[i] or {})
+                opts["counter"] = len(out[i])
+                try:
+                    [slot], [tok] = self.admit([resumed], [opts])
+                except PagesExhausted:
+                    break
+                pending.pop(0)
+                # the re-prefill draws the NEXT position (prompt +
+                # everything emitted) at the ticket's counter: a fresh
+                # token, emitted like any other
+                out[i].append(int(tok))
+                if (eos is not None and out[i][-1] == eos) or \
+                        len(out[i]) >= max_new_tokens:
+                    done[i] = True
+                    self.release(slot)
+                else:
+                    by_slot[slot] = i
+            if not by_slot:
+                if pending and not self._active.any():
+                    raise PagesExhausted(
+                        "pool cannot hold one resumed sequence")
+                continue
+            for victim in self.prepare_step():
+                pending.append(by_slot.pop(victim))
+            if not by_slot:
+                continue
+            tokens, counts = self.decode_many()
+            for slot, i in list(by_slot.items()):
+                if not self.last_finite[slot]:
+                    raise FloatingPointError(
+                        "non-finite logits for sequence %d" % i)
+                for w in range(int(counts[slot])):
+                    out[i].append(int(tokens[slot, w]))
+                    if (eos is not None and out[i][-1] == eos) or \
+                            len(out[i]) >= max_new_tokens:
+                        done[i] = True
+                        break
+                if done[i] and self._active[slot]:
+                    self.release(slot)
+                    del by_slot[slot]
+        return [np.asarray(o[:max_new_tokens], np.int32) for o in out]
+
+    def warm(self) -> int:
+        """Run the whole shape ladder before traffic: every (batch,
+        length) prefill bucket the pool can hold, the decode step (or
+        the propose + verify pair) and the COW page copy, through the
+        real admit/release path (builds the kernels and fills
+        PyTorch's allocator cache). Returns the shapes added."""
+        before = self.compile_count
+        cap = min(self.cache_capacity, self.config.seq_len,
+                  self.max_len)
+        lens = []
+        ln = min(self.min_prefill_bucket, self.max_len)
+        while ln < cap:
+            lens.append(ln)
+            ln <<= 1
+        lens.append(cap)
+        counts = []
+        bb = 1
+        while bb < self.slots:
+            counts.append(bb)
+            bb <<= 1
+        counts.append(self.slots)
+        for n in counts:
+            for ln in lens:
+                # distinct rows (no sharing): the worst-case page bill
+                # for this bucket; skip combos the pool cannot hold
+                if n * self.pool.pages_for(ln) > self.pool.n_pages:
+                    continue
+                prompts = [np.full(ln, 1 + (i % 7), np.int32)
+                           for i in range(n)]
+                slots, _ = self.admit(prompts)
+                for slot in slots:
+                    self.release(slot)
+            # and once WITH sharing, so the registry paths run warm
+            # too (identical prompts share every page)
+            slots, _ = self.admit([np.ones(lens[0], np.int32)] * n)
+            for slot in slots:
+                self.release(slot)
+        self.decode_many()
+        with torch.inference_mode():
+            self._copy_pages(np.zeros(0, np.int64), np.zeros(0, np.int64))
+        return self.compile_count - before
+
+    # -- observability -----------------------------------------------------
+    def decode_stats(self) -> Dict[str, Any]:
+        """Decode-plane gauges for /metrics: the slab plane's set plus
+        the page-pool economy (free/shared pages, token occupancy vs
+        pool capacity, the configured oversubscription ratio) and the
+        speculative acceptance rate."""
+        active = self._active
+        pool = self.pool
+        cap_tokens = pool.capacity_tokens
+        resident = int(self._host_len[active].sum()) if active.any() \
+            else 0
+        stats = {
+            "active_sequences": int(active.sum()),
+            "slots": self.slots,
+            "slot_occupancy": float(active.sum()) / self.slots,
+            "cache_capacity": self.cache_capacity,
+            "cache_tokens": resident,
+            "compile_count": self.compile_count,
+            "prefill_buckets": ["%dx%d" % b for b in
+                                self.prefill_buckets],
+            "page_size": self.page_size,
+            "pages_total": pool.n_pages,
+            "pages_free": pool.free_pages,
+            "pages_shared": pool.shared_pages,
+            "token_occupancy": float(resident) / cap_tokens,
+            "oversubscription": float(self.slots * self.max_len) /
+            cap_tokens,
+            "cow_total": pool.cow_total,
+            "preempted_total": self.preempted_total,
+            "device": str(self.device),
+        }
+        if self.has_draft:
+            proposed = self.spec_proposed_total
+            stats["spec_proposed_total"] = proposed
+            stats["spec_accepted_total"] = self.spec_accepted_total
+            stats["spec_accept_rate"] = (
+                self.spec_accepted_total / proposed) if proposed else 0.0
+        return stats
+
+    # -- hot swap ----------------------------------------------------------
+    def swap_params(self, params: Any) -> None:
+        """Replace the TARGET weights (same tree structure, shapes and
+        dtypes; the draft is construction state and does not swap).
+        Sequences mid-decode continue with the new weights from their
+        next step."""
+        self.params = _validated_swap(params, self.params, self.config,
+                                      self.device)
+
+    # -- constructors ------------------------------------------------------
+    @classmethod
+    def from_trainer(cls, trainer, **kwargs) -> "PagedGenerativeEngine":
+        """Engine over anything with ``.config`` / ``.params``."""
+        kwargs.setdefault("name", "paged_lm")
         return cls(trainer.config, trainer.params, **kwargs)
