@@ -18,7 +18,11 @@ without them, and on any failed phase. Phases, in order:
    serving shapes, the backward kernels (K2 dK/dV, K3 dQ) at batch 2
    (bf16 and f32, full and ragged T), then K1, K2 and K3 at the
    training shape and layout (batch 8, q, k, v strided views of one
-   fused QKV projection);
+   fused QKV projection); the LRN forward and backward kernels (K6, K7)
+   at AlexNet's two LRN shapes at batch 1536 (bf16 and f32) and at a
+   ragged row count with an odd C and an even window; the uniform fill
+   (K8) bitwise against its plain version at the dropout mask's shape
+   and an odd size;
 3. serving at full width: the repo's largest LM configuration
    (``bench_transformer.py``: vocab 8192, embed 1024, 8 heads of 128,
    12 layers, seq 2048, bf16) with random seeded weights behind
@@ -59,7 +63,22 @@ without them, and on any failed phase. Phases, in order:
    first 2 as the draft, K = 4) equals greedy with acceptance 1.0;
    the same construction at bf16 and full depth (12-layer target,
    2-layer draft, 8 slots, 64 tokens) against greedy, acceptance at
-   least 0.7.
+   least 0.7;
+9. classifier training at full width: AlexNet as bench.py trains it
+   (``alexnet_fused()``: 1000 classes, 224 x 224 x 3, seed 0; lr 0.01,
+   momentum 0.9, weight decay 5e-4; batch 1536; bf16) through
+   ``FusedClassifierTrainer`` on one fixed batch (warm-up steps, a
+   timed window, one ``step_many`` of 4), every launch counter read
+   around the whole run, around one step (exactly 2 each of K6, K7 and
+   K8) and around one ``predict`` (2 of K6); ms per step, images/s,
+   model TFLOP/s, the device's busy share and time by kernel class,
+   peak memory, falling losses; conv1 timed through space-to-depth and
+   as a strided conv;
+10. classifier parity on the card: the 10-class 64 x 64 AlexNet at
+   f32, batch 8, dropout on, through the kernels and through their
+   plain versions from one seed (the masks equal bitwise): the first
+   step's gradient of every parameter, then 3 steps' losses and
+   parameters; then the full-width bf16 forward logits.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -109,6 +128,29 @@ SPEC_ACCEPT_MIN = 0.7
 #: the training phase: bench_transformer.py's batch and learning rate
 TRAIN_BATCH = 8
 TRAIN_LR = 1e-4
+#: the classifier phases: bench.py's flagship batch and hyperparameters
+CLASSIFIER_BATCH = 1536
+CLASSIFIER_HYPER = dict(learning_rate=0.01, momentum=0.9, weight_decay=5e-4)
+#: AlexNet's LRN layers: (k, n, alpha, beta)
+LRN_SPEC = (2.0, 5, 1e-4, 0.75)
+#: f32 operations per element for the bound's operation side (the bytes
+#: side bounds all three): K6 squares, sums and scales a window of 5
+#: (~16 with the power), K7 does that and a second window (~32); a
+#: Philox-4x32-10 block is ~10 rounds of 2 multiplies and 4 other
+#: integer ops for 4 elements (~16 each)
+LRN_FWD_OPS_PER_ELEM = 16
+LRN_BWD_OPS_PER_ELEM = 32
+PHILOX_OPS_PER_ELEM = 16
+#: K6/K7 vs plain, as a share of the plain output's largest magnitude:
+#: the same formula in the same order with round-to-nearest sums and
+#: products, so they differ at most by the power function's last bit: a
+#: few f32 ulps, or one bf16 rounding of the result (2^-8)
+TOL_LRN = {"float32": 1e-5, "bfloat16": 1e-2}
+#: phase 10: kernels vs plain at f32 (masks bitwise equal; LRN and
+#: cuDNN's sum order differ), as a share of each leaf's scale, and the
+#: bf16 full-width logits as a share of the logit scale (an LRN output
+#: one bf16 ulp off moves the logits by a few bf16 ulps)
+TOL_CLASSIFIER = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def log(msg):
@@ -142,6 +184,10 @@ def time_ms(fn, reps):
 #: port's own kernels, cuBLAS products, then PyTorch's native kernels
 KERNEL_CLASSES = (
     ("flash kernels", ("flash_",)),
+    ("LRN and fill kernels", ("lrn_", "uniform_fill")),
+    ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "cudnn",
+                             "convolve", "conv2d")),
+    ("pooling", ("pool",)),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
     ("copies and casts", ("copy",)),
     ("reductions", ("reduce", "softmax", "norm")),
@@ -494,6 +540,156 @@ def backward_kernels(torch, fa, dev, randn, h, d, rows):
             plain_note="plain backward computes dQ, dK and dV together",
             bound_ms=bms, bound_by=by, library_ms=lib_ms,
             library_note="SDPA backward alone (dQ, dK, dV together)")
+
+
+def lrn_fill_kernels(torch, dev):
+    """K6/K7 against their plain versions at AlexNet's LRN shapes at
+    bench.py's batch (bf16 and f32) and at a ragged row count with an
+    odd C and an even window; K8 bitwise against its plain version at
+    the dropout mask's shape and an odd size. Each is timed (bf16 for
+    the LRN) beside its plain version, one PyTorch call and the card's
+    bound; K6/K7 also at f32, the kernels alone (``ms_f32``: twice the
+    bytes). Returns the three kernel rows."""
+    from veles_tpu_torch.ops import lrn, rng
+    import torch.nn.functional as F
+
+    log("phase 2: LRN (K6, K7) and the uniform fill (K8) vs plain PyTorch")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    k, n, alpha, beta = LRN_SPEC
+    rows, errs = {}, {"lrn_fwd": 0.0, "lrn_bwd": 0.0}
+    f32_ms = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for shape, nn_, al in (((CLASSIFIER_BATCH, 55, 55, 96), n, alpha),
+                               ((CLASSIFIER_BATCH, 27, 27, 256), n, alpha),
+                               ((1001, 7, 37), 4, 5e-3)):
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype) * 3
+            dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            y = lrn.lrn_fwd(x, k, nn_, al, beta, impl="cuda")
+            py = lrn.lrn_fwd(x, k, nn_, al, beta, impl="plain")
+            torch.cuda.synchronize()
+            err = float((y.float() - py.float()).abs().max())
+            check("lrn_fwd %s %s n=%d (share of scale)" % (dn, list(shape),
+                                                          nn_),
+                  err / float(py.float().abs().max()), TOL_LRN[dn])
+            del y, py
+            dx = lrn.lrn_bwd(x, dy, k, nn_, al, beta, impl="cuda")
+            pdx = lrn.lrn_bwd(x, dy, k, nn_, al, beta, impl="plain")
+            torch.cuda.synchronize()
+            err_b = float((dx.float() - pdx.float()).abs().max())
+            check("lrn_bwd %s %s n=%d (share of scale)" % (dn, list(shape),
+                                                          nn_),
+                  err_b / float(pdx.float().abs().max()), TOL_LRN[dn])
+            del dx, pdx
+            if dtype is torch.bfloat16 and shape[0] == CLASSIFIER_BATCH:
+                errs["lrn_fwd"] = max(errs["lrn_fwd"], err)
+                errs["lrn_bwd"] = max(errs["lrn_bwd"], err_b)
+                rows[shape[-1]] = _time_lrn(torch, F, lrn, x, dy, shape)
+            elif shape[0] == CLASSIFIER_BATCH:
+                f32_ms[shape[-1]] = dict(
+                    lrn_fwd=time_ms(lambda: lrn.lrn_fwd_cuda(
+                        x, k, n, alpha, beta), 10),
+                    lrn_bwd=time_ms(lambda: lrn.lrn_bwd_cuda(
+                        x, dy, k, n, alpha, beta), 10))
+            del x, dy
+    layers = {96: "LRN1", 256: "LRN2"}
+    out = {}
+    for name, line in (("lrn_fwd", 101), ("lrn_bwd", 124)):
+        row = dict(rows[96][name], ms_f32=f32_ms[96][name])
+        row.update(
+            name=name, route="cuda",
+            source="veles_tpu_torch/ops/csrc/lrn.cu",
+            replaces="veles_tpu/ops/lrn_pallas.py:%d" % line,
+            shape="x%s [%d, 55, 55, 96] bf16 (LRN1), k=%g n=%d alpha=%g "
+                  "beta=%g; LRN2 [%d, 27, 27, 256] under lrn2" % (
+                      ", dy" if name == "lrn_bwd" else "", CLASSIFIER_BATCH,
+                      k, n, alpha, beta, CLASSIFIER_BATCH),
+            max_abs_err=errs[name],
+            lrn2=dict(rows[256][name], layer=layers[256],
+                      ms_f32=f32_ms[256][name]),
+            library_note="torch.nn.functional.local_response_norm on the "
+                         "NCHW view" + (" (its autograd backward)"
+                                        if name == "lrn_bwd" else ""))
+        out[name] = row
+
+    # K8: the dropout mask's [B, 4096] and an odd count, bitwise
+    for shape, low, high in (((CLASSIFIER_BATCH, 4096), 0.0, 1.0),
+                             ((1000003,), -2.0, 3.0)):
+        for seed in (0, 2 ** 63 + 11):
+            a = rng.uniform_fill(seed, shape, low=low, high=high,
+                                 device=dev, impl="cuda")
+            b = rng.uniform_fill(seed, shape, low=low, high=high,
+                                 device=dev, impl="plain")
+            same = bool(torch.equal(a, b))
+            log("  uniform_fill %s [%g, %g) seed %d: kernel == plain "
+                "bitwise: %s" % (list(shape), low, high, seed, same))
+            if not same:
+                raise AssertionError("uniform_fill kernel != plain")
+    shape = (CLASSIFIER_BATCH, 4096)
+    numel = shape[0] * shape[1]
+    key = rng._key(12345)
+    cuda_gen = torch.Generator(device=dev)
+    bms, by = bound(PHILOX_OPS_PER_ELEM * numel, 4 * numel, "float32")
+    out["uniform_fill"] = dict(
+        name="uniform_fill", route="cuda",
+        source="veles_tpu_torch/ops/csrc/rng.cu",
+        replaces="veles_tpu/ops/rng.py:44",
+        shape="[%d, 4096] f32 (one dropout mask)" % CLASSIFIER_BATCH,
+        max_abs_err=0.0, bitwise_equal_plain=True,
+        ms=time_ms(lambda: rng.uniform_fill_cuda(numel, key, dev), 50),
+        plain_ms=time_ms(lambda: rng._plain_fill(numel, key, dev, 1.0, 0.0,
+                                                 False), 5),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: torch.rand(shape, generator=cuda_gen,
+                                              device=dev), 50),
+        library_note="torch.rand on a CUDA generator (Philox too)")
+    for row in out.values():
+        log("  %s: kernel %.4f ms, plain %.4f ms, library %.4f ms, bound "
+            "%.4f ms (%s), max abs err %.3e [%s]" % (
+                row["name"], row["ms"], row["plain_ms"], row["library_ms"],
+                row["bound_ms"], row["bound_by"], row["max_abs_err"],
+                row["shape"]))
+        if "lrn2" in row:
+            r2 = row["lrn2"]
+            log("    at LRN2: kernel %.4f ms, plain %.4f ms, library %.4f "
+                "ms, bound %.4f ms" % (r2["ms"], r2["plain_ms"],
+                                       r2["library_ms"], r2["bound_ms"]))
+            log("    kernel at f32: LRN1 %.4f ms, LRN2 %.4f ms"
+                % (row["ms_f32"], r2["ms_f32"]))
+    return out
+
+
+def _time_lrn(torch, F, lrn, x, dy, shape):
+    """K6 and K7 timed at one bf16 shape beside their plain versions,
+    the library call and the bound (bytes: x read and y written; x and
+    dy read and dx written)."""
+    k, n, alpha, beta = LRN_SPEC
+    numel = x.numel()
+    res = {}
+    xl = x.permute(0, 3, 1, 2)                      # NCHW view
+    res["lrn_fwd"] = dict(
+        ms=time_ms(lambda: lrn.lrn_fwd_cuda(x, k, n, alpha, beta), 20),
+        plain_ms=time_ms(lambda: lrn._plain_fwd(x, k, n, alpha, beta), 3),
+        library_ms=time_ms(lambda: F.local_response_norm(
+            xl, n, alpha, beta, k), 5))
+    res["lrn_fwd"]["bound_ms"], res["lrn_fwd"]["bound_by"] = bound(
+        LRN_FWD_OPS_PER_ELEM * numel, 2 * numel * x.element_size(),
+        "float32")
+    xg = xl.detach().requires_grad_()
+    out = F.local_response_norm(xg, n, alpha, beta, k)
+    dyl = dy.permute(0, 3, 1, 2)
+    res["lrn_bwd"] = dict(
+        ms=time_ms(lambda: lrn.lrn_bwd_cuda(x, dy, k, n, alpha, beta), 20),
+        plain_ms=time_ms(lambda: lrn._plain_bwd(x, dy, k, n, alpha, beta),
+                         3),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            out, xg, dyl, retain_graph=True), 5))
+    res["lrn_bwd"]["bound_ms"], res["lrn_bwd"]["bound_by"] = bound(
+        LRN_BWD_OPS_PER_ELEM * numel, 3 * numel * x.element_size(),
+        "float32")
+    del out, xg
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1307,6 +1503,249 @@ def paged_parity_phase(torch, fa, dev, card):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 9: classifier training at full width
+# ---------------------------------------------------------------------------
+
+def _conv1_both_ways(torch, trainer, x):
+    """conv1 (11 x 11, stride 4, on RGB) through the space-to-depth
+    rewrite the trainer takes and through the plain strided conv, at
+    the phase's batch in bf16: forward alone, then forward + backward
+    to the weights."""
+    from veles_tpu_torch.nn.conv import conv_raw, conv_s2d_raw
+    _, _, strides, padding = trainer.specs[0]
+    w = trainer.params[0]["w"]
+    b = trainer.params[0]["b"]
+    xb = x.to(torch.bfloat16)
+    out = {}
+    for name, fn in (("s2d", conv_s2d_raw), ("plain", conv_raw)):
+        def fwd():
+            with torch.no_grad():
+                return fn(xb, w, b, strides, padding, torch.bfloat16,
+                          torch.bfloat16)
+
+        def fwd_bwd():
+            y = fn(xb, w, b, strides, padding, torch.bfloat16,
+                   torch.bfloat16)
+            return torch.autograd.grad(y.float().sum(), w)
+
+        out[name] = dict(fwd_ms=time_ms(fwd, 5), fwd_bwd_ms=time_ms(fwd_bwd,
+                                                                     5))
+    faster = min(out, key=lambda kk: out[kk]["fwd_bwd_ms"])
+    log("  conv1 [%d, 224, 224, 3] bf16: space-to-depth fwd %.3f ms, "
+        "fwd+bwd %.3f ms; strided conv fwd %.3f ms, fwd+bwd %.3f ms; "
+        "faster: %s" % (x.shape[0], out["s2d"]["fwd_ms"],
+                        out["s2d"]["fwd_bwd_ms"], out["plain"]["fwd_ms"],
+                        out["plain"]["fwd_bwd_ms"], faster))
+    out["faster_fwd_bwd"] = faster
+    return out
+
+
+def classifier_phase(torch, counters, dev, card):
+    from veles_tpu_torch.models.flagship import alexnet_fused
+    from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
+
+    b = CLASSIFIER_BATCH
+    log("phase 9: classifier training, AlexNet (1000 classes, 224 x 224 "
+        "x 3, seed 0), batch %d, bf16, %s" % (b, CLASSIFIER_HYPER))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    specs, params, fwd_flops = alexnet_fused()
+    n_params = sum(p["w"].size + p["b"].size for p in params if p)
+    trainer = FusedClassifierTrainer(specs, params, device=dev,
+                                     **CLASSIFIER_HYPER)
+    del params
+    data = np.random.default_rng(1)              # bench.py:85-88
+    x = torch.from_numpy(data.random((b, 224, 224, 3),
+                                     dtype=np.float32)).to(dev)
+    labels = torch.from_numpy(data.integers(0, 1000, b)).to(dev)
+    setup_s = time.monotonic() - t0
+
+    counters.reset()
+    losses = [trainer.step(x, labels)["loss"] for _ in range(3)]  # warm-up
+    torch.cuda.synchronize()
+    before = counters.read()
+    losses.append(trainer.step(x, labels)["loss"])
+    torch.cuda.synchronize()
+    one_step = counters.delta(before)
+    n_timed = 10
+    t0 = time.monotonic()
+    for _ in range(n_timed):
+        losses.append(trainer.step(x, labels)["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) * 1e3 / n_timed
+    k_many = 4
+    t0 = time.monotonic()
+    many = trainer.step_many(x[None].expand(k_many, *x.shape),
+                             labels[None].expand(k_many, b))
+    torch.cuda.synchronize()
+    many_ms = (time.monotonic() - t0) * 1e3 / k_many
+    launches = counters.read()
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(many["loss"].shape) != (k_many,):
+        raise AssertionError("step_many returned losses of shape %s"
+                             % (tuple(many["loss"].shape),))
+    losses = torch.stack(losses + list(many["loss"])).tolist()
+    expect = {"lrn_fwd": 2, "lrn_bwd": 2, "uniform_fill": 2}
+    log("  launches around one step: %s (need exactly %s)"
+        % (one_step, expect))
+    if {kk: v for kk, v in one_step.items() if v} != expect:
+        raise AssertionError("classifier step launches %s != %s"
+                             % (one_step, expect))
+    before = counters.read()
+    logits = trainer.predict(x)
+    torch.cuda.synchronize()
+    predict_launches = counters.delta(before)
+    log("  launches around one predict: %s (need exactly lrn_fwd 2)"
+        % (predict_launches,))
+    if {kk: v for kk, v in predict_launches.items() if v} != {"lrn_fwd": 2}:
+        raise AssertionError("predict launches %s" % (predict_launches,))
+    if tuple(logits.shape) != (b, 1000) or logits.dtype != torch.float32 \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("predict gave %s %s" % (tuple(logits.shape),
+                                                     logits.dtype))
+    del logits
+
+    images_per_s = b * 1e3 / step_ms
+    step_flops = 3 * fwd_flops * b               # bench.py's formula
+    log("  %d params; set-up %.1f s; ms per step %.3f (window of %d), "
+        "step_many(%d) %.3f ms per step; %.1f images/s; model %.1f TFLOP/s "
+        "(%.3f TFLOP per step, bf16 peak bound %.3f ms); peak memory %.2f "
+        "GB [%s]" % (n_params, setup_s, step_ms, n_timed, k_many, many_ms,
+                     images_per_s, step_flops / step_ms / 1e9,
+                     step_flops / 1e12, step_flops / PEAK_FLOPS["bfloat16"]
+                     * 1e3, peak / 1e9, card))
+    log("  losses: %s" % ", ".join("%.4f" % v for v in losses))
+    if not all(np.isfinite(losses)) or trainer.nonfinite_count:
+        raise AssertionError("non-finite classifier loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        raise AssertionError("loss did not fall on the fixed batch: %s"
+                             % losses)
+
+    prof = profile_device(
+        torch, lambda: float(trainer.step(x, labels)["loss"]), 2)
+    if prof is None:
+        log("  profile classifier step: no device time recorded")
+    else:
+        log("  profile classifier step: wall %.3f ms, device %.3f ms (busy "
+            "%.0f%%); top kernels: %s" % (
+                prof["wall_ms"], prof["device_ms"], 100 * prof["busy_share"],
+                "; ".join("%s %.3f ms x%g" % (r["kernel"][:40], r["ms"],
+                                              r["launches"])
+                          for r in prof["top"][:6])))
+        log("  classifier step device time by class: %s" % "; ".join(
+            "%s %.3f ms" % kv for kv in sorted(
+                prof["by_class"].items(), key=lambda kv: -kv[1])))
+    conv1 = _conv1_both_ways(torch, trainer, x)
+    del trainer, x, labels, many
+    return dict(batch=b, n_params=n_params, hyper=CLASSIFIER_HYPER,
+                setup_s=setup_s, step_ms=step_ms, timed_steps=n_timed,
+                step_many_k=k_many, step_many_ms_per_step=many_ms,
+                images_per_s=images_per_s, fwd_flops_per_image=fwd_flops,
+                model_tflops=step_flops / step_ms / 1e9,
+                peak_mem_bytes=peak, losses=losses,
+                launches_one_step=one_step,
+                launches_predict=predict_launches, profile=prof,
+                conv1=conv1), launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: classifier parity on the card
+# ---------------------------------------------------------------------------
+
+def classifier_parity_phase(torch, dev):
+    from veles_tpu_torch.models.flagship import alexnet_fused
+    from veles_tpu_torch.ops.rng import fold_in, uniform_fill
+    from veles_tpu_torch.parallel.fused import (FusedClassifierTrainer,
+                                                _leaves, _loss_fn)
+
+    n_steps = 3
+    log("phase 10: classifier parity, AlexNet (10 classes, 64 x 64) f32, "
+        "batch 8, dropout 0.5, kernels vs plain, %d steps" % n_steps)
+    specs, params, _ = alexnet_fused(n_classes=10, image_size=64)
+    data = np.random.default_rng(7)
+    batches = [(torch.from_numpy(data.random((8, 64, 64, 3),
+                                             dtype=np.float32)).to(dev),
+                torch.from_numpy(data.integers(0, 10, 8)).to(dev))
+               for _ in range(n_steps)]
+    # the first step's dropout masks, both ways
+    for layer in (11, 13):
+        seed = fold_in(fold_in(0, 1), layer)
+        if not torch.equal(
+                uniform_fill(seed, (8, 4096), device=dev, impl="cuda"),
+                uniform_fill(seed, (8, 4096), device=dev, impl="plain")):
+            raise AssertionError("dropout mask of layer %d differs" % layer)
+    runs = {}
+    for impl in ("cuda", "plain"):
+        t = FusedClassifierTrainer(specs, params, compute_dtype="float32",
+                                   kernel_impl=impl, device=dev,
+                                   **CLASSIFIER_HYPER)
+        x0, y0 = batches[0]
+        loss, _ = _loss_fn(t.specs, True, t.params, x0, y0,
+                           fold_in(t.dropout_seed, 1), t.compute_dtype, impl)
+        grads = [g.detach() for g in torch.autograd.grad(
+            loss, _leaves(t.params))]
+        losses = [float(t.step(x, y)["loss"]) for x, y in batches]
+        runs[impl] = (losses, grads, _leaves(t.params))
+        del t
+    (lk, gk, pk), (lp, gp, pp) = runs["cuda"], runs["plain"]
+
+    def share(a, c):
+        return float((a - c).abs().max() / c.abs().max().clamp_min(1e-30))
+
+    grad_err = max(share(a, c) for a, c in zip(gk, gp))
+    param_err = max(share(a.detach(), c.detach()) for a, c in zip(pk, pp))
+    loss_err = max(abs(a - c) / abs(c) for a, c in zip(lk, lp))
+    log("  losses kernels %s, plain %s" % (lk, lp))
+    check("classifier grads step 1, kernels vs plain (share of each "
+          "leaf's scale)", grad_err, TOL_CLASSIFIER["float32"])
+    check("classifier losses, kernels vs plain (relative)", loss_err,
+          TOL_CLASSIFIER["float32"])
+    check("classifier params after %d steps (share of each leaf's scale)"
+          % n_steps, param_err, TOL_CLASSIFIER["float32"])
+
+    # the full-width bf16 forward, kernels vs plain, on 64 images
+    specs, params, _ = alexnet_fused()
+    x = torch.from_numpy(np.random.default_rng(8).random(
+        (64, 224, 224, 3), dtype=np.float32)).to(dev)
+    logits = {}
+    for impl in ("cuda", "plain"):
+        t = FusedClassifierTrainer(specs, params, kernel_impl=impl,
+                                   device=dev)
+        logits[impl] = t.predict(x)
+        del t
+    err = float((logits["cuda"] - logits["plain"]).abs().max())
+    scale = float(logits["plain"].abs().max())
+    log("  bf16 full-width forward logits [64, 1000]: max |kernel - plain| "
+        "%.4e (logit scale %.4f)" % (err, scale))
+    check("classifier bf16 logits, kernels vs plain (share of scale)",
+          err / scale, TOL_CLASSIFIER["bfloat16"])
+    return dict(losses_kernels=lk, losses_plain=lp, loss_rel_err=loss_err,
+                grad_rel_err=grad_err, param_rel_err=param_err,
+                steps=n_steps, bf16_logit_err=err, bf16_logit_scale=scale)
+
+
+class Counters:
+    """Every kernel's launch counter, read and reset together."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+
+    def reset(self):
+        for mod in self.modules:
+            mod.reset_launches()
+
+    def read(self):
+        out = {}
+        for mod in self.modules:
+            out.update(mod.LAUNCHES)
+        return out
+
+    def delta(self, before):
+        now = self.read()
+        return {kk: now[kk] - before.get(kk, 0) for kk in now}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1316,6 +1755,8 @@ def main():
     try:
         from veles_tpu_torch.ops import _build
         from veles_tpu_torch.ops import flash_attention as fa
+        from veles_tpu_torch.ops import lrn as lrn_ops
+        from veles_tpu_torch.ops import rng as rng_ops
     except ImportError as e:
         print("chip_smoke: the port is not beside this script (%s)" % e,
               file=sys.stderr)
@@ -1337,19 +1778,26 @@ def main():
                 log("    %s: %s" % (name, line.strip()))
 
     rows = kernel_phase(torch, fa, dev)
+    rows.update(lrn_fill_kernels(torch, dev))
     serve, serve_launches = serving_phase(torch, fa, dev, card)
     parity = parity_phase(torch, dev)
     train, train_launches = training_phase(torch, fa, dev, card)
     train_parity = train_parity_phase(torch, dev)
     paged, paged_launches = paged_serving_phase(torch, fa, dev, card, serve)
     paged_parity = paged_parity_phase(torch, fa, dev, card)
+    counters = Counters(fa, lrn_ops, rng_ops)
+    classifier, classifier_launches = classifier_phase(torch, counters, dev,
+                                                       card)
+    classifier_parity = classifier_parity_phase(torch, dev)
 
     # each main path's launches, counted from 0 around that path alone
     by_path = {"serving": serve_launches, "training": train_launches,
-               "paged serving": paged_launches}
+               "paged serving": paged_launches,
+               "classifier training": classifier_launches}
     kernels = []
     for name, row in rows.items():
-        paths = {p: n[name] for p, n in by_path.items() if n[name]}
+        paths = {p: n.get(name, 0) for p, n in by_path.items()
+                 if n.get(name, 0)}
         if not paths:
             raise AssertionError("%s was launched on no main path" % name)
         row = dict(row, launches=sum(paths.values()),
@@ -1362,6 +1810,8 @@ def main():
                   kernels=kernels, serving=serve, parity=parity,
                   training=train, training_parity=train_parity,
                   paged_serving=paged, paged_parity=paged_parity,
+                  classifier=classifier,
+                  classifier_parity=classifier_parity,
                   wall_s=time.monotonic() - t_start)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:

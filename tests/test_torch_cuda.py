@@ -305,3 +305,129 @@ def test_paged_engine_through_the_kernel_equals_plain(cuda):
         launches = fa.LAUNCHES["flash_decode_paged"]
         assert launches == (2 * 23 if impl == "cuda" else 0)
     assert outs["cuda"] == outs["plain"]
+
+
+# ---------------------------------------------------------------------------
+# the classifier slice: LRN (K6, K7), the uniform fill (K8), the trainer
+# ---------------------------------------------------------------------------
+
+#: K6/K7 vs their plain versions, as a share of the output's largest
+#: magnitude: both run the Pallas kernels' formula in the same order
+#: with round-to-nearest products and sums, so they differ at most by
+#: the power function's last bit (CUDA's powf against the pow PyTorch
+#: calls): a few f32 ulps, or one bf16 rounding of the result (2^-8).
+LRN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,n", [((3, 5, 7, 96), 5),
+                                     ((2, 3, 11, 256), 5),
+                                     ((1000, 37), 5),
+                                     ((33, 96), 4),
+                                     ((7, 600), 9),
+                                     ((5, 3), 1)])
+def test_lrn_kernels_match_plain(cuda, dtype, shape, n):
+    """K6 and K7 against the plain versions: AlexNet's channel counts,
+    a ragged row count, an odd C, even and wide windows, C > 256 (two
+    channel tiles)."""
+    from veles_tpu_torch.ops import lrn
+    rng = np.random.default_rng(n * len(shape))
+    x = _randn(rng, shape, dtype, cuda) * 3
+    dy = _randn(rng, shape, dtype, cuda)
+    k, alpha, beta = 2.0, 5e-3, 0.75
+    lrn.reset_launches()
+    y = lrn.lrn_fwd(x, k, n, alpha, beta, impl="cuda")
+    dx = lrn.lrn_bwd(x, dy, k, n, alpha, beta, impl="cuda")
+    assert lrn.LAUNCHES == {"lrn_fwd": 1, "lrn_bwd": 1}
+    py = lrn.lrn_fwd(x, k, n, alpha, beta, impl="plain")
+    pdx = lrn.lrn_bwd(x, dy, k, n, alpha, beta, impl="plain")
+    torch.cuda.synchronize()
+    assert y.dtype == dx.dtype == dtype
+    assert _rel(y, py) <= LRN_TOL[dtype]
+    assert _rel(dx, pdx) <= LRN_TOL[dtype]
+
+
+def test_lrn_kernels_read_rows_in_place(cuda):
+    """A row-strided view (every other row of a bigger tensor) gives the
+    same result as its contiguous copy; a tensor whose rows cannot be
+    viewed with one stride is refused, not copied."""
+    from veles_tpu_torch.ops import lrn
+    rng = np.random.default_rng(3)
+    base = _randn(rng, (40, 96), torch.float32, cuda)
+    view = base[::2]
+    y = lrn.lrn_fwd(view, 2.0, 5, 1e-3, 0.75, impl="cuda")
+    ref = lrn.lrn_fwd(view.contiguous(), 2.0, 5, 1e-3, 0.75, impl="cuda")
+    assert torch.equal(y, ref)
+    dx = lrn.lrn_bwd(view, view, 2.0, 5, 1e-3, 0.75, impl="cuda")
+    assert torch.equal(dx, lrn.lrn_bwd(view.contiguous(), view.contiguous(),
+                                       2.0, 5, 1e-3, 0.75, impl="cuda"))
+    with pytest.raises(ValueError, match="row stride"):
+        lrn.lrn_fwd(base.reshape(4, 10, 96)[:, :5], 2.0, 5, 1e-3, 0.75,
+                    impl="cuda")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        lrn.lrn_fwd(base.half(), 2.0, 5, 1e-3, 0.75, impl="cuda")
+
+
+@pytest.mark.parametrize("shape", [(1,), (7, 3), (1536, 4096),
+                                   (4 * 33 * 256 + 3,)])
+@pytest.mark.parametrize("low,high", [(0.0, 1.0), (-2.0, 3.0)])
+def test_uniform_fill_kernel_equals_plain_bitwise(cuda, shape, low, high):
+    from veles_tpu_torch.ops import rng
+    for seed in (0, 12345, 2 ** 63 + 5):
+        rng.reset_launches()
+        out = rng.uniform_fill(seed, shape, low=low, high=high,
+                               device=cuda)
+        assert rng.LAUNCHES["uniform_fill"] == 1
+        ref = rng.uniform_fill(seed, shape, low=low, high=high,
+                               device=cuda, impl="plain")
+        assert torch.equal(out, ref)
+        assert torch.equal(out.cpu(), rng.uniform_fill(
+            seed, shape, low=low, high=high, device="cpu"))
+
+
+def test_classifier_step_kernels_match_plain(cuda):
+    """One FusedClassifierTrainer step of a small conv net (conv, LRN,
+    pools, FC, dropout 0.5) at f32 through the kernels and through
+    their plain versions from one seed: the dropout masks are equal
+    bitwise, LRN differs at most in powf's last bit, so the losses and
+    the updated params agree to 1e-5 of their scale; the launches are
+    two of K6, two of K7 and one of K8 per step."""
+    from veles_tpu_torch.models.flagship import fused_from_layer_dicts
+    from veles_tpu_torch.ops import lrn, rng
+    from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    layers = [
+        {"type": "conv_relu", "n_kernels": 16, "kx": 5, "sliding": (2, 2),
+         "padding": 2},
+        {"type": "lrn"},
+        {"type": "max_pooling", "kx": 3, "sliding": (2, 2)},
+        {"type": "conv_relu", "n_kernels": 96, "kx": 3, "padding": 1},
+        {"type": "lrn"},
+        {"type": "max_pooling", "kx": 3, "sliding": (2, 2)},
+        {"type": "all2all_relu", "output_sample_shape": 64},
+        {"type": "dropout", "dropout_ratio": 0.5},
+        {"type": "softmax", "output_sample_shape": 10}]
+    specs, params, _ = fused_from_layer_dicts(layers, (32, 32, 3))
+    data = np.random.default_rng(0)
+    x = data.random((8, 32, 32, 3), dtype=np.float32)
+    y = data.integers(0, 10, 8)
+    runs = {}
+    for impl in ("cuda", "plain"):
+        t = FusedClassifierTrainer(specs, params, learning_rate=0.01,
+                                   momentum=0.9, weight_decay=5e-4,
+                                   compute_dtype="float32",
+                                   kernel_impl=impl, device=cuda)
+        lrn.reset_launches()
+        rng.reset_launches()
+        loss = float(t.step(x, y)["loss"])
+        launches = dict(lrn.LAUNCHES, **rng.LAUNCHES)
+        runs[impl] = (loss, t.params_numpy(), launches)
+    (lk, pk, nk), (lp, pp, np_) = runs["cuda"], runs["plain"]
+    assert nk == {"lrn_fwd": 2, "lrn_bwd": 2, "uniform_fill": 1}
+    assert set(np_.values()) == {0}
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(pk, pp):
+        for key in a:
+            assert np.abs(a[key] - b[key]).max() <= \
+                1e-5 * max(np.abs(b[key]).max(), 1e-30)

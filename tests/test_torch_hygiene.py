@@ -35,7 +35,9 @@ def test_import_closure_has_no_jax_and_no_veles_tpu():
     ``veles_tpu`` out of ``sys.modules`` (compare the first dotted
     component: ``veles_tpu_torch`` starts with ``veles_tpu``)."""
     modules = _port_modules()
-    assert "veles_tpu_torch.serve.engine" in modules
+    for name in ("serve.engine", "parallel.fused", "models.flagship",
+                 "nn.conv", "nn.lrn", "nn.pooling", "ops.lrn", "ops.rng"):
+        assert "veles_tpu_torch." + name in modules
     script = (
         "import importlib, json, sys\n"
         "for name in %r:\n"
@@ -71,10 +73,13 @@ def test_sources_import_no_jax_and_no_veles_tpu():
 def test_no_silent_cpu_fallback(monkeypatch):
     """``device=None`` means the CUDA card; without one it raises and
     tells the caller to ask for the CPU, which then works."""
+    from veles_tpu_torch.models.flagship import flagship_specs
     from veles_tpu_torch.models.transformer import (TransformerConfig,
                                                     TransformerTrainer,
                                                     init_kv_cache,
                                                     init_params)
+    from veles_tpu_torch.ops.rng import uniform_fill
+    from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
     from veles_tpu_torch.serve import GenerativeEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -89,6 +94,10 @@ def test_no_silent_cpu_fallback(monkeypatch):
         TransformerTrainer(config)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_device.resolve(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FusedClassifierTrainer(*flagship_specs((4, 2), in_dim=3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        uniform_fill(0, (4,))
     engine = GenerativeEngine(config, params, max_slots=1, device="cpu")
     assert engine.device == torch.device("cpu")
     assert engine.generate([np.asarray([1, 2], np.int32)], 2)[0].size == 2
@@ -105,13 +114,15 @@ def test_kernel_build_is_lazy():
     """Importing the kernel wrappers builds and loads nothing: the
     libraries come at the first launch on a CUDA tensor."""
     script = ("from veles_tpu_torch.ops import _build, flash_attention\n"
+              "from veles_tpu_torch.ops import lrn, rng\n"
+              "from veles_tpu_torch.parallel import fused\n"
               "print(len(_build._libs), _build.sources())\n")
     out = subprocess.run([sys.executable, "-c", script],
                          env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split(None, 1) == [
-        "0", "['flash_bwd', 'flash_decode', 'flash_fwd']\n"]
+        "0", "['flash_bwd', 'flash_decode', 'flash_fwd', 'lrn', 'rng']\n"]
 
 
 def test_build_key_covers_shared_headers(tmp_path, monkeypatch):

@@ -243,7 +243,23 @@ def test_server_generate_plain_and_stream_match_jax():
         server.stop()
 
 
-def test_server_trace_round_trip():
+@pytest.fixture
+def empty_exemplars():
+    """The process-wide exemplar table emptied for one test and
+    restored after: it keeps the 16 slowest requests of the process, so
+    requests of earlier tests in the same worker can crowd out a fast
+    one of this test."""
+    from veles_tpu_torch.obs.trace import EXEMPLARS
+    with EXEMPLARS._lock:
+        saved, EXEMPLARS._rows = EXEMPLARS._rows, []
+    try:
+        yield EXEMPLARS
+    finally:
+        with EXEMPLARS._lock:
+            EXEMPLARS._rows = saved
+
+
+def test_server_trace_round_trip(empty_exemplars):
     """A client-supplied X-Trace-Id is echoed, its spans (HTTP front,
     queue, prefill, decode, request) come back from /debug/trace, and
     the request shows up among /metrics' slowest exemplars."""

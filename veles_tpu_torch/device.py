@@ -30,11 +30,12 @@ def resolve(device: Optional[Union[str, torch.device]] = None
 
 
 def compute_dtype(name: str) -> torch.dtype:
-    """``TransformerConfig.compute`` -> torch dtype (f32 master params
-    stay f32; activations run in this dtype)."""
+    """A compute dtype's name (``TransformerConfig.compute``, the fused
+    trainer's ``compute_dtype``) -> torch dtype (f32 master params stay
+    f32; activations run in this dtype)."""
     try:
         return _DTYPES[name]
     except KeyError:
         raise ValueError(
-            "TransformerConfig.compute must be 'float32' or "
-            "'bfloat16', got %r" % (name,)) from None
+            "the compute dtype must be 'float32' or 'bfloat16', got %r"
+            % (name,)) from None

@@ -22,6 +22,8 @@ import subprocess
 import threading
 from typing import Dict, List, Optional
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 
@@ -113,6 +115,21 @@ def library(name: str) -> ctypes.CDLL:
             lib.veles_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def resolve_impl(impl: Optional[str], device: torch.device,
+                 entry: str) -> str:
+    """A kernel wrapper's ``impl``: None -> "cuda" on a CUDA device,
+    else "plain"; "cuda" on another device raises."""
+    if impl not in (None, "plain", "cuda"):
+        raise ValueError("%s impl must be 'plain', 'cuda' or None, got %r"
+                         % (entry, impl))
+    if impl is None:
+        return "cuda" if device.type == "cuda" else "plain"
+    if impl == "cuda" and device.type != "cuda":
+        raise ValueError("%s impl='cuda' needs CUDA tensors, got %s"
+                         % (entry, device))
+    return impl
 
 
 def check(lib: ctypes.CDLL, name: str, rc: int) -> None:

@@ -72,18 +72,6 @@ def _round_up(x: int, mult: int) -> int:
     return -(-x // mult) * mult
 
 
-def _resolve_impl(impl: Optional[str], x: torch.Tensor, entry: str) -> str:
-    if impl not in (None, "plain", "cuda"):
-        raise ValueError("%s impl must be 'plain', 'cuda' or None, got %r"
-                         % (entry, impl))
-    if impl is None:
-        return "cuda" if x.is_cuda else "plain"
-    if impl == "cuda" and not x.is_cuda:
-        raise ValueError("%s impl='cuda' needs CUDA tensors, got %s"
-                         % (entry, x.device))
-    return impl
-
-
 # ---------------------------------------------------------------------------
 # plain PyTorch path (the lax formulation of the JAX package)
 # ---------------------------------------------------------------------------
@@ -556,7 +544,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
                          "q/k/v must match [B, T, H, D], got %r/%r/%r"
                          % (tuple(q.shape), tuple(k.shape),
                             tuple(v.shape)))
-    impl = _resolve_impl(impl, q, "flash_attention")
+    impl = _build.resolve_impl(impl, q.device, "flash_attention")
     t = q.shape[1]
     bk, t_pad = t, t
     if impl == "plain":
@@ -605,7 +593,7 @@ def flash_decode(q, k_cache, v_cache, lengths,
         raise ValueError("flash_decode caches are [B, S, H, D], got "
                          "%r/%r" % (tuple(k_cache.shape),
                                     tuple(v_cache.shape)))
-    impl = _resolve_impl(impl, q, "flash_decode")
+    impl = _build.resolve_impl(impl, q.device, "flash_decode")
     lengths = torch.as_tensor(lengths, dtype=torch.int32,
                               device=q.device)
     if impl == "cuda":
@@ -650,7 +638,7 @@ def flash_decode_paged(q, k_pages, v_pages, block_tables, lengths,
     :func:`flash_decode` ("cuda" runs the K5 kernel).
     """
     _check_paged("flash_decode_paged", q, k_pages, v_pages, block_tables, 3)
-    impl = _resolve_impl(impl, q, "flash_decode_paged")
+    impl = _build.resolve_impl(impl, q.device, "flash_decode_paged")
     n_blk, ps = block_tables.shape[1], k_pages.shape[1]
     lengths = torch.clamp(torch.as_tensor(lengths, dtype=torch.int32,
                                           device=q.device), max=n_blk * ps)
