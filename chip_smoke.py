@@ -8,17 +8,28 @@ without them, and on any failed phase. Phases, in order:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of every kernel in ``veles_tpu_torch/ops/csrc`` (parallel
-   ``nvcc``, timed, with ``ptxas`` register/spill lines);
+   ``nvcc``, timed, with each kernel's ``ptxas`` registers and spills);
+   ``cuobjdump -sass`` counts the Hopper instructions of the flash
+   libraries' kernels (``HGMMA``: wgmma; ``UTMALDG``: TMA loads), and
+   the phase fails unless the bf16 forward (K1) and dQ (K3) kernels
+   hold both;
 2. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (max errors against stated tolerances),
-   with the kernel's, the plain version's and one library call's time
-   and the card's lower bound for the work: the forward (K1), slab
+   with the kernel's and one library call's device time (the
+   profiler's kernel time, so the host's launch rate does not enter
+   it; the decode kernels K4, K5 and their library calls with the L2
+   cache flushed before each call, as a decode step finds its K/V; the
+   CUDA-event time of back-to-back calls is kept beside it),
+   the plain version's time and the card's lower bound for the work;
+   K1, K2 and K3 give bitwise the same result on a second launch on the
+   same inputs: the forward (K1), slab
    decode (K4) and paged decode (K5, the same K/V as K4's slab in a
    scrambled page pool, also compared bitwise with K4) kernels at the
    serving shapes, the backward kernels (K2 dK/dV, K3 dQ) at batch 2
    (bf16 and f32, full and ragged T), then K1, K2 and K3 at the
    training shape and layout (batch 8, q, k, v strided views of one
-   fused QKV projection); the LRN forward and backward kernels (K6, K7)
+   fused QKV projection, SDPA timed on the same views); the LRN forward
+   and backward kernels (K6, K7)
    at AlexNet's two LRN shapes at batch 1536 (bf16 and f32) and at a
    ragged row count with an odd C and an even window; the uniform fill
    (K8) bitwise against its plain version at the dropout mask's shape
@@ -87,6 +98,8 @@ line, ``{"ok": true, "device": {...}}``; the full record goes to
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -101,6 +114,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: operand type, and HBM bytes/s
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+L2_BYTES = 50 * 2 ** 20
 
 #: stated tolerances, kernel vs plain PyTorch on the same inputs: f32
 #: differs only in the order of f32 sums; bf16 rounds p and the output
@@ -180,6 +194,72 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+#: the host's pause at the profiler's step boundaries, and the count of
+#: device_ms readings that lost records and were taken again
+EDGE_PAUSE_S = 0.005
+RETAKES = [0]
+
+
+def device_ms(fn, reps, cold=False):
+    """Device time of one ``fn()``: the summed time of the CUDA kernels
+    that ``reps`` calls launch (torch.profiler), over ``reps``. The
+    profile records one step after a discarded warm-up step of at least
+    20 ms with tracing on. The host pauses for ``EDGE_PAUSE_S`` on each
+    side of the step boundaries: without the pause the profiler drops
+    kernels that ran close to an edge of the recorded step (seen on the
+    card as launch counts short by 1 to all of ``reps``). A reading is
+    kept only when every kernel's launch count is a multiple of
+    ``reps``; one that is not is taken again, three times at most, and
+    counted in ``RETAKES``. Unlike CUDA events around back-to-back
+    calls, the host's launch rate does not enter it. ``cold``: the L2 cache is flushed before each call (a
+    write of twice its 50 MB, whose kernels are left out), as a decode
+    step finds a layer's K/V after the other layers'."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def kernels(body):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < 0.02:
+                body()
+                torch.cuda.synchronize()
+            time.sleep(EDGE_PAUSE_S)
+            prof.step()
+            time.sleep(EDGE_PAUSE_S)
+            body()
+            torch.cuda.synchronize()
+            time.sleep(EDGE_PAUSE_S)
+            prof.step()
+        return {e.key: (e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count}
+
+    flush = None
+    if cold:
+        flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.float32,
+                            device="cuda").zero_
+
+    def timed():
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+
+    for _ in range(3):
+        skip = set(kernels(flush)) if cold else set()
+        seen = [(n, us) for key, (n, us) in kernels(timed).items()
+                if key not in skip]
+        if seen and (skip or not cold) and \
+                all(n % reps == 0 for n, _ in seen):
+            return sum(us for _, us in seen) / reps / 1e3
+        RETAKES[0] += 1
+    raise AssertionError("the profiler lost kernels of %r three times"
+                         % (fn,))
+
+
 #: device kernels by class, from the names the profiler records: the
 #: port's own kernels, cuBLAS products, then PyTorch's native kernels
 KERNEL_CLASSES = (
@@ -228,6 +308,88 @@ def profile_device(torch, fn, steps):
                      for k, ms, n in rows[:8]])
 
 
+#: SASS instructions of Hopper's units: wgmma and TMA loads
+SASS_OPS = ("HGMMA", "UTMALDG")
+#: the bf16 kernels that must run on them, by library
+HOPPER_KERNELS = {"flash_fwd": "flash_fwd_tma_kernel",
+                  "flash_bwd": "flash_bwd_dq_tma_kernel"}
+
+
+def demangle(names):
+    """Readable kernel names (``flash_fwd_tma_kernel<128>``) of mangled
+    ones, by ``c++filt`` (binutils, beside the compiler nvcc drives)."""
+    names = list(names)
+    text = subprocess.run(["c++filt"], input="\n".join(names), check=True,
+                          capture_output=True, text=True).stdout
+    return {name: re.sub(r"^void ", "", plain.replace(
+        "(anonymous namespace)::", "").split("(")[0])
+        for name, plain in zip(names, text.splitlines())}
+
+
+def sass_counts(lib_path):
+    """Per kernel of a library: how many of its SASS instructions are
+    each of SASS_OPS (``cuobjdump -sass``)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], check=True,
+                          capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name is not None:
+            for op in SASS_OPS:
+                if re.search(r"\b%s\b" % op, line):
+                    counts[name][op] += 1
+    plain = demangle(counts)
+    return {plain[n]: c for n, c in counts.items()}
+
+
+def ptxas_usage(log):
+    """Per kernel of a build log: ptxas's register line and spill line."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+        elif name is not None and ("registers" in line or "spill" in line):
+            usage.setdefault(name, []).append(line.split(":")[-1].strip())
+    plain = demangle(usage)
+    return {plain[n]: lines for n, lines in usage.items()}
+
+
+def hopper_units(_build, fa):
+    """Phase 1's proof that K1 and K3 reach Hopper's units: the SASS
+    counts of the flash libraries, ptxas's registers and spills and the
+    dynamic shared memory of the bf16 kernels; fails when K1's or K3's
+    bf16 kernel holds no wgmma or no TMA load."""
+    record = {}
+    for lib, stem in HOPPER_KERNELS.items():
+        counts = sass_counts(_build.build([lib])[lib])
+        usage = ptxas_usage(_build.build_log(lib))
+        entry = "flash_fwd" if lib == "flash_fwd" else "flash_bwd_dq"
+        for name in sorted(counts):
+            if not name.startswith(stem):
+                continue
+            d = int(name[name.index("<") + 1:-1])
+            smem = fa.hopper_smem_bytes(entry, d)
+            c = counts[name]
+            log("  %s: %d HGMMA, %d UTMALDG; ptxas %s; dynamic smem %d "
+                "bytes" % (name, c["HGMMA"], c["UTMALDG"],
+                           "; ".join(usage.get(name, [])), smem))
+            record[name] = dict(c, ptxas=usage.get(name, []),
+                                dynamic_smem=smem)
+            if not all(c[op] for op in SASS_OPS):
+                raise AssertionError("%s lacks %s" % (name, [
+                    op for op in SASS_OPS if not c[op]]))
+        if not any(n.startswith(stem) for n in counts):
+            raise AssertionError("%s holds no %s" % (lib, stem))
+    return record
+
+
 def bound(flops, nbytes, dtype_name):
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / PEAK_BYTES
@@ -263,9 +425,17 @@ def kernel_phase(torch, fa, dev):
             q, k, v = (randn((2, t, h, d), dtype) for _ in range(3))
             o, l, m = fa.flash_attention_fwd(q, k, v, causal=True,
                                              impl="cuda")
+            again = fa.flash_attention_fwd(q, k, v, causal=True,
+                                           impl="cuda")
             po, pl, pm = fa.flash_attention_fwd(q, k, v, causal=True,
                                                 impl="plain")
             torch.cuda.synchronize()
+            # a second launch on the same inputs must agree bitwise (no
+            # race, no read of unwritten memory)
+            if not all(torch.equal(a, b) for a, b in zip((o, l, m), again)):
+                raise AssertionError("flash_fwd %s T=%d: two launches on "
+                                     "the same inputs differ" % (dn, t))
+            del again
             err = float((o.float() - po.float()).abs().max())
             check("flash_fwd %s T=%d O" % (dn, t), err, TOL_OUT[dn])
             check("flash_fwd %s T=%d l (rel)" % (dn, t),
@@ -278,19 +448,22 @@ def kernel_phase(torch, fa, dev):
                 nbytes = 4 * q.numel() * q.element_size() + 2 * l.numel() * 4
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
                 sdpa = torch.nn.functional.scaled_dot_product_attention
-                ms = time_ms(lambda: fa.flash_fwd_cuda(q, k, v, True), 20)
+                ms = device_ms(lambda: fa.flash_fwd_cuda(q, k, v, True), 20)
                 plain_ms = time_ms(lambda: fa.flash_attention_fwd(
                     q, k, v, causal=True, impl="plain"), 3)
-                lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
-                                 20)
+                lib_ms = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
+                                   20)
                 bms, by = bound(flops, nbytes, dn)
                 rows["flash_fwd"] = dict(
                     name="flash_fwd", route="cuda",
                     source="veles_tpu_torch/ops/csrc/flash_fwd.cu",
                     replaces="veles_tpu/ops/flash_attention.py:346",
                     shape="q,k,v [2, 2048, 8, 128] bf16, causal",
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
+                    max_abs_err=err, ms=ms, tflops=flops / ms / 1e9,
+                    event_ms=time_ms(lambda: fa.flash_fwd_cuda(
+                        q, k, v, True), 20),
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=lib_ms, bitwise_repeat=True)
     # K4: the serving slab [8, 2048, 8, 128], ragged lengths
     b, s = 8, 2048
     lengths = torch.tensor([0, 1, 777, 2048, 1500, 64, 1024, 2000],
@@ -318,11 +491,14 @@ def kernel_phase(torch, fa, dev):
                     lengths[:, None])[:, None, None, :]
             sdpa = torch.nn.functional.scaled_dot_product_attention
             q4, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-            ms = time_ms(lambda: fa.flash_decode_cuda(q, kc, vc, lengths),
-                         50)
+            ms = device_ms(lambda: fa.flash_decode_cuda(q, kc, vc, lengths),
+                           50, cold=True)
+            event_ms = time_ms(lambda: fa.flash_decode_cuda(
+                q, kc, vc, lengths), 50)
             plain_ms = time_ms(lambda: fa.flash_decode(
                 q, kc, vc, lengths, impl="plain"), 5)
-            lib_ms = time_ms(lambda: sdpa(q4, kt, vt, attn_mask=mask), 50)
+            lib_ms = device_ms(lambda: sdpa(q4, kt, vt, attn_mask=mask), 50,
+                               cold=True)
             bms, by = bound(flops, nbytes, dn)
             rows["flash_decode"] = dict(
                 name="flash_decode", route="cuda",
@@ -330,22 +506,26 @@ def kernel_phase(torch, fa, dev):
                 replaces="veles_tpu/ops/flash_attention.py:796",
                 shape="q [8, 8, 128], slab [8, 2048, 8, 128] bf16, "
                       "lengths %s" % lengths.tolist(),
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=lib_ms)
+                max_abs_err=err, ms=ms, event_ms=event_ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
     backward_kernels(torch, fa, dev, randn, h, d, rows)
     for row in rows.values():
-        log("  %s: kernel %.4f ms, plain %.4f ms, library %.4f ms, "
-            "bound %.4f ms (%s), max abs err %.3e [%s]" % (
-                row["name"], row["ms"], row["plain_ms"],
+        log("  %s: kernel %.4f ms (back to back %.4f), plain %.4f ms, "
+            "library %.4f ms, bound %.4f ms (%s), max abs err %.3e [%s]" % (
+                row["name"], row["ms"], row["event_ms"], row["plain_ms"],
                 row["library_ms"], row["bound_ms"], row["bound_by"],
                 row["max_abs_err"], row["shape"]))
-    log("  flash_fwd at the training shape: kernel %.4f ms, max abs err "
-        "%.3e [%s]" % (rows["flash_fwd"]["train_ms"],
-                       rows["flash_fwd"]["train_max_abs_err"],
-                       rows["flash_fwd"]["train_shape"]))
+    k1 = rows["flash_fwd"]
+    log("  flash_fwd: %.1f TFLOP/s; at the training shape kernel %.4f ms "
+        "(%.1f TFLOP/s), SDPA %.4f ms, max abs err %.3e [%s]" % (
+            k1["tflops"], k1["train_ms"], k1["train_tflops"],
+            k1["train_library_ms"], k1["train_max_abs_err"],
+            k1["train_shape"]))
     for name in ("flash_bwd_dkv", "flash_bwd_dq"):
-        log("  %s on contiguous copies of q, k, v: kernel %.4f ms"
-            % (name, rows[name]["ms_contiguous"]))
+        log("  %s: %.1f TFLOP/s; on contiguous copies of q, k, v: kernel "
+            "%.4f ms" % (name, rows[name]["tflops"],
+                         rows[name]["ms_contiguous"]))
     return rows
 
 
@@ -410,11 +590,14 @@ def paged_kernel(torch, fa, dev, dn, q, kc, vc, lengths, slab_out, row):
               "scrambled pages), block tables [8, %d] with sentinels, "
               "lengths %s" % (n_pages, n_blk, lengths.tolist()),
         max_abs_err=err, bitwise_equal_k4=bitwise,
-        ms=time_ms(lambda: fa.flash_decode_paged_cuda(q, kp, vp, table,
-                                                      lengths), 50),
+        ms=device_ms(lambda: fa.flash_decode_paged_cuda(
+            q, kp, vp, table, lengths), 50, cold=True),
+        event_ms=time_ms(lambda: fa.flash_decode_paged_cuda(
+            q, kp, vp, table, lengths), 50),
         plain_ms=time_ms(lambda: fa.flash_decode_paged(
             q, kp, vp, table, lengths, impl="plain"), 5),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(library, 50),
+        bound_ms=bms, bound_by=by,
+        library_ms=device_ms(library, 50, cold=True),
         library_note="gather of the live pages into a slab + SDPA with "
                      "a length mask")
 
@@ -472,13 +655,21 @@ def backward_kernels(torch, fa, dev, randn, h, d, rows):
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     do = randn((b, t, h, d), torch.bfloat16)
     o, l, m = fa.flash_fwd_cuda(q, k, v, True)
+    again = fa.flash_fwd_cuda(q, k, v, True)
     po, pl, pm = fa.flash_attention_fwd(q, k, v, causal=True, impl="plain")
     di = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float()).contiguous()
     dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, True)
     dq = fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, True)
+    again += fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, True)
+    again += (fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, True),)
     pq, pk, pv = fa._plain_bwd(q, k, v, o, l, m, do, True, 512, t)
     torch.cuda.synchronize()
     what = "[%d, %d, %d, %d] views" % (b, t, h, d)
+    if not all(torch.equal(a, b_) for a, b_ in zip((o, l, m, dk, dv, dq),
+                                                   again)):
+        raise AssertionError("flash kernels at %s: two launches on the "
+                             "same inputs differ" % what)
+    del again
     err_fwd = float((o.float() - po.float()).abs().max())
     check("flash_fwd bfloat16 %s O" % what, err_fwd, TOL_OUT["bfloat16"])
     check("flash_fwd bfloat16 %s l (rel)" % what,
@@ -490,25 +681,39 @@ def backward_kernels(torch, fa, dev, randn, h, d, rows):
     del po, pl, pm, pq, pk, pv, dk, dv, dq
     views = ("q, k, v strided views of one fused [%d, %d, 3, %d, %d] "
              "projection" % (b, t, h, d))
+    pairs = b * h * t * (t + 1) / 2  # causal (query, key) pairs
+    train_ms = device_ms(lambda: fa.flash_fwd_cuda(q, k, v, True), 10)
+    # SDPA on the same strided views, as [B, H, T, D]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     rows["flash_fwd"].update(
         train_shape="q,k,v [%d, %d, %d, %d] bf16, causal; %s"
                     % (b, t, h, d, views),
-        train_max_abs_err=err_fwd,
-        train_ms=time_ms(lambda: fa.flash_fwd_cuda(q, k, v, True), 10))
-    pairs = b * h * t * (t + 1) / 2  # causal (query, key) pairs
+        train_max_abs_err=err_fwd, train_ms=train_ms,
+        train_tflops=4.0 * d * pairs / train_ms / 1e9,
+        train_event_ms=time_ms(lambda: fa.flash_fwd_cuda(q, k, v, True),
+                               10),
+        train_library_ms=device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 10),
+        train_bitwise_repeat=True)
     row_bytes = q.numel() * q.element_size()
     stat_bytes = l.numel() * 4
-    ms_dkv = time_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di,
-                                                   True), 10)
-    ms_dq = time_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di,
-                                                 True), 10)
+    def dkv():
+        return fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, True)
+
+    def dq_():
+        return fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, True)
+
+    ms_dkv, ms_dq = device_ms(dkv, 10), device_ms(dq_, 10)
+    event_ms = {"flash_bwd_dkv": time_ms(dkv, 10),
+                "flash_bwd_dq": time_ms(dq_, 10)}
     # the same launches on contiguous copies: what the strided layout
     # costs, within one run
     qc, kc, vc = (x.contiguous() for x in (q, k, v))
     ms_contiguous = {
-        "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv_cuda(
+        "flash_bwd_dkv": device_ms(lambda: fa.flash_bwd_dkv_cuda(
             qc, kc, vc, do, l, m, di, True), 10),
-        "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq_cuda(
+        "flash_bwd_dq": device_ms(lambda: fa.flash_bwd_dq_cuda(
             qc, kc, vc, do, l, m, di, True), 10)}
     del qc, kc, vc
     plain_ms = time_ms(lambda: fa._plain_bwd(q, k, v, o, l, m, do, True,
@@ -520,7 +725,7 @@ def backward_kernels(torch, fa, dev, randn, h, d, rows):
     out = torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
-    lib_ms = time_ms(lambda: torch.autograd.grad(
+    lib_ms = device_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), 10)
     shape = "q,k,v,dO [%d, %d, %d, %d] bf16, causal; %s, dO contiguous" % (
         b, t, h, d, views)
@@ -536,6 +741,8 @@ def backward_kernels(torch, fa, dev, randn, h, d, rows):
             source="veles_tpu_torch/ops/csrc/flash_bwd.cu",
             replaces="veles_tpu/ops/flash_attention.py:%d" % line,
             shape=shape, max_abs_err=err, ms=ms,
+            tflops=2.0 * d * pairs * n_prod / ms / 1e9,
+            event_ms=event_ms[name], bitwise_repeat=True,
             ms_contiguous=ms_contiguous[name], plain_ms=plain_ms,
             plain_note="plain backward computes dQ, dK and dV together",
             bound_ms=bms, bound_by=by, library_ms=lib_ms,
@@ -588,9 +795,9 @@ def lrn_fill_kernels(torch, dev):
                 rows[shape[-1]] = _time_lrn(torch, F, lrn, x, dy, shape)
             elif shape[0] == CLASSIFIER_BATCH:
                 f32_ms[shape[-1]] = dict(
-                    lrn_fwd=time_ms(lambda: lrn.lrn_fwd_cuda(
+                    lrn_fwd=device_ms(lambda: lrn.lrn_fwd_cuda(
                         x, k, n, alpha, beta), 10),
-                    lrn_bwd=time_ms(lambda: lrn.lrn_bwd_cuda(
+                    lrn_bwd=device_ms(lambda: lrn.lrn_bwd_cuda(
                         x, dy, k, n, alpha, beta), 10))
             del x, dy
     layers = {96: "LRN1", 256: "LRN2"}
@@ -637,19 +844,23 @@ def lrn_fill_kernels(torch, dev):
         replaces="veles_tpu/ops/rng.py:44",
         shape="[%d, 4096] f32 (one dropout mask)" % CLASSIFIER_BATCH,
         max_abs_err=0.0, bitwise_equal_plain=True,
-        ms=time_ms(lambda: rng.uniform_fill_cuda(numel, key, dev), 50),
+        ms=device_ms(lambda: rng.uniform_fill_cuda(numel, key, dev), 50),
+        event_ms=time_ms(lambda: rng.uniform_fill_cuda(numel, key, dev),
+                         50),
         plain_ms=time_ms(lambda: rng._plain_fill(numel, key, dev, 1.0, 0.0,
                                                  False), 5),
         bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: torch.rand(shape, generator=cuda_gen,
-                                              device=dev), 50),
+        library_ms=device_ms(lambda: torch.rand(shape, generator=cuda_gen,
+                                                device=dev), 50),
+        library_event_ms=time_ms(lambda: torch.rand(
+            shape, generator=cuda_gen, device=dev), 50),
         library_note="torch.rand on a CUDA generator (Philox too)")
     for row in out.values():
-        log("  %s: kernel %.4f ms, plain %.4f ms, library %.4f ms, bound "
-            "%.4f ms (%s), max abs err %.3e [%s]" % (
-                row["name"], row["ms"], row["plain_ms"], row["library_ms"],
-                row["bound_ms"], row["bound_by"], row["max_abs_err"],
-                row["shape"]))
+        log("  %s: kernel %.4f ms (back to back %.4f), plain %.4f ms, "
+            "library %.4f ms, bound %.4f ms (%s), max abs err %.3e [%s]" % (
+                row["name"], row["ms"], row["event_ms"], row["plain_ms"],
+                row["library_ms"], row["bound_ms"], row["bound_by"],
+                row["max_abs_err"], row["shape"]))
         if "lrn2" in row:
             r2 = row["lrn2"]
             log("    at LRN2: kernel %.4f ms, plain %.4f ms, library %.4f "
@@ -669,9 +880,11 @@ def _time_lrn(torch, F, lrn, x, dy, shape):
     res = {}
     xl = x.permute(0, 3, 1, 2)                      # NCHW view
     res["lrn_fwd"] = dict(
-        ms=time_ms(lambda: lrn.lrn_fwd_cuda(x, k, n, alpha, beta), 20),
+        ms=device_ms(lambda: lrn.lrn_fwd_cuda(x, k, n, alpha, beta), 20),
+        event_ms=time_ms(lambda: lrn.lrn_fwd_cuda(x, k, n, alpha, beta),
+                         20),
         plain_ms=time_ms(lambda: lrn._plain_fwd(x, k, n, alpha, beta), 3),
-        library_ms=time_ms(lambda: F.local_response_norm(
+        library_ms=device_ms(lambda: F.local_response_norm(
             xl, n, alpha, beta, k), 5))
     res["lrn_fwd"]["bound_ms"], res["lrn_fwd"]["bound_by"] = bound(
         LRN_FWD_OPS_PER_ELEM * numel, 2 * numel * x.element_size(),
@@ -680,10 +893,13 @@ def _time_lrn(torch, F, lrn, x, dy, shape):
     out = F.local_response_norm(xg, n, alpha, beta, k)
     dyl = dy.permute(0, 3, 1, 2)
     res["lrn_bwd"] = dict(
-        ms=time_ms(lambda: lrn.lrn_bwd_cuda(x, dy, k, n, alpha, beta), 20),
+        ms=device_ms(lambda: lrn.lrn_bwd_cuda(x, dy, k, n, alpha, beta),
+                     20),
+        event_ms=time_ms(lambda: lrn.lrn_bwd_cuda(x, dy, k, n, alpha,
+                                                  beta), 20),
         plain_ms=time_ms(lambda: lrn._plain_bwd(x, dy, k, n, alpha, beta),
                          3),
-        library_ms=time_ms(lambda: torch.autograd.grad(
+        library_ms=device_ms(lambda: torch.autograd.grad(
             out, xg, dyl, retain_graph=True), 5))
     res["lrn_bwd"]["bound_ms"], res["lrn_bwd"]["bound_by"] = bound(
         LRN_BWD_OPS_PER_ELEM * numel, 3 * numel * x.element_size(),
@@ -1773,12 +1989,13 @@ def main():
     build_s = time.monotonic() - t0
     log("  built %s in %.1f s" % (_build.sources(), build_s))
     for name in _build.sources():
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log("    %s: %s" % (name, line.strip()))
+        for kernel, lines in ptxas_usage(_build.build_log(name)).items():
+            log("    %s %s: %s" % (name, kernel, "; ".join(lines)))
+    hopper = hopper_units(_build, fa)
 
     rows = kernel_phase(torch, fa, dev)
     rows.update(lrn_fill_kernels(torch, dev))
+    log("  profiler readings taken again (records lost): %d" % RETAKES[0])
     serve, serve_launches = serving_phase(torch, fa, dev, card)
     parity = parity_phase(torch, dev)
     train, train_launches = training_phase(torch, fa, dev, card)
@@ -1807,6 +2024,7 @@ def main():
         kernels.append(row)
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
+                  hopper_units=hopper,
                   kernels=kernels, serving=serve, parity=parity,
                   training=train, training_parity=train_parity,
                   paged_serving=paged, paged_parity=paged_parity,

@@ -148,6 +148,123 @@ def test_flash_bwd_bf16_kernels_read_strided_views(cuda, d):
         assert _rel(a, b) <= BWD_TOL[torch.bfloat16], name
 
 
+#: sequence lengths at the edges of the bf16 kernels' tiles: K1 takes
+#: 128 query rows (two warpgroups of 64) and 128-key tiles, K3 128 query
+#: rows and 64-key tiles; 1 leaves one row of one tile
+EDGE_T = [1, 63, 64, 127, 128, 129, 1000]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t", EDGE_T)
+def test_tma_forward_tiling_edges(cuda, t, d, causal):
+    """K1's bf16 kernel (TMA ring, wgmma) against the plain forward at
+    the edges of its tiles, at every head dim; a second launch on the
+    same inputs agrees bitwise."""
+    rng = np.random.default_rng(1000 * d + 2 * t + causal)
+    q, k, v = (_randn(rng, (2, t, 3, d), torch.bfloat16, cuda)
+               for _ in range(3))
+    o, l, m = fa.flash_fwd_cuda(q, k, v, causal)
+    again = fa.flash_fwd_cuda(q, k, v, causal)
+    po, pl, pm = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                        block_q=64, block_k=64,
+                                        impl="plain")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), po.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(l, pl, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(m, pm, atol=1e-3, rtol=1e-3)
+    for a, b in zip((o, l, m), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t", EDGE_T)
+def test_tma_dq_tiling_edges_and_dkv_on_its_residuals(cuda, t, d, causal):
+    """K3's bf16 kernel at the edges of its tiles, and the unchanged K2
+    fed by the redesigned K1's l and m, against ``_plain_bwd`` on the
+    same residuals; a second K3 launch agrees bitwise."""
+    rng = np.random.default_rng(1000 * d + 2 * t + causal + 7)
+    q, k, v, do = (_randn(rng, (2, t, 3, d), torch.bfloat16, cuda)
+                   for _ in range(4))
+    o, l, m = fa.flash_fwd_cuda(q, k, v, causal)
+    di = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float()).contiguous()
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, causal)
+    again = fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, causal)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, causal)
+    pq, pk, pv = fa._plain_bwd(q, k, v, o, l, m, do, causal, t, t)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, again)
+    for name, a, b in (("dq", dq, pq), ("dk", dk, pk), ("dv", dv, pv)):
+        assert a.dtype == torch.bfloat16
+        assert _rel(a, b) <= BWD_TOL[torch.bfloat16], name
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t", [129, 1000])
+def test_tma_kernels_read_strided_views_bitwise(cuda, t, d):
+    """q, k, v as strided views of one fused [B, T, 3, H, D] projection
+    and dO as a view of a wider buffer go through TMA in place: K1 and K3
+    give bitwise what they give on contiguous copies."""
+    rng = np.random.default_rng(t + d)
+    qkv = _randn(rng, (2, t, 3, 4, d), torch.bfloat16, cuda)
+    wide = _randn(rng, (2, t, 2, 4, d), torch.bfloat16, cuda)
+    views = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], wide[:, :, 1])
+    out = {}
+    for layout, (q, k, v, do) in (
+            ("views", views),
+            ("copies", tuple(x.contiguous() for x in views))):
+        o, l, m = fa.flash_fwd_cuda(q, k, v, True)
+        di = torch.einsum("bqhd,bqhd->bhq", do.float(),
+                          o.float()).contiguous()
+        out[layout] = (o, l, m, fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di,
+                                                     True))
+    for a, b in zip(out["views"], out["copies"]):
+        assert torch.equal(a, b)
+
+
+def test_tma_kernels_copy_misaligned_operands(cuda):
+    """An operand whose base is 2 bytes off a 16-byte boundary cannot be
+    read by TMA in place: the wrapper copies it, and K1 and K3 give
+    bitwise what they give on an aligned tensor of the same values."""
+    rng = np.random.default_rng(11)
+    shape = (2, 150, 2, 64)
+    q, k, v, do = (_randn(rng, shape, torch.bfloat16, cuda)
+                   for _ in range(4))
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    q_off = flat[1:].view(shape)
+    q_off.copy_(q)
+    assert q_off.data_ptr() % 16 == 2
+    res = []
+    for qq in (q, q_off):
+        o, l, m = fa.flash_fwd_cuda(qq, k, v, True)
+        di = torch.einsum("bqhd,bqhd->bhq", do.float(),
+                          o.float()).contiguous()
+        res.append((o, l, m, fa.flash_bwd_dq_cuda(qq, k, v, do, l, m, di,
+                                                  True)))
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+
+
+def test_tma_kernels_refuse_a_foreign_tile(cuda, monkeypatch):
+    """A tensor-map layout whose box is not the kernel's own tile is
+    refused by the kernel: the wrapper raises, counts no launch and
+    falls back to nothing."""
+    rng = np.random.default_rng(12)
+    q, k, v, do = (_randn(rng, (1, 100, 2, 64), torch.bfloat16, cuda)
+                   for _ in range(4))
+    o, l, m = fa.flash_fwd_cuda(q, k, v, True)
+    di = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float()).contiguous()
+    before = dict(fa.LAUNCHES)
+    monkeypatch.setitem(fa.TMA_TILES, "flash_fwd", (64, 64))
+    monkeypatch.setitem(fa.TMA_TILES, "flash_bwd_dq", (128, 128))
+    with pytest.raises(RuntimeError, match="flash_fwd kernel launch"):
+        fa.flash_fwd_cuda(q, k, v, True)
+    with pytest.raises(RuntimeError, match="flash_bwd_dq kernel launch"):
+        fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, True)
+    assert fa.LAUNCHES == before
+
+
 def test_flash_attention_grad_through_kernels(cuda):
     """Autograd through K1/K2/K3 from strided views of one fused QKV
     tensor equals autograd through the plain path."""

@@ -18,22 +18,30 @@
 //
 // What this design does about it: the TPU kernels carry dK/dV (or dQ)
 // in VMEM scratch across a sequential grid axis; here one thread block
-// per (64-row tile, head, sequence) loops over the other axis itself,
+// per tile of rows, head and sequence loops over the other axis itself,
 // so the accumulators stay in f32 registers and are written once. No
 // atomics: the dK/dV and dQ split is the reference's own. Causal tiles
 // that cannot see each other are never loaded, and the heaviest tiles
 // launch first.
 //
-// - bfloat16 (the training path): four warps on mma.sync m16n8k16 (bf16
-//   in, f32 accumulate), each owning 16 rows of the block's tile end to
-//   end. K2 computes the transposed score tile s^T = K Q^T per warp, so
+// - K3, bfloat16 (the training path): K1's machinery (flash_hopper.cuh)
+//   on a 128-row query tile. A producer warp loads Q and dO once and
+//   streams 64-key K and V tiles through a four-stage TMA ring guarded
+//   by full/empty mbarriers; two consumer warpgroups of 64 rows each run
+//   s = Q K^T and dP = dO V^T as wgmma m64n64k16 chains from shared
+//   memory, form dS in the accumulator registers, and add dQ += dS K
+//   with dS re-packed as the register A operand and K read MN-major
+//   (the descriptor's transpose). Only diagonal and ragged tiles
+//   evaluate the mask; p is exp2 of one multiply-add against m in
+//   base 2.
+// - K2, bfloat16: four warps on mma.sync m16n8k16 (bf16 in, f32
+//   accumulate), each owning 16 keys of the block's 64-key tile end to
+//   end. It computes the transposed score tile s^T = K Q^T per warp, so
 //   p^T and dS^T are already A fragments in registers for dV += p^T dO
-//   and dK += dS^T Q (the register re-packing K1 does for P.V); K3 is
-//   K1's loop with P.V replaced by dS.K. The block's own K and V (K2) or
-//   Q and dO (K3) stay in shared memory and are read as fragments per
-//   k-step, which keeps the two D-wide accumulators of K2 (128 f32
-//   registers a thread at D = 128) clear of spills. Left for later: TMA,
-//   a pipelined tile ring and wgmma.
+//   and dK += dS^T Q. The block's own K and V stay in shared memory and
+//   are read as fragments per k-step, which keeps the two D-wide
+//   accumulators (128 f32 registers a thread at D = 128) clear of
+//   spills. Its redesign for TMA and wgmma is next.
 // - float32 (the parity path): 256 threads on FMA units over shared
 //   memory tiles, full f32 products, as the plain version computes.
 //
@@ -44,10 +52,14 @@
 // past T) contribute exactly 0.
 
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
 using namespace veles_flash;
+using namespace veles_hopper;
+
+constexpr float LOG2E = 1.4426950408889634f;
 
 // m, 1/l (0 where l == 0) and Di of rows [r0, r0 + 64) into smem;
 // rows past t_len get 1/l = 0, so their p is 0
@@ -209,122 +221,199 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkv_mma_kernel(
   }
 }
 
-// K3: one block per (64-query tile, head, sequence)
+// ---------------------------------------------------------------------------
+// K3, bfloat16: TMA ring, warp-specialised, wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int TMA_THREADS = 384;   // producer + two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;  // arrivals that free a stage
+
+template <int D> struct DqTma {
+  static constexpr int BM = 128;  // query rows per block
+  static constexpr int BN = 64;   // keys per tile
+  static constexpr int STAGES = 4;
+  typedef Tile<BM, D> QTile;  // Q and dO
+  typedef Tile<BN, D> KvTile;
+  static constexpr uint32_t DO_OFF = QTile::BYTES;
+  static constexpr uint32_t KV_OFF = 2 * QTile::BYTES;
+  static constexpr uint32_t STAGE_BYTES = 2 * KvTile::BYTES;  // K then V
+  static constexpr uint32_t BAR_OFF = KV_OFF + STAGES * STAGE_BYTES;
+  static constexpr size_t bytes = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
+};
+
+// dS = p (dP - Di) scale into s, in the wgmma accumulator layout, with
+// p = exp2(s c - m2) / l; masked entries (MASKED tiles only) get p = 0
+template <int BN, bool MASKED>
+__device__ inline void ds_tile(float (&s)[BN / 2], const float (&dp)[BN / 2],
+                               const float (&m2)[2], const float (&li)[2],
+                               const float (&dv)[2], const int (&row)[2],
+                               int k0, int tq, int t_len, int causal, float c,
+                               float scale) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      float x = s[4 * j + e];
+      if (MASKED) {
+        const int key = k0 + j * 8 + tq * 2 + (e & 1);
+        if (key >= t_len || (causal && key > row[i])) x = -INFINITY;
+      }
+      const float p = exp2f(fmaf(x, c, -m2[i])) * li[i];
+      s[4 * j + e] = p * (dp[4 * j + e] - dv[i]) * scale;
+    }
+}
+
+// one block per (head, sequence, 128-query tile)
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ d_o,
-    const float* __restrict__ l, const float* __restrict__ m,
-    const float* __restrict__ di, bf16* __restrict__ dq, int t_len,
-    int n_heads, Strides st, int causal, float scale) {
-  constexpr int LD = MmaTile<D>::LD;
-  constexpr int KD = D / 16;
-  constexpr int NS = BK / 8;  // 8-key n-tiles of s
-  constexpr int NO = D / 8;   // 8-dim n-tiles of dQ
+__global__ void __launch_bounds__(TMA_THREADS, 1) flash_bwd_dq_tma_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap do_map, const float* __restrict__ l,
+    const float* __restrict__ m, const float* __restrict__ di,
+    bf16* __restrict__ dq, int t_len, int n_heads, int64_t dqsb,
+    int64_t dqst, int64_t dqsh, int causal, float scale) {
+  using L = DqTma<D>;
+  constexpr int BM = L::BM, BN = L::BN, STAGES = L::STAGES;
+  typedef typename L::QTile QTile;
+  typedef typename L::KvTile KvTile;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + 64 * LD;
-  bf16* ks = dos + 64 * LD;
-  bf16* vs = ks + 64 * LD;
-  float* m_s = reinterpret_cast<float*>(vs + 64 * LD);
-  float* li_s = m_s + 64;
-  float* di_s = li_s + 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_full = empty + STAGES;
 
-  const int n_q = (t_len + BQ - 1) / BQ;
-  const int q0 = (n_q - 1 - int(blockIdx.x)) * BQ;  // heavy tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int n_q = (t_len + BM - 1) / BM;
+  const int q0 = (n_q - 1 - int(blockIdx.z)) * BM;  // heavy tiles first
+  int n_k = (t_len + BN - 1) / BN;
+  if (causal) n_k = min(n_k, (min(q0 + BM, t_len) - 1) / BN + 1);
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // producer warpgroup: one thread starts every load
+    regs_dec<24>();
+    if (tid == 0) {
+      tma_prefetch_map(&q_map);
+      tma_prefetch_map(&do_map);
+      tma_prefetch_map(&k_map);
+      tma_prefetch_map(&v_map);
+      mbar_expect_tx(q_full, 2 * QTile::BYTES);
+      QTile::load(smem, &q_map, q_full, h, q0, b);
+      QTile::load(smem + L::DO_OFF, &do_map, q_full, h, q0, b);
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int st = kt % STAGES;
+        mbar_wait(&empty[st], ((kt / STAGES) & 1) ^ 1);
+        unsigned char* ks = smem + L::KV_OFF + st * L::STAGE_BYTES;
+        mbar_expect_tx(&full[st], L::STAGE_BYTES);
+        KvTile::load(ks, &k_map, &full[st], h, kt * BN, b);
+        KvTile::load(ks + KvTile::BYTES, &v_map, &full[st], h, kt * BN, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup w: query rows [q0 + 64 w, q0 + 64 w + 64)
+  regs_inc<240>();
+  const int w = tid / 128 - 1;
+  const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int g = lane >> 2;
   const int tq = lane & 3;
+  const int r0 = q0 + 64 * w;
+  const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+  const float c = scale * LOG2E;
   const int64_t base = (int64_t(b) * n_heads + h) * t_len;
 
-  load_tile<D>(qs, q + b * st.q[0] + h * st.q[2], st.q[1], q0, t_len, tid);
-  load_tile<D>(dos, d_o + b * st.d_o[0] + h * st.d_o[2], st.d_o[1], q0,
-               t_len, tid);
-  load_stats(m_s, li_s, di_s, m, l, di, base, q0, t_len, tid, MMA_THREADS);
-  __syncthreads();
-
-  const int rl[2] = {warp * 16 + g, warp * 16 + g + 8};  // tile rows
-  const float m_r[2] = {m_s[rl[0]], m_s[rl[1]]};
-  const float li_r[2] = {li_s[rl[0]], li_s[rl[1]]};
-  const float di_r[2] = {di_s[rl[0]], di_s[rl[1]]};
-  const bf16* qw = qs + warp * 16 * LD;
-  const bf16* dow = dos + warp * 16 * LD;
-  const bf16* kb = k + b * st.k[0] + h * st.k[2];
-  const bf16* vb = v + b * st.v[0] + h * st.v[2];
-
-  float dqf[NO][4];
+  // m in base 2, 1/l (0 where l == 0 or past T, so p = 0) and Di
+  float m2[2], li[2], dv[2];
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqf[n][e] = 0.f;
-
-  int n_k = (t_len + BK - 1) / BK;
-  if (causal) n_k = min(n_k, (min(q0 + BQ, t_len) - 1) / BK + 1);
-
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<D>(ks, kb, st.k[1], k0, t_len, tid);
-    load_tile<D>(vs, vb, st.v[1], k0, t_len, tid);
-    __syncthreads();
-
-    // s = Q_w K^T and dP = dO_w V^T, [16 queries x 64 keys]
-    float sf[NS][4], dpf[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sf[j][e] = dpf[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a[4];
-      frag_a<LD>(a, qw, kk, g, tq);
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-        mma_nk(sf[j], a, ks + (j * 8 + g) * LD + kk * 16 + tq * 2);
-      frag_a<LD>(a, dow, kk, g, tq);
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-        mma_nk(dpf[j], a, vs + (j * 8 + g) * LD + kk * 16 + tq * 2);
-    }
-
-    // dS into sf
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int kp = k0 + j * 8 + tq * 2 + (e & 1);
-        const bool ok = kp < t_len && (!causal || kp <= q0 + rl[i]);
-        const float p = ok ? expf(sf[j][e] * scale - m_r[i]) * li_r[i] : 0.f;
-        sf[j][e] = p * (dpf[j][e] - di_r[i]) * scale;
-      }
-
-    // dQ += dS K: K[key][d] is the col-major B
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t sa[4];
-      frag_from_acc(sa, sf[2 * kk], sf[2 * kk + 1]);
-      const bf16* kr = ks + (kk * 16 + tq * 2) * LD + g;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) mma_kn<LD>(dqf[n], sa, kr + n * 8);
+  for (int i = 0; i < 2; ++i) {
+    m2[i] = 0.f;
+    li[i] = 0.f;
+    dv[i] = 0.f;
+    if (row[i] < t_len) {
+      const float lf = l[base + row[i]];
+      m2[i] = m[base + row[i]] * LOG2E;
+      li[i] = lf == 0.f ? 0.f : 1.f / lf;
+      dv[i] = di[base + row[i]];
     }
   }
 
-  bf16* dqb = dq + b * st.o1[0] + h * st.o1[2];
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint32_t q_base = smem_u32(smem);
+  const uint32_t do_base = q_base + L::DO_OFF;
+
+  mbar_wait(q_full, 0);
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int st = kt % STAGES;
+    const uint32_t k_base = q_base + L::KV_OFF + st * L::STAGE_BYTES;
+    const uint32_t v_base = k_base + KvTile::BYTES;
+    mbar_wait(&full[st], (kt / STAGES) & 1);
+
+    float s[BN / 2], dp[BN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<BN>::ss(s, QTile::k_major(q_base, 64 * w, kk),
+                    KvTile::k_major(k_base, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<BN>::ss(dp, QTile::k_major(do_base, 64 * w, kk),
+                    KvTile::k_major(v_base, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const int k0 = kt * BN;
+    if ((causal && k0 + BN - 1 > r0) || k0 + BN > t_len)
+      ds_tile<BN, true>(s, dp, m2, li, dv, row, k0, tq, t_len, causal, c,
+                        scale);
+    else
+      ds_tile<BN, false>(s, dp, m2, li, dv, row, k0, tq, t_len, causal, c,
+                         scale);
+
+    // dQ += dS K: dS of keys [16 kk, 16 kk + 16) is the A fragment of
+    // k-step kk; K[key][d] is the MN-major B
+    uint32_t sa[BN / 16][4];
+    pack_a<BN>(sa, s);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      Wgmma<D>::rs(acc, sa[kk], KvTile::mn_major(k_base, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  bf16* dqb = dq + b * dqsb + h * dqsh;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = q0 + rl[i];
-    if (row >= t_len) continue;
-    bf16* r = dqb + int64_t(row) * st.o1[1] + tq * 2;
+    if (row[i] >= t_len) continue;
+    bf16* r = dqb + int64_t(row[i]) * dqst + tq * 2;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(r + n * 8) =
-          __floats2bfloat162_rn(dqf[n][2 * i], dqf[n][2 * i + 1]);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(r + j * 8) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
   }
 }
 
@@ -611,6 +700,7 @@ struct Args {
   Strides st;
   int causal;
   float scale;
+  const int64_t* maps;  // K3 bf16: the q, k, v, dO tensor-map layouts
 };
 
 template <typename T, typename Kernel>
@@ -646,29 +736,49 @@ cudaError_t launch_dq(Kernel kernel, size_t smem_bytes, int threads,
 }
 
 template <int D>
-cudaError_t launch_d(bool dkv, int dtype, const Args& a,
-                     cudaStream_t stream) {
-  static bool cfg[4] = {false, false, false, false};
-  if (dtype == 1)
-    return dkv ? launch_dkv<bf16>(flash_bwd_dkv_mma_kernel<D>,
-                                  MmaLayout<D>::bytes, MMA_THREADS, cfg[0],
-                                  a, stream)
-               : launch_dq<bf16>(flash_bwd_dq_mma_kernel<D>,
-                                 MmaLayout<D>::bytes, MMA_THREADS, cfg[1],
-                                 a, stream);
+int launch_dq_tma(const Args& a, cudaStream_t stream) {
+  using L = DqTma<D>;
+  static bool configured = false;
+  const void* ptrs[4] = {a.q, a.k, a.v, a.d_o};
+  const int rows[4] = {L::BM, L::BN, L::BN, L::BM};
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    const int64_t* layout = a.maps + i * LAYOUT_LEN;
+    if (!layout_matches(layout, D, rows[i])) return cudaErrorInvalidValue;
+    const int rc = encode_map(&maps[i], ptrs[i], layout);
+    if (rc != 0) return rc;
+  }
+  const cudaError_t err =
+      configure(flash_bwd_dq_tma_kernel<D>, L::bytes, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid{unsigned(a.h), unsigned(a.b),
+                  unsigned((a.t + L::BM - 1) / L::BM)};
+  flash_bwd_dq_tma_kernel<D><<<grid, TMA_THREADS, L::bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.l, a.m, a.di,
+      static_cast<bf16*>(a.o1), int(a.t), int(a.h), a.st.o1[0], a.st.o1[1],
+      a.st.o1[2], a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_d(bool dkv, int dtype, const Args& a, cudaStream_t stream) {
+  static bool cfg[3] = {false, false, false};
+  if (dtype == 1 && dkv)
+    return launch_dkv<bf16>(flash_bwd_dkv_mma_kernel<D>, MmaLayout<D>::bytes,
+                            MMA_THREADS, cfg[0], a, stream);
+  if (dtype == 1 && a.maps != nullptr) return launch_dq_tma<D>(a, stream);
   if (dtype == 0)
     return dkv ? launch_dkv<float>(flash_bwd_dkv_fma_kernel<D>,
-                                   FmaLayout<D>::bytes, FMA_THREADS, cfg[2],
+                                   FmaLayout<D>::bytes, FMA_THREADS, cfg[1],
                                    a, stream)
                : launch_dq<float>(flash_bwd_dq_fma_kernel<D>,
-                                  FmaLayout<D>::bytes, FMA_THREADS, cfg[3],
+                                  FmaLayout<D>::bytes, FMA_THREADS, cfg[2],
                                   a, stream);
   return cudaErrorInvalidValue;
 }
 
-cudaError_t launch(bool dkv, int64_t d, int dtype, const Args& a,
-                   void* stream) {
-  if (a.t <= 0 || a.b <= 0 || a.h <= 0) return cudaSuccess;
+int launch(bool dkv, int64_t d, int dtype, const Args& a, void* stream) {
+  if (a.t <= 0 || a.b <= 0 || a.h <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
@@ -707,11 +817,16 @@ int veles_flash_bwd_dkv(const void* q, const void* k, const void* v,
                Strides{{qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh},
                        {osb, ost, osh}, {dksb, dkst, dksh},
                        {dvsb, dvst, dvsh}},
-               causal, scale};
+               causal, scale, nullptr};
   return launch(true, d, dtype, a, stream);
 }
 
 // As veles_flash_bwd_dkv, with the one output dQ [B, T, H, D].
+// bfloat16 operands are read through TMA: `maps` holds the q, k, v, dO
+// layouts (4 x 12 int64, from ops/flash_attention.py:tma_layout, whose
+// box rows must be this kernel's tiles); float32 takes maps = NULL.
+// Returns ENCODE_ERROR + cuTensorMapEncodeTiled's CUresult when a map
+// is refused.
 int veles_flash_bwd_dq(const void* q, const void* k, const void* v,
                        const void* d_o, const void* l, const void* m,
                        const void* di, void* dq, int64_t b, int64_t t,
@@ -720,18 +835,24 @@ int veles_flash_bwd_dq(const void* q, const void* k, const void* v,
                        int64_t vsb, int64_t vst, int64_t vsh, int64_t osb,
                        int64_t ost, int64_t osh, int64_t dqsb, int64_t dqst,
                        int64_t dqsh, int causal, float scale, int dtype,
-                       void* stream) {
+                       const int64_t* maps, void* stream) {
   const Args a{q, k, v, d_o,
                static_cast<const float*>(l), static_cast<const float*>(m),
                static_cast<const float*>(di), dq, nullptr, b, t, h,
                Strides{{qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh},
                        {osb, ost, osh}, {dqsb, dqst, dqsh}, {0, 0, 0}},
-               causal, scale};
+               causal, scale, maps};
   return launch(false, d, dtype, a, stream);
 }
 
-const char* veles_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// Dynamic shared memory of the bf16 dQ kernel at head dim d (bytes; 0
+// for an unsupported d): ptxas reports static shared memory only.
+int64_t veles_flash_bwd_dq_smem(int64_t d) {
+  return d == 32 ? DqTma<32>::bytes
+                 : d == 64 ? DqTma<64>::bytes
+                           : d == 128 ? DqTma<128>::bytes : 0;
 }
+
+const char* veles_error_string(int code) { return error_string(code); }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
-// Building blocks shared by the flash-attention kernels for Hopper
-// (flash_fwd.cu: K1, flash_bwd.cu: K2 and K3): tile sizes, the bf16
-// tensor-core fragments of mma.sync m16n8k16 in the FlashAttention-2
-// register layout, shared-memory tile loads and the launch set-up.
+// Building blocks shared by the flash-attention kernels (flash_fwd.cu,
+// flash_bwd.cu): the 64-row tiles of the f32 FMA kernels and of K2, the
+// bf16 tensor-core fragments of mma.sync m16n8k16 in the
+// FlashAttention-2 register layout (K2), shared-memory tile loads and
+// the launch set-up. The bf16 K1 and K3 use flash_hopper.cuh instead.
 //
 // Fragment layout (PTX ISA, mma.m16n8k16 .bf16): a warp's lane splits
 // into g = lane / 4 (fragment row, and B column) and tq = lane % 4; the

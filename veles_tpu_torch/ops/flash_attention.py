@@ -11,7 +11,9 @@ explicit ``impl=``:
 - ``impl="cuda"``: the hand-written Hopper kernels in ``csrc/``
   (``flash_fwd.cu`` for the forward, ``flash_bwd.cu`` for the dK/dV
   and dQ backward, ``flash_decode.cu`` for slab and paged decode),
-  taken for every CUDA tensor. A launch that fails raises; nothing
+  taken for every CUDA tensor. The bf16 forward and dQ kernels read
+  their operands through TMA tensor maps whose layout
+  :func:`tma_layout` computes. A launch that fails raises; nothing
   falls back.
 - ``impl="plain"``: the blocked algorithm in plain PyTorch, op for op
   the JAX package's lax path (``flash_block_update`` looped over K
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import struct
 from typing import Dict, Optional
 
 import numpy as np
@@ -43,7 +46,7 @@ import torch.nn.functional as F
 from veles_tpu_torch.ops import _build
 
 #: Default sequence tile of the plain path (the kernels tile on their
-#: own: 64 x 64 for the forward, per-key for decode).
+#: own: see :data:`TMA_TILES`, per-key for decode).
 DEFAULT_BLOCK = 512
 
 #: Default K/V tile of the plain decode path.
@@ -61,6 +64,18 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkv": 0,
 MAX_PAGED_BLOCKS = 8192
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: Rows of the TMA boxes of the bf16 Hopper kernels, (query tile, key
+#: tile): the blocks of K1 (``flash_fwd.cu``) and K3 (``flash_bwd.cu``).
+#: The kernels refuse a layout whose box is not their tile.
+TMA_TILES = {"flash_fwd": (128, 128), "flash_bwd_dq": (128, 64)}
+
+#: The widest TMA swizzle span in bytes: a wider bf16 row loads as
+#: several boxes of this many bytes (two at D = 128).
+TMA_SWIZZLE_MAX = 128
+
+#: TMA's limit on a global stride, in bytes (exclusive).
+TMA_STRIDE_LIMIT = 1 << 40
 
 
 def reset_launches() -> None:
@@ -269,12 +284,68 @@ def _check_kernel_operands(entry: str, *tensors: torch.Tensor) -> None:
 
 def _rows_aligned(x: torch.Tensor) -> torch.Tensor:
     """``x`` itself when every [b, t, h] row starts on a 16-byte
-    boundary, else a fresh contiguous copy: the bf16 forward kernel
+    boundary, else a fresh contiguous copy: the bf16 dK/dV kernel (K2)
     moves rows 16 bytes at a time."""
     if x.data_ptr() % 16 == 0 and \
             all(st * x.element_size() % 16 == 0 for st in x.stride()[:3]):
         return x
     return x.clone(memory_format=torch.contiguous_format)
+
+
+def tma_layout(shape, strides, element_size: int, data_ptr: int,
+               box_rows: int):
+    """The TMA tensor map of one ``[B, T, H, D]`` operand of the bf16
+    Hopper kernels, as ``cuTensorMapEncodeTiled`` takes it (the kernels
+    encode exactly these values): a tuple of 12 ints, the dims innermost
+    first ``(D, H, T, B)``; the byte strides of H, T and B; the box
+    ``(columns, 1, box_rows, 1)``, one chunk of the row's columns for one
+    head and sequence; and the swizzle span in bytes, ``min(128, row
+    bytes)``, which the kernels' shared-memory descriptors assume. A row
+    wider than the span loads as several boxes, one per chunk of
+    columns. Rows past T, and a box past any edge, load as zeros.
+
+    Returns None when TMA cannot read the operand in place, and it must
+    be copied: the head dim not at unit stride, a base address or a
+    stride not a multiple of 16 bytes, a stride that is not positive or
+    not below 2^40 bytes. A dim of size 1 is never stepped, so its
+    stride is replaced by the packed one and cannot break the rule.
+    """
+    b, t, h, d = shape
+    sb, st, sh, sd = strides
+    if sd != 1 or d * element_size % 16:
+        return None
+    if b == 1:
+        sb = t * h * d
+    if t == 1:
+        st = h * d
+    if h == 1:
+        sh = d
+    sb, st, sh = sb * element_size, st * element_size, sh * element_size
+    if data_ptr % 16 or sb % 16 or st % 16 or sh % 16 or \
+            min(sb, st, sh) <= 0 or max(sb, st, sh) >= TMA_STRIDE_LIMIT:
+        return None
+    swizzle = min(TMA_SWIZZLE_MAX, d * element_size)
+    return (d, h, t, b, sh, st, sb, swizzle // element_size, 1, box_rows, 1,
+            swizzle)
+
+
+def _tma_operand(x: torch.Tensor, box_rows: int):
+    """``x`` and its :func:`tma_layout`; a contiguous copy of ``x`` where
+    TMA cannot read it in place."""
+    layout = tma_layout(x.shape, x.stride(), x.element_size(),
+                        x.data_ptr(), box_rows)
+    if layout is None:
+        x = x.clone(memory_format=torch.contiguous_format)
+        layout = tma_layout(x.shape, x.stride(), x.element_size(),
+                            x.data_ptr(), box_rows)
+    return x, layout
+
+
+def _tma_maps(layouts) -> bytes:
+    """The layouts of a launch's operands as one C int64 array (native
+    byte order), passed to the C entry as a pointer."""
+    flat = sum(layouts, ())
+    return struct.pack("=%dq" % len(flat), *flat)
 
 
 def _fwd_lib() -> ctypes.CDLL:
@@ -283,8 +354,11 @@ def _fwd_lib() -> ctypes.CDLL:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.veles_flash_fwd.argtypes = (
             [p] * 6 + [i64] * 16 +
-            [ctypes.c_int, ctypes.c_float, ctypes.c_int, p])
+            [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_char_p,
+             p])
         lib.veles_flash_fwd.restype = ctypes.c_int
+        lib.veles_flash_fwd_smem.argtypes = [i64]
+        lib.veles_flash_fwd_smem.restype = i64
     return lib
 
 
@@ -303,10 +377,18 @@ def _decode_lib() -> ctypes.CDLL:
 
 def flash_fwd_cuda(q, k, v, causal: bool):
     """K1: the forward kernel on [B,T,H,D] CUDA tensors read in place
-    through their strides (no transpose, no padding copy). Returns
-    (o [B,T,H,D] contiguous, l [B,H,T] f32, m [B,H,T] f32)."""
+    through their strides (no transpose, no padding copy; bf16 through
+    TMA tensor maps). Returns (o [B,T,H,D] contiguous, l [B,H,T] f32,
+    m [B,H,T] f32)."""
     _check_kernel_operands("flash_fwd", q, k, v)
-    q, k, v = (_rows_aligned(x) for x in (q, k, v))
+    maps = None
+    if q.dtype == torch.bfloat16:
+        rows_q, rows_k = TMA_TILES["flash_fwd"]
+        (q, lq), (k, lk), (v, lv) = (_tma_operand(x, rows) for x, rows in (
+            (q, rows_q), (k, rows_k), (v, rows_k)))
+        maps = _tma_maps((lq, lk, lv))
+    else:
+        q, k, v = (_rows_aligned(x) for x in (q, k, v))
     b, t, h, d = q.shape
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     l = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -319,7 +401,7 @@ def flash_fwd_cuda(q, k, v, causal: bool):
             l.data_ptr(), m.data_ptr(), b, t, h, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], int(bool(causal)), d ** -0.5,
-            _DTYPE_CODES[q.dtype], stream)
+            _DTYPE_CODES[q.dtype], maps, stream)
     _build.check(lib, "flash_fwd", rc)
     LAUNCHES["flash_fwd"] += 1
     return o, l, m
@@ -332,9 +414,23 @@ def _bwd_lib() -> ctypes.CDLL:
         tail = [ctypes.c_int, ctypes.c_float, ctypes.c_int, p]
         lib.veles_flash_bwd_dkv.argtypes = [p] * 9 + [i64] * 22 + tail
         lib.veles_flash_bwd_dkv.restype = ctypes.c_int
-        lib.veles_flash_bwd_dq.argtypes = [p] * 8 + [i64] * 19 + tail
+        lib.veles_flash_bwd_dq.argtypes = (
+            [p] * 8 + [i64] * 19 + tail[:3] + [ctypes.c_char_p, p])
         lib.veles_flash_bwd_dq.restype = ctypes.c_int
+        lib.veles_flash_bwd_dq_smem.argtypes = [i64]
+        lib.veles_flash_bwd_dq_smem.restype = i64
     return lib
+
+
+def hopper_smem_bytes(entry: str, d: int) -> int:
+    """Dynamic shared memory of the bf16 TMA kernel of ``entry``
+    ("flash_fwd" or "flash_bwd_dq") at head dim ``d``, in bytes (ptxas
+    reports only static shared memory)."""
+    if entry == "flash_fwd":
+        return _fwd_lib().veles_flash_fwd_smem(d)
+    if entry == "flash_bwd_dq":
+        return _bwd_lib().veles_flash_bwd_dq_smem(d)
+    raise ValueError("no TMA kernel for %r" % entry)
 
 
 def _bwd_operands(entry, q, k, v, do, l, m, di):
@@ -375,9 +471,17 @@ def flash_bwd_dkv_cuda(q, k, v, do, l, m, di, causal: bool):
 
 
 def flash_bwd_dq_cuda(q, k, v, do, l, m, di, causal: bool):
-    """K3: dQ from the same operands as :func:`flash_bwd_dkv_cuda`.
-    Returns dq, [B,T,H,D] contiguous in the input dtype."""
+    """K3: dQ from the same operands as :func:`flash_bwd_dkv_cuda` (bf16
+    read through TMA tensor maps). Returns dq, [B,T,H,D] contiguous in
+    the input dtype."""
     q, k, v, do = _bwd_operands("flash_bwd_dq", q, k, v, do, l, m, di)
+    maps = None
+    if q.dtype == torch.bfloat16:
+        rows_q, rows_k = TMA_TILES["flash_bwd_dq"]
+        pairs = [_tma_operand(x, rows) for x, rows in (
+            (q, rows_q), (k, rows_k), (v, rows_k), (do, rows_q))]
+        (q, k, v, do), layouts = zip(*pairs)
+        maps = _tma_maps(layouts)
     b, t, h, d = q.shape
     dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lib = _bwd_lib()
@@ -388,7 +492,8 @@ def flash_bwd_dq_cuda(q, k, v, do, l, m, di, causal: bool):
             l.data_ptr(), m.data_ptr(), di.data_ptr(), dq.data_ptr(),
             b, t, h, d,
             *(st for x in (q, k, v, do, dq) for st in x.stride()[:3]),
-            int(bool(causal)), d ** -0.5, _DTYPE_CODES[q.dtype], stream)
+            int(bool(causal)), d ** -0.5, _DTYPE_CODES[q.dtype], maps,
+            stream)
     _build.check(lib, "flash_bwd_dq", rc)
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
