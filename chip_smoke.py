@@ -11,8 +11,8 @@ without them, and on any failed phase. Phases, in order:
    ``nvcc``, timed, with each kernel's ``ptxas`` registers and spills);
    ``cuobjdump -sass`` counts the Hopper instructions of the flash
    libraries' kernels (``HGMMA``: wgmma; ``UTMALDG``: TMA loads), and
-   the phase fails unless the bf16 forward (K1) and dQ (K3) kernels
-   hold both;
+   the phase fails unless the bf16 forward (K1), dK/dV (K2) and dQ (K3)
+   kernels hold both and spill nothing;
 2. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (max errors against stated tolerances),
    with the kernel's and one library call's device time (the
@@ -20,7 +20,8 @@ without them, and on any failed phase. Phases, in order:
    it; the decode kernels K4, K5 and their library calls with the L2
    cache flushed before each call, as a decode step finds its K/V; the
    CUDA-event time of back-to-back calls is kept beside it),
-   the plain version's time and the card's lower bound for the work;
+   the plain version's time and the card's lower bound for the work
+   (K2 and K3 also summed, beside SDPA's backward, which computes both);
    K1, K2 and K3 give bitwise the same result on a second launch on the
    same inputs: the forward (K1), slab
    decode (K4) and paged decode (K5, the same K/V as K4's slab in a
@@ -310,9 +311,11 @@ def profile_device(torch, fn, steps):
 
 #: SASS instructions of Hopper's units: wgmma and TMA loads
 SASS_OPS = ("HGMMA", "UTMALDG")
-#: the bf16 kernels that must run on them, by library
-HOPPER_KERNELS = {"flash_fwd": "flash_fwd_tma_kernel",
-                  "flash_bwd": "flash_bwd_dq_tma_kernel"}
+#: the bf16 kernels that must run on them: kernel -> (library, entry of
+#: ``hopper_smem_bytes``)
+HOPPER_KERNELS = {"flash_fwd_tma_kernel": ("flash_fwd", "flash_fwd"),
+                  "flash_bwd_dkv_tma_kernel": ("flash_bwd", "flash_bwd_dkv"),
+                  "flash_bwd_dq_tma_kernel": ("flash_bwd", "flash_bwd_dq")}
 
 
 def demangle(names):
@@ -361,31 +364,40 @@ def ptxas_usage(log):
     return {plain[n]: lines for n, lines in usage.items()}
 
 
+def spill_bytes(lines):
+    """The spill stores and loads of ptxas's lines for one kernel."""
+    return sum(int(n) for line in lines
+               for n in re.findall(r"(\d+) bytes spill", line))
+
+
 def hopper_units(_build, fa):
-    """Phase 1's proof that K1 and K3 reach Hopper's units: the SASS
+    """Phase 1's proof that K1, K2 and K3 reach Hopper's units: the SASS
     counts of the flash libraries, ptxas's registers and spills and the
-    dynamic shared memory of the bf16 kernels; fails when K1's or K3's
-    bf16 kernel holds no wgmma or no TMA load."""
+    dynamic shared memory of the bf16 kernels; fails when one of them
+    holds no wgmma or no TMA load, or spills."""
     record = {}
-    for lib, stem in HOPPER_KERNELS.items():
+    for stem, (lib, entry) in HOPPER_KERNELS.items():
         counts = sass_counts(_build.build([lib])[lib])
         usage = ptxas_usage(_build.build_log(lib))
-        entry = "flash_fwd" if lib == "flash_fwd" else "flash_bwd_dq"
         for name in sorted(counts):
-            if not name.startswith(stem):
+            if not name.startswith(stem + "<"):
                 continue
             d = int(name[name.index("<") + 1:-1])
             smem = fa.hopper_smem_bytes(entry, d)
             c = counts[name]
+            lines = usage.get(name, [])
             log("  %s: %d HGMMA, %d UTMALDG; ptxas %s; dynamic smem %d "
                 "bytes" % (name, c["HGMMA"], c["UTMALDG"],
-                           "; ".join(usage.get(name, [])), smem))
-            record[name] = dict(c, ptxas=usage.get(name, []),
-                                dynamic_smem=smem)
+                           "; ".join(lines), smem))
+            record[name] = dict(c, ptxas=lines, dynamic_smem=smem,
+                                spill_bytes=spill_bytes(lines))
             if not all(c[op] for op in SASS_OPS):
                 raise AssertionError("%s lacks %s" % (name, [
                     op for op in SASS_OPS if not c[op]]))
-        if not any(n.startswith(stem) for n in counts):
+            if not lines or record[name]["spill_bytes"]:
+                raise AssertionError("%s: ptxas reports spills or nothing: "
+                                     "%s" % (name, lines))
+        if not any(n.startswith(stem + "<") for n in counts):
             raise AssertionError("%s holds no %s" % (lib, stem))
     return record
 
@@ -526,6 +538,9 @@ def kernel_phase(torch, fa, dev):
         log("  %s: %.1f TFLOP/s; on contiguous copies of q, k, v: kernel "
             "%.4f ms" % (name, rows[name]["tflops"],
                          rows[name]["ms_contiguous"]))
+    log("  flash_bwd_dkv + flash_bwd_dq: %.4f ms, SDPA backward (dQ, dK, "
+        "dV) %.4f ms" % (rows["flash_bwd_dq"]["k2_plus_k3_ms"],
+                         rows["flash_bwd_dq"]["library_ms"]))
     return rows
 
 
@@ -746,7 +761,8 @@ def backward_kernels(torch, fa, dev, randn, h, d, rows):
             ms_contiguous=ms_contiguous[name], plain_ms=plain_ms,
             plain_note="plain backward computes dQ, dK and dV together",
             bound_ms=bms, bound_by=by, library_ms=lib_ms,
-            library_note="SDPA backward alone (dQ, dK, dV together)")
+            library_note="SDPA backward alone (dQ, dK, dV together)",
+            k2_plus_k3_ms=ms_dkv + ms_dq)
 
 
 def lrn_fill_kernels(torch, dev):

@@ -150,7 +150,8 @@ def test_flash_bwd_bf16_kernels_read_strided_views(cuda, d):
 
 #: sequence lengths at the edges of the bf16 kernels' tiles: K1 takes
 #: 128 query rows (two warpgroups of 64) and 128-key tiles, K3 128 query
-#: rows and 64-key tiles; 1 leaves one row of one tile
+#: rows and 64-key tiles, K2 128 keys (two warpgroups of 64) and 64-row
+#: query tiles; 1 leaves one row of one tile
 EDGE_T = [1, 63, 64, 127, 128, 129, 1000]
 
 
@@ -181,9 +182,9 @@ def test_tma_forward_tiling_edges(cuda, t, d, causal):
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("t", EDGE_T)
 def test_tma_dq_tiling_edges_and_dkv_on_its_residuals(cuda, t, d, causal):
-    """K3's bf16 kernel at the edges of its tiles, and the unchanged K2
-    fed by the redesigned K1's l and m, against ``_plain_bwd`` on the
-    same residuals; a second K3 launch agrees bitwise."""
+    """K3's and K2's bf16 kernels (TMA ring, wgmma) at the edges of their
+    tiles, fed by K1's l and m, against ``_plain_bwd`` on the same
+    residuals; a second launch of each agrees bitwise."""
     rng = np.random.default_rng(1000 * d + 2 * t + causal + 7)
     q, k, v, do = (_randn(rng, (2, t, 3, d), torch.bfloat16, cuda)
                    for _ in range(4))
@@ -192,9 +193,11 @@ def test_tma_dq_tiling_edges_and_dkv_on_its_residuals(cuda, t, d, causal):
     dq = fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, causal)
     again = fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, causal)
     dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, causal)
+    dk2, dv2 = fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, causal)
     pq, pk, pv = fa._plain_bwd(q, k, v, o, l, m, do, causal, t, t)
     torch.cuda.synchronize()
     assert torch.equal(dq, again)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     for name, a, b in (("dq", dq, pq), ("dk", dk, pk), ("dv", dv, pv)):
         assert a.dtype == torch.bfloat16
         assert _rel(a, b) <= BWD_TOL[torch.bfloat16], name
@@ -204,8 +207,8 @@ def test_tma_dq_tiling_edges_and_dkv_on_its_residuals(cuda, t, d, causal):
 @pytest.mark.parametrize("t", [129, 1000])
 def test_tma_kernels_read_strided_views_bitwise(cuda, t, d):
     """q, k, v as strided views of one fused [B, T, 3, H, D] projection
-    and dO as a view of a wider buffer go through TMA in place: K1 and K3
-    give bitwise what they give on contiguous copies."""
+    and dO as a view of a wider buffer go through TMA in place: K1, K2
+    and K3 give bitwise what they give on contiguous copies."""
     rng = np.random.default_rng(t + d)
     qkv = _randn(rng, (2, t, 3, 4, d), torch.bfloat16, cuda)
     wide = _randn(rng, (2, t, 2, 4, d), torch.bfloat16, cuda)
@@ -218,14 +221,15 @@ def test_tma_kernels_read_strided_views_bitwise(cuda, t, d):
         di = torch.einsum("bqhd,bqhd->bhq", do.float(),
                           o.float()).contiguous()
         out[layout] = (o, l, m, fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di,
-                                                     True))
+                                                     True),
+                       *fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, True))
     for a, b in zip(out["views"], out["copies"]):
         assert torch.equal(a, b)
 
 
 def test_tma_kernels_copy_misaligned_operands(cuda):
     """An operand whose base is 2 bytes off a 16-byte boundary cannot be
-    read by TMA in place: the wrapper copies it, and K1 and K3 give
+    read by TMA in place: the wrapper copies it, and K1, K2 and K3 give
     bitwise what they give on an aligned tensor of the same values."""
     rng = np.random.default_rng(11)
     shape = (2, 150, 2, 64)
@@ -241,7 +245,8 @@ def test_tma_kernels_copy_misaligned_operands(cuda):
         di = torch.einsum("bqhd,bqhd->bhq", do.float(),
                           o.float()).contiguous()
         res.append((o, l, m, fa.flash_bwd_dq_cuda(qq, k, v, do, l, m, di,
-                                                  True)))
+                                                  True),
+                    *fa.flash_bwd_dkv_cuda(qq, k, v, do, l, m, di, True)))
     for a, b in zip(*res):
         assert torch.equal(a, b)
 
@@ -258,10 +263,13 @@ def test_tma_kernels_refuse_a_foreign_tile(cuda, monkeypatch):
     before = dict(fa.LAUNCHES)
     monkeypatch.setitem(fa.TMA_TILES, "flash_fwd", (64, 64))
     monkeypatch.setitem(fa.TMA_TILES, "flash_bwd_dq", (128, 128))
+    monkeypatch.setitem(fa.TMA_TILES, "flash_bwd_dkv", (128, 64))
     with pytest.raises(RuntimeError, match="flash_fwd kernel launch"):
         fa.flash_fwd_cuda(q, k, v, True)
     with pytest.raises(RuntimeError, match="flash_bwd_dq kernel launch"):
         fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, True)
+    with pytest.raises(RuntimeError, match="flash_bwd_dkv kernel launch"):
+        fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, True)
     assert fa.LAUNCHES == before
 
 

@@ -1,5 +1,5 @@
-"""The TMA tensor-map layout of the bf16 Hopper kernels (K1 forward, K3
-dQ), computed on the host by ``ops/flash_attention.py:tma_layout`` and
+"""The TMA tensor-map layout of the bf16 Hopper kernels (K1 forward, K2
+dK/dV, K3 dQ), computed on the host by ``ops/flash_attention.py:tma_layout`` and
 encoded as it is by the kernels: dims, byte strides, boxes and the
 alignment rule that decides when an operand is copied. Pure host code,
 so it runs on the CPU: the layout's strides must address exactly the
@@ -67,11 +67,54 @@ def test_ragged_sequence_lengths(t):
 
 
 def test_kernel_tiles_fit_a_box():
-    """A TMA box is at most 256 elements a side; both kernels' query
-    tiles are two 64-row warpgroups."""
-    for rows_q, rows_k in fa.TMA_TILES.values():
-        assert rows_q == 128
-        assert 0 < rows_k <= 256 and rows_k % 64 == 0
+    """A TMA box is at most 256 elements a side; each kernel's block
+    holds one tile of two 64-row warpgroups (the query tile of K1 and
+    K3, the key tile of K2) and streams the other in multiples of 64."""
+    for entry, (rows_q, rows_k) in fa.TMA_TILES.items():
+        held = rows_k if entry == "flash_bwd_dkv" else rows_q
+        assert held == 128, entry
+        for rows in (rows_q, rows_k):
+            assert 0 < rows <= 256 and rows % 64 == 0, entry
+
+
+@pytest.mark.parametrize("entry", sorted(fa.TMA_TILES))
+def test_kernel_operands_take_their_tiles(entry):
+    """The operands of each TMA kernel as its wrapper packs them for the
+    C entry: q (and dO) boxed by the query tile, k and v by the key
+    tile, in that order; views of one fused projection and a view of a
+    wider dO buffer are read in place."""
+    b, t, h, d = 2, 130, 4, 64
+    qkv = torch.randn((b, t, 3, h, d)).to(BF16)
+    wide = torch.randn((b, t, 2, h, d)).to(BF16)
+    xs = [qkv[:, :, i] for i in range(3)]
+    if entry != "flash_fwd":
+        xs.append(wide[:, :, 1])
+    out, maps = fa._tma_operands(entry, *xs)
+    assert all(y is x for y, x in zip(out, xs))
+    values = memoryview(maps).cast("q")
+    assert len(values) == 12 * len(xs)
+    rows_q, rows_k = fa.TMA_TILES[entry]
+    for x, rows, i in zip(xs, (rows_q, rows_k, rows_k, rows_q),
+                          range(len(xs))):
+        layout = tuple(values[12 * i:12 * i + 12])
+        assert layout[9] == rows
+        assert torch.equal(_elements_through(layout, x), x)
+
+
+def test_kernel_operands_copy_only_what_tma_cannot_read():
+    """K2's operands with dO 2 bytes off a 16-byte boundary: dO alone is
+    copied, and its layout is that of the copy."""
+    shape = (2, 70, 2, 32)
+    q, k, v = (torch.randn(shape).to(BF16) for _ in range(3))
+    flat = torch.randn(2 * 70 * 2 * 32 + 1).to(BF16)
+    do = flat[1:].view(shape)
+    assert do.data_ptr() % 16 == 2
+    out, maps = fa._tma_operands("flash_bwd_dkv", q, k, v, do)
+    assert out[0] is q and out[1] is k and out[2] is v
+    assert out[3] is not do and torch.equal(out[3], do)
+    layout = tuple(memoryview(maps).cast("q")[36:48])
+    assert layout == fa.tma_layout(shape, out[3].stride(), 2,
+                                   out[3].data_ptr(), 64)
 
 
 def test_misaligned_base_is_copied():

@@ -24,24 +24,36 @@
 // that cannot see each other are never loaded, and the heaviest tiles
 // launch first.
 //
-// - K3, bfloat16 (the training path): K1's machinery (flash_hopper.cuh)
-//   on a 128-row query tile. A producer warp loads Q and dO once and
-//   streams 64-key K and V tiles through a four-stage TMA ring guarded
-//   by full/empty mbarriers; two consumer warpgroups of 64 rows each run
-//   s = Q K^T and dP = dO V^T as wgmma m64n64k16 chains from shared
-//   memory, form dS in the accumulator registers, and add dQ += dS K
-//   with dS re-packed as the register A operand and K read MN-major
-//   (the descriptor's transpose). Only diagonal and ragged tiles
-//   evaluate the mask; p is exp2 of one multiply-add against m in
-//   base 2.
-// - K2, bfloat16: four warps on mma.sync m16n8k16 (bf16 in, f32
-//   accumulate), each owning 16 keys of the block's 64-key tile end to
-//   end. It computes the transposed score tile s^T = K Q^T per warp, so
-//   p^T and dS^T are already A fragments in registers for dV += p^T dO
-//   and dK += dS^T Q. The block's own K and V stay in shared memory and
-//   are read as fragments per k-step, which keeps the two D-wide
-//   accumulators (128 f32 registers a thread at D = 128) clear of
-//   spills. Its redesign for TMA and wgmma is next.
+// - K3 and K2, bfloat16 (the training path), on the building blocks of
+//   flash_hopper.cuh: TMA loads the tiles straight from the
+//   [B, T, H, D] views through their strides (rows past T zero-filled)
+//   into a ring of stages guarded by full/empty mbarriers, and every
+//   product is a wgmma chain (m64nNk16): score tiles with both operands
+//   K-major in shared memory, the gradient products with A re-packed
+//   from the f32 score accumulator in registers and B read MN-major (the
+//   descriptor's transpose). Two consumer warpgroups of 64 rows each.
+//   Only diagonal and ragged tiles evaluate the mask; p is exp2 of one
+//   multiply-add against m in base 2.
+//   - K3: 384 threads, one block per 128-row query tile; a producer
+//     warpgroup (setmaxnreg down to 24) loads Q and dO once and streams
+//     64-key K and V tiles through a four-stage ring. Per tile:
+//     s = Q K^T, dP = dO V^T, dS in the accumulators, dQ += dS K.
+//   - K2: 256 threads, one block per 128-key tile; K and V load once,
+//     64-row Q and dO tiles stream through a three-stage ring. It
+//     computes the transposed tiles s^T = K_w Q^T and dP^T = V_w dO^T
+//     (64 keys of warpgroup w by 64 queries), so p^T and dS^T are A
+//     fragments of dV += p^T dO and dK += dS^T Q, with dO and Q as the
+//     MN-major B. Each consumer thread holds both D-wide f32
+//     accumulators (dK and dV: 128 registers at D = 128) to the end,
+//     ~245 registers in all: more than ptxas grants a thread of a
+//     384-thread block (168, whatever setmaxnreg hands a warpgroup
+//     later), so K2 has no producer warpgroup. Warp 0 loads besides
+//     computing: it refills the stage of tile it - 1 after tile it, so
+//     the warpgroups may drift a tile apart. The row statistics m, 1/l
+//     and Di are per column of these tiles: warp 0 stages them with
+//     each Q/dO stage (m in base 2, 1/l = 0 past T), counted in the
+//     stage's full barrier; their global loads start a tile before the
+//     fill, so no warp waits for them.
 // - float32 (the parity path): 256 threads on FMA units over shared
 //   memory tiles, full f32 products, as the plain version computes.
 //
@@ -84,142 +96,6 @@ __device__ inline void load_stats(float* m_s, float* li_s, float* di_s,
 struct Strides {
   int64_t q[3], k[3], v[3], d_o[3], o1[3], o2[3];  // (b, t, h) each
 };
-
-// ---------------------------------------------------------------------------
-// bfloat16: tensor cores through mma.sync (four warps x 16 rows)
-// ---------------------------------------------------------------------------
-
-// four operand tiles and three stat rows
-template <int D> struct MmaLayout {
-  static constexpr size_t bytes =
-      4 * MmaTile<D>::bytes + 3 * 64 * sizeof(float);
-};
-
-// K2: one block per (64-key tile, head, sequence)
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkv_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ d_o,
-    const float* __restrict__ l, const float* __restrict__ m,
-    const float* __restrict__ di, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int t_len, int n_heads, Strides st, int causal,
-    float scale) {
-  constexpr int LD = MmaTile<D>::LD;
-  constexpr int KD = D / 16;  // k-steps over the head dim
-  constexpr int NS = BQ / 8;  // 8-query n-tiles of s^T
-  constexpr int NO = D / 8;   // 8-dim n-tiles of dK, dV
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + 64 * LD;
-  bf16* qs = vs + 64 * LD;
-  bf16* dos = qs + 64 * LD;
-  float* m_s = reinterpret_cast<float*>(dos + 64 * LD);
-  float* li_s = m_s + 64;
-  float* di_s = li_s + 64;
-
-  const int k0 = int(blockIdx.x) * BK;  // the first key tiles see most
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int64_t base = (int64_t(b) * n_heads + h) * t_len;
-
-  load_tile<D>(ks, k + b * st.k[0] + h * st.k[2], st.k[1], k0, t_len, tid);
-  load_tile<D>(vs, v + b * st.v[0] + h * st.v[2], st.v[1], k0, t_len, tid);
-  const bf16* qb = q + b * st.q[0] + h * st.q[2];
-  const bf16* dob = d_o + b * st.d_o[0] + h * st.d_o[2];
-
-  // keys of c0,c1 (key[0]) and c2,c3 (key[1]) of every fragment
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  const bf16* kw = ks + warp * 16 * LD;
-  const bf16* vw = vs + warp * 16 * LD;
-
-  float dkf[NO][4], dvf[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dkf[n][e] = dvf[n][e] = 0.f;
-
-  const int n_q = (t_len + BQ - 1) / BQ;
-  for (int qt = causal ? k0 / BQ : 0; qt < n_q; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D>(qs, qb, st.q[1], q0, t_len, tid);
-    load_tile<D>(dos, dob, st.d_o[1], q0, t_len, tid);
-    load_stats(m_s, li_s, di_s, m, l, di, base, q0, t_len, tid,
-               MMA_THREADS);
-    __syncthreads();
-
-    // s^T = K_w Q^T and dP^T = V_w dO^T, [16 keys x 64 queries]
-    float sf[NS][4], dpf[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sf[j][e] = dpf[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a[4];
-      frag_a<LD>(a, kw, kk, g, tq);
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-        mma_nk(sf[j], a, qs + (j * 8 + g) * LD + kk * 16 + tq * 2);
-      frag_a<LD>(a, vw, kk, g, tq);
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-        mma_nk(dpf[j], a, dos + (j * 8 + g) * LD + kk * 16 + tq * 2);
-    }
-
-    // p^T into sf, dS^T into dpf
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = j * 8 + tq * 2 + (e & 1);
-        const int kr = key[e >> 1];
-        const bool ok = kr < t_len && (!causal || kr <= q0 + qi);
-        const float p =
-            ok ? expf(sf[j][e] * scale - m_s[qi]) * li_s[qi] : 0.f;
-        sf[j][e] = p;
-        dpf[j][e] = p * (dpf[j][e] - di_s[qi]) * scale;
-      }
-
-    // dV += p^T dO and dK += dS^T Q: the k-dim is the query; dO[q][d]
-    // and Q[q][d] are the col-major B operands
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      frag_from_acc(pa, sf[2 * kk], sf[2 * kk + 1]);
-      frag_from_acc(sa, dpf[2 * kk], dpf[2 * kk + 1]);
-      const bf16* dr = dos + (kk * 16 + tq * 2) * LD + g;
-      const bf16* qr = qs + (kk * 16 + tq * 2) * LD + g;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        mma_kn<LD>(dvf[n], pa, dr + n * 8);
-        mma_kn<LD>(dkf[n], sa, qr + n * 8);
-      }
-    }
-  }
-
-  bf16* dkb = dk + b * st.o1[0] + h * st.o1[2];
-  bf16* dvb = dv + b * st.o2[0] + h * st.o2[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] >= t_len) continue;
-    bf16* kr = dkb + int64_t(key[i]) * st.o1[1] + tq * 2;
-    bf16* vr = dvb + int64_t(key[i]) * st.o2[1] + tq * 2;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(kr + n * 8) =
-          __floats2bfloat162_rn(dkf[n][2 * i], dkf[n][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(vr + n * 8) =
-          __floats2bfloat162_rn(dvf[n][2 * i], dvf[n][2 * i + 1]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K3, bfloat16: TMA ring, warp-specialised, wgmma
@@ -414,6 +290,295 @@ __global__ void __launch_bounds__(TMA_THREADS, 1) flash_bwd_dq_tma_kernel(
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(r + j * 8) =
           __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2, bfloat16: TMA ring, wgmma on transposed tiles, no producer
+// warpgroup (see the top: a 384-thread block leaves 168 registers a
+// thread, a 256-thread one 255)
+// ---------------------------------------------------------------------------
+
+constexpr int DKV_THREADS = 256;  // two warpgroups of 64 keys each
+
+template <int D> struct DkvTma {
+  static constexpr int BN = 128;  // keys per block
+  static constexpr int BM = 64;   // query rows per tile
+  static constexpr int STAGES = 3;
+  typedef Tile<BN, D> KvTile;  // K and V, loaded once
+  typedef Tile<BM, D> QTile;   // Q and dO, streamed
+  static constexpr uint32_t V_OFF = KvTile::BYTES;
+  static constexpr uint32_t RING_OFF = 2 * KvTile::BYTES;
+  static constexpr uint32_t STAGE_BYTES = 2 * QTile::BYTES;  // Q then dO
+  // per stage: m in base 2, 1/l and Di of the tile's rows, f32
+  static constexpr uint32_t STATS_OFF = RING_OFF + STAGES * STAGE_BYTES;
+  static constexpr uint32_t STATS_FLOATS = 3 * BM;
+  static constexpr uint32_t BAR_OFF = STATS_OFF + STAGES * STATS_FLOATS * 4;
+  // barriers (full, empty per stage; K/V) and the alignment slack
+  static constexpr size_t bytes = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
+};
+
+// p^T = exp2(s^T c - m2) / l into s, in the wgmma accumulator layout of a
+// [64 keys x N queries] tile from query q0 on (statistics per query
+// column, from shared memory); masked entries (MASKED tiles only) get
+// p = 0
+template <int N, bool MASKED>
+__device__ inline void pt_tile(float (&s)[N / 2], const float* m2s,
+                               const float* lis, const int (&key)[2], int q0,
+                               int tq, int t_len, int causal, float c) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = 8 * j + 2 * tq;
+    const float2 m2 = *reinterpret_cast<const float2*>(m2s + col);
+    const float2 li = *reinterpret_cast<const float2*>(lis + col);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e];
+      if (MASKED) {
+        const int kr = key[e >> 1];
+        if (kr >= t_len || (causal && kr > q0 + col + (e & 1)))
+          x = -INFINITY;
+      }
+      s[4 * j + e] =
+          exp2f(fmaf(x, c, -(e & 1 ? m2.y : m2.x))) * (e & 1 ? li.y : li.x);
+    }
+  }
+}
+
+// dS^T = p^T (dP^T - Di) scale into dp
+template <int N>
+__device__ inline void dst_tile(float (&dp)[N / 2], const float (&p)[N / 2],
+                                const float* dis, int tq, float scale) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 dv = *reinterpret_cast<const float2*>(dis + 8 * j + 2 * tq);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[4 * j + e] =
+          p[4 * j + e] * (dp[4 * j + e] - (e & 1 ? dv.y : dv.x)) * scale;
+  }
+}
+
+// m, l and Di of rows q0 + lane and q0 + lane + 32 (0 past T; each
+// pointer offset to the (sequence, head)): loads only, which the warp
+// starts and leaves in flight until fill_stage uses them
+__device__ inline void stats_load(float (&v)[6], const float* l,
+                                  const float* m, const float* di, int q0,
+                                  int lane, int t_len) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + lane + 32 * r;
+    const bool ok = row < t_len;
+    v[r] = ok ? m[row] : 0.f;
+    v[2 + r] = ok ? l[row] : 0.f;
+    v[4 + r] = ok ? di[row] : 0.f;
+  }
+}
+
+// Warp 0's fill of one ring stage with query tile q0: lane 0 starts the
+// Q and dO copies, every lane stores its two rows of statistics (m in
+// base 2, 1/l, 0 where l == 0 or past T so that p = 0, and Di) and
+// arrives (the stage's full barrier counts 1 + 32 arrivals)
+template <typename L>
+__device__ inline void fill_stage(unsigned char* smem, float* sr,
+                                  uint64_t* full, const CUtensorMap* q_map,
+                                  const CUtensorMap* do_map,
+                                  const float (&v)[6], int stage, int h,
+                                  int q0, int b, int lane) {
+  typedef typename L::QTile QTile;
+  if (lane == 0) {
+    unsigned char* qs = smem + L::RING_OFF + stage * L::STAGE_BYTES;
+    mbar_expect_tx(full, L::STAGE_BYTES);
+    QTile::load(qs, q_map, full, h, q0, b);
+    QTile::load(qs + QTile::BYTES, do_map, full, h, q0, b);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lf = v[2 + r];
+    sr[lane + 32 * r] = v[r] * LOG2E;
+    sr[L::BM + lane + 32 * r] = lf == 0.f ? 0.f : 1.f / lf;
+    sr[2 * L::BM + lane + 32 * r] = v[4 + r];
+  }
+  mbar_arrive(full);
+}
+
+// one block per (head, sequence, 128-key tile)
+template <int D>
+__global__ void __launch_bounds__(DKV_THREADS, 1) flash_bwd_dkv_tma_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap do_map, const float* __restrict__ l,
+    const float* __restrict__ m, const float* __restrict__ di,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int t_len, int n_heads,
+    Strides st, int causal, float scale) {
+  using L = DkvTma<D>;
+  constexpr int BN = L::BN, BM = L::BM, STAGES = L::STAGES;
+  typedef typename L::KvTile KvTile;
+  typedef typename L::QTile QTile;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  float* stats = reinterpret_cast<float*>(smem + L::STATS_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kv_full = empty + STAGES;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = int(blockIdx.z) * BN;  // the first key tiles see most
+  const int n_q = (t_len + BM - 1) / BM;
+  // causal: no query row before k0 sees these keys
+  const int qt0 = causal ? k0 / BM : 0;
+  const int n_it = n_q - qt0;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the loads, the statistics
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_init(kv_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // warp-uniform roles (broadcast from lane 0, so the compiler sees
+  // them so): warpgroup w takes keys [k0 + 64 w, k0 + 64 w + 64), warp 0
+  // also loads
+  const int warp_id = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int w = warp_id / 4;
+  const bool loader = warp_id == 0;
+  const int lane = tid % 32;
+  const int64_t base = (int64_t(b) * n_heads + h) * t_len;
+  const float* lr = l + base;
+  const float* mr = m + base;
+  const float* dr = di + base;
+  if (loader) {
+    if (lane == 0) {
+      tma_prefetch_map(&k_map);
+      tma_prefetch_map(&v_map);
+      tma_prefetch_map(&q_map);
+      tma_prefetch_map(&do_map);
+      mbar_expect_tx(kv_full, 2 * KvTile::BYTES);
+      KvTile::load(smem, &k_map, kv_full, h, k0, b);
+      KvTile::load(smem + L::V_OFF, &v_map, kv_full, h, k0, b);
+    }
+    // the first stages are fresh
+    for (int it = 0; it < min(STAGES, n_it); ++it) {
+      float v[6];
+      const int q0 = (qt0 + it) * BM;
+      stats_load(v, lr, mr, dr, q0, lane, t_len);
+      fill_stage<L>(smem, stats + it * L::STATS_FLOATS, &full[it], &q_map,
+                    &do_map, v, it, h, q0, b, lane);
+    }
+  }
+
+  const int warp = warp_id % 4;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int kw = k0 + 64 * w;
+  // keys of d[4 j + 0, 1] (key[0]) and d[4 j + 2, 3] (key[1])
+  const int key[2] = {kw + 16 * warp + g, kw + 16 * warp + g + 8};
+  const float c = scale * LOG2E;
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  const uint32_t k_base = smem_u32(smem);
+  const uint32_t v_base = k_base + L::V_OFF;
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it % STAGES;
+    const int q0 = (qt0 + it) * BM;
+    const uint32_t q_base = k_base + L::RING_OFF + stage * L::STAGE_BYTES;
+    const uint32_t do_base = q_base + QTile::BYTES;
+    const float* sr = stats + stage * L::STATS_FLOATS;
+    // warp 0 refills the stage of tile it - 1 with tile it - 1 + STAGES
+    // once this tile is done; its statistics load meanwhile (nothing
+    // waits for them before the fill)
+    const int refill = it - 1 + STAGES;
+    const bool refills = loader && it >= 1 && refill < n_it;
+    float next[6];
+    if (refills)
+      stats_load(next, lr, mr, dr, (qt0 + refill) * BM, lane, t_len);
+    mbar_wait(&full[stage], (it / STAGES) & 1);
+
+    // a tile wholly before this warpgroup's keys adds nothing (causal);
+    // the stage is handed back all the same
+    if (!causal || q0 + BM - 1 >= kw) {
+      float s[BM / 2], dp[BM / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<BM>::ss(s, KvTile::k_major(k_base, 64 * w, kk),
+                      QTile::k_major(q_base, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<BM>::ss(dp, KvTile::k_major(v_base, 64 * w, kk),
+                      QTile::k_major(do_base, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if ((causal && kw + 63 > q0) || kw + 64 > t_len)
+        pt_tile<BM, true>(s, sr, sr + BM, key, q0, tq, t_len, causal, c);
+      else
+        pt_tile<BM, false>(s, sr, sr + BM, key, q0, tq, t_len, causal, c);
+      // dS^T before either product, so that p^T is packed as its f32
+      // registers die
+      dst_tile<BM>(dp, s, sr + 2 * BM, tq, scale);
+      uint32_t pa[BM / 16][4], sa[BM / 16][4];
+      pack_a<BM>(pa, s);
+      pack_a<BM>(sa, dp);
+
+      // dV += p^T dO and dK += dS^T Q: p^T (dS^T) of queries
+      // [16 kk, 16 kk + 16) is the A fragment of k-step kk; dO and Q
+      // ([query][d]) are the MN-major B
+      fence_regs(dva);
+      fence_regs(dka);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk)
+        Wgmma<D>::rs(dva, pa[kk], QTile::mn_major(do_base, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk)
+        Wgmma<D>::rs(dka, sa[kk], QTile::mn_major(q_base, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      // the A fragments stay untouched until the products are done
+      fence_frags(pa);
+      fence_frags(sa);
+      fence_regs(dva);
+      fence_regs(dka);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (refills) {
+      // every consumer warp has released tile it - 1
+      const int prev = (it - 1) % STAGES;
+      mbar_wait(&empty[prev], ((it - 1) / STAGES) & 1);
+      fill_stage<L>(smem, stats + prev * L::STATS_FLOATS, &full[prev],
+                    &q_map, &do_map, next, prev, h, (qt0 + refill) * BM, b,
+                    lane);
+    }
+  }
+
+  bf16* dkb = dk + b * st.o1[0] + h * st.o1[2];
+  bf16* dvb = dv + b * st.o2[0] + h * st.o2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= t_len) continue;
+    bf16* kr = dkb + int64_t(key[i]) * st.o1[1] + tq * 2;
+    bf16* vr = dvb + int64_t(key[i]) * st.o2[1] + tq * 2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(kr + j * 8) =
+          __floats2bfloat162_rn(dka[4 * j + 2 * i], dka[4 * j + 2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(vr + j * 8) =
+          __floats2bfloat162_rn(dva[4 * j + 2 * i], dva[4 * j + 2 * i + 1]);
+    }
   }
 }
 
@@ -700,54 +865,63 @@ struct Args {
   Strides st;
   int causal;
   float scale;
-  const int64_t* maps;  // K3 bf16: the q, k, v, dO tensor-map layouts
+  const int64_t* maps;  // bf16: the q, k, v, dO tensor-map layouts
 };
 
-template <typename T, typename Kernel>
-cudaError_t launch_dkv(Kernel kernel, size_t smem_bytes, int threads,
-                       bool& configured, const Args& a,
-                       cudaStream_t stream) {
-  cudaError_t err = configure(kernel, smem_bytes, configured);
-  if (err != cudaSuccess) return err;
-  const dim3 grid{unsigned((a.t + BK - 1) / BK), unsigned(a.h),
-                  unsigned(a.b)};
-  kernel<<<grid, threads, smem_bytes, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.d_o), a.l, a.m,
-      a.di, static_cast<T*>(a.o1), static_cast<T*>(a.o2), int(a.t),
-      int(a.h), a.st, a.causal, a.scale);
-  return cudaGetLastError();
-}
-
-template <typename T, typename Kernel>
-cudaError_t launch_dq(Kernel kernel, size_t smem_bytes, int threads,
-                      bool& configured, const Args& a,
-                      cudaStream_t stream) {
-  cudaError_t err = configure(kernel, smem_bytes, configured);
-  if (err != cudaSuccess) return err;
-  const dim3 grid{unsigned((a.t + BQ - 1) / BQ), unsigned(a.h),
-                  unsigned(a.b)};
-  kernel<<<grid, threads, smem_bytes, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.d_o), a.l, a.m,
-      a.di, static_cast<T*>(a.o1), int(a.t), int(a.h), a.st, a.causal,
-      a.scale);
-  return cudaGetLastError();
-}
-
+// K2 or K3, float32
 template <int D>
-int launch_dq_tma(const Args& a, cudaStream_t stream) {
-  using L = DqTma<D>;
-  static bool configured = false;
+int launch_fma(bool dkv, const Args& a, cudaStream_t stream) {
+  static bool configured[2] = {false, false};
+  constexpr size_t smem = FmaLayout<D>::bytes;
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* d_o = static_cast<const float*>(a.d_o);
+  cudaError_t err;
+  if (dkv) {
+    err = configure(flash_bwd_dkv_fma_kernel<D>, smem, configured[0]);
+    if (err != cudaSuccess) return err;
+    const dim3 grid{unsigned((a.t + BK - 1) / BK), unsigned(a.h),
+                    unsigned(a.b)};
+    flash_bwd_dkv_fma_kernel<D><<<grid, FMA_THREADS, smem, stream>>>(
+        q, k, v, d_o, a.l, a.m, a.di, static_cast<float*>(a.o1),
+        static_cast<float*>(a.o2), int(a.t), int(a.h), a.st, a.causal,
+        a.scale);
+  } else {
+    err = configure(flash_bwd_dq_fma_kernel<D>, smem, configured[1]);
+    if (err != cudaSuccess) return err;
+    const dim3 grid{unsigned((a.t + BQ - 1) / BQ), unsigned(a.h),
+                    unsigned(a.b)};
+    flash_bwd_dq_fma_kernel<D><<<grid, FMA_THREADS, smem, stream>>>(
+        q, k, v, d_o, a.l, a.m, a.di, static_cast<float*>(a.o1), int(a.t),
+        int(a.h), a.st, a.causal, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+// The tensor maps of q, k, v, dO from their layouts, whose boxes must be
+// the kernel's tiles: rows_q query rows (q, dO) and rows_k keys (k, v)
+template <int D>
+int encode_operands(CUtensorMap (&maps)[4], const Args& a, int rows_q,
+                    int rows_k) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.d_o};
-  const int rows[4] = {L::BM, L::BN, L::BN, L::BM};
-  CUtensorMap maps[4];
+  const int rows[4] = {rows_q, rows_k, rows_k, rows_q};
   for (int i = 0; i < 4; ++i) {
     const int64_t* layout = a.maps + i * LAYOUT_LEN;
     if (!layout_matches(layout, D, rows[i])) return cudaErrorInvalidValue;
     const int rc = encode_map(&maps[i], ptrs[i], layout);
     if (rc != 0) return rc;
   }
+  return 0;
+}
+
+template <int D>
+int launch_dq_tma(const Args& a, cudaStream_t stream) {
+  using L = DqTma<D>;
+  static bool configured = false;
+  CUtensorMap maps[4];
+  const int rc = encode_operands<D>(maps, a, L::BM, L::BN);
+  if (rc != 0) return rc;
   const cudaError_t err =
       configure(flash_bwd_dq_tma_kernel<D>, L::bytes, configured);
   if (err != cudaSuccess) return err;
@@ -761,19 +935,29 @@ int launch_dq_tma(const Args& a, cudaStream_t stream) {
 }
 
 template <int D>
+int launch_dkv_tma(const Args& a, cudaStream_t stream) {
+  using L = DkvTma<D>;
+  static bool configured = false;
+  CUtensorMap maps[4];
+  const int rc = encode_operands<D>(maps, a, L::BM, L::BN);
+  if (rc != 0) return rc;
+  const cudaError_t err =
+      configure(flash_bwd_dkv_tma_kernel<D>, L::bytes, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid{unsigned(a.h), unsigned(a.b),
+                  unsigned((a.t + L::BN - 1) / L::BN)};
+  flash_bwd_dkv_tma_kernel<D><<<grid, DKV_THREADS, L::bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.l, a.m, a.di,
+      static_cast<bf16*>(a.o1), static_cast<bf16*>(a.o2), int(a.t),
+      int(a.h), a.st, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
 int launch_d(bool dkv, int dtype, const Args& a, cudaStream_t stream) {
-  static bool cfg[3] = {false, false, false};
-  if (dtype == 1 && dkv)
-    return launch_dkv<bf16>(flash_bwd_dkv_mma_kernel<D>, MmaLayout<D>::bytes,
-                            MMA_THREADS, cfg[0], a, stream);
-  if (dtype == 1 && a.maps != nullptr) return launch_dq_tma<D>(a, stream);
-  if (dtype == 0)
-    return dkv ? launch_dkv<float>(flash_bwd_dkv_fma_kernel<D>,
-                                   FmaLayout<D>::bytes, FMA_THREADS, cfg[1],
-                                   a, stream)
-               : launch_dq<float>(flash_bwd_dq_fma_kernel<D>,
-                                  FmaLayout<D>::bytes, FMA_THREADS, cfg[2],
-                                  a, stream);
+  if (dtype == 1 && a.maps != nullptr)
+    return dkv ? launch_dkv_tma<D>(a, stream) : launch_dq_tma<D>(a, stream);
+  if (dtype == 0) return launch_fma<D>(dkv, a, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -797,10 +981,13 @@ int launch(bool dkv, int64_t d, int dtype, const Args& a, void* stream) {
 extern "C" {
 
 // q, k, v, dO, dK, dV: [B, T, H, D] with unit stride on D; strides in
-// elements, (b, t, h) for q, k, v, dO, dK, dV in that order. bfloat16
-// operands need 16-byte aligned q, k, v, dO rows. l, m, di: [B, H, T]
-// f32, contiguous. dtype: 0 = float32, 1 = bfloat16. Returns the CUDA
-// error of the launch (0 = launched).
+// elements, (b, t, h) for q, k, v, dO, dK, dV in that order. l, m, di:
+// [B, H, T] f32, contiguous. dtype: 0 = float32, 1 = bfloat16. bfloat16
+// operands are read through TMA: `maps` holds the q, k, v, dO layouts
+// (4 x 12 int64, from ops/flash_attention.py:tma_layout, whose box rows
+// must be this kernel's tiles); float32 takes maps = NULL. Returns 0
+// when launched, else the CUDA error of the launch or ENCODE_ERROR +
+// cuTensorMapEncodeTiled's CUresult.
 int veles_flash_bwd_dkv(const void* q, const void* k, const void* v,
                         const void* d_o, const void* l, const void* m,
                         const void* di, void* dk, void* dv, int64_t b,
@@ -810,23 +997,18 @@ int veles_flash_bwd_dkv(const void* q, const void* k, const void* v,
                         int64_t osb, int64_t ost, int64_t osh, int64_t dksb,
                         int64_t dkst, int64_t dksh, int64_t dvsb,
                         int64_t dvst, int64_t dvsh, int causal, float scale,
-                        int dtype, void* stream) {
+                        int dtype, const int64_t* maps, void* stream) {
   const Args a{q, k, v, d_o,
                static_cast<const float*>(l), static_cast<const float*>(m),
                static_cast<const float*>(di), dk, dv, b, t, h,
                Strides{{qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh},
                        {osb, ost, osh}, {dksb, dkst, dksh},
                        {dvsb, dvst, dvsh}},
-               causal, scale, nullptr};
+               causal, scale, maps};
   return launch(true, d, dtype, a, stream);
 }
 
 // As veles_flash_bwd_dkv, with the one output dQ [B, T, H, D].
-// bfloat16 operands are read through TMA: `maps` holds the q, k, v, dO
-// layouts (4 x 12 int64, from ops/flash_attention.py:tma_layout, whose
-// box rows must be this kernel's tiles); float32 takes maps = NULL.
-// Returns ENCODE_ERROR + cuTensorMapEncodeTiled's CUresult when a map
-// is refused.
 int veles_flash_bwd_dq(const void* q, const void* k, const void* v,
                        const void* d_o, const void* l, const void* m,
                        const void* di, void* dq, int64_t b, int64_t t,
@@ -845,8 +1027,15 @@ int veles_flash_bwd_dq(const void* q, const void* k, const void* v,
   return launch(false, d, dtype, a, stream);
 }
 
-// Dynamic shared memory of the bf16 dQ kernel at head dim d (bytes; 0
-// for an unsupported d): ptxas reports static shared memory only.
+// Dynamic shared memory of the bf16 dK/dV and dQ kernels at head dim d
+// (bytes; 0 for an unsupported d): ptxas reports static shared memory
+// only.
+int64_t veles_flash_bwd_dkv_smem(int64_t d) {
+  return d == 32 ? DkvTma<32>::bytes
+                 : d == 64 ? DkvTma<64>::bytes
+                           : d == 128 ? DkvTma<128>::bytes : 0;
+}
+
 int64_t veles_flash_bwd_dq_smem(int64_t d) {
   return d == 32 ? DqTma<32>::bytes
                  : d == 64 ? DqTma<64>::bytes

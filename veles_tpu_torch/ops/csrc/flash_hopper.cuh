@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the bf16 flash-attention kernels K1
-// (flash_fwd.cu) and K3 (flash_bwd.cu): TMA tile loads through tensor
+// (flash_fwd.cu), K2 and K3 (flash_bwd.cu): TMA tile loads through tensor
 // maps, mbarrier rings between a producer warp and consumer warpgroups,
 // register rebalancing (setmaxnreg), and warpgroup matrix products
 // (wgmma.mma_async) with their shared-memory descriptors.
@@ -207,6 +207,15 @@ template <int N> __device__ inline void wgmma_wait() {
 template <int R> __device__ inline void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for the A fragments of register-A wgmmas: placed after their
+// wait, it keeps the registers from reuse while the products read them
+template <int K> __device__ inline void fence_frags(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[i][r])::"memory");
 }
 
 // shared-memory matrix descriptor: start address, leading and stride

@@ -11,8 +11,8 @@ explicit ``impl=``:
 - ``impl="cuda"``: the hand-written Hopper kernels in ``csrc/``
   (``flash_fwd.cu`` for the forward, ``flash_bwd.cu`` for the dK/dV
   and dQ backward, ``flash_decode.cu`` for slab and paged decode),
-  taken for every CUDA tensor. The bf16 forward and dQ kernels read
-  their operands through TMA tensor maps whose layout
+  taken for every CUDA tensor. The bf16 forward, dK/dV and dQ kernels
+  read their operands through TMA tensor maps whose layout
   :func:`tma_layout` computes. A launch that fails raises; nothing
   falls back.
 - ``impl="plain"``: the blocked algorithm in plain PyTorch, op for op
@@ -66,9 +66,12 @@ MAX_PAGED_BLOCKS = 8192
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Rows of the TMA boxes of the bf16 Hopper kernels, (query tile, key
-#: tile): the blocks of K1 (``flash_fwd.cu``) and K3 (``flash_bwd.cu``).
-#: The kernels refuse a layout whose box is not their tile.
-TMA_TILES = {"flash_fwd": (128, 128), "flash_bwd_dq": (128, 64)}
+#: tile): K1 (``flash_fwd.cu``) and K3 (``flash_bwd.cu``) hold 128 query
+#: rows and stream key tiles, K2 (``flash_bwd.cu``) holds 128 keys and
+#: streams query tiles. The kernels refuse a layout whose box is not
+#: their tile.
+TMA_TILES = {"flash_fwd": (128, 128), "flash_bwd_dq": (128, 64),
+             "flash_bwd_dkv": (64, 128)}
 
 #: The widest TMA swizzle span in bytes: a wider bf16 row loads as
 #: several boxes of this many bytes (two at D = 128).
@@ -282,16 +285,6 @@ def _check_kernel_operands(entry: str, *tensors: torch.Tensor) -> None:
                              "dim, got strides %r" % (entry, x.stride()))
 
 
-def _rows_aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself when every [b, t, h] row starts on a 16-byte
-    boundary, else a fresh contiguous copy: the bf16 dK/dV kernel (K2)
-    moves rows 16 bytes at a time."""
-    if x.data_ptr() % 16 == 0 and \
-            all(st * x.element_size() % 16 == 0 for st in x.stride()[:3]):
-        return x
-    return x.clone(memory_format=torch.contiguous_format)
-
-
 def tma_layout(shape, strides, element_size: int, data_ptr: int,
                box_rows: int):
     """The TMA tensor map of one ``[B, T, H, D]`` operand of the bf16
@@ -348,6 +341,18 @@ def _tma_maps(layouts) -> bytes:
     return struct.pack("=%dq" % len(flat), *flat)
 
 
+def _tma_operands(entry: str, *xs: torch.Tensor):
+    """The bf16 operands q, k, v (and dO) of the TMA kernel of ``entry``,
+    each copied where TMA cannot read it in place, and their layouts
+    packed for the C entry: q and dO take the query tile's rows, k and v
+    the key tile's (:data:`TMA_TILES`)."""
+    rows_q, rows_k = TMA_TILES[entry]
+    rows = (rows_q, rows_k, rows_k, rows_q)
+    pairs = [_tma_operand(x, r) for x, r in zip(xs, rows)]
+    xs, layouts = zip(*pairs)
+    return xs, _tma_maps(layouts)
+
+
 def _fwd_lib() -> ctypes.CDLL:
     lib = _build.library("flash_fwd")
     if lib.veles_flash_fwd.argtypes is None:
@@ -383,12 +388,7 @@ def flash_fwd_cuda(q, k, v, causal: bool):
     _check_kernel_operands("flash_fwd", q, k, v)
     maps = None
     if q.dtype == torch.bfloat16:
-        rows_q, rows_k = TMA_TILES["flash_fwd"]
-        (q, lq), (k, lk), (v, lv) = (_tma_operand(x, rows) for x, rows in (
-            (q, rows_q), (k, rows_k), (v, rows_k)))
-        maps = _tma_maps((lq, lk, lv))
-    else:
-        q, k, v = (_rows_aligned(x) for x in (q, k, v))
+        (q, k, v), maps = _tma_operands("flash_fwd", q, k, v)
     b, t, h, d = q.shape
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     l = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -411,30 +411,32 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.library("flash_bwd")
     if lib.veles_flash_bwd_dkv.argtypes is None:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        tail = [ctypes.c_int, ctypes.c_float, ctypes.c_int, p]
+        tail = [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                ctypes.c_char_p, p]
         lib.veles_flash_bwd_dkv.argtypes = [p] * 9 + [i64] * 22 + tail
         lib.veles_flash_bwd_dkv.restype = ctypes.c_int
-        lib.veles_flash_bwd_dq.argtypes = (
-            [p] * 8 + [i64] * 19 + tail[:3] + [ctypes.c_char_p, p])
+        lib.veles_flash_bwd_dq.argtypes = [p] * 8 + [i64] * 19 + tail
         lib.veles_flash_bwd_dq.restype = ctypes.c_int
-        lib.veles_flash_bwd_dq_smem.argtypes = [i64]
-        lib.veles_flash_bwd_dq_smem.restype = i64
+        for entry in ("dkv", "dq"):
+            smem = getattr(lib, "veles_flash_bwd_%s_smem" % entry)
+            smem.argtypes = [i64]
+            smem.restype = i64
     return lib
 
 
 def hopper_smem_bytes(entry: str, d: int) -> int:
-    """Dynamic shared memory of the bf16 TMA kernel of ``entry``
-    ("flash_fwd" or "flash_bwd_dq") at head dim ``d``, in bytes (ptxas
-    reports only static shared memory)."""
-    if entry == "flash_fwd":
-        return _fwd_lib().veles_flash_fwd_smem(d)
-    if entry == "flash_bwd_dq":
-        return _bwd_lib().veles_flash_bwd_dq_smem(d)
-    raise ValueError("no TMA kernel for %r" % entry)
+    """Dynamic shared memory of the bf16 TMA kernel of ``entry`` (a key
+    of :data:`TMA_TILES`) at head dim ``d``, in bytes (ptxas reports
+    only static shared memory)."""
+    if entry not in TMA_TILES:
+        raise ValueError("no TMA kernel for %r" % entry)
+    lib = _fwd_lib() if entry == "flash_fwd" else _bwd_lib()
+    return getattr(lib, "veles_%s_smem" % entry)(d)
 
 
 def _bwd_operands(entry, q, k, v, do, l, m, di):
-    """Checked, 16-byte-row-aligned kernel operands of K2/K3."""
+    """The checked kernel operands q, k, v, dO of K2/K3 and, at bf16,
+    their TMA layouts packed for the C entry (None at f32)."""
     _check_kernel_operands(entry, q, k, v, do)
     b, t, h, _ = q.shape
     if k.shape != q.shape or v.shape != q.shape or do.shape != q.shape:
@@ -445,14 +447,19 @@ def _bwd_operands(entry, q, k, v, do, l, m, di):
                 tuple(x.shape) != (b, h, t) or not x.is_contiguous():
             raise ValueError("%s kernel needs contiguous f32 l, m, di "
                              "[B, H, T] on the operands' device" % entry)
-    return tuple(_rows_aligned(x) for x in (q, k, v, do))
+    if q.dtype != torch.bfloat16:
+        return q, k, v, do, None
+    (q, k, v, do), maps = _tma_operands(entry, q, k, v, do)
+    return q, k, v, do, maps
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, l, m, di, causal: bool):
     """K2: dK and dV from q, k, v, dO [B,T,H,D] CUDA tensors (read in
-    place through their strides) and the f32 stats l, m, di [B,H,T].
-    Returns (dk, dv), [B,T,H,D] contiguous in the input dtype."""
-    q, k, v, do = _bwd_operands("flash_bwd_dkv", q, k, v, do, l, m, di)
+    place through their strides; bf16 through TMA tensor maps) and the
+    f32 stats l, m, di [B,H,T]. Returns (dk, dv), [B,T,H,D] contiguous
+    in the input dtype."""
+    q, k, v, do, maps = _bwd_operands("flash_bwd_dkv", q, k, v, do, l, m,
+                                      di)
     b, t, h, d = q.shape
     dk = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -464,7 +471,8 @@ def flash_bwd_dkv_cuda(q, k, v, do, l, m, di, causal: bool):
             l.data_ptr(), m.data_ptr(), di.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, t, h, d,
             *(st for x in (q, k, v, do, dk, dv) for st in x.stride()[:3]),
-            int(bool(causal)), d ** -0.5, _DTYPE_CODES[q.dtype], stream)
+            int(bool(causal)), d ** -0.5, _DTYPE_CODES[q.dtype], maps,
+            stream)
     _build.check(lib, "flash_bwd_dkv", rc)
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
@@ -474,14 +482,8 @@ def flash_bwd_dq_cuda(q, k, v, do, l, m, di, causal: bool):
     """K3: dQ from the same operands as :func:`flash_bwd_dkv_cuda` (bf16
     read through TMA tensor maps). Returns dq, [B,T,H,D] contiguous in
     the input dtype."""
-    q, k, v, do = _bwd_operands("flash_bwd_dq", q, k, v, do, l, m, di)
-    maps = None
-    if q.dtype == torch.bfloat16:
-        rows_q, rows_k = TMA_TILES["flash_bwd_dq"]
-        pairs = [_tma_operand(x, rows) for x, rows in (
-            (q, rows_q), (k, rows_k), (v, rows_k), (do, rows_q))]
-        (q, k, v, do), layouts = zip(*pairs)
-        maps = _tma_maps(layouts)
+    q, k, v, do, maps = _bwd_operands("flash_bwd_dq", q, k, v, do, l, m,
+                                      di)
     b, t, h, d = q.shape
     dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lib = _bwd_lib()
