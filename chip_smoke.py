@@ -12,7 +12,11 @@ without them, and on any failed phase. Phases, in order:
    ``cuobjdump -sass`` counts the Hopper instructions of the flash
    libraries' kernels (``HGMMA``: wgmma; ``UTMALDG``: TMA loads), and
    the phase fails unless the bf16 forward (K1), dK/dV (K2) and dQ (K3)
-   kernels hold both and spill nothing;
+   kernels hold both and spill nothing; the decode kernels (K4, K5:
+   split and merge, every dtype, D and row source) report their
+   registers, spills and loads (``LDG.128``: 16-byte global loads), and
+   the phase fails unless every split kernel holds them and none
+   spills;
 2. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (max errors against stated tolerances),
    with the kernel's and one library call's device time (the
@@ -25,9 +29,10 @@ without them, and on any failed phase. Phases, in order:
    K1, K2 and K3 give bitwise the same result on a second launch on the
    same inputs: the forward (K1), slab
    decode (K4) and paged decode (K5, the same K/V as K4's slab in a
-   scrambled page pool, also compared bitwise with K4) kernels at the
-   serving shapes, the backward kernels (K2 dK/dV, K3 dQ) at batch 2
-   (bf16 and f32, full and ragged T), then K1, K2 and K3 at the
+   scrambled page pool, which must equal K4 bitwise) kernels at the
+   serving shapes (K4/K5 logging their chunk counts), the backward
+   kernels (K2 dK/dV, K3 dQ) at batch 2 (bf16 and f32, full and
+   ragged T), then K1, K2 and K3 at the
    training shape and layout (batch 8, q, k, v strided views of one
    fused QKV projection, SDPA timed on the same views); the LRN forward
    and backward kernels (K6, K7)
@@ -41,7 +46,8 @@ without them, and on any failed phase. Phases, in order:
    ``GenerativeEngine`` -> ``ModelRegistry`` -> ``ServeServer``, eight
    ``POST /generate`` requests (one streaming), the kernels' launch
    counters read around them; then prefill and decode timed on the
-   engine directly;
+   engine directly, a decode step profiled (its device time beside the
+   flash-decode kernels' share of it);
 4. parity on the card: greedy tokens through the kernels equal the
    plain path's over 32 steps on a 2-layer f32 copy of the same width;
    the bf16 full-width prefill logits against the plain path;
@@ -305,17 +311,28 @@ def profile_device(torch, fn, steps):
         by_class[cls] = by_class.get(cls, 0.0) + ms
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms, by_class=by_class,
+                flash_decode_ms=sum(ms for key, ms, _ in rows
+                                    if "flash_decode" in key),
                 top=[dict(kernel=k[:80], ms=ms, launches=n)
                      for k, ms, n in rows[:8]])
 
 
-#: SASS instructions of Hopper's units: wgmma and TMA loads
-SASS_OPS = ("HGMMA", "UTMALDG")
-#: the bf16 kernels that must run on them: kernel -> (library, entry of
-#: ``hopper_smem_bytes``)
-HOPPER_KERNELS = {"flash_fwd_tma_kernel": ("flash_fwd", "flash_fwd"),
-                  "flash_bwd_dkv_tma_kernel": ("flash_bwd", "flash_bwd_dkv"),
-                  "flash_bwd_dq_tma_kernel": ("flash_bwd", "flash_bwd_dq")}
+#: SASS instructions counted in phase 1, by their patterns: wgmma, TMA
+#: loads, 16-byte global loads
+SASS_OPS = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b",
+            "LDG.128": r"\bLDG\.\S*128\b"}
+#: the kernels phase 1 holds to their units: kernel -> (library, entry
+#: of ``hopper_smem_bytes`` or None, the SASS ops every instance holds).
+#: The bf16 K1, K2 and K3 run on wgmma and TMA; the decode kernels K4
+#: and K5 split the key axis (16-byte loads) and merge the partials.
+HOPPER_KERNELS = {
+    "flash_fwd_tma_kernel": ("flash_fwd", "flash_fwd", ("HGMMA", "UTMALDG")),
+    "flash_bwd_dkv_tma_kernel": ("flash_bwd", "flash_bwd_dkv",
+                                 ("HGMMA", "UTMALDG")),
+    "flash_bwd_dq_tma_kernel": ("flash_bwd", "flash_bwd_dq",
+                                ("HGMMA", "UTMALDG")),
+    "flash_decode_split_kernel": ("flash_decode", None, ("LDG.128",)),
+    "flash_decode_merge_kernel": ("flash_decode", None, ())}
 
 
 def demangle(names):
@@ -343,8 +360,8 @@ def sass_counts(lib_path):
             name = m.group(1)
             counts[name] = dict.fromkeys(SASS_OPS, 0)
         elif name is not None:
-            for op in SASS_OPS:
-                if re.search(r"\b%s\b" % op, line):
+            for op, pattern in SASS_OPS.items():
+                if re.search(pattern, line):
                     counts[name][op] += 1
     plain = demangle(counts)
     return {plain[n]: c for n, c in counts.items()}
@@ -371,29 +388,34 @@ def spill_bytes(lines):
 
 
 def hopper_units(_build, fa):
-    """Phase 1's proof that K1, K2 and K3 reach Hopper's units: the SASS
-    counts of the flash libraries, ptxas's registers and spills and the
-    dynamic shared memory of the bf16 kernels; fails when one of them
-    holds no wgmma or no TMA load, or spills."""
+    """Phase 1's proof that the flash kernels reach the units they were
+    written for: for every instance of each of HOPPER_KERNELS, its SASS
+    counts, ptxas's registers and spills and, for the bf16 TMA kernels,
+    the dynamic shared memory; fails when an instance lacks one of its
+    ops or spills, or a library lacks a kernel."""
     record = {}
-    for stem, (lib, entry) in HOPPER_KERNELS.items():
+    for stem, (lib, entry, needs) in HOPPER_KERNELS.items():
         counts = sass_counts(_build.build([lib])[lib])
         usage = ptxas_usage(_build.build_log(lib))
         for name in sorted(counts):
             if not name.startswith(stem + "<"):
                 continue
-            d = int(name[name.index("<") + 1:-1])
-            smem = fa.hopper_smem_bytes(entry, d)
             c = counts[name]
             lines = usage.get(name, [])
-            log("  %s: %d HGMMA, %d UTMALDG; ptxas %s; dynamic smem %d "
-                "bytes" % (name, c["HGMMA"], c["UTMALDG"],
-                           "; ".join(lines), smem))
-            record[name] = dict(c, ptxas=lines, dynamic_smem=smem,
+            record[name] = dict(c, ptxas=lines,
                                 spill_bytes=spill_bytes(lines))
-            if not all(c[op] for op in SASS_OPS):
+            smem = ""
+            if entry is not None:
+                d = int(name[name.index("<") + 1:-1])
+                record[name]["dynamic_smem"] = fa.hopper_smem_bytes(entry, d)
+                smem = "; dynamic smem %d bytes" % record[name][
+                    "dynamic_smem"]
+            log("  %s: %s; ptxas %s%s" % (
+                name, ", ".join("%d %s" % (c[op], op) for op in SASS_OPS),
+                "; ".join(lines), smem))
+            if not all(c[op] for op in needs):
                 raise AssertionError("%s lacks %s" % (name, [
-                    op for op in SASS_OPS if not c[op]]))
+                    op for op in needs if not c[op]]))
             if not lines or record[name]["spill_bytes"]:
                 raise AssertionError("%s: ptxas reports spills or nothing: "
                                      "%s" % (name, lines))
@@ -521,6 +543,7 @@ def kernel_phase(torch, fa, dev):
                 max_abs_err=err, ms=ms, event_ms=event_ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms)
+            log("  flash_decode: %s" % decode_chunks(fa, s, lengths, h))
     backward_kernels(torch, fa, dev, randn, h, d, rows)
     for row in rows.values():
         log("  %s: kernel %.4f ms (back to back %.4f), plain %.4f ms, "
@@ -542,6 +565,17 @@ def kernel_phase(torch, fa, dev):
         "dV) %.4f ms" % (rows["flash_bwd_dq"]["k2_plus_k3_ms"],
                          rows["flash_bwd_dq"]["library_ms"]))
     return rows
+
+
+def decode_chunks(fa, capacity, lengths, heads):
+    """K4/K5's split at a capacity, for the log: the chunks per (head,
+    sequence) of the grid, and the blocks with a live chunk (those past
+    the length exit at once)."""
+    c = fa.DECODE_CHUNK
+    live = heads * sum(-(-n // c) for n in lengths.tolist())
+    grid = heads * len(lengths) * fa.decode_chunks(capacity)
+    return ("chunks of %d keys, %d per (head, sequence); %d of %d blocks "
+            "live" % (c, fa.decode_chunks(capacity), live, grid))
 
 
 def paged_kernel(torch, fa, dev, dn, q, kc, vc, lengths, slab_out, row):
@@ -580,9 +614,14 @@ def paged_kernel(torch, fa, dev, dn, q, kc, vc, lengths, slab_out, row):
         "(max diff %.3e)" % (dn, bitwise,
                              float((out.float() - slab_out.float())
                                    .abs().max())))
+    if not bitwise:
+        raise AssertionError("flash_decode_paged %s differs from "
+                             "flash_decode on the same K/V" % dn)
     if row is not None:          # the bf16 row, made first
         row["bitwise_equal_k4_f32"] = bitwise
         return row
+    log("  flash_decode_paged: %s" % decode_chunks(fa, n_blk * ps, lengths,
+                                                   h))
     live = int(lengths.sum())
     nbytes = (2 * live * h * d + 2 * b * h * d) * q.element_size() + \
         4 * b + 4 * table.numel()
@@ -1103,10 +1142,10 @@ def serving_phase(torch, fa, dev, card):
         if prof is None:
             log("  profile %s: no device time recorded" % what)
             continue
-        log("  profile %s: wall %.3f ms, device %.3f ms (busy %.0f%%); "
-            "top kernels: %s" % (
+        log("  profile %s: wall %.3f ms, device %.3f ms (busy %.0f%%), "
+            "flash decode (K4) %.3f ms; top kernels: %s" % (
                 what, prof["wall_ms"], prof["device_ms"],
-                100 * prof["busy_share"],
+                100 * prof["busy_share"], prof["flash_decode_ms"],
                 "; ".join("%s %.3f ms x%g" % (r["kernel"][:40], r["ms"],
                                               r["launches"])
                           for r in prof["top"][:5])))
@@ -1592,10 +1631,10 @@ def paged_serving_phase(torch, fa, dev, card, slab):
     for what, pr in (("paged decode round", prof),
                      ("round with 2 sampled slots", prof_sampled)):
         if pr is not None:
-            log("  profile %s: wall %.3f ms, device %.3f ms (busy %.0f%%); "
-                "by class: %s" % (
+            log("  profile %s: wall %.3f ms, device %.3f ms (busy %.0f%%), "
+                "flash decode (K5) %.3f ms; by class: %s" % (
                     what, pr["wall_ms"], pr["device_ms"],
-                    100 * pr["busy_share"], "; ".join(
+                    100 * pr["busy_share"], pr["flash_decode_ms"], "; ".join(
                         "%s %.3f ms" % kv for kv in sorted(
                             pr["by_class"].items(), key=lambda kv: -kv[1]))))
     result["engine"] = dict(prefill_8x1024_ms=prefill_ms,

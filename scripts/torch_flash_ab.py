@@ -13,9 +13,18 @@ rate. ``--sdpa`` also times scaled_dot_product_attention on the same
 inputs; ``--lm`` then trains the full-width LM on the checkout's
 package with this checkout's ``chip_smoke.training_phase`` (phase 5:
 ms per step over a timed window, the step's device time and busy
-share, the flash kernels' device time).
+share, the flash kernels' device time). ``--decode`` runs the decode
+kernels instead: a sweep of K4 (slab) and K5 (pages) against the plain
+versions (D 32/64/128, bf16 and f32, lengths around a 128-key chunk
+edge, a second launch bitwise equal, K5 bitwise equal to K4 on the same
+K/V), then both at phase 2's shape (q [8, 8, 128] over a
+``[8, 2048, 8, 128]`` bf16 slab, lengths 0 to 2048, K5 over the same
+K/V in 16-token pages in a scrambled order) by device time with the L2
+flushed before each call and by back-to-back event time; with
+``--sdpa`` also SDPA and the page gather + SDPA on the same inputs.
 
     PKG=<checkout> TAG=<label> python3 scripts/torch_flash_ab.py [--sdpa] [--lm]
+    PKG=<checkout> TAG=<label> python3 scripts/torch_flash_ab.py --decode [--sdpa]
 
 ``PKG`` names the checkout whose ``veles_tpu_torch`` is timed (default:
 this one); compare two checkouts in one run on one card, in turns
@@ -61,10 +70,147 @@ def event_ms(fn, n=20):
     return start.elapsed_time(end) / n
 
 
+#: phase 2's decode lengths, and the chunk-edge lengths of the sweep
+DECODE_LENGTHS = [0, 1, 777, 2048, 1500, 64, 1024, 2000]
+EDGE = 128
+
+
+def _pages(k, v, ps, extra, rng):
+    """The slab's K/V in ps-row pages in a scrambled order, with a block
+    table that ends in ``extra`` sentinel entries (id P) per sequence."""
+    b, s, h, d = k.shape
+    used = -(-s // ps)
+    perm = torch.from_numpy(rng.permutation(b * used)).cuda()
+    pools = []
+    for x in (k, v):
+        rows = torch.zeros((b, used * ps, h, d), dtype=x.dtype, device="cuda")
+        rows[:, :s] = x
+        pool = torch.empty((b * used, ps, h, d), dtype=x.dtype,
+                           device="cuda")
+        pool[perm] = rows.reshape(b * used, ps, h, d)
+        pools.append(pool)
+    table = torch.full((b, used + extra), b * used, dtype=torch.int32,
+                       device="cuda")
+    table[:, :used] = perm.reshape(b, used).to(torch.int32)
+    return pools[0], pools[1], table
+
+
+def decode_main(smoke):
+    t0 = time.time()
+    _build.build(["flash_decode"])
+    print(TAG, "build %.1f s" % (time.time() - t0), flush=True)
+    rng = np.random.default_rng(0)
+
+    def randn(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda().to(dtype)
+
+    bad = 0
+    s = 4 * EDGE + 37
+    lengths = torch.tensor([0, EDGE - 1, EDGE, EDGE + 1, 3 * EDGE + 5, s],
+                           dtype=torch.int32, device="cuda")
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        for d in (128, 64, 32):
+            k, v = randn((6, s, 3, d), dtype), randn((6, s, 3, d), dtype)
+            q = randn((6, 3, d), dtype)
+            kp, vp, table = _pages(k, v, 16, 9, rng)
+            out = fa.flash_decode_cuda(q, k, v, lengths)
+            again = fa.flash_decode_cuda(q, k, v, lengths)
+            paged = fa.flash_decode_paged_cuda(q, kp, vp, table, lengths)
+            ref = fa.flash_decode(q, k, v, lengths, impl="plain")
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            ok = bool((err <= tol + tol * ref.float().abs()).all()) and \
+                torch.equal(out, again) and torch.equal(out, paged) and \
+                float(out[0].abs().max()) == 0.0
+            bad += not ok
+            print(TAG, "%s D=%d: max err %.2e, again bitwise %s, K5 == K4 "
+                  "bitwise %s %s" % (str(dtype)[6:], d, float(err.max()),
+                                     torch.equal(out, again),
+                                     torch.equal(out, paged),
+                                     "ok" if ok else "FAIL"), flush=True)
+    print(TAG, "failed cases", bad, flush=True)
+
+    b, s, h, d = 8, 2048, 8, 128
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    k, v = randn((b, s, h, d), torch.bfloat16), randn((b, s, h, d),
+                                                       torch.bfloat16)
+    q = randn((b, h, d), torch.bfloat16)
+    kp, vp, table = _pages(k, v, 16, 0, rng)
+    live = (torch.arange(table.shape[1], device="cuda")[None, :] <
+            ((lengths + 15) // 16)[:, None])
+    table = torch.where(live, table, torch.full_like(table, kp.shape[0]))
+    rows = [("K4 slab", lambda: fa.flash_decode_cuda(q, k, v, lengths)),
+            ("K5 paged", lambda: fa.flash_decode_paged_cuda(
+                q, kp, vp, table, lengths))]
+    if "--sdpa" in sys.argv:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        mask = (torch.arange(s, device="cuda")[None, :] <
+                lengths[:, None])[:, None, None, :]
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        safe = table.clamp(max=kp.shape[0] - 1).long()
+        rows += [("SDPA slab", lambda: sdpa(q[:, :, None], kt, vt,
+                                            attn_mask=mask)),
+                 ("gather + SDPA", lambda: sdpa(
+                     q[:, :, None],
+                     kp[safe].reshape(b, s, h, d).transpose(1, 2),
+                     vp[safe].reshape(b, s, h, d).transpose(1, 2),
+                     attn_mask=mask))]
+    live_bytes = 2 * int(lengths.sum()) * h * d * 2
+    for name, fn in rows:
+        ev, dev = event_ms(fn, 50), smoke.device_ms(fn, 50, cold=True)
+        print(TAG, "%-14s device %.4f ms cold L2 (%.0f GB/s of live K/V), "
+              "back to back %.4f ms" % (name, dev, live_bytes / dev / 1e6,
+                                        ev), flush=True)
+        for flush in ("write", "read", None):
+            print(TAG, "  by kernel, L2 %s: %s" % (
+                {"write": "dirty", "read": "clean", None: "warm"}[flush],
+                "; ".join("%s %.4f ms" % kv
+                          for kv in by_kernel(smoke, fn, flush))),
+                flush=True)
+    return 1 if bad else 0
+
+
+def by_kernel(smoke, fn, flush="write", reps=50):
+    """Device time of one ``fn()`` per kernel (name, ms), the L2 cache
+    before each call left dirty (``"write"``: 100 MB written, as
+    ``chip_smoke.device_ms(cold=True)`` flushes, so the call's reads also
+    pay for writing those lines back), clean (``"read"``: 100 MB read)
+    or warm (None); the flush's own kernels left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    big = torch.empty(2 * smoke.L2_BYTES // 4, dtype=torch.float32,
+                      device="cuda")
+    step = {"write": big.zero_, "read": big.sum, None: lambda: None}[flush]
+
+    def kernels(body):
+        body()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                body()
+            torch.cuda.synchronize()
+            time.sleep(smoke.EDGE_PAUSE_S)
+        return {e.key: e.self_device_time_total / reps / 1e3
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count}
+
+    skip = set(kernels(step))
+
+    def timed():
+        step()
+        fn()
+
+    return [(key[:48], ms) for key, ms in kernels(timed).items()
+            if key not in skip]
+
+
 def main():
     if not torch.cuda.is_available():
         print("torch_flash_ab: no CUDA device", file=sys.stderr)
         return 2
+    if "--decode" in sys.argv:
+        return decode_main(_smoke())
     t0 = time.time()
     _build.build(["flash_fwd", "flash_bwd"])
     print(TAG, "build %.1f s" % (time.time() - t0), flush=True)

@@ -388,6 +388,135 @@ def test_flash_decode_paged_kernel_equals_slab_kernel(cuda, dtype):
     assert torch.equal(slab, paged)
 
 
+#: K4/K5 split the key axis into chunks of C keys: lengths of 0, on and
+#: around a chunk edge, over several chunks, and the full capacity
+#: (None), over a ragged capacity (neither chunks nor stages divide it)
+C = fa.DECODE_CHUNK
+SPLIT_LENGTHS = [0, C - 1, C, C + 1, 3 * C + 5, None]
+SPLIT_S = 4 * C + 37
+
+
+def _split_case(rng, dtype, d, device, ps, extra_blocks=13):
+    """q, a slab [B, SPLIT_S, 3, d] at SPLIT_LENGTHS, and the same K/V as
+    a pool of ps-row pages in a scrambled order, each sequence's table
+    followed by at least a chunk's worth of sentinels, so the pool's
+    capacity n_blk * ps is not the slab's S and has more chunks."""
+    b, h = len(SPLIT_LENGTHS), 3
+    s = SPLIT_S
+    k, v = (_randn(rng, (b, s, h, d), dtype, device) for _ in range(2))
+    q = _randn(rng, (b, h, d), dtype, device)
+    lengths = torch.tensor([s if n is None else n for n in SPLIT_LENGTHS],
+                           dtype=torch.int32, device=device)
+    used = -(-s // ps)
+    n_blk = used + max(extra_blocks, -(-C // ps))
+    pools = []
+    perm = torch.from_numpy(rng.permutation(b * used)).to(device)
+    for x in (k, v):
+        rows = torch.zeros((b, used * ps, h, d), dtype=dtype, device=device)
+        rows[:, :s] = x
+        pool = torch.empty((b * used, ps, h, d), dtype=dtype, device=device)
+        pool[perm] = rows.reshape(b * used, ps, h, d)
+        pools.append(pool)
+    table = torch.full((b, n_blk), b * used, dtype=torch.int32,
+                       device=device)
+    table[:, :used] = perm.reshape(b, used).to(torch.int32)
+    assert fa.decode_chunks(n_blk * ps) > fa.decode_chunks(s)
+    return q, k, v, lengths, pools[0], pools[1], table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_decode_split_edges_match_plain(cuda, dtype, d):
+    """K4 and K5 at lengths C - 1, C, C + 1, several chunks and the full
+    capacity, against the plain paths; a second launch of each is
+    bitwise equal to the first; K5 equals K4 bitwise although its
+    capacity (and chunk count) is larger."""
+    rng = np.random.default_rng(d + 17)
+    q, k, v, lengths, kp, vp, table = _split_case(rng, dtype, d, cuda, 16)
+    slab = fa.flash_decode_cuda(q, k, v, lengths)
+    slab2 = fa.flash_decode_cuda(q, k, v, lengths)
+    paged = fa.flash_decode_paged_cuda(q, kp, vp, table, lengths)
+    paged2 = fa.flash_decode_paged_cuda(q, kp, vp, table, lengths)
+    ref = fa.flash_decode(q, k, v, lengths, impl="plain")
+    ref_paged = fa.flash_decode_paged(q, kp, vp, table, lengths,
+                                      impl="plain")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(slab.float(), ref.float(), **TOL[dtype])
+    torch.testing.assert_close(paged.float(), ref_paged.float(),
+                               **TOL[dtype])
+    assert torch.equal(slab, slab2) and torch.equal(paged, paged2)
+    assert torch.equal(slab, paged)
+    assert float(slab[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype,d,ps", [
+    (torch.bfloat16, 128, 16), (torch.float32, 128, 16),
+    (torch.bfloat16, 32, 1), (torch.bfloat16, 64, 2),
+    (torch.float32, 64, 256), (torch.bfloat16, 128, 512)])
+def test_flash_decode_paged_equals_slab_across_page_sizes(cuda, dtype, d,
+                                                          ps):
+    """K5 over pages of one 64-byte row, pages smaller than a stage, and
+    pages larger than a chunk equals K4 on the same K/V bitwise."""
+    rng = np.random.default_rng(ps + d)
+    q, k, v, lengths, kp, vp, table = _split_case(rng, dtype, d, cuda, ps,
+                                                  extra_blocks=3)
+    slab = fa.flash_decode_cuda(q, k, v, lengths)
+    paged = fa.flash_decode_paged_cuda(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(slab, paged)
+
+
+def test_flash_decode_kernels_replay_in_a_cuda_graph(cuda):
+    """K4 and K5 captured in one CUDA graph: the lengths and the block
+    table are data, rewritten in place between replays, and a replay
+    equals eager calls on the new values bitwise."""
+    rng = np.random.default_rng(5)
+    q, k, v, lengths, kp, vp, table = _split_case(
+        rng, torch.bfloat16, 128, cuda, 16)
+    fa.flash_decode_cuda(q, k, v, lengths)                  # warm-up
+    fa.flash_decode_paged_cuda(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        slab = fa.flash_decode_cuda(q, k, v, lengths)
+        paged = fa.flash_decode_paged_cuda(q, kp, vp, table, lengths)
+    for step in range(2):
+        new_lengths = torch.tensor([5 + step, 2 * C, C + 7, SPLIT_S - step,
+                                    1, 0], dtype=torch.int32, device=cuda)
+        lengths.copy_(new_lengths)
+        table.copy_(table.roll(1 + step, dims=0))
+        graph.replay()
+        want_slab = fa.flash_decode_cuda(q, k, v, lengths)
+        want_paged = fa.flash_decode_paged_cuda(q, kp, vp, table, lengths)
+        torch.cuda.synchronize()
+        assert torch.equal(slab, want_slab)
+        assert torch.equal(paged, want_paged)
+        assert float(slab[5].abs().max()) == 0.0
+
+
+def test_flash_decode_kernels_take_empty_batches_and_unaligned_caches(
+        cuda):
+    """An empty batch returns [0, H, D] and leaves the next call on the
+    same pool right; a slab whose rows are not 16 bytes apart (D = 32
+    in a 36-wide buffer) is copied and gives what the aligned slab
+    gives."""
+    rng = np.random.default_rng(8)
+    d = 32
+    q, k, v, lengths, kp, vp, table = _split_case(rng, torch.bfloat16, d,
+                                                  cuda, 16)
+    empty = fa.flash_decode_cuda(q[:0], k[:0], v[:0], lengths[:0])
+    empty_paged = fa.flash_decode_paged_cuda(q[:0], kp, vp, table[:0],
+                                             lengths[:0])
+    assert empty.shape == (0, 3, d) and empty_paged.shape == (0, 3, d)
+    wide = torch.zeros(k.shape[:3] + (36,), dtype=k.dtype, device=cuda)
+    wide[..., :d] = k
+    want = fa.flash_decode_cuda(q, k, v, lengths)
+    unaligned = fa.flash_decode_cuda(q, wide[..., :d], v, lengths)
+    paged = fa.flash_decode_paged_cuda(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(unaligned, want) and torch.equal(paged, want)
+
+
 def test_sampler_draws_equal_on_cpu_and_card(cuda):
     """The same f32 logits and knobs give the same tokens on the CPU and
     on the card: the random stream is integer arithmetic and the noise

@@ -60,8 +60,12 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkv": 0,
                             "flash_bwd_dq": 0, "flash_decode": 0,
                             "flash_decode_paged": 0}
 
-#: Table entries K5 stages in shared memory at most (32 KB).
-MAX_PAGED_BLOCKS = 8192
+#: Keys per block of the decode kernels K4 and K5: the key axis splits
+#: into chunks of this many keys counted from key 0, one block per
+#: (chunk, head, sequence), whose partial softmax states a second kernel
+#: merges in chunk order (``flash_decode.cu`` CHUNK; the kernels refuse
+#: another value).
+DECODE_CHUNK = 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -371,11 +375,10 @@ def _decode_lib() -> ctypes.CDLL:
     lib = _build.library("flash_decode")
     if lib.veles_flash_decode.argtypes is None:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.veles_flash_decode.argtypes = (
-            [p] * 5 + [i64] * 14 + [ctypes.c_float, ctypes.c_int, p])
+        tail = [ctypes.c_float, ctypes.c_int, p]
+        lib.veles_flash_decode.argtypes = [p] * 6 + [i64] * 15 + tail
         lib.veles_flash_decode.restype = ctypes.c_int
-        lib.veles_flash_decode_paged.argtypes = (
-            [p] * 6 + [i64] * 17 + [ctypes.c_float, ctypes.c_int, p])
+        lib.veles_flash_decode_paged.argtypes = [p] * 7 + [i64] * 18 + tail
         lib.veles_flash_decode_paged.restype = ctypes.c_int
     return lib
 
@@ -501,32 +504,64 @@ def flash_bwd_dq_cuda(q, k, v, do, l, m, di, causal: bool):
     return dq
 
 
+def decode_chunks(capacity: int) -> int:
+    """Blocks per (head, sequence) of the decode kernels at a cache
+    capacity (S, or n_blk * page size): ``ceil(capacity /
+    DECODE_CHUNK)``. The grid and the workspace follow from it and from
+    B, H and D alone, never from the lengths."""
+    return -(-capacity // DECODE_CHUNK)
+
+
+def _decode_operand(x: torch.Tensor) -> torch.Tensor:
+    """A cache operand of the decode kernels, which read it 16 bytes at
+    a time: ``x`` itself where its base and its strides are multiples of
+    16 bytes, else a contiguous copy."""
+    es = x.element_size()
+    if x.data_ptr() % 16 or any(st * es % 16 for st in x.stride()[:3]):
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
+
+
+def _check_decode_ints(entry, device, named):
+    for name, x, shape in named:
+        if x.device != device or x.dtype != torch.int32 or \
+                tuple(x.shape) != shape:
+            raise ValueError("%s kernel needs int32 %s %r on the cache's "
+                             "device" % (entry, name, shape))
+
+
 def flash_decode_cuda(q, k_cache, v_cache, lengths):
-    """K4: the decode kernel. q [B,H,D], caches [B,S,H,D] CUDA tensors
-    (any strides with unit head-dim stride, other strides multiples of
-    4 elements, 16-byte aligned bases); lengths [B] int32 on the same
-    device. Returns [B,H,D] contiguous."""
+    """K4: the split-key decode kernel. q [B,H,D], caches [B,S,H,D] CUDA
+    tensors (unit head-dim stride; a cache with a base or a stride off
+    16 bytes is copied); lengths [B] int32 on the same device. One C
+    call launches two device kernels (the chunks of :data:`DECODE_CHUNK`
+    keys, then their merge) on the current stream, with no host
+    synchronisation; the grid and the f32 workspace depend on the shapes
+    only, so the call can be captured in a CUDA graph with the lengths
+    as data. Returns [B,H,D] contiguous."""
     _check_kernel_operands("flash_decode", q, k_cache, v_cache)
     b, s, h, d = k_cache.shape
-    for x in (k_cache, v_cache):
-        if x.data_ptr() % 16 or any(st % 4 for st in x.stride()[:3]):
-            raise ValueError("flash_decode kernel needs 16-byte aligned "
-                             "caches with strides in multiples of 4 "
-                             "elements, got %r" % (x.stride(),))
-    if lengths.device != q.device or lengths.dtype != torch.int32 or \
-            lengths.shape != (b,):
-        raise ValueError("flash_decode kernel needs int32 lengths [B] "
-                         "on the caches' device")
+    if v_cache.shape != k_cache.shape or tuple(q.shape) != (b, h, d) or \
+            not 0 < s < 2 ** 31:
+        raise ValueError("flash_decode kernel needs q [B, H, D] and caches "
+                         "[B, S, H, D] with 0 < S < 2^31, got %r, %r, %r"
+                         % (tuple(q.shape), tuple(k_cache.shape),
+                            tuple(v_cache.shape)))
+    _check_decode_ints("flash_decode", q.device, [("lengths", lengths,
+                                                   (b,))])
     lengths = lengths.contiguous()
-    o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     lib = _decode_lib()
+    k_cache, v_cache = _decode_operand(k_cache), _decode_operand(v_cache)
+    o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    part = torch.empty((b, h, decode_chunks(s), d + 2),
+                       dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.veles_flash_decode(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), o.data_ptr(), b, s, h, d,
-            *q.stride()[:2], *k_cache.stride()[:3],
-            *v_cache.stride()[:3], *o.stride()[:2], d ** -0.5,
+            k_cache.data_ptr(), v_cache.data_ptr(), q.data_ptr(),
+            lengths.data_ptr(), o.data_ptr(), part.data_ptr(), b, s, h, d,
+            *k_cache.stride()[:3], *v_cache.stride()[:3], *q.stride()[:2],
+            *o.stride()[:2], DECODE_CHUNK, d ** -0.5,
             _DTYPE_CODES[q.dtype], stream)
     _build.check(lib, "flash_decode", rc)
     LAUNCHES["flash_decode"] += 1
@@ -534,11 +569,13 @@ def flash_decode_cuda(q, k_cache, v_cache, lengths):
 
 
 def flash_decode_paged_cuda(q, k_pages, v_pages, block_tables, lengths):
-    """K5: the paged decode kernel (K4's loop through a block table).
-    q [B,H,D], pools [P,ps,H,D] CUDA tensors (ps a power of two; strides
-    and alignment as K4's caches); block_tables [B,n_blk] int32 page ids
-    (ids outside [0, P) are clamped in the kernel); lengths [B] int32,
-    clamped to n_blk * ps. Returns [B,H,D] contiguous."""
+    """K5: the paged decode kernel (K4's chunks, rows and merge, the rows
+    read through a block table, so it equals K4 bitwise on the same
+    K/V). q [B,H,D], pools [P,ps,H,D] CUDA tensors (ps a power of two;
+    strides as K4's caches); block_tables [B,n_blk] int32 page ids (ids
+    outside [0, P) are clamped in the kernel); lengths [B] int32,
+    clamped to n_blk * ps. Capture-safe as K4 (tables and lengths are
+    data). Returns [B,H,D] contiguous."""
     _check_kernel_operands("flash_decode_paged", q, k_pages, v_pages)
     b, h, d = q.shape
     p, ps = k_pages.shape[:2]
@@ -546,34 +583,35 @@ def flash_decode_paged_cuda(q, k_pages, v_pages, block_tables, lengths):
     if ps < 1 or ps & (ps - 1):
         raise ValueError("flash_decode_paged kernel needs a power-of-two "
                          "page size, got %d" % ps)
-    for x in (k_pages, v_pages):
-        if x.data_ptr() % 16 or any(st % 4 for st in x.stride()[:3]):
-            raise ValueError("flash_decode_paged kernel needs 16-byte "
-                             "aligned pools with strides in multiples of "
-                             "4 elements, got %r" % (x.stride(),))
-    for name, x, shape in (("block_tables", block_tables, (b, n_blk)),
-                           ("lengths", lengths, (b,))):
-        if x.device != q.device or x.dtype != torch.int32 or \
-                tuple(x.shape) != shape:
-            raise ValueError("flash_decode_paged kernel needs int32 %s %r "
-                             "on the pool's device" % (name, shape))
-    if not 0 < n_blk <= MAX_PAGED_BLOCKS or p < 1:
-        raise ValueError("flash_decode_paged kernel takes 1 to %d table "
-                         "entries per sequence over a non-empty pool, got "
-                         "%d over %d pages" % (MAX_PAGED_BLOCKS, n_blk, p))
+    if v_pages.shape != k_pages.shape or k_pages.shape[2:] != (h, d):
+        raise ValueError("flash_decode_paged kernel needs q [B, H, D] and "
+                         "pools [P, ps, H, D], got %r, %r, %r"
+                         % (tuple(q.shape), tuple(k_pages.shape),
+                            tuple(v_pages.shape)))
+    _check_decode_ints("flash_decode_paged", q.device,
+                       [("block_tables", block_tables, (b, n_blk)),
+                        ("lengths", lengths, (b,))])
+    if n_blk < 1 or p < 1 or n_blk * ps >= 2 ** 31:
+        raise ValueError("flash_decode_paged kernel takes a non-empty "
+                         "table over a non-empty pool, n_blk * ps below "
+                         "2^31, got %d entries of %d over %d pages"
+                         % (n_blk, ps, p))
     block_tables = block_tables.contiguous()
     lengths = lengths.contiguous()
-    o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     lib = _decode_lib()
+    k_pages, v_pages = _decode_operand(k_pages), _decode_operand(v_pages)
+    o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    part = torch.empty((b, h, decode_chunks(n_blk * ps), d + 2),
+                       dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.veles_flash_decode_paged(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), q.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-            b, p, ps.bit_length() - 1, n_blk, h, d, *q.stride()[:2],
-            block_tables.stride(0), *k_pages.stride()[:3],
-            *v_pages.stride()[:3], *o.stride()[:2], d ** -0.5,
-            _DTYPE_CODES[q.dtype], stream)
+            part.data_ptr(), b, p, ps.bit_length() - 1, n_blk, h, d,
+            *k_pages.stride()[:3], *v_pages.stride()[:3], *q.stride()[:2],
+            block_tables.stride(0), *o.stride()[:2], DECODE_CHUNK,
+            d ** -0.5, _DTYPE_CODES[q.dtype], stream)
     _build.check(lib, "flash_decode_paged", rc)
     LAUNCHES["flash_decode_paged"] += 1
     return o
