@@ -16,7 +16,9 @@ without them, and on any failed phase. Phases, in order:
    split and merge, every dtype, D and row source) report their
    registers, spills and loads (``LDG.128``: 16-byte global loads), and
    the phase fails unless every split kernel holds them and none
-   spills;
+   spills; the LRN kernels (K6, K7: every dtype, lane vector and
+   window, summed per dtype and vector) fail the phase where a
+   16-byte instance lacks ``LDG.128`` or any instance spills;
 2. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (max errors against stated tolerances),
    with the kernel's and one library call's device time (the
@@ -163,9 +165,12 @@ LRN_FWD_OPS_PER_ELEM = 16
 LRN_BWD_OPS_PER_ELEM = 32
 PHILOX_OPS_PER_ELEM = 16
 #: K6/K7 vs plain, as a share of the plain output's largest magnitude:
-#: the same formula in the same order with round-to-nearest sums and
-#: products, so they differ at most by the power function's last bit: a
-#: few f32 ulps, or one bf16 rounding of the result (2^-8)
+#: the window sums are bitwise the plain versions' (x^2 rounded alike,
+#: f32 terms added from the window's low end with round-to-nearest), and
+#: the power (base-2 log and exp on the special-function unit, against
+#: pow and a division) differs by a few f32 ulps: a few f32 ulps of the
+#: result, or where that moves a bf16 rounding (of the result, or of
+#: K7's inner), one bf16 ulp (2^-8)
 TOL_LRN = {"float32": 1e-5, "bfloat16": 1e-2}
 #: phase 10: kernels vs plain at f32 (masks bitwise equal; LRN and
 #: cuDNN's sum order differ), as a share of each leaf's scale, and the
@@ -321,10 +326,27 @@ def profile_device(torch, fn, steps):
 #: loads, 16-byte global loads
 SASS_OPS = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b",
             "LDG.128": r"\bLDG\.\S*128\b"}
+
+
+def lrn_instance(name):
+    """(dtype, lane vector bytes) of an LRN kernel instance's name,
+    ``lrn_fwd_kernel<__nv_bfloat16, 8, 5>`` (dtype, elements, window)."""
+    dtype, vec = re.search(r"<(\w+), (\d+), \d+>", name).groups()
+    return dtype, int(vec) * (2 if "bfloat16" in dtype else 4)
+
+
+def lrn_needs(name):
+    """A 16-byte LRN instance loads 16 bytes at a time."""
+    return ("LDG.128",) if lrn_instance(name)[1] == 16 else ()
+
+
 #: the kernels phase 1 holds to their units: kernel -> (library, entry
-#: of ``hopper_smem_bytes`` or None, the SASS ops every instance holds).
+#: of ``hopper_smem_bytes`` or None, the SASS ops every instance holds,
+#: or a function of the instance's name giving them).
 #: The bf16 K1, K2 and K3 run on wgmma and TMA; the decode kernels K4
-#: and K5 split the key axis (16-byte loads) and merge the partials.
+#: and K5 split the key axis (16-byte loads) and merge the partials;
+#: K6 and K7 load a lane's channels 16 bytes at once where the
+#: tensors allow it (a narrower instance otherwise).
 HOPPER_KERNELS = {
     "flash_fwd_tma_kernel": ("flash_fwd", "flash_fwd", ("HGMMA", "UTMALDG")),
     "flash_bwd_dkv_tma_kernel": ("flash_bwd", "flash_bwd_dkv",
@@ -332,7 +354,12 @@ HOPPER_KERNELS = {
     "flash_bwd_dq_tma_kernel": ("flash_bwd", "flash_bwd_dq",
                                 ("HGMMA", "UTMALDG")),
     "flash_decode_split_kernel": ("flash_decode", None, ("LDG.128",)),
-    "flash_decode_merge_kernel": ("flash_decode", None, ())}
+    "flash_decode_merge_kernel": ("flash_decode", None, ()),
+    "lrn_fwd_kernel": ("lrn", None, lrn_needs),
+    "lrn_bwd_kernel": ("lrn", None, lrn_needs)}
+#: kernels with an instance per window: phase 1 logs them summed per
+#: dtype and lane vector
+SUMMED_KERNELS = ("lrn_fwd_kernel", "lrn_bwd_kernel")
 
 
 def demangle(names):
@@ -346,15 +373,19 @@ def demangle(names):
         for name, plain in zip(names, text.splitlines())}
 
 
+def sass_text(lib_path):
+    """``cuobjdump -sass`` of a library."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    return subprocess.run([tool, "-sass", lib_path], check=True,
+                          capture_output=True, text=True).stdout
+
+
 def sass_counts(lib_path):
     """Per kernel of a library: how many of its SASS instructions are
     each of SASS_OPS (``cuobjdump -sass``)."""
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    text = subprocess.run([tool, "-sass", lib_path], check=True,
-                          capture_output=True, text=True).stdout
     counts, name = {}, None
-    for line in text.splitlines():
+    for line in sass_text(lib_path).splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
@@ -381,6 +412,12 @@ def ptxas_usage(log):
     return {plain[n]: lines for n, lines in usage.items()}
 
 
+def registers(lines):
+    """The registers a thread of one kernel uses, from ptxas's lines."""
+    return max([int(n) for line in lines
+                for n in re.findall(r"Used (\d+) registers", line)] or [0])
+
+
 def spill_bytes(lines):
     """The spill stores and loads of ptxas's lines for one kernel."""
     return sum(int(n) for line in lines
@@ -397,6 +434,7 @@ def hopper_units(_build, fa):
     for stem, (lib, entry, needs) in HOPPER_KERNELS.items():
         counts = sass_counts(_build.build([lib])[lib])
         usage = ptxas_usage(_build.build_log(lib))
+        groups = {}
         for name in sorted(counts):
             if not name.startswith(stem + "<"):
                 continue
@@ -410,15 +448,27 @@ def hopper_units(_build, fa):
                 record[name]["dynamic_smem"] = fa.hopper_smem_bytes(entry, d)
                 smem = "; dynamic smem %d bytes" % record[name][
                     "dynamic_smem"]
-            log("  %s: %s; ptxas %s%s" % (
-                name, ", ".join("%d %s" % (c[op], op) for op in SASS_OPS),
-                "; ".join(lines), smem))
-            if not all(c[op] for op in needs):
+            if stem in SUMMED_KERNELS:
+                groups.setdefault(lrn_instance(name), []).append(name)
+            else:
+                log("  %s: %s; ptxas %s%s" % (
+                    name, ", ".join("%d %s" % (c[op], op)
+                                    for op in SASS_OPS),
+                    "; ".join(lines), smem))
+            needs_here = needs(name) if callable(needs) else needs
+            if not all(c[op] for op in needs_here):
                 raise AssertionError("%s lacks %s" % (name, [
-                    op for op in needs if not c[op]]))
+                    op for op in needs_here if not c[op]]))
             if not lines or record[name]["spill_bytes"]:
                 raise AssertionError("%s: ptxas reports spills or nothing: "
                                      "%s" % (name, lines))
+        for (dtype, vec), names in sorted(groups.items()):
+            regs = [registers(usage.get(n, [])) for n in names]
+            ldg = [record[n]["LDG.128"] for n in names]
+            log("  %s<%s, %d bytes>, %d windows: %d-%d LDG.128, %d-%d "
+                "registers, 0 spill bytes" % (
+                    stem, dtype, vec, len(names), min(ldg), max(ldg),
+                    min(regs), max(regs)))
         if not any(n.startswith(stem + "<") for n in counts):
             raise AssertionError("%s holds no %s" % (lib, stem))
     return record
@@ -873,6 +923,8 @@ def lrn_fill_kernels(torch, dev):
             library_note="torch.nn.functional.local_response_norm on the "
                          "NCHW view" + (" (its autograd backward)"
                                         if name == "lrn_bwd" else ""))
+        for r in (row, row["lrn2"]):
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
         out[name] = row
 
     # K8: the dropout mask's [B, 4096] and an odd count, bitwise
@@ -918,6 +970,8 @@ def lrn_fill_kernels(torch, dev):
                 row["max_abs_err"], row["shape"]))
         if "lrn2" in row:
             r2 = row["lrn2"]
+            log("    share of bound: LRN1 %.3f, LRN2 %.3f"
+                % (row["share_of_bound"], r2["share_of_bound"]))
             log("    at LRN2: kernel %.4f ms, plain %.4f ms, library %.4f "
                 "ms, bound %.4f ms" % (r2["ms"], r2["plain_ms"],
                                        r2["library_ms"], r2["bound_ms"]))
@@ -2045,7 +2099,8 @@ def main():
     log("  built %s in %.1f s" % (_build.sources(), build_s))
     for name in _build.sources():
         for kernel, lines in ptxas_usage(_build.build_log(name)).items():
-            log("    %s %s: %s" % (name, kernel, "; ".join(lines)))
+            if not kernel.startswith(SUMMED_KERNELS):
+                log("    %s %s: %s" % (name, kernel, "; ".join(lines)))
     hopper = hopper_units(_build, fa)
 
     rows = kernel_phase(torch, fa, dev)

@@ -22,9 +22,21 @@ K/V), then both at phase 2's shape (q [8, 8, 128] over a
 K/V in 16-token pages in a scrambled order) by device time with the L2
 flushed before each call and by back-to-back event time; with
 ``--sdpa`` also SDPA and the page gather + SDPA on the same inputs.
+``--lrn`` runs the LRN kernels instead: a sweep of K6 (forward) and K7
+(backward) against the plain versions (C from 8 to 4104 at row counts
+that leave a chunk part full, windows 2 to 11, f32 and bf16, a second
+launch bitwise equal, a base one element off 16 bytes and a row stride
+off 16 bytes bitwise equal to the aligned tensor), the registers,
+spills and SASS instruction mix of the 16-byte window-5 instances (the
+main path's), then both kernels by device time at AlexNet's LRN1
+``[1536, 55, 55, 96]`` and LRN2 ``[1536, 27, 27, 256]`` in bf16 and
+f32 beside their bytes bound; ``--step`` then runs phase 9's classifier
+step (``chip_smoke.classifier_phase``: ms per step, images/s, the
+step's device time and its LRN and fill kernels).
 
     PKG=<checkout> TAG=<label> python3 scripts/torch_flash_ab.py [--sdpa] [--lm]
     PKG=<checkout> TAG=<label> python3 scripts/torch_flash_ab.py --decode [--sdpa]
+    PKG=<checkout> TAG=<label> python3 scripts/torch_flash_ab.py --lrn [--step]
 
 ``PKG`` names the checkout whose ``veles_tpu_torch`` is timed (default:
 this one); compare two checkouts in one run on one card, in turns
@@ -171,6 +183,140 @@ def decode_main(smoke):
     return 1 if bad else 0
 
 
+#: the --lrn sweep: (rows, C, window); rows leave the last chunk part full
+LRN_EDGES = [(37, 8, 5), (45, 16, 3), (19, 24, 7), (41, 96, 9),
+             (13, 256, 11), (7, 264, 2), (3, 4104, 5), (1001, 37, 4),
+             (97, 96, 5), (33, 256, 5)]
+
+
+def _lrn_case(lrn, x, dy, n):
+    k, alpha, beta = 2.0, 5e-3, 0.75
+    return (lrn.lrn_fwd(x, k, n, alpha, beta, impl="cuda"),
+            lrn.lrn_bwd(x, dy, k, n, alpha, beta, impl="cuda"),
+            lrn.lrn_fwd(x, k, n, alpha, beta, impl="plain"),
+            lrn.lrn_bwd(x, dy, k, n, alpha, beta, impl="plain"))
+
+
+#: SASS opcodes counted per LRN instance, by class
+SASS_CLASSES = (("MUFU", r"\bMUFU\."), ("SHFL", r"\bSHFL\."),
+                ("FADD", r"\bFADD\b"), ("FMUL", r"\bFMUL\b"),
+                ("F2FP", r"\bF2FP\."), ("LDG", r"\bLDG\."),
+                ("STG", r"\bSTG\."), ("MOV", r"\bMOV\b"))
+
+
+def lrn_units(smoke, lib_path):
+    """Registers, spill bytes and the SASS instruction mix (all
+    instructions, and those of SASS_CLASSES) of the window-5 instances
+    of K6 and K7 whose lanes load 16 bytes."""
+    import re
+    text = smoke.sass_text(lib_path)
+    usage = smoke.ptxas_usage(_build.build_log("lrn"))
+    bodies, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            bodies[name] = []
+        elif name is not None and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            bodies[name].append(line)
+    plain = smoke.demangle(bodies)
+    for mangled, lines in sorted(bodies.items(), key=lambda kv: plain[kv[0]]):
+        kernel = plain[mangled]
+        if not re.search(r"lrn_(fwd|bwd)_kernel<(__nv_bfloat16, 8|float, 4), "
+                         r"5>", kernel):
+            continue
+        mix = ", ".join("%s %d" % (op, sum(bool(re.search(pat, x))
+                                          for x in lines))
+                        for op, pat in SASS_CLASSES)
+        print(TAG, "%s: %s; SASS %d instructions (%s)" % (
+            kernel, "; ".join(usage.get(kernel, [])), len(lines), mix),
+            flush=True)
+
+
+def lrn_main(smoke):
+    from veles_tpu_torch.ops import lrn
+    from veles_tpu_torch.ops import rng as rng_ops
+    t0 = time.time()
+    libs = _build.build(["lrn", "rng"])
+    print(TAG, "build %.1f s" % (time.time() - t0), flush=True)
+    gen = np.random.default_rng(0)
+    bad = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = smoke.TOL_LRN[str(dtype)[6:]]
+        for m, c, n in LRN_EDGES:
+            x = torch.from_numpy(gen.standard_normal((m, c)).astype(
+                np.float32) * 3).cuda().to(dtype)
+            dy = torch.from_numpy(gen.standard_normal((m, c)).astype(
+                np.float32)).cuda().to(dtype)
+            y, dx, py, pdx = _lrn_case(lrn, x, dy, n)
+            again = _lrn_case(lrn, x, dy, n)[:2]
+            same = torch.equal(y, again[0]) and torch.equal(dx, again[1])
+            for offset, stride in ((1, c), (0, c + 3)):
+                bufs = [torch.zeros(m * stride + 1, dtype=dtype,
+                                    device="cuda") for _ in range(2)]
+                xv, dyv = (b[offset:offset + m * stride].view(
+                    m, stride)[:, :c] for b in bufs)
+                xv.copy_(x)
+                dyv.copy_(dy)
+                got = _lrn_case(lrn, xv, dyv, n)[:2]
+                same = same and torch.equal(got[0], y) and \
+                    torch.equal(got[1], dx)
+            torch.cuda.synchronize()
+            ey, ed = (float((a.float() - b.float()).abs().max() /
+                            b.float().abs().max()) for a, b in
+                      ((y, py), (dx, pdx)))
+            ok = ey <= tol and ed <= tol and same
+            bad += not ok
+            print(TAG, "%s [%d, %d] n=%d: fwd %.2e bwd %.2e (share of "
+                  "scale), repeat/unaligned/strided bitwise %s %s" % (
+                      str(dtype)[6:], m, c, n, ey, ed, same,
+                      "ok" if ok else "FAIL"), flush=True)
+    print(TAG, "failed cases", bad, flush=True)
+    lrn_units(smoke, libs["lrn"])
+
+    k, n, alpha, beta = smoke.LRN_SPEC
+    b = smoke.CLASSIFIER_BATCH
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, shape in (("LRN1", (b, 55, 55, 96)),
+                            ("LRN2", (b, 27, 27, 256))):
+            x = torch.randn(shape, device="cuda").to(dtype) * 3
+            dy = torch.randn(shape, device="cuda").to(dtype)
+            nbytes = x.numel() * x.element_size()
+            for kern, fn, moved in (
+                    ("K6", lambda: lrn.lrn_fwd_cuda(x, k, n, alpha, beta),
+                     2 * nbytes),
+                    ("K7", lambda: lrn.lrn_bwd_cuda(x, dy, k, n, alpha,
+                                                    beta), 3 * nbytes)):
+                dev = smoke.device_ms(fn, 20)
+                bound = moved / smoke.PEAK_BYTES * 1e3
+                print(TAG, "%s %s %s: device %.4f ms, bound %.4f ms (share "
+                      "%.3f, %.0f GB/s), back to back %.4f ms" % (
+                          kern, name, str(dtype)[6:], dev, bound,
+                          bound / dev, moved / dev / 1e6, event_ms(fn)),
+                      flush=True)
+            del x, dy
+    if "--step" not in sys.argv:
+        return 1 if bad else 0
+
+    from veles_tpu_torch.ops import flash_attention as fa_ops
+    smoke.log = lambda msg: None
+    counters = smoke.Counters(fa_ops, lrn, rng_ops)
+    res, _ = smoke.classifier_phase(torch, counters, torch.device("cuda", 0),
+                                    smoke.card_line())
+    prof = res["profile"] or {}
+    print(TAG, "classifier step %.3f ms (step_many %.3f), %.1f images/s; "
+          "device %.3f ms per step, busy %.3f; LRN and fill kernels %.3f ms"
+          % (res["step_ms"], res["step_many_ms_per_step"],
+             res["images_per_s"], prof.get("device_ms", 0.0),
+             prof.get("busy_share", 0.0),
+             prof.get("by_class", {}).get("LRN and fill kernels", 0.0)),
+          flush=True)
+    print(TAG, "  by class: %s" % "; ".join(
+        "%s %.3f" % kv for kv in sorted(prof.get("by_class", {}).items(),
+                                       key=lambda kv: -kv[1])), flush=True)
+    return 1 if bad else 0
+
+
 def by_kernel(smoke, fn, flush="write", reps=50):
     """Device time of one ``fn()`` per kernel (name, ms), the L2 cache
     before each call left dirty (``"write"``: 100 MB written, as
@@ -211,6 +357,8 @@ def main():
         return 2
     if "--decode" in sys.argv:
         return decode_main(_smoke())
+    if "--lrn" in sys.argv:
+        return lrn_main(_smoke())
     t0 = time.time()
     _build.build(["flash_fwd", "flash_bwd"])
     print(TAG, "build %.1f s" % (time.time() - t0), flush=True)

@@ -566,10 +566,12 @@ def test_paged_engine_through_the_kernel_equals_plain(cuda):
 # ---------------------------------------------------------------------------
 
 #: K6/K7 vs their plain versions, as a share of the output's largest
-#: magnitude: both run the Pallas kernels' formula in the same order
-#: with round-to-nearest products and sums, so they differ at most by
-#: the power function's last bit (CUDA's powf against the pow PyTorch
-#: calls): a few f32 ulps, or one bf16 rounding of the result (2^-8).
+#: magnitude: the window sums are bitwise the plain versions' (x^2
+#: rounded alike, f32 terms added from the window's low end with
+#: round-to-nearest), and the power (base-2 log and exp on the
+#: special-function unit, against pow and a division) differs by a few
+#: f32 ulps: a few f32 ulps of the result, or where that moves a bf16
+#: rounding (of the result or of K7's inner), one bf16 ulp (2^-8).
 LRN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
@@ -579,11 +581,22 @@ LRN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
                                      ((1000, 37), 5),
                                      ((33, 96), 4),
                                      ((7, 600), 9),
-                                     ((5, 3), 1)])
+                                     ((5, 3), 1),
+                                     ((37, 8), 5),
+                                     ((45, 16), 3),
+                                     ((19, 24), 7),
+                                     ((41, 96), 9),
+                                     ((13, 256), 11),
+                                     ((7, 264), 2),
+                                     ((3, 4104), 5),
+                                     ((5, 3, 96), 6),
+                                     ((29, 96), 13)])
 def test_lrn_kernels_match_plain(cuda, dtype, shape, n):
     """K6 and K7 against the plain versions: AlexNet's channel counts,
-    a ragged row count, an odd C, even and wide windows, C > 256 (two
-    channel tiles)."""
+    row counts that leave a warp's last chunk part full, C from 3 to
+    4104 (a row of 1 to 513 lanes), windows of 1 to 11 (halos reaching
+    up to five lanes away at one element a lane) and 13 (the wide
+    kernels); a second launch is bitwise equal."""
     from veles_tpu_torch.ops import lrn
     rng = np.random.default_rng(n * len(shape))
     x = _randn(rng, shape, dtype, cuda) * 3
@@ -593,12 +606,20 @@ def test_lrn_kernels_match_plain(cuda, dtype, shape, n):
     y = lrn.lrn_fwd(x, k, n, alpha, beta, impl="cuda")
     dx = lrn.lrn_bwd(x, dy, k, n, alpha, beta, impl="cuda")
     assert lrn.LAUNCHES == {"lrn_fwd": 1, "lrn_bwd": 1}
+    again = (lrn.lrn_fwd(x, k, n, alpha, beta, impl="cuda"),
+             lrn.lrn_bwd(x, dy, k, n, alpha, beta, impl="cuda"))
     py = lrn.lrn_fwd(x, k, n, alpha, beta, impl="plain")
     pdx = lrn.lrn_bwd(x, dy, k, n, alpha, beta, impl="plain")
     torch.cuda.synchronize()
     assert y.dtype == dx.dtype == dtype
     assert _rel(y, py) <= LRN_TOL[dtype]
     assert _rel(dx, pdx) <= LRN_TOL[dtype]
+    assert torch.equal(again[0], y) and torch.equal(again[1], dx)
+
+
+def _lrn_both(lrn, x, dy, n=5):
+    return (lrn.lrn_fwd(x, 2.0, n, 5e-3, 0.75, impl="cuda"),
+            lrn.lrn_bwd(x, dy, 2.0, n, 5e-3, 0.75, impl="cuda"))
 
 
 def test_lrn_kernels_read_rows_in_place(cuda):
@@ -622,6 +643,62 @@ def test_lrn_kernels_read_rows_in_place(cuda):
         lrn.lrn_fwd(base.half(), 2.0, 5, 1e-3, 0.75, impl="cuda")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,n", [(96, 5), (256, 5), (264, 9), (8, 11)])
+def test_lrn_kernels_take_unaligned_bases_and_strides_bitwise(cuda, dtype,
+                                                              c, n):
+    """A base one element off 16 bytes, and rows whose stride is no
+    multiple of 16 bytes, take a narrower instance of the same kernels
+    (``lrn_plan``), read in place, and give bitwise what the aligned
+    contiguous tensors give."""
+    from veles_tpu_torch.ops import lrn
+    rng = np.random.default_rng(c + n)
+    m = 77
+    x = _randn(rng, (m, c), dtype, cuda) * 3
+    dy = _randn(rng, (m, c), dtype, cuda)
+    want = _lrn_both(lrn, x, dy, n)
+    size = x.element_size()
+    for offset, stride in ((1, c), (0, c + 3), (1, c + 1)):
+        bufs = [torch.zeros(m * stride + 1, dtype=dtype, device=cuda)
+                for _ in range(2)]
+        xv, dyv = (b[offset:offset + m * stride].view(m, stride)[:, :c]
+                   for b in bufs)
+        xv.copy_(x)
+        dyv.copy_(dy)
+        vec = lrn.lrn_plan(dtype, c, (stride,), (xv.data_ptr(),))
+        assert vec * size < 16
+        got = _lrn_both(lrn, xv, dyv, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_lrn_kernels_replay_in_a_cuda_graph(cuda):
+    """K6 and K7 captured in one CUDA graph (bf16 LRN2 rows and an f32
+    ragged shape): replays after the inputs are rewritten in place equal
+    eager launches on the new values bitwise."""
+    from veles_tpu_torch.ops import lrn
+    rng = np.random.default_rng(11)
+    cases = [(_randn(rng, (6, 9, 256), torch.bfloat16, cuda) * 3,
+              _randn(rng, (6, 9, 256), torch.bfloat16, cuda)),
+             (_randn(rng, (101, 37), torch.float32, cuda) * 3,
+              _randn(rng, (101, 37), torch.float32, cuda))]
+    for x, dy in cases:
+        _lrn_both(lrn, x, dy)                       # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [_lrn_both(lrn, x, dy) for x, dy in cases]
+    for step in range(2):
+        for x, dy in cases:
+            x.copy_(x.roll(1 + step, dims=0))
+            dy.mul_(-0.5)
+        graph.replay()
+        want = [_lrn_both(lrn, x, dy) for x, dy in cases]
+        torch.cuda.synchronize()
+        for (y, dx), (wy, wdx) in zip(outs, want):
+            assert torch.equal(y, wy) and torch.equal(dx, wdx)
+
+
 @pytest.mark.parametrize("shape", [(1,), (7, 3), (1536, 4096),
                                    (4 * 33 * 256 + 3,)])
 @pytest.mark.parametrize("low,high", [(0.0, 1.0), (-2.0, 3.0)])
@@ -643,9 +720,11 @@ def test_classifier_step_kernels_match_plain(cuda):
     """One FusedClassifierTrainer step of a small conv net (conv, LRN,
     pools, FC, dropout 0.5) at f32 through the kernels and through
     their plain versions from one seed: the dropout masks are equal
-    bitwise, LRN differs at most in powf's last bit, so the losses and
-    the updated params agree to 1e-5 of their scale; the launches are
-    two of K6, two of K7 and one of K8 per step."""
+    bitwise, LRN's window sums are bitwise the plain versions' and its
+    power differs by a few f32 ulps (base-2 log and exp on the
+    special-function unit), so the losses and the
+    updated params agree to 1e-5 of their scale; the launches are two
+    of K6, two of K7 and one of K8 per step."""
     from veles_tpu_torch.models.flagship import fused_from_layer_dicts
     from veles_tpu_torch.ops import lrn, rng
     from veles_tpu_torch.parallel.fused import FusedClassifierTrainer

@@ -150,3 +150,68 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="row stride"):
         lrn._rows("lrn_fwd", x[:, :2])
     assert lrn._rows("lrn_fwd", x[:1, :2]).shape == (2, 8)
+
+
+A = 0x7f0000001000  # a base address aligned to 4 KiB
+
+
+@pytest.mark.parametrize("dtype,c,strides,ptrs,vec", [
+    # AlexNet's rows, contiguous and aligned: 16 bytes a lane
+    (torch.bfloat16, 96, (96, 96), (A, A + 2 ** 20), 8),
+    (torch.bfloat16, 256, (256, 256, 256), (A, A, A), 8),
+    (torch.float32, 96, (96, 96), (A, A), 4),
+    (torch.float32, 256, (256, 256, 256), (A, A, A), 4),
+    # a base one element off: the narrowest instance
+    (torch.bfloat16, 96, (96, 96), (A + 2, A), 1),
+    (torch.float32, 96, (96, 96), (A, A + 4), 1),
+    # a base 4 or 8 bytes off
+    (torch.bfloat16, 96, (96, 96), (A + 4, A), 2),
+    (torch.bfloat16, 96, (96, 96), (A + 8, A), 4),
+    (torch.float32, 96, (96, 96), (A + 8, A), 2),
+    # a row stride that is no multiple of 16 bytes
+    (torch.bfloat16, 96, (100, 96), (A, A), 4),
+    (torch.bfloat16, 96, (97, 96), (A, A), 1),
+    (torch.float32, 96, (98, 96), (A, A), 2),
+    (torch.float32, 96, (99, 96), (A, A), 1),
+    # C that 16 bytes do not divide
+    (torch.bfloat16, 37, (37, 37), (A, A), 1),
+    (torch.bfloat16, 6, (6, 6), (A, A), 2),
+    (torch.bfloat16, 4, (4, 4), (A, A), 4),
+    (torch.bfloat16, 264, (264, 264), (A, A), 8),
+    (torch.bfloat16, 4104, (4104, 4104), (A, A), 8),
+    (torch.float32, 3, (3, 3), (A, A), 1),
+    (torch.float32, 6, (6, 6), (A, A), 2),
+    (torch.float32, 8, (8, 8), (A, A), 4),
+    # a single row's stride, and a stride of 0, constrain nothing
+    (torch.float32, 8, (0, 8), (A, A), 4),
+])
+def test_lrn_plan_picks_the_widest_aligned_lane_vector(dtype, c, strides,
+                                                      ptrs, vec):
+    """K6/K7's lane vector: 16 bytes where C, every row stride and every
+    base address allow it, else the widest of 8, 4 and 2 bytes that
+    they allow, down to one element."""
+    assert lrn.lrn_plan(dtype, c, strides, ptrs) == vec
+
+
+@pytest.mark.parametrize("beta", [0.75, 0.5])
+def test_power_through_log2_and_exp2_stays_within_the_kernel_budget(beta):
+    """The kernels' power: t = exp2(-beta * log2(u)) and t / u =
+    exp2((-beta - 1) * log2(u)), all in f32, against the plain
+    versions' ``u ** -beta`` and ``t / u`` (f32) and against float64,
+    over u from 1 to 1e4: u is at least k (2 in AlexNet's spec and in
+    the card tests), and 1e4 covers window sums of x^2 up to 5e8 at
+    AlexNet's alpha / n = 2e-5 (up to 2e6 at the card tests' 5e-3 / n,
+    n >= 1). Each stays within a few f32 ulps, far inside the f32 LRN
+    tolerance (1e-5 of the output's scale)."""
+    u = torch.logspace(0, 4, 200001, dtype=torch.float64).float()
+    nbeta = torch.tensor(-beta, dtype=torch.float32)
+    log2u = torch.log2(u)
+    t = torch.exp2(nbeta * log2u)
+    tu = torch.exp2((nbeta - 1) * log2u)
+    assert t.dtype == tu.dtype == torch.float32
+    t_plain = u ** -beta
+    tu_plain = t_plain / u
+    exact = u.double() ** -beta
+    for got, plain, ref in ((t, t_plain, exact), (tu, tu_plain, exact / u)):
+        assert float(((got.double() - ref) / ref).abs().max()) <= 2e-6
+        assert float(((got - plain) / plain).abs().max()) <= 2e-6

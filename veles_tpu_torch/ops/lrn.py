@@ -13,14 +13,17 @@ in the order of the window sum.
 
 The Pallas kernels' packing of samples into 128-lane rows and their
 ``MAX_C`` cutoff are TPU layout rules and have no counterpart here:
-the kernels take any row count, any channel count and any window.
-Every kernel wrapper counts its launches in :data:`LAUNCHES`.
+the kernels take any row count, any channel count and any window, and
+read each lane's channels 16 bytes at a time where :func:`lrn_plan`
+finds the pointers, the row strides and C aligned to it (a narrower
+instance of the same kernel otherwise). Every kernel wrapper counts its
+launches in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -75,6 +78,24 @@ def _plain_bwd(x, dy, k: float, n: int, alpha: float, beta: float):
     return dx.to(x.dtype)
 
 
+def lrn_plan(dtype: torch.dtype, c: int, strides: Sequence[int],
+             ptrs: Sequence[int]) -> int:
+    """Channels a lane of K6/K7 loads at once: the widest of 16, 8, 4
+    and 2 bytes (not below one element) that divides C's bytes, every
+    row stride's bytes (``strides``, in elements) and every base
+    address (``ptrs``), so each lane's vector starts aligned and lies
+    in one row."""
+    size = torch.finfo(dtype).bits // 8
+    for nbytes in (16, 8, 4, 2):
+        if nbytes < size:
+            break
+        if (c * size) % nbytes == 0 and \
+                all(s * size % nbytes == 0 for s in strides) and \
+                all(p % nbytes == 0 for p in ptrs):
+            return nbytes // size
+    return 1
+
+
 def _rows(name: str, x: torch.Tensor) -> torch.Tensor:
     """``x`` as a (M, C) view of its rows, without a copy: the channel
     axis must have unit stride and the leading axes must flatten to one
@@ -107,10 +128,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("lrn")
     if lib.veles_lrn_fwd.argtypes is None:
         p, i64, f = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-        lib.veles_lrn_fwd.argtypes = [p, p] + [i64] * 5 + [f] * 3 + [
+        lib.veles_lrn_fwd.argtypes = [p, p] + [i64] * 6 + [f] * 3 + [
             ctypes.c_int, p]
         lib.veles_lrn_fwd.restype = ctypes.c_int
-        lib.veles_lrn_bwd.argtypes = [p] * 3 + [i64] * 6 + [f] * 4 + [
+        lib.veles_lrn_bwd.argtypes = [p] * 3 + [i64] * 7 + [f] * 4 + [
             ctypes.c_int, p]
         lib.veles_lrn_bwd.restype = ctypes.c_int
     return lib
@@ -124,13 +145,15 @@ def lrn_fwd_cuda(x, k: float, n: int, alpha: float, beta: float):
     x2 = _rows("lrn_fwd", x)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     y2 = y.view(-1, x.shape[-1])
+    vec = lrn_plan(x.dtype, x2.shape[1], (x2.stride(0), y2.stride(0)),
+                   (x2.data_ptr(), y2.data_ptr()))
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.veles_lrn_fwd(
             x2.data_ptr(), y2.data_ptr(), x2.shape[0], x2.shape[1],
-            x2.stride(0), y2.stride(0), int(n), float(k), alpha / n, -beta,
-            _DTYPE_CODES[x.dtype], stream)
+            x2.stride(0), y2.stride(0), int(n), vec, float(k), alpha / n,
+            -beta, _DTYPE_CODES[x.dtype], stream)
     _build.check(lib, "lrn_fwd", rc)
     LAUNCHES["lrn_fwd"] += 1
     return y
@@ -143,13 +166,15 @@ def lrn_bwd_cuda(x, dy, k: float, n: int, alpha: float, beta: float):
     x2, dy2 = _rows("lrn_bwd", x), _rows("lrn_bwd", dy)
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     dx2 = dx.view(-1, x.shape[-1])
+    strides = (x2.stride(0), dy2.stride(0), dx2.stride(0))
+    ptrs = (x2.data_ptr(), dy2.data_ptr(), dx2.data_ptr())
+    vec = lrn_plan(x.dtype, x2.shape[1], strides, ptrs)
     coef = alpha / n
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.veles_lrn_bwd(
-            x2.data_ptr(), dy2.data_ptr(), dx2.data_ptr(), x2.shape[0],
-            x2.shape[1], x2.stride(0), dy2.stride(0), dx2.stride(0), int(n),
+            *ptrs, x2.shape[0], x2.shape[1], *strides, int(n), vec,
             float(k), coef, -beta, 2.0 * coef * beta,
             _DTYPE_CODES[x.dtype], stream)
     _build.check(lib, "lrn_bwd", rc)
