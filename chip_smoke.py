@@ -47,9 +47,12 @@ without them, and on any failed phase. Phases, in order:
    12 layers, seq 2048, bf16) with random seeded weights behind
    ``GenerativeEngine`` -> ``ModelRegistry`` -> ``ServeServer``, eight
    ``POST /generate`` requests (one streaming), the kernels' launch
-   counters read around them; then prefill and decode timed on the
-   engine directly, a decode step profiled (its device time beside the
-   flash-decode kernels' share of it);
+   counters read around them; then prefill and 32 decode steps timed on
+   the engine directly (p50/p99), the decode step a captured CUDA graph
+   (the default on the card) and, on an engine of the same weights,
+   eager (``cuda_graphs=False``), their tokens equal bitwise, each step
+   profiled (its device time and busy share beside the flash-decode
+   kernels' share of it);
 4. parity on the card: greedy tokens through the kernels equal the
    plain path's over 32 steps on a 2-layer f32 copy of the same width;
    the bf16 full-width prefill logits against the plain path;
@@ -59,8 +62,10 @@ without them, and on any failed phase. Phases, in order:
    timed window, one ``step_many`` of 4), the launch counters read
    around the whole run and around one step; ms per step, tokens/s,
    model TFLOP/s, the device's busy share, peak memory and falling
-   losses; then ``GenerativeEngine.from_trainer`` serves the trained
-   weights;
+   losses; the step is one captured CUDA graph (``step_many`` replays
+   it K times); then ``GenerativeEngine.from_trainer`` serves the
+   trained weights, and an eager trainer from the same seed takes the
+   same steps: the same losses bitwise, its times beside;
 6. training parity on the card: a 2-layer f32 trainer of the same
    width through the kernels and through the plain path from one
    seed: the first step's gradient of every parameter, then 3 steps'
@@ -75,7 +80,11 @@ without them, and on any failed phase. Phases, in order:
    draws from the same f32 logits are equal on the CPU and the card;
    greedy tokens of one batch of the 8 prompts equal the slab
    engine's (with prefix sharing and copy-on-write); a pool that must
-   preempt; a paged decode round timed and profiled;
+   preempt; each engine warmed (``warm()``: the prefill ladder and the
+   greedy and sampled round graphs) before its window; 32 paged decode
+   rounds, greedy and with 2 sampled slots, timed (p50/p99) and
+   profiled, captured and on an eager engine, their tokens equal
+   bitwise;
 8. paged parity on the card: on a 2-layer f32 copy of full width,
    greedy tokens through K5 equal the plain path's and the slab
    engine's (K4), also on a pool that preempts; speculative decoding
@@ -83,7 +92,7 @@ without them, and on any failed phase. Phases, in order:
    first 2 as the draft, K = 4) equals greedy with acceptance 1.0;
    the same construction at bf16 and full depth (12-layer target,
    2-layer draft, 8 slots, 64 tokens) against greedy, acceptance at
-   least 0.7;
+   least 0.7, each mode captured and eager (tokens equal bitwise);
 9. classifier training at full width: AlexNet as bench.py trains it
    (``alexnet_fused()``: 1000 classes, 224 x 224 x 3, seed 0; lr 0.01,
    momentum 0.9, weight decay 5e-4; batch 1536; bf16) through
@@ -98,7 +107,14 @@ without them, and on any failed phase. Phases, in order:
    f32, batch 8, dropout on, through the kernels and through their
    plain versions from one seed (the masks equal bitwise): the first
    step's gradient of every parameter, then 3 steps' losses and
-   parameters; then the full-width bf16 forward logits.
+   parameters; then the full-width bf16 forward logits;
+11. the classifier served: ``alexnet_fused()`` (seed 0, bf16) through
+   ``InferenceEngine.from_specs`` (one captured graph per batch bucket,
+   1 to 64) -> ``MicroBatcher`` -> ``ModelRegistry`` -> ``ServeServer``
+   ``POST /apply``: ``compile_count`` equal to the number of buckets,
+   the probabilities against ``FusedClassifierTrainer.predict`` on the
+   same rows, each bucket captured against eager (bitwise) and timed,
+   two K6 launches per replay, three concurrent requests over HTTP.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -177,6 +193,12 @@ TOL_LRN = {"float32": 1e-5, "bfloat16": 1e-2}
 #: bf16 full-width logits as a share of the logit scale (an LRN output
 #: one bf16 ulp off moves the logits by a few bf16 ulps)
 TOL_CLASSIFIER = {"float32": 1e-4, "bfloat16": 2e-2}
+#: phase 11: the forward plane's buckets, and its probabilities against
+#: the trainer's forward on the same rows (both bf16 through the same
+#: kernels; another bucket's batch may take other cuDNN algorithms, so
+#: the softmax outputs agree to bf16 rounding of the logits, not bitwise)
+APPLY_BUCKETS = [1, 2, 4, 8, 16, 32, 64]
+TOL_APPLY = 2e-3
 
 
 def log(msg):
@@ -285,6 +307,23 @@ KERNEL_CLASSES = (
     ("reductions", ("reduce", "softmax", "norm")),
     ("elementwise", ("elementwise", "vectorized")),
     ("gather and scatter", ("index", "gather", "scatter", "embedding")))
+
+
+def timed_rounds(fn, n):
+    """``n`` calls of ``fn`` (each ends synchronized: the engines hand
+    their tokens to the host), each timed on the host clock: (outputs,
+    ms per call)."""
+    outs, ms = [], []
+    for _ in range(n):
+        t0 = time.monotonic()
+        outs.append(fn())
+        ms.append((time.monotonic() - t0) * 1e3)
+    return outs, ms
+
+
+def pcts(ms):
+    return dict(p50=float(np.percentile(ms, 50)),
+                p99=float(np.percentile(ms, 99)), mean=float(np.mean(ms)))
 
 
 def profile_device(torch, fn, steps):
@@ -1044,6 +1083,60 @@ def serving_prompts(vocab):
     return prompts
 
 
+def trace_summary(path):
+    """What a ``torch.profiler`` Chrome trace (``obs.profile``'s output)
+    holds, by category: the span it covers, the device's kernel time,
+    and the host's CUDA runtime calls by name (a replay is one
+    ``cudaGraphLaunch``; the token read-back a copy and a sync)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    by_cat, runtime = {}, {}
+    for e in events:
+        cat = e.get("cat", "")
+        by_cat[cat] = by_cat.get(cat, 0.0) + e["dur"] / 1e3
+        if cat == "cuda_runtime":
+            n, ms = runtime.get(e["name"], (0, 0.0))
+            runtime[e["name"]] = (n + 1, ms + e["dur"] / 1e3)
+    top = sorted(runtime.items(), key=lambda kv: -kv[1][1])[:6]
+    return dict(span_ms=(t1 - t0) / 1e3, kernel_ms=by_cat.get("kernel", 0.0),
+                cpu_op_ms=by_cat.get("cpu_op", 0.0),
+                runtime_ms=by_cat.get("cuda_runtime", 0.0),
+                runtime_top=[dict(name=k, calls=n, ms=ms)
+                             for k, (n, ms) in top])
+
+
+def _profiled_request(url, vocab):
+    """One 12-token request through the batcher with the step profiler
+    configured (``obs.profile``: steps 2 to 9 of the batcher's
+    dispatches, a Chrome trace into chip_smoke_out/profile_serve), and
+    the trace summarized: the host profile of captured decode steps."""
+    from veles_tpu_torch.obs import profile as obs_profile
+    out_dir = os.path.join("chip_smoke_out", "profile_serve")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    prof = obs_profile.configure("8@2", out_dir)
+    try:
+        with _post(url, {"prompt": list(range(1, 200)),
+                         "max_tokens": 12}) as resp:
+            json.loads(resp.read())
+    finally:
+        obs_profile.configure(None, out_dir)
+    stats = prof.stats()
+    if stats["failed"] or not stats["done"]:
+        raise AssertionError("step profiler: %s" % stats)
+    [name] = os.listdir(out_dir)
+    summary = trace_summary(os.path.join(out_dir, name))
+    log("  step profiler, 8 batcher dispatches (decode steps) of one "
+        "request: span %.3f ms, kernels %.3f ms, CUDA runtime calls %.3f ms"
+        " (%s)" % (summary["span_ms"], summary["kernel_ms"],
+                   summary["runtime_ms"], "; ".join(
+                       "%s x%d %.3f ms" % (r["name"], r["calls"], r["ms"])
+                       for r in summary["runtime_top"])))
+    return summary
+
+
 def serving_phase(torch, fa, dev, card):
     from veles_tpu_torch.models.transformer import (TransformerConfig,
                                                     init_params)
@@ -1062,7 +1155,6 @@ def serving_phase(torch, fa, dev, card):
             blk["ln1"]["g"], blk["ln1"]["b"], blk["ln2"]["g"],
             blk["ln2"]["b"])]))
     engine = GenerativeEngine(config, params, max_slots=8, device=dev)
-    del params
     kv_bytes = sum(x.numel() * x.element_size()
                    for x in engine._cache.values())
     log("  %d params (%.0f MB f32), KV slab %s %.0f MB, set-up %.1f s"
@@ -1149,6 +1241,7 @@ def serving_phase(torch, fa, dev, card):
             if key not in metrics_json["lm"] or \
                     "veles_gen_%s" % key not in prom:
                 raise AssertionError("/metrics lacks %s" % key)
+        result["host_profile"] = _profiled_request(url, config.vocab)
         result["http"] = dict(requests=len(prompts), prompt_lens=plens,
                               tokens_each=n_tok, wall_s=wall,
                               tokens_per_s=len(prompts) * n_tok / wall,
@@ -1163,35 +1256,55 @@ def serving_phase(torch, fa, dev, card):
         [np.asarray(p, np.int32) for p in prompts[::-1]], n_tok)]
 
     # prefill and decode timed on the engine directly (host clock; the
-    # engine hands tokens to the host, so each call ends synchronized)
+    # engine hands tokens to the host, so each call ends synchronized):
+    # the captured engine above and an eager one of the same weights, on
+    # the same batch; their tokens must be equal bitwise
+    eager = GenerativeEngine(config, params, max_slots=8, device=dev,
+                             cuda_graphs=False)
+    del params
     rng = np.random.default_rng(2)
     batch = [rng.integers(1, config.vocab, 1024) for _ in range(8)]
-    slots, _ = engine.admit(batch)
-    for s in slots:
-        engine.release(s)
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    slots, _ = engine.admit(batch)
-    prefill_ms = (time.monotonic() - t0) * 1e3
-    engine.decode()
-    t0 = time.monotonic()
     n_steps = 32
-    for _ in range(n_steps):
-        engine.decode()
-    decode_ms = (time.monotonic() - t0) * 1e3 / n_steps
-    log("  engine: prefill 8 x 1024 tokens %.2f ms; decode step over 8 "
-        "slots %.3f ms = %.1f tokens/s [%s]"
-        % (prefill_ms, decode_ms, 8 * 1e3 / decode_ms, card))
-    prof_decode = profile_device(torch, engine.decode, 8)
-    for s in slots:
-        engine.release(s)
+    runs = {}
+    for label, eng in (("captured", engine), ("eager", eager)):
+        for s_ in eng.admit(batch)[0]:
+            eng.release(s_)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        slots, _ = eng.admit(batch)
+        prefill_ms = (time.monotonic() - t0) * 1e3
+        eng.decode()
+        outs, ms = timed_rounds(eng.decode, n_steps)
+        prof = profile_device(torch, eng.decode, 8)
+        for s_ in slots:
+            eng.release(s_)
+        runs[label] = dict(prefill_8x1024_ms=prefill_ms, decode_ms=pcts(ms),
+                           tokens=[o[slots].tolist() for o in outs],
+                           profile=prof)
+    if runs["captured"]["tokens"] != runs["eager"]["tokens"]:
+        raise AssertionError("captured decode tokens != eager")
+    del eager
+    for label in runs:
+        r = runs[label]
+        log("  engine %s: prefill 8 x 1024 tokens %.2f ms; decode step over "
+            "8 slots p50 %.3f p99 %.3f mean %.3f ms = %.1f tokens/s [%s]"
+            % (label, r["prefill_8x1024_ms"], r["decode_ms"]["p50"],
+               r["decode_ms"]["p99"], r["decode_ms"]["mean"],
+               8 * 1e3 / r["decode_ms"]["mean"], card))
+    log("  captured decode tokens == eager over %d steps: True" % n_steps)
+    decode_ms = runs["captured"]["decode_ms"]["mean"]
+    prof_decode = runs["captured"]["profile"]
+    slots, _ = engine.admit(batch)
+    for s_ in slots:
+        engine.release(s_)
 
     def admit_release():
         for s in engine.admit(batch)[0]:
             engine.release(s)
 
     prof_prefill = profile_device(torch, admit_release, 2)
-    for what, prof in (("decode step", prof_decode),
+    for what, prof in (("decode step, captured", prof_decode),
+                       ("decode step, eager", runs["eager"]["profile"]),
                        ("prefill 8 x 1024", prof_prefill)):
         if prof is None:
             log("  profile %s: no device time recorded" % what)
@@ -1203,12 +1316,14 @@ def serving_phase(torch, fa, dev, card):
                 "; ".join("%s %.3f ms x%g" % (r["kernel"][:40], r["ms"],
                                               r["launches"])
                           for r in prof["top"][:5])))
-    result["engine"] = dict(prefill_8x1024_ms=prefill_ms,
+    result["engine"] = dict(prefill_8x1024_ms=runs["captured"][
+                                "prefill_8x1024_ms"],
                             decode_step_ms=decode_ms,
                             decode_tokens_per_s=8 * 1e3 / decode_ms,
                             peak_mem_bytes=torch.cuda.max_memory_allocated(),
                             profile_decode=prof_decode,
-                            profile_prefill=prof_prefill)
+                            profile_prefill=prof_prefill,
+                            captured=runs["captured"], eager=runs["eager"])
     return result, launches
 
 
@@ -1274,6 +1389,39 @@ def train_flops_per_token(config, n_params):
                 4 * config.seq_len * config.embed * config.layers)
 
 
+def _train_window(torch, fa, trainer, tokens, n_timed=10, k_many=4):
+    """The phase 5 step sequence on one trainer: 3 warm-up steps, one
+    step with the launch counters read around it, a timed window, one
+    step_many, then a profiled step. The counters are set to 0 at the
+    start and read at the end of the window."""
+    fa.reset_launches()
+    losses = [trainer.step(tokens)["loss"] for _ in range(3)]  # warm-up
+    torch.cuda.synchronize()
+    before = dict(fa.LAUNCHES)
+    losses.append(trainer.step(tokens)["loss"])
+    one_step = {k: fa.LAUNCHES[k] - before[k] for k in before}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n_timed):
+        losses.append(trainer.step(tokens)["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) * 1e3 / n_timed
+    t0 = time.monotonic()
+    many = trainer.step_many(tokens[None].expand(k_many, -1, -1))
+    torch.cuda.synchronize()
+    many_ms = (time.monotonic() - t0) * 1e3 / k_many
+    launches = dict(fa.LAUNCHES)
+    if tuple(many["loss"].shape) != (k_many,):
+        raise AssertionError("step_many returned losses of shape %s"
+                             % (tuple(many["loss"].shape),))
+    losses = torch.stack(losses + list(many["loss"])).tolist()
+    prof = profile_device(
+        torch, lambda: float(trainer.step(tokens)["loss"]), 2)
+    return dict(losses=losses, one_step=one_step, step_ms=step_ms,
+                many_ms=many_ms, launches=launches, profile=prof,
+                timed_steps=n_timed, step_many_k=k_many)
+
+
 def training_phase(torch, fa, dev, card):
     from veles_tpu_torch.models.transformer import (TransformerConfig,
                                                     TransformerTrainer,
@@ -1294,38 +1442,18 @@ def training_phase(torch, fa, dev, card):
                                            (b, t + 1))).to(dev)
     setup_s = time.monotonic() - t0
 
-    fa.reset_launches()
-    losses = [trainer.step(tokens)["loss"] for _ in range(3)]  # warm-up
-    torch.cuda.synchronize()
-    before = dict(fa.LAUNCHES)
-    losses.append(trainer.step(tokens)["loss"])
-    one_step = {k: fa.LAUNCHES[k] - before[k] for k in before}
-    n_timed = 10
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    for _ in range(n_timed):
-        losses.append(trainer.step(tokens)["loss"])
-    torch.cuda.synchronize()
-    step_ms = (time.monotonic() - t0) * 1e3 / n_timed
-    k_many = 4
-    t0 = time.monotonic()
-    many = trainer.step_many(tokens[None].expand(k_many, -1, -1))
-    torch.cuda.synchronize()
-    many_ms = (time.monotonic() - t0) * 1e3 / k_many
-    launches = dict(fa.LAUNCHES)
+    run = _train_window(torch, fa, trainer, tokens)
     peak = torch.cuda.max_memory_allocated()
-    if tuple(many["loss"].shape) != (k_many,):
-        raise AssertionError("step_many returned losses of shape %s"
-                             % (tuple(many["loss"].shape),))
-    losses = torch.stack(losses + list(many["loss"])).tolist()
-
+    losses, one_step = run["losses"], run["one_step"]
+    step_ms = run["step_ms"]
     tokens_per_s = b * t * 1e3 / step_ms
     flops = train_flops_per_token(config, n_params)
-    log("  %d params; set-up %.1f s; ms per step %.3f (window of %d), "
-        "step_many(%d) %.3f ms per step; %.1f tokens/s; model %.1f "
+    log("  captured: %d params; set-up %.1f s; ms per step %.3f (window of "
+        "%d), step_many(%d) %.3f ms per step; %.1f tokens/s; model %.1f "
         "TFLOP/s; peak memory %.2f GB [%s]"
-        % (n_params, setup_s, step_ms, n_timed, k_many, many_ms,
-           tokens_per_s, tokens_per_s * flops / 1e12, peak / 1e9, card))
+        % (n_params, setup_s, step_ms, run["timed_steps"],
+           run["step_many_k"], run["many_ms"], tokens_per_s,
+           tokens_per_s * flops / 1e12, peak / 1e9, card))
     log("  losses: %s" % ", ".join("%.4f" % x for x in losses))
     log("  launches around one step: %s (need >= %d each of flash_fwd, "
         "flash_bwd_dkv, flash_bwd_dq)" % (one_step, config.layers))
@@ -1339,22 +1467,10 @@ def training_phase(torch, fa, dev, card):
     if not losses[-1] < losses[0]:
         raise AssertionError("loss did not fall on the fixed batch: %s"
                              % losses)
-
-    prof = profile_device(
-        torch, lambda: float(trainer.step(tokens)["loss"]), 2)
-    if prof is None:
-        log("  profile train step: no device time recorded")
-    else:
-        log("  profile train step: wall %.3f ms, device %.3f ms (busy "
-            "%.0f%%); top kernels: %s" % (
-                prof["wall_ms"], prof["device_ms"],
-                100 * prof["busy_share"],
-                "; ".join("%s %.3f ms x%g" % (r["kernel"][:40], r["ms"],
-                                              r["launches"])
-                          for r in prof["top"][:6])))
-        log("  train step device time by class: %s" % "; ".join(
-            "%s %.3f ms" % kv for kv in sorted(
-                prof["by_class"].items(), key=lambda kv: -kv[1])))
+    if len(trainer._graphs) != 1:
+        raise AssertionError("%d captured train steps, want 1"
+                             % len(trainer._graphs))
+    _log_train_profile("captured", run["profile"])
 
     # serve the trained weights: the engine takes a copy
     engine = GenerativeEngine.from_trainer(trainer, max_slots=2,
@@ -1371,14 +1487,53 @@ def training_phase(torch, fa, dev, card):
                              % (gen,))
     log("  served the trained weights: greedy tokens %s" % gen)
     del engine, trainer
+    torch.cuda.empty_cache()
+
+    # the same steps eagerly, from the same seed: the same losses
+    eager = TransformerTrainer(config, device=dev, seed=0,
+                               learning_rate=TRAIN_LR, cuda_graphs=False)
+    erun = _train_window(torch, fa, eager, tokens)
+    del eager
+    equal = erun["losses"] == losses
+    log("  eager: ms per step %.3f, step_many(%d) %.3f ms per step, %.1f "
+        "tokens/s; losses equal to the captured run's bitwise: %s [%s]"
+        % (erun["step_ms"], erun["step_many_k"], erun["many_ms"],
+           b * t * 1e3 / erun["step_ms"], equal, card))
+    _log_train_profile("eager", erun["profile"])
+    if not equal:
+        raise AssertionError("eager losses %s != captured %s"
+                             % (erun["losses"], losses))
     return dict(batch=b, n_params=n_params, learning_rate=TRAIN_LR,
-                setup_s=setup_s, step_ms=step_ms, timed_steps=n_timed,
-                step_many_k=k_many, step_many_ms_per_step=many_ms,
+                setup_s=setup_s, step_ms=step_ms,
+                timed_steps=run["timed_steps"],
+                step_many_k=run["step_many_k"],
+                step_many_ms_per_step=run["many_ms"],
                 tokens_per_s=tokens_per_s,
                 model_tflops=tokens_per_s * flops / 1e12,
                 flops_per_token=flops, peak_mem_bytes=peak,
                 losses=losses, launches_one_step=one_step,
-                profile=prof, generated=gen), launches
+                profile=run["profile"], generated=gen,
+                eager=dict(step_ms=erun["step_ms"],
+                           step_many_ms_per_step=erun["many_ms"],
+                           tokens_per_s=b * t * 1e3 / erun["step_ms"],
+                           profile=erun["profile"],
+                           losses_equal=equal)), run["launches"]
+
+
+def _log_train_profile(label, prof):
+    if prof is None:
+        log("  profile train step (%s): no device time recorded" % label)
+        return
+    log("  profile train step (%s): wall %.3f ms, device %.3f ms (busy "
+        "%.0f%%); top kernels: %s" % (
+            label, prof["wall_ms"], prof["device_ms"],
+            100 * prof["busy_share"],
+            "; ".join("%s %.3f ms x%g" % (r["kernel"][:40], r["ms"],
+                                          r["launches"])
+                      for r in prof["top"][:6])))
+    log("  train step device time by class: %s" % "; ".join(
+        "%s %.3f ms" % kv for kv in sorted(
+            prof["by_class"].items(), key=lambda kv: -kv[1])))
 
 
 # ---------------------------------------------------------------------------
@@ -1517,6 +1672,12 @@ def paged_serving_phase(torch, fa, dev, card, slab):
         engine = PagedGenerativeEngine(config, params, max_slots=8,
                                        page_size=16, n_pages=n_pages,
                                        device=dev)
+        # the prefill ladder and both round graphs (greedy, sampled)
+        # before traffic: no round in the window captures
+        t0 = time.monotonic()
+        engine.warm()
+        log("  %s: warm (prefill ladder, %d round graphs) %.1f s"
+            % (label, len(engine._graphs), time.monotonic() - t0))
         kv_bytes = sum(x.numel() * x.element_size()
                        for x in engine._cache.values())
         registry = ModelRegistry()
@@ -1648,55 +1809,73 @@ def paged_serving_phase(torch, fa, dev, card, slab):
         "the card" % cpu_draws.numel())
     result["sampler_cpu_card_equal"] = True
 
-    # a paged decode round timed and profiled, as phase 3 times the slab
+    # a paged decode round timed and profiled, as phase 3 times the slab:
+    # captured (the roomy engine) and eager (an engine of the same
+    # weights with cuda_graphs=False), greedy and with 2 of the 8 slots
+    # sampled (as over HTTP); their tokens must be equal bitwise
+    eager = PagedGenerativeEngine(config, params, max_slots=8, page_size=16,
+                                  n_pages=1024, device=dev,
+                                  cuda_graphs=False)
     rng = np.random.default_rng(2)
     batch_1024 = [rng.integers(1, config.vocab, 1024) for _ in range(8)]
-    slots, _ = roomy.admit(batch_1024)
-    torch.cuda.synchronize()
-    roomy.decode_many()
     n_steps = 32
-    t0 = time.monotonic()
-    for _ in range(n_steps):
-        roomy.decode_many()
-    decode_ms = (time.monotonic() - t0) * 1e3 / n_steps
-    for s_ in slots:
-        roomy.release(s_)
-    t0 = time.monotonic()
-    slots, _ = roomy.admit(batch_1024)
-    prefill_ms = (time.monotonic() - t0) * 1e3
-    prof = profile_device(torch, roomy.decode_many, 8)
-    for s_ in slots:
-        roomy.release(s_)
-    # the same round with 2 of the 8 slots sampled (as over HTTP)
-    slots, _ = roomy.admit(batch_1024, [SAMPLED.get(i) for i in range(8)])
-    roomy.decode_many()
-    t0 = time.monotonic()
-    for _ in range(n_steps):
-        roomy.decode_many()
-    sampled_ms = (time.monotonic() - t0) * 1e3 / n_steps
-    prof_sampled = profile_device(torch, roomy.decode_many, 8)
-    for s_ in slots:
-        roomy.release(s_)
-    log("  engine: prefill 8 x 1024 tokens %.2f ms; decode round over 8 "
-        "slots %.3f ms = %.1f tokens/s (slab engine: %.3f ms), with 2 "
-        "sampled slots %.3f ms [%s]"
-        % (prefill_ms, decode_ms, 8 * 1e3 / decode_ms,
-           slab["engine"]["decode_step_ms"], sampled_ms, card))
-    for what, pr in (("paged decode round", prof),
-                     ("round with 2 sampled slots", prof_sampled)):
-        if pr is not None:
-            log("  profile %s: wall %.3f ms, device %.3f ms (busy %.0f%%), "
-                "flash decode (K5) %.3f ms; by class: %s" % (
-                    what, pr["wall_ms"], pr["device_ms"],
-                    100 * pr["busy_share"], pr["flash_decode_ms"], "; ".join(
-                        "%s %.3f ms" % kv for kv in sorted(
+    runs = {}
+    for label, eng in (("captured", roomy), ("eager", eager)):
+        t0 = time.monotonic()
+        slots, _ = eng.admit(batch_1024)
+        prefill_ms = (time.monotonic() - t0) * 1e3
+        eng.decode_many()
+        outs, ms = timed_rounds(eng.decode_many, n_steps)
+        prof = profile_device(torch, eng.decode_many, 8)
+        for s_ in slots:
+            eng.release(s_)
+        slots, _ = eng.admit(batch_1024, [SAMPLED.get(i) for i in range(8)])
+        eng.decode_many()
+        souts, sms = timed_rounds(eng.decode_many, n_steps)
+        prof_sampled = profile_device(torch, eng.decode_many, 8)
+        for s_ in slots:
+            eng.release(s_)
+        runs[label] = dict(
+            prefill_8x1024_ms=prefill_ms, decode_ms=pcts(ms),
+            sampled_ms=pcts(sms), profile=prof, profile_sampled=prof_sampled,
+            tokens=[o[0][slots, 0].tolist() for o in outs],
+            sampled_tokens=[o[0][slots, 0].tolist() for o in souts])
+    del eager
+    for key in ("tokens", "sampled_tokens"):
+        if runs["captured"][key] != runs["eager"][key]:
+            raise AssertionError("captured paged %s != eager" % key)
+    for label, r in runs.items():
+        log("  engine %s: prefill 8 x 1024 tokens %.2f ms; decode round over "
+            "8 slots p50 %.3f p99 %.3f mean %.3f ms = %.1f tokens/s (slab "
+            "engine captured: %.3f ms), with 2 sampled slots p50 %.3f p99 "
+            "%.3f ms [%s]" % (label, r["prefill_8x1024_ms"],
+                              r["decode_ms"]["p50"], r["decode_ms"]["p99"],
+                              r["decode_ms"]["mean"],
+                              8 * 1e3 / r["decode_ms"]["mean"],
+                              slab["engine"]["decode_step_ms"],
+                              r["sampled_ms"]["p50"], r["sampled_ms"]["p99"],
+                              card))
+        for what, pr in (("paged decode round", r["profile"]),
+                         ("round with 2 sampled slots",
+                          r["profile_sampled"])):
+            if pr is not None:
+                log("  profile %s, %s: wall %.3f ms, device %.3f ms (busy "
+                    "%.0f%%), flash decode (K5) %.3f ms; by class: %s" % (
+                        what, label, pr["wall_ms"], pr["device_ms"],
+                        100 * pr["busy_share"], pr["flash_decode_ms"],
+                        "; ".join("%s %.3f ms" % kv for kv in sorted(
                             pr["by_class"].items(), key=lambda kv: -kv[1]))))
-    result["engine"] = dict(prefill_8x1024_ms=prefill_ms,
-                            decode_round_ms=decode_ms,
-                            decode_tokens_per_s=8 * 1e3 / decode_ms,
-                            sampled_round_ms=sampled_ms,
-                            profile_decode=prof,
-                            profile_sampled=prof_sampled)
+    log("  captured paged tokens == eager over %d greedy and %d sampled "
+        "rounds: True" % (n_steps, n_steps))
+    cap = runs["captured"]
+    result["engine"] = dict(prefill_8x1024_ms=cap["prefill_8x1024_ms"],
+                            decode_round_ms=cap["decode_ms"]["mean"],
+                            decode_tokens_per_s=8 * 1e3 /
+                            cap["decode_ms"]["mean"],
+                            sampled_round_ms=cap["sampled_ms"]["mean"],
+                            profile_decode=cap["profile"],
+                            profile_sampled=cap["profile_sampled"],
+                            captured=runs["captured"], eager=runs["eager"])
     del roomy
     return result, launches_main
 
@@ -1740,6 +1919,7 @@ def paged_parity_phase(torch, fa, dev, card):
         cfg = TransformerConfig(compute="float32", attention_impl=impl,
                                 **small)
         engine = PagedGenerativeEngine(cfg, params, max_slots=4, device=dev)
+        engine.warm()    # captures the rounds, whose warm-ups launch K5
         fa.reset_launches()
         gens[impl] = [g.tolist() for g in engine.generate(prompts, 32)]
         if impl == "cuda" and fa.LAUNCHES["flash_decode_paged"] != 2 * 31:
@@ -1779,34 +1959,53 @@ def paged_parity_phase(torch, fa, dev, card):
         sprompts = [rng.integers(1, FULL["vocab"], n).astype(np.int32)
                     for n in (16, 64, 100, 200, 300, 500, 700, 1000)[:slots]]
         runs = {}
+        # bf16 at full depth: each mode captured, then eager
+        ways = (True, False) if compute == "bfloat16" else (True,)
         for mode in ("greedy", "spec"):
             kw = dict(draft_params=dparams, draft_config=dcfg,
                       draft_tokens=4) if mode == "spec" else {}
-            engine = PagedGenerativeEngine(tcfg, tparams, max_slots=slots,
-                                           device=dev, **kw)
-            sampling = [{"draft": mode == "spec"}] * slots
-            engine.generate(sprompts, 2, sampling=sampling)       # warm
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            toks = [g.tolist() for g in engine.generate(
-                sprompts, n_new, sampling=sampling)]
-            wall = time.monotonic() - t0
-            runs[mode] = (toks, slots * n_new / wall,
-                          engine.decode_stats().get("spec_accept_rate"))
-            if compute == "bfloat16":
-                # one round of each, profiled: where a round's time goes
-                engine.admit(sprompts, sampling)
-                prof = profile_device(torch, engine.decode_many, 2)
-                if prof is not None:
-                    log("  profile %s round (bf16, %d layers): wall %.3f ms,"
-                        " device %.3f ms (busy %.0f%%); by class: %s" % (
-                            mode, t_layers, prof["wall_ms"],
-                            prof["device_ms"], 100 * prof["busy_share"],
-                            "; ".join("%s %.3f ms" % kv for kv in sorted(
-                                prof["by_class"].items(),
-                                key=lambda kv: -kv[1]))))
-                result["profile_%s_round" % mode] = prof
-            del engine
+            for graphs in ways:
+                engine = PagedGenerativeEngine(tcfg, tparams, max_slots=slots,
+                                               device=dev, cuda_graphs=graphs,
+                                               **kw)
+                sampling = [{"draft": mode == "spec"}] * slots
+                engine.generate(sprompts, 2, sampling=sampling)   # warm
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                toks = [g.tolist() for g in engine.generate(
+                    sprompts, n_new, sampling=sampling)]
+                wall = time.monotonic() - t0
+                label = mode if graphs else mode + " eager"
+                runs[label] = (toks, slots * n_new / wall,
+                               engine.decode_stats().get("spec_accept_rate"))
+                if compute == "bfloat16":
+                    # one round of each, profiled: where its time goes
+                    engine.admit(sprompts, sampling)
+                    prof = profile_device(torch, engine.decode_many, 2)
+                    if prof is not None:
+                        log("  profile %s round (bf16, %d layers): wall "
+                            "%.3f ms, device %.3f ms (busy %.0f%%); by "
+                            "class: %s" % (
+                                label, t_layers, prof["wall_ms"],
+                                prof["device_ms"], 100 * prof["busy_share"],
+                                "; ".join("%s %.3f ms" % kv for kv in sorted(
+                                    prof["by_class"].items(),
+                                    key=lambda kv: -kv[1]))))
+                    result["profile_%s_round" % label.replace(" ", "_")] = \
+                        prof
+                del engine
+        if compute == "bfloat16":
+            for mode in ("greedy", "spec"):
+                if runs[mode][0] != runs[mode + " eager"][0]:
+                    raise AssertionError("bf16 %s: captured tokens != eager"
+                                         % mode)
+            log("  bf16 eager: greedy %.1f tokens/s, speculative %.1f "
+                "tokens/s (%.2fx); captured tokens == eager in both modes"
+                % (runs["greedy eager"][1], runs["spec eager"][1],
+                   runs["spec eager"][1] / runs["greedy eager"][1]))
+            result["spec_eager_bfloat16"] = dict(
+                greedy_tokens_per_s=runs["greedy eager"][1],
+                spec_tokens_per_s=runs["spec eager"][1])
         (gt, g_tps, _), (st, s_tps, acc) = runs["greedy"], runs["spec"]
         agree = _agreement(st, gt)
         log("  speculative %s, %d-layer target, 2-layer draft, K = 4, %d "
@@ -2050,6 +2249,127 @@ def classifier_parity_phase(torch, dev):
                 steps=n_steps, bf16_logit_err=err, bf16_logit_scale=scale)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the classifier served through POST /apply
+# ---------------------------------------------------------------------------
+
+def apply_phase(torch, counters, dev, card):
+    from veles_tpu_torch.models.flagship import alexnet_fused
+    from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
+    from veles_tpu_torch.serve import (InferenceEngine, ModelRegistry,
+                                       ServeServer)
+
+    log("phase 11: serving AlexNet (alexnet_fused(), seed 0, bf16) through "
+        "InferenceEngine -> MicroBatcher -> registry -> POST /apply, "
+        "buckets %s" % (APPLY_BUCKETS,))
+    specs, params, _ = alexnet_fused()
+    engine = InferenceEngine.from_specs(specs, params, device=dev,
+                                        name="alexnet")
+    eager = InferenceEngine.from_specs(specs, params, device=dev,
+                                       cuda_graphs=False)
+    t0 = time.monotonic()
+    added = engine.warmup((224, 224, 3), APPLY_BUCKETS[-1])
+    warm_s = time.monotonic() - t0
+    eager.warmup((224, 224, 3), APPLY_BUCKETS[-1])
+    log("  warmup captured %d bucket graphs in %.1f s; compile_count %d, "
+        "buckets %s" % (added, warm_s, engine.compile_count, engine.buckets))
+    if added != len(APPLY_BUCKETS) or engine.buckets != APPLY_BUCKETS or \
+            engine.compile_count != len(APPLY_BUCKETS):
+        raise AssertionError("compile_count %d, buckets %s"
+                             % (engine.compile_count, engine.buckets))
+    # the outputs against the trainer's forward on the same rows
+    rng = np.random.default_rng(12)
+    x = rng.random((APPLY_BUCKETS[-1], 224, 224, 3), dtype=np.float32)
+    probs = engine.apply(x)
+    trainer = FusedClassifierTrainer(specs, params, device=dev)
+    ref = torch.softmax(trainer.predict(x), dim=-1).cpu().numpy()
+    del trainer, params
+    check("apply probabilities vs softmax(FusedClassifierTrainer.predict), "
+          "bf16, %d rows (absolute)" % len(x),
+          float(np.abs(probs - ref).max()), TOL_APPLY)
+    # per bucket: captured against eager (bitwise), timed, and K6 twice
+    # a replay
+    per_bucket = {}
+    for b in APPLY_BUCKETS:
+        rows = x[:b]
+        counters.reset()
+        got = engine.apply(rows)
+        one = {k: v for k, v in counters.read().items() if v}
+        if one != {"lrn_fwd": 2}:
+            raise AssertionError("bucket %d: launches %s per replay"
+                                 % (b, one))
+        if not np.array_equal(got, eager.apply(rows)):
+            raise AssertionError("bucket %d: captured != eager" % b)
+        _, ms = timed_rounds(lambda: engine.apply(rows), 10)
+        _, ems = timed_rounds(lambda: eager.apply(rows), 10)
+        per_bucket[b] = dict(captured_ms=pcts(ms), eager_ms=pcts(ems))
+    log("  apply ms p50, captured / eager, by bucket: %s [%s]" % (
+        ", ".join("%d: %.3f / %.3f" % (b, r["captured_ms"]["p50"],
+                                        r["eager_ms"]["p50"])
+                  for b, r in per_bucket.items()), card))
+    log("  launches per replay: lrn_fwd 2; captured == eager bitwise in "
+        "every bucket")
+    del eager
+
+    registry = ModelRegistry()
+    model = registry.add("alexnet", engine, max_batch=APPLY_BUCKETS[-1],
+                         max_delay_ms=5)
+    server = ServeServer(registry, port=0, timeout=600)
+    sizes = (1, 2, 3)
+    requests = [rng.random((n, 224, 224, 3), dtype=np.float32)
+                for n in sizes]
+    answers = [None] * len(sizes)
+    try:
+        url = "http://%s:%d/apply" % server.endpoint
+
+        def client(i):
+            try:
+                with _post(url, {"input": requests[i].tolist()}) as resp:
+                    answers[i] = np.asarray(json.loads(resp.read())[
+                        "output"], np.float32)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                answers[i] = e
+
+        snap0 = model.metrics.snapshot()
+        counters.reset()
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(sizes))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.monotonic() - t0
+        launches = counters.read()
+        snap1 = model.metrics.snapshot()
+        prom = _get("http://%s:%d/metrics?format=prometheus"
+                    % server.endpoint)
+    finally:
+        server.stop()
+    dispatches = snap1["dispatches_total"] - snap0["dispatches_total"]
+    for i, a in enumerate(answers):
+        if isinstance(a, BaseException) or a.shape != (sizes[i], 1000):
+            raise AssertionError("request %d answered %r" % (i, a))
+        check("POST /apply request %d vs apply on its rows (absolute)" % i,
+              float(np.abs(a - engine.apply(requests[i])).max()), TOL_APPLY)
+    if launches["lrn_fwd"] != 2 * dispatches or not dispatches or \
+            'veles_serve_requests_total{model="alexnet"}' not in prom:
+        raise AssertionError("%d dispatches, launches %s"
+                             % (dispatches, launches))
+    log("  %d POST /apply requests (%s rows) answered in %.3f s over %d "
+        "dispatches; launches %s; compile_count still %d"
+        % (len(sizes), list(sizes), wall, dispatches,
+           {k: v for k, v in launches.items() if v}, engine.compile_count))
+    if engine.compile_count != len(APPLY_BUCKETS):
+        raise AssertionError("compile_count grew to %d"
+                             % engine.compile_count)
+    return dict(buckets=APPLY_BUCKETS, warm_s=warm_s,
+                compile_count=engine.compile_count,
+                predict_abs_err=float(np.abs(probs - ref).max()),
+                per_bucket=per_bucket, http_wall_s=wall,
+                http_dispatches=dispatches), launches
+
+
 class Counters:
     """Every kernel's launch counter, read and reset together."""
 
@@ -2116,11 +2436,13 @@ def main():
     classifier, classifier_launches = classifier_phase(torch, counters, dev,
                                                        card)
     classifier_parity = classifier_parity_phase(torch, dev)
+    apply, apply_launches = apply_phase(torch, counters, dev, card)
 
     # each main path's launches, counted from 0 around that path alone
     by_path = {"serving": serve_launches, "training": train_launches,
                "paged serving": paged_launches,
-               "classifier training": classifier_launches}
+               "classifier training": classifier_launches,
+               "apply serving": apply_launches}
     kernels = []
     for name, row in rows.items():
         paths = {p: n.get(name, 0) for p, n in by_path.items()
@@ -2139,7 +2461,7 @@ def main():
                   training=train, training_parity=train_parity,
                   paged_serving=paged, paged_parity=paged_parity,
                   classifier=classifier,
-                  classifier_parity=classifier_parity,
+                  classifier_parity=classifier_parity, apply=apply,
                   wall_s=time.monotonic() - t_start)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:

@@ -554,6 +554,8 @@ def test_paged_engine_through_the_kernel_equals_plain(cuda):
         engine = PagedGenerativeEngine(
             TransformerConfig(attention_impl=impl, **small), params,
             max_slots=4, device=cuda)
+        # captures the rounds: a capture's warm-up rounds launch too
+        engine.warm()
         fa.reset_launches()
         outs[impl] = [g.tolist() for g in engine.generate(prompts, 24)]
         launches = fa.LAUNCHES["flash_decode_paged"]
@@ -764,3 +766,218 @@ def test_classifier_step_kernels_match_plain(cuda):
         for key in a:
             assert np.abs(a[key] - b[key]).max() <= \
                 1e-5 * max(np.abs(b[key]).max(), 1e-30)
+
+
+# ---------------------------------------------------------------------------
+# captured CUDA graphs: the decode rounds, the train step, the forward
+# buckets, and K1-K3 replayed
+# ---------------------------------------------------------------------------
+#
+# Captured against eager, bitwise: a replay runs the kernels (and the
+# cuBLAS products) the eager step launches, on the same shapes and
+# inputs, in the same order, so every rounding is the same.
+
+GRAPH_LM = dict(vocab=256, embed=128, heads=2, layers=2, seq_len=256)
+
+
+def _graph_lm(**kw):
+    from veles_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(compute="bfloat16", **dict(GRAPH_LM, **kw))
+
+
+def _lm_prompts(seed, lens):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, GRAPH_LM["vocab"], n).astype(np.int32)
+            for n in lens]
+
+
+def test_slab_decode_graph_equals_eager_across_admits_and_a_swap(cuda):
+    """32 slab decode steps, captured and eager, with slots joining and
+    retiring and a swap_params between replays: the same tokens and
+    flags at every step; the steps after the swap run the new weights
+    (they differ from a captured engine that kept the old ones)."""
+    from veles_tpu_torch.models.transformer import init_params
+    from veles_tpu_torch.serve import GenerativeEngine
+
+    cfg = _graph_lm()
+    params, params_b = init_params(cfg, seed=1), init_params(cfg, seed=2)
+    prompts = _lm_prompts(3, (7, 40, 100, 3))
+    runs = []
+    for graphs, swap in ((True, True), (False, True), (True, False)):
+        engine = GenerativeEngine(cfg, params, max_slots=4, device=cuda,
+                                  cuda_graphs=graphs)
+        out = []
+        slots, first = engine.admit(prompts[:2])
+        out.append(first.tolist())
+        for step in range(32):
+            if step == 6:
+                out.append(engine.admit(prompts[2:])[1].tolist())
+            if step == 12:
+                engine.release(slots[0])
+            if step == 20 and swap:
+                engine.swap_params(params_b)
+            out.append((engine.decode().tolist(),
+                        engine.last_finite.tolist()))
+        assert (engine._graph is not None) == graphs
+        runs.append(out)
+    assert runs[0] == runs[1]
+    # out[22] is the first step after the swap (out[7] the admission)
+    assert runs[0][:22] == runs[2][:22] and runs[0][22:] != runs[2][22:]
+
+
+@pytest.mark.parametrize("mode", ["greedy", "sampled", "spec"])
+def test_paged_rounds_graph_equal_eager_with_cow_and_preemption(cuda, mode):
+    """Paged rounds (greedy, two sampled slots, speculative self-draft),
+    captured and eager, over a 16-page pool that must preempt and
+    prompts whose tails ride a donor's page (copy-on-write between
+    replays): the same tokens, the same COW and preemption counts."""
+    from veles_tpu_torch.models.transformer import init_params
+    from veles_tpu_torch.serve import PagedGenerativeEngine
+
+    cfg = _graph_lm()
+    params = init_params(cfg, seed=4)
+    donor = _lm_prompts(5, (64,))[0]
+    prompts = [donor, donor[:40], donor[:50], _lm_prompts(6, (30,))[0]]
+    sampling = [None] * 4
+    if mode == "sampled":
+        sampling[1] = dict(temperature=0.8, top_k=40, top_p=0.9, seed=3)
+        sampling[3] = dict(temperature=1.1, seed=4)
+    kw = {}
+    if mode == "spec":
+        kw = dict(draft_params=params, draft_config=cfg, draft_tokens=3)
+        sampling = [{"draft": True}] * 4
+    runs = []
+    for graphs in (True, False):
+        engine = PagedGenerativeEngine(cfg, params, max_slots=4,
+                                       page_size=16, n_pages=16,
+                                       device=cuda, cuda_graphs=graphs, **kw)
+        toks = [g.tolist() for g in engine.generate(prompts, 48,
+                                                    sampling=sampling)]
+        runs.append((toks, engine.pool.cow_total, engine.preempted_total,
+                     len(engine._graphs)))
+        assert engine.pool.free_pages == 16
+    (tg, cg, pg, ng), (te, ce, pe, ne) = runs
+    assert tg == te and cg == ce >= 1 and pg == pe >= 1
+    assert ng >= 1 and ne == 0
+
+
+@pytest.mark.parametrize("moe", [0, 2])
+def test_train_step_graph_equals_eager(cuda, moe):
+    """3 LM train steps and one step_many of 4, captured and eager
+    (remat="attn", chunked cross-entropy; and the MoE stack): the same
+    losses and parameters, bitwise; one capture, no host sync inside."""
+    from veles_tpu_torch.models.transformer import (TransformerTrainer,
+                                                    _tree_leaves)
+
+    cfg = _graph_lm(moe_experts=moe, ce_chunk=64)
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, 256, (5, 2, 257))).to(cuda)
+    runs = []
+    for graphs in (True, False):
+        trainer = TransformerTrainer(cfg, device=cuda, seed=3,
+                                     learning_rate=1e-3, cuda_graphs=graphs)
+        losses = [trainer.step(tokens[i])["loss"] for i in range(3)]
+        trainer.learning_rate = 5e-4
+        many = trainer.step_many(tokens[1:])
+        losses = torch.cat([torch.stack(losses), many["loss"]])
+        runs.append((losses, [p.detach().clone()
+                              for p in _tree_leaves(trainer.params)],
+                     float(trainer._step), len(trainer._graphs)))
+    (lg, pg, sg, ng), (le, pe, se, ne) = runs
+    assert torch.equal(lg, le) and sg == se == 7.0
+    assert all(torch.equal(a, b) for a, b in zip(pg, pe))
+    assert ng == 1 and ne == 0
+    assert bool(torch.isfinite(lg).all()) and float(lg[-1]) < float(lg[0])
+
+
+def test_inference_engine_buckets_graph_equal_eager(cuda):
+    """The 10-class 64 x 64 AlexNet served through buckets 1-64,
+    captured (one graph per bucket, one pool) and eager: equal outputs
+    for every request size; K6 counted twice per replay."""
+    from veles_tpu_torch.models.flagship import alexnet_fused
+    from veles_tpu_torch.ops import lrn
+    from veles_tpu_torch.serve import InferenceEngine
+
+    specs, params, _ = alexnet_fused(n_classes=10, image_size=64)
+    engines = [InferenceEngine.from_specs(specs, params, device=cuda,
+                                          cuda_graphs=g) for g in (True, False)]
+    for engine in engines:
+        assert engine.warmup((64, 64, 3), 64) == 7
+        assert engine.buckets == [1, 2, 4, 8, 16, 32, 64]
+    rng = np.random.default_rng(9)
+    for n in (1, 3, 8, 13, 33, 64):
+        x = rng.random((n, 64, 64, 3), dtype=np.float32)
+        lrn.reset_launches()
+        got = engines[0].apply(x)
+        assert lrn.LAUNCHES["lrn_fwd"] == 2
+        want = engines[1].apply(x)
+        assert got.shape == (n, 10) and np.array_equal(got, want)
+    assert engines[0].compile_count == 7
+
+
+def test_flash_kernels_k1_k3_replay_in_a_cuda_graph(cuda):
+    """K1 (forward), K2 (dK/dV) and K3 (dQ), bf16 at D = 128, captured
+    in one graph: their TMA tensor maps are encoded on the host at
+    capture and baked into the graph, so a replay reads the addresses
+    of that capture. The inputs are rewritten in place (the addresses
+    stay) and every replay equals eager calls on the new values
+    bitwise."""
+    rng = np.random.default_rng(11)
+    shape = (2, 200, 2, 128)
+    q, k, v, do = (_randn(rng, shape, torch.bfloat16, cuda)
+                   for _ in range(4))
+    ptrs = [t.data_ptr() for t in (q, k, v, do)]
+
+    def run():
+        o, l, m = fa.flash_attention_fwd(q, k, v, causal=True, impl="cuda")
+        di = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float())
+        dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di.contiguous(),
+                                       True)
+        dq = fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di.contiguous(), True)
+        return o, dq, dk, dv
+
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for step in range(3):
+        for t in (q, k, v, do):
+            t.copy_(_randn(rng, shape, torch.bfloat16, cuda))
+        assert [t.data_ptr() for t in (q, k, v, do)] == ptrs
+        graph.replay()
+        want = run()
+        torch.cuda.synchronize()
+        for got, ref in zip(outs, want):
+            assert torch.equal(got, ref), step
+
+
+def test_step_graph_counts_launches_under_replay(cuda):
+    """A StepGraph takes back the wrapper counts of its capture and
+    adds them on every replay; the warm-up calls launch and count."""
+    from veles_tpu_torch.graphs import StepGraph
+    from veles_tpu_torch.ops import lrn
+
+    rng = np.random.default_rng(12)
+    x = _randn(rng, (64, 96), torch.bfloat16, cuda)
+    q = _randn(rng, (4, 3, 64), torch.bfloat16, cuda)
+    kc = _randn(rng, (4, 300, 3, 64), torch.bfloat16, cuda)
+    lengths = torch.tensor([1, 100, 299, 300], dtype=torch.int32,
+                           device=cuda)
+
+    def step():
+        return (lrn.lrn_fwd_cuda(x, 2.0, 5, 1e-4, 0.75),
+                fa.flash_decode_cuda(q, kc, kc, lengths))
+
+    fa.reset_launches()
+    lrn.reset_launches()
+    graph = StepGraph(step)
+    assert fa.LAUNCHES["flash_decode"] == StepGraph.WARMUP
+    assert lrn.LAUNCHES["lrn_fwd"] == StepGraph.WARMUP
+    for _ in range(5):
+        y, o = graph.replay()
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_decode"] == StepGraph.WARMUP + 5
+    assert lrn.LAUNCHES["lrn_fwd"] == StepGraph.WARMUP + 5
+    assert torch.equal(o, fa.flash_decode_cuda(q, kc, kc, lengths))
+    assert torch.equal(y, lrn.lrn_fwd_cuda(x, 2.0, 5, 1e-4, 0.75))

@@ -227,7 +227,8 @@ def test_server_generate_plain_and_stream_match_jax():
         assert 'veles_gen_compile_count{model="lm"} 3' in text
         with urllib.request.urlopen(base + "/healthz") as resp:
             assert json.loads(resp.read())["status"] == "ok"
-        for path, doc, code in (("/apply", {"input": [[1]]}, 501),
+        # /apply on a model that serves /generate
+        for path, doc, code in (("/apply", {"input": [[1]]}, 400),
                                 ("/generate/nope", {"prompt": [1]}, 404),
                                 ("/generate", {"prompt": []}, 400),
                                 ("/generate", {"prompt": [1],

@@ -22,9 +22,15 @@ runs the K2/K3 backward kernels, the K4 decode kernel in
 versions on CPU tensors. :func:`verify_step` attends through
 ``flash_verify_paged``, plain on every device as in the reference.
 
+The serving steps read :func:`compute_weights`: the weight matrices
+cast to the compute dtype once, where the reference casts them inside
+its compiled step (the same rounding, so the same numbers). On a CUDA
+device :class:`TransformerTrainer` captures its train step into a CUDA
+graph (``veles_tpu_torch.graphs``) and replays it, once per step.
+
 Training is single-device: the reference's mesh paths (sequence ring,
-expert sharding), its scheduler tenancy, AOT dispatch and profiler
-hook are queued in ROADMAP.md.
+expert sharding), its scheduler tenancy and AOT dispatch are queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ from torch.utils.checkpoint import checkpoint
 
 from veles_tpu_torch.device import compute_dtype as _compute_dtype
 from veles_tpu_torch.device import resolve
+from veles_tpu_torch.graphs import StepGraph, use_graphs
+from veles_tpu_torch.obs import profile as obs_profile
 from veles_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_decode,
                                                  flash_decode_paged,
@@ -191,6 +199,34 @@ def params_from_numpy(tree, config: TransformerConfig,
     return convert(tree, _expected_shapes(config), "")
 
 
+#: the weight matrices, which every step reads in the compute dtype
+_MATRICES = ("qkv", "proj", "mlp_in", "mlp_out", "gate")
+
+
+def compute_weights(params, config: TransformerConfig) -> Dict[str, Any]:
+    """The weights the serving steps read: ``params`` with each matrix
+    cast to the compute dtype once, plus the tied LM head's operand
+    (the embedding rounded to the compute dtype, in f32) under
+    ``"head"``. Embeddings and layer norms stay the f32 leaves of
+    ``params``; at f32 compute every leaf IS the params' own. After an
+    in-place change of ``params``, :func:`refresh_weights`."""
+    cd = config.compute_dtype()
+    blocks = [{key: leaf.to(cd) if key in _MATRICES else leaf
+               for key, leaf in block.items()}
+              for block in params["blocks"]]
+    return dict(params, blocks=blocks, head=params["embed"].to(cd).float())
+
+
+@torch.no_grad()
+def refresh_weights(weights, params, config: TransformerConfig) -> None:
+    """Recompute :func:`compute_weights` INTO ``weights`` (copy_, so a
+    captured step that reads them sees the new values)."""
+    for dst, src in zip(_tree_leaves(weights),
+                        _tree_leaves(compute_weights(params, config))):
+        if dst is not src:
+            dst.copy_(src)
+
+
 def _layer_norm(x, g, b):
     xf = x.float()  # stats in f32 regardless of policy
     mu = xf.mean(dim=-1, keepdim=True)
@@ -218,7 +254,10 @@ def _moe_ffn(h, block, config: TransformerConfig):
     # gate logits in f32 from compute-dtype operands
     gates = torch.softmax(h.float() @ block["gate"].to(cd).float(), dim=-1)
     top1 = torch.argmax(gates, dim=-1)                      # [B,T]
-    mask = F.one_hot(top1, n_exp).float()                   # [B,T,E]
+    # one-hot by comparison: no check of the indices on the host, so
+    # the step holds no sync and can be captured
+    experts = torch.arange(n_exp, device=h.device)
+    mask = (top1[..., None] == experts).float()             # [B,T,E]
     combine = (mask * gates).to(cd)
     hidden = torch.einsum("btd,edh->bteh", h, block["mlp_in"].to(cd))
     outs = torch.einsum("bteh,ehd->bted", F.gelu(hidden, approximate="tanh"),
@@ -268,8 +307,13 @@ def _embed(params, tokens, positions, cd):
 
 def _lm_head(x, params, cd):
     """f32 logits from compute-dtype operands (the reference's
-    ``preferred_element_type=float32`` over ``cd`` operands)."""
-    return x.float() @ params["embed"].to(cd).float().T
+    ``preferred_element_type=float32`` over ``cd`` operands); the
+    head's operand is cached under ``"head"`` by
+    :func:`compute_weights`."""
+    head = params.get("head")
+    if head is None:
+        head = params["embed"].to(cd).float()
+    return x.float() @ head.T
 
 
 def forward(params, tokens, config: TransformerConfig):
@@ -626,36 +670,35 @@ _ADAM_B2 = 0.999
 _ADAM_EPS = 1e-8
 
 
-def _bias_corrections(step: int, b1: float = _ADAM_B1,
+def _bias_corrections(step: torch.Tensor, b1: float = _ADAM_B1,
                       b2: float = _ADAM_B2):
-    """(1 - b1**step, 1 - b2**step) in f32, as the reference computes
-    them from its f32 step counter."""
-    s = np.float32(step)
-    one = np.float32(1.0)
-    return (float(one - np.float32(b1) ** s),
-            float(one - np.float32(b2) ** s))
+    """(1 - b1**step, 1 - b2**step) as f32 device scalars from the f32
+    device step count, as the reference computes them from its f32
+    step (a captured step must not bake the count in as a constant)."""
+    return 1 - b1 ** step, 1 - b2 ** step
 
 
 @torch.no_grad()
-def _adam_update(p, g, m, v, step: int, lr: float, b1=_ADAM_B1,
-                 b2=_ADAM_B2, eps=_ADAM_EPS):
+def _adam_update(p, g, m, v, corrections, lr, b1=_ADAM_B1, b2=_ADAM_B2,
+                 eps=_ADAM_EPS):
     """The reference's Adam, ``p - lr * mhat / (sqrt(vhat) + eps)`` op
-    for op (not ``torch.optim.Adam``, which rounds differently). It
-    writes ``p``, ``m`` and ``v`` in place where the reference returns
-    new arrays from donated buffers."""
-    bc1, bc2 = _bias_corrections(step, b1, b2)
+    for op (not ``torch.optim.Adam``, which rounds differently), with
+    ``corrections`` from :func:`_bias_corrections` and ``lr`` an f32
+    device scalar. It writes ``p``, ``m`` and ``v`` in place where the
+    reference returns new arrays from donated buffers."""
+    bc1, bc2 = corrections
     m.copy_(b1 * m + (1 - b1) * g)
     v.copy_(b2 * v + (1 - b2) * g * g)
     p.copy_(p - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
 
 
 @torch.no_grad()
-def _adam_update_gated(p, g, m, v, step: int, lr: float, ok):
+def _adam_update_gated(p, g, m, v, corrections, lr, ok):
     """``nan_policy="skip"``: Adam neutralized in its own arithmetic on
     a bad step (sanitized g = 0, betas -> 1, lr -> 0) instead of a
     branch, so the host never reads ``ok``; a bad step leaves p, m and
     v bitwise unchanged. Bias correction keeps the constant betas."""
-    bc1, bc2 = _bias_corrections(step)
+    bc1, bc2 = corrections
     b1_t = torch.where(ok, _ADAM_B1, 1.0)
     c1_t = torch.where(ok, 1 - _ADAM_B1, 0.0)
     b2_t = torch.where(ok, _ADAM_B2, 1.0)
@@ -696,45 +739,86 @@ class TransformerTrainer:
     intact, decided on the device) or "raise" (sync and raise). The
     reference reads its default from ``veles_tpu.config``; the port has
     no config system yet, so the default is the literal "warn".
+
+    ``cuda_graphs`` (None = on a CUDA device): the step is captured
+    into one CUDA graph per token-batch shape at its first call, and
+    every :meth:`step` replays it; :meth:`step_many` replays it K times
+    with no host sync between. The step count and the learning rate
+    are f32 device scalars that the graph reads (the eager step reads
+    the same), so captured and eager steps compute the same numbers.
+    A capture that fails raises; ``cuda_graphs=False`` runs eagerly.
     """
 
     def __init__(self, config: TransformerConfig, device=None,
                  learning_rate: float = 3e-4, seed: int = 0,
                  steps_per_dispatch: int = 1,
-                 nan_policy: str = "warn") -> None:
+                 nan_policy: str = "warn",
+                 cuda_graphs: Optional[bool] = None) -> None:
         self.device = resolve(device)
         self.config = config
-        self.learning_rate = learning_rate
+        self._graphs_on = use_graphs(cuda_graphs, self.device)
         if steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1, got %d" %
                              steps_per_dispatch)
-        #: accepted for the reference's signature and ignored:
-        #: :meth:`step_many` takes K from its tokens, and PyTorch
-        #: dispatches every op eagerly either way
+        #: accepted for the reference's signature: :meth:`step_many`
+        #: takes K from its tokens and replays the captured step K
+        #: times, whatever this says
         self.steps_per_dispatch = int(steps_per_dispatch)
         self._sentinel = NonFiniteSentinel(nan_policy,
                                            "TransformerTrainer")
         self.nan_policy = nan_policy
-        self._step_count = 0
+        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._step = torch.zeros((), dtype=torch.float32,
+                                 device=self.device)
+        self.learning_rate = learning_rate
+        #: captured steps by token-batch shape, sharing one pool
+        self._graphs: Dict[Any, StepGraph] = {}
+        self._pool = None
+        self.params: Optional[Dict[str, Any]] = None
         self.load_state(init_params(config, seed))
+
+    @property
+    def learning_rate(self) -> float:
+        return self._lr_value
+
+    @learning_rate.setter
+    def learning_rate(self, value: float) -> None:
+        """Takes effect from the next step, captured or not (the graph
+        reads the device scalar)."""
+        self._lr_value = float(value)
+        self._lr.fill_(self._lr_value)
 
     def load_state(self, params, opt_m=None, opt_v=None,
                    step: int = 0) -> None:
         """Take params (and Adam m, v and the step count) from numpy
         trees or tensors, e.g. a JAX trainer's state through
         ``jax.tree.map(np.asarray, ...)``: training continues where
-        that trainer stopped. Missing m/v start at zero."""
-        self.params = params_from_numpy(params, self.config, self.device)
-        for leaf in _tree_leaves(self.params):
-            leaf.requires_grad_(True)
+        that trainer stopped. Missing m/v start at zero. After the
+        first call the values are copied into the trainer's tensors,
+        which a captured step reads."""
+        new = params_from_numpy(params, self.config, self.device)
 
         def state(tree):
             if tree is None:
-                return _tree_map(torch.zeros_like, self.params)
-            return params_from_numpy(tree, self.config, self.device)
+                return [torch.zeros_like(p) for p in _tree_leaves(new)]
+            return _tree_leaves(params_from_numpy(tree, self.config,
+                                                  self.device))
 
-        self.opt_m = state(opt_m)
-        self.opt_v = state(opt_v)
+        m, v = state(opt_m), state(opt_v)
+        if self.params is None:
+            self.params = new
+            for leaf in _tree_leaves(self.params):
+                leaf.requires_grad_(True)
+            self.opt_m = _tree_map(torch.zeros_like, self.params)
+            self.opt_v = _tree_map(torch.zeros_like, self.params)
+        with torch.no_grad():
+            for dst, src in zip(_tree_leaves(self.params) +
+                                _tree_leaves(self.opt_m) +
+                                _tree_leaves(self.opt_v),
+                                _tree_leaves(new) + m + v):
+                if dst is not src:
+                    dst.copy_(src)
+        self._step.fill_(float(step))
         self._step_count = int(step)
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -743,7 +827,11 @@ class TransformerTrainer:
         return torch.from_numpy(np.asarray(tokens, np.int64)).to(
             self.device)
 
-    def _train_step(self, tokens: torch.Tensor, step: int):
+    def _train_step(self, tokens: torch.Tensor):
+        """One step on the device, the captured body: advances the
+        device step count, returns (loss, nonfinite flag)."""
+        self._step.add_(1)
+        corrections = _bias_corrections(self._step)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         params = _tree_leaves(self.params)
         loss = _loss(self.params, inputs, targets, self.config)
@@ -754,11 +842,28 @@ class TransformerTrainer:
             for p, g, m, v in zip(params, grads, _tree_leaves(self.opt_m),
                                   _tree_leaves(self.opt_v)):
                 if self.nan_policy == "skip":
-                    _adam_update_gated(p, g, m, v, step,
-                                       self.learning_rate, ok)
+                    _adam_update_gated(p, g, m, v, corrections, self._lr,
+                                       ok)
                 else:
-                    _adam_update(p, g, m, v, step, self.learning_rate)
+                    _adam_update(p, g, m, v, corrections, self._lr)
         return loss, (~ok).to(torch.int32)
+
+    def _run_step(self, tokens: torch.Tensor):
+        """One step: a replay of the step captured for this batch shape
+        (captured at its first call), or the eager step. The captured
+        outputs are overwritten by the next replay: callers copy them."""
+        if not self._graphs_on:
+            return self._train_step(tokens)
+        graph = self._graphs.get(tuple(tokens.shape))
+        if graph is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            state = (_tree_leaves(self.params) + _tree_leaves(self.opt_m) +
+                     _tree_leaves(self.opt_v) + [self._step])
+            graph = StepGraph(self._train_step, inputs=(tokens.clone(),),
+                              keep=state, pool=self._pool)
+            self._graphs[tuple(tokens.shape)] = graph
+        return graph.replay(tokens)
 
     # -- non-finite sentinel ------------------------------------------------
     @property
@@ -771,28 +876,32 @@ class TransformerTrainer:
         """tokens [B, T+1] int (inputs + shifted targets). Returns
         ``{"loss", "nonfinite"}`` as device tensors."""
         self._step_count += 1
-        loss, nonfinite = self._train_step(self._tokens(tokens),
-                                           self._step_count)
+        loss, nonfinite = (x.clone() for x in
+                           self._run_step(self._tokens(tokens)))
         self._sentinel.note(nonfinite)
+        obs_profile.on_step()
         return {"loss": loss, "nonfinite": nonfinite}
 
     def step_many(self, tokens_k) -> Dict[str, Any]:
-        """K train steps: ``tokens_k`` [K, B, T+1] int. Returns
-        ``{"loss": [K], "nonfinite": [K]}`` device tensors; numerics
-        equal K sequential :meth:`step` calls (per-step bias
-        correction)."""
+        """K train steps: ``tokens_k`` [K, B, T+1] int, on the device
+        at once; each step is one replay fed by a device-to-device copy
+        of its batch, with no host sync between. Returns ``{"loss":
+        [K], "nonfinite": [K]}`` device tensors; numerics equal K
+        sequential :meth:`step` calls (per-step bias correction)."""
         if isinstance(tokens_k, (list, tuple)):
             tokens_k = np.stack([np.asarray(t) for t in tokens_k])
         tokens_k = self._tokens(tokens_k)
-        losses, flags = [], []
-        for tokens in tokens_k:
-            self._step_count += 1
-            loss, nonfinite = self._train_step(tokens, self._step_count)
-            losses.append(loss)
-            flags.append(nonfinite)
-        nonfinite = torch.stack(flags)
-        self._sentinel.note(nonfinite)
-        return {"loss": torch.stack(losses), "nonfinite": nonfinite}
+        k = int(tokens_k.shape[0])
+        losses = torch.empty(k, dtype=torch.float32, device=self.device)
+        flags = torch.empty(k, dtype=torch.int32, device=self.device)
+        for i in range(k):
+            loss, nonfinite = self._run_step(tokens_k[i])
+            losses[i] = loss
+            flags[i] = nonfinite
+        self._step_count += k
+        self._sentinel.note(flags)
+        obs_profile.on_step(k)
+        return {"loss": losses, "nonfinite": flags}
 
     def generate_logits(self, tokens) -> torch.Tensor:
         """Full-sequence logits [B, T, V] f32 under the current

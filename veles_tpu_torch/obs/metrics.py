@@ -7,7 +7,8 @@ metric so each family's lines stay contiguous. The process-wide
 :data:`REGISTRY` holds named collectors (the tracer's health and the
 device-memory reading) that every ``/metrics`` exposition appends.
 The JSON snapshot keys of the engine and batcher are the contract;
-the text is derived from them (:func:`gen_samples`).
+the text is derived from them (:func:`serve_samples`,
+:func:`gen_samples`).
 """
 
 from __future__ import annotations
@@ -121,6 +122,49 @@ class MetricsRegistry:
 
 #: process-default registry — the "ONE complete /metrics" source
 REGISTRY = MetricsRegistry()
+
+
+def serve_samples(model: str, snap: Dict[str, Any]) -> List[Sample]:
+    """``ServeMetrics.snapshot()`` → the ``veles_serve_*`` series
+    (the reference's names and label scheme)."""
+    label: Labels = (("model", model),)
+    out = [
+        Sample("veles_serve_qps", "gauge", snap["qps"], label),
+        Sample("veles_serve_queue_depth", "gauge",
+               snap["queue_depth"], label),
+        Sample("veles_serve_requests_total", "counter",
+               snap["requests_total"], label),
+        Sample("veles_serve_rejected_total", "counter",
+               snap["rejected_total"], label),
+        Sample("veles_serve_shed_total", "counter",
+               snap["shed_total"], label),
+        Sample("veles_serve_expired_total", "counter",
+               snap["expired_total"], label),
+        Sample("veles_serve_poisoned_total", "counter",
+               snap["poisoned_total"], label),
+        Sample("veles_serve_errors_total", "counter",
+               snap["errors_total"], label),
+    ]
+    for q, key in (("0.5", "p50"), ("0.95", "p95"), ("0.99", "p99")):
+        out.append(Sample("veles_serve_latency_ms", "summary",
+                          snap["latency_ms"][key],
+                          label + (("quantile", q),)))
+    cumulative = 0
+    hist = snap.get("batch_size_histogram") or {}
+    for bound in sorted(hist, key=int):
+        cumulative += int(hist[bound])
+        out.append(Sample(
+            "veles_serve_batch_size", "histogram", cumulative,
+            label + (("le", bound),),
+            series="veles_serve_batch_size_bucket"))
+    cumulative += int(snap.get("batch_size_overflow", 0))
+    out.append(Sample("veles_serve_batch_size", "histogram",
+                      cumulative, label + (("le", "+Inf"),),
+                      series="veles_serve_batch_size_bucket"))
+    out.append(Sample("veles_serve_batch_size", "histogram",
+                      cumulative, label,
+                      series="veles_serve_batch_size_count"))
+    return out
 
 
 def gen_samples(model: str, snap: Dict[str, Any]) -> List[Sample]:

@@ -1,0 +1,183 @@
+"""Step-timeline profiling: a bounded window of steps traced by
+``torch.profiler``.
+
+Port of ``veles_tpu/obs/profile.py``. The hook sites (the batchers'
+dispatches, the trainers' steps) call :func:`on_step` once per natural
+unit of device work; the configured profiler counts them, starts the
+trace when the counter crosses ``start`` and stops it ``steps`` later,
+writing a Chrome trace (host and device activity) into its output
+directory. Unconfigured, :func:`on_step` is one global read and a
+``None`` check.
+
+The profiler is started at capture time, not import time: a start or
+stop that fails logs one warning and disables the capture instead of
+taking down the step loop. A CUDA graph replay shows in the trace as
+one graph launch with the kernels it ran.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+from typing import Any, Dict, Optional, Tuple
+
+logger = logging.getLogger("obs.profile")
+
+
+def parse_profile_spec(spec: str) -> Tuple[int, int]:
+    """``"N"`` or ``"N@K"`` -> ``(steps, start)``: capture ``N`` whole
+    steps beginning at 0-indexed step ``K``. ``K=0`` opens the capture
+    at once (the trace includes step 0's warm-up and graph capture);
+    pass ``K>=1`` to profile warm steady-state steps only."""
+    text = str(spec).strip()
+    steps, _, start = text.partition("@")
+    try:
+        n, k = int(steps), int(start) if start else 0
+    except ValueError:
+        raise ValueError(
+            "--profile-steps wants N or N@K (e.g. 20@5), got %r"
+            % (spec,)) from None
+    if n < 1 or k < 0:
+        raise ValueError(
+            "--profile-steps needs N >= 1 and K >= 0, got %r" % (spec,))
+    return n, k
+
+
+class _TorchBackend:
+    """The real capture backend (separable for tests): a
+    ``torch.profiler`` capture of the host and, where there is one,
+    the CUDA device, exported as ``trace_<pid>.json``."""
+
+    def __init__(self) -> None:
+        self._prof = None
+        self._out_dir = ""
+
+    def start(self, out_dir: str) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._prof.start()
+        self._out_dir = out_dir
+
+    def stop(self) -> None:
+        prof, self._prof = self._prof, None
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            self._out_dir, "trace_%d.json" % os.getpid()))
+
+
+class StepProfiler:
+    """Counts steps; captures [start, start+steps) into ``out_dir``."""
+
+    def __init__(self, out_dir: str, steps: int, start: int = 0,
+                 backend: Optional[Any] = None) -> None:
+        self.out_dir = out_dir
+        self.steps = int(steps)
+        self.start = int(start)
+        self._backend = backend if backend is not None else \
+            _TorchBackend()
+        self._lock = threading.Lock()
+        self.seen = 0
+        self.active = False
+        self.done = False
+        self.failed: Optional[str] = None
+        self.started_at: Optional[float] = None
+        self.stopped_at: Optional[float] = None
+        #: completed-step count at capture open: the window closes
+        #: after ``steps`` FURTHER steps, so N whole steps always land
+        #: inside the trace
+        self._opened_seen = 0
+        if self.start == 0:
+            # the hooks fire after each step, so only an eager open
+            # catches step 0
+            with self._lock:
+                self._open_locked()
+
+    def _open_locked(self) -> None:
+        try:
+            os.makedirs(self.out_dir, exist_ok=True)
+            self._backend.start(self.out_dir)
+            self.active = True
+            self._opened_seen = self.seen
+            self.started_at = time.monotonic()
+            logger.info(
+                "profiler: capturing %d step(s) from step %d -> %s",
+                self.steps, self.seen, self.out_dir)
+        except Exception as e:  # noqa: BLE001 — a capture failure
+            # must not take down the step loop
+            self.failed = repr(e)
+            self.done = True
+            logger.warning("profiler start failed (profiling "
+                           "disabled): %s", e)
+
+    def on_step(self, n: int = 1) -> None:
+        """Called AFTER each completed step (a window of K counts K).
+        The capture opens once ``start`` steps completed and closes
+        after ``steps`` further completed steps."""
+        with self._lock:
+            if self.done:
+                return
+            self.seen += max(int(n), 1)
+            if self.active:
+                if self.seen - self._opened_seen >= self.steps:
+                    self._stop_locked()
+            elif self.seen >= self.start:
+                self._open_locked()
+
+    def _stop_locked(self) -> None:
+        try:
+            self._backend.stop()
+            logger.info("profiler: trace written to %s", self.out_dir)
+        except Exception as e:  # noqa: BLE001
+            self.failed = repr(e)
+            logger.warning("profiler stop failed: %s", e)
+        self.active = False
+        self.done = True
+        self.stopped_at = time.monotonic()
+
+    def close(self) -> None:
+        """Flush a still-open capture (process exiting mid-window)."""
+        with self._lock:
+            if self.active:
+                self._stop_locked()
+            self.done = True
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {"out_dir": self.out_dir, "steps": self.steps,
+                    "start": self.start, "seen": self.seen,
+                    "active": self.active, "done": self.done,
+                    "failed": self.failed}
+
+
+#: the process profiler (None = profiling off; on_step costs a read)
+PROFILER: Optional[StepProfiler] = None
+
+
+def configure(spec: Optional[str], out_dir: str,
+              backend: Optional[Any] = None) -> Optional[StepProfiler]:
+    """Install the process profiler from a ``--profile-steps``-style
+    spec (None/empty uninstalls), tracing into ``out_dir``."""
+    global PROFILER
+    if PROFILER is not None:
+        PROFILER.close()
+    if not spec:
+        PROFILER = None
+        return None
+    steps, start = parse_profile_spec(spec)
+    PROFILER = StepProfiler(out_dir, steps, start=start,
+                            backend=backend)
+    return PROFILER
+
+
+def on_step(n: int = 1) -> None:
+    """The hook every plane calls once per natural device-work unit
+    (a dispatch of K steps passes ``n=K``)."""
+    profiler = PROFILER
+    if profiler is not None:
+        profiler.on_step(n)

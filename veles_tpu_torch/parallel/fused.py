@@ -28,7 +28,7 @@ threefry and TPU rbg generators); at dropout ratio 0 both sides are
 the identity.
 
 The reference's mesh and tensor-parallel placement, ``shard_*``, AOT
-dispatch, scheduler tenancy, the profiler hook, ``make_loader_step``,
+dispatch, scheduler tenancy, ``make_loader_step``,
 ``fuse_forwards`` and ``train_fused`` are queued in ROADMAP.md.
 """
 
@@ -48,6 +48,7 @@ from veles_tpu_torch.nn.conv import conv_raw, conv_s2d_raw
 from veles_tpu_torch.nn.lr_policy import make_policy
 from veles_tpu_torch.nn.lrn import lrn_raw
 from veles_tpu_torch.nn.pooling import pool_raw
+from veles_tpu_torch.obs import profile as obs_profile
 from veles_tpu_torch.ops import _build
 from veles_tpu_torch.ops.rng import fold_in, uniform_fill
 
@@ -402,6 +403,7 @@ class FusedClassifierTrainer:
             self.compute_dtype, self.nan_policy == "skip",
             self.kernel_impl)
         self._sentinel.note(nonfinite)
+        obs_profile.on_step()
         return {"loss": loss, "n_err": n_err, "nonfinite": nonfinite}
 
     def step_many(self, xs, labels) -> Dict[str, Any]:
@@ -424,6 +426,7 @@ class FusedClassifierTrainer:
             self.compute_dtype, self.nan_policy == "skip",
             self.kernel_impl)
         self._sentinel.note(nonfinite)
+        obs_profile.on_step(k)
         return {"loss": losses, "n_err": n_errs, "nonfinite": nonfinite}
 
     def predict(self, x) -> torch.Tensor:

@@ -1,16 +1,21 @@
-"""Continuous batching over the generative decode plane.
+"""Dynamic micro-batching over a forward engine, and continuous
+batching over the generative decode plane.
 
-Port of the generative half of ``veles_tpu/serve/batcher.py``: the
-admission exceptions, :class:`GenMetrics`, the sampling validation and
-:class:`TokenBatcher` (Orca-style continuous batching: decode steps
-run back to back, queued requests join at token boundaries, finished
-sequences retire mid-flight) over either decode plane. Over the paged
-engine it also trims each admission to what the page pool holds,
-requeues preempted tickets at the queue head (they re-prefill prompt
-+ emitted tokens and resume their sampling counter), and routes the
-several tokens a speculative round commits per slot. Left out until
-their slices: scheduler tenancy (one quantum per prefill/decode) and
-the profiler's per-step hook.
+Port of ``veles_tpu/serve/batcher.py``: the admission exceptions,
+:class:`ServeMetrics` and :class:`MicroBatcher` (a dispatch loop closes
+a batch when it holds ``max_batch`` rows, the oldest ticket has waited
+``max_delay_ms`` or the queue went quiet; the batch pads to the
+engine's bucket and runs as ONE captured graph; a failing batch is
+bisected to isolate the poisoned rows), :class:`GenMetrics`, the
+sampling validation and :class:`TokenBatcher` (Orca-style continuous
+batching: decode steps run back to back, queued requests join at token
+boundaries, finished sequences retire mid-flight) over either decode
+plane. Over the paged engine it also trims each admission to what the
+page pool holds, requeues preempted tickets at the queue head (they
+re-prefill prompt + emitted tokens and resume their sampling counter),
+and routes the several tokens a speculative round commits per slot.
+Each dispatch calls the step profiler's hook (``obs.profile``). Left
+out until their slice: scheduler tenancy (one quantum per dispatch).
 
 Threading rides :class:`veles_tpu_torch.thread_pool.ManagedThreads`
 (non-daemon dispatch thread, joined in ``stop()``). Admission control
@@ -25,11 +30,12 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from veles_tpu_torch.logger import log_context
+from veles_tpu_torch.obs import profile as obs_profile
 from veles_tpu_torch.obs.trace import (EXEMPLARS, TRACER, TraceContext,
                                        elapsed_s)
 from veles_tpu_torch.thread_pool import ManagedThreads
@@ -63,9 +69,145 @@ class DeadlineExceeded(RuntimeError):
     never dispatched to the device."""
 
 
+class PoisonedRequest(RuntimeError):
+    """This request's rows made the batch fail. Bisection isolated it;
+    co-batched innocent tickets were re-dispatched and succeeded.
+    ``__cause__`` carries the engine's original error."""
+
+
 class NonFiniteLogits(RuntimeError):
     """The sequence's decode step produced non-finite logits; only
     this ticket fails — its slot is freed at the token boundary."""
+
+
+class ServeMetrics:
+    """Thread-safe serving counters + distributions.
+
+    Tracks completed/rejected requests, a sliding completion window
+    for qps, per-request latency (bounded reservoir -> p50/p95/p99)
+    and a power-of-two batch-size histogram. ``snapshot()`` is the
+    JSON surface; ``prometheus_text()`` the text exposition — both
+    carry the same numbers.
+    """
+
+    #: batch-size histogram bucket upper bounds (rows per dispatch)
+    BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+    def __init__(self, window: int = 2048,
+                 qps_window_s: float = 30.0) -> None:
+        self._lock = threading.Lock()
+        self._started = time.monotonic()
+        self._qps_window_s = qps_window_s
+        self.requests_total = 0                  # guarded-by: _lock
+        self.rows_total = 0                      # guarded-by: _lock
+        self.rejected_total = 0                  # guarded-by: _lock
+        self.shed_total = 0                      # guarded-by: _lock
+        self.expired_total = 0                   # guarded-by: _lock
+        self.poisoned_total = 0                  # guarded-by: _lock
+        self.dispatches_total = 0                # guarded-by: _lock
+        self.errors_total = 0                    # guarded-by: _lock
+        self._completions: deque = deque(  # timestamps; guarded-by: _lock
+            maxlen=window)
+        self._latencies: deque = deque(    # seconds; guarded-by: _lock
+            maxlen=window)
+        self._batch_hist: Dict[int, int] = {     # guarded-by: _lock
+            b: 0 for b in self.BATCH_BUCKETS}
+        self._batch_overflow = 0                 # guarded-by: _lock
+
+    # -- recording ---------------------------------------------------------
+    def observe_request(self, latency_s: float, rows: int) -> None:
+        now = time.monotonic()
+        with self._lock:
+            self.requests_total += 1
+            self.rows_total += rows
+            self._completions.append(now)
+            self._latencies.append(latency_s)
+
+    def observe_reject(self) -> None:
+        with self._lock:
+            self.rejected_total += 1
+
+    def observe_shed(self) -> None:
+        """Drain-rate-aware admission rejection (counted apart from
+        queue-full rejects: shedding is a policy decision, not a
+        capacity cliff)."""
+        with self._lock:
+            self.shed_total += 1
+
+    def observe_expired(self, n: int = 1) -> None:
+        """Tickets dropped at batch formation (client deadline passed
+        or submitter abandoned) — work that never reached the device."""
+        with self._lock:
+            self.expired_total += n
+
+    def observe_poisoned(self, rows: int = 1) -> None:
+        """Rows isolated by split-and-retry as the cause of a batch
+        failure (their co-batched innocents succeeded)."""
+        with self._lock:
+            self.poisoned_total += rows
+
+    def observe_error(self) -> None:
+        with self._lock:
+            self.errors_total += 1
+
+    def observe_batch(self, rows: int) -> None:
+        with self._lock:
+            self.dispatches_total += 1
+            for bound in self.BATCH_BUCKETS:
+                if rows <= bound:
+                    self._batch_hist[bound] += 1
+                    return
+            self._batch_overflow += 1
+
+    # -- reading -----------------------------------------------------------
+    def _qps(self, now: float) -> float:  # holds: _lock
+        horizon = now - self._qps_window_s
+        recent = sum(1 for t in self._completions if t >= horizon)
+        span = min(self._qps_window_s, max(now - self._started, 1e-6))
+        return recent / span
+
+    def _percentiles(self) -> Dict[str, float]:  # holds: _lock
+        if not self._latencies:
+            return {"p50": 0.0, "p95": 0.0, "p99": 0.0}
+        lat_ms = np.asarray(self._latencies) * 1000.0
+        p50, p95, p99 = np.percentile(lat_ms, (50, 95, 99))
+        return {"p50": float(p50), "p95": float(p95), "p99": float(p99)}
+
+    def qps(self) -> float:
+        """Current completion rate alone (the light read ``/healthz``
+        uses — no percentile arrays, no histogram copy)."""
+        with self._lock:
+            return self._qps(time.monotonic())
+
+    def snapshot(self, queue_depth: int = 0) -> Dict[str, Any]:
+        now = time.monotonic()
+        with self._lock:
+            return {
+                "qps": self._qps(now),
+                "queue_depth": queue_depth,
+                "requests_total": self.requests_total,
+                "rows_total": self.rows_total,
+                "rejected_total": self.rejected_total,
+                "shed_total": self.shed_total,
+                "expired_total": self.expired_total,
+                "poisoned_total": self.poisoned_total,
+                "errors_total": self.errors_total,
+                "dispatches_total": self.dispatches_total,
+                "batch_size_histogram": {
+                    str(b): c for b, c in self._batch_hist.items()},
+                "batch_size_overflow": self._batch_overflow,
+                "latency_ms": self._percentiles(),
+                "uptime_s": now - self._started,
+            }
+
+    def prometheus_text(self, model: str,
+                        queue_depth: int = 0) -> str:
+        """Prometheus text exposition for one model label — rendered
+        by THE one renderer (veles_tpu_torch.obs.metrics); the snapshot
+        keys are the contract, the text is derived."""
+        from veles_tpu_torch.obs import metrics as obs_metrics
+        return obs_metrics.render(obs_metrics.serve_samples(
+            model, self.snapshot(queue_depth)))
 
 
 class GenMetrics:
@@ -184,6 +326,542 @@ class GenMetrics:
         return obs_metrics.render(obs_metrics.gen_samples(
             model, self.snapshot(queue_depth, engine)))
 
+
+def most_urgent_budget_ms(tickets) -> Optional[float]:
+    """Most-urgent remaining client budget in ms across ``tickets``
+    (deadline-carrying ones; None when none carry a deadline) — the
+    serve plane's per-dispatch deadline handoff to the scheduler's
+    boost, which comes with the port's scheduler (ROADMAP.md queue 1
+    item 3)."""
+    now = time.monotonic()
+    urgent = None
+    for ticket in tickets:
+        if ticket.deadline is not None:
+            remaining = (ticket.deadline - now) * 1000.0
+            urgent = remaining if urgent is None else \
+                min(urgent, remaining)
+    return None if urgent is None else max(urgent, 0.0)
+
+
+class _Ticket:
+    """One in-flight request: rows in, output chunks back."""
+
+    __slots__ = ("rows", "offset", "chunks", "enqueued", "abandoned",
+                 "deadline", "priority", "ctx", "taken", "queue_ms",
+                 "device_ms")
+
+    def __init__(self, rows: np.ndarray,
+                 deadline: Optional[float] = None,
+                 priority: str = "interactive",
+                 ctx: Optional[TraceContext] = None) -> None:
+        self.rows = rows
+        self.offset = 0           # rows already taken into a batch
+        self.chunks: "queue.Queue" = queue.Queue()
+        self.enqueued = time.monotonic()
+        self.abandoned = False    # submitter timed out; drop outputs
+        #: absolute monotonic client deadline (None = patient client)
+        self.deadline = deadline
+        self.priority = priority
+        #: propagated trace identity (None = untraced request); the
+        #: dispatch loop accumulates the request's latency breakdown
+        #: next to it for the exemplar table
+        self.ctx = ctx
+        self.taken = False        # first batch-formation take recorded
+        self.queue_ms = 0.0
+        self.device_ms = 0.0
+
+    def expired(self, now: float) -> bool:
+        return self.deadline is not None and now >= self.deadline
+
+
+class MicroBatcher:
+    """Ticketed dynamic micro-batcher over an engine.
+
+    ``engine`` is anything with ``apply(np[N, ...]) -> np[N, ...]``
+    (an :class:`~veles_tpu_torch.serve.engine.InferenceEngine`, or a stub in
+    tests). ``max_batch`` caps rows per dispatch; ``max_delay_ms``
+    bounds how long the OLDEST queued ticket waits before a partial
+    batch dispatches; ``max_queue_rows`` is the admission bound.
+    """
+
+    def __init__(self, engine, *, max_batch: int = 64,
+                 max_delay_ms: float = 2.0,
+                 quiet_ms: Optional[float] = None,
+                 max_queue_rows: int = 1024,
+                 name: str = "serve",
+                 metrics: Optional[ServeMetrics] = None,
+                 isolate_poison: bool = True,
+                 batch_class_frac: float = 0.5,
+                 shed_margin: float = 0.7) -> None:
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if not 0.0 < batch_class_frac <= 1.0:
+            raise ValueError("batch_class_frac must be in (0, 1], "
+                             "got %r" % (batch_class_frac,))
+        self.engine = engine                     # guarded-by: _cond
+        self.name = name
+        self.max_batch = int(max_batch)
+        self.max_delay_s = float(max_delay_ms) / 1000.0
+        # Work-conserving early close (Clipper-style adaptive
+        # batching): once the queue stops growing for a quiet quantum,
+        # dispatch what is there — with C closed-loop clients a
+        # max_batch > C would otherwise ALWAYS wait out max_delay for
+        # rows that cannot arrive. quiet_ms = max_delay_ms disables
+        # the early close (deterministic full-delay batching).
+        self.quiet_s = (float(quiet_ms) / 1000.0) if quiet_ms \
+            is not None else max(self.max_delay_s / 8.0, 0.0002)
+        self.max_queue_rows = int(max_queue_rows)
+        #: on a batch exception, bisect (split-and-retry) to isolate
+        #: the poisoned row(s) so co-batched innocents still succeed
+        self.isolate_poison = bool(isolate_poison)
+        #: two-class shedding: "batch"-priority requests are refused
+        #: once the queue passes this fraction of max_queue_rows —
+        #: the batch class sheds FIRST, keeping headroom for
+        #: interactive traffic
+        self.batch_class_frac = float(batch_class_frac)
+        #: admission safety factor: a deadline-carrying request is
+        #: shed on arrival once the predicted time-to-service exceeds
+        #: this fraction of its remaining budget. The headroom covers
+        #: what the queue-depth model cannot see — the request's own
+        #: service time, batch-formation delay, and estimator lag
+        #: under a shifting load — so admitted work actually finishes
+        #: inside its deadline instead of expiring in the queue.
+        if not 0.0 < shed_margin <= 1.0:
+            raise ValueError("shed_margin must be in (0, 1], got %r"
+                             % (shed_margin,))
+        self.shed_margin = float(shed_margin)
+        self.metrics = metrics if metrics is not None else ServeMetrics()
+        self._cond = threading.Condition()
+        self._pending: deque = deque()           # guarded-by: _cond
+        self._pending_rows = 0                   # guarded-by: _cond
+        self._draining = False                   # guarded-by: _cond
+        # -- drain-rate estimate + dispatch watchdog heartbeat --
+        #: EWMA seconds of device time per dispatched row (None until
+        #: the first batch completes) — the admission controller's
+        #: time-to-service model
+        self._row_seconds: Optional[float] = None
+        #: monotonic start of the engine call currently on the device,
+        #: or None when the dispatch thread is between calls — the
+        #: watchdog reads it to flag a hung device call
+        self._dispatch_t0: Optional[float] = None
+        self._threads = ManagedThreads(name="%s-batcher" % name)
+        self._threads.spawn(self._dispatch_loop, name="dispatch")
+
+    # -- client side -------------------------------------------------------
+    @property
+    def queue_depth(self) -> int:
+        """Rows currently queued (admission-control occupancy)."""
+        with self._cond:
+            return self._pending_rows
+
+    @property
+    def stuck_for_s(self) -> float:
+        """Seconds the CURRENT engine call has been on the device
+        (0.0 between calls) — the dispatch-watchdog heartbeat
+        ``/healthz`` reads. Recovers to 0 the moment the call
+        returns."""
+        t0 = self._dispatch_t0
+        return 0.0 if t0 is None else max(0.0, elapsed_s(t0))
+
+    @property
+    def drain_rate_rows_per_s(self) -> float:
+        """Observed service rate (rows/s) from the dispatch-time EWMA
+        — the admission controller's time-to-service model, exported
+        through ``/healthz`` so a fleet router can weight this replica
+        without a second ``/metrics`` scrape. 0.0 until the first
+        dispatch calibrates it."""
+        row_seconds = self._row_seconds
+        return 0.0 if not row_seconds else 1.0 / row_seconds
+
+    def eta_seconds(self, extra_rows: int = 0  # holds: _cond
+                    ) -> Optional[float]:
+        """Predicted time-to-service for a request arriving NOW:
+        queue depth (+ ``extra_rows``) x the observed per-row batch
+        latency. None until the first dispatch calibrates the
+        estimate."""
+        if self._row_seconds is None:
+            return None
+        return (self._pending_rows + extra_rows) * self._row_seconds
+
+    def _retry_after(self, rows: int) -> float:  # holds: _cond
+        """Retry-After from the REAL drain rate: how long until the
+        current backlog (plus this request) would have drained."""
+        eta = self.eta_seconds(rows)
+        return max(eta, 0.05) if eta is not None else 1.0
+
+    def submit(self, batch: np.ndarray, timeout: float = 30.0,
+               deadline_ms: Optional[float] = None,
+               priority: str = "interactive",
+               ctx: Optional[TraceContext] = None) -> np.ndarray:
+        """Called on request threads: enqueue rows, block for outputs.
+
+        ``deadline_ms`` is the client's end-to-end budget: a ticket
+        that cannot make it is shed ON ARRIVAL (:class:`Shed`, with
+        ``retry_after`` from the observed drain rate), and one that
+        expires while queued is dropped at batch formation
+        (:class:`DeadlineExceeded`) — expired work never reaches the
+        device. ``priority`` is the two-class knob: ``"batch"``
+        traffic sheds first (see ``batch_class_frac``).
+
+        Raises :class:`QueueFull` / :class:`Shed` (admission),
+        :class:`Draining` (shutting down), :class:`DeadlineExceeded`,
+        :class:`PoisonedRequest` (this request's rows fail the
+        engine), ``TimeoutError``, or the engine's error."""
+        rows = np.ascontiguousarray(np.asarray(batch))
+        if rows.ndim < 2 or rows.shape[0] == 0:
+            raise ValueError(
+                "submit needs a non-empty [N, ...] batch, got shape %s"
+                % (rows.shape,))
+        if priority not in ("interactive", "batch"):
+            raise ValueError("priority must be 'interactive' or "
+                             "'batch', got %r" % (priority,))
+        now = time.monotonic()
+        abs_deadline = now + deadline_ms / 1000.0 \
+            if deadline_ms is not None else None
+        if ctx is None and TRACER.enabled:
+            ctx = TraceContext.new()  # direct callers trace too
+        ticket = _Ticket(rows, deadline=abs_deadline,
+                         priority=priority, ctx=ctx)
+        with self._cond:
+            if self._draining or self._threads.stop_requested:
+                raise Draining("batcher is draining")
+            if self._pending_rows + len(rows) > self.max_queue_rows:
+                self.metrics.observe_reject()
+                raise QueueFull(
+                    "queue full (%d queued + %d requested > %d rows)"
+                    % (self._pending_rows, len(rows),
+                       self.max_queue_rows),
+                    retry_after=self._retry_after(len(rows)))
+            # two-class shedding: batch traffic is refused while the
+            # queue is past its fraction — interactive keeps the
+            # remaining headroom. Occupancy only: counting the
+            # request's own rows would permanently shed any batch
+            # request bigger than the headroom, even on an idle
+            # server.
+            if priority == "batch" and \
+                    self._pending_rows > \
+                    self.batch_class_frac * self.max_queue_rows:
+                self.metrics.observe_shed()
+                raise Shed(
+                    "batch-class shed (%d queued > %.0f%% of %d rows)"
+                    % (self._pending_rows,
+                       self.batch_class_frac * 100,
+                       self.max_queue_rows),
+                    retry_after=self._retry_after(len(rows)))
+            # drain-rate-aware shedding: reject on arrival anything
+            # that cannot make its deadline — a doomed request must
+            # not burn queue space and device time. shed_margin keeps
+            # admitted work comfortably inside its budget.
+            eta = self.eta_seconds(len(rows))
+            if abs_deadline is not None and eta is not None and \
+                    eta >= self.shed_margin * (abs_deadline - now):
+                self.metrics.observe_shed()
+                raise Shed(
+                    "cannot meet deadline (eta %.1f ms vs budget "
+                    "%.1f ms x margin %.2f)"
+                    % (eta * 1000.0, deadline_ms, self.shed_margin),
+                    retry_after=self._retry_after(len(rows)))
+            self._pending.append(ticket)
+            self._pending_rows += len(rows)
+            self._cond.notify_all()
+        chunks: List[np.ndarray] = []
+        got = 0
+        wait_deadline = now + timeout
+        if abs_deadline is not None:
+            wait_deadline = min(wait_deadline, abs_deadline)
+        while got < len(rows):
+            remaining = wait_deadline - time.monotonic()
+            if remaining <= 0:
+                ticket.abandoned = True
+                if ticket.expired(time.monotonic()):
+                    raise DeadlineExceeded("client deadline exceeded")
+                raise TimeoutError("inference timed out")
+            try:
+                chunk = ticket.chunks.get(timeout=remaining)
+            except queue.Empty:
+                ticket.abandoned = True
+                if ticket.expired(time.monotonic()):
+                    raise DeadlineExceeded(
+                        "client deadline exceeded") from None
+                raise TimeoutError("inference timed out") from None
+            if isinstance(chunk, BaseException):
+                raise chunk
+            chunks.append(chunk)
+            got += len(chunk)
+        done = time.monotonic()
+        latency = done - ticket.enqueued
+        self.metrics.observe_request(latency, len(rows))
+        if ticket.ctx is not None:
+            TRACER.add("request", "serve", ticket.ctx,
+                       ticket.enqueued, done, rows=len(rows))
+            EXEMPLARS.record(
+                self.name, ticket.ctx.trace_id, latency * 1000.0,
+                queue_ms=ticket.queue_ms,
+                device_ms=ticket.device_ms)
+        out = chunks[0] if len(chunks) == 1 else \
+            np.concatenate(chunks, axis=0)
+        return out
+
+    # -- hot swap ----------------------------------------------------------
+    def swap_engine(self, engine) -> None:
+        """Atomic between-batches engine replacement: the dispatch
+        loop snapshots ``self.engine`` under the queue lock, so a
+        swap never lands mid-batch."""
+        with self._cond:
+            self.engine = engine
+
+    # -- dispatch loop -----------------------------------------------------
+    def _close_batch(self  # holds: _cond
+                     ) -> Tuple[List[Tuple[_Ticket, np.ndarray]],
+                                Any]:
+        """Under the lock: take up to max_batch rows FIFO (splitting
+        an oversized head ticket) + the engine to run them on. Only
+        tickets whose rows share the head ticket's trailing shape and
+        dtype join a batch — mixed shapes (e.g. variable-length LM
+        requests) dispatch as separate shape groups instead of
+        blowing up the concatenate and killing the dispatch thread.
+
+        Deadline shed happens HERE, before any rows are taken: a
+        ticket whose client deadline passed (or whose submitter
+        already abandoned it — the timed-out-client orphan case) is
+        dropped whole, its remaining rows never dispatch, and the
+        waiting client (if any) gets :class:`DeadlineExceeded`."""
+        parts: List[Tuple[_Ticket, np.ndarray]] = []
+        taken = 0
+        shape_key = None
+        now = time.monotonic()
+        while self._pending and taken < self.max_batch:
+            ticket = self._pending[0]
+            if ticket.abandoned or ticket.expired(now):
+                # expired/cancelled work must not occupy batch rows:
+                # drop ALL its remaining rows at formation
+                self._pending.popleft()
+                self._pending_rows -= len(ticket.rows) - ticket.offset
+                self.metrics.observe_expired()
+                if not ticket.abandoned:
+                    ticket.chunks.put(DeadlineExceeded(
+                        "deadline passed while queued"))
+                    ticket.abandoned = True
+                continue
+            key = (ticket.rows.shape[1:], ticket.rows.dtype)
+            if shape_key is None:
+                shape_key = key
+            elif key != shape_key:
+                break  # next shape group gets its own batch
+            if not ticket.taken:
+                # first take = end of this request's queue wait
+                ticket.taken = True
+                ticket.queue_ms = (now - ticket.enqueued) * 1000.0
+                if ticket.ctx is not None:
+                    TRACER.add("queue", "serve", ticket.ctx,
+                               ticket.enqueued, now)
+            avail = len(ticket.rows) - ticket.offset
+            count = min(avail, self.max_batch - taken)
+            parts.append(
+                (ticket,
+                 ticket.rows[ticket.offset:ticket.offset + count]))
+            ticket.offset += count
+            if ticket.offset == len(ticket.rows):
+                self._pending.popleft()
+            taken += count
+        self._pending_rows -= taken
+        return parts, self.engine
+
+    def _dispatch_loop(self) -> None:
+        while True:
+            with self._cond:
+                while not self._pending:
+                    if self._threads.stop_requested:
+                        return
+                    self._cond.wait(0.05)
+                # batch-closing: wait for more rows until the OLDEST
+                # ticket has waited max_delay, the batch is full, or
+                # the queue has gone quiet for a quantum
+                deadline = self._pending[0].enqueued + self.max_delay_s
+                while (self._pending_rows < self.max_batch and
+                       not self._threads.stop_requested):
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    before = self._pending_rows
+                    self._cond.wait(min(remaining, self.quiet_s))
+                    if self._pending_rows == before:
+                        break  # quiet: more waiting = pure latency
+                parts, engine = self._close_batch()
+            if not parts:
+                continue  # stop(drain=False) raced the delay wait
+            try:  # assembly inside the trap: a bad batch must fail
+                # its tickets, never the dispatch thread
+                rows = np.concatenate([p for _, p in parts], axis=0) \
+                    if len(parts) > 1 else parts[0][1]
+                self.metrics.observe_batch(len(rows))
+                t0 = time.monotonic()
+                self._dispatch_t0 = t0  # watchdog heartbeat
+                head_ctx = parts[0][0].ctx
+                try:
+                    # dispatch-scope log correlation (off by default
+                    # costs one thread-local store)
+                    with log_context(
+                            batcher=self.name,
+                            trace=head_ctx.trace_id
+                            if head_ctx else None):
+                        out = engine.apply(rows)
+                finally:
+                    self._dispatch_t0 = None
+                t1 = time.monotonic()
+                obs_profile.on_step()
+                self._trace_dispatch(parts, t0, t1)
+                self._observe_drain(elapsed_s(t0), len(rows))
+            except BaseException as e:  # noqa: BLE001 — per-batch trap
+                self.metrics.observe_error()
+                if self.isolate_poison and len(parts[0][1]) + sum(
+                        len(p) for _, p in parts[1:]) > 1 and \
+                        not self._threads.stop_requested:
+                    self._finish_with_isolation(engine, parts, e)
+                else:
+                    for ticket, _ in parts:
+                        if not ticket.abandoned:
+                            ticket.chunks.put(e)
+                continue
+            offset = 0
+            for ticket, part in parts:
+                chunk = out[offset:offset + len(part)]
+                offset += len(part)
+                if not ticket.abandoned:
+                    ticket.chunks.put(np.array(chunk))
+
+    # -- drain-rate helpers (dispatch thread only) -------------------------
+    def _observe_drain(self, took_s: float, rows: int) -> None:
+        """EWMA the per-row service time — the admission controller's
+        time-to-service model (one reader, one writer; a float store
+        is atomic in CPython)."""
+        per_row = took_s / max(rows, 1)
+        self._row_seconds = per_row if self._row_seconds is None else \
+            0.8 * self._row_seconds + 0.2 * per_row
+
+    @staticmethod
+    def _trace_dispatch(parts, td0: float, t1: float) -> None:
+        """Record the device span of one dispatched batch against every
+        traced co-batched ticket, and accumulate the per-ticket device
+        time the exemplar table reports."""
+        for ticket, part in parts:
+            ticket.device_ms += (t1 - td0) * 1000.0
+            if ticket.ctx is not None:
+                TRACER.add("device", "serve", ticket.ctx, td0, t1,
+                           rows=len(part))
+
+    def _finish_with_isolation(self, engine, parts, cause) -> None:
+        """The batch failed: bisect (split-and-retry) to isolate the
+        poisoned row(s) — O(log n) extra dispatches per poisoned row —
+        so innocent co-batched tickets still get answers. Tickets
+        owning a poisoned row get :class:`PoisonedRequest` (with the
+        engine's error as ``__cause__``)."""
+        rows = np.concatenate([p for _, p in parts], axis=0) \
+            if len(parts) > 1 else parts[0][1]
+        errors: Dict[int, BaseException] = {}
+        outs: List[Tuple[int, np.ndarray]] = []
+
+        # bisection retries stay on the request's trace: segments are
+        # spans against every traced co-batched ticket, so the
+        # isolation work is visible in the same timeline
+        traced = [t for t, _ in parts if t.ctx is not None]
+
+        def run(segment: np.ndarray, base: int) -> None:
+            self._dispatch_t0 = time.monotonic()
+            t0 = self._dispatch_t0
+            try:
+                out = engine.apply(segment)
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e:  # noqa: BLE001 — bisecting
+                if len(segment) == 1:
+                    errors[base] = e
+                    return
+                mid = len(segment) // 2
+                run(segment[:mid], base)
+                run(segment[mid:], base + mid)
+                return
+            finally:
+                self._dispatch_t0 = None
+                done = time.monotonic()
+                for ticket in traced:
+                    TRACER.add("bisect_retry", "serve", ticket.ctx,
+                               t0, done, base=base,
+                               rows=len(segment))
+            outs.append((base, np.asarray(out)))
+
+        run(rows, 0)
+        self.metrics.observe_poisoned(len(errors))
+        full = None
+        if outs:
+            head = outs[0][1]
+            full = np.zeros((len(rows),) + head.shape[1:], head.dtype)
+            for base, out in outs:
+                full[base:base + len(out)] = out
+        offset = 0
+        for ticket, part in parts:
+            span = range(offset, offset + len(part))
+            offset += len(part)
+            if ticket.abandoned:
+                continue
+            bad = next((i for i in span if i in errors), None)
+            if bad is not None:
+                err = PoisonedRequest(
+                    "request rows made the batch fail: %r"
+                    % (errors[bad],))
+                err.__cause__ = errors[bad]
+                ticket.chunks.put(err)
+            elif full is not None:
+                ticket.chunks.put(np.array(full[span.start:span.stop]))
+            else:  # cannot happen: no errors in span => outs exist
+                ticket.chunks.put(cause)
+
+    # -- lifecycle ---------------------------------------------------------
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Refuse new work, finish accepted work; True when empty."""
+        with self._cond:
+            self._draining = True
+            self._cond.notify_all()
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._cond:
+                if not self._pending:
+                    return True
+            time.sleep(0.005)
+        return False
+
+    @property
+    def draining(self) -> bool:
+        # lock-free bool gauge (monotonic False->True); admission
+        # re-checks it under the lock in submit()
+        return self._draining  # noqa: VC002
+
+    def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
+        """Drain (optionally), then stop and JOIN the dispatch thread
+        — the ManagedThreads discipline: a leak is loud, not silent."""
+        if drain:
+            self.drain(timeout)
+        else:
+            with self._cond:
+                self._draining = True
+                # fail queued-but-undispatched tickets fast
+                for ticket in self._pending:
+                    if not ticket.abandoned:
+                        ticket.chunks.put(Draining("batcher stopped"))
+                self._pending.clear()
+                self._pending_rows = 0
+        self._threads.request_stop()
+        with self._cond:
+            self._cond.notify_all()
+        leaked = self._threads.join_all()
+        if leaked:
+            raise RuntimeError("batcher leaked threads: %s"
+                               % [t.name for t in leaked])
+
+
+# ---------------------------------------------------------------------------
+# continuous batching (the generative decode plane)
+# ---------------------------------------------------------------------------
 
 #: end-of-stream sentinel on a generation ticket's token queue
 _GEN_DONE = object()
@@ -598,6 +1276,7 @@ class TokenBatcher:
                     ticket.tokens.put(e)
             return
         t1 = time.monotonic()
+        obs_profile.on_step()
         for ticket in batch:
             ticket.device_ms += (t1 - admit_t0) * 1000.0
             if ticket.ctx is not None:
@@ -657,6 +1336,7 @@ class TokenBatcher:
                     ticket.tokens.put(e)
             return
         t1 = time.monotonic()
+        obs_profile.on_step()
         active = list(self._by_slot.items())
         self.metrics.observe_decode(
             elapsed_s(t0),

@@ -1,32 +1,45 @@
-"""The KV-cache decode planes on one CUDA device: the slab
-:class:`GenerativeEngine` and the paged :class:`PagedGenerativeEngine`
-with in-graph sampling and speculative decoding.
+"""The serving engines on one CUDA device: the forward plane
+:class:`InferenceEngine` (one captured graph per batch bucket), the
+slab :class:`GenerativeEngine` and the paged
+:class:`PagedGenerativeEngine` with in-graph sampling and speculative
+decoding.
 
-Port of ``veles_tpu/serve/engine.py`` (``GenerativeEngine``,
-``_sample_tokens``, ``PagedGenerativeEngine``, ``bucket_for``,
-``_validated_swap``), single device: no mesh, no AOT plan, no memory
-plan. PyTorch runs eagerly, so the reference's compile cache becomes a
-record of the shapes served: ``compile_count`` keeps its meaning —
-distinct (batch, length) prefill buckets seen, plus one for each decode
-body that ran — and the bucketing discipline that bounds it stays the
-same. Every tensor lives on ``self.device``; serving runs under
-``torch.inference_mode()``.
+Port of ``veles_tpu/serve/engine.py`` (``InferenceEngine``,
+``GenerativeEngine``, ``_sample_tokens``, ``PagedGenerativeEngine``,
+``bucket_for``, ``_validated_swap``), single device: no mesh, no AOT
+plan, no memory plan. Where the reference compiles one executable per
+shape, the port on a CUDA device captures one CUDA graph
+(``veles_tpu_torch.graphs``): one per batch bucket of the forward
+plane, one per decode round body (greedy, sampled, speculative) of the
+generative planes, whose inputs (last tokens, lengths, the active
+mask, the fault mask, block tables) are device buffers rewritten in
+place between replays; prefill runs eagerly. ``compile_count`` keeps
+its meaning: distinct shapes served (captured graphs on the card, the
+same record on the CPU, where nothing is captured). Every tensor lives
+on ``self.device``; serving runs under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
+from veles_tpu_torch.device import compute_dtype as _compute_dtype
 from veles_tpu_torch.device import resolve
-from veles_tpu_torch.models.transformer import (decode_step,
+from veles_tpu_torch.graphs import StepGraph, use_graphs
+from veles_tpu_torch.models.transformer import (compute_weights,
+                                                decode_step,
+                                                forward as lm_forward,
                                                 init_kv_cache,
                                                 init_paged_kv_cache,
                                                 paged_decode_step,
                                                 params_from_numpy,
-                                                prefill, verify_step)
+                                                prefill, refresh_weights,
+                                                verify_step)
+from veles_tpu_torch.parallel.fused import _apply, normalize_specs
 from veles_tpu_torch.serve.paging import (PagePool, PagesExhausted,
                                           kv_bytes_per_token)
 
@@ -50,13 +63,11 @@ def _leaves(tree, path=""):
         yield path, tree
 
 
-def _validated_swap(new_params: Any, current_params: Any, config,
-                    device: torch.device) -> Any:
-    """Place ``new_params`` on the engine's device and validate it
-    against the live tree: same structure, same per-leaf shapes and
-    dtypes — the hot-swap guard (a sequence mid-decode continues on
-    the new weights from its next step)."""
-    new = params_from_numpy(new_params, config, device)
+def _validated_swap(new: Any, current_params: Any) -> Any:
+    """Validate the new tree (already on the engine's device) against
+    the live one: same structure, same per-leaf shapes and dtypes — the
+    hot-swap guard of every engine (a captured graph reads the live
+    leaves, so the swap copies into them)."""
     old_leaves = list(_leaves(current_params))
     new_leaves = list(_leaves(new))
     if [p for p, _ in old_leaves] != [p for p, _ in new_leaves]:
@@ -69,6 +80,240 @@ def _validated_swap(new_params: Any, current_params: Any, config,
                 "%s/%s)" % (path, tuple(old.shape), old.dtype,
                             tuple(leaf.shape), leaf.dtype))
     return new
+
+
+@torch.no_grad()
+def _swap_lm_weights(engine, params: Any) -> None:
+    """An LM engine's hot swap: validate, copy into the f32 master
+    leaves, recompute the compute-dtype weights in place (a captured
+    decode round reads both)."""
+    new = _validated_swap(params_from_numpy(params, engine.config,
+                                            engine.device), engine.params)
+    with engine._lock:
+        for (_, dst), (_, src) in zip(_leaves(engine.params), _leaves(new)):
+            dst.copy_(src)
+        refresh_weights(engine._weights, engine.params, engine.config)
+
+
+def _upload(buffer: torch.Tensor, host: np.ndarray) -> None:
+    """Rewrite a static device input from its host copy, in place."""
+    buffer.copy_(torch.from_numpy(host))
+
+
+def _place_tree(tree, device) -> Any:
+    """A params tree (dicts and lists of numpy arrays or tensors) as
+    f32 tensors on ``device``, copied, same structure."""
+    if isinstance(tree, dict):
+        return {key: _place_tree(node, device) for key, node in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_place_tree(node, device) for node in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device=device, dtype=torch.float32,
+                                copy=True)
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+
+
+class InferenceEngine:
+    """Forward + params + the bucketed shape record, one captured CUDA
+    graph per batch bucket.
+
+    ``forward_fn(params, x) -> y`` runs on ``device`` tensors and must
+    be row-aligned (row i of ``y`` depends only on row i of ``x``):
+    batch sizes round up to the next power of two, the input pads with
+    zero rows and the output slices back, so mixed request sizes run at
+    most ``log2(max_bucket)`` shapes. On a CUDA device (``cuda_graphs``
+    None or True) each bucket's forward is captured once, into one
+    memory pool shared by every bucket, with a static input buffer that
+    :meth:`apply` rewrites in place; ``compile_count`` counts those
+    graphs. ``cuda_graphs=False`` (and the CPU) runs the forward eagerly
+    and records the shapes served. Use the ``from_*`` constructors
+    unless you serve a custom function.
+    """
+
+    def __init__(self, forward_fn: Callable[[Any, torch.Tensor], Any],
+                 params: Any, *, input_dtype=np.float32,
+                 min_bucket: int = 1, name: str = "model", device=None,
+                 cuda_graphs: Optional[bool] = None, mesh=None) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "a sharded InferenceEngine waits for the port's mesh "
+                "(ROADMAP.md queue 1 item 7)")
+        self.device = resolve(device)
+        self._graphs_on = use_graphs(cuda_graphs, self.device)
+        self.name = name
+        self.input_dtype = np.dtype(input_dtype)
+        self.min_bucket = int(min_bucket)
+        self._forward_fn = forward_fn
+        self.params = _place_tree(params, self.device)
+        #: shape -> its captured graph (None where nothing is captured)
+        self._cache: Dict[Tuple[int, ...], Optional[StepGraph]] = {}
+        self._pool = None
+        self._swap_lock = threading.Lock()
+
+    # -- the shape record --------------------------------------------------
+    @property
+    def compile_count(self) -> int:
+        """Distinct bucket shapes served (captured graphs on the card;
+        the reference's count of compiled executables)."""
+        return len(self._cache)
+
+    @property
+    def buckets(self) -> List[int]:
+        return sorted({shape[0] for shape in self._cache})
+
+    def _graph_for(self, shape: Tuple[int, ...]) -> StepGraph:
+        graph = self._cache.get(shape)
+        if graph is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            static = torch.zeros(shape, dtype=torch.from_numpy(
+                np.zeros(0, self.input_dtype)).dtype, device=self.device)
+            graph = StepGraph(lambda x: self._forward_fn(self.params, x),
+                              inputs=(static,), pool=self._pool)
+            self._cache[shape] = graph
+        return graph
+
+    # -- serving -----------------------------------------------------------
+    def apply(self, batch: np.ndarray) -> np.ndarray:
+        """Forward a [N, ...] host batch; returns host rows [N, ...].
+        N pads up to its bucket with zero rows; never captures more
+        graphs than there are buckets."""
+        batch = np.ascontiguousarray(
+            np.asarray(batch, dtype=self.input_dtype))
+        if batch.ndim < 2 or batch.shape[0] == 0:
+            raise ValueError(
+                "apply needs a non-empty [N, ...] batch, got shape %s"
+                % (batch.shape,))
+        n = batch.shape[0]
+        bucket = bucket_for(n, self.min_bucket)
+        if bucket != n:
+            pad = np.zeros((bucket,) + batch.shape[1:],
+                           dtype=self.input_dtype)
+            pad[:n] = batch
+            batch = pad
+        x = torch.from_numpy(batch)
+        with self._swap_lock, torch.inference_mode():
+            if self._graphs_on:
+                out = self._graph_for(batch.shape).replay(x)
+            else:
+                self._cache.setdefault(batch.shape, None)
+                out = self._forward_fn(self.params, x.to(self.device))
+            return out[:n].cpu().numpy()
+
+    def warmup(self, sample_shape: Sequence[int], max_batch: int) -> int:
+        """Serve every bucket up to ``max_batch`` once for one sample
+        shape (captures their graphs before traffic); returns the
+        number of shapes added."""
+        before = self.compile_count
+        b = self.min_bucket
+        while True:
+            self.apply(np.zeros((b,) + tuple(sample_shape),
+                                dtype=self.input_dtype))
+            if b >= bucket_for(max_batch, self.min_bucket):
+                break
+            b <<= 1
+        return self.compile_count - before
+
+    # -- hot swap ----------------------------------------------------------
+    def swap_params(self, params: Any) -> None:
+        """Replace the weights in place. The new tree must match the
+        old one's structure, shapes and dtypes, so every captured graph
+        stays valid (a refresh must not capture again)."""
+        new = _validated_swap(_place_tree(params, self.device), self.params)
+        with self._swap_lock, torch.no_grad():
+            for (_, dst), (_, src) in zip(_leaves(self.params),
+                                          _leaves(new)):
+                dst.copy_(src)
+
+    # -- constructors ------------------------------------------------------
+    @classmethod
+    def from_specs(cls, specs: Sequence[Any], params: List[Dict[str, Any]],
+                   *, normalizer=None, compute_dtype=None,
+                   name: str = "model", **kwargs) -> "InferenceEngine":
+        """Engine over a fused-classifier spec stack (the layer tuples
+        ``parallel/fused.py`` trains). A leading ``("normalize",)`` spec
+        (params ``{"mean", "rdisp"}``) is applied on the device. A
+        softmax tail returns probabilities (the reference's graph
+        parity). ``compute_dtype``: None = bfloat16 on a CUDA device,
+        float32 elsewhere; params and the output stay f32."""
+        if normalizer is not None:
+            raise NotImplementedError(
+                "loader normalizers come with the port's loaders "
+                "(ROADMAP.md queue 1 item 5); pass the statistics as a "
+                "leading ('normalize',) spec")
+        specs = normalize_specs(specs)
+        pre_n = 0
+        for s in specs:
+            if s[0] != "normalize":
+                break
+            pre_n += 1
+        if any(s[0] == "normalize" for s in specs[pre_n:]):
+            raise ValueError(
+                "('normalize',) specs must lead the stack; got %s"
+                % (specs,))
+        body = specs[pre_n:]
+        device = resolve(kwargs.pop("device", None))
+        if compute_dtype is None:
+            compute_dtype = torch.bfloat16 if device.type == "cuda" \
+                else torch.float32
+        elif isinstance(compute_dtype, str):
+            compute_dtype = _compute_dtype(compute_dtype)
+        tail_act = None
+        for s in body:
+            if s[0] in ("fc", "conv"):
+                tail_act = s[1]
+
+        def forward(all_params, x):
+            x = x.to(compute_dtype)
+            for p in all_params[:pre_n]:
+                x = ((x - p["mean"]) * p["rdisp"]).to(compute_dtype)
+            h = _apply(body, False, all_params[pre_n:], x, 0,
+                       compute_dtype)
+            if tail_act == "softmax":
+                h = torch.softmax(h.float(), dim=-1)
+            return h
+
+        return cls(forward, params, name=name, device=device, **kwargs)
+
+    @classmethod
+    def from_transformer(cls, config, params, **kwargs) -> \
+            "InferenceEngine":
+        """Engine over a TransformerConfig LM: int32 token rows [N, T]
+        in, f32 logits [N, T, V] out. Pass a trained
+        ``TransformerTrainer.params`` (or ``init_params`` output)."""
+        device = resolve(kwargs.pop("device", None))
+
+        def fwd(p, tokens):
+            return lm_forward(p, tokens.long(), config)[0]
+
+        kwargs.setdefault("input_dtype", np.int32)
+        kwargs.setdefault("name", "transformer_lm")
+        return cls(fwd, params_from_numpy(params, config, device),
+                   device=device, **kwargs)
+
+    @classmethod
+    def from_forwards(cls, forwards, **kwargs) -> "InferenceEngine":
+        raise NotImplementedError(
+            "forward units and fuse_forwards wait for the port's unit "
+            "graph and model zoo (ROADMAP.md queue 1 item 6)")
+
+    @classmethod
+    def from_workflow(cls, workflow, **kwargs) -> "InferenceEngine":
+        raise NotImplementedError(
+            "workflows wait for the port's unit graph and model zoo "
+            "(ROADMAP.md queue 1 item 6)")
+
+    @classmethod
+    def from_snapshot(cls, path: str, **kwargs) -> "InferenceEngine":
+        raise NotImplementedError(
+            "snapshots wait for the port's snapshotter (ROADMAP.md "
+            "queue 1 item 6)")
+
+    @classmethod
+    def from_package(cls, path: str, **kwargs) -> "InferenceEngine":
+        raise NotImplementedError(
+            "package archives wait for the port's workflows and AOT "
+            "artifacts (ROADMAP.md queue 1 items 6 and 10)")
 
 
 class GenerativeEngine:
@@ -92,14 +337,21 @@ class GenerativeEngine:
     token boundaries. Greedy (argmax) sampling happens on the device,
     so each step ships one int32 per slot (plus the per-slot finite
     flag) back to the host, not a ``[slots, vocab]`` logits buffer.
+
+    ``cuda_graphs`` (None = on a CUDA device): the decode step is one
+    captured CUDA graph, captured by :meth:`warm` or at the first
+    :meth:`decode`, replayed by every later one; admit, release, a
+    fault mask and :meth:`swap_params` rewrite its inputs in place and
+    never capture again. ``False`` runs the same step eagerly.
     """
 
     def __init__(self, config, params, *, max_slots: int = 8,
                  max_len: Optional[int] = None,
                  min_prefill_bucket: int = 8,
                  name: str = "generative_lm",
-                 device=None) -> None:
+                 device=None, cuda_graphs: Optional[bool] = None) -> None:
         self.device = resolve(device)
+        self._graphs_on = use_graphs(cuda_graphs, self.device)
         self.config = config
         self.name = name
         self.max_len = int(min(max_len or config.seq_len,
@@ -110,17 +362,31 @@ class GenerativeEngine:
         self.cache_capacity = bucket_for(self.max_len)
         self.min_prefill_bucket = int(min_prefill_bucket)
         self.params = params_from_numpy(params, config, self.device)
+        self._weights = compute_weights(self.params, config)
         self._cache = init_kv_cache(config, self.slots,
                                     self.cache_capacity,
                                     device=self.device)
+        # the decode step's static inputs: written in place, never
+        # rebound (a captured step reads them at fixed addresses)
         self._lengths = torch.zeros(self.slots, dtype=torch.int32,
                                     device=self.device)
         self._last_tokens = torch.zeros(self.slots, dtype=torch.int32,
                                         device=self.device)
+        self._active_dev = torch.zeros(self.slots, dtype=torch.bool,
+                                       device=self.device)
+        self._inject_dev = torch.zeros(self.slots, dtype=torch.bool,
+                                       device=self.device)
         self._active = np.zeros(self.slots, bool)
-        #: device mirror of ``_active``, re-uploaded only after
-        #: admit/release changed it. None = stale.
-        self._active_dev: Optional[torch.Tensor] = None
+        self._active_stale = False
+        self._inject = np.zeros(self.slots, bool)
+        #: host mirror of the device lengths, for /metrics (a read of
+        #: the device copy from another thread would sync, and break a
+        #: capture under way)
+        self._host_len = np.zeros(self.slots, np.int64)
+        self._graph: Optional[StepGraph] = None
+        #: serializes the device work of the dispatch thread (prefill,
+        #: decode, capture) with a hot swap from another thread
+        self._lock = threading.Lock()
         self._free = list(range(self.slots))
         self._prefill_seen: Set[Tuple[int, int]] = set()
         self._decode_ran = False
@@ -136,25 +402,29 @@ class GenerativeEngine:
         self.decode_fault_hook: Optional[Callable[[int], Any]] = None
 
     # -- device bodies -----------------------------------------------------
-    def _decode_fn(self, inject_nan: Optional[torch.Tensor]):
-        logits, self._cache, lengths = decode_step(
-            self.params, self._last_tokens, self._cache, self._lengths,
-            self.config, active=self._active_mask())
-        if inject_nan is not None:
-            logits = logits.masked_fill(inject_nan[:, None], float("nan"))
+    def _decode_fn(self) -> torch.Tensor:
+        """The decode step, the captured body: reads only the static
+        inputs, returns ``[2, slots]`` int32 (tokens, finite flags)."""
+        active = self._active_dev
+        logits, _, lengths = decode_step(
+            self._weights, self._last_tokens, self._cache, self._lengths,
+            self.config, active=active)
+        # all-False outside fault injection: bitwise the identity
+        logits = logits.masked_fill(self._inject_dev[:, None],
+                                    float("nan"))
         # the sentinel: one flag per slot back to the host; a
         # non-finite slot keeps its previous last token so the slab
         # state stays well defined until the batcher retires it
         finite = torch.isfinite(logits).all(dim=-1)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        self._last_tokens = torch.where(self._active_mask() & finite, nxt,
-                                        self._last_tokens)
-        self._lengths = lengths
-        return nxt, finite
+        self._last_tokens.copy_(torch.where(active & finite, nxt,
+                                            self._last_tokens))
+        self._lengths.copy_(lengths)
+        return torch.stack([nxt, finite.to(torch.int32)])
 
     def _prefill_fn(self, tokens: torch.Tensor, lengths: torch.Tensor,
                     slots: Sequence[int]) -> torch.Tensor:
-        logits, prompt = prefill(self.params, tokens, lengths,
+        logits, prompt = prefill(self._weights, tokens, lengths,
                                  self.config)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         # scatter the real rows into their slots (padding rows of the
@@ -176,8 +446,8 @@ class GenerativeEngine:
     @property
     def compile_count(self) -> int:
         """Distinct shapes served: one per (batch, length) prefill
-        bucket pair + at most ONE decode step (the reference's count
-        of compiled executables)."""
+        bucket pair + at most ONE decode step (the captured graph on
+        the card; the reference's count of compiled executables)."""
         return len(self._prefill_seen) + int(self._decode_ran)
 
     @property
@@ -199,7 +469,7 @@ class GenerativeEngine:
         if not self._active[slot]:
             raise ValueError("slot %d is not active" % slot)
         self._active[slot] = False
-        self._active_dev = None
+        self._active_stale = True
         self._free.append(slot)
 
     # -- serving -----------------------------------------------------------
@@ -235,7 +505,7 @@ class GenerativeEngine:
             for i, row in enumerate(rows):
                 tokens[i, :lens[i]] = row
                 lengths[i] = lens[i]
-            with torch.inference_mode():
+            with self._lock, torch.inference_mode():
                 nxt = self._prefill_fn(
                     torch.from_numpy(tokens).to(self.device).long(),
                     torch.from_numpy(lengths).to(self.device), taken)
@@ -244,18 +514,11 @@ class GenerativeEngine:
             self._free.extend(taken)  # a failed prefill must not leak
             raise
         self._prefill_seen.add((bb, tb))
-        for slot in taken:
+        for i, slot in enumerate(taken):
             self._active[slot] = True
-        self._active_dev = None
+            self._host_len[slot] = lens[i]
+        self._active_stale = True
         return taken, first
-
-    def _active_mask(self) -> torch.Tensor:
-        """Device-resident active mask, re-uploaded only after
-        admit/release changed the host copy."""
-        if self._active_dev is None:
-            self._active_dev = torch.from_numpy(self._active).to(
-                self.device)
-        return self._active_dev
 
     def decode(self) -> np.ndarray:
         """One decode step for the WHOLE slab (every active sequence
@@ -264,19 +527,33 @@ class GenerativeEngine:
         the slot ids :meth:`admit` returned. After each step,
         :attr:`last_finite` says per slot whether its logits were
         finite — the caller retires non-finite slots."""
-        inject = None
-        if self.decode_fault_hook is not None:
-            mask = np.zeros(self.slots, bool)
-            for slot in (self.decode_fault_hook(self._decode_steps)
-                         or ()):
-                mask[int(slot)] = True
-            inject = torch.from_numpy(mask).to(self.device)
+        inject = _fault_mask(self.decode_fault_hook, self._decode_steps,
+                             self.slots)
         self._decode_steps += 1
-        with torch.inference_mode():
-            nxt, finite = self._decode_fn(inject)
+        with self._lock, torch.inference_mode():
+            if self._active_stale:
+                _upload(self._active_dev, self._active)
+                self._active_stale = False
+            if not np.array_equal(inject, self._inject):
+                _upload(self._inject_dev, inject)
+                self._inject = inject
+            if not self._graphs_on:
+                out = self._decode_fn()
+            else:
+                if self._graph is None:
+                    # the warm-up calls write K/V only at each slot's
+                    # length, which every read masks and the captured
+                    # step rewrites; the lengths and tokens come back
+                    self._graph = StepGraph(
+                        self._decode_fn,
+                        keep=(self._lengths, self._last_tokens))
+                out = self._graph.replay()
             # one transfer: tokens and flags as int32 [2, slots]
-            host = torch.stack([nxt, finite.to(torch.int32)]).cpu().numpy()
+            host = out.cpu().numpy()
         self._decode_ran = True
+        live = np.flatnonzero(self._active)
+        self._host_len[live] = np.minimum(self._host_len[live] + 1,
+                                          self.cache_capacity)
         self.last_finite = host[1].astype(bool)
         return host[0]
 
@@ -311,8 +588,9 @@ class GenerativeEngine:
     def warm(self) -> int:
         """Run the full shape ladder before traffic: one prefill per
         (batch-bucket, length-bucket) pair plus one decode step, through
-        the real admit/release path (builds the kernels and fills
-        PyTorch's allocator cache). Returns the shapes added."""
+        the real admit/release path (builds the kernels, fills
+        PyTorch's allocator cache and, on a CUDA device, captures the
+        decode step). Returns the shapes added."""
         before = self.compile_count
         cap = min(self.cache_capacity, self.config.seq_len,
                   self.max_len)
@@ -338,15 +616,15 @@ class GenerativeEngine:
 
     # -- observability -----------------------------------------------------
     def decode_stats(self) -> Dict[str, Any]:
-        """Decode-plane gauges for /metrics (host-side snapshot)."""
-        lengths = self._lengths.cpu().numpy()
+        """Decode-plane gauges for /metrics (host-side snapshot: it
+        touches no device tensor)."""
         active = self._active
         return {
             "active_sequences": int(active.sum()),
             "slots": self.slots,
             "slot_occupancy": float(active.sum()) / self.slots,
             "cache_capacity": self.cache_capacity,
-            "cache_tokens": int(lengths[active].sum()) if
+            "cache_tokens": int(self._host_len[active].sum()) if
             active.any() else 0,
             "compile_count": self.compile_count,
             "prefill_buckets": ["%dx%d" % b for b in
@@ -356,11 +634,10 @@ class GenerativeEngine:
 
     # -- hot swap ----------------------------------------------------------
     def swap_params(self, params: Any) -> None:
-        """Replace the weights (same tree structure, shapes and dtypes).
-        Sequences mid-decode continue with the new weights from their
-        next step."""
-        self.params = _validated_swap(params, self.params, self.config,
-                                      self.device)
+        """Replace the weights (same tree structure, shapes and dtypes),
+        in place. Sequences mid-decode continue with the new weights
+        from their next step."""
+        _swap_lm_weights(self, params)
 
     # -- constructors ------------------------------------------------------
     @classmethod
@@ -368,6 +645,16 @@ class GenerativeEngine:
         """Engine over anything with ``.config`` / ``.params``."""
         kwargs.setdefault("name", "generative_lm")
         return cls(trainer.config, trainer.params, **kwargs)
+
+
+def _fault_mask(hook, step: int, slots: int) -> np.ndarray:
+    """The slots whose logits a test's fault hook NaNs this step, as a
+    host bool mask (all False without a hook)."""
+    mask = np.zeros(slots, bool)
+    if hook is not None:
+        for slot in hook(step) or ():
+            mask[int(slot)] = True
+    return mask
 
 
 # ---------------------------------------------------------------------------
@@ -481,6 +768,15 @@ class PagedGenerativeEngine:
       correction token (Leviathan et al., ICML 2023: greedy
       acceptance). Rejected K/V is masked by length and overwritten in
       place: no rollback.
+
+    ``cuda_graphs`` (None = on a CUDA device): a decode round is one
+    captured CUDA graph, one per round body the host picks (greedy,
+    sampled; with a draft, propose + verify in one graph), each
+    captured at its first round and replayed after. The active mask,
+    the fault mask and the block tables are device buffers rewritten in
+    place; page admission, preemption and the COW copies run on the
+    host and the device before the replay and never capture again.
+    ``False`` runs the same rounds eagerly.
     """
 
     def __init__(self, config, params, *, max_slots: int = 8,
@@ -493,8 +789,9 @@ class PagedGenerativeEngine:
                  draft_config: Any = None,
                  draft_tokens: int = 4,
                  name: str = "paged_lm",
-                 device=None) -> None:
+                 device=None, cuda_graphs: Optional[bool] = None) -> None:
         self.device = resolve(device)
+        self._graphs_on = use_graphs(cuda_graphs, self.device)
         self.config = config
         self.name = name
         self.input_dtype = np.dtype(np.int32)
@@ -530,6 +827,7 @@ class PagedGenerativeEngine:
         self.pool = PagePool(pool_pages, self.page_size)
         self.min_prefill_bucket = int(min_prefill_bucket)
         self.params = params_from_numpy(params, config, self.device)
+        self._weights = compute_weights(self.params, config)
         self._cache = init_paged_kv_cache(config, self.pool.n_pages,
                                           self.page_size,
                                           device=self.device)
@@ -538,6 +836,7 @@ class PagedGenerativeEngine:
         self.draft_tokens = int(draft_tokens)
         self.has_draft = draft_params is not None
         self.draft_params: Dict[str, Any] = {}
+        self._draft_weights: Dict[str, Any] = {}
         self._draft_cache: Dict[str, torch.Tensor] = {}
         if self.has_draft:
             if draft_config is None:
@@ -556,6 +855,8 @@ class PagedGenerativeEngine:
             self.draft_params = params_from_numpy(draft_params,
                                                   draft_config,
                                                   self.device)
+            self._draft_weights = compute_weights(self.draft_params,
+                                                  draft_config)
             # the draft keeps a plain slab: it is small by construction,
             # so paging it would spend bookkeeping to save little
             self._draft_cache = init_kv_cache(draft_config, self.slots,
@@ -586,10 +887,23 @@ class PagedGenerativeEngine:
         self._free = list(range(self.slots))
         self._tables = np.full((self.slots, self.n_blocks),
                                self.pool.n_pages, np.int32)
-        #: device mirrors of ``_active`` / ``_tables``, uploaded only
-        #: after admit/release/COW changed the host copy. None = stale.
-        self._active_dev: Optional[torch.Tensor] = None
-        self._tables_dev: Optional[torch.Tensor] = None
+        # the round's static inputs beside ``_state``: device copies of
+        # ``_active`` / ``_tables`` and the fault mask, rewritten in
+        # place when the host copy changed (never rebound: a captured
+        # round reads them at fixed addresses)
+        self._active_dev = torch.zeros(self.slots, dtype=torch.bool,
+                                       device=self.device)
+        self._tables_dev = torch.from_numpy(self._tables).to(self.device)
+        self._inject_dev = torch.zeros(self.slots, dtype=torch.bool,
+                                       device=self.device)
+        self._active_stale = False
+        self._tables_stale = False
+        self._inject = np.zeros(self.slots, bool)
+        #: captured rounds by body, ``sampling`` -> graph, sharing a pool
+        self._graphs: Dict[bool, StepGraph] = {}
+        self._pool = None
+        #: serializes the dispatch thread's device work with a hot swap
+        self._lock = threading.Lock()
         self._slot_pages: List[List[int]] = [[] for _ in
                                              range(self.slots)]
         self._host_len = np.zeros(self.slots, np.int64)
@@ -633,7 +947,7 @@ class PagedGenerativeEngine:
         across preemption). ``write_tables`` carries the ``n_pages``
         sentinel for SHARED pages (never overwrite a donor) and pad
         tiles: their writes land on the trash page."""
-        logits, prompt = prefill(self.params, tokens, lengths,
+        logits, prompt = prefill(self._weights, tokens, lengths,
                                  self.config)
         nxt = self._next_tokens(logits, req, sampling)
         bb, tb = tokens.shape
@@ -658,7 +972,7 @@ class PagedGenerativeEngine:
         if self.has_draft:
             # the draft ingests EVERY admitted prompt (speculating or
             # not), and its slot's tail is zeroed like the slab's
-            _, dprompt = prefill(self.draft_params, tokens, lengths,
+            _, dprompt = prefill(self._draft_weights, tokens, lengths,
                                  self.draft_config)
             for key in ("k", "v"):
                 self._draft_cache[key][:, idx, :tb] = dprompt[key][:, :n].to(
@@ -672,10 +986,9 @@ class PagedGenerativeEngine:
         per-slot state in place."""
         state = self._state
         logits, self._cache, new_len = paged_decode_step(
-            self.params, state["tokens"], self._cache, state["lengths"],
+            self._weights, state["tokens"], self._cache, state["lengths"],
             tables, self.config, active=active)
-        if inject is not None:
-            logits = logits.masked_fill(inject[:, None], float("nan"))
+        logits = logits.masked_fill(inject[:, None], float("nan"))
         finite = torch.isfinite(logits).all(dim=-1)
         nxt = self._next_tokens(logits, state, sampling)
         ok = active & finite
@@ -698,7 +1011,7 @@ class PagedGenerativeEngine:
         props = []
         for _ in range(self.draft_tokens + 1):
             logits, self._draft_cache, lengths = decode_step(
-                self.draft_params, tok, self._draft_cache, lengths,
+                self._draft_weights, tok, self._draft_cache, lengths,
                 self.draft_config, active=active)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             tok = torch.where(active, nxt, tok)
@@ -717,11 +1030,9 @@ class PagedGenerativeEngine:
         k = self.draft_tokens
         chunk = torch.cat([state["tokens"][:, None], proposals], dim=1)
         logits, self._cache = verify_step(
-            self.params, chunk, self._cache, state["lengths"], tables,
+            self._weights, chunk, self._cache, state["lengths"], tables,
             self.config, active=active)
-        if inject is not None:
-            logits = logits.masked_fill(inject[:, None, None],
-                                        float("nan"))
+        logits = logits.masked_fill(inject[:, None, None], float("nan"))
         finite = torch.isfinite(logits).all(dim=-1).all(dim=-1)
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)
         match = (proposals == greedy[:, :k]).to(torch.int32)
@@ -743,6 +1054,24 @@ class PagedGenerativeEngine:
         state["counters"].add_(torch.where(ok, counts,
                                            torch.zeros_like(counts)))
         return emitted, counts, finite, n_acc
+
+    def _round_fn(self, sampling: bool) -> torch.Tensor:
+        """One decode round over the static inputs, the captured body:
+        the speculative propose + verify with a draft, else the decode
+        step. Returns one int32 block for the host: ``[slots, K + 4]``
+        (emitted, counts, finite, accepted) speculating, else ``[2,
+        slots]`` (tokens, finite)."""
+        active, tables = self._active_dev, self._tables_dev
+        if self.has_draft:
+            proposals = self._propose_fn(active)
+            emitted, counts, finite, n_acc = self._verify_fn(
+                tables, proposals, active, self._inject_dev, sampling)
+            return torch.cat([emitted, counts[:, None],
+                              finite.to(torch.int32)[:, None],
+                              n_acc[:, None]], dim=1)
+        nxt, finite = self._decode_fn(tables, active, self._inject_dev,
+                                      sampling)
+        return torch.stack([nxt, finite.to(torch.int32)])
 
     def _copy_pages(self, src: np.ndarray, dst: np.ndarray) -> None:
         """Copy-on-write page copies for every layer's K and V in one
@@ -788,8 +1117,8 @@ class PagedGenerativeEngine:
         self._tables[slot, :] = self.pool.n_pages
         self._host_len[slot] = 0
         self._active[slot] = False
-        self._active_dev = None
-        self._tables_dev = None
+        self._active_stale = True
+        self._tables_stale = True
         self._free.append(slot)
 
     # -- admission ---------------------------------------------------------
@@ -880,7 +1209,7 @@ class PagedGenerativeEngine:
                 req["counters"][i] = int(opts.get("counter", 0))
                 req["draft"][i] = bool(opts.get("draft", False)) and \
                     self.has_draft
-            with torch.inference_mode():
+            with self._lock, torch.inference_mode():
                 dev = {key: torch.from_numpy(val).to(self.device)
                        for key, val in req.items()}
                 nxt = self._prefill_fn(
@@ -906,8 +1235,8 @@ class PagedGenerativeEngine:
             self._admit_seq += 1
             self._temp_np[slot] = req["temp"][i]
             self._draft_np[slot] = req["draft"][i]
-        self._active_dev = None
-        self._tables_dev = None
+        self._active_stale = True
+        self._tables_stale = True
         self._prepared = False
         return taken, first
 
@@ -946,7 +1275,7 @@ class PagedGenerativeEngine:
                     preempted.append(victim)
         rows = np.flatnonzero(cow_dst != self.pool.n_pages)
         if rows.size:
-            with torch.inference_mode():
+            with self._lock, torch.inference_mode():
                 self._copy_pages(cow_src[rows], cow_dst[rows])
         self._prepared = True
         return preempted
@@ -963,13 +1292,13 @@ class PagedGenerativeEngine:
                 fresh = self.pool.alloc()       # may raise
                 pages.append(fresh)
                 self._tables[slot, j] = fresh
-                self._tables_dev = None
+                self._tables_stale = True
             else:
                 dst, src = self.pool.writable(pages[j])  # may raise
                 if src is not None:             # COW re-point
                     pages[j] = dst
                     self._tables[slot, j] = dst
-                    self._tables_dev = None
+                    self._tables_stale = True
                     cow_src[slot] = src
                     cow_dst[slot] = dst
 
@@ -985,21 +1314,26 @@ class PagedGenerativeEngine:
         self.release(slot)
         self.preempted_total += 1
 
-    def _active_mask(self) -> torch.Tensor:
-        """Device-resident active mask, uploaded only after
-        admit/release changed the host copy."""
-        if self._active_dev is None:
-            self._active_dev = torch.from_numpy(self._active).to(
-                self.device)
-        return self._active_dev
-
-    def _tables_device(self) -> torch.Tensor:
-        """Device-resident block tables, uploaded only after
-        admit/release/COW changed the host copy."""
-        if self._tables_dev is None:
-            self._tables_dev = torch.from_numpy(self._tables).to(
-                self.device)
-        return self._tables_dev
+    def _run_round(self, sampling: bool) -> torch.Tensor:
+        """The round: the replay of its captured body (captured at the
+        body's first round), or the eager body."""
+        if not self._graphs_on:
+            return self._round_fn(sampling)
+        graph = self._graphs.get(sampling)
+        if graph is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            # the warm-up rounds write K/V (the draft's too) only at
+            # and past each slot's length, which every read masks and
+            # the captured round rewrites; the state they advance comes
+            # back
+            state = self._state
+            graph = StepGraph(
+                lambda: self._round_fn(sampling), pool=self._pool,
+                keep=(state["lengths"], state["tokens"],
+                      state["counters"]))
+            self._graphs[sampling] = graph
+        return graph.replay()
 
     def decode_many(self) -> Tuple[np.ndarray, np.ndarray]:
         """One decode ROUND for the whole batch. Returns ``(tokens
@@ -1010,47 +1344,39 @@ class PagedGenerativeEngine:
         tokens. Calls :meth:`prepare_step` when the caller did not (the
         batcher does, to requeue preempted tickets)."""
         self.prepare_step()
-        inject = None
-        if self.decode_fault_hook is not None:
-            mask = np.zeros(self.slots, bool)
-            for slot in (self.decode_fault_hook(self._decode_steps)
-                         or ()):
-                mask[int(slot)] = True
-            inject = torch.from_numpy(mask).to(self.device)
+        inject = _fault_mask(self.decode_fault_hook, self._decode_steps,
+                             self.slots)
         self._decode_steps += 1
         sampling = bool((self._temp_np[self._active] > 0).any())
-        with torch.inference_mode():
-            active = self._active_mask()
-            tables = self._tables_device()
-            if self.has_draft:
-                proposals = self._propose_fn(active)
-                self._propose_ran = True
-                emitted, counts, finite, n_acc = self._verify_fn(
-                    tables, proposals, active, inject, sampling)
-                self._verify_ran = True
-                # one transfer: [emitted | counts | finite | n_acc]
-                host = torch.cat([emitted, counts[:, None],
-                                  finite.to(torch.int32)[:, None],
-                                  n_acc[:, None]], dim=1).cpu().numpy()
-                k1 = self.draft_tokens + 1
-                tokens = host[:, :k1]
-                counts = host[:, k1]
-                finite = host[:, k1 + 1].astype(bool)
-                n_acc = host[:, k1 + 2]
-                spec_rows = (self._active & self._draft_np & finite &
-                             (self._temp_np <= 0.0))
-                self.spec_proposed_total += int(
-                    spec_rows.sum()) * self.draft_tokens
-                self.spec_accepted_total += int(n_acc[spec_rows].sum())
-            else:
-                nxt, finite = self._decode_fn(tables, active, inject,
-                                              sampling)
-                self._decode_ran = True
-                host = torch.stack([nxt, finite.to(torch.int32)]
-                                   ).cpu().numpy()
-                tokens = host[0][:, None]
-                counts = self._active.astype(np.int32)
-                finite = host[1].astype(bool)
+        with self._lock, torch.inference_mode():
+            if self._active_stale:
+                _upload(self._active_dev, self._active)
+                self._active_stale = False
+            if self._tables_stale:
+                _upload(self._tables_dev, self._tables)
+                self._tables_stale = False
+            if not np.array_equal(inject, self._inject):
+                _upload(self._inject_dev, inject)
+                self._inject = inject
+            # one transfer of the round's int32 block
+            host = self._run_round(sampling).cpu().numpy()
+        if self.has_draft:
+            self._propose_ran = self._verify_ran = True
+            k1 = self.draft_tokens + 1
+            tokens = host[:, :k1]
+            counts = host[:, k1]
+            finite = host[:, k1 + 1].astype(bool)
+            n_acc = host[:, k1 + 2]
+            spec_rows = (self._active & self._draft_np & finite &
+                         (self._temp_np <= 0.0))
+            self.spec_proposed_total += int(
+                spec_rows.sum()) * self.draft_tokens
+            self.spec_accepted_total += int(n_acc[spec_rows].sum())
+        else:
+            self._decode_ran = True
+            tokens = host[0][:, None]
+            counts = self._active.astype(np.int32)
+            finite = host[1].astype(bool)
         # the host length mirror tracks the device clamp exactly
         cap = self.n_blocks * self.page_size
         live = np.flatnonzero(self._active)
@@ -1142,7 +1468,8 @@ class PagedGenerativeEngine:
         length) prefill bucket the pool can hold, the decode step (or
         the propose + verify pair) and the COW page copy, through the
         real admit/release path (builds the kernels and fills
-        PyTorch's allocator cache). Returns the shapes added."""
+        PyTorch's allocator cache), and on a CUDA device captures the
+        greedy and the sampled round. Returns the shapes added."""
         before = self.compile_count
         cap = min(self.cache_capacity, self.config.seq_len,
                   self.max_len)
@@ -1175,7 +1502,12 @@ class PagedGenerativeEngine:
             for slot in slots:
                 self.release(slot)
         self.decode_many()
-        with torch.inference_mode():
+        with self._lock, torch.inference_mode():
+            if self._graphs_on:
+                # the sampled round's graph too, so that no round of
+                # traffic captures (with no slot active, a round
+                # changes no state)
+                self._run_round(True)
             self._copy_pages(np.zeros(0, np.int64), np.zeros(0, np.int64))
         return self.compile_count - before
 
@@ -1221,11 +1553,10 @@ class PagedGenerativeEngine:
     # -- hot swap ----------------------------------------------------------
     def swap_params(self, params: Any) -> None:
         """Replace the TARGET weights (same tree structure, shapes and
-        dtypes; the draft is construction state and does not swap).
-        Sequences mid-decode continue with the new weights from their
-        next step."""
-        self.params = _validated_swap(params, self.params, self.config,
-                                      self.device)
+        dtypes; the draft is construction state and does not swap), in
+        place. Sequences mid-decode continue with the new weights from
+        their next step."""
+        _swap_lm_weights(self, params)
 
     # -- constructors ------------------------------------------------------
     @classmethod

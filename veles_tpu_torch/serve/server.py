@@ -1,6 +1,16 @@
 """HTTP front of the port's serving plane (port of
-``veles_tpu/serve/server.py``, the generative endpoints).
+``veles_tpu/serve/server.py``).
 
+- ``POST /apply`` — forward a batch through the default forward-plane
+  model (``ModelRegistry.add``); ``POST /apply/<name>`` targets one by
+  name. Body ``{"input": rows}`` (a non-empty ``[N, ...]`` batch in the
+  engine's ``input_dtype``), optional ``"deadline_ms"`` (or
+  ``X-Deadline-Ms``) and ``"priority"`` (or ``X-Priority``:
+  ``interactive`` | ``batch``). -> ``{"output": rows}``. 400 on a
+  malformed body or a model that serves ``/generate``, 404 on an
+  unknown model, 422 when this request's rows made the batch fail
+  (bisection isolated them), and the admission, deadline and drain
+  replies of ``/generate``.
 - ``POST /generate`` — autoregressive generation against a generative
   registry entry; ``POST /generate/<name>`` targets one by name. Body
   ``{"prompt": [t0, t1, ...]}`` (one prompt) or ``{"prompt": [[...],
@@ -23,8 +33,6 @@
   ``?format=prometheus`` (or ``Accept: text/plain``) returns the one
   Prometheus exposition of the same numbers.
 - ``GET /debug/trace[?trace=ID]`` — Chrome-trace JSON of the span ring.
-- ``POST /apply`` answers 501: the forward plane (``InferenceEngine``)
-  is a later slice of the port.
 
 Stop is a graceful drain by default: /healthz flips unhealthy, new
 POSTs get 503, accepted work finishes, then the listener closes.
@@ -46,7 +54,8 @@ import numpy as np
 from veles_tpu_torch.obs import metrics as obs_metrics
 from veles_tpu_torch.obs.trace import EXEMPLARS, TRACER, TraceContext
 from veles_tpu_torch.serve.batcher import (DeadlineExceeded, Draining,
-                                           NonFiniteLogits, QueueFull,
+                                           NonFiniteLogits,
+                                           PoisonedRequest, QueueFull,
                                            Shed)
 from veles_tpu_torch.serve.registry import ModelRegistry
 from veles_tpu_torch.thread_pool import ManagedThreads
@@ -175,16 +184,68 @@ class ServeServer:
                 elif isinstance(r, DeadlineExceeded):
                     self._reply(504, {"error": "deadline exceeded"})
                 elif isinstance(r, TimeoutError):
-                    self._reply(504, {"error": "generation timed out"})
+                    # the batcher says which: generation or inference
+                    self._reply(504, {"error": str(r)})
                 elif isinstance(r, NonFiniteLogits):
                     # only THIS request's sequence went non-finite;
                     # its slot is already freed
                     self._reply(500, {"error": "non-finite logits: %s"
                                       % r})
+                elif isinstance(r, PoisonedRequest):
+                    # THIS request's rows made the batch fail; its
+                    # co-batched innocents were answered
+                    self._reply(422, {"error": "poisoned request: %s"
+                                      % r})
                 elif isinstance(r, ValueError):
                     self._reply(400, {"error": str(r)})
                 else:
                     self._reply(500, {"error": repr(r)})
+
+            # -- POST /apply[/<model>] ----------------------------------
+            def _do_apply(self, url, raw: bytes) -> None:
+                try:
+                    model = server._model_for(url.path, "/apply")
+                except KeyError as e:
+                    self._reply(404, {"error": "unknown model %s" % e})
+                    return
+                if not hasattr(model, "submit"):
+                    self._reply(400, {"error": "model %r serves "
+                                      "/generate, not /apply"
+                                      % model.name})
+                    return
+                if server._draining:
+                    self._reply(503, {"error": "draining"},
+                                headers={"Retry-After": "1"})
+                    return
+                # per-model input dtype: f32 rows for classifiers,
+                # int32 token rows for LM engines
+                dtype = getattr(getattr(model, "engine", None),
+                                "input_dtype", np.float32)
+                try:
+                    doc = json.loads(raw)
+                    batch = np.asarray(doc["input"], dtype=dtype)
+                    deadline_ms = self._deadline(doc)
+                    priority = doc.get("priority") or \
+                        self.headers.get("X-Priority") or "interactive"
+                except (ValueError, KeyError, TypeError,
+                        AttributeError):
+                    self._reply(400, {"error": "bad request"})
+                    return
+                if batch.ndim < 2 or batch.shape[0] == 0:
+                    self._reply(400, {"error": "input must be a "
+                                      "non-empty batch of samples"})
+                    return
+                try:
+                    out = model.submit(batch, timeout=server.timeout,
+                                       deadline_ms=deadline_ms,
+                                       priority=priority,
+                                       ctx=self._trace_ctx)
+                except Exception as e:  # noqa: BLE001 — an engine
+                    # error answers, it never tears the keep-alive
+                    # connection down mid-exchange
+                    self._error_reply(e)
+                    return
+                self._reply(200, {"output": np.asarray(out).tolist()})
 
             # -- POST /generate[/<model>] -------------------------------
             def _do_generate(self, url, raw: bytes) -> None:
@@ -192,6 +253,10 @@ class ServeServer:
                     model = server._model_for(url.path, "/generate")
                 except KeyError as e:
                     self._reply(404, {"error": "unknown model %s" % e})
+                    return
+                if not hasattr(model, "generate"):
+                    self._reply(400, {"error": "model %r is not "
+                                      "generative" % model.name})
                     return
                 if server._draining:
                     self._reply(503, {"error": "draining"},
@@ -363,9 +428,7 @@ class ServeServer:
                         self._do_generate(url, raw)
                     elif url.path == "/apply" or \
                             url.path.startswith("/apply/"):
-                        self._reply(501, {"error": "/apply (the forward "
-                                          "plane) is not served by "
-                                          "this port yet"})
+                        self._do_apply(url, raw)
                     else:
                         self._reply(404, {"error": "not found"})
                 finally:
