@@ -52,7 +52,10 @@ without them, and on any failed phase. Phases, in order:
    (the default on the card) and, on an engine of the same weights,
    eager (``cuda_graphs=False``), their tokens equal bitwise, each step
    profiled (its device time and busy share beside the flash-decode
-   kernels' share of it);
+   kernels' share of it); the 8 prompts again over HTTP, each sent once
+   the previous one streamed its first token (one prompt an admission,
+   so the prefill shapes do not depend on the timing), whose tokens
+   phase 13 is held to;
 4. parity on the card: greedy tokens through the kernels equal the
    plain path's over 32 steps on a 2-layer f32 copy of the same width;
    the bf16 full-width prefill logits against the plain path;
@@ -114,7 +117,31 @@ without them, and on any failed phase. Phases, in order:
    ``POST /apply``: ``compile_count`` equal to the number of buckets,
    the probabilities against ``FusedClassifierTrainer.predict`` on the
    same rows, each bucket captured against eager (bitwise) and timed,
-   two K6 launches per replay, three concurrent requests over HTTP.
+   two K6 launches per replay, three concurrent requests over HTTP;
+12. the unit graph: a ``Workflow`` of ``AcceleratedUnit``s on
+   ``Device()`` (start, a ``Repeater`` loop gated by a ``Bool`` that
+   closes after 4 passes, a unit that fills an ``Array`` of [8192, 4096]
+   f32 through ``prng.get("smoke").uniform`` (K8), one that sums it on
+   the card, the end): the fill bitwise equal to the plain Philox at
+   that shape, ``map_read`` equal to the device's values, one K8 launch
+   a pass, the unit run order and counters equal to a CPU run of the
+   same graph (at [256, 4096]);
+13. one card, four tenants of one ``Scheduler``: ``train`` (phase 5's
+   trainer, ``step_many(4)`` windows over fixed batches, weight 1),
+   ``serve`` (the slab engine of phase 3 behind ``TokenBatcher`` and
+   ``ServeServer(scheduler=)``, weight 4; phase 3's 8 prompts of 32
+   tokens over HTTP, each sent once the previous one streamed its first
+   token, as phase 3 sent them too), ``apply`` (phase 11's AlexNet
+   behind ``MicroBatcher``, weight 4, phase 11's requests one after
+   another with ``deadline_ms``) and ``graph`` (phase 12's workflow
+   through ``attach_workflow``, weight 1), all at once: the LM losses
+   bitwise equal to a solo run of the same batches, the greedy tokens
+   equal to phase 3's, the ``/apply`` outputs bitwise equal to the
+   unscheduled engine's, every tenant served, no thread left after
+   ``Scheduler.stop()``; per-tenant accounting, LM tokens/s, the decode
+   round and ``/apply`` latencies against their phases alone, memory
+   per tenant at set-up, and, in a second window under torch.profiler,
+   the tenants' leased device-ms against the card's busy time.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -122,6 +149,7 @@ line, ``{"ok": true, "device": {...}}``; the full record goes to
 """
 
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -198,6 +226,7 @@ TOL_CLASSIFIER = {"float32": 1e-4, "bfloat16": 2e-2}
 #: kernels; another bucket's batch may take other cuDNN algorithms, so
 #: the softmax outputs agree to bf16 rounding of the logits, not bitwise)
 APPLY_BUCKETS = [1, 2, 4, 8, 16, 32, 64]
+APPLY_SHAPE = (224, 224, 3)
 TOL_APPLY = 2e-3
 
 
@@ -1137,6 +1166,49 @@ def _profiled_request(url, vocab):
     return summary
 
 
+def _staggered_generate(url, prompts, n_tok, timeout=600):
+    """Each prompt as a streaming ``POST /generate``, the next one sent
+    once the previous one streamed its first token: every admission
+    holds exactly one prompt, so each sequence's prefill shape (and with
+    it its greedy tokens: the decode round's shapes are fixed) does not
+    depend on the timing, while the sequences still decode together.
+    Returns the tokens per prompt (or the exception)."""
+    answers = [None] * len(prompts)
+    threads = []
+    for i, prompt in enumerate(prompts):
+        first = threading.Event()
+
+        def client(i=i, prompt=prompt, first=first):
+            try:
+                toks, done = [], None
+                with _post(url, {"prompt": prompt, "max_tokens": n_tok,
+                                 "stream": True}, timeout) as resp:
+                    for line in resp:
+                        rec = json.loads(line)
+                        if "token" in rec:
+                            toks.append(rec["token"])
+                            first.set()
+                        elif "done" in rec:
+                            done = rec["tokens"]
+                        else:
+                            raise RuntimeError(rec)
+                if done != toks:
+                    raise RuntimeError("stream record mismatch")
+                answers[i] = toks
+            except BaseException as e:  # noqa: BLE001 — reported by caller
+                answers[i] = e
+            finally:
+                first.set()
+
+        thread = threading.Thread(target=client)
+        thread.start()
+        threads.append(thread)
+        first.wait(timeout)
+    for thread in threads:
+        thread.join(timeout)
+    return answers
+
+
 def serving_phase(torch, fa, dev, card):
     from veles_tpu_torch.models.transformer import (TransformerConfig,
                                                     init_params)
@@ -1242,6 +1314,15 @@ def serving_phase(torch, fa, dev, card):
                     "veles_gen_%s" % key not in prom:
                 raise AssertionError("/metrics lacks %s" % key)
         result["host_profile"] = _profiled_request(url, config.vocab)
+        # the same prompts admitted one at a time (each sent once the
+        # previous one streamed its first token): prefill shapes that do
+        # not depend on the timing, so phase 13 can hold its co-tenant
+        # tokens to these bitwise
+        result["staggered"] = _staggered_generate(url, prompts, n_tok)
+        for i, a in enumerate(result["staggered"]):
+            if not isinstance(a, list) or len(a) != n_tok:
+                raise AssertionError("staggered request %d answered %r"
+                                     % (i, a))
         result["http"] = dict(requests=len(prompts), prompt_lens=plens,
                               tokens_each=n_tok, wall_s=wall,
                               tokens_per_s=len(prompts) * n_tok / wall,
@@ -2370,6 +2451,735 @@ def apply_phase(torch, counters, dev, card):
                 http_dispatches=dispatches), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the unit graph (units, workflow, devices, arrays, prng over K8)
+# ---------------------------------------------------------------------------
+
+#: the unit-graph phase: the fill's shape, the Repeater's passes a run
+GRAPH_FILL = (8192, 4096)
+GRAPH_PASSES = 4
+GRAPH_SEED = 2024
+#: the CPU run of the same graph (the order and counters it is held to)
+#: fills a smaller array: the plain Philox on the host is slow
+GRAPH_FILL_CPU = (256, 4096)
+
+
+def build_unit_graph(device, shape, log_runs):
+    """start -> repeater -> fill (an AcceleratedUnit: a [shape] f32
+    Array through ``prng.get("smoke").uniform``, K8 on the card) ->
+    reduce (an AcceleratedUnit: the Array's sum on its device) ->
+    decide (a host unit whose Bool closes the loop after
+    ``GRAPH_PASSES`` passes) -> repeater | end. Returns (workflow,
+    {name: unit}); every run appends (unit, its run count) to
+    ``log_runs``."""
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.accelerated_units import (AcceleratedUnit,
+                                                   AcceleratedWorkflow)
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.mutable import Bool
+    from veles_tpu_torch.plumbing import Repeater
+    from veles_tpu_torch.units import Unit
+
+    class Fill(AcceleratedUnit):
+        def __init__(self, workflow, **kwargs):
+            super().__init__(workflow, **kwargs)
+            self.output = Array()       # the reduce unit links to it
+
+        def initialize(self, device=None, **kwargs):
+            retry = super().initialize(device=device, **kwargs)
+            if retry:
+                return retry
+            self.init_array("output", shape=shape)
+            self.passes = 0
+            return None
+
+        def run(self):
+            self.passes += 1
+            self.output.devmem = prng.get("smoke").uniform(
+                shape, device=self.device.torch_device)
+            log_runs.append((self.name, self.passes))
+
+    class Reduce(AcceleratedUnit):
+        def __init__(self, workflow, **kwargs):
+            super().__init__(workflow, **kwargs)
+            self.demand("input")
+
+        def initialize(self, device=None, **kwargs):
+            retry = super().initialize(device=device, **kwargs)
+            if retry:
+                return retry
+            self.init_array("total", shape=(1,))
+            self.passes = 0
+            return None
+
+        def run(self):
+            self.passes += 1
+            self.total.devmem = self.input.devmem.sum(
+                dtype=torch.float64).reshape(1)
+            log_runs.append((self.name, self.passes))
+
+    done = Bool(False, name="done")
+
+    class Decide(Unit):
+        def __init__(self, workflow, **kwargs):
+            super().__init__(workflow, **kwargs)
+            self.passes = 0
+
+        def run(self):
+            self.passes += 1
+            done.__ilshift__(self.passes % GRAPH_PASSES == 0)
+            log_runs.append((self.name, self.passes))
+
+    class Reset(Unit):
+        def run(self):
+            done.__ilshift__(False)
+
+    wf = AcceleratedWorkflow(None, name="unit-graph")
+    reset = Reset(wf, name="reset")
+    rpt = Repeater(wf)
+    fill = Fill(wf, name="fill")
+    red = Reduce(wf, name="reduce")
+    dec = Decide(wf, name="decide")
+    reset.link_from(wf.start_point)
+    rpt.link_from(reset)
+    fill.link_from(rpt)
+    red.link_from(fill)
+    dec.link_from(red)
+    rpt.link_from(dec)
+    wf.end_point.link_from(dec)
+    rpt.gate_block = done
+    wf.end_point.gate_block = ~done
+    red.link_attrs(fill, ("input", "output"))
+    wf.initialize(device=device)
+    return wf, dict(fill=fill, reduce=red, decide=dec)
+
+
+def unit_graph_phase(torch, counters, dev, card):
+    import zlib
+
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import CudaDevice, Device
+    from veles_tpu_torch.ops import rng as rng_ops
+
+    log("phase 12: a unit-graph workflow on Device(): start -> repeater "
+        "-> fill %s f32 through prng.get('smoke').uniform (K8) -> reduce "
+        "on the card -> decide (%d passes) -> end" % (GRAPH_FILL,
+                                                      GRAPH_PASSES))
+    prng.reset()
+    prng.get("smoke").seed(GRAPH_SEED)
+    device = Device()
+    if not isinstance(device, CudaDevice):
+        raise AssertionError("Device() is %r, not the card" % (device,))
+    log_runs = []
+    wf, units = build_unit_graph(device, GRAPH_FILL, log_runs)
+    counters.reset()
+    t0 = time.monotonic()
+    wf.run()
+    wall = time.monotonic() - t0
+    launches = counters.read()
+    fill, red = units["fill"], units["reduce"]
+    # the last pass's fill against the plain Philox under the stream's
+    # key schedule, on the same card
+    key = rng_ops.fold_in(GRAPH_SEED, zlib.crc32(b"smoke"))
+    plain = rng_ops.uniform_fill(rng_ops.fold_in(key, GRAPH_PASSES),
+                                 GRAPH_FILL, device=dev, impl="plain")
+    got = fill.output.devmem
+    if not torch.equal(got, plain):
+        raise AssertionError("the fill differs from the plain Philox")
+    host = fill.output.map_read()
+    if not np.array_equal(host, got.cpu().numpy()):
+        raise AssertionError("map_read after the device write differs "
+                             "from the device's values")
+    total = float(red.total.map_read()[0])
+    if not np.isclose(total, float(plain.double().sum()), rtol=1e-9) or \
+            abs(total / plain.numel() - 0.5) > 1e-3:
+        raise AssertionError("reduce total %r" % total)
+    if launches["uniform_fill"] != GRAPH_PASSES or \
+            any(v for k, v in launches.items() if k != "uniform_fill"):
+        raise AssertionError("launches %s for %d passes"
+                             % (launches, GRAPH_PASSES))
+    counts = {name: u.run_count_ for name, u in units.items()}
+    # the same graph on the CPU: the same run order and counters
+    cpu_runs = []
+    prng.reset()
+    prng.get("smoke").seed(GRAPH_SEED)
+    cpu_wf, cpu_units = build_unit_graph(Device(backend="cpu"),
+                                         GRAPH_FILL_CPU, cpu_runs)
+    cpu_wf.run()
+    cpu_counts = {name: u.run_count_ for name, u in cpu_units.items()}
+    cpu_wf.thread_pool.shutdown()
+    if cpu_runs != log_runs or cpu_counts != counts:
+        raise AssertionError("run order %s / counters %s on the card, %s / "
+                             "%s on the CPU" % (log_runs, counts, cpu_runs,
+                                                cpu_counts))
+    stats = {name: dict(calls=c, avg_ms=avg * 1e3)
+             for name, _, c, avg in wf.get_unit_run_time_stats()}
+    log("  %d passes in %.3f s; launches %s (uniform_fill 1 a pass); fill "
+        "== plain Philox bitwise; map_read == device; sum %.1f (mean "
+        "%.6f); run order and counters == the CPU run's (%d runs) [%s]"
+        % (GRAPH_PASSES, wall, {k: v for k, v in launches.items() if v},
+           total, total / plain.numel(), len(log_runs), card))
+    log("  unit run times: %s" % ", ".join(
+        "%s %d x %.3f ms" % (n, r["calls"], r["avg_ms"])
+        for n, r in stats.items()))
+    del plain, got
+    return dict(fill_shape=list(GRAPH_FILL), passes=GRAPH_PASSES,
+                wall_s=wall, run_log=log_runs, counters=counts,
+                unit_stats=stats, total=total,
+                cpu_fill_shape=list(GRAPH_FILL_CPU)), launches, \
+        (wf, units, log_runs)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: one card shared by four tenants
+# ---------------------------------------------------------------------------
+
+#: the co-tenancy phase: the train tenant's ``step_many(K)`` windows,
+#: COTENANT_WINDOWS in window A (the first captures the step and is not
+#: timed) and COTENANT_PROFILED_WINDOWS in the profiled window B
+COTENANT_K = 4
+COTENANT_WINDOWS = 16
+COTENANT_PROFILED_WINDOWS = 3
+#: /apply clients: each a thread that sends its own image row once every
+#: APPLY_PERIOD_S (or as soon as the previous answer came, when that was
+#: later), each request with ``deadline_ms``, as raw f32 bytes (no JSON
+#: for the server to parse under the tenants' interpreter lock): a
+#: steady 32 requests/s that does not saturate the apply tenant
+APPLY_CLIENTS = 16
+APPLY_PERIOD_S = 0.5
+APPLY_DEADLINE_MS = 60000
+#: what the clients send in the window with the train and graph tenants
+#: idle: requests per /apply client, staggered /generate runs
+SOLO_APPLY_REQUESTS = 8
+SOLO_GENERATE_RUNS = 3
+#: a p99 is read over this many samples at least; under it, it would be
+#: the maximum, and none is printed
+TAIL_MIN_SAMPLES = 100
+
+
+def latency_stats(ms):
+    """The sample's size, p50, p99 (None under TAIL_MIN_SAMPLES) and
+    maximum."""
+    ms = np.asarray(ms, np.float64)
+    p50, p99 = np.percentile(ms, (50, 99))
+    return dict(n=int(ms.size), p50=float(p50), max=float(ms.max()),
+                p99=float(p99) if ms.size >= TAIL_MIN_SAMPLES else None)
+
+
+def fmt_stats(s):
+    tail = "p99 %.3f" % s["p99"] if s["p99"] is not None else \
+        "p99 not read"
+    return "p50 %.3f, %s, max %.3f ms (n=%d)" % (s["p50"], tail, s["max"],
+                                                 s["n"])
+
+
+def _train_windows(trainer, windows):
+    """``step_many(K)`` over each [K, B, T+1] batch; each window's
+    losses and its wall time (a window ends when its quantum does: on
+    the device, with a tenant)."""
+    losses, walls = [], []
+    for batch in windows:
+        t0 = time.monotonic()
+        out = trainer.step_many(batch)
+        losses.append(out["loss"])
+        walls.append((time.monotonic() - t0) * 1e3)
+    return [float(x) for w in losses for x in w], walls
+
+
+def _image_rows(n, shape):
+    """The /apply clients' rows, one image each: uniform [0, 1) f32, as
+    phase 11's."""
+    rng = np.random.default_rng(12)
+    return [rng.random(tuple(shape), dtype=np.float32) for _ in range(n)]
+
+
+def _generate_client(url, prompts, n_tok, min_runs, go, stop, conn):
+    """Phase 13's serve client, in a process of its own (a deployment's
+    clients are other processes: their JSON work must not take the
+    tenants' interpreter lock): staggered runs of the prompts, one after
+    another, until ``stop`` is set (``min_runs`` at least); sends back
+    each run's tokens per prompt (or the error's repr)."""
+    conn.send("ready")
+    go.wait()
+    runs = []
+    while len(runs) < min_runs or not stop.is_set():
+        out = _staggered_generate(url, prompts, n_tok)
+        runs.append([a if isinstance(a, list) else repr(a) for a in out])
+    conn.send(runs)
+    conn.close()
+
+
+def _apply_client(url, shape, n_clients, min_requests, go, stop, conn):
+    """Phase 13's /apply clients, threads of a process of their own:
+    client j sends image row j every APPLY_PERIOD_S (their phases spread
+    over the period) with ``deadline_ms``, until ``stop`` is set
+    (``min_requests`` at least); sends back ("ok", [(j, output row)], [latency ms]) or ("error",
+    [repr], [latency ms])."""
+    bodies = [r.tobytes() for r in _image_rows(n_clients, shape)]
+    headers = {"Content-Type": "application/octet-stream",
+               "X-Shape": ",".join(str(d) for d in (1,) + tuple(shape)),
+               "X-Deadline-Ms": str(APPLY_DEADLINE_MS)}
+    conn.send("ready")
+    go.wait()
+    answers, ms, errors = [], [], []
+
+    def client(j):
+        n = 0
+        due = time.monotonic() + j * APPLY_PERIOD_S / n_clients
+        try:
+            while n < min_requests or not stop.is_set():
+                time.sleep(max(0.0, due - time.monotonic()))
+                t0 = time.monotonic()
+                req = urllib.request.Request(url, data=bodies[j],
+                                             headers=headers)
+                with urllib.request.urlopen(req, timeout=600) as resp:
+                    got = json.loads(resp.read())["output"]
+                ms.append((time.monotonic() - t0) * 1e3)
+                answers.append((j, np.asarray(got, np.float32)[0]))
+                n += 1
+                due = max(due + APPLY_PERIOD_S, time.monotonic())
+        except BaseException as e:  # noqa: BLE001 — reported by the parent
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(j,))
+               for j in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    conn.send(("error", errors, ms) if errors else ("ok", answers, ms))
+    conn.close()
+
+
+class _RecordingEngine:
+    """The /apply engine as its batcher sees it: each dispatched batch's
+    rows (as the clients' row numbers) and output are kept, to be held
+    against the engine's answer on the same rows outside the scheduler
+    (a batch's composition depends on the timing, its output on the
+    batch's bucket)."""
+
+    def __init__(self, engine, rows):
+        self.engine = engine
+        self.batches = []
+        self._row_of = {r.tobytes(): j for j, r in enumerate(rows)}
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def apply(self, x):
+        out = self.engine.apply(x)
+        self.batches.append(([self._row_of.get(r.tobytes()) for r in x],
+                             out))
+        return out
+
+
+def cotenancy_phase(torch, counters, dev, card, serve, train, apply, graph):
+    from veles_tpu_torch.models.flagship import alexnet_fused
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerTrainer,
+                                                    init_params)
+    from veles_tpu_torch.sched import Scheduler, attach_workflow
+    from veles_tpu_torch.serve import (GenerativeEngine, InferenceEngine,
+                                       ModelRegistry, ServeServer)
+
+    threads_before = set(threading.enumerate())
+    config = TransformerConfig(compute="bfloat16", remat="attn", **FULL)
+    log("phase 13: one card, four tenants of one Scheduler: train "
+        "(TransformerTrainer, phase 5's config, step_many(%d) windows, "
+        "weight 1), serve (slab GenerativeEngine, 8 slots, TokenBatcher "
+        "-> ServeServer(scheduler=), weight 4), apply (alexnet_fused() "
+        "bf16, InferenceEngine -> MicroBatcher, %d clients of raw f32 "
+        "rows with deadline_ms, weight 4), graph (phase 12's workflow "
+        "through attach_workflow, weight 1)" % (COTENANT_K, APPLY_CLIENTS))
+    rng = np.random.default_rng(13)
+    n_windows = COTENANT_WINDOWS + COTENANT_PROFILED_WINDOWS
+    windows = [torch.from_numpy(rng.integers(
+        0, config.vocab, (COTENANT_K, TRAIN_BATCH, config.seq_len + 1))
+        ).to(dev) for _ in range(n_windows)]
+    mem = {}
+
+    # the train tenant's solo run: the same seed and batches, no tenant
+    torch.cuda.reset_peak_memory_stats()
+    solo = TransformerTrainer(config, device=dev, seed=0,
+                              learning_rate=TRAIN_LR)
+    solo_losses, solo_walls = _train_windows(
+        solo, windows[:COTENANT_WINDOWS])
+    torch.cuda.synchronize()
+    mem["train"] = torch.cuda.max_memory_allocated()
+    # the same trainer as the only tenant of a scheduler, over window
+    # B's batches: what waiting for the device at each window's end
+    # costs with no one to share, and the losses window B must give
+    lone = Scheduler(name="lone")
+    solo.sched_tenant = lone.register("train")
+    lone_losses, lone_walls = _train_windows(solo,
+                                             windows[COTENANT_WINDOWS:])
+    lone.stop()
+    del solo
+    torch.cuda.empty_cache()
+
+    sched = Scheduler(name="card")
+    t_train = sched.register("train", weight=1)
+    t_serve = sched.register("serve", weight=4)
+    t_apply = sched.register("apply", weight=4)
+    t_graph = sched.register("graph", weight=1)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    trainer = TransformerTrainer(config, device=dev, seed=0,
+                                 learning_rate=TRAIN_LR)
+    trainer.sched_tenant = t_train
+    mem["train_cotenant_setup"] = torch.cuda.max_memory_allocated() - base
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    serve_config = TransformerConfig(compute="bfloat16", **FULL)
+    lm = GenerativeEngine(serve_config, init_params(serve_config, seed=0),
+                          max_slots=8, device=dev)
+    registry = ModelRegistry()
+    gen_model = registry.add_generative("lm", lm, tenant=t_serve)
+    with t_serve.quantum():                   # its captures
+        lm.warm()
+    mem["serve"] = torch.cuda.max_memory_allocated() - base
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    specs, params, _ = alexnet_fused()
+    alex = InferenceEngine.from_specs(specs, params, device=dev,
+                                      name="alexnet")
+    del params
+    rows = _image_rows(APPLY_CLIENTS, APPLY_SHAPE)
+    recorder = _RecordingEngine(alex, rows)
+    registry.add("alexnet", recorder, max_batch=APPLY_BUCKETS[-1],
+                 max_delay_ms=5, tenant=t_apply)
+    with t_apply.quantum():                   # its captures
+        alex.warmup(APPLY_SHAPE, APPLY_BUCKETS[-1])
+    mem["apply"] = torch.cuda.max_memory_allocated() - base
+
+    wf, units, graph_log = graph
+    attached = attach_workflow(wf, t_graph)
+    if sorted(u.name for u in attached) != ["fill", "reduce"]:
+        raise AssertionError("attached %s" % attached)
+    mem["graph"] = sum(u.output.nbytes for u in attached
+                       if hasattr(u, "output"))
+    server = ServeServer(registry, port=0, timeout=600, scheduler=sched)
+    try:
+        return _cotenancy_windows(
+            torch, counters, card, serve, train, apply, config, sched,
+            server, gen_model, alex, recorder, rows, trainer, windows,
+            solo_losses, solo_walls, lone_losses, lone_walls, mem, wf,
+            graph_log, threads_before)
+    finally:
+        server.stop(drain=False)
+        sched.stop()
+        wf.thread_pool.shutdown()
+
+
+def _cotenancy_windows(torch, counters, card, serve, train, apply, config,
+                       sched, server, gen_model, alex, recorder, rows,
+                       trainer, windows, solo_losses, solo_walls,
+                       lone_losses, lone_walls, mem, wf, graph_log,
+                       threads_before):
+    import torch.profiler as tprof
+    from torch.autograd import DeviceType
+
+    from veles_tpu_torch.serve.batcher import GenMetrics
+
+    base_url = "http://%s:%d" % server.endpoint
+    tok_per_window = COTENANT_K * TRAIN_BATCH * config.seq_len
+    gen_url, apply_url = server.url, base_url + "/apply/alexnet"
+    prompts = serving_prompts(config.vocab)
+    spawn = multiprocessing.get_context("spawn")
+
+    def clients(stop, min_runs, min_requests):
+        """The HTTP clients in processes of their own, ready to go:
+        (go event, [(kind, process, parent end of its pipe)])."""
+        go = spawn.Event()
+        procs = []
+        for kind, target, args in (
+                ("generate", _generate_client,
+                 (gen_url, prompts, 32, min_runs)),
+                ("apply", _apply_client,
+                 (apply_url, APPLY_SHAPE, APPLY_CLIENTS, min_requests))):
+            mine, theirs = spawn.Pipe()
+            proc = spawn.Process(target=target,
+                                 args=args + (go, stop, theirs))
+            proc.start()
+            procs.append((kind, proc, mine))
+        for kind, proc, mine in procs:
+            if not mine.poll(120) or mine.recv() != "ready":
+                raise AssertionError("the %s client did not start" % kind)
+        return go, procs
+
+    def fresh_decode_metrics():
+        gen_model.metrics = gen_model.batcher.metrics = GenMetrics()
+
+    def decode_stats():
+        snap = gen_model.metrics.snapshot()
+        n = snap["decode_steps_total"]
+        return dict(n=n, p50=snap["decode_ms"]["p50"],
+                    p99=snap["decode_ms"]["p99"]
+                    if n >= TAIL_MIN_SAMPLES else None)
+
+    # serve and apply with the train and graph tenants idle: the decode
+    # rounds and /apply latencies the co-tenant ones are read against
+    stop = spawn.Event()
+    stop.set()
+    go, procs = clients(stop, SOLO_GENERATE_RUNS, SOLO_APPLY_REQUESTS)
+    fresh_decode_metrics()
+    go.set()
+    solo = {kind: mine.recv() for kind, _, mine in procs}
+    for _, proc, _ in procs:
+        proc.join(60)
+    if solo["apply"][0] != "ok" or any(
+            run != serve["staggered"] for run in solo["generate"]):
+        raise AssertionError("solo clients: %r" % (solo,))
+    solo_decode = decode_stats()
+    solo_apply = latency_stats(solo["apply"][2])
+    answers = list(solo["apply"][1])
+    fresh_decode_metrics()
+    log("  memory at set-up (max allocated, MB): %s [%s]" % (
+        ", ".join("%s %.0f" % (k, v / 1e6) for k, v in mem.items()), card))
+
+    def window(batches, profiled):
+        out = dict(graph_runs=0, errors=[])
+        done = threading.Event()
+        stop = spawn.Event()
+        go, procs = clients(stop, 1, 1)
+
+        def guard(fn):
+            def run():
+                try:
+                    fn()
+                except BaseException as e:  # noqa: BLE001 — reported
+                    out["errors"].append(repr(e))
+            return run
+
+        def train_loop():
+            try:
+                out["losses"], out["train_walls"] = _train_windows(
+                    trainer, batches)
+            finally:
+                done.set()
+                stop.set()
+
+        def graph_loop():
+            while out["graph_runs"] < 1 or not done.is_set():
+                wf.run()
+                out["graph_runs"] += 1
+
+        snap0 = sched.snapshot()["tenants"]
+        threads = [threading.Thread(target=guard(f)) for f in
+                   (train_loop, graph_loop)]
+        prof = None
+        if profiled:
+            prof = tprof.profile(activities=[tprof.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.monotonic()
+        go.set()
+        for t in threads:
+            t.start()
+        results = {}
+        for kind, proc, mine in procs:
+            results[kind] = mine.recv() if mine.poll(900) else None
+            proc.join(60)
+        for t in threads:
+            t.join(900)
+        torch.cuda.synchronize()
+        out["wall_ms"] = (time.monotonic() - t0) * 1e3
+        out["served"] = results["generate"] or []
+        if not out["served"]:
+            out["errors"].append("the generate client sent nothing back")
+        if results["apply"] is None or results["apply"][0] != "ok":
+            out["errors"].append("apply client: %r" % (results["apply"],))
+            out["apply"], out["apply_ms"] = [], [0.0]
+        else:
+            _, out["apply"], out["apply_ms"] = results["apply"]
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            out["busy_ms"] = sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA) / 1e3
+        snap1 = sched.snapshot()["tenants"]
+        out["tenants"] = {
+            name: dict(quanta=snap1[name]["quanta"] - snap0[name]["quanta"],
+                       device_ms=snap1[name]["device_ms"] -
+                       snap0[name]["device_ms"],
+                       preemptions=snap1[name]["preemptions"] -
+                       snap0[name]["preemptions"])
+            for name in snap1}
+        return out
+
+    # window A: every check, the timings; the launch counters read
+    # around it alone
+    counters.reset()
+    graph_log.clear()
+    a = window(windows[:COTENANT_WINDOWS], False)
+    launches = counters.read()
+    if a["errors"]:
+        raise AssertionError("co-tenant loops failed: %s" % a["errors"])
+    cot_decode = decode_stats()
+    snap_a = sched.snapshot()
+    # window B under torch.profiler: the tenants' leased device-ms
+    # against the card's busy time over the window
+    b = window(windows[COTENANT_WINDOWS:], True)
+    if b["errors"]:
+        raise AssertionError("co-tenant loops failed: %s" % b["errors"])
+    metrics_doc = json.loads(_get(base_url + "/metrics"))
+    prom = _get(base_url + "/metrics?format=prometheus")
+    server.stop()
+    sched.stop()
+    wf.thread_pool.shutdown()
+    # the HTTP handler threads end with their connections: give them a
+    # moment, then every thread this phase started must be gone
+    deadline = time.monotonic() + 10
+    while True:
+        leaked = [t for t in set(threading.enumerate()) - threads_before
+                  if t.is_alive()]
+        if not leaked or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+
+    # -- checks ----------------------------------------------------------
+    for what, got, want in (("A", a["losses"], solo_losses),
+                            ("B", b["losses"], lone_losses)):
+        if got != want:
+            raise AssertionError("window %s: co-tenant LM losses %s != "
+                                 "solo %s" % (what, got, want))
+    for what, runs in (("A", a["served"]), ("B", b["served"])):
+        for run in runs:
+            if run != serve["staggered"]:
+                raise AssertionError("window %s greedy tokens %r != phase "
+                                     "3's %r" % (what, run,
+                                                 serve["staggered"]))
+    # each dispatched /apply batch against the engine on the same rows,
+    # outside the scheduler; each answer is one of its row's outputs
+    outputs = {}
+    for idx, out in recorder.batches:
+        if None in idx or not np.array_equal(
+                out, alex.apply(np.stack([rows[j] for j in idx]))):
+            raise AssertionError("an /apply batch (rows %s) differs from "
+                                 "the unscheduled engine's" % (idx,))
+        for j, row in zip(idx, out):
+            outputs.setdefault(j, []).append(row)
+    answers += a["apply"] + b["apply"]
+    if sum(len(idx) for idx, _ in recorder.batches) != len(answers):
+        raise AssertionError("%d /apply answers for %d dispatched rows" % (
+            len(answers), sum(len(idx) for idx, _ in recorder.batches)))
+    for j, got in answers:
+        if not any(np.array_equal(got, row) for row in outputs[j]):
+            raise AssertionError("/apply client %d got a row no batch "
+                                 "gave" % j)
+    for name in ("train", "serve", "apply", "graph"):
+        if not a["tenants"][name]["quanta"]:
+            raise AssertionError("tenant %s got no quanta: %s"
+                                 % (name, a["tenants"]))
+    want_graph = 2 * GRAPH_PASSES * a["graph_runs"]
+    if a["tenants"]["graph"]["quanta"] != want_graph or \
+            launches["uniform_fill"] != GRAPH_PASSES * a["graph_runs"]:
+        raise AssertionError("graph tenant: %d quanta, %d fills for %d runs"
+                             % (a["tenants"]["graph"]["quanta"],
+                                launches["uniform_fill"], a["graph_runs"]))
+    if a["tenants"]["train"]["quanta"] != COTENANT_WINDOWS:
+        raise AssertionError("train tenant quanta %s"
+                             % a["tenants"]["train"])
+    if leaked:
+        raise AssertionError("threads still running after Scheduler.stop()"
+                             ": %s" % [t.name for t in leaked])
+    if "veles_sched_quanta_total" not in prom or \
+            set(metrics_doc["_scheduler"]["tenants"]) != {
+                "train", "serve", "apply", "graph"}:
+        raise AssertionError("/metrics lacks the scheduler")
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                 "flash_decode", "lrn_fwd", "uniform_fill"):
+        if not launches.get(name):
+            raise AssertionError("%s not launched in the co-tenancy window"
+                                 % name)
+
+    # -- numbers ---------------------------------------------------------
+    # the first window of each run captures the step: not timed
+    solo_timed, cot_timed = solo_walls[1:], a["train_walls"][1:]
+    solo_tps = tok_per_window * 1e3 / float(np.mean(solo_timed))
+    cot_tps = tok_per_window * 1e3 / float(np.mean(cot_timed))
+    phase3_decode = serve["http"]["metrics"]["decode_ms"]
+    cot_apply = latency_stats(a["apply_ms"])
+    leased_b = sum(t["device_ms"] for t in b["tenants"].values())
+    accounting = dict(window_ms=b["wall_ms"], leased_ms=leased_b,
+                      busy_ms=b.get("busy_ms"),
+                      busy_over_leased=b.get("busy_ms", 0) / leased_b,
+                      busy_share=b.get("busy_ms", 0) / b["wall_ms"],
+                      tenants=b["tenants"])
+    leased_a = sum(t["device_ms"] for t in a["tenants"].values())
+    tenants = {}
+    for name, row in snap_a["tenants"].items():
+        wait = dict(row["queue_wait_ms"], n=row["quanta"])
+        if row["quanta"] < TAIL_MIN_SAMPLES:
+            wait["p99"] = None
+        tenants[name] = dict(a["tenants"][name],
+                             share=a["tenants"][name]["device_ms"] /
+                             leased_a, queue_wait_ms=wait, snapshot=row)
+    for name, row in tenants.items():
+        wait = row["queue_wait_ms"]
+        log("  tenant %s, window A: %d quanta, %.1f device-ms (leased), "
+            "share %.3f, %d preemptions; since set-up: %d quanta, %.1f "
+            "device-ms, wait p50 %.3f ms, %s" % (
+                name, row["quanta"], row["device_ms"], row["share"],
+                row["preemptions"], row["snapshot"]["quanta"],
+                row["snapshot"]["device_ms"], wait["p50"],
+                "p99 %.3f ms" % wait["p99"] if wait["p99"] is not None
+                else "p99 not read (n=%d)" % wait["n"]))
+    log("  LM: %.1f tokens/s co-tenant (%d timed windows, %.1f-%.1f ms) "
+        "against %.1f solo here (%.1f-%.1f ms) and %.1f in phase 5: "
+        "%.3fx; losses == the solo run's bitwise in windows A and B; a "
+        "window free-running %.1f ms, as a lone tenant %.1f ms [%s]" % (
+            cot_tps, len(cot_timed), min(cot_timed), max(cot_timed),
+            solo_tps, min(solo_timed), max(solo_timed),
+            train["tokens_per_s"], cot_tps / solo_tps,
+            float(np.mean(solo_timed)), float(np.mean(lone_walls)), card))
+    log("  decode round (batcher, wait included) co-tenant p50 %.3f, %s "
+        "(n=%d) against p50 %.3f, %s (n=%d) alone on this server (phase "
+        "3: %.3f / %.3f); greedy tokens == phase 3's (staggered) in all "
+        "%d + %d + %d runs" % (
+            cot_decode["p50"], "p99 %.3f ms" % cot_decode["p99"]
+            if cot_decode["p99"] is not None else "p99 not read",
+            cot_decode["n"], solo_decode["p50"],
+            "p99 %.3f ms" % solo_decode["p99"]
+            if solo_decode["p99"] is not None else "p99 not read",
+            solo_decode["n"], phase3_decode["p50"], phase3_decode["p99"],
+            len(solo["generate"]), len(a["served"]), len(b["served"])))
+    log("  /apply request (%d clients, one row each) co-tenant %s against "
+        "%s alone on this server and %.3f ms for bucket 1 in phase 11; "
+        "%d batches == the unscheduled engine's bitwise" % (
+            APPLY_CLIENTS, fmt_stats(cot_apply), fmt_stats(solo_apply),
+            apply["per_bucket"][1]["captured_ms"]["p50"],
+            len(recorder.batches)))
+    log("  graph tenant: %d runs of %d passes, %d quanta" % (
+        a["graph_runs"], GRAPH_PASSES, a["tenants"]["graph"]["quanta"]))
+    log("  profiled window: %.1f ms wall, tenants' leased device-ms %.1f, "
+        "card busy %.1f ms (busy / leased %.3f, busy share %.3f) [%s]" % (
+            accounting["window_ms"], leased_b, accounting["busy_ms"] or 0,
+            accounting["busy_over_leased"], accounting["busy_share"], card))
+    log("  launches in window A: %s; Scheduler.stop() left no thread "
+        "running" % {k: v for k, v in launches.items() if v})
+    return dict(tenants=tenants, memory_bytes=mem,
+                lm=dict(tokens_per_s=cot_tps, solo_tokens_per_s=solo_tps,
+                        ratio=cot_tps / solo_tps,
+                        phase5_tokens_per_s=train["tokens_per_s"],
+                        window_ms=a["train_walls"],
+                        solo_window_ms=solo_walls,
+                        lone_tenant_window_ms=lone_walls,
+                        losses=a["losses"] + b["losses"]),
+                decode=dict(cotenant=cot_decode, alone=solo_decode,
+                            phase3=phase3_decode),
+                apply=dict(cotenant=cot_apply, alone=solo_apply,
+                           clients=APPLY_CLIENTS,
+                           batches=len(recorder.batches),
+                           phase11_bucket1_p50_ms=apply["per_bucket"][1][
+                               "captured_ms"]["p50"]),
+                graph_runs=a["graph_runs"], window_a_ms=a["wall_ms"],
+                accounting=accounting), launches
+
+
 class Counters:
     """Every kernel's launch counter, read and reset together."""
 
@@ -2437,12 +3247,18 @@ def main():
                                                        card)
     classifier_parity = classifier_parity_phase(torch, dev)
     apply, apply_launches = apply_phase(torch, counters, dev, card)
+    graph, graph_launches, graph_objs = unit_graph_phase(torch, counters,
+                                                         dev, card)
+    cotenancy, cotenancy_launches = cotenancy_phase(
+        torch, counters, dev, card, serve, train, apply, graph_objs)
 
     # each main path's launches, counted from 0 around that path alone
     by_path = {"serving": serve_launches, "training": train_launches,
                "paged serving": paged_launches,
                "classifier training": classifier_launches,
-               "apply serving": apply_launches}
+               "apply serving": apply_launches,
+               "unit graph": graph_launches,
+               "co-tenancy": cotenancy_launches}
     kernels = []
     for name, row in rows.items():
         paths = {p: n.get(name, 0) for p, n in by_path.items()
@@ -2462,6 +3278,7 @@ def main():
                   paged_serving=paged, paged_parity=paged_parity,
                   classifier=classifier,
                   classifier_parity=classifier_parity, apply=apply,
+                  unit_graph=graph, cotenancy=cotenancy,
                   wall_s=time.monotonic() - t_start)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:
@@ -2475,4 +3292,15 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        RC = main()
+    except BaseException:  # noqa: BLE001 — any failed phase fails the run
+        # a phase that raised may leave service threads (an HTTP
+        # listener, a batcher's dispatch loop, a tenant's loop) running:
+        # exit now, non-zero, instead of waiting on them
+        import traceback
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    sys.exit(RC)

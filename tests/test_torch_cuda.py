@@ -981,3 +981,170 @@ def test_step_graph_counts_launches_under_replay(cuda):
     assert lrn.LAUNCHES["lrn_fwd"] == StepGraph.WARMUP + 5
     assert torch.equal(o, fa.flash_decode_cuda(q, kc, kc, lengths))
     assert torch.equal(y, lrn.lrn_fwd_cuda(x, 2.0, 5, 1e-4, 0.75))
+
+
+# -- scheduler tenancy on the card --------------------------------------------
+
+def _tenancy_lm():
+    return _graph_lm(embed=1024, heads=8, layers=8, seq_len=1024)
+
+
+def test_quantum_release_waits_for_the_device(cuda, monkeypatch):
+    """A serve quantum granted right after a train quantum that ran a
+    ``step_many(4)``: the lease ends only once the training window is
+    done on the device, so the serve quantum's wall time holds its own
+    work, not the window (which it does hold when the wait is taken
+    out), and the train tenant's device-ms covers the window."""
+    import threading
+    import time
+
+    from veles_tpu_torch.models.transformer import TransformerTrainer
+    from veles_tpu_torch.sched import Scheduler
+    from veles_tpu_torch.sched import scheduler as sched_mod
+
+    trainer = TransformerTrainer(_tenancy_lm(), device=cuda, seed=0)
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, 256, (4, 8, 1025))).to(cuda)
+    trainer.step_many(tokens)                    # capture + warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.step_many(tokens)
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) * 1000.0
+    x = torch.randn(256, 256, device=cuda)
+
+    def one_run():
+        sched = Scheduler()
+        train = sched.register("train")
+        serve = sched.register("serve", weight=4)
+        trainer.sched_tenant = train
+        out = {}
+
+        def serve_one():
+            float((x @ x)[0, 0])                 # this thread's handle
+            out["ready"] = True
+            with serve.quantum() as lease:
+                float((x @ x)[0, 0])
+                out["ms"] = (time.monotonic() - lease.acquired_at) * 1e3
+
+        th = threading.Thread(target=serve_one)
+        with train.quantum():
+            th.start()
+            while not serve.waiting:
+                time.sleep(0.0005)
+            trainer.step_many(tokens)            # a nested quantum
+        th.join(timeout=60)
+        snap = sched.snapshot()["tenants"]
+        sched.stop()
+        trainer.sched_tenant = None
+        return out["ms"], snap["train"]["device_ms"]
+
+    serve_ms, train_ms = one_run()
+    assert window_ms > 10.0, window_ms
+    assert serve_ms < 0.25 * window_ms, (serve_ms, window_ms)
+    assert train_ms > 0.8 * window_ms, (train_ms, window_ms)
+    monkeypatch.setattr(sched_mod, "_wait_for_device", lambda: None)
+    serve_ms, _ = one_run()
+    assert serve_ms > 0.5 * window_ms, (serve_ms, window_ms)
+
+
+def test_lm_capture_inside_a_quantum_while_another_tenant_replays(cuda):
+    """The LM trainer captures its step inside its quantum while a
+    serve tenant replays its captured decode rounds between the
+    trainer's quanta: the trainer's losses and parameters equal a solo
+    run's bitwise, and the served tokens equal a solo engine's (f32:
+    the batches around a sequence change with the clients' timing, and
+    bf16 greedy tokens may differ across prefill batch shapes)."""
+    import threading
+
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerTrainer,
+                                                    _tree_leaves,
+                                                    init_params)
+    from veles_tpu_torch.sched import Scheduler
+    from veles_tpu_torch.serve import GenerativeEngine, TokenBatcher
+
+    cfg = TransformerConfig(compute="float32", ce_chunk=64, **GRAPH_LM)
+    rng = np.random.default_rng(9)
+    tokens = torch.from_numpy(rng.integers(0, 256, (5, 2, 257))).to(cuda)
+    prompts = _lm_prompts(4, (5, 33, 70, 12))
+
+    def train(tenant):
+        trainer = TransformerTrainer(cfg, device=cuda, seed=3,
+                                     learning_rate=1e-3)
+        trainer.sched_tenant = tenant
+        losses = [trainer.step(tokens[i])["loss"] for i in range(3)]
+        losses = torch.cat([torch.stack(losses),
+                            trainer.step_many(tokens[1:])["loss"]])
+        return (losses, [p.detach().clone()
+                         for p in _tree_leaves(trainer.params)],
+                len(trainer._graphs))
+
+    params = init_params(cfg, seed=1)
+    solo_engine = GenerativeEngine(cfg, params, max_slots=4, device=cuda)
+    solo_tokens = [g.tolist() for g in solo_engine.generate(prompts, 40)]
+    solo = train(None)
+
+    sched = Scheduler()
+    train_tenant = sched.register("train", weight=1)
+    serve_tenant = sched.register("serve", weight=4)
+    engine = GenerativeEngine(cfg, params, max_slots=4, device=cuda)
+    batcher = TokenBatcher(engine, tenant=serve_tenant)
+    with serve_tenant.quantum():                 # its captures
+        engine.warm()
+    served = []
+    stop = threading.Event()
+
+    def client(i):
+        while not stop.is_set():
+            served.append((i, batcher.submit(prompts[i], max_tokens=40,
+                                             timeout=300).tolist()))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    try:
+        while serve_tenant.quanta < 8:           # replays under way
+            stop.wait(0.001)
+        got = train(train_tenant)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+        batcher.stop()
+    snap = sched.snapshot()["tenants"]
+    sched.stop()
+    assert got[2] == solo[2] == 1
+    assert torch.equal(got[0], solo[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], solo[1]))
+    assert len(served) >= len(prompts)
+    assert all(toks == solo_tokens[i] for i, toks in served)
+    assert snap["train"]["quanta"] == 4 and snap["serve"]["quanta"] > 8
+
+
+def test_prng_uniform_launches_k8_and_equals_plain_philox(cuda):
+    """``prng`` device fills on the card go through K8: one launch per
+    ``uniform``, bitwise the plain Philox under the stream's key at the
+    unit-graph phase's [8192, 4096]; ``bernoulli`` is one fill,
+    ``normal`` two."""
+    import zlib
+
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.ops import rng as rng_ops
+
+    stream = prng.RandomGenerator("smoke", seed=11)
+    key = rng_ops.fold_in(11, zlib.crc32(b"smoke"))
+    rng_ops.reset_launches()
+    got = stream.uniform((8192, 4096), device=cuda)
+    assert rng_ops.LAUNCHES["uniform_fill"] == 1
+    want = rng_ops.uniform_fill(rng_ops.fold_in(key, 1), (8192, 4096),
+                                device=cuda, impl="plain")
+    assert torch.equal(got, want)
+    mask = stream.bernoulli((1536, 4096), p=0.5, device=cuda)
+    z = stream.normal((1 << 20,), device=cuda)
+    assert rng_ops.LAUNCHES["uniform_fill"] == 4
+    assert torch.equal(mask.cpu(), rng_ops.uniform_fill(
+        rng_ops.fold_in(key, 2), (1536, 4096), device="cpu") < 0.5)
+    assert bool(torch.isfinite(z).all())
+    assert abs(float(z.mean())) < 5e-3 and abs(float(z.std()) - 1) < 5e-3

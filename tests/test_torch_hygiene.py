@@ -36,7 +36,11 @@ def test_import_closure_has_no_jax_and_no_veles_tpu():
     component: ``veles_tpu_torch`` starts with ``veles_tpu``)."""
     modules = _port_modules()
     for name in ("serve.engine", "parallel.fused", "models.flagship",
-                 "nn.conv", "nn.lrn", "nn.pooling", "ops.lrn", "ops.rng"):
+                 "nn.conv", "nn.lrn", "nn.pooling", "ops.lrn", "ops.rng",
+                 "sched", "sched.scheduler", "analysis", "analysis.graph",
+                 "units", "plumbing", "workflow", "config", "mutable",
+                 "distributable", "backends", "memory",
+                 "accelerated_units", "prng", "thread_pool", "logger"):
         assert "veles_tpu_torch." + name in modules
     script = (
         "import importlib, json, sys\n"
@@ -98,6 +102,16 @@ def test_no_silent_cpu_fallback(monkeypatch):
         FusedClassifierTrainer(*flagship_specs((4, 2), in_dim=3))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         uniform_fill(0, (4,))
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+    from veles_tpu_torch.backends import Device
+    with pytest.raises(RuntimeError, match="backend='cpu'"):
+        Device()
+    with pytest.raises(RuntimeError, match="backend='cpu'"):
+        AcceleratedWorkflow(None, name="wf").initialize()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prng.RandomGenerator("x", seed=0).uniform((4,))
+    assert Device(backend="cpu").torch_device == torch.device("cpu")
     engine = GenerativeEngine(config, params, max_slots=1, device="cpu")
     assert engine.device == torch.device("cpu")
     assert engine.generate([np.asarray([1, 2], np.int32)], 2)[0].size == 2

@@ -414,6 +414,42 @@ def test_http_apply_serves_the_engine_like_the_reference():
         server.stop(drain=False)
 
 
+def test_http_apply_takes_raw_rows():
+    """An ``application/octet-stream`` body (the rows' f32 bytes, their
+    shape in ``X-Shape``, the deadline in ``X-Deadline-Ms``) is answered
+    bitwise as its JSON twin; 400 without a shape or with bytes that do
+    not fill it."""
+    engine = InferenceEngine.from_specs([("fc", "tanh"), ("fc", "softmax")],
+                                        _mlp_params(1), device="cpu")
+    registry = ModelRegistry()
+    registry.add("mlp", engine, max_delay_ms=1)
+    server = ServeServer(registry, port=0)
+    url = "http://%s:%d/apply" % server.endpoint
+    x = np.random.default_rng(4).random((3, 6), dtype=np.float32)
+
+    def post_raw(body, headers):
+        req = urllib.request.Request(url, data=body, headers=dict(
+            headers, **{"Content-Type": "application/octet-stream"}))
+        try:
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                return resp.status, json.load(resp)
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+
+    try:
+        code, doc = post_raw(x.tobytes(), {"X-Shape": "3,6",
+                                           "X-Deadline-Ms": "30000"})
+        assert code == 200
+        want = _post(url, {"input": x.tolist()})[1]["output"]
+        assert np.array_equal(np.asarray(doc["output"], np.float32),
+                              np.asarray(want, np.float32))
+        assert post_raw(x.tobytes(), {})[0] == 400
+        assert post_raw(x.tobytes()[:-4], {"X-Shape": "3,6"})[0] == 400
+        assert post_raw(x.tobytes(), {"X-Shape": "3,x"})[0] == 400
+    finally:
+        server.stop(drain=False)
+
+
 def test_http_apply_poison_deadline_and_drain():
     """422 for this request's poisoned row (its clean co-row served),
     500 for a lone failing row, 504 for a deadline that passes while

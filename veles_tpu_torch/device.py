@@ -24,8 +24,9 @@ def resolve(device: Optional[Union[str, torch.device]] = None
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch path on the CPU")
+            "no CUDA device is available; pass device='cpu' (a "
+            "workflow: Device(backend='cpu')) to run the plain PyTorch "
+            "path on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
 
 

@@ -29,8 +29,9 @@ device :class:`TransformerTrainer` captures its train step into a CUDA
 graph (``veles_tpu_torch.graphs``) and replays it, once per step.
 
 Training is single-device: the reference's mesh paths (sequence ring,
-expert sharding), its scheduler tenancy and AOT dispatch are queued in
-ROADMAP.md.
+expert sharding) and AOT dispatch are queued in ROADMAP.md. A trainer
+whose ``sched_tenant`` is set runs each ``step``/``step_many`` as one
+quantum of a shared device (``veles_tpu_torch.sched``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from veles_tpu_torch.config import get, root
 from veles_tpu_torch.device import compute_dtype as _compute_dtype
 from veles_tpu_torch.device import resolve
 from veles_tpu_torch.graphs import StepGraph, use_graphs
@@ -52,6 +54,7 @@ from veles_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_decode_paged,
                                                  flash_verify_paged)
 from veles_tpu_torch.parallel.fused import NonFiniteSentinel, update_ok
+from veles_tpu_torch.sched import quantum_or_null
 
 
 @dataclass(frozen=True)
@@ -736,9 +739,8 @@ class TransformerTrainer:
 
     ``nan_policy`` is "warn" (count on the device, log 4 dispatches
     late), "skip" (a non-finite step leaves params and m/v bitwise
-    intact, decided on the device) or "raise" (sync and raise). The
-    reference reads its default from ``veles_tpu.config``; the port has
-    no config system yet, so the default is the literal "warn".
+    intact, decided on the device) or "raise" (sync and raise); None
+    reads ``root.common.train.nan_policy`` (default "warn").
 
     ``cuda_graphs`` (None = on a CUDA device): the step is captured
     into one CUDA graph per token-batch shape at its first call, and
@@ -747,14 +749,22 @@ class TransformerTrainer:
     are f32 device scalars that the graph reads (the eager step reads
     the same), so captured and eager steps compute the same numbers.
     A capture that fails raises; ``cuda_graphs=False`` runs eagerly.
+
+    ``sched_tenant`` (a ``TenantHandle``, None = free-running): every
+    ``step``/``step_many`` dispatch, a captured step's first capture
+    included, runs as ONE scheduler quantum; leases are revocable only
+    between quanta, so the trajectory stays bitwise that of an
+    unscheduled run.
     """
 
     def __init__(self, config: TransformerConfig, device=None,
                  learning_rate: float = 3e-4, seed: int = 0,
                  steps_per_dispatch: int = 1,
-                 nan_policy: str = "warn",
+                 nan_policy: Optional[str] = None,
                  cuda_graphs: Optional[bool] = None) -> None:
         self.device = resolve(device)
+        if nan_policy is None:
+            nan_policy = get(root.common.train.nan_policy, "warn")
         self.config = config
         self._graphs_on = use_graphs(cuda_graphs, self.device)
         if steps_per_dispatch < 1:
@@ -767,6 +777,10 @@ class TransformerTrainer:
         self._sentinel = NonFiniteSentinel(nan_policy,
                                            "TransformerTrainer")
         self.nan_policy = nan_policy
+        #: multi-tenant device sharing (veles_tpu_torch.sched): when set
+        #: to a TenantHandle, every step/step_many dispatch runs as ONE
+        #: scheduler quantum
+        self.sched_tenant = None
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
         self._step = torch.zeros((), dtype=torch.float32,
                                  device=self.device)
@@ -865,6 +879,11 @@ class TransformerTrainer:
             self._graphs[tuple(tokens.shape)] = graph
         return graph.replay(tokens)
 
+    def _quantum(self):
+        """One scheduler quantum when this trainer is a tenant of a
+        shared device; free-running otherwise."""
+        return quantum_or_null(self.sched_tenant)
+
     # -- non-finite sentinel ------------------------------------------------
     @property
     def nonfinite_count(self) -> int:
@@ -876,8 +895,9 @@ class TransformerTrainer:
         """tokens [B, T+1] int (inputs + shifted targets). Returns
         ``{"loss", "nonfinite"}`` as device tensors."""
         self._step_count += 1
-        loss, nonfinite = (x.clone() for x in
-                           self._run_step(self._tokens(tokens)))
+        tokens = self._tokens(tokens)
+        with self._quantum():
+            loss, nonfinite = (x.clone() for x in self._run_step(tokens))
         self._sentinel.note(nonfinite)
         obs_profile.on_step()
         return {"loss": loss, "nonfinite": nonfinite}
@@ -894,10 +914,11 @@ class TransformerTrainer:
         k = int(tokens_k.shape[0])
         losses = torch.empty(k, dtype=torch.float32, device=self.device)
         flags = torch.empty(k, dtype=torch.int32, device=self.device)
-        for i in range(k):
-            loss, nonfinite = self._run_step(tokens_k[i])
-            losses[i] = loss
-            flags[i] = nonfinite
+        with self._quantum():
+            for i in range(k):
+                loss, nonfinite = self._run_step(tokens_k[i])
+                losses[i] = loss
+                flags[i] = nonfinite
         self._step_count += k
         self._sentinel.note(flags)
         obs_profile.on_step(k)

@@ -2,12 +2,13 @@
 weights.
 
 Port of ``conv_raw`` and ``conv_s2d_raw`` from ``veles_tpu/nn/conv.py``
-(the ``Conv`` unit classes wait for the unit-graph slice). The product
-itself is ``torch.nn.functional.conv2d`` (cuDNN on the card), as the
-reference leaves it to XLA: the NHWC tensor enters as its NCHW view,
-which is channels-last in memory, and the weights are cast and laid
-out channels-last in one copy, so cuDNN reads both without a further
-transpose and its output comes back as a contiguous NHWC tensor.
+(the ``Conv`` unit classes wait for the ``nn/`` units, ROADMAP.md
+queue 1 item 5). The product itself is ``torch.nn.functional.conv2d``
+(cuDNN on the card), as the reference leaves it to XLA: the NHWC
+tensor enters as its NCHW view, which is channels-last in memory, and
+the weights are cast and laid out channels-last in one copy, so cuDNN
+reads both without a further transpose and its output comes back as a
+contiguous NHWC tensor.
 Autograd flows through the views, so the weight gradient lands in the
 HWIO layout.
 """

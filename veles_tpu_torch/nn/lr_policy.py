@@ -1,8 +1,8 @@
 """Learning-rate schedules.
 
 Port of ``veles_tpu/nn/lr_policy.py`` trimmed to the policies and
-:func:`make_policy`; the ``LRScheduler`` unit waits for the unit-graph
-slice. A policy is a pure function ``lr = policy(base_lr, epoch,
+:func:`make_policy`; the ``LRScheduler`` unit waits for the ``nn/``
+units (ROADMAP.md queue 1 item 5). A policy is a pure function ``lr = policy(base_lr, epoch,
 step)``; the fused trainer calls it on the host once per step.
 """
 

@@ -1,7 +1,7 @@
 """Local response normalization (cross-channel), AlexNet-style.
 
 Port of ``lrn_raw`` from ``veles_tpu/nn/lrn.py`` (the unit classes wait
-for the unit-graph slice). Caffe semantics: ``y = x / (k + alpha/n *
+for the ``nn/`` units, ROADMAP.md queue 1 item 5). Caffe semantics: ``y = x / (k + alpha/n *
 sum_window(x^2))^beta`` over the last (channel) axis. :func:`lrn_raw`
 is one ``torch.autograd.Function`` that saves only ``x``, as the
 reference's ``custom_vjp`` does; the backward recomputes the window

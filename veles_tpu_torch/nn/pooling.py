@@ -1,7 +1,7 @@
 """Pooling (max / average) over NHWC windows, VALID.
 
 Port of ``pool_raw`` from ``veles_tpu/nn/pooling.py`` (the unit classes
-wait for the unit-graph slice). The windows run through
+wait for the ``nn/`` units, ROADMAP.md queue 1 item 5). The windows run through
 ``torch.nn.functional.max_pool2d`` / ``avg_pool2d`` on the NCHW view of
 the NHWC tensor (channels-last in memory). The max pool's backward
 routes each window's cotangent to the window's first maximum in

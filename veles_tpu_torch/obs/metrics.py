@@ -8,7 +8,7 @@ metric so each family's lines stay contiguous. The process-wide
 device-memory reading) that every ``/metrics`` exposition appends.
 The JSON snapshot keys of the engine and batcher are the contract;
 the text is derived from them (:func:`serve_samples`,
-:func:`gen_samples`).
+:func:`gen_samples`, :func:`sched_samples`).
 """
 
 from __future__ import annotations
@@ -205,6 +205,28 @@ def gen_samples(model: str, snap: Dict[str, Any]) -> List[Sample]:
         if counter in snap:
             out.append(Sample("veles_gen_%s" % counter, "counter",
                               snap[counter], label))
+    return out
+
+
+def sched_samples(snap: Dict[str, Any]) -> List[Sample]:
+    """``Scheduler.snapshot()`` -> the ``veles_sched_*`` series."""
+    out: List[Sample] = []
+    tenants = snap.get("tenants") or {}
+    for metric, kind, key in (
+            ("quanta_total", "counter", "quanta"),
+            ("device_ms_total", "counter", "device_ms"),
+            ("share", "gauge", "share"),
+            ("weight", "gauge", "weight"),
+            ("preemptions_total", "counter", "preemptions")):
+        for name, t in tenants.items():
+            out.append(Sample("veles_sched_%s" % metric, kind,
+                              t[key], (("tenant", name),)))
+    for name, t in tenants.items():
+        for q, key in (("0.5", "p50"), ("0.99", "p99")):
+            out.append(Sample(
+                "veles_sched_queue_wait_ms", "summary",
+                t["queue_wait_ms"][key],
+                (("tenant", name), ("quantile", q))))
     return out
 
 

@@ -27,8 +27,10 @@ not JAX's (the reference's own masks already differ between its
 threefry and TPU rbg generators); at dropout ratio 0 both sides are
 the identity.
 
-The reference's mesh and tensor-parallel placement, ``shard_*``, AOT
-dispatch, scheduler tenancy, ``make_loader_step``,
+A trainer whose ``sched_tenant`` is set runs each ``step``/``step_many``
+as one quantum of a shared device (``veles_tpu_torch.sched``). The
+reference's mesh and tensor-parallel placement, ``shard_*``, AOT
+dispatch, ``make_loader_step`` (with its loader steps),
 ``fuse_forwards`` and ``train_fused`` are queued in ROADMAP.md.
 """
 
@@ -41,6 +43,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from veles_tpu_torch.config import get, root
 from veles_tpu_torch.device import compute_dtype as _dtype_of
 from veles_tpu_torch.device import resolve
 from veles_tpu_torch.nn.activation import ACTIVATIONS
@@ -51,6 +54,7 @@ from veles_tpu_torch.nn.pooling import pool_raw
 from veles_tpu_torch.obs import profile as obs_profile
 from veles_tpu_torch.ops import _build
 from veles_tpu_torch.ops.rng import fold_in, uniform_fill
+from veles_tpu_torch.sched import quantum_or_null
 
 
 def update_ok(loss: torch.Tensor, grads: Iterable[torch.Tensor]
@@ -303,16 +307,23 @@ class FusedClassifierTrainer:
     plain PyTorch versions, on any device), or None = the kernels on a
     CUDA device; on the CPU, None runs the reference's lax LRN
     formulation (``nn.lrn``). ``nan_policy`` as in
-    :class:`NonFiniteSentinel`; the reference reads its default from
-    its config system, the port's default is the literal "warn".
+    :class:`NonFiniteSentinel`; None reads
+    ``root.common.train.nan_policy`` (default "warn").
+
+    ``sched_tenant`` (a ``TenantHandle``, None = free-running): every
+    ``step``/``step_many`` dispatch runs as ONE scheduler quantum, with
+    the same counters, dropout keys and learning-rate stream, so the
+    trajectory stays bitwise that of an unscheduled run.
     """
 
     def __init__(self, specs: Sequence[Any], params: List[Dict[str, Any]],
                  learning_rate: float = 0.1, weight_decay: float = 0.0,
                  momentum: float = 0.9, lr_policy=None, compute_dtype=None,
-                 dropout_seed: int = 0, nan_policy: str = "warn",
+                 dropout_seed: int = 0, nan_policy: Optional[str] = None,
                  kernel_impl: Optional[str] = None, device=None) -> None:
         self.device = resolve(device)
+        if nan_policy is None:
+            nan_policy = get(root.common.train.nan_policy, "warn")
         if kernel_impl is not None:
             _build.resolve_impl(kernel_impl, self.device, "kernel_impl")
         self.kernel_impl = kernel_impl
@@ -335,6 +346,10 @@ class FusedClassifierTrainer:
         self._sentinel = NonFiniteSentinel(nan_policy,
                                            "FusedClassifierTrainer")
         self.nan_policy = nan_policy
+        #: multi-tenant device sharing (veles_tpu_torch.sched): when set
+        #: to a TenantHandle, every step/step_many dispatch runs as ONE
+        #: scheduler quantum
+        self.sched_tenant = None
         self.load_state(params)
 
     def load_state(self, params: List[Dict[str, Any]],
@@ -375,6 +390,11 @@ class FusedClassifierTrainer:
         return self._sentinel.count
 
     # -- the hot path ------------------------------------------------------
+    def _quantum(self):
+        """One scheduler quantum when this trainer is a tenant of a
+        shared device; free-running otherwise."""
+        return quantum_or_null(self.sched_tenant)
+
     def _x(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
@@ -396,12 +416,14 @@ class FusedClassifierTrainer:
         "n_err", "nonfinite"}`` as 0-d device tensors."""
         self._step_counter += 1
         key = fold_in(self.dropout_seed, self._step_counter)
-        loss, n_err, nonfinite = _train_step(
-            self.specs, self.params, self.velocity, self._x(x),
-            self._labels(labels), key, self._lr(self._step_counter),
-            float(self.weight_decay), float(self.momentum),
-            self.compute_dtype, self.nan_policy == "skip",
-            self.kernel_impl)
+        x, labels = self._x(x), self._labels(labels)
+        lr = self._lr(self._step_counter)
+        with self._quantum():
+            loss, n_err, nonfinite = _train_step(
+                self.specs, self.params, self.velocity, x, labels, key,
+                lr, float(self.weight_decay), float(self.momentum),
+                self.compute_dtype, self.nan_policy == "skip",
+                self.kernel_impl)
         self._sentinel.note(nonfinite)
         obs_profile.on_step()
         return {"loss": loss, "n_err": n_err, "nonfinite": nonfinite}
@@ -419,12 +441,14 @@ class FusedClassifierTrainer:
         counters = list(range(self._step_counter + 1,
                               self._step_counter + k + 1))
         self._step_counter += k
-        losses, n_errs, nonfinite = _train_multi_step(
-            self.specs, self.params, self.velocity, xs, labels,
-            self.dropout_seed, counters, [self._lr(c) for c in counters],
-            float(self.weight_decay), float(self.momentum),
-            self.compute_dtype, self.nan_policy == "skip",
-            self.kernel_impl)
+        lrs = [self._lr(c) for c in counters]
+        with self._quantum():
+            losses, n_errs, nonfinite = _train_multi_step(
+                self.specs, self.params, self.velocity, xs, labels,
+                self.dropout_seed, counters, lrs,
+                float(self.weight_decay), float(self.momentum),
+                self.compute_dtype, self.nan_policy == "skip",
+                self.kernel_impl)
         self._sentinel.note(nonfinite)
         obs_profile.on_step(k)
         return {"loss": losses, "n_err": n_errs, "nonfinite": nonfinite}

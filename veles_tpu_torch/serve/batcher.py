@@ -14,8 +14,15 @@ plane. Over the paged engine it also trims each admission to what the
 page pool holds, requeues preempted tickets at the queue head (they
 re-prefill prompt + emitted tokens and resume their sampling counter),
 and routes the several tokens a speculative round commits per slot.
-Each dispatch calls the step profiler's hook (``obs.profile``). Left
-out until their slice: scheduler tenancy (one quantum per dispatch).
+Each dispatch calls the step profiler's hook (``obs.profile``). With a
+scheduler tenant (``tenant=`` / ``set_tenant``, ``veles_tpu_torch.sched``)
+every device call runs as one quantum: a ``MicroBatcher`` batch (and
+each bisecting retry), a ``TokenBatcher`` prefill admission and every
+decode round (a paged round with its page admission, whose
+copy-on-write copies are device work; the reference admits pages just
+before its quantum), each handing the most urgent client budget of its
+tickets to the scheduler's deadline boost, and traced requests gain a
+``sched_wait`` span per dispatch.
 
 Threading rides :class:`veles_tpu_torch.thread_pool.ManagedThreads`
 (non-daemon dispatch thread, joined in ``stop()``). Admission control
@@ -38,6 +45,7 @@ from veles_tpu_torch.logger import log_context
 from veles_tpu_torch.obs import profile as obs_profile
 from veles_tpu_torch.obs.trace import (EXEMPLARS, TRACER, TraceContext,
                                        elapsed_s)
+from veles_tpu_torch.sched import quantum_or_null
 from veles_tpu_torch.thread_pool import ManagedThreads
 
 
@@ -331,8 +339,7 @@ def most_urgent_budget_ms(tickets) -> Optional[float]:
     """Most-urgent remaining client budget in ms across ``tickets``
     (deadline-carrying ones; None when none carry a deadline) — the
     serve plane's per-dispatch deadline handoff to the scheduler's
-    boost, which comes with the port's scheduler (ROADMAP.md queue 1
-    item 3)."""
+    boost (``TenantHandle.quantum(deadline_ms=)``)."""
     now = time.monotonic()
     urgent = None
     for ticket in tickets:
@@ -348,7 +355,7 @@ class _Ticket:
 
     __slots__ = ("rows", "offset", "chunks", "enqueued", "abandoned",
                  "deadline", "priority", "ctx", "taken", "queue_ms",
-                 "device_ms")
+                 "sched_ms", "device_ms")
 
     def __init__(self, rows: np.ndarray,
                  deadline: Optional[float] = None,
@@ -368,6 +375,7 @@ class _Ticket:
         self.ctx = ctx
         self.taken = False        # first batch-formation take recorded
         self.queue_ms = 0.0
+        self.sched_ms = 0.0
         self.device_ms = 0.0
 
     def expired(self, now: float) -> bool:
@@ -382,6 +390,7 @@ class MicroBatcher:
     tests). ``max_batch`` caps rows per dispatch; ``max_delay_ms``
     bounds how long the OLDEST queued ticket waits before a partial
     batch dispatches; ``max_queue_rows`` is the admission bound.
+    ``tenant``: a scheduler ``TenantHandle`` (see :meth:`set_tenant`).
     """
 
     def __init__(self, engine, *, max_batch: int = 64,
@@ -390,7 +399,7 @@ class MicroBatcher:
                  max_queue_rows: int = 1024,
                  name: str = "serve",
                  metrics: Optional[ServeMetrics] = None,
-                 isolate_poison: bool = True,
+                 tenant=None, isolate_poison: bool = True,
                  batch_class_frac: float = 0.5,
                  shed_margin: float = 0.7) -> None:
         if max_batch < 1:
@@ -444,8 +453,28 @@ class MicroBatcher:
         #: or None when the dispatch thread is between calls — the
         #: watchdog reads it to flag a hung device call
         self._dispatch_t0: Optional[float] = None
+        #: multi-tenant device sharing (veles_tpu_torch.sched): each
+        #: dispatched batch runs as ONE scheduler quantum, the batch
+        #: boundary being the forward plane's natural preemption point
+        self._tenant = None
         self._threads = ManagedThreads(name="%s-batcher" % name)
+        self.set_tenant(tenant)
         self._threads.spawn(self._dispatch_loop, name="dispatch")
+
+    # -- multi-tenancy -----------------------------------------------------
+    def set_tenant(self, tenant) -> None:
+        """Attach this batcher to a scheduler tenant: every dispatched
+        batch becomes one quantum. A tenant without its own
+        ManagedThreads adopts the batcher's, so ``Scheduler.stop()``
+        request-stops the dispatch loop. The engine knows nothing of
+        the tenant: a caller that warms it (captures its graphs) while
+        other tenants run does so inside ``with tenant.quantum():``."""
+        self._tenant = tenant
+        if tenant is not None and tenant.threads is None:
+            tenant.threads = self._threads
+
+    def _quantum(self, deadline_ms: Optional[float] = None):
+        return quantum_or_null(self._tenant, deadline_ms=deadline_ms)
 
     # -- client side -------------------------------------------------------
     @property
@@ -596,7 +625,7 @@ class MicroBatcher:
                        ticket.enqueued, done, rows=len(rows))
             EXEMPLARS.record(
                 self.name, ticket.ctx.trace_id, latency * 1000.0,
-                queue_ms=ticket.queue_ms,
+                queue_ms=ticket.queue_ms, sched_ms=ticket.sched_ms,
                 device_ms=ticket.device_ms)
         out = chunks[0] if len(chunks) == 1 else \
             np.concatenate(chunks, axis=0)
@@ -704,13 +733,19 @@ class MicroBatcher:
                     with log_context(
                             batcher=self.name,
                             trace=head_ctx.trace_id
-                            if head_ctx else None):
+                            if head_ctx else None), \
+                            self._quantum(self._urgency_ms(parts)) \
+                            as lease:
+                        # None = no scheduler attached (nullcontext):
+                        # no sched_wait spans get recorded at all
+                        waited_s = getattr(lease, "waited_s", None)
+                        td0 = time.monotonic()
                         out = engine.apply(rows)
                 finally:
                     self._dispatch_t0 = None
                 t1 = time.monotonic()
                 obs_profile.on_step()
-                self._trace_dispatch(parts, t0, t1)
+                self._trace_dispatch(parts, waited_s, td0, t1)
                 self._observe_drain(elapsed_s(t0), len(rows))
             except BaseException as e:  # noqa: BLE001 — per-batch trap
                 self.metrics.observe_error()
@@ -740,15 +775,31 @@ class MicroBatcher:
             0.8 * self._row_seconds + 0.2 * per_row
 
     @staticmethod
-    def _trace_dispatch(parts, td0: float, t1: float) -> None:
-        """Record the device span of one dispatched batch against every
-        traced co-batched ticket, and accumulate the per-ticket device
-        time the exemplar table reports."""
+    def _trace_dispatch(parts, waited_s, td0: float, t1: float) -> None:
+        """Record the scheduler-wait and device spans of one
+        dispatched batch against every traced co-batched ticket, and
+        accumulate the per-ticket breakdown the exemplar table reports.
+        ``waited_s`` None means no scheduler is attached: then no
+        sched_wait spans are recorded (a zero-length span per ticket
+        per dispatch would only churn the ring buffer)."""
         for ticket, part in parts:
+            ticket.sched_ms += (waited_s or 0.0) * 1000.0
             ticket.device_ms += (t1 - td0) * 1000.0
-            if ticket.ctx is not None:
-                TRACER.add("device", "serve", ticket.ctx, td0, t1,
-                           rows=len(part))
+            if ticket.ctx is None:
+                continue
+            if waited_s is not None:
+                TRACER.add("sched_wait", "sched", ticket.ctx,
+                           td0 - waited_s, td0)
+            TRACER.add("device", "serve", ticket.ctx, td0, t1,
+                       rows=len(part))
+
+    @staticmethod
+    def _urgency_ms(parts: List[Tuple[_Ticket, np.ndarray]]
+                    ) -> Optional[float]:
+        """Most urgent remaining client budget in this batch (ms),
+        handed to the scheduler so a shared-device serve batch carrying
+        an imminent deadline gets the deadline boost."""
+        return most_urgent_budget_ms(t for t, _ in parts)
 
     def _finish_with_isolation(self, engine, parts, cause) -> None:
         """The batch failed: bisect (split-and-retry) to isolate the
@@ -770,7 +821,11 @@ class MicroBatcher:
             self._dispatch_t0 = time.monotonic()
             t0 = self._dispatch_t0
             try:
-                out = engine.apply(segment)
+                # each retry is a device call of its own: it takes a
+                # scheduler quantum like every other dispatch (a shared
+                # device must not see unleased serve work)
+                with self._quantum(self._urgency_ms(parts)):
+                    out = engine.apply(segment)
             except (KeyboardInterrupt, SystemExit):
                 raise
             except BaseException as e:  # noqa: BLE001 — bisecting
@@ -923,7 +978,8 @@ class _GenTicket:
 
     __slots__ = ("prompt", "max_tokens", "eos", "tokens", "enqueued",
                  "abandoned", "slot", "generated", "deadline", "ctx",
-                 "queue_ms", "device_ms", "sampling", "emitted")
+                 "queue_ms", "sched_ms", "device_ms", "sampling",
+                 "emitted")
 
     def __init__(self, prompt: np.ndarray, max_tokens: int,
                  eos: Optional[int],
@@ -943,6 +999,7 @@ class _GenTicket:
         #: propagated trace identity + latency breakdown (exemplars)
         self.ctx = ctx
         self.queue_ms = 0.0
+        self.sched_ms = 0.0
         self.device_ms = 0.0
         #: validated sampling options (None = greedy)
         self.sampling = sampling
@@ -977,10 +1034,13 @@ class TokenBatcher:
     refusing new ones. Page-pool exhaustion during decode PREEMPTS
     sequences: their tickets requeue at the head and re-prefill (prompt
     + emitted) once pages free; the client only waits.
+
+    ``tenant``: a scheduler ``TenantHandle``; each prefill admission
+    and each decode round is then one quantum (:meth:`set_tenant`).
     """
 
     def __init__(self, engine, *, max_queue: int = 64,
-                 name: str = "generate") -> None:
+                 name: str = "generate", tenant=None) -> None:
         # the dispatch loop is the ONLY reader/writer once the thread
         # starts; _enqueue's advisory max_len pre-check is the one
         # sanctioned off-thread peek
@@ -998,8 +1058,24 @@ class TokenBatcher:
         #: watchdog heartbeat: monotonic start of the engine call on
         #: the device, None between calls
         self._dispatch_t0: Optional[float] = None
+        #: multi-tenant device sharing: one prefill admission or one
+        #: decode round per quantum, the token boundary being the
+        #: decode plane's natural preemption point
+        self._tenant = None
         self._threads = ManagedThreads(name="%s-batcher" % name)
+        self.set_tenant(tenant)
         self._threads.spawn(self._dispatch_loop, name="dispatch")
+
+    # -- multi-tenancy -----------------------------------------------------
+    def set_tenant(self, tenant) -> None:
+        """Attach to a scheduler tenant (see MicroBatcher.set_tenant):
+        prefill and every decode round become quanta."""
+        self._tenant = tenant
+        if tenant is not None and tenant.threads is None:
+            tenant.threads = self._threads
+
+    def _quantum(self, deadline_ms: Optional[float] = None):
+        return quantum_or_null(self._tenant, deadline_ms=deadline_ms)
 
     # -- client side -------------------------------------------------------
     @property
@@ -1183,6 +1259,12 @@ class TokenBatcher:
                 ticket.generated >= ticket.max_tokens:
             self._retire(slot, ticket)
 
+    @staticmethod
+    def _urgency_ms(tickets) -> Optional[float]:
+        """Most urgent remaining client budget (ms) across
+        ``tickets``, handed to the scheduler's deadline boost."""
+        return most_urgent_budget_ms(tickets)
+
     def _trace_request(self, ticket: _GenTicket) -> None:
         """Record the end-to-end request span + exemplar breakdown
         (called by the client thread when the stream closes)."""
@@ -1194,7 +1276,8 @@ class TokenBatcher:
         EXEMPLARS.record(
             self.name, ticket.ctx.trace_id,
             (done - ticket.enqueued) * 1000.0,
-            queue_ms=ticket.queue_ms, device_ms=ticket.device_ms)
+            queue_ms=ticket.queue_ms, sched_ms=ticket.sched_ms,
+            device_ms=ticket.device_ms)
 
     def _admit(self) -> None:  # runs-on: dispatch
         """Move pending tickets into free engine slots (one bucketed
@@ -1251,22 +1334,25 @@ class TokenBatcher:
         try:
             self._dispatch_t0 = admit_t0
             try:
-                # a preempted ticket re-prefills prompt + every token
-                # already emitted (recompute preemption) and resumes
-                # its sampling counter at ``generated``: the client's
-                # stream continues where it left off
-                rows = [np.concatenate(
-                    [t.prompt, np.asarray(t.emitted, np.int32)])
-                    if t.emitted else t.prompt for t in batch]
-                if getattr(self.engine, "supports_sampling", False):
-                    sampling = []
-                    for t in batch:
-                        opts = dict(t.sampling or {})
-                        opts["counter"] = t.generated
-                        sampling.append(opts)
-                    slots, first = self.engine.admit(rows, sampling)
-                else:
-                    slots, first = self.engine.admit(rows)
+                with self._quantum(self._urgency_ms(batch)) as lease:
+                    waited_s = getattr(lease, "waited_s", None)
+                    td0 = time.monotonic()
+                    # a preempted ticket re-prefills prompt + every
+                    # token already emitted (recompute preemption) and
+                    # resumes its sampling counter at ``generated``: the
+                    # client's stream continues where it left off
+                    rows = [np.concatenate(
+                        [t.prompt, np.asarray(t.emitted, np.int32)])
+                        if t.emitted else t.prompt for t in batch]
+                    if getattr(self.engine, "supports_sampling", False):
+                        sampling = []
+                        for t in batch:
+                            opts = dict(t.sampling or {})
+                            opts["counter"] = t.generated
+                            sampling.append(opts)
+                        slots, first = self.engine.admit(rows, sampling)
+                    else:
+                        slots, first = self.engine.admit(rows)
             finally:
                 self._dispatch_t0 = None
         except BaseException as e:  # noqa: BLE001 — per-batch trap
@@ -1278,9 +1364,13 @@ class TokenBatcher:
         t1 = time.monotonic()
         obs_profile.on_step()
         for ticket in batch:
-            ticket.device_ms += (t1 - admit_t0) * 1000.0
+            ticket.sched_ms += (waited_s or 0.0) * 1000.0
+            ticket.device_ms += (t1 - td0) * 1000.0
             if ticket.ctx is not None:
-                TRACER.add("prefill", "gen", ticket.ctx, admit_t0, t1,
+                if waited_s is not None:  # scheduler attached
+                    TRACER.add("sched_wait", "sched", ticket.ctx,
+                               td0 - waited_s, td0)
+                TRACER.add("prefill", "gen", ticket.ctx, td0, t1,
                            prompt=len(ticket.prompt))
         self.metrics.observe_prefill(len(batch))
         for ticket, slot, token in zip(batch, slots, first):
@@ -1308,23 +1398,30 @@ class TokenBatcher:
         try:
             self._dispatch_t0 = t0
             try:
-                if paged:
-                    # page admission for this round; pool exhaustion
-                    # PREEMPTS sequences: their tickets requeue at the
-                    # head and re-prefill (prompt + emitted) once pages
-                    # free. The preempted client just waits.
-                    for slot in self.engine.prepare_step():
-                        ticket = self._by_slot.pop(slot, None)
-                        if ticket is None or ticket.abandoned:
-                            continue
-                        ticket.slot = None
-                        with self._cond:
-                            self._pending.appendleft(ticket)
-                    if not self._by_slot:
-                        return
-                    toks2d, counts = self.engine.decode_many()
-                else:
-                    nxt = self.engine.decode()
+                with self._quantum(
+                        self._urgency_ms(self._by_slot.values())) \
+                        as lease:
+                    waited_s = getattr(lease, "waited_s", None)
+                    td0 = time.monotonic()
+                    if paged:
+                        # page admission for this round (its copy-on-
+                        # write copies are device work, so they run in
+                        # the round's quantum); pool exhaustion PREEMPTS
+                        # sequences: their tickets requeue at the head
+                        # and re-prefill (prompt + emitted) once pages
+                        # free. The preempted client just waits.
+                        for slot in self.engine.prepare_step():
+                            ticket = self._by_slot.pop(slot, None)
+                            if ticket is None or ticket.abandoned:
+                                continue
+                            ticket.slot = None
+                            with self._cond:
+                                self._pending.appendleft(ticket)
+                        if not self._by_slot:
+                            return
+                        toks2d, counts = self.engine.decode_many()
+                    else:
+                        nxt = self.engine.decode()
             finally:
                 self._dispatch_t0 = None
         except BaseException as e:  # noqa: BLE001 — per-step trap
@@ -1343,9 +1440,13 @@ class TokenBatcher:
             int(sum(int(counts[slot]) for slot, _ in active))
             if paged else len(active))
         for slot, ticket in active:
-            ticket.device_ms += (t1 - t0) * 1000.0
+            ticket.sched_ms += (waited_s or 0.0) * 1000.0
+            ticket.device_ms += (t1 - td0) * 1000.0
             if ticket.ctx is not None:
-                TRACER.add("decode_step", "gen", ticket.ctx, t0, t1,
+                if waited_s is not None:  # scheduler attached
+                    TRACER.add("sched_wait", "sched", ticket.ctx,
+                               td0 - waited_s, td0)
+                TRACER.add("decode_step", "gen", ticket.ctx, td0, t1,
                            slot=slot)
         # per-slot finite-logits sentinel: a NaN'd sequence fails
         # ALONE — its ticket gets NonFiniteLogits and its slot frees

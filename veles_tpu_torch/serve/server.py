@@ -6,8 +6,11 @@
   name. Body ``{"input": rows}`` (a non-empty ``[N, ...]`` batch in the
   engine's ``input_dtype``), optional ``"deadline_ms"`` (or
   ``X-Deadline-Ms``) and ``"priority"`` (or ``X-Priority``:
-  ``interactive`` | ``batch``). -> ``{"output": rows}``. 400 on a
-  malformed body or a model that serves ``/generate``, 404 on an
+  ``interactive`` | ``batch``). A body of ``Content-Type:
+  application/octet-stream`` is the batch's raw bytes instead (native
+  byte order, the engine's ``input_dtype``), its shape in ``X-Shape:
+  N,d1,...``, the options in the headers. -> ``{"output": rows}``. 400
+  on a malformed body or a model that serves ``/generate``, 404 on an
   unknown model, 422 when this request's rows made the batch fail
   (bisection isolated them), and the admission, deadline and drain
   replies of ``/generate``.
@@ -29,9 +32,11 @@
   while serving; 503 ``draining`` once a drain began, 503 ``stuck``
   while a device call has been out longer than ``watchdog_s``.
 - ``GET /metrics`` — JSON per model (tokens, decode latency, compile
-  count, slot gauges) plus ``_slowest`` exemplars and ``_obs``;
-  ``?format=prometheus`` (or ``Accept: text/plain``) returns the one
-  Prometheus exposition of the same numbers.
+  count, slot gauges) plus ``_slowest`` exemplars and ``_obs``, and
+  ``_scheduler`` (per-tenant accounting) when the server was given a
+  ``scheduler``; ``?format=prometheus`` (or ``Accept: text/plain``)
+  returns the one Prometheus exposition of the same numbers
+  (``veles_sched_*`` for the scheduler).
 - ``GET /debug/trace[?trace=ID]`` — Chrome-trace JSON of the span ring.
 
 Stop is a graceful drain by default: /healthz flips unhealthy, new
@@ -85,10 +90,14 @@ class ServeServer:
 
     def __init__(self, registry: ModelRegistry,
                  host: str = "127.0.0.1", port: int = 0,
-                 timeout: float = 30.0,
+                 timeout: float = 30.0, scheduler=None,
                  watchdog_s: Optional[float] = 30.0) -> None:
         self.registry = registry
         self.timeout = float(timeout)
+        #: a veles_tpu_torch.sched.Scheduler whose per-tenant accounting
+        #: rides /metrics (``_scheduler`` key in the JSON document,
+        #: ``veles_sched_*`` series in the Prometheus exposition)
+        self.scheduler = scheduler
         #: dispatch watchdog: once any batcher's CURRENT device call
         #: has been out longer than this, /healthz answers 503
         #: ``{"stuck": true}``. None disables.
@@ -222,8 +231,17 @@ class ServeServer:
                 dtype = getattr(getattr(model, "engine", None),
                                 "input_dtype", np.float32)
                 try:
-                    doc = json.loads(raw)
-                    batch = np.asarray(doc["input"], dtype=dtype)
+                    if self.headers.get("Content-Type", "").startswith(
+                            "application/octet-stream"):
+                        # raw rows: no JSON to parse under the
+                        # interpreter lock the tenants' threads share
+                        doc = {}
+                        batch = np.frombuffer(raw, dtype=dtype).reshape(
+                            [int(d) for d in
+                             self.headers["X-Shape"].split(",")]).copy()
+                    else:
+                        doc = json.loads(raw)
+                        batch = np.asarray(doc["input"], dtype=dtype)
                     deadline_ms = self._deadline(doc)
                     priority = doc.get("priority") or \
                         self.headers.get("X-Priority") or "interactive"
@@ -468,13 +486,18 @@ class ServeServer:
                     accept = self.headers.get("Accept", "")
                     if fmt == "prometheus" or (
                             not fmt and "text/plain" in accept):
-                        text = server.registry.prometheus_text() + \
-                            obs_metrics.REGISTRY.prometheus_text()
+                        text = server.registry.prometheus_text()
+                        if server.scheduler is not None:
+                            text += server.scheduler.prometheus_text()
+                        text += obs_metrics.REGISTRY.prometheus_text()
                         self._reply(
                             200, text,
                             content_type="text/plain; version=0.0.4")
                     else:
                         doc = server.registry.metrics_snapshot()
+                        if server.scheduler is not None:
+                            doc["_scheduler"] = \
+                                server.scheduler.snapshot()
                         doc["_slowest"] = EXEMPLARS.snapshot()
                         doc["_obs"] = obs_metrics.REGISTRY.snapshot()
                         self._reply(200, doc)
