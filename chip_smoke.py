@@ -141,13 +141,33 @@ without them, and on any failed phase. Phases, in order:
    ``Scheduler.stop()``; per-tenant accounting, LM tokens/s, the decode
    round and ``/apply`` latencies against their phases alone, memory
    per tenant at set-up, and, in a second window under torch.profiler,
-   the tenants' leased device-ms against the card's busy time.
+   the tenants' leased device-ms against the card's busy time;
+14. the classifier through the unit graph at full width:
+   ``AlexNetWorkflow()`` with its own defaults (1000 classes, 224 x 224
+   x 3, minibatch 128, lr 0.01, momentum 0.9, weight decay 5e-4, f32
+   params, bf16 compute) on ``Device()``, ``SyntheticColorImagesLoader``
+   with the dataset cut to 1,024 TRAIN and 256 VALID images (771 MB on
+   the card; a cut of how many images exist, not of any width), two
+   TRAIN passes through ``wf.run()``: the launches of every minibatch
+   (exactly 2 K6, 2 K7 and 2 K8 a TRAIN one, 2 K6 a VALID one), ms per
+   TRAIN and VALID minibatch (p50 of the second pass) and images/s
+   beside phase 9's fused step, finite and falling losses, the errors
+   per epoch, the slowest units, the evaluator's host read, peak memory
+   and the device's busy share over 4 single passes under the profiler;
+15. unit-graph parity on the card: the 10-class 64 x 64
+   ``AlexNetWorkflow`` at f32 (60 TRAIN and 20 VALID images, minibatch
+   20, dropout 0.5, one epoch) from one seed, on ``Device()`` through
+   the kernels and on ``Device(backend="cpu")`` through the plain
+   versions: the dropout masks bitwise, every minibatch's n_err equal
+   and loss within bounds, the weights, biases and velocities after
+   the epoch within stated bounds.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
 ``chip_smoke_out/chip_smoke.json`` (gitignored).
 """
 
+import gc
 import json
 import multiprocessing
 import os
@@ -355,16 +375,20 @@ def pcts(ms):
                 p99=float(np.percentile(ms, 99)), mean=float(np.mean(ms)))
 
 
-def profile_device(torch, fn, steps):
+def profile_device(torch, fn, steps, host_ops=True):
     """Device time by kernel over ``steps`` calls of ``fn`` (which ends
     on the host, synchronized): torch.profiler's CUDA kernel records,
     their sum per call, and the device's busy share of the wall time.
-    ``None`` when the profiler sees no device time."""
+    ``host_ops=False`` records the device only: tracing every host op
+    slows a host-bound loop of many small ops (the unit graph) several
+    times over. ``None`` when the profiler sees no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.monotonic()
         for _ in range(steps):
             fn()
@@ -3180,6 +3204,328 @@ def _cotenancy_windows(torch, counters, card, serve, train, apply, config,
                 accounting=accounting), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the classifier through the unit graph at full width
+# ---------------------------------------------------------------------------
+
+#: phase 14: AlexNetWorkflow's own defaults (1000 classes, 224 x 224 x 3,
+#: minibatch 128, lr 0.01, momentum 0.9, weight decay 5e-4, f32 params,
+#: bf16 compute) over SyntheticColorImagesLoader, the dataset cut to
+#: these many images (no width changes), for two TRAIN passes
+UG_DATA = dict(n_train=1024, n_valid=256)
+UG_EPOCHS = 2
+UG_SEED = 42
+#: the launches of one minibatch through the unit graph: two LRN layers
+#: forward (K6), their two backward units (K7, no K6) and two dropout
+#: masks (K8) on TRAIN; the forward's two K6 only on VALID
+UG_TRAIN_LAUNCHES = {"lrn_fwd": 2, "lrn_bwd": 2, "uniform_fill": 2}
+UG_VALID_LAUNCHES = {"lrn_fwd": 2}
+#: minibatches under the profiler (single passes through the graph)
+UG_PROFILED = 4
+#: phase 15: the 10-class 64 x 64 AlexNetWorkflow at f32, dropout 0.5,
+#: one epoch, once on the card through the kernels and once on the CPU
+#: through the plain versions
+UG_PARITY = dict(n_classes=10, image_size=64, max_epochs=1,
+                 loader_kwargs=dict(n_train=60, n_valid=20,
+                                    minibatch_size=20, image_size=64))
+
+
+def _ug_hooks(wf, counters, records, losses, gc_ms):
+    """Record, at the start of every minibatch (the loader's run), the
+    host clock, the launch counters, every unit's run time so far, the
+    garbage collector's pauses so far and the minibatch's class and
+    epoch; and every minibatch's (class, n_err, loss) after the
+    evaluator. ``gc_ms`` is a one-element list the caller's gc callback
+    adds each collection's milliseconds to."""
+    loader, evaluator = wf.loader, wf.evaluator
+    serve, evaluate = loader.run, evaluator.run
+
+    def serving():
+        records.append((time.perf_counter(), counters.read(),
+                        {u.name: u.total_run_time_ for u in wf.units},
+                        gc_ms[0]))
+        serve()
+        records[-1] += (loader.minibatch_class, loader.epoch_number)
+
+    def evaluating():
+        evaluate()
+        losses.append((loader.minibatch_class, evaluator.n_err,
+                       evaluator.loss, loader.minibatch_size))
+
+    loader.run = serving
+    evaluator.run = evaluating
+
+
+def unit_graph_classifier_phase(torch, counters, dev, card, fused):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import CudaDevice, Device
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models.alexnet import AlexNetWorkflow
+
+    log("phase 14: the classifier through the unit graph: AlexNetWorkflow "
+        "(1000 classes, 224 x 224 x 3, minibatch 128, lr 0.01, momentum "
+        "0.9, weight decay 5e-4, f32 params, %s compute) on Device(), "
+        "SyntheticColorImagesLoader cut to %s, %d TRAIN passes"
+        % (root.common.engine.compute_type, UG_DATA, UG_EPOCHS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    root.common.random.seed = UG_SEED
+    prng.reset()
+    t0 = time.monotonic()
+    device = Device()
+    if not isinstance(device, CudaDevice):
+        raise AssertionError("Device() is %r, not the card" % (device,))
+    wf = AlexNetWorkflow(max_epochs=UG_EPOCHS, loader_kwargs=dict(UG_DATA))
+    wf.initialize(device=device)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    mbs = wf.loader.max_minibatch_size
+    records, losses, gc_ms = [], [], [0.0]
+    _ug_hooks(wf, counters, records, losses, gc_ms)
+    gc_started = []
+
+    def gc_pause(phase, info):
+        if phase == "start":
+            gc_started.append(time.perf_counter())
+        elif gc_started:
+            gc_ms[0] += (time.perf_counter() - gc_started.pop()) * 1e3
+
+    gc.callbacks.append(gc_pause)
+    counters.reset()
+    t0 = time.monotonic()
+    try:
+        wf.run()
+        torch.cuda.synchronize()
+    finally:
+        gc.callbacks.remove(gc_pause)
+    run_s = time.monotonic() - t0
+    records.append((time.perf_counter(), counters.read(),
+                    {u.name: u.total_run_time_ for u in wf.units},
+                    gc_ms[0], None, None))
+    launches = counters.read()
+
+    # per minibatch, from its serve to the next: the time, the launches,
+    # the three units that took longest and the collector's pauses
+    per_mb = []
+    for (t_a, c_a, u_a, g_a, klass, epoch), (t_b, c_b, u_b, g_b, _, _) in \
+            zip(records, records[1:]):
+        delta = {k: c_b[k] - c_a[k] for k in c_b if c_b[k] != c_a[k]}
+        units = sorted(((u_b[n] - u_a.get(n, 0.0)) * 1e3, n) for n in u_b)
+        per_mb.append(dict(klass=klass, epoch=epoch,
+                           ms=(t_b - t_a) * 1e3, launches=delta,
+                           gc_ms=g_b - g_a,
+                           slowest_units=[(n, ms) for ms, n in
+                                          units[::-1][:3]]))
+    for mb in per_mb:
+        want = UG_TRAIN_LAUNCHES if mb["klass"] == 2 else UG_VALID_LAUNCHES
+        if mb["launches"] != want:
+            raise AssertionError("a %s minibatch of epoch %d launched %s, "
+                                 "not %s" % ("TRAIN" if mb["klass"] == 2
+                                             else "VALID", mb["epoch"],
+                                             mb["launches"], want))
+    n_train = sum(mb["klass"] == 2 for mb in per_mb)
+    n_valid = sum(mb["klass"] == 1 for mb in per_mb)
+    train_ms = [mb["ms"] for mb in per_mb
+                if mb["klass"] == 2 and mb["epoch"] == UG_EPOCHS - 1]
+    valid_ms = [mb["ms"] for mb in per_mb
+                if mb["klass"] == 1 and mb["epoch"] >= UG_EPOCHS - 1]
+    train_p50 = float(np.percentile(train_ms, 50))
+    valid_p50 = float(np.percentile(valid_ms, 50))
+    images_per_s = mbs * 1e3 / train_p50
+    log("  set-up %.1f s (data %s on the card); %d TRAIN and %d VALID "
+        "minibatches in %.2f s; launches %s" % (
+            setup_s, tuple(wf.loader._dataset_dev_.shape), n_train,
+            n_valid, run_s, {k: v for k, v in launches.items() if v}))
+    log("  launches per minibatch: TRAIN %s, VALID %s (every one of them)"
+        % (UG_TRAIN_LAUNCHES, UG_VALID_LAUNCHES))
+    log("  ms per minibatch (p50, epoch %d): TRAIN %.3f (%s; mean %.3f), "
+        "VALID %.3f (%s); %.1f images/s training at the p50 (%.1f at the "
+        "mean), against %.1f images/s of the fused step (phase 9, batch %d)"
+        " [%s]" % (
+            UG_EPOCHS - 1, train_p50, ", ".join("%.1f" % v for v in
+                                                train_ms),
+            float(np.mean(train_ms)), valid_p50,
+            ", ".join("%.1f" % v for v in valid_ms), images_per_s,
+            mbs * 1e3 / float(np.mean(train_ms)), fused["images_per_s"],
+            fused["batch"], card))
+    for mb in per_mb:
+        if mb["klass"] == 2 and mb["epoch"] == UG_EPOCHS - 1:
+            log("    TRAIN %.1f ms: gc %.1f ms; slowest units %s" % (
+                mb["ms"], mb["gc_ms"], ", ".join(
+                    "%s %.1f" % u for u in mb["slowest_units"])))
+
+    train_losses = [(loss / size) for klass, _, loss, size in losses
+                    if klass == 2]
+    per = -(-UG_DATA["n_train"] // mbs)
+    per_epoch = [float(np.mean(train_losses[i * per:(i + 1) * per]))
+                 for i in range(UG_EPOCHS)]
+    n_err = {k: list(v) for k, v in wf.decision.epoch_errors.items()}
+    log("  TRAIN loss per image: %s" % ", ".join(
+        "%.4f" % v for v in train_losses))
+    log("  mean TRAIN loss per epoch %s; errors %% by epoch: VALID %s, "
+        "TRAIN %s" % (["%.4f" % v for v in per_epoch], n_err[1], n_err[2]))
+    if not all(np.isfinite(train_losses)):
+        raise AssertionError("non-finite losses: %s" % train_losses)
+    # falling from the untrained model's: at minibatch 128 with lr 0.01
+    # and momentum 0.9 the per-minibatch loss is not monotonic (the
+    # first minibatch of the second pass spikes on the card), so the
+    # run's last loss is held below its first
+    if not train_losses[-1] < train_losses[0]:
+        raise AssertionError("the losses did not fall: %s" % train_losses)
+    if not bool(wf.decision.complete):
+        raise AssertionError("the decision did not complete")
+    stats = wf.get_unit_run_time_stats()
+    log("  slowest units (host wall, every call): %s" % "; ".join(
+        "%s %d x %.3f ms" % (name, calls, avg * 1e3)
+        for name, _, calls, avg in stats[:8]))
+    evaluator = next(s for s in stats if s[0] == wf.evaluator.name)
+    log("  the evaluator's one host read a minibatch (a sync: it waits for "
+        "the forward): %.3f ms a call" % (evaluator[3] * 1e3))
+    peak = torch.cuda.max_memory_allocated()
+
+    # the device's busy share over single passes (TRAIN minibatches
+    # of the next pass) through the same graph
+    wf.resume_overrides(max_epochs=UG_EPOCHS + 1)
+    wf.prepare_single_pass()
+
+    def one_pass():
+        wf.run()
+        torch.cuda.synchronize()
+
+    prof = profile_device(torch, one_pass, UG_PROFILED, host_ops=False)
+    if prof is None:
+        log("  profile: no device time recorded")
+    else:
+        log("  profile of %d single passes (TRAIN): wall %.3f ms, device "
+            "%.3f ms a minibatch (busy %.0f%%); by class: %s" % (
+                UG_PROFILED, prof["wall_ms"], prof["device_ms"],
+                100 * prof["busy_share"], "; ".join(
+                    "%s %.3f ms" % kv for kv in sorted(
+                        prof["by_class"].items(), key=lambda kv: -kv[1]))))
+    log("  peak memory %.2f GB [%s]" % (peak / 1e9, card))
+    wf.thread_pool.shutdown()
+    del wf
+    return dict(data=UG_DATA, epochs=UG_EPOCHS, minibatch=mbs,
+                setup_s=setup_s, run_s=run_s, train_minibatches=n_train,
+                valid_minibatches=n_valid, train_ms=train_ms,
+                valid_ms=valid_ms, train_p50_ms=train_p50,
+                valid_p50_ms=valid_p50, images_per_s=images_per_s,
+                fused_images_per_s=fused["images_per_s"],
+                train_losses=train_losses, epoch_errors=n_err,
+                unit_stats=[list(s) for s in stats],
+                evaluator_ms=evaluator[3] * 1e3, peak_mem_bytes=peak,
+                profile=prof, per_minibatch=per_mb), launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: unit-graph parity on the card, kernels vs plain on the CPU
+# ---------------------------------------------------------------------------
+
+def _ug_parity_run(device):
+    """One epoch of UG_PARITY at f32 on ``device`` from UG_SEED: every
+    minibatch's (class, n_err, loss), every TRAIN minibatch's two
+    dropout masks, and the parameters and velocities after it."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models.alexnet import (AlexNetWorkflow,
+                                                alexnet_layers)
+    from veles_tpu_torch.nn.dropout import Dropout
+
+    root.common.random.seed = UG_SEED
+    prng.reset()
+    wf = AlexNetWorkflow(layers=alexnet_layers(10, dropout=0.5),
+                         **UG_PARITY)
+    wf.initialize(device=device)
+    losses, masks = [], []
+    evaluate = wf.evaluator.run
+
+    def evaluating():
+        evaluate()
+        losses.append((wf.loader.minibatch_class, wf.evaluator.n_err,
+                       wf.evaluator.loss))
+
+    wf.evaluator.run = evaluating
+    for unit in wf.forwards:
+        if isinstance(unit, Dropout):
+            drop = unit.run
+
+            def dropping(unit=unit, drop=drop):
+                drop()
+                if unit.minibatch_class == 2:
+                    masks.append(np.array(unit.mask.map_read()))
+
+            unit.run = dropping
+    wf.run()
+    leaves = {}
+    for gd in wf.gds:
+        if getattr(gd, "velocity_weights", None):
+            for attr in ("weights", "bias", "velocity_weights",
+                         "velocity_bias"):
+                leaves["%s.%s" % (gd.name, attr)] = np.array(
+                    getattr(gd, attr).map_read())
+    wf.thread_pool.shutdown()
+    return losses, masks, leaves
+
+
+def unit_graph_parity_phase(torch, dev, card):
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.config import root
+
+    log("phase 15: unit-graph parity, AlexNetWorkflow (10 classes, 64 x 64) "
+        "f32, minibatch 20, dropout 0.5, one epoch from seed %d: Device() "
+        "through the kernels vs Device(backend='cpu') through the plain "
+        "versions" % UG_SEED)
+    saved = root.common.engine.compute_type
+    root.common.engine.compute_type = "float32"
+    try:
+        t0 = time.monotonic()
+        card_run = _ug_parity_run(Device())
+        card_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        cpu_run = _ug_parity_run(Device(backend="cpu"))
+        cpu_s = time.monotonic() - t0
+    finally:
+        root.common.engine.compute_type = saved
+    (lk, mk, pk), (lp, mp, pp) = card_run, cpu_run
+    if len(mk) != len(mp) or not mk or \
+            not all(np.array_equal(a, b) for a, b in zip(mk, mp)):
+        raise AssertionError("the dropout masks differ (%d vs %d)"
+                             % (len(mk), len(mp)))
+    if [r[:2] for r in lk] != [r[:2] for r in lp]:
+        raise AssertionError("classes / n_err per minibatch %s != %s"
+                             % ([r[:2] for r in lk], [r[:2] for r in lp]))
+    loss_err = max(abs(a[2] - b[2]) / abs(b[2]) for a, b in zip(lk, lp))
+
+    def share(a, b):
+        return float(np.abs(a.astype(np.float64) - b).max() /
+                     max(np.abs(b).max(), 1e-30))
+
+    # the weights, and the biases and velocities, which start at 0 and
+    # sum their layer's gradients: a ReLU whose input lies within
+    # rounding of 0 on either side would take slope 1 on one and 0 on
+    # the other and move one column of a gradient by a whole sample's
+    # share (1e-3 to 2e-2 of the scale between the port and the
+    # reference on the CPU, tests/test_torch_standard.py); on these
+    # inputs no ReLU does
+    weight_err = max(share(pk[k], pp[k]) for k in pk
+                     if k.endswith(".weights"))
+    summed_err = max(share(pk[k], pp[k]) for k in pk
+                     if not k.endswith(".weights"))
+    log("  %d minibatches, %d dropout masks bitwise equal; n_err %s; card "
+        "%.1f s, CPU %.1f s" % (len(lk), len(mk), [r[1] for r in lk],
+                                card_s, cpu_s))
+    check("unit-graph losses, card vs CPU (relative)", loss_err,
+          TOL_CLASSIFIER["float32"])
+    check("unit-graph weights after the epoch (share of each one's scale)",
+          weight_err, TOL_CLASSIFIER["float32"])
+    check("unit-graph velocities and biases after the epoch (share of "
+          "each one's scale)", summed_err, TOL_CLASSIFIER["float32"])
+    return dict(minibatches=len(lk), masks=len(mk),
+                n_err=[r[1] for r in lk], loss_rel_err=loss_err,
+                weight_rel_err=weight_err, summed_rel_err=summed_err,
+                card_s=card_s, cpu_s=cpu_s)
+
+
 class Counters:
     """Every kernel's launch counter, read and reset together."""
 
@@ -3251,6 +3597,9 @@ def main():
                                                          dev, card)
     cotenancy, cotenancy_launches = cotenancy_phase(
         torch, counters, dev, card, serve, train, apply, graph_objs)
+    classifier_graph, classifier_graph_launches = \
+        unit_graph_classifier_phase(torch, counters, dev, card, classifier)
+    classifier_graph_parity = unit_graph_parity_phase(torch, dev, card)
 
     # each main path's launches, counted from 0 around that path alone
     by_path = {"serving": serve_launches, "training": train_launches,
@@ -3258,7 +3607,8 @@ def main():
                "classifier training": classifier_launches,
                "apply serving": apply_launches,
                "unit graph": graph_launches,
-               "co-tenancy": cotenancy_launches}
+               "co-tenancy": cotenancy_launches,
+               "unit-graph classifier": classifier_graph_launches}
     kernels = []
     for name, row in rows.items():
         paths = {p: n.get(name, 0) for p, n in by_path.items()
@@ -3279,6 +3629,8 @@ def main():
                   classifier=classifier,
                   classifier_parity=classifier_parity, apply=apply,
                   unit_graph=graph, cotenancy=cotenancy,
+                  unit_graph_classifier=classifier_graph,
+                  unit_graph_parity=classifier_graph_parity,
                   wall_s=time.monotonic() - t_start)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:

@@ -1148,3 +1148,138 @@ def test_prng_uniform_launches_k8_and_equals_plain_philox(cuda):
         rng_ops.fold_in(key, 2), (1536, 4096), device="cpu") < 0.5)
     assert bool(torch.isfinite(z).all())
     assert abs(float(z.mean())) < 5e-3 and abs(float(z.std()) - 1) < 5e-3
+
+
+# --------------------------------------------- the unit-graph classifier
+
+def _small_alexnet_workflow(device, dropout=0.5):
+    """The 10-class 64 x 64 AlexNetWorkflow (60 TRAIN, 20 VALID images,
+    minibatch 20) on ``device``, from fresh streams of seed 3."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models.alexnet import (AlexNetWorkflow,
+                                                alexnet_layers)
+    root.common.random.seed = 3
+    prng.reset()
+    wf = AlexNetWorkflow(
+        n_classes=10, image_size=64, max_epochs=1,
+        layers=alexnet_layers(10, dropout=dropout),
+        loader_kwargs=dict(n_train=60, n_valid=20, minibatch_size=20,
+                           image_size=64))
+    wf.initialize(device=device)
+    return wf
+
+
+def _step(wf, klass):
+    """Serve minibatches until one of ``klass``, then run its units in
+    the graph's order (the backward units only when the decision does
+    not skip them)."""
+    wf.loader.run()
+    while wf.loader.minibatch_class != klass:
+        wf.loader.run()
+    for unit in wf.forwards:
+        unit.run()
+    wf.evaluator.run()
+    wf.decision.run()
+    if not bool(wf.decision.gd_skip):
+        for gd in wf.gds:
+            gd.run()
+
+
+@pytest.fixture
+def f32_units(cuda):
+    from veles_tpu_torch.config import root
+    saved = (root.common.engine.compute_type,
+             torch.backends.cudnn.allow_tf32)
+    root.common.engine.compute_type = "float32"
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    root.common.engine.compute_type, torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_unit_graph_train_minibatch_kernels_match_plain(f32_units):
+    """One TRAIN minibatch of the small AlexNet workflow at f32 on
+    ``Device()`` (K6, K7, K8) against the same on the CPU (the plain
+    versions): the dropout masks bitwise, the logits and the new weights
+    within 1e-4 of their scale, err_input of the first LRN's backward
+    within 1e-3 (one ReLU whose input lies within rounding of 0 may take
+    slope 1 on one side and 0 on the other)."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.nn.dropout import Dropout
+
+    runs = []
+    for device in (Device(), Device(backend="cpu")):
+        wf = _small_alexnet_workflow(device)
+        _step(wf, 2)
+        runs.append(dict(
+            masks=[np.array(u.mask.map_read()) for u in wf.forwards
+                   if isinstance(u, Dropout)],
+            probs=np.array(wf.forwards[-1].output.map_read()),
+            weights=[np.array(u.weights.map_read()) for u in wf.forwards
+                     if hasattr(u, "weights")],
+            lrn_err=np.array(wf.gds[-2].err_input.map_read()),
+            loss=wf.evaluator.loss, n_err=wf.evaluator.n_err))
+        wf.thread_pool.shutdown()
+    card, cpu = runs
+
+    def share(a, b):
+        return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+
+    assert len(card["masks"]) == 2
+    assert all(np.array_equal(a, b)
+               for a, b in zip(card["masks"], cpu["masks"]))
+    assert card["n_err"] == cpu["n_err"]
+    assert abs(card["loss"] - cpu["loss"]) <= 1e-4 * abs(cpu["loss"])
+    assert share(card["probs"], cpu["probs"]) < 1e-4
+    for a, b in zip(card["weights"], cpu["weights"]):
+        assert share(a, b) < 1e-4
+    assert share(card["lrn_err"], cpu["lrn_err"]) < 1e-3
+
+
+def test_unit_graph_launches_per_minibatch(f32_units):
+    """K6, K7 and K8 launched by the units of one minibatch: 2/2/2 for
+    a TRAIN one (two LRN forwards, their two backward units, two dropout
+    masks), 2/0/0 for a VALID one (the backward units are skipped)."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.ops import lrn as lrn_ops
+    from veles_tpu_torch.ops import rng as rng_ops
+
+    wf = _small_alexnet_workflow(Device())
+    for klass, want in ((1, (2, 0, 0)), (2, (2, 2, 2)), (2, (2, 2, 2))):
+        lrn_ops.reset_launches()
+        rng_ops.reset_launches()
+        _step(wf, klass)
+        torch.cuda.synchronize()
+        assert (lrn_ops.LAUNCHES["lrn_fwd"], lrn_ops.LAUNCHES["lrn_bwd"],
+                rng_ops.LAUNCHES["uniform_fill"]) == want, klass
+    wf.thread_pool.shutdown()
+
+
+def test_gd_lrn_unit_launches_k7_alone(f32_units):
+    """GDLRNormalizer on the card: one K7 and no K6 a run, its err_input
+    the plain backward's."""
+    from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.nn.lrn import GDLRNormalizer
+    from veles_tpu_torch.ops import lrn as lrn_ops
+
+    device = Device()
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((8, 27, 27, 256)) * 3).astype(np.float32)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    wf = AcceleratedWorkflow(None, name="gd-lrn")
+    unit = GDLRNormalizer(wf)
+    unit.input, unit.err_output = Array(x), Array(dy)
+    unit.input.initialize(device)
+    unit.err_output.initialize(device)
+    assert unit.initialize(device=device) is None
+    lrn_ops.reset_launches()
+    unit.run()
+    torch.cuda.synchronize()
+    assert lrn_ops.LAUNCHES == {"lrn_fwd": 0, "lrn_bwd": 1}
+    want = lrn_ops.lrn_bwd(torch.from_numpy(x).to(device.torch_device),
+                           torch.from_numpy(dy).to(device.torch_device),
+                           2.0, 5, 1e-4, 0.75, impl="plain")
+    got = unit.err_input.devmem
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()

@@ -129,6 +129,10 @@ root.common.engine.backend = "auto"
 root.common.engine.precision_type = "float32"     # parameter / accum dtype
 root.common.engine.compute_type = "bfloat16"      # tensor-core compute dtype
 
+# Where SyntheticDigitsLoader looks for a real mnist.npz
+root.common.dirs.datasets = os.path.expanduser(
+    os.environ.get("VELES_TPU_DATA", "~/.veles_tpu/datasets"))
+
 root.common.trace.run = False          # per-unit timing prints
 root.common.random.seed = 42
 

@@ -1,24 +1,32 @@
 """Convolution in the reference's layout: NHWC activations, HWIO
-weights.
+weights, and the convolutional forward units.
 
-Port of ``conv_raw`` and ``conv_s2d_raw`` from ``veles_tpu/nn/conv.py``
-(the ``Conv`` unit classes wait for the ``nn/`` units, ROADMAP.md
-queue 1 item 5). The product itself is ``torch.nn.functional.conv2d``
-(cuDNN on the card), as the reference leaves it to XLA: the NHWC
-tensor enters as its NCHW view, which is channels-last in memory, and
-the weights are cast and laid out channels-last in one copy, so cuDNN
-reads both without a further transpose and its output comes back as a
-contiguous NHWC tensor.
+Port of ``veles_tpu/nn/conv.py``: ``conv_raw``, ``conv_s2d_raw`` and
+the units ``Conv``, ``ConvTanh``, ``ConvRELU`` and ``ConvSigmoid``
+(with ``as_nhwc`` and ``normalize_padding``). The product itself is
+``torch.nn.functional.conv2d`` (cuDNN on the card), as the reference
+leaves it to XLA: the NHWC tensor enters as its NCHW view, which is
+channels-last in memory, and the weights are cast and laid out
+channels-last in one copy, so cuDNN reads both without a further
+transpose and its output comes back as a contiguous NHWC tensor.
 Autograd flows through the views, so the weight gradient lands in the
-HWIO layout.
+HWIO layout. A unit works its output shape out by arithmetic
+(:func:`conv_output_hw`), where the reference traces the function.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from veles_tpu_torch import prng
+from veles_tpu_torch.accelerated_units import AcceleratedUnit
+from veles_tpu_torch.memory import Array
+from veles_tpu_torch.nn.activation import ACTIVATIONS
+from veles_tpu_torch.nn.filling import fill_weights
 
 
 def _same_pads(size: int, k: int, stride: int):
@@ -124,3 +132,163 @@ def conv_s2d_raw(x, weights, bias, strides, padding, compute_dtype,
     if bias is not None:
         y = y + bias.to(out_dtype)
     return y
+
+
+def _conv_forward(act: str, strides, padding, groups, x, weights, bias,
+                  compute_dtype):
+    return ACTIVATIONS[act](
+        conv_raw(x, weights, bias, strides, padding, compute_dtype,
+                 groups=groups))
+
+
+def as_nhwc(x):
+    """[B,H,W] -> [B,H,W,1]; NHWC passes through."""
+    return x.reshape(tuple(x.shape) + (1,)) if x.ndim == 3 else x
+
+
+def normalize_padding(padding):
+    """User padding forms -> the lax form: int, (px, py),
+    ((py, py), (px, px)) or SAME/VALID strings."""
+    if isinstance(padding, int):
+        padding = ((padding, padding), (padding, padding))
+    elif isinstance(padding, (tuple, list)) and \
+            isinstance(padding[0], int):
+        # (px, py) user convention -> ((py, py), (px, px)): conv dims
+        # are (H, W) and kx/px are the W (x) direction.
+        px, py = padding
+        padding = ((py, py), (px, px))
+    elif isinstance(padding, str):
+        return padding.upper()
+    return tuple(tuple(p) for p in padding)
+
+
+def conv_output_hw(h: int, w: int, ky: int, kx: int, strides,
+                   padding) -> Tuple[int, int]:
+    """The output (H, W) of :func:`conv_raw` on an [*, h, w, *] input
+    with a ky x kx kernel, ``strides`` (sh, sw) and lax-form
+    ``padding``."""
+    if isinstance(padding, str):
+        if padding == "SAME":
+            return -(-h // strides[0]), -(-w // strides[1])
+        padding = ((0, 0), (0, 0))
+    (pt, pb), (pl, pr) = padding
+    return ((h + pt + pb - ky) // strides[0] + 1,
+            (w + pl + pr - kx) // strides[1] + 1)
+
+
+class Conv(AcceleratedUnit):
+    """2-D convolution: kwargs ``n_kernels``, ``kx``, ``ky``,
+    ``sliding`` (strides ``(sx, sy)``), ``padding`` (int, ``(px, py)``,
+    or SAME/VALID), ``n_groups``. The user surface follows the x, y
+    convention; H, W ordering is internal (``strides_hw``)."""
+
+    ACTIVATION = "linear"
+    EXPORT_UUID = "veles.tpu.conv"
+    MAPPING = "conv"
+    MAPPING_GROUP = "layer"
+
+    def export_spec(self):
+        """(props, arrays) of the layer: HWIO weights as stored; padding
+        SAME/VALID or [[ph, ph], [pw, pw]]."""
+        padding = self.padding if isinstance(self.padding, str) else \
+            [list(p) for p in self.padding]
+        props = {"activation": self.ACTIVATION,
+                 "strides_hw": list(self.strides_hw),
+                 "padding": padding,
+                 "include_bias": bool(self.include_bias),
+                 "n_kernels": self.n_kernels,
+                 "n_groups": self.n_groups,
+                 "ky": self.ky, "kx": self.kx}
+        arrays = {"weights": self.weights.map_read()}
+        if self.include_bias:
+            arrays["bias"] = self.bias.map_read()
+        return props, arrays
+
+    def __init__(self, workflow, **kwargs: Any) -> None:
+        self.n_kernels: int = kwargs.pop("n_kernels")
+        #: caffe-style channel groups; weights hold C/groups input
+        #: channels per filter
+        self.n_groups: int = kwargs.pop("n_groups", 1)
+        self.kx: int = kwargs.pop("kx")
+        self.ky: int = kwargs.pop("ky", None) or self.kx
+        self.sliding: Tuple[int, int] = tuple(
+            np.atleast_1d(kwargs.pop("sliding", (1, 1))))
+        if len(self.sliding) == 1:
+            self.sliding = (self.sliding[0], self.sliding[0])
+        self.strides_hw = (self.sliding[1], self.sliding[0])
+        self.padding = normalize_padding(kwargs.pop("padding", "VALID"))
+        self.weights_stddev = kwargs.pop("weights_stddev", None)
+        self.weights_filling = kwargs.pop("weights_filling", "uniform")
+        self.include_bias = kwargs.pop("include_bias", True)
+        prng_stream = kwargs.pop("prng_stream", "default")
+        super().__init__(workflow, **kwargs)
+        self.input: Optional[Array] = None
+        self.output = Array()
+        self.weights = Array()
+        self.bias = Array()
+        self.rand = prng.get(prng_stream)
+        self.demand("input")
+
+    def initialize(self, device=None, **kwargs: Any) -> Optional[bool]:
+        retry = super().initialize(device=device, **kwargs)
+        if retry:
+            return retry
+        if not self.input:
+            return True
+        in_shape = self.input.shape
+        channels = 1 if len(in_shape) == 3 else in_shape[-1]
+        if channels % self.n_groups or self.n_kernels % self.n_groups:
+            raise ValueError(
+                "conv n_groups=%d must divide channels (%d) and "
+                "n_kernels (%d)" % (self.n_groups, channels,
+                                    self.n_kernels))
+        w_shape = (self.ky, self.kx, channels // self.n_groups,
+                   self.n_kernels)
+        dtype = self.device.precision_dtype
+        if not self.weights or self.weights.shape != w_shape:
+            fan_in = self.ky * self.kx * channels // self.n_groups
+            self.init_array("weights", data=fill_weights(
+                self.rand, w_shape, self.weights_filling,
+                self.weights_stddev, fan_in=fan_in,
+                fan_out=self.n_kernels).astype(dtype))
+            self.init_array("bias",
+                            data=np.zeros(self.n_kernels, dtype=dtype))
+        else:
+            self.init_array("weights")
+            self.init_array("bias")
+        self._forward_ = self.jit(_conv_forward,
+                                  static_argnums=(0, 1, 2, 3, 7))
+        out_h, out_w = conv_output_hw(in_shape[1], in_shape[2], self.ky,
+                                      self.kx, self.strides_hw,
+                                      self.padding)
+        if out_h < 1 or out_w < 1:
+            raise ValueError("conv %s: a %dx%d kernel leaves no output on "
+                             "a %s input" % (self.name, self.ky, self.kx,
+                                             in_shape))
+        self.init_array("output",
+                        shape=(in_shape[0], out_h, out_w, self.n_kernels),
+                        dtype=dtype)
+        return None
+
+    def run(self) -> None:
+        self.output.devmem = self._forward_(
+            self.ACTIVATION, self.strides_hw, self.padding,
+            self.n_groups, as_nhwc(self.input.devmem),
+            self.weights.devmem,
+            self.bias.devmem if self.include_bias else None,
+            self.device.compute_dtype)
+
+
+class ConvTanh(Conv):
+    ACTIVATION = "tanh"
+    MAPPING = "conv_tanh"
+
+
+class ConvRELU(Conv):
+    ACTIVATION = "relu"
+    MAPPING = "conv_relu"
+
+
+class ConvSigmoid(Conv):
+    ACTIVATION = "sigmoid"
+    MAPPING = "conv_sigmoid"

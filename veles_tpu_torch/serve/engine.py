@@ -294,14 +294,14 @@ class InferenceEngine:
     @classmethod
     def from_forwards(cls, forwards, **kwargs) -> "InferenceEngine":
         raise NotImplementedError(
-            "forward units and fuse_forwards wait for the port's unit "
-            "graph and model zoo (ROADMAP.md queue 1 item 6)")
+            "fuse_forwards (a unit graph's forward units as fused "
+            "specs) waits for ROADMAP.md queue 1 item 6")
 
     @classmethod
     def from_workflow(cls, workflow, **kwargs) -> "InferenceEngine":
         raise NotImplementedError(
-            "workflows wait for the port's unit graph and model zoo "
-            "(ROADMAP.md queue 1 item 6)")
+            "a workflow's forward needs fuse_forwards (ROADMAP.md "
+            "queue 1 item 6)")
 
     @classmethod
     def from_snapshot(cls, path: str, **kwargs) -> "InferenceEngine":
