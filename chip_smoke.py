@@ -160,7 +160,28 @@ without them, and on any failed phase. Phases, in order:
    the kernels and on ``Device(backend="cpu")`` through the plain
    versions: the dropout masks bitwise, every minibatch's n_err equal
    and loss within bounds, the weights, biases and velocities after
-   the epoch within stated bounds.
+   the epoch within stated bounds;
+16. the flagship's input pipeline at full width, as bench.py measures
+   it: ``alexnet_fused()`` (phase 9's configuration, batch 1536, bf16)
+   and ``FullBatchLoader``s of 2 x 1536 uint8 224 x 224 x 3 images on
+   ``Device()`` with ``range_linear`` (0..255 -> 0..1), four legs in 3
+   interleaved windows of 48 steps: resident (``step`` on one device
+   batch), pipeline (``make_loader_step``, one step a call), overlap
+   fused (``make_loader_step(steps_per_dispatch=8)``) and overlap
+   prefetch (``PrefetchingServer(depth=2)`` with a bf16 cast ->
+   ``get_many(8)`` -> ``step_many``): images/s per leg (best and mean
+   window), ``pipeline_vs_resident``, ``loader_overlap_efficiency``
+   of both overlap legs, per-step wall p50/p99/max; exactly 2/2/2
+   K6/K7/K8 around a loader step and 16/16/16 around a K = 8 dispatch;
+   one profiled window of the resident, pipeline and overlap-fused
+   legs (busy share, time by kernel class), the gather + normalize's
+   device time (and its index_select's and normalizer's), peak memory,
+   the ring's staged bytes, finite losses, no producer thread after
+   ``stop()``; the first gathered minibatch bitwise the loader's own
+   serve; under deterministic cuDNN, the K = 1 loader step against
+   ``loader.run()`` + ``step`` and one K = 8 dispatch against 8 loader
+   steps, bitwise over 8 steps; ``MeanDispNormalizer`` and
+   ``InputJoiner`` on the card against the CPU, bitwise.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -3526,6 +3547,402 @@ def unit_graph_parity_phase(torch, dev, card):
                 card_s=card_s, cpu_s=cpu_s)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the flagship's input pipeline at full width
+# ---------------------------------------------------------------------------
+
+#: bench.py's legs: 3 interleaved windows of 48 steps, K = 8 steps a
+#: dispatch, a prefetch ring of depth 2; the parity runs take 8 steps
+PIPE_WINDOWS = 3
+PIPE_STEPS = 48
+PIPE_K = 8
+PIPE_DEPTH = 2
+PIPE_PARITY_STEPS = 8
+PIPE_IMAGE = (224, 224, 3)
+#: the small units held card against CPU: MeanDispNormalizer over a
+#: minibatch of the flagship's images, InputJoiner of its output and a
+#: [rows, 1000] block
+PIPE_UNIT_ROWS = 64
+PIPE_LEGS = ("resident", "pipeline", "overlap-fused", "overlap-prefetch")
+
+
+def _synth_images(batch, seed, device):
+    """bench.py:103-131: a FullBatchLoader of 2 x ``batch`` uint8
+    images and labels from ``default_rng(seed)``, all TRAIN,
+    range_linear 0..255 -> 0..1, no shuffle, on ``device`` (a unit
+    Device)."""
+    from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+    from veles_tpu_torch.loader import TRAIN, FullBatchLoader
+
+    n = 2 * batch
+    rng = np.random.default_rng(seed)
+
+    class SynthImages(FullBatchLoader):
+        def load_data(self):
+            self.has_labels = True
+            self.original_data = rng.integers(
+                0, 256, (n,) + PIPE_IMAGE, dtype=np.uint8)
+            self.original_labels = rng.integers(0, 1000, n).astype(
+                np.int32)
+            self.class_lengths[:] = [0, 0, n]
+
+    loader = SynthImages(
+        AcceleratedWorkflow(None, name="synth-images"), minibatch_size=batch,
+        shuffle_limit=0, normalization_type="range_linear",
+        normalization_parameters=dict(source=(0.0, 255.0),
+                                      interval=(0.0, 1.0)))
+    if loader.initialize(device=device) is not None:
+        raise AssertionError("the synthetic image loader did not "
+                             "initialize")
+    loader.minibatch_class = TRAIN
+    return loader
+
+
+def _pipe_trainer(dev):
+    from veles_tpu_torch.models import flagship
+    from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
+    specs, params, fwd_flops = flagship.alexnet_fused()
+    return FusedClassifierTrainer(specs, params, device=dev,
+                                  **CLASSIFIER_HYPER), fwd_flops
+
+
+def _leg_window(torch, dispatch, n_dispatch, k):
+    """One timed window: ``n_dispatch`` calls of ``dispatch`` (K steps
+    each), the last one synchronized. Returns (ms per step, the wall of
+    each step as the host saw it (a dispatch's over K), the last
+    metrics)."""
+    per_step = []
+    t0 = last = time.monotonic()
+    for i in range(n_dispatch):
+        metrics = dispatch()
+        if i == n_dispatch - 1:
+            torch.cuda.synchronize()
+        now = time.monotonic()
+        per_step.extend([(now - last) * 1e3 / k] * k)
+        last = now
+    return (now - t0) * 1e3 / (n_dispatch * k), per_step, metrics
+
+
+def _trajectory(torch, dev, loader_seed, batch, mode):
+    """``PIPE_PARITY_STEPS`` steps of a fresh trainer over a fresh
+    loader: ``loader`` (K = 1 make_loader_step), ``two-dispatch``
+    (loader.run() + step on the served batch) or ``k`` (one K =
+    PIPE_PARITY_STEPS dispatch). Returns (losses, params, velocity)."""
+    from veles_tpu_torch.backends import Device
+    trainer, _ = _pipe_trainer(dev)
+    loader = _synth_images(batch, loader_seed, Device())
+    losses = []
+    if mode == "k":
+        step = trainer.make_loader_step(
+            loader, steps_per_dispatch=PIPE_PARITY_STEPS)
+        losses = list(step()["loss"])
+    else:
+        step = trainer.make_loader_step(loader) if mode == "loader" \
+            else None
+        for _ in range(PIPE_PARITY_STEPS):
+            loader.run()
+            m = step() if step is not None else trainer.step(
+                loader.minibatch_data.devmem, loader.minibatch_labels.devmem)
+            losses.append(m["loss"])
+    torch.cuda.synchronize()
+    return torch.stack(losses), trainer.params, trainer.velocity
+
+
+def _bitwise_trees(torch, a, b):
+    return all(torch.equal(x[key], y[key]) for x, y in zip(a, b)
+               for key in x)
+
+
+def _pipeline_parity(torch, dev, batch):
+    """The gathered window against the loader's own serve, then the
+    trajectories under deterministic cuDNN: (a) the K = 1 loader step
+    against loader.run() + step, (b) one K = 8 dispatch against 8 K = 1
+    loader steps; bitwise, cuDNN's settings restored after."""
+    from veles_tpu_torch.backends import Device
+    served = _synth_images(batch, 2, Device())
+    fused = _synth_images(batch, 2, Device())
+    fused.external_gather = True
+    served.run()
+    fused.run()
+    x, labels = fused.gather(fused.minibatch_offset - fused.minibatch_size,
+                             fused.minibatch_size)
+    gathered_equal = bool(torch.equal(x, served.minibatch_data.devmem) and
+                          torch.equal(labels, served.minibatch_labels.devmem))
+    log("  the first gathered minibatch against the loader's own serve of "
+        "the window: %s" % ("bitwise equal" if gathered_equal else "DIFFERS"))
+    if not gathered_equal:
+        raise AssertionError("the gathered minibatch differs from the "
+                             "served one")
+    del served, fused, x, labels
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        runs = {mode: _trajectory(torch, dev, 2, batch, mode)
+                for mode in ("loader", "two-dispatch", "k")}
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    out = {}
+    for name, (a, b) in (("loader step vs two-dispatch",
+                          ("loader", "two-dispatch")),
+                         ("K = %d vs %d x K = 1" % ((PIPE_PARITY_STEPS,) * 2),
+                          ("k", "loader"))):
+        (la, pa, va), (lb, pb, vb) = runs[a], runs[b]
+        same = bool(torch.equal(la, lb)) and _bitwise_trees(torch, pa, pb) \
+            and _bitwise_trees(torch, va, vb)
+        log("  trajectory %s over %d steps, deterministic cuDNN: %s "
+            "(losses %s)" % (name, PIPE_PARITY_STEPS,
+                             "bitwise equal" if same else "DIFFER",
+                             ", ".join("%.4f" % v for v in la.tolist())))
+        if not same:
+            raise AssertionError("trajectory %s differs: %s vs %s"
+                                 % (name, la.tolist(), lb.tolist()))
+        out[name] = dict(bitwise=same, losses=la.tolist())
+    out["gathered_bitwise"] = gathered_equal
+    return out
+
+
+def _pipeline_units(torch):
+    """MeanDispNormalizer and InputJoiner on Device() against the same
+    units on Device(backend="cpu"), f32, bitwise."""
+    from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.input_joiner import InputJoiner
+    from veles_tpu_torch.mean_disp_normalizer import MeanDispNormalizer
+    from veles_tpu_torch.memory import Array
+
+    rng = np.random.default_rng(6)
+    rows = PIPE_UNIT_ROWS
+    dataset = rng.integers(0, 256, (4 * rows,) + PIPE_IMAGE).astype(
+        np.float32)
+    extra = rng.standard_normal((rows, 1000)).astype(np.float32)
+    out = []
+    for device in (Device(), Device(backend="cpu")):
+        wf = AcceleratedWorkflow(None, name="pipeline-units")
+        norm = MeanDispNormalizer.from_dataset(wf, dataset)
+        norm.input = Array(dataset[:rows])
+        norm.input.initialize(device)
+        joiner = InputJoiner(wf, num_inputs=2)
+        joiner.input_0 = norm.output
+        joiner.input_1 = Array(extra)
+        joiner.input_1.initialize(device)
+        if norm.initialize(device=device) is not None or \
+                joiner.initialize(device=device) is not None:
+            raise AssertionError("a unit did not initialize")
+        norm.run()
+        joiner.run()
+        out.append((np.array(norm.output.map_read()),
+                    np.array(joiner.output.map_read()),
+                    str(joiner.output.devmem.device)))
+    (nc, jc, where), (np_, jp, _) = out
+    ok = bool(np.array_equal(nc, np_) and np.array_equal(jc, jp))
+    log("  MeanDispNormalizer [%d, %s] and InputJoiner -> %s on %s against "
+        "Device(backend='cpu'), f32: %s" % (
+            rows, ", ".join(map(str, PIPE_IMAGE)), jc.shape, where,
+            "bitwise equal" if ok else "DIFFER"))
+    if not ok or jc.shape != (rows, int(np.prod(PIPE_IMAGE)) + 1000):
+        raise AssertionError("card and CPU units differ")
+    return dict(bitwise=ok, joined_shape=list(jc.shape))
+
+
+def pipeline_phase(torch, counters, dev, card):
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.loader import PrefetchingServer
+
+    b = CLASSIFIER_BATCH
+    log("phase 16: the flagship's input pipeline: AlexNet (1000 classes, "
+        "%s, seed 0), batch %d, bf16, %s; uint8 synthetic images, 2 x %d "
+        "a loader, range_linear; %d interleaved windows of %d steps a leg, "
+        "K = %d, prefetch depth %d" % (" x ".join(map(str, PIPE_IMAGE)), b,
+                                       CLASSIFIER_HYPER, b, PIPE_WINDOWS,
+                                       PIPE_STEPS, PIPE_K, PIPE_DEPTH))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    trainer, fwd_flops = _pipe_trainer(dev)
+    data = np.random.default_rng(1)              # bench.py:85-88
+    xd = torch.from_numpy(data.random((b,) + PIPE_IMAGE,
+                                      dtype=np.float32)).to(dev)
+    ld = torch.from_numpy(data.integers(0, 1000, b)).to(dev)
+    pipe_loader = _synth_images(b, 2, Device())
+    fused_loader = _synth_images(b, 3, Device())
+    ring_loader = _synth_images(b, 3, Device())
+    if pipe_loader.device.torch_device.type != dev.type:
+        raise AssertionError("the loader is on %s"
+                             % pipe_loader.device.torch_device)
+    dataset_bytes = pipe_loader._dataset_dev_.numel()
+    pipe_step = trainer.make_loader_step(pipe_loader)
+    fused_k = trainer.make_loader_step(fused_loader,
+                                       steps_per_dispatch=PIPE_K)
+    server = PrefetchingServer(
+        ring_loader, depth=PIPE_DEPTH,
+        transform=lambda d: d.to(trainer.compute_dtype)).start()
+
+    def resident():
+        return trainer.step(xd, ld)
+
+    def pipeline():
+        pipe_loader.run()
+        return pipe_step()
+
+    def prefetched():
+        batches = server.get_many(PIPE_K, timeout=300)
+        return trainer.step_many([bt.data for bt in batches],
+                                 [bt.labels for bt in batches])
+
+    dispatches = {"resident": (resident, 1), "pipeline": (pipeline, 1),
+                  "overlap-fused": (fused_k, PIPE_K),
+                  "overlap-prefetch": (prefetched, PIPE_K)}
+    try:
+        for fn, _ in dispatches.values():          # warm every leg
+            fn()
+        torch.cuda.synchronize()
+        staged = server.get(timeout=300)
+        ring_bytes = PIPE_DEPTH * staged.data.numel() * \
+            staged.data.element_size()
+        del staged
+        setup_s = time.monotonic() - t0
+        one = {}
+        for name in ("pipeline", "overlap-fused"):
+            fn, k = dispatches[name]
+            before = counters.read()
+            fn()
+            torch.cuda.synchronize()
+            one[name] = {kk: v for kk, v in counters.delta(before).items()
+                         if v}
+        expect = {"pipeline": {"lrn_fwd": 2, "lrn_bwd": 2,
+                               "uniform_fill": 2},
+                  "overlap-fused": {"lrn_fwd": 2 * PIPE_K,
+                                    "lrn_bwd": 2 * PIPE_K,
+                                    "uniform_fill": 2 * PIPE_K}}
+        log("  launches around one K = 1 loader step: %s; around one K = %d "
+            "dispatch: %s (need exactly %s and %s)" % (
+                one["pipeline"], PIPE_K, one["overlap-fused"],
+                expect["pipeline"], expect["overlap-fused"]))
+        if one != expect:
+            raise AssertionError("loader-step launches %s != %s"
+                                 % (one, expect))
+
+        times = {name: [] for name in PIPE_LEGS}
+        walls = {name: [] for name in PIPE_LEGS}
+        last = {}
+        counters.reset()
+        for _ in range(PIPE_WINDOWS):
+            for name in PIPE_LEGS:
+                fn, k = dispatches[name]
+                ms, per_step, last[name] = _leg_window(
+                    torch, fn, max(1, PIPE_STEPS // k), k)
+                times[name].append(ms)
+                walls[name].extend(per_step)
+        launches = counters.read()
+        profiles = {}
+        for name, n in (("resident", PIPE_K), ("pipeline", PIPE_K),
+                        ("overlap-fused", 1)):
+            fn, _ = dispatches[name]
+
+            def window(fn=fn, n=n):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+
+            profiles[name] = profile_device(torch, window, 1,
+                                            host_ops=False)
+    finally:
+        server.stop()
+    leaked = [t.name for t in threading.enumerate()
+              if t.name.startswith("prefetch")]
+    log("  threads left after PrefetchingServer.stop(): %s" % (leaked or
+                                                               "none"))
+    if leaked:
+        raise AssertionError("prefetch threads left: %s" % leaked)
+    peak = torch.cuda.max_memory_allocated()
+    gather_ms = device_ms(lambda: pipe_loader.gather(0, b), 3)
+    window = pipe_loader._window(0, b)
+    rows = pipe_loader._dataset_dev_.index_select(0, window)
+    index_ms = device_ms(
+        lambda: pipe_loader._dataset_dev_.index_select(0, window), 3)
+    normalize_ms = device_ms(lambda: pipe_loader.normalizer.apply_torch(
+        rows, pipe_loader._stats_dev_), 3)
+    del window, rows
+
+    legs = {}
+    for name in PIPE_LEGS:
+        best, mean = min(times[name]), float(np.mean(times[name]))
+        st = dict(p50=float(np.percentile(walls[name], 50)),
+                  p99=float(np.percentile(walls[name], 99)),
+                  max=float(np.max(walls[name])))
+        legs[name] = dict(ms_per_step=times[name], best_ms=best,
+                          mean_ms=mean, images_per_s_best=b * 1e3 / best,
+                          images_per_s_mean=b * 1e3 / mean,
+                          wall_ms=st, steps=len(walls[name]))
+        log("  %s: %.1f images/s at the best window (%.3f ms a step), %.1f "
+            "at the mean (%.3f ms); per-step wall p50 %.3f, p99 %.3f, max "
+            "%.3f ms over %d steps [%s]" % (
+                name, b * 1e3 / best, best, b * 1e3 / mean, mean, st["p50"],
+                st["p99"], st["max"], len(walls[name]), card))
+    res = legs["resident"]["images_per_s_best"]
+    ratios = dict(
+        pipeline_vs_resident=legs["pipeline"]["images_per_s_best"] / res,
+        loader_overlap_efficiency_fused=(
+            legs["overlap-fused"]["images_per_s_best"] / res),
+        loader_overlap_efficiency_prefetch=(
+            legs["overlap-prefetch"]["images_per_s_best"] / res))
+    log("  pipeline_vs_resident %.4f; loader_overlap_efficiency: fused "
+        "%.4f, prefetch %.4f (best windows; at the means %.4f, %.4f, %.4f)"
+        % (ratios["pipeline_vs_resident"],
+           ratios["loader_overlap_efficiency_fused"],
+           ratios["loader_overlap_efficiency_prefetch"],
+           legs["pipeline"]["images_per_s_mean"] /
+           legs["resident"]["images_per_s_mean"],
+           legs["overlap-fused"]["images_per_s_mean"] /
+           legs["resident"]["images_per_s_mean"],
+           legs["overlap-prefetch"]["images_per_s_mean"] /
+           legs["resident"]["images_per_s_mean"]))
+    for name, prof in profiles.items():
+        if prof is None:
+            log("  profile %s window: no device time recorded" % name)
+            continue
+        log("  profile %s window (%d steps): wall %.3f ms, device %.3f ms "
+            "(busy %.0f%%); by class: %s" % (
+                name, PIPE_K, prof["wall_ms"], prof["device_ms"],
+                100 * prof["busy_share"], "; ".join(
+                    "%s %.3f" % kv for kv in sorted(
+                        prof["by_class"].items(), key=lambda kv: -kv[1]))))
+    log("  gather + normalize of one minibatch (uint8 [%d, %s] -> f32): "
+        "device %.3f ms (the index_select %.3f, the normalizer %.3f); the "
+        "dataset on the card %.1f MB a loader; the "
+        "prefetch ring %d x %.1f MB = %.1f MB staged (bf16); peak memory "
+        "%.2f GB; set-up %.1f s [%s]" % (
+            b, ", ".join(map(str, PIPE_IMAGE)), gather_ms, index_ms,
+            normalize_ms, dataset_bytes / 1e6,
+            PIPE_DEPTH, ring_bytes / PIPE_DEPTH / 1e6, ring_bytes / 1e6,
+            peak / 1e9, setup_s, card))
+    losses = {name: m["loss"].reshape(-1).tolist()
+              for name, m in last.items()}
+    log("  last losses: %s" % "; ".join(
+        "%s %s" % (name, ", ".join("%.4f" % v for v in ls))
+        for name, ls in losses.items()))
+    if not all(np.isfinite(v) for ls in losses.values() for v in ls) or \
+            trainer.nonfinite_count:
+        raise AssertionError("non-finite pipeline losses: %s" % losses)
+    del trainer, xd, ld, pipe_loader, fused_loader, ring_loader, server
+    del dispatches, pipe_step, fused_k, last
+    gc.collect()
+    parity = _pipeline_parity(torch, dev, b)
+    units = _pipeline_units(torch)
+    return dict(batch=b, hyper=CLASSIFIER_HYPER, windows=PIPE_WINDOWS,
+                steps_per_window=PIPE_STEPS, k=PIPE_K, depth=PIPE_DEPTH,
+                setup_s=setup_s, legs=legs, ratios=ratios,
+                launches_one=one, profiles=profiles,
+                gather_normalize_ms=gather_ms, index_select_ms=index_ms,
+                normalize_ms=normalize_ms, dataset_bytes=dataset_bytes,
+                ring_bytes=ring_bytes, peak_mem_bytes=peak,
+                fwd_flops_per_image=fwd_flops, losses=losses,
+                parity=parity, units=units), launches
+
+
 class Counters:
     """Every kernel's launch counter, read and reset together."""
 
@@ -3600,6 +4017,7 @@ def main():
     classifier_graph, classifier_graph_launches = \
         unit_graph_classifier_phase(torch, counters, dev, card, classifier)
     classifier_graph_parity = unit_graph_parity_phase(torch, dev, card)
+    pipeline, pipeline_launches = pipeline_phase(torch, counters, dev, card)
 
     # each main path's launches, counted from 0 around that path alone
     by_path = {"serving": serve_launches, "training": train_launches,
@@ -3608,7 +4026,8 @@ def main():
                "apply serving": apply_launches,
                "unit graph": graph_launches,
                "co-tenancy": cotenancy_launches,
-               "unit-graph classifier": classifier_graph_launches}
+               "unit-graph classifier": classifier_graph_launches,
+               "input pipeline": pipeline_launches}
     kernels = []
     for name, row in rows.items():
         paths = {p: n.get(name, 0) for p, n in by_path.items()
@@ -3631,6 +4050,7 @@ def main():
                   unit_graph=graph, cotenancy=cotenancy,
                   unit_graph_classifier=classifier_graph,
                   unit_graph_parity=classifier_graph_parity,
+                  input_pipeline=pipeline,
                   wall_s=time.monotonic() - t_start)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:

@@ -1283,3 +1283,287 @@ def test_gd_lrn_unit_launches_k7_alone(f32_units):
                            2.0, 5, 1e-4, 0.75, impl="plain")
     got = unit.err_input.devmem
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+# ------------------------------------------------- the input pipeline
+#
+# The loader step on the card: bench.py's loader layout (uint8 images on
+# the card, range_linear on the way in) at 64 x 64 with the 10-class
+# AlexNet, whose two LRN layers and two dropout layers launch K6, K7
+# and K8 twice a step. Trajectories are compared bitwise with cuDNN set
+# deterministic (and restored after): every path takes the same ops on
+# the same inputs.
+
+PIPE_IMAGE = 64
+PIPE_BATCH = 16
+
+
+def _pipe_loader(device, n=3 * PIPE_BATCH, seed=2):
+    """A uint8 FullBatchLoader of ``n`` images on ``device`` (a torch
+    device: the card, or the CPU for the units' own Device)."""
+    from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.loader import TRAIN, FullBatchLoader
+
+    rng = np.random.default_rng(seed)
+    shape = (n, PIPE_IMAGE, PIPE_IMAGE, 3)
+
+    class Images(FullBatchLoader):
+        def load_data(self):
+            self.has_labels = True
+            self.original_data = rng.integers(0, 256, shape,
+                                              dtype=np.uint8)
+            self.original_labels = rng.integers(0, 10, n).astype(np.int32)
+            self.class_lengths[:] = [0, 0, n]
+
+    loader = Images(AcceleratedWorkflow(None, name="pipe"),
+                    minibatch_size=PIPE_BATCH, shuffle_limit=0,
+                    normalization_type="range_linear",
+                    normalization_parameters=dict(source=(0.0, 255.0),
+                                                  interval=(0.0, 1.0)))
+    unit_device = Device() if device.type == "cuda" \
+        else Device(backend="cpu")
+    assert loader.initialize(device=unit_device) is None
+    loader.minibatch_class = TRAIN
+    return loader
+
+
+def _pipe_trainer(device, **kw):
+    from veles_tpu_torch.models.flagship import alexnet_fused
+    from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
+
+    specs, params, _ = alexnet_fused(n_classes=10, image_size=PIPE_IMAGE)
+    return FusedClassifierTrainer(specs, params, learning_rate=0.01,
+                                  momentum=0.9, weight_decay=5e-4,
+                                  device=device, **kw)
+
+
+@pytest.fixture
+def deterministic(cuda):
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    yield cuda
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        saved
+
+
+def test_loader_step_launches_two_of_k6_k7_k8_a_step(cuda):
+    """2/2/2 K6/K7/K8 around one K = 1 loader step, 2K/2K/2K around one
+    K = 4 dispatch."""
+    from veles_tpu_torch.ops import lrn, rng
+
+    for k in (1, 4):
+        trainer = _pipe_trainer(cuda)
+        loader = _pipe_loader(cuda)
+        step = trainer.make_loader_step(loader, steps_per_dispatch=k)
+        for _ in range(2):  # warm
+            if k == 1:
+                loader.run()
+            step()
+        torch.cuda.synchronize()
+        lrn.reset_launches()
+        rng.reset_launches()
+        if k == 1:
+            loader.run()
+        out = step()
+        torch.cuda.synchronize()
+        assert (lrn.LAUNCHES["lrn_fwd"], lrn.LAUNCHES["lrn_bwd"],
+                rng.LAUNCHES["uniform_fill"]) == (2 * k, 2 * k, 2 * k)
+        assert bool(torch.isfinite(out["loss"]).all())
+
+
+def test_loader_step_gathers_the_served_batch_bitwise(deterministic):
+    """The window the loader step gathers is the loader's own served
+    minibatch, bitwise, and the step on it equals ``loader.run()`` +
+    ``trainer.step`` on the served batch bitwise over 6 steps (a
+    second trainer from the same seed)."""
+    cuda = deterministic
+    served = _pipe_loader(cuda)
+    fused = _pipe_loader(cuda)
+    fused.external_gather = True
+    for _ in range(4):
+        served.run()
+        fused.run()
+        start = fused.minibatch_offset - fused.minibatch_size
+        x, labels = fused.gather(start, fused.minibatch_size)
+        assert torch.equal(x, served.minibatch_data.devmem)
+        assert torch.equal(labels, served.minibatch_labels.devmem)
+    runs = []
+    for two_dispatch in (False, True):
+        trainer = _pipe_trainer(cuda)
+        loader = _pipe_loader(cuda)
+        step = None if two_dispatch else trainer.make_loader_step(loader)
+        losses = []
+        for _ in range(6):
+            loader.run()
+            m = trainer.step(loader.minibatch_data.devmem,
+                             loader.minibatch_labels.devmem) \
+                if two_dispatch else step()
+            losses.append(m["loss"])
+        runs.append((torch.stack(losses), trainer.params))
+    (la, pa), (lb, pb) = runs
+    assert torch.equal(la, lb)
+    for a, b in zip(pa, pb):
+        for key in a:
+            assert torch.equal(a[key], b[key])
+
+
+def test_loader_k_steps_equal_single_steps_bitwise(deterministic):
+    """K = 4 through ``multi_step`` against 4 K = 1 loader steps, twice
+    over (8 steps), dropout on: bitwise."""
+    cuda = deterministic
+    runs = []
+    for k in (1, 4):
+        trainer = _pipe_trainer(cuda)
+        loader = _pipe_loader(cuda)
+        step = trainer.make_loader_step(loader, steps_per_dispatch=k)
+        losses = []
+        for _ in range(8 // k):
+            if k == 1:
+                loader.run()
+            losses.extend(step()["loss"].reshape(-1))
+        runs.append((torch.stack(losses), trainer))
+    (la, ta), (lb, tb) = runs
+    assert torch.equal(la, lb)
+    for a, b in zip(ta.params + ta.velocity, tb.params + tb.velocity):
+        for key in a:
+            assert torch.equal(a[key], b[key])
+
+
+def test_loader_steps_never_sync_the_host(cuda):
+    """50 steady-state K = 1 loader steps and 4 K = 4 dispatches under
+    ``set_sync_debug_mode("error")`` (nan_policy="skip": the sentinel
+    never reads its flag): no call waits for the card, so the host
+    runs ahead of it."""
+    for k in (1, 4):
+        trainer = _pipe_trainer(cuda, nan_policy="skip")
+        loader = _pipe_loader(cuda)
+        step = trainer.make_loader_step(loader, steps_per_dispatch=k)
+        for _ in range(3):  # warm: first allocations, cuDNN plans
+            if k == 1:
+                loader.run()
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(50 if k == 1 else 4):
+                if k == 1:
+                    loader.run()
+                out = step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert bool(torch.isfinite(out["loss"]).all())
+
+
+def test_prefetch_ring_feeds_step_many_like_the_sequential_path(
+        deterministic):
+    """PrefetchingServer (depth 2, a bf16 cast on the producer thread)
+    -> ``get_many(4)`` -> ``step_many``, twice, against serve ->
+    ``step`` on the bf16 batches: bitwise. The server is started on a
+    side stream; the producer enqueues on it (``server.stream``), the
+    consumer steps on it, and no producer thread is left after
+    ``stop()``."""
+    import threading
+
+    from veles_tpu_torch.loader import PrefetchingServer
+
+    cuda = deterministic
+    seq = _pipe_trainer(cuda)
+    loader = _pipe_loader(cuda)
+    losses = []
+    for _ in range(8):
+        loader.run()
+        losses.append(seq.step(
+            loader.minibatch_data.devmem.to(torch.bfloat16),
+            loader.minibatch_labels.devmem)["loss"])
+    side = torch.cuda.Stream()
+    ring = _pipe_trainer(cuda)
+    got = []
+    with torch.cuda.stream(side):
+        server = PrefetchingServer(
+            _pipe_loader(cuda), depth=2,
+            transform=lambda d: d.to(torch.bfloat16)).start()
+        try:
+            assert server.stream == side
+            for _ in range(2):
+                batches = server.get_many(4, timeout=300)
+                assert all(b.data.dtype == torch.bfloat16 for b in batches)
+                got.extend(ring.step_many([b.data for b in batches],
+                                          [b.labels for b in batches])
+                           ["loss"])
+        finally:
+            server.stop()
+    torch.cuda.synchronize()
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("prefetch")]
+    assert torch.equal(torch.stack(got), torch.stack(losses))
+    for a, b in zip(ring.params, seq.params):
+        for key in a:
+            assert torch.equal(a[key], b[key])
+
+
+def test_from_specs_normalizer_captured_equals_eager(cuda):
+    """The 10-class 64 x 64 AlexNet behind ``from_specs(normalizer=
+    mean_disp)``: captured buckets against eager, bitwise; a swap of the
+    statistics changes both answers alike (the graphs read them)."""
+    from veles_tpu_torch import normalization
+    from veles_tpu_torch.models.flagship import alexnet_fused
+    from veles_tpu_torch.serve import InferenceEngine
+
+    specs, params, _ = alexnet_fused(n_classes=10, image_size=64)
+    rng = np.random.default_rng(4)
+    norm = normalization.normalizer("mean_disp")
+    norm.analyze((rng.random((32, 64, 64, 3)) * 255).astype(np.float32))
+    engines = [InferenceEngine.from_specs(specs, params, device=cuda,
+                                          normalizer=norm, cuda_graphs=g)
+               for g in (True, False)]
+    x = (rng.random((5, 64, 64, 3)) * 255).astype(np.float32)
+    first = [e.apply(x) for e in engines]
+    assert np.array_equal(first[0], first[1])
+    assert engines[0].compile_count == 1
+    stats = {k: v.cpu().numpy() * 0.5
+             for k, v in engines[0].params[-1].items()}
+    for e in engines:
+        e.swap_params(params + [stats])
+    second = [e.apply(x) for e in engines]
+    assert np.array_equal(second[0], second[1])
+    assert not np.array_equal(first[0], second[0])
+    assert engines[0].compile_count == 1
+
+
+def test_mean_disp_normalizer_and_input_joiner_card_equal_cpu(cuda):
+    """Both units on ``Device()`` against the same units on
+    ``Device(backend="cpu")``, f32: bitwise (one subtraction and one
+    product; a copy)."""
+    from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.input_joiner import InputJoiner
+    from veles_tpu_torch.mean_disp_normalizer import MeanDispNormalizer
+    from veles_tpu_torch.memory import Array
+
+    rng = np.random.default_rng(6)
+    dataset = (rng.random((64, 12, 12, 3)) * 255).astype(np.float32)
+    extra = rng.standard_normal((32, 7)).astype(np.float32)
+    out = []
+    for device in (Device(), Device(backend="cpu")):
+        wf = AcceleratedWorkflow(None, name="units")
+        norm = MeanDispNormalizer.from_dataset(wf, dataset)
+        norm.input = Array(dataset[:32])
+        norm.input.initialize(device)
+        assert norm.initialize(device=device) is None
+        norm.run()
+        joiner = InputJoiner(wf, num_inputs=2)
+        joiner.input_0 = norm.output
+        joiner.input_1 = Array(extra)
+        joiner.input_1.initialize(device)
+        assert joiner.initialize(device=device) is None
+        joiner.run()
+        assert joiner.output.devmem.device.type == \
+            device.torch_device.type
+        out.append((np.array(norm.output.map_read()),
+                    np.array(joiner.output.map_read())))
+    (nc, jc), (np_, jp) = out
+    assert np.array_equal(nc, np_) and np.array_equal(jc, jp)
+    assert jc.shape == (32, 12 * 12 * 3 + 7)

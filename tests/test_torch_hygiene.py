@@ -40,7 +40,10 @@ def test_import_closure_has_no_jax_and_no_veles_tpu():
                  "sched", "sched.scheduler", "analysis", "analysis.graph",
                  "units", "plumbing", "workflow", "config", "mutable",
                  "distributable", "backends", "memory",
-                 "accelerated_units", "prng", "thread_pool", "logger"):
+                 "accelerated_units", "prng", "thread_pool", "logger",
+                 "loader.prefetch", "loader.image", "loader.hdf5",
+                 "loader.interactive", "mean_disp_normalizer",
+                 "input_joiner", "avatar", "downloader"):
         assert "veles_tpu_torch." + name in modules
     script = (
         "import importlib, json, sys\n"
@@ -115,6 +118,37 @@ def test_no_silent_cpu_fallback(monkeypatch):
     engine = GenerativeEngine(config, params, max_slots=1, device="cpu")
     assert engine.device == torch.device("cpu")
     assert engine.generate([np.asarray([1, 2], np.int32)], 2)[0].size == 2
+
+
+def test_input_pipeline_entry_points_need_the_card(monkeypatch):
+    """The input pipeline's entry points take the card by default and
+    raise without one: a prefetch ring over a loader with no device,
+    the input units on a workflow's default Device, a normalized
+    engine with no device."""
+    import types
+
+    from veles_tpu_torch import normalization
+    from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+    from veles_tpu_torch.loader import PrefetchingServer
+    from veles_tpu_torch.mean_disp_normalizer import MeanDispNormalizer
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.serve import InferenceEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    server = PrefetchingServer(types.SimpleNamespace(device=None))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        server.start()
+    unit = MeanDispNormalizer.from_dataset(
+        AcceleratedWorkflow(None, name="wf"), np.ones((4, 3), np.float32))
+    unit.input = Array(np.ones((2, 3), np.float32))
+    with pytest.raises(RuntimeError, match="backend='cpu'"):
+        unit.initialize()
+    params = [{"w": np.ones((3, 2), np.float32),
+               "b": np.zeros(2, np.float32)}]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngine.from_specs(
+            [("fc", "softmax")], params,
+            normalizer=normalization.normalizer("none"))
 
 
 def test_compute_dtype_policy():

@@ -15,6 +15,8 @@ import pytest
 import torch
 
 import veles_tpu.models.flagship as JF
+import veles_tpu.normalization as R_norm
+import veles_tpu_torch.normalization as P_norm
 from veles_tpu.models.transformer import TransformerConfig as JConfig
 from veles_tpu.models.transformer import init_params
 from veles_tpu.serve.engine import InferenceEngine as JEngine
@@ -165,14 +167,14 @@ def test_swap_params_in_place_and_validated():
 
 def test_device_policy_and_unported_constructors():
     """Graphs need a CUDA device; the constructors that wait for later
-    slices say which."""
+    slices say which (``from_specs(normalizer=)`` is ported: its parity
+    test is below)."""
     with pytest.raises(ValueError, match="cuda_graphs"):
         _mlp(cuda_graphs=True)
     assert _mlp(cuda_graphs=False).apply(
         np.ones((1, 6), np.float32)).shape == (1, 4)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        InferenceEngine.from_specs(MLP_SPECS, _mlp_params(),
-                                   normalizer=object(), device="cpu")
+    assert _mlp(normalizer=P_norm.normalizer("none")).apply(
+        np.ones((1, 6), np.float32)).shape == (1, 4)
     for ctor, arg in ((InferenceEngine.from_forwards, []),
                       (InferenceEngine.from_workflow, None),
                       (InferenceEngine.from_snapshot, "x"),
@@ -181,3 +183,53 @@ def test_device_policy_and_unported_constructors():
             ctor(arg)
     with pytest.raises(NotImplementedError, match="item 7"):
         InferenceEngine(lambda p, x: x, [], device="cpu", mesh=object())
+
+
+NORMALIZED = {
+    "mean_disp": {},
+    "range_linear": dict(source=(0.0, 255.0), interval=(-1.0, 1.0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NORMALIZED))
+def test_from_specs_normalizer_matches_reference(name):
+    """Raw rows in, the loader normalizer applied after the cast to the
+    compute dtype: probabilities within 1e-4 of the reference engine's.
+    A stateful normalizer's statistics are the last params entry: a
+    swap of the body alone keeps them, a swap that carries new
+    statistics changes the next answer (they are read, not frozen)."""
+    rng = np.random.default_rng(5)
+    train = (rng.random((32, 6)) * 255).astype(np.float32)
+    x = (rng.random((5, 6)) * 255).astype(np.float32)
+    ref_norm = R_norm.normalizer(name, **NORMALIZED[name])
+    port_norm = P_norm.normalizer(name, **NORMALIZED[name])
+    ref_norm.analyze(train)
+    port_norm.analyze(train)
+    params = _mlp_params(3)
+    ref = JEngine.from_specs(MLP_SPECS, params, normalizer=ref_norm)
+    ours = InferenceEngine.from_specs(MLP_SPECS, params, device="cpu",
+                                      normalizer=port_norm)
+    out = ours.apply(x)
+    assert _rel(out, ref.apply(x)) <= 1e-4
+    stateful = bool(port_norm.stat_arrays())
+    assert len(ours.params) == len(params) + stateful
+    assert ours.compile_count == ref.compile_count == 1
+    # the normalizer is really applied: raw rows score differently
+    plain = InferenceEngine.from_specs(MLP_SPECS, params, device="cpu")
+    assert not np.allclose(out, plain.apply(x), atol=1e-3)
+
+    ours.swap_params(_mlp_params(4))           # the body alone
+    ref.swap_params(_mlp_params(4))
+    body_swapped = ours.apply(x)
+    assert _rel(body_swapped, ref.apply(x)) <= 1e-4
+    if not stateful:
+        return
+    stats = ours.params[-1]
+    shifted = {k: v.numpy() * 0.5 for k, v in stats.items()}
+    leaves = [t for t in stats.values()]
+    ours.swap_params(_mlp_params(4) + [shifted])
+    assert all(a is b for a, b in zip(leaves, ours.params[-1].values()))
+    moved = ours.apply(x)
+    assert not np.allclose(moved, body_swapped, atol=1e-4)
+    ref.swap_params(_mlp_params(4) + [shifted])
+    assert _rel(moved, ref.apply(x)) <= 1e-4

@@ -11,10 +11,11 @@ no minibatch is copied through the host. The permutation is uploaded
 once per shuffle; a job's indices (``apply_data_from_master``) patch
 its window in place (``copy_``), where the reference donates the buffer
 to a ``dynamic_update_slice``. The host path (``fill_minibatch``) serves
-the normalizer's analysis pass and ``store_on_device=False``. The
-reference's ``external_gather`` (a fused trainer's loader step doing
-the gather itself) comes with ``make_loader_step`` (ROADMAP.md queue 1
-item 5).
+the normalizer's analysis pass and ``store_on_device=False``. With
+``external_gather`` set (by ``FusedClassifierTrainer.make_loader_step``)
+``run()`` keeps the epoch and offset bookkeeping and the permutation
+upload but gathers nothing: the fused step gathers the window itself,
+through :meth:`FullBatchLoader.gather`, the one gather both use.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import numpy as np
 import torch
 
 from veles_tpu_torch.accelerated_units import AcceleratedUnit
-from veles_tpu_torch.loader.base import INDEX_DTYPE, LABEL_DTYPE, Loader
+from veles_tpu_torch.loader.base import (CLASS_NAME, INDEX_DTYPE,
+                                        LABEL_DTYPE, TRAIN, Loader)
 from veles_tpu_torch.memory import Array
 
 
@@ -44,6 +46,10 @@ class FullBatchLoader(Loader, AcceleratedUnit):
         super().__init__(workflow, **kwargs)
         self.original_data: Optional[np.ndarray] = None
         self.original_labels: Optional[np.ndarray] = None
+        #: set by a fused consumer (``make_loader_step``) that gathers
+        #: the served window itself: ``run()`` then serves TRAIN
+        #: bookkeeping only and refuses any other class
+        self.external_gather = False
 
     def init_unpickled(self) -> None:
         super().init_unpickled()
@@ -100,27 +106,43 @@ class FullBatchLoader(Loader, AcceleratedUnit):
         self._stats_dev_ = {k: self.device.put(v) for k, v in
                             self.normalizer.stat_arrays().items()}
 
-    def _window(self, start: int, size: int) -> torch.Tensor:
+    def _window(self, start: int, size: int,
+                perm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The permutation's window ``[start, start +
         max_minibatch_size)`` on the device, rows from ``size`` on
-        pointing at sample 0 (masked by the caller)."""
-        indices = self._perm_dev_[start:start + self.max_minibatch_size]
+        pointing at sample 0 (masked by the caller). ``perm``: a
+        permutation taken earlier (a reshuffle replaces
+        ``_perm_dev_``; the old tensor stays valid), default the
+        current one."""
+        perm = self._perm_dev_ if perm is None else perm
+        indices = perm[start:start + self.max_minibatch_size]
         if size < self.max_minibatch_size:
             indices = indices.clone()
             indices[size:] = 0
         return indices
 
-    def gather(self, start: int, size: int):
+    def gather(self, start: int, size: int,
+               dataset: Optional[torch.Tensor] = None,
+               perm: Optional[torch.Tensor] = None):
         """Minibatch ``(data, labels)`` of the permutation's window at
         ``start``, rows from ``size`` on zeroed (labels -1): one gather
-        on the device."""
-        indices = self._window(start, size)
+        on the device, then the normalizer. A full window skips the
+        padding mask. ``dataset`` (default ``_dataset_dev_``) and
+        ``perm`` (default ``_perm_dev_``) let a fused step gather from
+        its compute-dtype copy and from a window taken before a
+        reshuffle."""
+        indices = self._window(start, size, perm)
+        if dataset is None:
+            dataset = self._dataset_dev_
         data = self.normalizer.apply_torch(
-            self._dataset_dev_.index_select(0, indices), self._stats_dev_)
-        data[size:] = 0
+            dataset.index_select(0, indices), self._stats_dev_)
+        full = size == len(indices)
+        if not full:
+            data[size:] = 0
         if self.has_labels:
             labels = self._labels_dev_.index_select(0, indices)
-            labels[size:] = -1
+            if not full:
+                labels[size:] = -1
         else:
             labels = torch.zeros(len(indices), dtype=torch.int32,
                                  device=data.device)
@@ -159,6 +181,22 @@ class FullBatchLoader(Loader, AcceleratedUnit):
                            dtype=INDEX_DTYPE),
                 np.zeros(self.max_minibatch_size, dtype=INDEX_DTYPE)])
             self._perm_dev_ = self.device.put(perm)
+        if self.external_gather:
+            # a fused consumer gathers this window itself: serving here
+            # would double the work, and minibatch_data stays stale, so
+            # a class the fused step does not consume must not pass
+            if self.minibatch_class != TRAIN:
+                # requeue the window, so that the error is loud but
+                # loses nothing: once the flag is cleared, the next
+                # run() serves this same (offset, size)
+                self.failed_minibatches.append(
+                    (self.minibatch_offset, self.minibatch_size))
+                raise RuntimeError(
+                    "external_gather is active but a %s minibatch was "
+                    "served; set loader.external_gather = False before "
+                    "serving VALID/TEST data to other consumers" %
+                    CLASS_NAME[self.minibatch_class])
+            return True
         data, labels = self.gather(start, size)
         self.minibatch_data.devmem = data
         if self.has_labels:
@@ -220,6 +258,13 @@ class FullBatchLoaderMSE(FullBatchLoader):
         return out
 
     def fill_indices(self, start: int, size: int) -> bool:
+        if self.external_gather:
+            # the fused classifier step gathers no targets, so
+            # minibatch_targets would go stale
+            raise RuntimeError(
+                "external_gather is not supported on MSE loaders: the "
+                "fused classifier step does not gather targets, so "
+                "minibatch_targets would go stale")
         served = super().fill_indices(start, size)
         if served and self._targets_dev_ is not None:
             self.minibatch_targets.devmem = self.gather_targets(start, size)

@@ -34,6 +34,12 @@ def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
+def torch_dtype(dtype) -> torch.dtype:
+    """A numpy dtype as the torch dtype of the same name (a unit's
+    ``device.precision_dtype`` for its results)."""
+    return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
+
+
 def _nbytes(tensor: torch.Tensor) -> int:
     return tensor.numel() * tensor.element_size()
 

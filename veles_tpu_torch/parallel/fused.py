@@ -27,11 +27,18 @@ not JAX's (the reference's own masks already differ between its
 threefry and TPU rbg generators); at dropout ratio 0 both sides are
 the identity.
 
+:meth:`FusedClassifierTrainer.make_loader_step` folds a
+``FullBatchLoader``'s device gather into the step: the loader keeps
+its host bookkeeping (``external_gather``) and the step gathers and
+normalizes its window through ``FullBatchLoader.gather``, one step a
+call or K a call (``steps_per_dispatch``), on the same counters,
+dropout keys and learning rates as ``step``/``step_many``.
+
 A trainer whose ``sched_tenant`` is set runs each ``step``/``step_many``
-as one quantum of a shared device (``veles_tpu_torch.sched``). The
-reference's mesh and tensor-parallel placement, ``shard_*``, AOT
-dispatch, ``make_loader_step`` (with its loader steps),
-``fuse_forwards`` and ``train_fused`` are queued in ROADMAP.md.
+and each loader-step dispatch as one quantum of a shared device
+(``veles_tpu_torch.sched``). The reference's mesh and tensor-parallel
+placement, ``shard_*``, AOT dispatch, ``fuse_forwards`` and
+``train_fused`` are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -310,8 +317,12 @@ class FusedClassifierTrainer:
     :class:`NonFiniteSentinel`; None reads
     ``root.common.train.nan_policy`` (default "warn").
 
+    ``steps_per_dispatch``: the K of :meth:`make_loader_step`'s
+    dispatches (default 1).
+
     ``sched_tenant`` (a ``TenantHandle``, None = free-running): every
-    ``step``/``step_many`` dispatch runs as ONE scheduler quantum, with
+    ``step``/``step_many`` and loader-step dispatch runs as ONE
+    scheduler quantum, with
     the same counters, dropout keys and learning-rate stream, so the
     trajectory stays bitwise that of an unscheduled run.
     """
@@ -319,9 +330,16 @@ class FusedClassifierTrainer:
     def __init__(self, specs: Sequence[Any], params: List[Dict[str, Any]],
                  learning_rate: float = 0.1, weight_decay: float = 0.0,
                  momentum: float = 0.9, lr_policy=None, compute_dtype=None,
-                 dropout_seed: int = 0, nan_policy: Optional[str] = None,
+                 dropout_seed: int = 0, steps_per_dispatch: int = 1,
+                 nan_policy: Optional[str] = None,
                  kernel_impl: Optional[str] = None, device=None) -> None:
         self.device = resolve(device)
+        if steps_per_dispatch < 1:
+            raise ValueError("steps_per_dispatch must be >= 1, got %d" %
+                             steps_per_dispatch)
+        #: K steps a dispatch of :meth:`make_loader_step` (its default);
+        #: :meth:`step_many` takes any K a call
+        self.steps_per_dispatch = int(steps_per_dispatch)
         if nan_policy is None:
             nan_policy = get(root.common.train.nan_policy, "warn")
         if kernel_impl is not None:
@@ -452,6 +470,105 @@ class FusedClassifierTrainer:
         self._sentinel.note(nonfinite)
         obs_profile.on_step(k)
         return {"loss": losses, "n_err": n_errs, "nonfinite": nonfinite}
+
+    def make_loader_step(self, loader, steps_per_dispatch=None):
+        """Fold a ``FullBatchLoader``'s device gather into the train
+        step: each call gathers its window from the loader's device
+        dataset, normalizes it (the loader's normalizer and statistics),
+        and takes one train step, as ``step`` on the loader's served
+        minibatch would. Marks the loader ``external_gather``: its
+        ``run()`` keeps the epoch and offset bookkeeping, serves no
+        data, and raises on a minibatch that is not TRAIN (clear the
+        flag to hand serving back). Raises on a loader that is not
+        initialized.
+
+        K = ``steps_per_dispatch`` (default: the trainer's knob). K = 1
+        returns ``step()``, to call after each ``loader.run()``; K > 1
+        returns ``multi_step()``, which drives ``loader.run()`` K times
+        itself (host bookkeeping only) and then takes the K steps in
+        one quantum, returning [K] device metrics. Either way the
+        dataset is read afresh each dispatch (a re-upload is seen); a
+        floating dataset wider than the compute dtype is cast once,
+        the cast cached on the source tensor's identity. The K windows
+        are slices of the permutation each ``run()`` left, kept with
+        the tensor they slice, so a reshuffle inside a dispatch cannot
+        move them and no index is uploaded. The counters, dropout keys
+        and learning rates are ``step``'s: K steps in one dispatch
+        equal K single loader steps bitwise."""
+        if getattr(loader, "_dataset_dev_", None) is None:
+            raise RuntimeError(
+                "make_loader_step needs an initialized loader: "
+                "loader.initialize(device=...) puts the dataset the "
+                "fused step gathers from on the device")
+        k = self.steps_per_dispatch if steps_per_dispatch is None \
+            else int(steps_per_dispatch)
+        if k < 1:
+            raise ValueError("steps_per_dispatch must be >= 1, got %d" % k)
+        loader.external_gather = True
+        # closure-local, so one trainer may step over several loaders
+        cast_cache: Dict[str, Any] = {"src": None, "out": None}
+
+        def current_dataset() -> torch.Tensor:
+            src = loader._dataset_dev_
+            if src is None:
+                raise RuntimeError(
+                    "the loader's device dataset vanished (initialize "
+                    "the loader again before stepping)")
+            if src is not cast_cache["src"]:
+                out = src
+                if src.is_floating_point() and \
+                        torch.finfo(self.compute_dtype).bits < \
+                        torch.finfo(src.dtype).bits:
+                    out = src.to(self.compute_dtype)
+                cast_cache["src"], cast_cache["out"] = src, out
+            return cast_cache["out"]
+
+        def served_window():
+            size = loader.minibatch_size
+            return loader._perm_dev_, loader.minibatch_offset - size, size
+
+        def dispatch(windows):
+            counters = list(range(self._step_counter + 1,
+                                  self._step_counter + len(windows) + 1))
+            self._step_counter += len(windows)
+            lrs = [self._lr(c) for c in counters]
+            with self._quantum():
+                # inside the quantum: a first cast of the dataset is a
+                # whole-dataset device copy, scheduled like the steps
+                dataset = current_dataset()
+                out = []
+                for (perm, start, size), c, lr in zip(windows, counters,
+                                                      lrs):
+                    x, labels = loader.gather(start, size, dataset, perm)
+                    out.append(_train_step(
+                        self.specs, self.params, self.velocity, x,
+                        labels.long(), fold_in(self.dropout_seed, c), lr,
+                        float(self.weight_decay), float(self.momentum),
+                        self.compute_dtype, self.nan_policy == "skip",
+                        self.kernel_impl))
+            return out
+
+        def step() -> Dict[str, Any]:
+            (loss, n_err, nonfinite), = dispatch([served_window()])
+            self._sentinel.note(nonfinite)
+            obs_profile.on_step()
+            return {"loss": loss, "n_err": n_err, "nonfinite": nonfinite}
+
+        if k == 1:
+            return step
+
+        def multi_step() -> Dict[str, Any]:
+            windows = []
+            for _ in range(k):
+                loader.run()
+                windows.append(served_window())
+            losses, n_errs, nonfinite = (
+                torch.stack(m) for m in zip(*dispatch(windows)))
+            self._sentinel.note(nonfinite)
+            obs_profile.on_step(k)
+            return {"loss": losses, "n_err": n_errs, "nonfinite": nonfinite}
+
+        return multi_step
 
     def predict(self, x) -> torch.Tensor:
         """Logits [B, classes] f32 of the forward without dropout."""

@@ -149,6 +149,9 @@ class InferenceEngine:
         self._cache: Dict[Tuple[int, ...], Optional[StepGraph]] = {}
         self._pool = None
         self._swap_lock = threading.Lock()
+        #: trailing params entries a body-only swap keeps (the
+        #: normalizer's statistics of from_specs)
+        self._swap_tail = 0
 
     # -- the shape record --------------------------------------------------
     @property
@@ -218,7 +221,14 @@ class InferenceEngine:
     def swap_params(self, params: Any) -> None:
         """Replace the weights in place. The new tree must match the
         old one's structure, shapes and dtypes, so every captured graph
-        stays valid (a refresh must not capture again)."""
+        stays valid (a refresh must not capture again). An engine with a
+        normalizer's statistics as its last params entry
+        (``from_specs(normalizer=)``) also takes the body's params alone
+        and keeps the statistics."""
+        tail = self._swap_tail
+        if tail and isinstance(params, (list, tuple)) and \
+                len(params) == len(self.params) - tail:
+            params = list(params) + list(self.params[-tail:])
         new = _validated_swap(_place_tree(params, self.device), self.params)
         with self._swap_lock, torch.no_grad():
             for (_, dst), (_, src) in zip(_leaves(self.params),
@@ -232,15 +242,16 @@ class InferenceEngine:
                    name: str = "model", **kwargs) -> "InferenceEngine":
         """Engine over a fused-classifier spec stack (the layer tuples
         ``parallel/fused.py`` trains). A leading ``("normalize",)`` spec
-        (params ``{"mean", "rdisp"}``) is applied on the device. A
-        softmax tail returns probabilities (the reference's graph
-        parity). ``compute_dtype``: None = bfloat16 on a CUDA device,
-        float32 elsewhere; params and the output stay f32."""
-        if normalizer is not None:
-            raise NotImplementedError(
-                "loader normalizers come with the port's loaders "
-                "(ROADMAP.md queue 1 item 5); pass the statistics as a "
-                "leading ('normalize',) spec")
+        (params ``{"mean", "rdisp"}``) is applied on the device.
+        ``normalizer``: a loader normalizer (``apply_torch``) applied
+        after the cast to the compute dtype, so clients send raw rows;
+        a stateful one's statistics ride as the last params entry,
+        device tensors that the captured bucket graphs read and that
+        ``swap_params`` updates in place (a swap of the body's params
+        alone keeps them). A softmax tail returns probabilities (the
+        reference's graph parity). ``compute_dtype``: None = bfloat16
+        on a CUDA device, float32 elsewhere; params and the output stay
+        f32."""
         specs = normalize_specs(specs)
         pre_n = 0
         for s in specs:
@@ -262,18 +273,30 @@ class InferenceEngine:
         for s in body:
             if s[0] in ("fc", "conv"):
                 tail_act = s[1]
+        norm_arrays = normalizer.stat_arrays() or None \
+            if normalizer is not None else None
+        has_norm_tail = norm_arrays is not None
 
         def forward(all_params, x):
             x = x.to(compute_dtype)
+            body_params = all_params[pre_n:-1] if has_norm_tail \
+                else all_params[pre_n:]
             for p in all_params[:pre_n]:
                 x = ((x - p["mean"]) * p["rdisp"]).to(compute_dtype)
-            h = _apply(body, False, all_params[pre_n:], x, 0,
-                       compute_dtype)
+            if normalizer is not None:
+                x = normalizer.apply_torch(
+                    x, all_params[-1] if has_norm_tail else None)
+            h = _apply(body, False, body_params, x, 0, compute_dtype)
             if tail_act == "softmax":
                 h = torch.softmax(h.float(), dim=-1)
             return h
 
-        return cls(forward, params, name=name, device=device, **kwargs)
+        if has_norm_tail:
+            params = list(params) + [norm_arrays]
+        engine = cls(forward, params, name=name, device=device, **kwargs)
+        if has_norm_tail:
+            engine._swap_tail = 1
+        return engine
 
     @classmethod
     def from_transformer(cls, config, params, **kwargs) -> \
