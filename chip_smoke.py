@@ -181,7 +181,36 @@ without them, and on any failed phase. Phases, in order:
    serve; under deterministic cuDNN, the K = 1 loader step against
    ``loader.run()`` + ``step`` and one K = 8 dispatch against 8 loader
    steps, bitwise over 8 steps; ``MeanDispNormalizer`` and
-   ``InputJoiner`` on the card against the CPU, bitwise.
+   ``InputJoiner`` on the card against the CPU, bitwise;
+17. the four unit families and the model zoo on ``Device()`` (f32
+   params, bf16 compute), one epoch each from seed 42:
+   ``VggWorkflow(depth=16)`` at its defaults (32 x 32 x 3 synthetic
+   colour images, 5,000 TRAIN and 1,000 VALID, minibatch 50, FC 4096 x 2
+   with dropout 0.5, lr 0.01, momentum 0.9, weight decay 5e-4),
+   ``ConvAutoencoderWorkflow()`` and ``AutoencoderWorkflow()`` (28 x 28
+   synthetic digits), the row-wise LSTM classifier (``StandardWorkflow``
+   of an ``lstm`` of 128 and a softmax of 10: 28 steps of 28 pixels),
+   ``LenetWorkflow``, ``CifarWorkflow`` and ``Stl10Workflow`` (its dataset
+   cut to 1,000 TRAIN and 200 VALID images); then ``RBM(n_hidden=500)``
+   with ``RBMTrainer`` and the 8 x 8 ``KohonenForward`` with
+   ``KohonenTrainer``, 60 steps each over minibatches of 100 rows of the
+   digits' TRAIN set: K8 bitwise against its plain version at this
+   path's fill shapes first; then per model the parameter count, ms a
+   TRAIN and VALID minibatch (p50, p99), images/s, the launches of every
+   minibatch (exactly 2 K8 a VGG-16 TRAIN minibatch, 1 an STL-10 one, 1
+   a CD-1 step, none elsewhere and none on VALID), the device time of a
+   TRAIN minibatch by kernel class and its busy share, peak memory, the
+   errors by epoch and the first and last losses, all finite; VGG-16's
+   losses and the RBM's and SOM's errors must fall;
+18. the unit families and the zoo, card against CPU at f32: the conv
+   autoencoder and the LSTM classifier (600 TRAIN, 200 VALID, widths
+   kept) for one epoch on ``Device()`` and on ``Device(backend="cpu")``
+   from one seed: classes per minibatch equal, the LSTM's n_err equal,
+   RMSEs, losses, errors by epoch and ``params_of`` within stated
+   bounds; one ``RBMTrainer`` step, its K8 fill bitwise the CPU's plain
+   fill; three ``KohonenTrainer`` steps, the winners equal; ``Deconv``
+   with two ``GDDeconv`` steps and ``Depooling`` with ``GDDepooling`` at
+   the conv autoencoder's shapes.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -3943,6 +3972,549 @@ def pipeline_phase(torch, counters, dev, card):
                 parity=parity, units=units), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the four unit families and the model zoo on Device()
+# ---------------------------------------------------------------------------
+
+#: phase 17: every model at its own widths, f32 params and bf16 compute,
+#: one epoch from ZOO_SEED; STL-10's synthetic dataset is cut to these
+#: many images (96 x 96 x 3 kept), the others run at their loaders'
+#: defaults (digits 6,000 TRAIN / 1,000 VALID, colour images 5,000 /
+#: 1,000)
+ZOO_SEED = 42
+ZOO_STL10_DATA = dict(n_train=1000, n_valid=200)
+#: the row-wise LSTM classifier: 28 steps of 28 pixels
+ZOO_LSTM_LAYERS = [{"type": "lstm", "hidden": 128},
+                   {"type": "softmax", "output_sample_shape": 10}]
+#: RBM and SOM: minibatches of 100 rows of the digits' TRAIN set (784
+#: visible units), 60 steps each
+ZOO_ROWS = 100
+ZOO_STEPS = 60
+ZOO_RBM_HIDDEN = 500
+#: K8 launches of one TRAIN minibatch (its dropout layers; 0 elsewhere
+#: and on every VALID minibatch) and of one CD-1 step
+ZOO_K8_TRAIN = {"vgg16": 2, "stl10": 1}
+ZOO_K8_CD1 = 1
+#: TRAIN minibatches under the profiler, served and run unit by unit
+ZOO_PROFILED = 3
+#: the shapes K8 fills on this path: VGG-16's two dropout masks, STL-10's
+#: one, the RBM's hidden sample
+ZOO_FILL_SHAPES = ((50, 4096), (50, 128), (ZOO_ROWS, ZOO_RBM_HIDDEN))
+#: phase 18: reduced sample counts (the widths kept), f32
+ZOO_PARITY_DATA = dict(n_train=600, n_valid=200)
+#: phase 18 bounds, as shares of each value's scale: f32 on the card
+#: against f32 on the CPU differs in the order of sums only (phase 15's
+#: bound); the RBM's one step is held to 1e-5, its only sums are 100-
+#: and 784-term products
+TOL_ZOO = 1e-4
+TOL_RBM = 1e-5
+
+
+def _zoo_models():
+    from veles_tpu_torch.models.autoencoder import (AutoencoderWorkflow,
+                                                    ConvAutoencoderWorkflow)
+    from veles_tpu_torch.models.cifar import CifarWorkflow
+    from veles_tpu_torch.models.lenet import LenetWorkflow
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.models.stl10 import Stl10Workflow
+    from veles_tpu_torch.models.vgg import VggWorkflow
+
+    return [
+        ("vgg16", lambda: VggWorkflow(depth=16, max_epochs=1)),
+        ("conv_autoencoder", lambda: ConvAutoencoderWorkflow(max_epochs=1)),
+        ("autoencoder", lambda: AutoencoderWorkflow(max_epochs=1)),
+        ("lstm", lambda: StandardWorkflow(layers=ZOO_LSTM_LAYERS,
+                                          max_epochs=1)),
+        ("lenet", lambda: LenetWorkflow(max_epochs=1)),
+        ("cifar", lambda: CifarWorkflow(max_epochs=1)),
+        ("stl10", lambda: Stl10Workflow(
+            max_epochs=1, loader_kwargs=dict(ZOO_STL10_DATA)))]
+
+
+def _zoo_hooks(wf, counters, records, metrics):
+    """Record, at the start of every minibatch (the loader's run), the
+    host clock and the launch counters; after the evaluator, the
+    minibatch's (class, errors, loss, size): n_err and the summed loss
+    of a classifier, the summed RMSE and squared error of an
+    autoencoder."""
+    loader, evaluator = wf.loader, wf.evaluator
+    serve, evaluate = loader.run, evaluator.run
+
+    def serving():
+        records.append((time.perf_counter(), counters.read()))
+        serve()
+        records[-1] += (loader.minibatch_class,)
+
+    def evaluating():
+        evaluate()
+        if hasattr(evaluator, "sum_rmse"):
+            metrics.append((loader.minibatch_class, evaluator.sum_rmse,
+                            evaluator.sum_sq, loader.minibatch_size))
+        else:
+            metrics.append((loader.minibatch_class, evaluator.n_err,
+                            evaluator.loss, loader.minibatch_size))
+
+    loader.run = serving
+    evaluator.run = evaluating
+
+
+def _zoo_train_minibatch(torch, wf):
+    """Serve minibatches until a TRAIN one, then run its units in the
+    graph's order, ending synchronized."""
+    wf.loader.run()
+    while wf.loader.minibatch_class != 2:
+        wf.loader.run()
+    for unit in wf.forwards:
+        unit.run()
+    wf.evaluator.run()
+    wf.decision.run()
+    for gd in wf.gds:
+        gd.run()
+    torch.cuda.synchronize()
+
+
+def _fmt_classes(prof):
+    if prof is None:
+        return "no device time recorded"
+    return "%.3f ms device, busy %.2f; %s" % (
+        prof["device_ms"], prof["busy_share"], "; ".join(
+            "%s %.3f" % kv for kv in sorted(prof["by_class"].items(),
+                                            key=lambda kv: -kv[1])))
+
+
+def _zoo_workflow(torch, counters, card, name, make):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import CudaDevice, Device
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models.standard import params_of
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    root.common.random.seed = ZOO_SEED
+    prng.reset()
+    t0 = time.monotonic()
+    device = Device()
+    if not isinstance(device, CudaDevice):
+        raise AssertionError("Device() is %r, not the card" % (device,))
+    wf = make()
+    wf.initialize(device=device)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    n_params = int(sum(a.size for p in params_of(wf) for a in p.values()))
+    mbs = wf.loader.max_minibatch_size
+    records, metrics = [], []
+    _zoo_hooks(wf, counters, records, metrics)
+    t0 = time.monotonic()
+    wf.run()
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    records.append((time.perf_counter(), counters.read(), None))
+    per_mb = []
+    for (t_a, c_a, klass), (t_b, c_b, _) in zip(records, records[1:]):
+        per_mb.append(dict(klass=klass, ms=(t_b - t_a) * 1e3, launches={
+            k: c_b[k] - c_a[k] for k in c_b if c_b[k] != c_a[k]}))
+    k8 = ZOO_K8_TRAIN.get(name, 0)
+    for i, mb in enumerate(per_mb):
+        want = {"uniform_fill": k8} if mb["klass"] == 2 and k8 else {}
+        if mb["launches"] != want:
+            raise AssertionError("%s: minibatch %d (class %d) launched %s, "
+                                 "not %s" % (name, i, mb["klass"],
+                                             mb["launches"], want))
+    train_ms = [mb["ms"] for mb in per_mb if mb["klass"] == 2]
+    valid_ms = [mb["ms"] for mb in per_mb if mb["klass"] == 1]
+    train = dict(p50=float(np.percentile(train_ms, 50)),
+                 p99=float(np.percentile(train_ms, 99)))
+    valid = dict(p50=float(np.percentile(valid_ms, 50)),
+                 p99=float(np.percentile(valid_ms, 99)))
+    losses = [m[2] / m[3] for m in metrics if m[0] == 2]
+    errors = {k: list(v) for k, v in wf.decision.epoch_errors.items()}
+    if not (all(np.isfinite(losses)) and
+            all(np.isfinite(v) for vs in errors.values() for v in vs)):
+        raise AssertionError("%s: non-finite losses or errors: %s %s"
+                             % (name, losses, errors))
+    head, tail = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if name == "vgg16" and not tail < head:
+        raise AssertionError("vgg16: the TRAIN losses did not fall: "
+                             "first 10 %.5f, last 10 %.5f" % (head, tail))
+    if not bool(wf.decision.complete):
+        raise AssertionError("%s: the decision did not complete" % name)
+    peak = torch.cuda.max_memory_allocated()
+    wf.resume_overrides(max_epochs=2)
+    prof = profile_device(torch, lambda: _zoo_train_minibatch(torch, wf),
+                          ZOO_PROFILED, host_ops=False)
+    kind = "MSE" if hasattr(wf.evaluator, "sum_rmse") else "n_err"
+    log("  %s: %s parameters, minibatch %d, %d TRAIN + %d VALID "
+        "minibatches in %.2f s (set-up %.1f s); ms a minibatch TRAIN p50 "
+        "%.3f p99 %.3f, VALID p50 %.3f p99 %.3f; %.1f images/s training "
+        "at the p50; K8 %d a TRAIN minibatch, 0 a VALID one; peak %.2f GB"
+        % (name, format(n_params, ","), mbs, len(train_ms), len(valid_ms),
+           run_s, setup_s, train["p50"], train["p99"], valid["p50"],
+           valid["p99"], mbs * 1e3 / train["p50"], k8, peak / 1e9))
+    log("    one TRAIN minibatch on the device (%d profiled): %s"
+        % (ZOO_PROFILED, _fmt_classes(prof)))
+    log("    %s by epoch: VALID %s, TRAIN %s; TRAIN %s a sample: first "
+        "%.5f, last %.5f (mean of the first 10 %.5f, last 10 %.5f) [%s]"
+        % ("RMSE" if kind == "MSE" else "errors %", errors.get(1),
+           errors.get(2), "squared error" if kind == "MSE" else "loss",
+           losses[0], losses[-1], head, tail, card))
+    wf.thread_pool.shutdown()
+    del wf
+    return dict(parameters=n_params, minibatch=mbs, setup_s=setup_s,
+                run_s=run_s, train_ms=train, valid_ms=valid,
+                images_per_s=mbs * 1e3 / train["p50"],
+                train_minibatches=len(train_ms),
+                valid_minibatches=len(valid_ms), k8_train=k8,
+                epoch_errors=errors, first_loss=losses[0],
+                last_loss=losses[-1], head_loss=head, tail_loss=tail,
+                peak_mem_bytes=peak, profile=prof)
+
+
+def _digit_rows(device):
+    """The digits' TRAIN set on ``device`` as [n, 784] f32 rows (the
+    SyntheticDigitsLoader's own data at its defaults, ZOO_SEED)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.loader.datasets import SyntheticDigitsLoader
+
+    root.common.random.seed = ZOO_SEED
+    prng.reset()
+    wf = AcceleratedWorkflow(None, name="digits")
+    loader = SyntheticDigitsLoader(wf, minibatch_size=ZOO_ROWS)
+    loader.initialize(device=device)
+    start = loader.class_lengths[0] + loader.class_lengths[1]
+    rows = np.asarray(loader.original_data[start:], np.float32)
+    return rows.reshape(len(rows), -1)
+
+
+def _unsupervised_pair(device, rows, kind):
+    """(forward unit, trainer) of ``kind`` ("rbm" or "som") over the
+    first minibatch of ``rows`` (a tensor on ``device``), from fresh
+    streams of ZOO_SEED."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.nn import (RBM, KohonenForward, KohonenTrainer,
+                                    RBMTrainer)
+
+    root.common.random.seed = ZOO_SEED
+    prng.reset()
+    wf = AcceleratedWorkflow(None, name=kind)
+    fwd = RBM(wf, n_hidden=ZOO_RBM_HIDDEN) if kind == "rbm" \
+        else KohonenForward(wf)
+    fwd.input = Array(np.asarray(rows[:ZOO_ROWS].cpu()))
+    fwd.input.initialize(device)
+    if fwd.initialize(device=device) is not None:
+        raise AssertionError("%s did not initialize" % kind)
+    if kind == "rbm":
+        trainer = RBMTrainer(wf)
+        trainer.link_attrs(fwd, "input", "weights", "vbias", "hbias")
+    else:
+        trainer = KohonenTrainer(wf)
+        trainer.link_attrs(fwd, "input", "codebook")
+        trainer.grid = fwd.grid_positions
+    trainer.batch_size = ZOO_ROWS
+    if trainer.initialize(device=device) is not None:
+        raise AssertionError("the %s trainer did not initialize" % kind)
+    return fwd, trainer
+
+
+def _zoo_unsupervised(torch, counters, card, dev, kind):
+    from veles_tpu_torch.backends import Device
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = torch.from_numpy(_digit_rows(Device())).to(dev)
+    fwd, trainer = _unsupervised_pair(Device(), rows, kind)
+    want = {"uniform_fill": ZOO_K8_CD1} if kind == "rbm" else {}
+
+    def step(i):
+        fwd.input.devmem = rows[(i % (len(rows) // ZOO_ROWS)) * ZOO_ROWS:][
+            :ZOO_ROWS]
+        trainer.run()     # ends on its one host read of the error
+        return trainer.recon_err if kind == "rbm" \
+            else trainer.avg_quantization_err
+
+    errs, ms = [], []
+    for i in range(ZOO_STEPS):
+        before = counters.read()
+        t0 = time.perf_counter()
+        errs.append(step(i))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        delta = {k: v for k, v in counters.delta(before).items() if v}
+        if delta != want:
+            raise AssertionError("%s step %d launched %s, not %s"
+                                 % (kind, i, delta, want))
+    head, tail = float(np.mean(errs[:10])), float(np.mean(errs[-10:]))
+    if not all(np.isfinite(errs)) or not tail < head:
+        raise AssertionError("%s: the error did not fall: first 10 %.5f, "
+                             "last 10 %.5f" % (kind, head, tail))
+    steps = iter(range(ZOO_STEPS, 10 ** 6))
+    prof = profile_device(torch, lambda: (step(next(steps)),
+                                          torch.cuda.synchronize()),
+                          ZOO_PROFILED, host_ops=False)
+    stats = dict(p50=float(np.percentile(ms, 50)),
+                 p99=float(np.percentile(ms, 99)))
+    peak = torch.cuda.max_memory_allocated()
+    what = "CD-1 step" if kind == "rbm" else "SOM step"
+    log("  %s (%s): %d %ss of %d rows, ms a step p50 %.3f p99 %.3f (%.1f "
+        "steps/s); K8 %d a step; peak %.2f GB; %s a step: first %.4f, "
+        "last %.4f (mean of the first 10 %.4f, last 10 %.4f) [%s]" % (
+            kind, "n_hidden %d" % ZOO_RBM_HIDDEN if kind == "rbm"
+            else "8 x 8 map", ZOO_STEPS, what, ZOO_ROWS, stats["p50"],
+            stats["p99"], 1e3 / stats["p50"], len(want) and ZOO_K8_CD1,
+            peak / 1e9, "reconstruction error" if kind == "rbm"
+            else "quantization error", errs[0], errs[-1], head, tail, card))
+    log("    one %s on the device: %s" % (what, _fmt_classes(prof)))
+    del fwd, trainer, rows
+    return dict(step_ms=stats, steps_per_s=1e3 / stats["p50"],
+                errors=errs, head=head, tail=tail, peak_mem_bytes=peak,
+                profile=prof)
+
+
+def zoo_phase(torch, counters, dev, card):
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ops import rng
+
+    log("phase 17: the unit families and the model zoo on Device(), f32 "
+        "params, %s compute, one epoch each from seed %d; STL-10's "
+        "dataset cut to %s (96 x 96 x 3 kept); RBM and SOM over %d "
+        "minibatches of %d digit rows" % (
+            root.common.engine.compute_type, ZOO_SEED, ZOO_STL10_DATA,
+            ZOO_STEPS, ZOO_ROWS))
+    # K8 at this path's shapes against its plain version (comparison
+    # launches, before the path's counts start)
+    for shape in ZOO_FILL_SHAPES:
+        a = rng.uniform_fill(ZOO_SEED, shape, device=dev, impl="cuda")
+        b = rng.uniform_fill(ZOO_SEED, shape, device=dev, impl="plain")
+        if not bool(torch.equal(a, b)):
+            raise AssertionError("uniform_fill %s: kernel != plain"
+                                 % (shape,))
+    log("  uniform_fill at %s: kernel == plain bitwise"
+        % ", ".join(str(list(s)) for s in ZOO_FILL_SHAPES))
+    counters.reset()
+    out = {}
+    for name, make in _zoo_models():
+        out[name] = _zoo_workflow(torch, counters, card, name, make)
+    for kind in ("rbm", "som"):
+        out[kind] = _zoo_unsupervised(torch, counters, card, dev, kind)
+    launches = counters.read()
+    log("  launches over the phase: %s" % {k: v for k, v in
+                                            launches.items() if v})
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the unit families and the zoo, card against CPU at f32
+# ---------------------------------------------------------------------------
+
+def _zoo_parity_run(device, name):
+    """One epoch of the conv autoencoder or the LSTM classifier at
+    ZOO_PARITY_DATA on ``device`` from ZOO_SEED: every minibatch's
+    (class, errors, loss), the errors by epoch and params_of."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models.autoencoder import ConvAutoencoderWorkflow
+    from veles_tpu_torch.models.standard import StandardWorkflow, params_of
+
+    root.common.random.seed = ZOO_SEED
+    prng.reset()
+    if name == "conv_autoencoder":
+        wf = ConvAutoencoderWorkflow(max_epochs=1,
+                                     loader_kwargs=dict(ZOO_PARITY_DATA))
+    else:
+        wf = StandardWorkflow(layers=ZOO_LSTM_LAYERS, max_epochs=1,
+                              loader_kwargs=dict(ZOO_PARITY_DATA))
+    wf.initialize(device=device)
+    metrics = []
+    _zoo_hooks(wf, Counters(), [], metrics)
+    wf.run()
+    errors = {k: list(v) for k, v in wf.decision.epoch_errors.items()}
+    params = params_of(wf)
+    wf.thread_pool.shutdown()
+    return metrics, errors, params
+
+
+def _share(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _decoder_pair(torch, device, x, err):
+    """A Deconv (the conv autoencoder's decoder layer) with two GDDeconv
+    steps, and Depooling with GDDepooling, on ``device``."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.nn import Deconv, Depooling, gd_for
+
+    root.common.random.seed = ZOO_SEED
+    prng.reset()
+    wf = AcceleratedWorkflow(None, name="decoder")
+
+    def array(data):
+        arr = Array(data)
+        arr.initialize(device)
+        return arr
+
+    fwd = Deconv(wf, n_kernels=1, kx=3, sliding=(2, 2),
+                 weights_filling="gaussian", weights_stddev=0.02)
+    fwd.input = array(x)
+    fwd.initialize(device=device)
+    fwd.run()
+    out = np.array(fwd.output.map_read())
+    gd = gd_for(fwd, wf, learning_rate=3e-4, momentum=0.9)
+    gd.err_output = array(err)
+    gd.initialize(device=device)
+    for _ in range(2):
+        gd.run()
+    depool = Depooling(wf, kx=2)
+    depool.input = array(x)
+    depool.initialize(device=device)
+    depool.run()
+    gdp = gd_for(depool, wf)
+    gdp.err_output = depool.output
+    gdp.initialize(device=device)
+    gdp.run()
+    return dict(out=out, err_input=np.array(gd.err_input.map_read()),
+                weights=np.array(gd.weights.map_read()),
+                bias=np.array(gd.bias.map_read()),
+                velocity=np.array(gd.velocity_weights.map_read()),
+                depool=np.array(depool.output.map_read()),
+                undepool=np.array(gdp.err_input.map_read()))
+
+
+def _rbm_once(torch, device, rows):
+    fwd, trainer = _unsupervised_pair(device, rows, "rbm")
+    fwd.run()
+    h0p = np.array(fwd.output.map_read())
+    fills = []
+    uniform = trainer.rand.uniform
+
+    def recording(*a, **k):
+        fills.append(uniform(*a, **k))
+        return fills[-1]
+
+    trainer.rand.uniform = recording
+    trainer.run()
+    return dict(fill=fills[0].cpu().numpy(), h0p=h0p,
+                err=trainer.recon_err,
+                **{a: np.array(getattr(fwd, a).map_read())
+                   for a in ("weights", "vbias", "hbias")})
+
+
+def _som_steps(device, rows, steps=3):
+    fwd, trainer = _unsupervised_pair(device, rows, "som")
+    winners = []
+    for i in range(steps):
+        fwd.input.devmem = rows[i * ZOO_ROWS:(i + 1) * ZOO_ROWS]
+        trainer.run()
+        winners.append(trainer.winners.cpu().numpy())
+    return winners, np.array(fwd.codebook.map_read())
+
+
+def zoo_parity_phase(torch, dev, card):
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.config import root
+
+    log("phase 18: the unit families and the zoo, Device() against "
+        "Device(backend='cpu') at f32 from seed %d: the conv autoencoder "
+        "and the LSTM classifier (%s, widths kept), one epoch; a CD-1 "
+        "step; SOM winners; the decoder units" % (ZOO_SEED,
+                                                  ZOO_PARITY_DATA))
+    saved = root.common.engine.compute_type
+    root.common.engine.compute_type = "float32"
+    out = {}
+    try:
+        for name in ("conv_autoencoder", "lstm"):
+            t0 = time.monotonic()
+            card_run = _zoo_parity_run(Device(), name)
+            card_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            cpu_run = _zoo_parity_run(Device(backend="cpu"), name)
+            cpu_s = time.monotonic() - t0
+            (mk, ek, pk), (mp, ep, pp) = card_run, cpu_run
+            exact = 1 if name == "lstm" else 0   # n_err, or a float RMSE
+            if [m[:1 + exact] for m in mk] != [m[:1 + exact] for m in mp]:
+                raise AssertionError("%s: classes / errors per minibatch "
+                                     "differ" % name)
+            metric_err = max(_share(a[1:3], b[1:3]) for a, b in zip(mk, mp))
+            epoch_err = max(_share(ek[k], ep[k]) for k in ep if ep[k])
+            param_err = max(_share(a[key], b[key])
+                            for a, b in zip(pk, pp) for key in b)
+            log("  %s: %d minibatches, card %.1f s, CPU %.1f s; errors by "
+                "epoch card %s, CPU %s" % (name, len(mk), card_s, cpu_s,
+                                           ek, ep))
+            check("%s per-minibatch metric and loss" % name, metric_err,
+                  TOL_ZOO)
+            check("%s errors by epoch" % name, epoch_err, TOL_ZOO)
+            check("%s params_of after the epoch" % name, param_err,
+                  TOL_ZOO)
+            out[name] = dict(minibatches=len(mk), metric_rel_err=metric_err,
+                             epoch_rel_err=epoch_err,
+                             param_rel_err=param_err, card_s=card_s,
+                             cpu_s=cpu_s, epoch_errors=ek)
+
+        rows_host = _digit_rows(Device(backend="cpu"))[:3 * ZOO_ROWS]
+        rows = {d: torch.from_numpy(rows_host).to(d.torch_device)
+                for d in (Device(), Device(backend="cpu"))}
+        card_rbm, cpu_rbm = (_rbm_once(torch, d, r) for d, r in rows.items())
+        if not np.array_equal(card_rbm["fill"], cpu_rbm["fill"]):
+            raise AssertionError("the RBM's K8 fill differs from the "
+                                 "CPU's plain fill")
+        near = int((np.abs(cpu_rbm["fill"] - cpu_rbm["h0p"]) <=
+                    2 * max(_share(card_rbm["h0p"], cpu_rbm["h0p"]),
+                            1e-7)).sum())
+        rbm_err = max(_share(card_rbm[k], cpu_rbm[k])
+                      for k in ("weights", "vbias", "hbias"))
+        log("  RBM CD-1 step: K8 fill == plain fill bitwise %s; samples "
+            "whose fill lies within rounding of h0p: %d; reconstruction "
+            "error card %.6f, CPU %.6f" % (list(card_rbm["fill"].shape),
+                                           near, card_rbm["err"],
+                                           cpu_rbm["err"]))
+        check("RBM update, card vs CPU (share of scale)", rbm_err, TOL_RBM)
+
+        (wk, ck), (wp, cp) = (_som_steps(d, r) for d, r in rows.items())
+        same = all(np.array_equal(a, b) for a, b in zip(wk, wp))
+        log("  SOM: winners of %d steps equal: %s (%d distinct)"
+            % (len(wk), same, len(np.unique(np.concatenate(wk)))))
+        if not same:
+            raise AssertionError("SOM winners differ between the card and "
+                                 "the CPU")
+        check("SOM codebook after 3 steps", _share(ck, cp), TOL_ZOO)
+
+        rng = np.random.default_rng(ZOO_SEED)
+        x = rng.standard_normal((ZOO_ROWS, 14, 14, 8)).astype(np.float32)
+        err = (rng.standard_normal((ZOO_ROWS, 28, 28, 1)) * 0.1).astype(
+            np.float32)
+        dk, dp = (_decoder_pair(torch, d, x, err)
+                  for d in (Device(), Device(backend="cpu")))
+        for key in ("out", "err_input", "weights", "bias"):
+            check("Deconv/GDDeconv %s" % key, _share(dk[key], dp[key]),
+                  TOL_ZOO)
+        # the weight gradient sums 100 x 28 x 28 products per weight:
+        # cuDNN's and the CPU's orders differ (the units test's bound)
+        check("GDDeconv velocity (weight gradient)",
+              _share(dk["velocity"], dp["velocity"]), 10 * TOL_ZOO)
+        for key in ("depool", "undepool"):
+            if not np.array_equal(dk[key], dp[key]):
+                raise AssertionError("%s differs between card and CPU"
+                                     % key)
+        if not np.array_equal(dk["undepool"], x):
+            raise AssertionError("GDDepooling(Depooling(x)) != x")
+        log("  Depooling and GDDepooling bitwise equal on the card and the "
+            "CPU [%s]" % card)
+        out.update(rbm=dict(rel_err=rbm_err, near_ties=near),
+                   som=dict(steps=len(wk), winners_equal=same),
+                   decoder={k: _share(dk[k], dp[k]) for k in
+                            ("out", "err_input", "weights", "velocity")})
+    finally:
+        root.common.engine.compute_type = saved
+    return out
+
+
 class Counters:
     """Every kernel's launch counter, read and reset together."""
 
@@ -4018,6 +4590,8 @@ def main():
         unit_graph_classifier_phase(torch, counters, dev, card, classifier)
     classifier_graph_parity = unit_graph_parity_phase(torch, dev, card)
     pipeline, pipeline_launches = pipeline_phase(torch, counters, dev, card)
+    zoo, zoo_launches = zoo_phase(torch, counters, dev, card)
+    zoo_parity = zoo_parity_phase(torch, dev, card)
 
     # each main path's launches, counted from 0 around that path alone
     by_path = {"serving": serve_launches, "training": train_launches,
@@ -4027,7 +4601,8 @@ def main():
                "unit graph": graph_launches,
                "co-tenancy": cotenancy_launches,
                "unit-graph classifier": classifier_graph_launches,
-               "input pipeline": pipeline_launches}
+               "input pipeline": pipeline_launches,
+               "unit families and zoo": zoo_launches}
     kernels = []
     for name, row in rows.items():
         paths = {p: n.get(name, 0) for p, n in by_path.items()
@@ -4050,7 +4625,7 @@ def main():
                   unit_graph=graph, cotenancy=cotenancy,
                   unit_graph_classifier=classifier_graph,
                   unit_graph_parity=classifier_graph_parity,
-                  input_pipeline=pipeline,
+                  input_pipeline=pipeline, zoo=zoo, zoo_parity=zoo_parity,
                   wall_s=time.monotonic() - t_start)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:

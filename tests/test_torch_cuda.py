@@ -1567,3 +1567,200 @@ def test_mean_disp_normalizer_and_input_joiner_card_equal_cpu(cuda):
     (nc, jc), (np_, jp) = out
     assert np.array_equal(nc, np_) and np.array_equal(jc, jp)
     assert jc.shape == (32, 12 * 12 * 3 + 7)
+
+
+# --------------------------------------------- the four unit families
+
+def _family_side(device, seed=4):
+    """A fresh workflow and streams of ``seed`` on ``device``, and a
+    factory of initialized Arrays there."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.memory import Array
+
+    root.common.random.seed = seed
+    prng.reset()
+
+    def array(data):
+        arr = Array(np.ascontiguousarray(data))
+        arr.initialize(device)
+        return arr
+
+    return AcceleratedWorkflow(None, name="families"), array
+
+
+def _share(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+
+
+def test_deconv_and_depooling_twins_card_equal_cpu(f32_units):
+    """The conv autoencoder's decoder shapes ([50, 14, 14, 8] -> a 3x3
+    stride-2 deconv to [50, 28, 28, 1]) at f32, two GDDeconv steps, on
+    ``Device()`` against ``Device(backend="cpu")``: outputs, err_input
+    and weights within 1e-4 of their scale, the weights' velocities
+    within 1e-3 (cuDNN's and the CPU's weight-gradient sums over 50 x
+    28 x 28 terms differ in order); Depooling and GDDepooling
+    bitwise."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.nn import Deconv, Depooling, gd_for
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((50, 14, 14, 8)).astype(np.float32)
+    err = (rng.standard_normal((50, 28, 28, 1)) * 0.1).astype(np.float32)
+    runs = []
+    for device in (Device(), Device(backend="cpu")):
+        wf, array = _family_side(device)
+        fwd = Deconv(wf, n_kernels=1, kx=3, sliding=(2, 2),
+                     weights_filling="gaussian", weights_stddev=0.02)
+        fwd.input = array(x)
+        assert fwd.initialize(device=device) is None
+        fwd.run()
+        out = np.array(fwd.output.map_read())
+        gd = gd_for(fwd, wf, learning_rate=3e-4, momentum=0.9)
+        gd.err_output = array(err)
+        assert gd.initialize(device=device) is None
+        for _ in range(2):
+            gd.run()
+        depool = Depooling(wf, kx=2)
+        depool.input = array(x)
+        assert depool.initialize(device=device) is None
+        depool.run()
+        gdp = gd_for(depool, wf)
+        gdp.err_output = depool.output
+        assert gdp.initialize(device=device) is None
+        gdp.run()
+        runs.append(dict(
+            out=out, err_input=np.array(gd.err_input.map_read()),
+            weights=np.array(gd.weights.map_read()),
+            bias=np.array(gd.bias.map_read()),
+            vel=np.array(gd.velocity_weights.map_read()),
+            depool=np.array(depool.output.map_read()),
+            undepool=np.array(gdp.err_input.map_read())))
+    card, cpu = runs
+    assert card["out"].shape == (50, 28, 28, 1)
+    for key in ("out", "err_input", "weights", "bias"):
+        assert _share(card[key], cpu[key]) < 1e-4, key
+    assert _share(card["vel"], cpu["vel"]) < 1e-3
+    assert np.array_equal(card["depool"], cpu["depool"])
+    assert np.array_equal(card["undepool"], x)
+    assert np.array_equal(cpu["undepool"], x)
+
+
+def test_lstm_and_gd_lstm_card_equal_cpu(f32_units):
+    """The row-wise LSTM classifier's layer (28 steps of 28 pixels,
+    hidden 128, batch 50) at f32 with three GDLSTM steps (momentum,
+    decay) on the card and on the CPU: outputs, err_input, weights and
+    velocities within 1e-4 of their scale."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.nn import LSTM, gd_for
+
+    rng = np.random.default_rng(8)
+    x = rng.random((50, 28, 28)).astype(np.float32)
+    err = (rng.standard_normal((50, 28, 128)) * 0.01).astype(np.float32)
+    runs = []
+    for device in (Device(), Device(backend="cpu")):
+        wf, array = _family_side(device)
+        fwd = LSTM(wf, hidden=128)
+        fwd.input = array(x)
+        assert fwd.initialize(device=device) is None
+        gd = gd_for(fwd, wf, learning_rate=0.01, momentum=0.9,
+                    weight_decay=1e-3)
+        gd.err_output = array(err)
+        assert gd.initialize(device=device) is None
+        for _ in range(3):
+            fwd.run()
+            gd.run()
+        runs.append({attr: np.array(getattr(gd, attr).map_read())
+                     for attr in ("weights_x", "weights_h", "bias",
+                                  "velocity_wx", "velocity_wh",
+                                  "velocity_b", "err_input")})
+        runs[-1]["out"] = np.array(fwd.output.map_read())
+    card, cpu = runs
+    for key in cpu:
+        assert _share(card[key], cpu[key]) < 1e-4, key
+
+
+def test_rbm_step_card_equal_cpu_with_k8_fill(f32_units):
+    """One CD-1 step of RBM(n_hidden=500) over 100 binary 784-pixel
+    rows: on the card one K8 launch, its fill bitwise the CPU's plain
+    Philox fill; the updates within 1e-5 of their scale (a sample where
+    the fill lies within rounding of h0p could flip; on these inputs
+    none does, and the test counts them)."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.nn import RBM, RBMTrainer
+    from veles_tpu_torch.ops import rng as rng_ops
+
+    rng = np.random.default_rng(9)
+    x = (rng.random((100, 784)) > 0.7).astype(np.float32)
+    runs = []
+    for device in (Device(), Device(backend="cpu")):
+        wf, array = _family_side(device)
+        rbm = RBM(wf, n_hidden=500)
+        rbm.input = array(x)
+        assert rbm.initialize(device=device) is None
+        rbm.run()
+        h0p = np.array(rbm.output.map_read())
+        trainer = RBMTrainer(wf)
+        trainer.link_attrs(rbm, "input", "weights", "vbias", "hbias")
+        trainer.batch_size = 100
+        assert trainer.initialize(device=device) is None
+        fills = []
+        uniform = trainer.rand.uniform
+
+        def recording(*a, **k):
+            fills.append(uniform(*a, **k))
+            return fills[-1]
+
+        trainer.rand.uniform = recording
+        rng_ops.reset_launches()
+        trainer.run()
+        launches = rng_ops.LAUNCHES["uniform_fill"]
+        runs.append(dict(fill=fills[0].cpu().numpy(), h0p=h0p,
+                         launches=launches, err=trainer.recon_err,
+                         **{a: np.array(getattr(rbm, a).map_read())
+                            for a in ("weights", "vbias", "hbias")}))
+    card, cpu = runs
+    assert card["launches"] == 1 and cpu["launches"] == 0
+    assert np.array_equal(card["fill"], cpu["fill"])
+    assert _share(card["h0p"], cpu["h0p"]) < 1e-5
+    near = np.abs(cpu["fill"] - cpu["h0p"]) <= 1e-6
+    assert int(near.sum()) == 0
+    for key in ("weights", "vbias", "hbias"):
+        assert _share(card[key], cpu[key]) < 1e-5, key
+    assert abs(card["err"] - cpu["err"]) <= 1e-5 * cpu["err"]
+
+
+def test_som_winners_card_equal_cpu(f32_units):
+    """KohonenForward's 8 x 8 default map over 100 784-pixel rows, three
+    KohonenTrainer steps, on the card and on the CPU: the winners of
+    every step equal, the codebook within 1e-4 of its scale."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.nn import KohonenForward, KohonenTrainer
+
+    rng = np.random.default_rng(10)
+    data = rng.random((3, 100, 784)).astype(np.float32)
+    runs = []
+    for device in (Device(), Device(backend="cpu")):
+        wf, array = _family_side(device)
+        som = KohonenForward(wf)
+        som.input = array(data[0])
+        assert som.initialize(device=device) is None
+        trainer = KohonenTrainer(wf)
+        trainer.link_attrs(som, "input", "codebook")
+        trainer.grid = som.grid_positions
+        trainer.batch_size = 100
+        assert trainer.initialize(device=device) is None
+        winners, errs = [], []
+        for x in data:
+            som.input.reset(x)
+            som.input.initialize(device)
+            trainer.run()
+            winners.append(trainer.winners.cpu().numpy())
+            errs.append(trainer.avg_quantization_err)
+        runs.append((winners, errs, np.array(som.codebook.map_read())))
+    (wc, ec, cc), (wp, ep, cp) = runs
+    assert all(np.array_equal(a, b) for a, b in zip(wc, wp))
+    assert max(abs(a - b) / b for a, b in zip(ec, ep)) < 1e-4
+    assert _share(cc, cp) < 1e-4

@@ -43,7 +43,10 @@ def test_import_closure_has_no_jax_and_no_veles_tpu():
                  "accelerated_units", "prng", "thread_pool", "logger",
                  "loader.prefetch", "loader.image", "loader.hdf5",
                  "loader.interactive", "mean_disp_normalizer",
-                 "input_joiner", "avatar", "downloader"):
+                 "input_joiner", "avatar", "downloader", "nn.deconv",
+                 "nn.rnn", "nn.rbm", "nn.kohonen", "models.autoencoder",
+                 "models.lenet", "models.cifar", "models.vgg",
+                 "models.stl10"):
         assert "veles_tpu_torch." + name in modules
     script = (
         "import importlib, json, sys\n"
@@ -112,6 +115,21 @@ def test_no_silent_cpu_fallback(monkeypatch):
         Device()
     with pytest.raises(RuntimeError, match="backend='cpu'"):
         AcceleratedWorkflow(None, name="wf").initialize()
+    from veles_tpu_torch.models.autoencoder import (AutoencoderWorkflow,
+                                                    ConvAutoencoderWorkflow)
+    from veles_tpu_torch.models.cifar import CifarWorkflow
+    from veles_tpu_torch.models.lenet import LenetWorkflow
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.models.stl10 import Stl10Workflow
+    from veles_tpu_torch.models.vgg import VggWorkflow
+    for make in (lambda: VggWorkflow(depth=16), AutoencoderWorkflow,
+                 ConvAutoencoderWorkflow, LenetWorkflow, CifarWorkflow,
+                 Stl10Workflow,
+                 lambda: StandardWorkflow(layers=[
+                     {"type": "lstm", "hidden": 4},
+                     {"type": "softmax", "output_sample_shape": 10}])):
+        with pytest.raises(RuntimeError, match="backend='cpu'"):
+            make().initialize()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         prng.RandomGenerator("x", seed=0).uniform((4,))
     assert Device(backend="cpu").torch_device == torch.device("cpu")

@@ -265,13 +265,14 @@ def test_port_dropout_workflow_reproducible_on_cpu():
 
 
 def test_layer_types_are_the_reference_set_without_deconv():
+    """The port's layer types are the reference's, the deconv, depooling
+    and LSTM types included."""
     ref = set(R_standard.layer_types())
     port = set(P_standard.layer_types())
-    assert port == {t for t in ref if "deconv" not in t and
-                    t not in ("depooling", "lstm")} | (port & ref)
+    assert port == ref
     assert {"conv_relu", "lrn", "max_pooling", "avg_pooling", "dropout",
-            "all2all_relu", "all2all_tanh", "softmax"} <= port
-    assert not any("deconv" in t for t in port)
+            "all2all_relu", "all2all_tanh", "softmax", "deconv",
+            "deconv_relu", "depooling", "lstm"} <= port
 
 
 def test_export_specs_match_reference():
@@ -291,7 +292,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 6"):
         P_mnist.MnistWorkflow(snapshot_dir="snap", **MNIST)
     with pytest.raises(ValueError, match="unknown layer type"):
-        P_standard.StandardWorkflow(layers=[{"type": "deconv"}])
+        P_standard.StandardWorkflow(layers=[{"type": "deconv3d"}])
 
 
 def test_resume_overrides_and_single_pass():

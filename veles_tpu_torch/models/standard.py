@@ -15,9 +15,8 @@ Layer spec: a dict with ``type`` plus the unit's kwargs, e.g.::
     {"type": "all2all_tanh", "output_sample_shape": 120}
     {"type": "softmax", "output_sample_shape": 10}
 
-``Deconv`` is not ported yet, so the ``deconv*`` layer types are not
-registered. :func:`load_params` and :func:`params_of` carry a
-workflow's weights in and out in the reference's layouts.
+:func:`load_params` and :func:`params_of` carry a workflow's weights
+in and out in the reference's layouts.
 """
 
 from __future__ import annotations
@@ -28,8 +27,8 @@ import numpy as np
 
 from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
 # importing veles_tpu_torch.nn populates the "layer" unit registry
-from veles_tpu_torch.nn import (All2All, Conv, DecisionGD, Dropout,
-                                EvaluatorSoftmax, gd_for)
+from veles_tpu_torch.nn import (LSTM, All2All, Conv, DecisionGD, Deconv,
+                                Dropout, EvaluatorSoftmax, gd_for)
 from veles_tpu_torch.nn.lr_policy import LRScheduler, make_policy
 from veles_tpu_torch.plumbing import Repeater
 from veles_tpu_torch.units import UnitRegistry
@@ -43,8 +42,9 @@ def layer_types():
     return UnitRegistry.mapped.get("layer", {})
 
 
-# layer types that carry trainable parameters (get lr/wd/momentum)
-_PARAMETRIC = (All2All, Conv)
+# layer types that carry trainable parameters (get lr/wd/momentum); an
+# LSTM's twin keeps its own defaults, as in the reference
+_PARAMETRIC = (All2All, Conv, Deconv)
 
 
 class StandardWorkflow(AcceleratedWorkflow):
@@ -242,33 +242,43 @@ class StandardWorkflow(AcceleratedWorkflow):
             err_src = gd
 
 
+def _param_attrs(unit):
+    """The names of a forward unit's parameter Arrays."""
+    if isinstance(unit, _PARAMETRIC):
+        return ("weights", "bias")
+    if isinstance(unit, LSTM):
+        return ("weights_x", "weights_h", "bias")
+    return ()
+
+
 def params_of(wf) -> List[Dict[str, np.ndarray]]:
     """The forward units' parameters in order, as host numpy copies in
-    the reference's layouts (all2all ``[in, out]``, conv HWIO, bias
-    ``[n]``): ``{"weights", "bias"}`` for a unit with parameters, ``{}``
-    for one without."""
-    return [{"weights": np.array(u.weights.map_read()),
-             "bias": np.array(u.bias.map_read())}
-            if isinstance(u, _PARAMETRIC) else {} for u in wf.forwards]
+    the reference's layouts (all2all ``[in, out]``, conv and deconv
+    HWIO, bias ``[n]``; an LSTM's ``weights_x [F, 4H]``, ``weights_h
+    [H, 4H]`` and ``bias [4H]``): one dict a unit, ``{}`` for one
+    without parameters."""
+    return [{attr: np.array(getattr(u, attr).map_read())
+             for attr in _param_attrs(u)} for u in wf.forwards]
 
 
 def load_params(wf, params: Sequence[Dict[str, Any]]) -> None:
     """Write ``params`` (one dict per forward unit, as :func:`params_of`
-    gives them; a reference workflow's ``unit.weights.map_read()`` and
-    ``unit.bias.map_read()`` have the same layouts) into the workflow's
-    forward units, before or after ``initialize``. The gradient-descent
-    units share these Arrays, so they train the loaded values."""
+    gives them; a reference workflow's ``map_read()`` of the same
+    Arrays have the same layouts) into the workflow's forward units,
+    before or after ``initialize``. The gradient-descent units share
+    these Arrays, so they train the loaded values."""
     params = list(params)
     if len(params) != len(wf.forwards):
         raise ValueError("%d parameter dicts for %d forward units"
                          % (len(params), len(wf.forwards)))
     for unit, p in zip(wf.forwards, params):
-        if not isinstance(unit, _PARAMETRIC):
+        attrs = _param_attrs(unit)
+        if not attrs:
             if p:
                 raise ValueError("%s has no parameters, got %s"
                                  % (unit.name, sorted(p)))
             continue
-        for attr in ("weights", "bias"):
+        for attr in attrs:
             arr = getattr(unit, attr)
             old = arr.shape if arr else None
             value = np.ascontiguousarray(

@@ -2,9 +2,9 @@
 classifier trainer uses (activations, convolution, pooling, LRN,
 learning-rate policies) and the unit library of the unit graph
 (forward units, their gradient-descent twins, evaluators, decision,
-dropout and the learning-rate scheduler), as ``veles_tpu/nn/`` exports
-them. ``deconv``, ``rnn``, ``rbm`` and ``kohonen`` are listed in
-ROADMAP.md queue 1 item 5."""
+dropout and the learning-rate scheduler) with the four unit families
+(deconvolution and depooling, the LSTM, the RBM and the Kohonen map),
+as ``veles_tpu/nn/`` exports them."""
 
 from veles_tpu_torch.nn.activation import ACTIVATIONS, DERIVATIVES  # noqa: F401
 from veles_tpu_torch.nn.all2all import (All2All, All2AllRELU,  # noqa: F401
@@ -24,8 +24,15 @@ from veles_tpu_torch.nn.gd_pooling import (GDAvgPooling,  # noqa: F401
                                            GDMaxPooling)
 from veles_tpu_torch.nn.lrn import (GDLRNormalizer,  # noqa: F401
                                     LRNormalizerForward)
+from veles_tpu_torch.nn.rnn import GDLSTM, LSTM, lstm_scan  # noqa: F401
+from veles_tpu_torch.nn.rbm import RBM, RBMTrainer  # noqa: F401
+from veles_tpu_torch.nn.kohonen import (KohonenForward,  # noqa: F401
+                                        KohonenTrainer)
 from veles_tpu_torch.nn.pooling import (AvgPooling, MaxPooling,  # noqa: F401
                                         Pooling)
 from veles_tpu_torch.nn.lr_policy import (LRScheduler,  # noqa: F401
                                           make_policy, step_decay,
                                           warmup_cosine)
+from veles_tpu_torch.nn.deconv import (Deconv, DeconvRELU,  # noqa: F401
+                                       DeconvSigmoid, DeconvTanh,
+                                       Depooling, GDDeconv, GDDepooling)

@@ -193,15 +193,16 @@ _GD_BY_ACTIVATION = {
 
 def gd_for(forward, workflow, **kwargs):
     """Construct the matching backward unit for a forward layer unit
-    (all2all, conv, pooling, dropout, LRN) and wire the standard links.
-    Parameterless backward units receive only the relevant kwargs.
-    ``Deconv``, ``Depooling`` and ``LSTM`` wait for the rest of the
-    ``nn/`` units (ROADMAP.md queue 1 item 5)."""
+    (all2all, conv, pooling, dropout, LRN, deconv, depooling, LSTM) and
+    wire the standard links. Parameterless backward units receive only
+    the relevant kwargs."""
     from veles_tpu_torch.nn import conv as conv_mod
+    from veles_tpu_torch.nn import deconv as deconv_mod
     from veles_tpu_torch.nn import dropout as drop_mod
     from veles_tpu_torch.nn import gd_conv, gd_pooling
     from veles_tpu_torch.nn import pooling as pool_mod
     from veles_tpu_torch.nn.lrn import GDLRNormalizer, LRNormalizerForward
+    from veles_tpu_torch.nn.rnn import GDLSTM, LSTM
 
     name = kwargs.pop("name", None)
     if isinstance(forward, conv_mod.Conv):
@@ -231,6 +232,25 @@ def gd_for(forward, workflow, **kwargs):
         kwargs.setdefault("include_bias", forward.include_bias)
         unit = cls(workflow, name=name, **kwargs)
         unit.link_attrs(forward, "input", "output", "weights", "bias")
+    elif isinstance(forward, deconv_mod.Deconv):
+        try:
+            cls = deconv_mod._GD_DECONV_BY_ACTIVATION[forward.ACTIVATION]
+        except KeyError:
+            raise TypeError(
+                "no GDDeconv variant for activation %r" %
+                forward.ACTIVATION) from None
+        kwargs.setdefault("include_bias", forward.include_bias)
+        unit = cls(workflow, sliding=forward.sliding,
+                   padding=forward.padding, name=name, **kwargs)
+        unit.link_attrs(forward, "input", "output", "weights", "bias")
+    elif isinstance(forward, deconv_mod.Depooling):
+        unit = deconv_mod.GDDepooling(workflow, kx=forward.kx,
+                                      ky=forward.ky, name=name)
+        unit.link_attrs(forward, "input")
+    elif isinstance(forward, LSTM):
+        unit = GDLSTM(workflow, name=name, **kwargs)
+        unit.link_attrs(forward, "input", "weights_x", "weights_h",
+                        "bias")
     else:
         raise TypeError("no backward unit known for %r" % (forward,))
     return unit

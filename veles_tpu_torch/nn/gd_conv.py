@@ -22,12 +22,14 @@ from veles_tpu_torch.nn.gd import GradientDescent, sgd_update
 def _gd_conv_step(act: str, need_err_input: bool, include_bias: bool,
                   strides, padding, weights, bias, vel_w, vel_b,
                   x, y, err_output, lr, lr_bias, weight_decay, momentum,
-                  compute_dtype):
+                  compute_dtype, linear=conv_raw):
+    """``linear`` is the forward's linear op, ``conv_raw`` or another
+    of its signature (``nn/deconv.py``'s ``deconv_raw``)."""
     d = err_output * DERIVATIVES[act](y)
     with torch.enable_grad():
         xr = x.detach().requires_grad_(need_err_input)
         wr = weights.detach().requires_grad_()
-        out = conv_raw(xr, wr, None, strides, padding, compute_dtype)
+        out = linear(xr, wr, None, strides, padding, compute_dtype)
         leaves = (xr, wr) if need_err_input else (wr,)
         grads = torch.autograd.grad(out, leaves, d)
     err_input = grads[0].contiguous() if need_err_input else None
@@ -43,6 +45,8 @@ class GDConv(GradientDescent):
     weights and bias links and copies the geometry."""
 
     ACTIVATION = "linear"
+    #: the step function (a subclass of another linear op swaps it)
+    STEP = staticmethod(_gd_conv_step)
 
     def __init__(self, workflow, **kwargs: Any) -> None:
         self.sliding = tuple(kwargs.pop("sliding", (1, 1)))
@@ -55,7 +59,7 @@ class GDConv(GradientDescent):
         if retry:
             return retry
         self._step_ = self.jit(
-            _gd_conv_step, static_argnums=(0, 1, 2, 3, 4, 16),
+            self.STEP, static_argnums=(0, 1, 2, 3, 4, 16),
             donate_argnums=(5, 6, 7, 8))
         return None
 
