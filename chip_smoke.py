@@ -210,7 +210,38 @@ without them, and on any failed phase. Phases, in order:
    bounds; one ``RBMTrainer`` step, its K8 fill bitwise the CPU's plain
    fill; three ``KohonenTrainer`` steps, the winners equal; ``Deconv``
    with two ``GDDeconv`` steps and ``Depooling`` with ``GDDepooling`` at
-   the conv autoencoder's shapes.
+   the conv autoencoder's shapes;
+19. the state half at full width: K6/K7 at AlexNet's two LRN shapes at
+   minibatch 128 (bf16) and K8 at [128, 4096] against their plain
+   versions (K1-K3 at the LM's training shape are phase 2's); then, the
+   counts from 0, (a) phase 5's LM (``FULL``, bf16, remat "attn", batch
+   8, lr 1e-4) trained by ``TransformerWorkflow`` over
+   ``SyntheticTextLoader`` (88 windows: 10 TRAIN and 1 VALID minibatch
+   an epoch) with ``Snapshotter(sharded=True)``, 3 epochs (run A): ms
+   per TRAIN step beside phase 5's, exactly 24/12/12 K1/K2/K3 a TRAIN
+   step after the one that captures and 12 K1 a VALID minibatch, each
+   save's non-finite guard and its time on the training thread beside
+   the writer's time and bytes, peak memory; the epoch-2 manifest loaded
+   in a process that sees no card (``CUDA_VISIBLE_DEVICES=""``); run A
+   freed, run B resumed from that manifest to the end: its params and
+   Adam state against run A's, bitwise or within the JAX package's
+   rtol 1e-5 / atol 1e-6 (which held is logged); (b) phase 14's
+   ``AlexNetWorkflow`` through ``train_fused`` for its two epochs:
+   exactly 2/2/2 K6/K7/K8 a step, device ms a step and images/s beside
+   phases 14 and 9, ``write_back`` and one unit-graph VALID pass against
+   the fused forward of the written-back params (the errors of
+   ``train_fused``'s closing sweep; rows whose argmax differ must lie
+   within bf16 rounding of a tie), a ``compression=None`` snapshot and
+   gzip's rate at the codec's level over 16 slices of it,
+   ``InferenceEngine.from_snapshot`` against ``from_workflow`` bitwise
+   (2 K6 a replay) and one ``POST /apply`` on the restored engine;
+20. the state half, card against CPU at f32: the LM workflow (the JAX
+   package's default configuration, its corpus cut to 8 minibatches)
+   for 2 epochs, ``train_fused(MnistWorkflow)``, an ensemble of 3 MNIST
+   members and the genetics optimizer (population 6, 2 generations,
+   each evaluation a small MNIST training run) under a ``Scheduler``
+   tenant whose quanta must equal the evaluations, each check within
+   the CPU tests' bounds.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -4515,6 +4546,719 @@ def zoo_parity_phase(torch, dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the state half at full width
+# ---------------------------------------------------------------------------
+
+#: phase 19a: the LM of phase 5 (FULL, bf16, remat "attn", batch 8, lr
+#: 1e-4) trained by TransformerWorkflow over SyntheticTextLoader for 3
+#: epochs; 88 windows of seq_len + 1 tokens a corpus: 8 VALID windows
+#: (valid_ratio 0.1, one minibatch) and 80 TRAIN (10 minibatches)
+STATE_EPOCHS = 3
+STATE_TOKENS = 88 * (FULL["seq_len"] + 1)
+STATE_SEED = 7
+#: launches of one captured LM TRAIN step (K1 twice a layer: forward
+#: and the recompute of remat "attn"; K2, K3 once a layer), of one VALID
+#: minibatch (the forward), and of one train_fused step (phase 14's
+#: TRAIN minibatch)
+STATE_LM_STEP = {"flash_fwd": 24, "flash_bwd_dkv": 12, "flash_bwd_dq": 12}
+STATE_LM_VALID = {"flash_fwd": 12}
+STATE_FUSED_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "uniform_fill": 2}
+#: the JAX package's own bound on a resumed run's params
+#: (tests/test_snapshot.py), held where they are not bitwise
+RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6
+#: the gzip level of the Snapshotter's "gz" codec (gzip.open's
+#: default), and the slices of the snapshot it is timed over
+GZIP_LEVEL = 9
+GZIP_SAMPLES = 16
+GZIP_SLICE = 16 << 20
+
+
+def _nonzero(d):
+    return {k: v for k, v in d.items() if v}
+
+
+def _state_leaves(state):
+    """The numpy leaves of a TransformerUnit._host_state() tree, in a
+    fixed order (params, then Adam m and v)."""
+    from veles_tpu_torch.models.transformer import _tree_leaves
+    return [leaf for key in ("params", "opt_m", "opt_v")
+            for leaf in _tree_leaves(state[key])]
+
+
+def _lm_state_run(torch, counters, wf, steps, saves):
+    """Run ``wf`` with every TransformerUnit run (its minibatch class, host
+    wall ms, launches and loss) and every Snapshotter.save (guard ms,
+    total ms) recorded. The hooks patch the classes, not the instances:
+    an instance attribute would ride the snapshots."""
+    from veles_tpu_torch.models.lm import TransformerUnit
+    from veles_tpu_torch.snapshotter import Snapshotter
+    run, save, guard = (TransformerUnit.run, Snapshotter.save,
+                        Snapshotter.nonfinite_params)
+
+    def timed_run(unit):
+        before = counters.read()
+        t0 = time.perf_counter()
+        run(unit)                      # ends with float(loss): a sync
+        steps.append((unit.minibatch_class, (time.perf_counter() - t0) * 1e3,
+                      _nonzero(counters.delta(before)), unit.loss))
+
+    def timed_guard(snap):
+        t0 = time.perf_counter()
+        bad = guard(snap)
+        saves.append({"guard_ms": (time.perf_counter() - t0) * 1e3})
+        return bad
+
+    def timed_save(snap, force=False):
+        t0 = time.perf_counter()
+        path = save(snap, force)
+        saves[-1].update(save_ms=(time.perf_counter() - t0) * 1e3,
+                         path=path)
+        return path
+
+    TransformerUnit.run, Snapshotter.save = timed_run, timed_save
+    Snapshotter.nonfinite_params = timed_guard
+    try:
+        t0 = time.monotonic()
+        wf.run()
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+    finally:
+        TransformerUnit.run, Snapshotter.save = run, save
+        Snapshotter.nonfinite_params = guard
+
+
+def _check_lm_steps(label, steps):
+    """Every TRAIN step but a trainer's first (whose capture runs the
+    step twice more) launches STATE_LM_STEP; every VALID minibatch
+    STATE_LM_VALID. Returns the TRAIN steps' host ms (the first
+    excluded)."""
+    train = [s for s in steps if s[0] == 2]
+    for klass, _, launches, _ in steps:
+        want = STATE_LM_STEP if klass == 2 else STATE_LM_VALID
+        if klass == 2 and launches is train[0][2]:
+            continue
+        if launches != want:
+            raise AssertionError("%s: a %s minibatch launched %s, not %s"
+                                 % (label, "TRAIN" if klass == 2
+                                    else "VALID", launches, want))
+    return [s[1] for s in train[1:]]
+
+
+def _load_in_cpu_process(path):
+    """Load a snapshot in a fresh process that sees no card: its trainer
+    state's step count and the f64 sum of its embedding."""
+    code = (
+        "import json, sys\n"
+        "sys.path.insert(0, %r)\n"
+        "import torch\n"
+        "from veles_tpu_torch.snapshotter import Snapshotter\n"
+        "wf = Snapshotter.load(%r)\n"
+        "s = wf.trainer_unit._saved_state\n"
+        "print(json.dumps({'cuda': torch.cuda.is_available(),\n"
+        "    'step_count': s['step_count'],\n"
+        "    'embed_sum': float(s['params']['embed'].sum(dtype='f8')),\n"
+        "    'epoch': wf.decision.epoch_number}))\n" % (HERE, path))
+    t0 = time.monotonic()
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=900, cwd=HERE,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    if out.returncode:
+        raise AssertionError("loading %s without a card failed: %s"
+                             % (path, out.stderr[-2000:]))
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    got["seconds"] = time.monotonic() - t0
+    return got
+
+
+def _epoch2_manifest(store):
+    """The manifest of the newest generation saved at epoch 2 (its meta's
+    suffix), read from the manifests alone."""
+    found = None
+    for gen in store.generations():
+        with open(store._manifest_path(gen)) as f:
+            if json.load(f)["meta"]["suffix"].split("_")[0] == "2":
+                found = store._manifest_path(gen)
+    if found is None:
+        raise AssertionError("no epoch-2 generation in %s"
+                             % store.generations())
+    return found
+
+
+def state_lm_phase(torch, counters, card, train):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models.lm import TransformerWorkflow
+    from veles_tpu_torch.models.transformer import TransformerConfig
+    from veles_tpu_torch.snapshotter import Snapshotter
+
+    config = TransformerConfig(compute="bfloat16", remat="attn", **FULL)
+    log("phase 19a: TransformerWorkflow at full width (%s), batch %d, lr "
+        "%g, SyntheticTextLoader of %d tokens (10 TRAIN and 1 VALID "
+        "minibatch an epoch), Snapshotter(sharded=True), %d epochs (run A)"
+        "; run B resumes from the epoch-2 manifest"
+        % (config, TRAIN_BATCH, TRAIN_LR, STATE_TOKENS, STATE_EPOCHS))
+    snapdir = os.path.join(HERE, "chip_smoke_out", "state_lm")
+    shutil.rmtree(snapdir, ignore_errors=True)
+
+    def make():
+        return TransformerWorkflow(
+            config=config, learning_rate=TRAIN_LR, max_epochs=STATE_EPOCHS,
+            fail_iterations=100, snapshot_dir=snapdir, snapshot_prefix="lm",
+            loader_kwargs=dict(minibatch_size=TRAIN_BATCH,
+                               n_tokens=STATE_TOKENS))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    root.common.random.seed = STATE_SEED
+    prng.reset()
+    wf = make()
+    wf.snapshotter.sharded = True
+    t0 = time.monotonic()
+    wf.initialize(device=Device())
+    setup_s = time.monotonic() - t0
+    steps_a, saves = [], []
+    run_a_s = _lm_state_run(torch, counters, wf, steps_a, saves)
+    ck = wf.snapshotter.checkpointer
+    if not ck.wait(timeout=900):
+        raise AssertionError("the checkpoint writer did not finish")
+    stats = ck.stats()
+    if stats["failures"] or stats["saves_committed"] != len(saves):
+        raise AssertionError("checkpoints: %s for %d saves"
+                             % (stats, len(saves)))
+    peak = torch.cuda.max_memory_allocated()
+    train_ms = _check_lm_steps("run A", steps_a)
+    step_p50 = float(np.percentile(train_ms, 50))
+    losses = [s[3] for s in steps_a if s[0] == 2]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("run A losses: %s" % losses)
+    final_a = wf.trainer_unit._host_state()
+    errors_a = {k: list(v) for k, v in wf.decision.epoch_errors.items()}
+    manifest = _epoch2_manifest(ck.store)
+    per_save = dict(
+        guard_ms=[s["guard_ms"] for s in saves],
+        save_ms=[s["save_ms"] for s in saves],
+        stall_ms=stats["stall_seconds"] * 1e3 / len(saves),
+        writer_ms=stats["save_seconds"] * 1e3 / len(saves),
+        bytes=stats["bytes_written"] / len(saves))
+    log("  run A: set-up %.1f s, run %.1f s; %d TRAIN steps, ms per TRAIN "
+        "step (host wall, its loss read included; the first, which "
+        "captures, excluded) p50 %.3f (%s) against phase 5's captured step "
+        "%.3f ms; launches a TRAIN step %s, a VALID minibatch %s; losses "
+        "%.4f -> %.4f; VALID loss by epoch %s; peak memory %.2f GB [%s]"
+        % (setup_s, run_a_s, len(losses), step_p50,
+           ", ".join("%.1f" % v for v in train_ms),
+           train["step_ms"],
+           STATE_LM_STEP, STATE_LM_VALID, losses[0], losses[-1],
+           ["%.4f" % v for v in errors_a[1]], peak / 1e9, card))
+    log("  snapshots: %d saves; a save on the training thread: the "
+        "non-finite guard %s ms, the whole save (guard, host copy of the "
+        "params and Adam state, pickle, enqueue) %s ms, of which the "
+        "checkpointer's capture %.1f ms; the writer %.1f ms and %.1f MB "
+        "a save (%.0f MB/s) [%s]" % (
+            len(saves), ", ".join("%.1f" % v for v in per_save["guard_ms"]),
+            ", ".join("%.1f" % v for v in per_save["save_ms"]),
+            per_save["stall_ms"], per_save["writer_ms"],
+            per_save["bytes"] / 1e6,
+            per_save["bytes"] / 1e3 / max(per_save["writer_ms"], 1e-9),
+            card))
+    ck.stop()
+    wf.thread_pool.shutdown()
+    del wf, ck
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cpu_load = _load_in_cpu_process(manifest)
+    log("  %s loaded in a process without a card (CUDA_VISIBLE_DEVICES='',"
+        " cuda available: %s) in %.1f s: step count %d, epoch %d"
+        % (os.path.basename(manifest), cpu_load["cuda"],
+           cpu_load["seconds"], cpu_load["step_count"], cpu_load["epoch"]))
+    if cpu_load["cuda"]:
+        raise AssertionError("the child process saw a card")
+
+    prng.reset()
+    t0 = time.monotonic()
+    wf = Snapshotter.load(manifest)
+    load_s = time.monotonic() - t0
+    saved = wf.trainer_unit._saved_state
+    if saved["step_count"] != cpu_load["step_count"] or float(
+            saved["params"]["embed"].sum(dtype="f8")) != \
+            cpu_load["embed_sum"]:
+        raise AssertionError("the card-less load differs: %s" % cpu_load)
+    wf.stopped = False
+    wf.initialize(device=Device())
+    steps_b = []
+    run_b_s = _lm_state_run(torch, counters, wf, steps_b, [])
+    _check_lm_steps("run B", steps_b)
+    final_b = wf.trainer_unit._host_state()
+    errors_b = {k: list(v) for k, v in wf.decision.epoch_errors.items()}
+    pairs = list(zip(_state_leaves(final_a), _state_leaves(final_b)))
+    bitwise = all(a.tobytes() == b.tobytes() for a, b in pairs)
+    close = all(np.allclose(b, a, rtol=RESUME_RTOL, atol=RESUME_ATOL)
+                for a, b in pairs)
+    worst = max(float(np.max(np.abs(b.astype(np.float64) - a)))
+                for a, b in pairs)
+    log("  run B: the manifest loaded in %.1f s (step count %d), resumed "
+        "and ran %d TRAIN steps in %.1f s; final params and Adam state "
+        "against run A: bitwise %s, within rtol %g / atol %g %s (max abs "
+        "difference %.3e); errors by epoch equal: %s"
+        % (load_s, saved["step_count"], sum(s[0] == 2 for s in steps_b),
+           run_b_s, bitwise, RESUME_RTOL, RESUME_ATOL, close, worst,
+           errors_b == errors_a))
+    if not close:
+        raise AssertionError("the resumed run left run A's trajectory")
+    wf.snapshotter.checkpointer.stop()
+    wf.thread_pool.shutdown()
+    del wf, final_a, final_b, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(snapdir, ignore_errors=True)
+    return dict(tokens=STATE_TOKENS, epochs=STATE_EPOCHS, setup_s=setup_s,
+                run_a_s=run_a_s, train_step_ms=train_ms,
+                train_step_p50_ms=step_p50,
+                phase5_step_ms=train["step_ms"],
+                launches_train_step=STATE_LM_STEP,
+                launches_valid=STATE_LM_VALID, losses=losses,
+                epoch_errors=errors_a, peak_mem_bytes=peak, saves=per_save,
+                checkpointer=stats, cpu_load=cpu_load, load_s=load_s,
+                run_b_s=run_b_s, resumed_bitwise=bitwise,
+                resumed_within_bound=close, resumed_max_abs_diff=worst,
+                resumed_errors_equal=errors_b == errors_a)
+
+
+def _state_kernel_holds(torch, dev, dtype, batch):
+    """K6/K7 at AlexNet's two LRN shapes at this path's batch and dtype,
+    and K8 at its dropout mask's shape, against their plain versions
+    (comparison launches, made before the path's counts start)."""
+    from veles_tpu_torch.ops import lrn, rng
+    dn = str(dtype).split(".")[1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    k, n, alpha, beta = LRN_SPEC
+    for shape in ((batch, 55, 55, 96), (batch, 27, 27, 256)):
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype) * 3
+        dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        for name, fn in (("lrn_fwd", lambda impl: lrn.lrn_fwd(
+                x, k, n, alpha, beta, impl=impl)),
+                         ("lrn_bwd", lambda impl: lrn.lrn_bwd(
+                             x, dy, k, n, alpha, beta, impl=impl))):
+            got, want = fn("cuda").float(), fn("plain").float()
+            check("%s %s %s (share of scale)" % (name, dn, list(shape)),
+                  float((got - want).abs().max() / want.abs().max()),
+                  TOL_LRN[dn])
+    a = rng.uniform_fill(UG_SEED, (batch, 4096), device=dev, impl="cuda")
+    b = rng.uniform_fill(UG_SEED, (batch, 4096), device=dev, impl="plain")
+    if not bool(torch.equal(a, b)):
+        raise AssertionError("uniform_fill [%d, 4096]: kernel != plain"
+                             % batch)
+    log("  uniform_fill [%d, 4096]: kernel == plain bitwise" % batch)
+
+
+def _to_valid(loader):
+    """Serve minibatches until the first of a VALID class."""
+    for _ in range(100000):
+        loader.run()
+        if loader.minibatch_class == 1:
+            return
+    raise AssertionError("no VALID minibatch")
+
+
+def _graph_vs_fused_valid(torch, wf, dev):
+    """One VALID pass through the unit graph's forward units and
+    evaluator, and the same minibatches through a FusedClassifierTrainer
+    over the written-back forwards: both error counts, and the rows
+    whose argmax differs with the fused logits' top-2 gap as a share of
+    the logit scale."""
+    from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
+    trainer = FusedClassifierTrainer.from_forwards(wf.forwards, device=dev)
+    loader = wf.loader
+    _to_valid(loader)
+    n_graph = n_fused = 0
+    gaps = []
+    while True:
+        size = loader.minibatch_size
+        for unit in wf.forwards:
+            unit.run()
+        wf.evaluator.run()
+        n_graph += int(wf.evaluator.n_err)
+        probs = wf.forwards[-1].output.devmem[:size].float()
+        logits = trainer.predict(loader.minibatch_data.devmem)[:size]
+        labels = loader.minibatch_labels.devmem[:size].long()
+        fused = logits.argmax(dim=-1)
+        n_fused += int((fused != labels).sum())
+        top2 = logits.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]) / logits.abs().max()
+        gaps += gap[fused != probs.argmax(dim=-1)].tolist()
+        if bool(loader.last_minibatch):
+            break
+        loader.run()
+    del trainer
+    return n_graph, n_fused, gaps
+
+
+def state_fused_phase(torch, counters, dev, card, fused, graph):
+    import gzip
+
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models.alexnet import AlexNetWorkflow
+    from veles_tpu_torch.parallel.fused import (FusedClassifierTrainer,
+                                                train_fused)
+    from veles_tpu_torch.serve import (InferenceEngine, ModelRegistry,
+                                       ServeServer)
+    from veles_tpu_torch.snapshotter import Snapshotter
+
+    log("phase 19b: phase 14's AlexNetWorkflow (1000 classes, 224 x 224 x "
+        "3, minibatch 128, %s compute, data cut to %s) through train_fused "
+        "for %d epochs, write_back, a Snapshotter snapshot, "
+        "InferenceEngine.from_snapshot against from_workflow, POST /apply"
+        % (root.common.engine.compute_type, UG_DATA, UG_EPOCHS))
+    root.common.random.seed = UG_SEED
+    prng.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wf = AlexNetWorkflow(max_epochs=UG_EPOCHS, loader_kwargs=dict(UG_DATA))
+    wf.initialize(device=Device())
+    mbs = wf.loader.max_minibatch_size
+    steps, counts = [], []
+    step, count = (FusedClassifierTrainer.step,
+                   FusedClassifierTrainer.count_errors)
+
+    def timed_step(trainer, x, labels):
+        before = counters.read()
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        out = step(trainer, x, labels)
+        end.record()
+        steps.append((start, end, _nonzero(counters.delta(before))))
+        return out
+
+    def recording(trainer, x, labels):
+        counts.append(count(trainer, x, labels))
+        return counts[-1]
+
+    FusedClassifierTrainer.step = timed_step
+    FusedClassifierTrainer.count_errors = recording
+    try:
+        t0 = time.monotonic()
+        result = train_fused(wf)
+        torch.cuda.synchronize()
+        run_s = time.monotonic() - t0
+    finally:
+        FusedClassifierTrainer.step = step
+        FusedClassifierTrainer.count_errors = count
+    for _, _, launches in steps:
+        if launches != STATE_FUSED_STEP:
+            raise AssertionError("a train_fused step launched %s, not %s"
+                                 % (launches, STATE_FUSED_STEP))
+    step_ms = [s.elapsed_time(e) for s, e, _ in steps]
+    p50 = float(np.percentile(step_ms[1:], 50))
+    images_per_s = mbs * 1e3 / p50
+    n_valid_mb = -(-wf.loader.class_lengths[1] // mbs)
+    last_valid = sum(counts[-n_valid_mb:])
+    log("  train_fused: %s in %.1f s; %d steps, device ms per step p50 %.3f"
+        " (the first excluded) -> %.1f images/s, against phase 14's unit "
+        "graph %.1f and phase 9's fused step %.1f images/s; launches a "
+        "step %s; the closing VALID sweep %d errors of %d [%s]"
+        % (result, run_s, len(steps), p50, images_per_s,
+           graph["images_per_s"], fused["images_per_s"],
+           STATE_FUSED_STEP, last_valid, wf.loader.class_lengths[1], card))
+    n_graph, n_fused, gaps = _graph_vs_fused_valid(torch, wf, dev)
+    log("  write_back, then one VALID pass: unit graph %d errors, the fused "
+        "forward over the written-back params %d (train_fused's sweep %d);"
+        " %d rows' argmax differ, their top-2 logit gaps %s of the logit "
+        "scale (bound %.0e)" % (n_graph, n_fused, last_valid, len(gaps),
+                                ["%.1e" % g for g in gaps],
+                                TOL_CLASSIFIER["bfloat16"]))
+    if n_fused != last_valid or any(g > TOL_CLASSIFIER["bfloat16"]
+                                    for g in gaps):
+        raise AssertionError("the written-back graph disagrees with "
+                             "train_fused")
+
+    snapdir = os.path.join(HERE, "chip_smoke_out", "state_fused")
+    shutil.rmtree(snapdir, ignore_errors=True)
+    snap = Snapshotter(wf, directory=snapdir, prefix="alexnet",
+                       compression=None)
+    t0 = time.monotonic()
+    path = snap.save()
+    save_s = time.monotonic() - t0
+    size = os.path.getsize(path)
+    # the "gz" codec's cost, from GZIP_SAMPLES evenly spaced slices of
+    # the file (the whole file takes minutes of one core at this size)
+    sample = packed = 0
+    gzip_s = 0.0
+    with open(path, "rb") as f:
+        for i in range(GZIP_SAMPLES):
+            f.seek(i * (size - GZIP_SLICE) // (GZIP_SAMPLES - 1))
+            raw = f.read(GZIP_SLICE)
+            t0 = time.monotonic()
+            packed += len(gzip.compress(raw, compresslevel=GZIP_LEVEL))
+            gzip_s += time.monotonic() - t0
+            sample += len(raw)
+    gzip_mb_s = sample / 1e6 / gzip_s
+    log("  snapshot (compression=None) %.1f MB in %.2f s; gzip at level %d"
+        " over %d slices of %d MB across it: %.1f MB/s of one core, %.3f "
+        "of the size, so %.1f s for the whole snapshot [%s]"
+        % (size / 1e6, save_s, GZIP_LEVEL, GZIP_SAMPLES, GZIP_SLICE >> 20,
+           gzip_mb_s, packed / sample, size / 1e6 / gzip_mb_s, card))
+
+    live = InferenceEngine.from_workflow(wf, device=dev)
+    restored = InferenceEngine.from_snapshot(path, device=dev)
+    rows = np.asarray(wf.loader.original_data[:8], np.float32)
+    got = live.apply(rows)
+    counters_before = counters.read()
+    again = restored.apply(rows)
+    restored_first = _nonzero(counters.delta(counters_before))
+    counters_before = counters.read()
+    again = restored.apply(rows)
+    replay = _nonzero(counters.delta(counters_before))
+    same = bool(np.array_equal(got, again))
+    log("  from_snapshot == from_workflow on %d rows, bitwise: %s; "
+        "launches: the first apply (capture) %s, a replay %s"
+        % (len(rows), same, restored_first, replay))
+    n_classes = wf.forwards[-1].output.shape[-1]
+    if not same or replay != {"lrn_fwd": 2} or \
+            not np.isfinite(got).all() or got.shape != (len(rows), n_classes):
+        raise AssertionError("from_snapshot against from_workflow")
+    registry = ModelRegistry()
+    registry.add("alexnet", restored, max_batch=8, max_delay_ms=5)
+    server = ServeServer(registry, port=0, timeout=600)
+    try:
+        url = "http://%s:%d/apply" % server.endpoint
+        with _post(url, {"input": rows[:2].tolist()}) as resp:
+            answer = np.asarray(json.loads(resp.read())["output"],
+                                np.float32)
+    finally:
+        server.stop()
+    check("POST /apply on the restored engine vs apply (absolute)",
+          float(np.abs(answer - got[:2]).max()), TOL_APPLY)
+    peak = torch.cuda.max_memory_allocated()
+    wf.thread_pool.shutdown()
+    del wf, live, restored, registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(snapdir, ignore_errors=True)
+    return dict(result=result, run_s=run_s, steps=len(steps),
+                step_ms=step_ms, step_p50_ms=p50, images_per_s=images_per_s,
+                graph_images_per_s=graph["images_per_s"],
+                fused_images_per_s=fused["images_per_s"],
+                launches_step=STATE_FUSED_STEP, last_valid_errors=last_valid,
+                graph_valid_errors=n_graph, fused_valid_errors=n_fused,
+                argmax_flips=len(gaps), snapshot_bytes=size,
+                snapshot_save_s=save_s, gzip_level=GZIP_LEVEL,
+                gzip_sample_bytes=sample, gzip_s=gzip_s,
+                gzip_ratio=packed / sample, gzip_mb_s=gzip_mb_s,
+                gzip_whole_s=size / 1e6 / gzip_mb_s,
+                apply_launches_replay=replay, peak_mem_bytes=peak)
+
+
+def state_phase(torch, counters, dev, card, train, fused, graph):
+    """Phase 19: the kernels of both paths held against their plain
+    versions at this path's shapes, then 19a and 19b with the launch
+    counts set to 0 around them."""
+    log("phase 19: the state half at full width; K1-K3 at the LM's shape "
+        "[8, 2048, 8, 128] bf16 are phase 2's training-shape rows")
+    _state_kernel_holds(torch, dev, torch.bfloat16, 128)
+    counters.reset()
+    lm = state_lm_phase(torch, counters, card, train)
+    classifier = state_fused_phase(torch, counters, dev, card, fused, graph)
+    launches = counters.read()
+    log("  launches over the phase: %s" % _nonzero(launches))
+    return dict(lm=lm, classifier=classifier), launches
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the state half, card against CPU at f32
+# ---------------------------------------------------------------------------
+
+#: the CPU tests' bound (tests/test_torch_lm_workflow.py and friends):
+#: the two sides sum in different orders
+TOL_STATE = 1e-4
+STATE_MNIST = dict(layers=(32, 10), max_epochs=2,
+                   loader_kwargs=dict(n_train=300, n_valid=100,
+                                      minibatch_size=50))
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _state_parity_lm(device):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models.lm import TransformerWorkflow
+    prng.reset()
+    wf = TransformerWorkflow(max_epochs=2, fail_iterations=100,
+                             loader_kwargs=dict(n_tokens=16 * 33 * 8))
+    wf.thread_pool = None
+    wf.initialize(device=device)
+    wf.run()
+    return {k: list(v) for k, v in wf.decision.epoch_errors.items()}
+
+
+def _state_parity_fused(device):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models.mnist import MnistWorkflow
+    from veles_tpu_torch.parallel.fused import train_fused
+    prng.reset()
+    wf = MnistWorkflow(**STATE_MNIST)
+    wf.thread_pool = None
+    wf.initialize(device=device)
+    return train_fused(wf, compute_dtype="float32"), [
+        np.array(getattr(u, a).map_read())
+                             for u in wf.forwards
+                             for a in ("weights", "bias")]
+
+
+def _state_parity_ensemble(device):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ensemble import (EnsembleTesterWorkflow,
+                                          EnsembleTrainerWorkflow)
+    from veles_tpu_torch.loader.datasets import synthetic_digits
+    from veles_tpu_torch.models.mnist import MnistWorkflow
+
+    def factory(index, seed, train_ratio):
+        root.common.random.seed = seed
+        prng.reset()
+        wf = MnistWorkflow(layers=(16, 10), max_epochs=1, loader_kwargs=dict(
+            n_train=200, n_valid=80, minibatch_size=40,
+            train_ratio=train_ratio))
+        wf.thread_pool = None
+        wf.initialize(device=device)
+        wf.run()
+        return wf
+
+    root.common.random.seed = 17
+    prng.reset()
+    wf = EnsembleTrainerWorkflow(model_factory=factory, size=3)
+    wf.thread_pool = None
+    wf.initialize(device=device)
+    wf.run()
+    data, labels = synthetic_digits(
+        200, prng.RandomGenerator("held_out", seed=123))
+    tester = EnsembleTesterWorkflow(members=wf.members)
+    tester.thread_pool = None
+    tester.tester.data, tester.tester.labels = data, labels
+    tester.initialize(device=device)
+    tester.run()
+    return wf.members, tester.gather_results()
+
+
+def _state_parity_genetics(device):
+    """Population 6, 2 generations, under a Scheduler tenant; each
+    evaluation trains a small MNIST net on ``device`` at the
+    chromosome's learning rate and hidden width."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.genetics import (OptimizationWorkflow, Range,
+                                          Tuneable, default_evaluator)
+    from veles_tpu_torch.models.mnist import MnistWorkflow
+    from veles_tpu_torch.sched import Scheduler
+
+    def factory():
+        wf = MnistWorkflow(
+            layers=(root.smoke_ga.hidden, 10), max_epochs=1,
+            learning_rate=root.smoke_ga.lr,
+            loader_kwargs=dict(n_train=200, n_valid=80, minibatch_size=40))
+        return wf
+
+    root.common.random.seed = 17
+    prng.reset()
+    sched = Scheduler()
+    tenant = sched.register("genetics", weight=1)
+    wf = OptimizationWorkflow(
+        evaluate=default_evaluator(factory, device=device), size=6,
+        generations=2, sched_tenant=tenant,
+        tuneables=[Tuneable("root.smoke_ga.lr", Range(0.1, 1e-3, 1.0)),
+                   Tuneable("root.smoke_ga.hidden", Range(16, 4, 64))])
+    wf.thread_pool = None
+    evaluations = [0]
+    evaluate = wf.optimizer.evaluate
+
+    def counting(values):
+        evaluations[0] += 1
+        return evaluate(values)
+
+    wf.optimizer.evaluate = counting
+    wf.initialize(device=device)
+    wf.run()
+    quanta = sched.snapshot()["tenants"]["genetics"]["quanta"]
+    sched.stop()
+    results = wf.gather_results()
+    del root.__dict__["smoke_ga"]
+    return results, evaluations[0], quanta
+
+
+def state_parity_phase(torch, dev, card):
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.config import root
+
+    log("phase 20: the state half, Device() against Device(backend='cpu')"
+        " at f32: the LM workflow (vocab 64, embed 64, 2 heads, 2 layers, "
+        "seq 32) 2 epochs, train_fused(MnistWorkflow), an ensemble of 3, "
+        "genetics (population 6, 2 generations) under a Scheduler tenant")
+    saved = root.common.engine.compute_type, root.common.random.seed
+    root.common.engine.compute_type = "float32"
+    out = {}
+    try:
+        root.common.random.seed = 7
+        card_lm, cpu_lm = (_state_parity_lm(d) for d in
+                           (Device(), Device(backend="cpu")))
+        err = max(_rel(card_lm[k], cpu_lm[k]) for k in (1, 2))
+        check("LM loss by epoch, card vs CPU (relative)", err, TOL_STATE)
+        out["lm"] = dict(card=card_lm, cpu=cpu_lm, rel_err=err)
+
+        root.common.random.seed = 5
+        (card_res, card_w), (cpu_res, cpu_w) = (
+            _state_parity_fused(d) for d in (Device(),
+                                             Device(backend="cpu")))
+        if card_res != cpu_res:
+            raise AssertionError("train_fused: card %s, CPU %s"
+                                 % (card_res, cpu_res))
+        err = max(_rel(a, b) for a, b in zip(card_w, cpu_w))
+        check("train_fused weights, card vs CPU (share of scale)", err,
+              TOL_STATE)
+        out["train_fused"] = dict(result=card_res, rel_err=err)
+
+        (card_m, card_t), (cpu_m, cpu_t) = (
+            _state_parity_ensemble(d) for d in (Device(),
+                                                Device(backend="cpu")))
+        for a, b in zip(card_m, cpu_m):
+            for key, want in b["metrics"].items():
+                got = a["metrics"][key]
+                if key == "loss":
+                    check("ensemble member %d loss (relative)" % a["index"],
+                          abs(got - want) / abs(want), TOL_STATE)
+                elif got != want:
+                    raise AssertionError("ensemble member %d %s: %s != %s"
+                                         % (a["index"], key, got, want))
+        if card_t != cpu_t:
+            raise AssertionError("ensemble: card %s, CPU %s"
+                                 % (card_t, cpu_t))
+        log("  ensemble: member errors %s, %s on both"
+            % ([m["metrics"]["min_validation_error_pt"] for m in card_m],
+               card_t))
+        out["ensemble"] = card_t
+
+        (card_g, card_n, card_q), (cpu_g, cpu_n, cpu_q) = (
+            _state_parity_genetics(d) for d in (Device(),
+                                                Device(backend="cpu")))
+        log("  genetics: %d evaluations and %d quanta on the card, %d and "
+            "%d on the CPU; best %s on the card, %s on the CPU"
+            % (card_n, card_q, cpu_n, cpu_q, card_g, cpu_g))
+        if card_q != card_n or cpu_q != cpu_n or card_g != cpu_g:
+            raise AssertionError("genetics: card vs CPU")
+        out["genetics"] = dict(results=card_g, evaluations=card_n,
+                               quanta=card_q)
+    finally:
+        root.common.engine.compute_type, root.common.random.seed = saved
+    log("  every check within its bound [%s]" % card)
+    return out
+
+
 class Counters:
     """Every kernel's launch counter, read and reset together."""
 
@@ -4592,6 +5336,9 @@ def main():
     pipeline, pipeline_launches = pipeline_phase(torch, counters, dev, card)
     zoo, zoo_launches = zoo_phase(torch, counters, dev, card)
     zoo_parity = zoo_parity_phase(torch, dev, card)
+    state, state_launches = state_phase(torch, counters, dev, card, train,
+                                        classifier, classifier_graph)
+    state_parity = state_parity_phase(torch, dev, card)
 
     # each main path's launches, counted from 0 around that path alone
     by_path = {"serving": serve_launches, "training": train_launches,
@@ -4602,7 +5349,8 @@ def main():
                "co-tenancy": cotenancy_launches,
                "unit-graph classifier": classifier_graph_launches,
                "input pipeline": pipeline_launches,
-               "unit families and zoo": zoo_launches}
+               "unit families and zoo": zoo_launches,
+               "state": state_launches}
     kernels = []
     for name, row in rows.items():
         paths = {p: n.get(name, 0) for p, n in by_path.items()
@@ -4626,6 +5374,7 @@ def main():
                   unit_graph_classifier=classifier_graph,
                   unit_graph_parity=classifier_graph_parity,
                   input_pipeline=pipeline, zoo=zoo, zoo_parity=zoo_parity,
+                  state=state, state_parity=state_parity,
                   wall_s=time.monotonic() - t_start)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:

@@ -162,6 +162,32 @@ def test_watcher_bytes(device):
     assert Watcher.mem_in_use == before
 
 
+def test_watcher_finalizer_under_the_lock_does_not_deadlock(device):
+    """A collection can finalize an Array while its thread holds the
+    Watcher's lock (inside ``add`` or ``sub``; seen as a hang of a
+    workflow run mid-``devmem``): the finalizer must not block, and its
+    bytes are settled by the next ``add``."""
+    import gc
+    import threading
+    gc.collect()
+    a = Array(np.zeros(4, dtype=np.float32)).initialize(device)
+    before = Watcher.mem_in_use
+    done = threading.Event()
+
+    def finalize_under_the_lock():
+        with Watcher._lock:
+            a.__del__()
+        done.set()
+
+    thread = threading.Thread(target=finalize_under_the_lock, daemon=True)
+    thread.start()
+    thread.join(10.0)
+    assert done.is_set(), "the finalizer blocked on the Watcher's lock"
+    Watcher.add(0)
+    assert Watcher.mem_in_use == before - 16
+    assert a._accounted_ == 0
+
+
 # ---------------------------------------------------------- AcceleratedUnit
 
 class DoubleUnit(AcceleratedUnit):

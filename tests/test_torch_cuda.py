@@ -1764,3 +1764,156 @@ def test_som_winners_card_equal_cpu(f32_units):
     assert all(np.array_equal(a, b) for a, b in zip(wc, wp))
     assert max(abs(a - b) / b for a, b in zip(ec, ep)) < 1e-4
     assert _share(cc, cp) < 1e-4
+
+
+# -- the state half: snapshots, async capture, engines from a snapshot -----
+
+def _small_mnist(**kwargs):
+    from veles_tpu_torch.models.mnist import MnistWorkflow
+    wf = MnistWorkflow(layers=(32, 10), max_epochs=2, fail_iterations=100,
+                       loader_kwargs=dict(n_train=300, n_valid=100,
+                                          minibatch_size=50), **kwargs)
+    wf.thread_pool = None
+    return wf
+
+
+def test_snapshot_round_trip_of_a_trained_workflow(f32_units, tmp_path):
+    """A workflow trained on the card snapshots host data only (the
+    pickler refuses CUDA tensors), restores with bitwise the trained
+    weights, and a restored copy resumed from its epoch-1 snapshot ends
+    where the uninterrupted run ended."""
+    import glob
+
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.snapshotter import Snapshotter
+    prng.reset()
+    wf = _small_mnist(snapshot_dir=str(tmp_path), snapshot_prefix="m")
+    wf.initialize(device=Device())
+    assert wf.forwards[0].weights.devmem.is_cuda
+    wf.run()
+    trained = [np.array(getattr(u, a).map_read()) for u in wf.forwards
+               for a in ("weights", "bias")]
+    path = wf.snapshotter.save()
+    restored = Snapshotter.load(path)
+    assert all(r.tobytes() == np.array(getattr(u, a).map_read()).tobytes()
+               for r, (u, a) in zip(trained, [
+                   (u, a) for u in restored.forwards
+                   for a in ("weights", "bias")]))
+    prng.reset()
+    resumed = Snapshotter.load(
+        sorted(glob.glob(str(tmp_path / "m_1_*.pickle.gz")))[0])
+    resumed.thread_pool = None
+    resumed.stopped = False
+    resumed.initialize(device=Device())
+    assert resumed.forwards[0].weights.devmem.is_cuda
+    resumed.run()
+    assert resumed.decision.epoch_errors == wf.decision.epoch_errors
+    for a, b in zip(trained, [np.array(getattr(u, at).map_read())
+                              for u in resumed.forwards
+                              for at in ("weights", "bias")]):
+        np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6)
+
+
+def test_async_capture_of_a_cuda_tensor_is_immune_to_in_place_updates(
+        cuda, tmp_path):
+    """``AsyncCheckpointer.save`` clones a CUDA tensor on the device at
+    capture: in-place updates issued right after ``save()`` returns (on
+    the same stream and on another) do not reach the written value."""
+    from veles_tpu_torch.checkpoint import AsyncCheckpointer
+    ck = AsyncCheckpointer(str(tmp_path), prefix="c")
+    w = torch.randn(4096, 4096, device=cuda)
+    shards = [torch.randn(512, 64, device=cuda, dtype=torch.bfloat16)
+              for _ in range(2)]
+    want = w.cpu().numpy()
+    want_shards = np.concatenate([s.float().cpu().numpy() for s in shards])
+    ticket = ck.save(arrays={"w": w, "s": shards})
+    w.mul_(-2.0).add_(3.0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for s in shards:
+            s.fill_(9.0)
+    assert ticket.wait(60.0) and ticket.error is None
+    arrays, _, _, _ = ck.store.load_latest()
+    assert arrays["w"].tobytes() == want.tobytes()
+    assert arrays["s"].tobytes() == want_shards.tobytes()
+    torch.cuda.synchronize()
+    assert float(w[0, 0]) == float(-2.0 * want[0, 0] + 3.0)
+    ck.stop()
+
+
+def test_nonfinite_guard_on_device_tensors(cuda, tmp_path):
+    """The guard's one device reduction flags a NaN and an Inf in CUDA
+    tensors (the max-abs of ``torch._foreach_norm`` propagates both),
+    and passes finite ones."""
+    from veles_tpu_torch.snapshotter import Snapshotter
+    wf = _small_mnist()
+    snap = Snapshotter(wf, directory=str(tmp_path))
+    leaves = {"a": torch.randn(1000, device=cuda),
+              "b": torch.randn(3, 7, device=cuda, dtype=torch.bfloat16),
+              "c": torch.randn(5, device=cuda)}
+    snap._guarded_leaves = lambda: list(leaves.items())
+    assert snap.nonfinite_params() == []
+    leaves["a"][500] = float("nan")
+    leaves["b"][2, 6] = float("-inf")
+    assert snap.nonfinite_params() == ["a", "b"]
+
+
+def test_from_snapshot_equals_from_workflow_on_the_card(f32_units,
+                                                        tmp_path):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.parallel.fused import train_fused
+    from veles_tpu_torch.serve.engine import InferenceEngine
+    from veles_tpu_torch.snapshotter import Snapshotter
+    prng.reset()
+    wf = _small_mnist()
+    wf.initialize(device=Device())
+    train_fused(wf)
+    path = Snapshotter(wf, directory=str(tmp_path), prefix="m",
+                       compression=None).save()
+    live = InferenceEngine.from_workflow(wf)
+    restored = InferenceEngine.from_snapshot(path)
+    rows = np.random.default_rng(4).random((9, 28, 28)).astype(np.float32)
+    got = live.apply(rows)
+    assert got.tobytes() == restored.apply(rows).tobytes()
+    assert live.compile_count == restored.compile_count >= 1
+
+
+def test_lm_load_state_keeps_the_captured_step_tensors(cuda):
+    """``TransformerUnit._load_state`` copies into the tensors the
+    captured train step reads (their ``data_ptr`` unchanged), and the
+    next replay trains from the loaded values: a step from a state and
+    the same step after saving and loading it give equal losses."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.models.lm import TransformerWorkflow
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    _tree_leaves)
+    prng.reset()
+    wf = TransformerWorkflow(
+        config=TransformerConfig(vocab=64, embed=128, heads=2, layers=2,
+                                 seq_len=64),
+        max_epochs=1, loader_kwargs=dict(n_tokens=65 * 64,
+                                         minibatch_size=8))
+    wf.thread_pool = None
+    wf.initialize(device=Device())
+    wf.run()
+    unit = wf.trainer_unit
+    trainer = unit._trainer_
+    assert trainer._graphs, "the train step was not captured"
+
+    def ptrs():
+        return [t.data_ptr() for t in _tree_leaves(trainer.params) +
+                _tree_leaves(trainer.opt_m) + _tree_leaves(trainer.opt_v)]
+
+    before = ptrs()
+    state = unit._host_state()
+    tokens = wf.loader.minibatch_data.devmem[:8].clone()
+    first = float(trainer.step(tokens)["loss"])
+    second = float(trainer.step(tokens)["loss"])
+    unit._load_state(state)
+    assert ptrs() == before
+    assert float(trainer.step(tokens)["loss"]) == first
+    assert float(trainer.step(tokens)["loss"]) == second

@@ -46,7 +46,9 @@ def test_import_closure_has_no_jax_and_no_veles_tpu():
                  "input_joiner", "avatar", "downloader", "nn.deconv",
                  "nn.rnn", "nn.rbm", "nn.kohonen", "models.autoencoder",
                  "models.lenet", "models.cifar", "models.vgg",
-                 "models.stl10"):
+                 "models.stl10", "checkpoint", "snapshotter",
+                 "models.lm", "ensemble", "ensemble.workflows",
+                 "genetics", "genetics.core", "genetics.optimizer"):
         assert "veles_tpu_torch." + name in modules
     script = (
         "import importlib, json, sys\n"

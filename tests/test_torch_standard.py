@@ -289,8 +289,10 @@ def test_export_specs_match_reference():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 11"):
         P_mnist.MnistWorkflow(plotters=True, **MNIST)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        P_mnist.MnistWorkflow(snapshot_dir="snap", **MNIST)
+    # snapshot_dir= is ported (tests/test_torch_snapshot.py): it
+    # attaches a Snapshotter and writes nothing before a run
+    wf = P_mnist.MnistWorkflow(snapshot_dir="snap", **MNIST)
+    assert wf.snapshotter.directory == "snap"
     with pytest.raises(ValueError, match="unknown layer type"):
         P_standard.StandardWorkflow(layers=[{"type": "deconv3d"}])
 

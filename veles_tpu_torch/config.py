@@ -129,9 +129,12 @@ root.common.engine.backend = "auto"
 root.common.engine.precision_type = "float32"     # parameter / accum dtype
 root.common.engine.compute_type = "bfloat16"      # tensor-core compute dtype
 
-# Where SyntheticDigitsLoader looks for a real mnist.npz
+# Where SyntheticDigitsLoader looks for a real mnist.npz, and where a
+# Snapshotter writes when given no directory
 root.common.dirs.datasets = os.path.expanduser(
     os.environ.get("VELES_TPU_DATA", "~/.veles_tpu/datasets"))
+root.common.dirs.snapshots = os.path.expanduser(
+    os.environ.get("VELES_TPU_SNAPSHOTS", "~/.veles_tpu/snapshots"))
 
 root.common.trace.run = False          # per-unit timing prints
 root.common.random.seed = 42
@@ -149,6 +152,9 @@ root.common.analysis.verify = "error"
 
 # Raise RunAfterStopError when a stopped unit is re-triggered.
 root.common.exceptions.run_after_stop = True
+
+root.common.snapshot.compression = "gz"
+root.common.snapshot.interval = 1
 
 
 def get(cfg_value: Any, default: Any = None) -> Any:

@@ -18,7 +18,8 @@ bound puts its buffer on the current CUDA device (raising without one).
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Optional, Tuple
+from collections import deque
+from typing import Any, Deque, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,26 +46,55 @@ def _nbytes(tensor: torch.Tensor) -> int:
 
 
 class Watcher:
-    """Global device-memory accounting."""
+    """Global device-memory accounting.
+
+    A garbage collection can run ``Array.__del__`` on any thread at any
+    allocation, also while that thread holds ``_lock`` inside ``add`` or
+    ``sub``: the finalizer's :meth:`sub_finalized` therefore never
+    blocks; bytes it cannot settle at once are settled by the next
+    ``add`` or ``sub``."""
 
     _lock = threading.Lock()
+    _unsettled: Deque[int] = deque()
     mem_in_use = 0
     max_mem_in_use = 0
 
     @classmethod
+    def _settle(cls) -> None:
+        """Fold in the finalizers' deferred bytes (``_lock`` held)."""
+        while cls._unsettled:
+            cls.mem_in_use -= cls._unsettled.popleft()
+
+    @classmethod
     def add(cls, nbytes: int) -> None:
         with cls._lock:
+            cls._settle()
             cls.mem_in_use += nbytes
             cls.max_mem_in_use = max(cls.max_mem_in_use, cls.mem_in_use)
 
     @classmethod
     def sub(cls, nbytes: int) -> None:
         with cls._lock:
+            cls._settle()
             cls.mem_in_use -= nbytes
+
+    @classmethod
+    def sub_finalized(cls, nbytes: int) -> None:
+        """``sub`` for a finalizer: settles now if ``_lock`` is free,
+        else defers (the lock may be held by this very thread)."""
+        if cls._lock.acquire(blocking=False):
+            try:
+                cls._settle()
+                cls.mem_in_use -= nbytes
+            finally:
+                cls._lock.release()
+        else:
+            cls._unsettled.append(nbytes)
 
     @classmethod
     def reset(cls) -> None:
         with cls._lock:
+            cls._unsettled.clear()
             cls.mem_in_use = 0
             cls.max_mem_in_use = 0
 
@@ -98,7 +128,7 @@ class Array:
         # keep Watcher accounting honest for garbage-collected Arrays
         try:
             if getattr(self, "_accounted_", 0):
-                Watcher.sub(self._accounted_)
+                Watcher.sub_finalized(self._accounted_)
                 self._accounted_ = 0
         except Exception:
             pass

@@ -68,10 +68,6 @@ class StandardWorkflow(AcceleratedWorkflow):
             raise NotImplementedError(
                 "StandardWorkflow(plotters=True) needs plotting.py, "
                 "ROADMAP.md queue 1 item 11")
-        if snapshot_dir:
-            raise NotImplementedError(
-                "StandardWorkflow(snapshot_dir=) needs snapshotter.py, "
-                "ROADMAP.md queue 1 item 6")
         super().__init__(workflow, **kwargs)
         if loader_cls is None:
             from veles_tpu_torch.loader.datasets import SyntheticDigitsLoader
@@ -117,6 +113,13 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.end_point.link_from(self.gds[-1])
         self.end_point.gate_block = ~self.decision.complete
         self._slave_rewired = False
+
+        self.snapshotter = None
+        if snapshot_dir:
+            from veles_tpu_torch.snapshotter import attach_snapshotter
+            self.snapshotter = attach_snapshotter(
+                self, directory=snapshot_dir,
+                prefix=snapshot_prefix or type(self).__name__.lower())
 
     def resume_overrides(self, **kwargs: Any) -> None:
         """Apply config overrides onto a snapshot-restored workflow

@@ -36,9 +36,13 @@ dropout keys and learning rates as ``step``/``step_many``.
 
 A trainer whose ``sched_tenant`` is set runs each ``step``/``step_many``
 and each loader-step dispatch as one quantum of a shared device
-(``veles_tpu_torch.sched``). The reference's mesh and tensor-parallel
-placement, ``shard_*``, AOT dispatch, ``fuse_forwards`` and
-``train_fused`` are queued in ROADMAP.md.
+(``veles_tpu_torch.sched``).
+
+:func:`fuse_forwards`, ``FusedClassifierTrainer.from_forwards``,
+:meth:`~FusedClassifierTrainer.write_back` and :func:`train_fused`
+carry a unit graph's forward stack onto this plane and back. The
+reference's mesh and tensor-parallel placement, ``shard_*`` and AOT
+dispatch are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -145,6 +149,46 @@ class NonFiniteSentinel:
 def normalize_specs(specs: Sequence[Any]) -> Tuple[Any, ...]:
     return tuple(("fc", s) if isinstance(s, str) else tuple(s)
                  for s in specs)
+
+
+def fuse_forwards(forwards: Sequence[Any]) -> Tuple[Tuple[Any, ...],
+                                                    List[Dict[str, Any]]]:
+    """(layer specs, host params) of a stack of forward units (conv,
+    all2all, pooling, LRN, dropout), the params as numpy copies in the
+    reference's layouts; parameterless layers get ``{}``."""
+    from veles_tpu_torch.nn.all2all import All2All
+    from veles_tpu_torch.nn.conv import Conv
+    from veles_tpu_torch.nn.dropout import Dropout
+    from veles_tpu_torch.nn.lrn import LRNormalizerForward
+    from veles_tpu_torch.nn.pooling import Pooling
+    specs: List[Any] = []
+    params: List[Dict[str, Any]] = []
+
+    def host_params(unit):
+        return {"w": np.array(unit.weights.map_read()),
+                "b": np.array(unit.bias.map_read())}
+
+    for unit in forwards:
+        if isinstance(unit, Conv):
+            specs.append(("conv", unit.ACTIVATION, tuple(unit.strides_hw),
+                          unit.padding))
+            params.append(host_params(unit))
+        elif isinstance(unit, All2All):
+            specs.append(("fc", unit.ACTIVATION))
+            params.append(host_params(unit))
+        elif isinstance(unit, Pooling):
+            specs.append(("pool", unit.KIND, unit.ky, unit.kx,
+                          tuple(unit.strides_hw)))
+            params.append({})
+        elif isinstance(unit, LRNormalizerForward):
+            specs.append(("lrn", unit.k, unit.n, unit.alpha, unit.beta))
+            params.append({})
+        elif isinstance(unit, Dropout):
+            specs.append(("dropout", unit.dropout_ratio))
+            params.append({})
+        else:
+            raise TypeError("cannot fuse unit %r" % (unit,))
+    return tuple(specs), params
 
 
 def _fc(h, w, b, compute_dtype, out_dtype):
@@ -370,6 +414,14 @@ class FusedClassifierTrainer:
         self.sched_tenant = None
         self.load_state(params)
 
+    @classmethod
+    def from_forwards(cls, forwards: Sequence[Any],
+                      **kwargs) -> "FusedClassifierTrainer":
+        """A trainer over a unit graph's forward units (their specs and
+        current params, :func:`fuse_forwards`)."""
+        specs, params = fuse_forwards(forwards)
+        return cls(specs, params, **kwargs)
+
     def load_state(self, params: List[Dict[str, Any]],
                    velocity: Optional[List[Dict[str, Any]]] = None,
                    step: int = 0) -> None:
@@ -582,3 +634,136 @@ class FusedClassifierTrainer:
         labels = self._labels(labels)
         valid = labels >= 0
         return int((valid & (logits.argmax(dim=-1) != labels)).sum())
+
+    # -- interop with the unit graph ---------------------------------------
+    def write_back(self, forwards: Sequence[Any]) -> None:
+        """Put the trained params into the forward units' Arrays (host
+        copies; the next device read uploads them). The gradient-descent
+        units share these Arrays."""
+        for unit, p in zip(forwards, self.params):
+            if p:
+                unit.weights.reset(p["w"].detach().to("cpu",
+                                                      copy=True).numpy())
+                unit.bias.reset(p["b"].detach().to("cpu", copy=True).numpy())
+
+
+def train_fused(workflow, mesh=None, tensor_parallel: bool = False,
+                max_epochs: Optional[int] = None,
+                compute_dtype=None, steps_per_dispatch: int = 1,
+                kernel_impl: Optional[str] = None):
+    """Train an initialized StandardWorkflow through
+    :class:`FusedClassifierTrainer`, then write the params back into
+    its unit graph.
+
+    The unit graph stays the definition and bookkeeping surface
+    (loader, snapshots, serving); the hot loop is one fused step per
+    TRAIN minibatch on the workflow's device:
+
+    >>> wf = MnistWorkflow(max_epochs=10)
+    >>> wf.initialize(device=Device())
+    >>> metrics = train_fused(wf)          # instead of wf.run()
+
+    The hyperparameters (lr, weight decay, momentum, lr policy) come
+    from the workflow's GD units and its scheduler's ``base_lr``. The
+    TRAIN error counts stay on the device and are read once an epoch;
+    a VALID minibatch reads its count when scored. The run ends with a
+    VALID sweep of the trained params, as the unit graph's decision
+    scores them. Returns the decision's metrics (min validation error
+    %, its epoch, min train error %, epochs). ``mesh`` and
+    ``tensor_parallel`` wait for the port's mesh."""
+    from veles_tpu_torch.loader.base import TRAIN, VALID
+
+    if mesh is not None or tensor_parallel:
+        raise NotImplementedError(
+            "train_fused over a mesh waits for the port's mesh "
+            "(ROADMAP.md queue 1 item 7)")
+    if workflow.device is None:
+        raise RuntimeError("train_fused needs an initialized workflow "
+                           "(workflow.initialize(device=...))")
+    loader = workflow.loader
+    gd = next(g for g in workflow.gds if hasattr(g, "learning_rate"))
+    policy = None
+    base_lr = float(gd.learning_rate)
+    scheduler = getattr(workflow, "lr_scheduler", None)
+    if scheduler is not None:
+        policy = scheduler.policy
+        # gd.learning_rate already has the policy applied (the
+        # scheduler runs at initialize): use the recorded base
+        if scheduler.base_lr is not None:
+            base_lr = scheduler.base_lr
+    trainer = FusedClassifierTrainer.from_forwards(
+        workflow.forwards, learning_rate=base_lr,
+        weight_decay=float(getattr(gd, "weight_decay", 0.0)),
+        momentum=float(getattr(gd, "momentum", 0.0)),
+        lr_policy=policy, compute_dtype=compute_dtype,
+        steps_per_dispatch=steps_per_dispatch, kernel_impl=kernel_impl,
+        device=workflow.device.torch_device)
+
+    if max_epochs is None:
+        max_epochs = getattr(workflow.decision, "max_epochs", 10) or 10
+
+    min_val_err = float("inf")
+    min_val_epoch = -1
+    min_train_err = float("inf")
+    val_err = 0
+    val_samples = 0
+    # the TRAIN steps' n_err stay device scalars, summed and read once
+    # an epoch (by then the steps have run anyway)
+    train_err_dev: List[torch.Tensor] = []
+    train_samples = 0
+    while loader.epoch_number < max_epochs:
+        loader.run()
+        klass = loader.minibatch_class
+        size = loader.minibatch_size
+        x = loader.minibatch_data.devmem
+        labels = loader.minibatch_labels.devmem
+        trainer.epoch = loader.epoch_number
+        if klass == TRAIN:
+            metrics = trainer.step(x, labels)
+            train_err_dev.append(metrics["n_err"])
+            train_samples += size
+        elif klass == VALID:
+            val_err += trainer.count_errors(x, labels)
+            val_samples += size
+        if bool(loader.epoch_ended):
+            if val_samples:
+                err_pt = 100.0 * val_err / val_samples
+                if err_pt < min_val_err:
+                    min_val_err = err_pt
+                    min_val_epoch = loader.epoch_number
+                val_err = 0
+                val_samples = 0
+            if train_samples:
+                epoch_train_err = int(torch.stack(train_err_dev).sum())
+                min_train_err = min(
+                    min_train_err,
+                    100.0 * epoch_train_err / train_samples)
+                train_err_dev = []
+                train_samples = 0
+    # The last VALID sweep: VALID precedes TRAIN in the serving order,
+    # so the loop above ends after the last TRAIN segment without
+    # scoring the trained model (the unit-graph decision scores it)
+    while True:
+        loader.run()
+        klass = loader.minibatch_class
+        if klass == TRAIN:
+            break  # the next TRAIN segment: stop before training more
+        if klass == VALID:
+            val_err += trainer.count_errors(
+                loader.minibatch_data.devmem,
+                loader.minibatch_labels.devmem)
+            val_samples += loader.minibatch_size
+            if bool(loader.last_minibatch):
+                break
+    if val_samples:
+        err_pt = 100.0 * val_err / val_samples
+        if err_pt < min_val_err:
+            min_val_err = err_pt
+            min_val_epoch = loader.epoch_number
+    trainer.write_back(workflow.forwards)
+    return {
+        "min_validation_error_pt": min_val_err,
+        "min_validation_epoch": min_val_epoch,
+        "min_train_error_pt": min_train_err,
+        "epochs": loader.epoch_number,
+    }

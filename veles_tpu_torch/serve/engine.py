@@ -315,28 +315,36 @@ class InferenceEngine:
                    device=device, **kwargs)
 
     @classmethod
-    def from_forwards(cls, forwards, **kwargs) -> "InferenceEngine":
-        raise NotImplementedError(
-            "fuse_forwards (a unit graph's forward units as fused "
-            "specs) waits for ROADMAP.md queue 1 item 6")
+    def from_forwards(cls, forwards: Sequence[Any],
+                      **kwargs) -> "InferenceEngine":
+        """Engine over a stack of trained forward units
+        (``fuse_forwards``: their specs and params)."""
+        from veles_tpu_torch.parallel.fused import fuse_forwards
+        specs, params = fuse_forwards(forwards)
+        return cls.from_specs(specs, params, **kwargs)
 
     @classmethod
     def from_workflow(cls, workflow, **kwargs) -> "InferenceEngine":
-        raise NotImplementedError(
-            "a workflow's forward needs fuse_forwards (ROADMAP.md "
-            "queue 1 item 6)")
+        """Engine over a StandardWorkflow-shaped graph: its forward
+        stack and its loader's input normalizer."""
+        kwargs.setdefault("normalizer",
+                          getattr(workflow.loader, "normalizer", None))
+        kwargs.setdefault("name", type(workflow).__name__)
+        return cls.from_forwards(workflow.forwards, **kwargs)
 
     @classmethod
     def from_snapshot(cls, path: str, **kwargs) -> "InferenceEngine":
-        raise NotImplementedError(
-            "snapshots wait for the port's snapshotter (ROADMAP.md "
-            "queue 1 item 6)")
+        """Engine from a Snapshotter snapshot (a file, a manifest or
+        directory of a sharded one, or a ``db://`` URI): restore the
+        workflow on the host, then take its forward stack."""
+        from veles_tpu_torch.snapshotter import Snapshotter
+        return cls.from_workflow(Snapshotter.load(path), **kwargs)
 
     @classmethod
     def from_package(cls, path: str, **kwargs) -> "InferenceEngine":
         raise NotImplementedError(
-            "package archives wait for the port's workflows and AOT "
-            "artifacts (ROADMAP.md queue 1 items 6 and 10)")
+            "package archives wait for the port's package export and "
+            "AOT artifacts (ROADMAP.md queue 1 item 10)")
 
 
 class GenerativeEngine:
