@@ -241,7 +241,29 @@ without them, and on any failed phase. Phases, in order:
    members and the genetics optimizer (population 6, 2 generations,
    each evaluation a small MNIST training run) under a ``Scheduler``
    tenant whose quanta must equal the evaluations, each check within
-   the CPU tests' bounds.
+   the CPU tests' bounds;
+21. the mesh on one card (``veles_tpu_torch.parallel``): two ranks
+   spawned on this card, joined over gloo with their collectives staged
+   through host memory (NCCL refuses two ranks on one card), each leg
+   against one rank: (a) ``alexnet_fused()`` (batch 1536, bf16,
+   bench.py's lr/momentum/decay) at ``data=2`` and at ``model=2`` (the
+   reference's Megatron layout), 3 steps, params within
+   ``TOL_CLASSIFIER["bfloat16"]`` of the one-rank steps' update, or twice
+   bf16's own rounding of those steps where larger (measured: the
+   one-rank f32 steps against the bf16 ones), and at 64 x 64 f32 within
+   1e-4 of each leaf's scale, the dropout masks bitwise the one-rank
+   masks, exactly 2 each of
+   K6/K7/K8 a rank a step; (b) the LM (``FULL``, batch 8, bf16, remat
+   "attn") at ``seq=2``, 3 steps, losses within ``TOL_MESH_LM`` of the
+   one-rank eager steps, exactly 2 L h K1 and L h each of K2/K3 a step
+   on a rank whose ring has h hops to compute (1 and 2), and the f32
+   2-layer ring's gradients through K1-K3 against the plain path;
+   (c) ``FULL``'s widths with 2 experts at ``model=2``, depth cut to
+   ``MESH_MOE_LAYERS``; (d) the JAX package's pipeline configuration
+   at 2 stages against ``reference_loss_fn``; (e) (a)'s data-parallel
+   step over NCCL with one rank, bitwise the unsharded step. Each leg's
+   step p50 and the gloo bytes staged a step are logged; the two ranks
+   time-share the card, so the times say nothing of scaling over cards.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -5259,6 +5281,509 @@ def state_parity_phase(torch, dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the mesh on one card
+# ---------------------------------------------------------------------------
+
+#: each world's deadline: the join, every collective and the whole run
+MESH_TIMEOUT_S = 600
+#: steps of every meshed leg (each against as many one-rank steps)
+MESH_STEPS = 3
+#: (b): the meshed bf16 LM's losses against the one-rank eager trainer's
+#: (relative): the ring's per-hop bf16 rounding (2^-8 of a hop's output,
+#: ``parallel/ring_attention.py``), the sequence chunk's unchunked head
+#: and the gradient sums' order; the JAX package's bf16 bound for its
+#: training comparisons
+TOL_MESH_LM = 2e-2
+#: (a) at bf16 the meshed params' distance from the one-rank params,
+#: as a share of the distance the one-rank steps moved them, is held to
+#: TOL_CLASSIFIER["bfloat16"] or, where larger, to twice bf16's own
+#: rounding of the same steps (the one-rank f32 steps' distance from the
+#: bf16 ones, measured in the phase): a mesh rounds differently (a row
+#: layer's partial products, the half batch's conv algorithms), and two
+#: runs each a rounding away from f32 lie about sqrt(2) of it apart.
+#: At f32 (64 x 64) each leaf is held to 1e-4 of its scale.
+#: (c): expert parallelism at FULL's widths, depth cut to fit the phase
+MESH_MOE_LAYERS = 4
+#: (d): the JAX package's only pipeline configuration (graft entry)
+MESH_PIPE = dict(n_features=8, hidden=16, n_classes=6, n_stages=2)
+TOL_MESH_PIPE = 1e-5
+
+
+def _mesh_plan(dev):
+    """What every leg runs, handed to the ranks (they import this
+    module afresh, so nothing set on it in this process reaches them)."""
+    return dict(batch=CLASSIFIER_BATCH, image=224, classes=1000,
+                hyper=CLASSIFIER_HYPER, parity_image=64, parity_classes=10,
+                parity_batch=8, full=FULL, lm_batch=TRAIN_BATCH,
+                lm_lr=TRAIN_LR, moe_layers=MESH_MOE_LAYERS,
+                steps=MESH_STEPS, pipe=MESH_PIPE, count=dev.type == "cuda",
+                out=os.path.join("chip_smoke_out", "mesh"))
+
+
+def _mesh_counters():
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.ops import lrn as lrn_ops
+    from veles_tpu_torch.ops import rng as rng_ops
+    return Counters(fa, lrn_ops, rng_ops)
+
+
+def _mesh_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mesh_free(torch):
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+_BATCHES = {}
+
+
+def _classifier_batch(torch, plan, dev, n, image, classes, seed):
+    """A seeded batch on the device, drawn once a process (bench.py's
+    draw for the full-width one)."""
+    key = (str(dev), n, image, classes, seed)
+    if key not in _BATCHES:
+        data = np.random.default_rng(seed)
+        x = torch.from_numpy(data.random((n, image, image, 3),
+                                         dtype=np.float32)).to(dev)
+        _BATCHES[key] = (x, torch.from_numpy(
+            data.integers(0, classes, n)).to(dev))
+    return _BATCHES[key]
+
+
+def _alexnet(plan, parity):
+    from veles_tpu_torch.models.flagship import alexnet_fused
+    if parity:
+        return alexnet_fused(n_classes=plan["parity_classes"],
+                             image_size=plan["parity_image"])[:2]
+    return alexnet_fused(n_classes=plan["classes"],
+                         image_size=plan["image"])[:2]
+
+
+def _alexnet_batch(torch, plan, dev, parity):
+    if parity:
+        return _classifier_batch(torch, plan, dev, plan["parity_batch"],
+                                 plan["parity_image"],
+                                 plan["parity_classes"], 7)
+    return _classifier_batch(torch, plan, dev, plan["batch"], plan["image"],
+                             plan["classes"], 1)
+
+
+def _flat(params):
+    return np.concatenate([np.asarray(p[k], np.float64).ravel()
+                           for p in params for k in sorted(p)])
+
+
+def _param_errors(got, ref, p0):
+    """(the largest max-abs error of a leaf as a share of that leaf's
+    scale, the distance of ``got`` from ``ref`` over every leaf as a
+    share of the distance the one-rank steps moved the params)."""
+    share = max(float(np.abs(a[k] - c[k]).max() /
+                      max(np.abs(c[k]).max(), 1e-30))
+                for a, c in zip(got, ref) for k in c)
+    moved = np.linalg.norm(_flat(ref) - _flat(p0))
+    return share, float(np.linalg.norm(_flat(got) - _flat(ref)) / moved)
+
+
+def _one_rank_classifier(torch, plan, dev, parity, compute=None):
+    """(a)'s one-rank run, in this process: the params after the steps
+    and the dropout masks of every step, saved for the ranks; and the
+    params."""
+    from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
+    specs, params = _alexnet(plan, parity)
+    x, y = _alexnet_batch(torch, plan, dev, parity)
+    kw = dict(compute_dtype="float32") if parity else dict(
+        compute_dtype=compute)
+    t = FusedClassifierTrainer(specs, params, device=dev, **kw,
+                               **plan["hyper"])
+    t.record_masks = []
+    ms = []
+    for _ in range(plan["steps"]):
+        t0 = time.monotonic()
+        t.step(x, y)
+        _mesh_sync(torch, dev)
+        ms.append((time.monotonic() - t0) * 1e3)
+    path = os.path.join(plan["out"], "one_rank_%s.npz"
+                        % ("parity" if parity else "full"))
+    got = t.params_numpy()
+    leaves = {"p%d_%s" % (i, k): v for i, p in enumerate(got)
+              for k, v in p.items()}
+    masks = {}
+    for i, m in enumerate(t.record_masks):
+        masks["m%d" % i] = np.packbits(m.cpu().numpy())
+        masks["s%d" % i] = np.asarray(m.shape)
+    if compute is None:
+        np.savez(path, **leaves, **masks)
+    shapes = [tuple(m.shape) for m in t.record_masks]
+    del t
+    _BATCHES.clear()
+    _mesh_free(torch)
+    return path, shapes, ms, got, params
+
+
+def _mesh_classifier_leg(torch, plan, dev, mesh, tp, parity, ref, counters,
+                         collectives):
+    """One meshed classifier run against the one-rank file ``ref``: the
+    errors of :func:`_param_errors`, the masks bitwise, the launches and
+    staged bytes of each step and the step times."""
+    from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
+    specs, params = _alexnet(plan, parity)
+    x, y = _alexnet_batch(torch, plan, dev, parity)
+    kw = dict(compute_dtype="float32") if parity else {}
+    t = FusedClassifierTrainer(specs, params, mesh=mesh,
+                               tensor_parallel=tp, **kw, **plan["hyper"])
+    t.record_masks = []
+    ms, launches, staged = [], [], []
+    for _ in range(plan["steps"]):
+        before, b_staged = counters.read(), sum(
+            collectives.STAGED_BYTES.values())
+        _mesh_sync(torch, dev)
+        t0 = time.monotonic()
+        t.step(x, y)
+        _mesh_sync(torch, dev)
+        ms.append((time.monotonic() - t0) * 1e3)
+        launches.append({k: v for k, v in counters.delta(before).items()
+                         if v})
+        staged.append(sum(collectives.STAGED_BYTES.values()) - b_staged)
+    saved = np.load(ref)
+    want = [{k: saved["p%d_%s" % (i, k)] for k in p}
+            for i, p in enumerate(params)]
+    share, moved = _param_errors(t.params_numpy(whole=True), want, params)
+    masks_equal = len(t.record_masks) == sum(
+        1 for k in saved.files if k.startswith("m"))
+    for i, got in enumerate(t.record_masks):
+        shape = tuple(int(v) for v in saved["s%d" % i])
+        full = torch.from_numpy(np.unpackbits(saved["m%d" % i])[
+            :int(np.prod(shape))].reshape(shape).astype(bool))
+        want = t._shards.rows(full)
+        if want.shape[-1] != got.shape[-1]:
+            want = want.chunk(mesh.size("model"), dim=-1)[
+                mesh.index("model")]
+        masks_equal &= bool(torch.equal(want.to(got.device), got))
+    n_masks = len(t.record_masks)
+    del t
+    _mesh_free(torch)
+    return dict(share_err=share, update_err=moved,
+                masks_equal=masks_equal, n_masks=n_masks, ms=ms,
+                launches=launches, staged=staged)
+
+
+def _mesh_lm_leg(torch, plan, dev, mesh, config, tokens, counters,
+                 collectives):
+    from veles_tpu_torch.models.transformer import TransformerTrainer
+    t = TransformerTrainer(config, mesh=mesh, seed=0,
+                           learning_rate=plan["lm_lr"],
+                           seq_axis="seq" if "seq" in mesh.shape else None)
+    losses, ms, launches, staged = [], [], [], []
+    for _ in range(plan["steps"]):
+        before, b_staged = counters.read(), sum(
+            collectives.STAGED_BYTES.values())
+        _mesh_sync(torch, dev)
+        t0 = time.monotonic()
+        losses.append(float(t.step(tokens)["loss"]))
+        ms.append((time.monotonic() - t0) * 1e3)
+        launches.append({k: v for k, v in counters.delta(before).items()
+                         if v})
+        staged.append(sum(collectives.STAGED_BYTES.values()) - b_staged)
+    del t
+    _mesh_free(torch)
+    return dict(losses=losses, ms=ms, launches=launches, staged=staged)
+
+
+def mesh_rank(rank, plan):
+    """A rank of (a)-(d): on the card through gloo, each leg on a mesh
+    of its own over the two ranks."""
+    import torch
+
+    from veles_tpu_torch.models.transformer import TransformerConfig
+    from veles_tpu_torch.parallel import collectives
+    from veles_tpu_torch.parallel.mesh import MeshConfig, grid_mesh, make_mesh
+    from veles_tpu_torch.parallel.pipeline import PipelineMLPTrainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = _mesh_counters()
+    counters.reset()
+    collectives.reset_staged()
+    mesh_dp = make_mesh(MeshConfig(data=2))
+    dev = mesh_dp.device
+    mesh_tp = make_mesh(MeshConfig(model=2))
+    mesh_seq = make_mesh(MeshConfig(seq=2))
+    out = {"device": str(dev)}
+    # (a) the flagship, bf16 at full width, then f32 at 64 x 64
+    for name, mesh, tp in (("dp2", mesh_dp, False), ("tp2", mesh_tp, True)):
+        for parity in (False, True):
+            out["a_%s_%s" % (name, "f32" if parity else "bf16")] = \
+                _mesh_classifier_leg(
+                    torch, plan, dev, mesh, tp, parity,
+                    plan["ref_parity" if parity else "ref_full"], counters,
+                    collectives)
+    _BATCHES.clear()
+    # (b) the LM, sequence parallel, and its f32 gradients both ways
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(
+        0, plan["full"]["vocab"],
+        (plan["lm_batch"], plan["full"]["seq_len"] + 1))).to(dev)
+    config = TransformerConfig(compute="bfloat16", remat="attn",
+                               **plan["full"])
+    out["b_seq2"] = _mesh_lm_leg(torch, plan, dev, mesh_seq, config, tokens,
+                                 counters, collectives)
+    grads = []
+    before = counters.read()
+    for impl in ("cuda", "plain") if plan["count"] else ("plain", "plain"):
+        from veles_tpu_torch.models.transformer import TransformerTrainer
+        f32 = TransformerConfig(**dict(plan["full"], layers=2),
+                                compute="float32", remat="attn",
+                                attention_impl=impl)
+        t = TransformerTrainer(f32, mesh=mesh_seq, seed=0)
+        loss, g = t.loss_and_grads(tokens)
+        grads.append((float(loss), [x.detach() for x in g]))
+        del t
+        _mesh_free(torch)
+    (lk, gk), (lp, gp) = grads
+    out["b_grad_err"] = max(float((a - c).abs().max() /
+                                  c.abs().max().clamp_min(1e-30))
+                            for a, c in zip(gk, gp))
+    out["b_f32_losses"] = (lk, lp)
+    # the comparison's launches are not the main path's
+    compared = counters.delta(before)
+    del grads, gk, gp
+    _BATCHES.clear()
+    _mesh_free(torch)
+    # (c) expert parallel at FULL's widths, depth cut
+    moe = TransformerConfig(compute="bfloat16", remat="attn",
+                            moe_experts=2, **dict(
+                                plan["full"], layers=plan["moe_layers"]))
+    out["c_ep2"] = _mesh_lm_leg(torch, plan, dev, mesh_tp, moe, tokens,
+                                counters, collectives)
+    # (d) the pipeline, 2 stages
+    pipe = grid_mesh({"pipe": 2})
+    p = PipelineMLPTrainer(pipe, learning_rate=0.1, **plan["pipe"])
+    prng = np.random.default_rng(1)
+    px = prng.random((4, 4, plan["pipe"]["n_features"])).astype(np.float32)
+    py = prng.integers(0, plan["pipe"]["n_classes"], (4, 4))
+    before = p.params_numpy()
+    t0 = time.monotonic()
+    loss = float(p.step(px, py)["loss"])
+    out["d_pipe"] = dict(loss=loss, ref=float(p.reference_loss_fn()(
+        before, px, py)), ms=[(time.monotonic() - t0) * 1e3])
+    out["launches"] = {k: v - compared.get(k, 0)
+                       for k, v in counters.read().items()}
+    return out
+
+
+def nccl_rank(rank, plan):
+    """(e): (a)'s data-parallel steps over NCCL with one rank, against
+    the unsharded steps in this process, bitwise (two steps each, the
+    second timed)."""
+    import torch
+
+    from veles_tpu_torch.models.flagship import alexnet_fused
+    from veles_tpu_torch.parallel import collectives
+    from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
+    from veles_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    counters = _mesh_counters()
+    counters.reset()
+    collectives.reset_staged()
+    mesh = make_mesh(MeshConfig(data=1))
+    dev = mesh.device
+    specs, params, _ = alexnet_fused(n_classes=plan["classes"],
+                                     image_size=plan["image"])
+    x, y = _classifier_batch(torch, plan, dev, plan["batch"], plan["image"],
+                             plan["classes"], 1)
+    # the unsharded step is the comparison: only the NCCL step counts
+    runs, compared = {}, {}
+    for key, kw in (("unsharded", dict(device=dev)),
+                    ("nccl", dict(mesh=mesh))):
+        if key == "nccl":
+            compared = counters.read()
+        t = FusedClassifierTrainer(specs, params, **kw, **plan["hyper"])
+        losses, ms = [], []
+        for _ in range(2):      # the second step timed warm
+            t0 = time.monotonic()
+            losses.append(float(t.step(x, y)["loss"]))
+            _mesh_sync(torch, dev)
+            ms.append((time.monotonic() - t0) * 1e3)
+        runs[key] = (losses, [v.detach().clone() for p in t.params
+                              for v in p.values()], ms[-1])
+        del t
+    (lu, pu, ms_u), (ln, pn, ms_n) = runs["unsharded"], runs["nccl"]
+    return dict(backend=mesh.backend, losses=(lu, ln), ms=(ms_u, ms_n),
+                bitwise=all(torch.equal(a, b) for a, b in zip(pu, pn)),
+                staged=sum(collectives.STAGED_BYTES.values()),
+                launches=counters.delta(compared))
+
+
+def _one_rank_lm(torch, plan, dev, config, tokens):
+    from veles_tpu_torch.models.transformer import TransformerTrainer
+    t = TransformerTrainer(config, device=dev, seed=0,
+                           learning_rate=plan["lm_lr"], cuda_graphs=False)
+    losses, ms = [], []
+    for _ in range(plan["steps"]):
+        t0 = time.monotonic()
+        losses.append(float(t.step(tokens)["loss"]))
+        ms.append((time.monotonic() - t0) * 1e3)
+    del t
+    _mesh_free(torch)
+    return losses, ms
+
+
+def _leg_line(name, leg, card):
+    staged = np.mean(leg["staged"]) if leg.get("staged") else 0.0
+    log("  %s: step p50 %.1f ms (%s ms), gloo bytes staged a step %.3e "
+        "[%s]" % (name, float(np.percentile(leg["ms"], 50)),
+                  ", ".join("%.1f" % v for v in leg["ms"]), staged, card))
+
+
+def mesh_phase(torch, dev, card, plan=None):
+    """Phase 21: ranks on one card over gloo (host-staged) and NCCL at
+    world size 1; see the module docstring."""
+    from veles_tpu_torch.models.transformer import TransformerConfig
+    from veles_tpu_torch.parallel.multiprocess import run_world
+    plan = plan or _mesh_plan(dev)
+    full = plan["full"]
+    log("phase 21: the mesh on one card: 2 ranks on %s over gloo (host-"
+        "staged; these times say nothing of scaling over cards), %d steps "
+        "a leg: (a) alexnet_fused() batch %d bf16 at data=2 and model=2 "
+        "(and 64 x 64 f32), (b) the LM %s batch %d at seq=2, (c) %d-layer "
+        "MoE (2 experts) at model=2, (d) the pipeline %s; (e) NCCL at "
+        "world 1" % (dev, plan["steps"], plan["batch"], full,
+                     plan["lm_batch"], plan["moe_layers"], plan["pipe"]))
+    os.makedirs(plan["out"], exist_ok=True)
+    t_phase = time.monotonic()
+    try:
+        ref_full, shapes, ms_one, p_one, p0 = _one_rank_classifier(
+            torch, plan, dev, False)
+        ref_parity = _one_rank_classifier(torch, plan, dev, True)[0]
+        # bf16's own rounding of the same steps: the one-rank steps at
+        # f32 against the one-rank bf16 steps
+        p_f32 = _one_rank_classifier(torch, plan, dev, False,
+                                     compute="float32")[3]
+        floor = _param_errors(p_f32, p_one, p0)[1]
+        del p_one, p0, p_f32
+        plan = dict(plan, ref_full=ref_full, ref_parity=ref_parity)
+        log("  one rank, (a): step p50 %.1f ms; dropout masks %s; the f32 "
+            "steps off the bf16 steps by %.3e of the update [%s]"
+            % (float(np.percentile(ms_one, 50)), shapes, floor, card))
+        rng = np.random.default_rng(4)
+        tokens = torch.from_numpy(rng.integers(
+            0, full["vocab"], (plan["lm_batch"], full["seq_len"] + 1))).to(
+                dev)
+        lm_one, lm_ms = _one_rank_lm(torch, plan, dev, TransformerConfig(
+            compute="bfloat16", remat="attn", **full), tokens)
+        moe_one, _ = _one_rank_lm(torch, plan, dev, TransformerConfig(
+            compute="bfloat16", remat="attn", moe_experts=2,
+            **dict(full, layers=plan["moe_layers"])), tokens)
+        log("  one rank, (b) eager: step p50 %.1f ms, losses %s [%s]"
+            % (float(np.percentile(lm_ms, 50)), lm_one, card))
+        _mesh_sync(torch, dev)
+        _mesh_free(torch)
+        t0 = time.monotonic()
+        ranks = run_world(mesh_rank, 2, "gloo",
+                          None if dev.type == "cuda" else "cpu",
+                          args=(plan,), timeout_s=MESH_TIMEOUT_S)
+        world_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        if dev.type == "cuda":
+            nccl = run_world(nccl_rank, 1, "nccl", None, args=(plan,),
+                             timeout_s=MESH_TIMEOUT_S)[0]
+        else:
+            nccl = None
+        nccl_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(plan["out"], ignore_errors=True)
+
+    out = dict(world_s=world_s, nccl_s=nccl_s, one_rank_classifier_ms=ms_one,
+               bf16_floor=floor,
+               one_rank_lm_ms=lm_ms, one_rank_lm_losses=lm_one,
+               one_rank_moe_losses=moe_one, ranks=ranks, nccl=nccl)
+    expect_cls = {"lrn_fwd": 2, "lrn_bwd": 2, "uniform_fill": 2}
+    layers = full["layers"]
+    for rank, r in enumerate(ranks):
+        log("  rank %d on %s:" % (rank, r["device"]))
+        for key in ("a_dp2_bf16", "a_tp2_bf16", "a_dp2_f32", "a_tp2_f32"):
+            leg = r[key]
+            _leg_line(key, leg, card)
+            log("  %s params vs one rank: %.3e of a leaf's scale, %.3e of "
+                "the update" % (key, leg["share_err"], leg["update_err"]))
+            if key.endswith("f32"):
+                check("%s params vs one rank (share of scale)" % key,
+                      leg["share_err"], TOL_CLASSIFIER["float32"])
+            else:
+                check("%s params vs one rank (share of update)" % key,
+                      leg["update_err"],
+                      max(TOL_CLASSIFIER["bfloat16"], 2 * floor))
+            if not leg["masks_equal"] or leg["n_masks"] != 2 * plan["steps"]:
+                raise AssertionError("%s: dropout masks differ from the one-"
+                                     "rank masks (%d masks)"
+                                     % (key, leg["n_masks"]))
+            if plan["count"] and any(l != expect_cls
+                                     for l in leg["launches"]):
+                raise AssertionError("%s launches a step %s != %s"
+                                     % (key, leg["launches"], expect_cls))
+        log("  (a) masks bitwise the one-rank masks; K6/K7/K8 a step "
+            "%s" % (expect_cls,))
+        leg = r["b_seq2"]
+        _leg_line("b_seq2", leg, card)
+        err = max(abs(a - c) / abs(c) for a, c in zip(leg["losses"],
+                                                     lm_one))
+        log("  (b) losses %s vs one rank %s" % (leg["losses"], lm_one))
+        check("(b) LM losses at seq=2 vs one rank (relative)", err,
+              TOL_MESH_LM)
+        hops = 1 + rank          # rank 1 attends to chunk 0 too
+        want = {"flash_fwd": 2 * layers * hops,
+                "flash_bwd_dkv": layers * hops,
+                "flash_bwd_dq": layers * hops}
+        if plan["count"] and any(l != want for l in leg["launches"]):
+            raise AssertionError("(b) rank %d launches a step %s != %s"
+                                 % (rank, leg["launches"], want))
+        log("  (b) K1/K2/K3 a step on rank %d: %s (%d hop(s) a layer, "
+            "remat 'attn' runs each forward hop twice)" % (rank, want, hops))
+        check("(b) f32 2-layer ring grads, K1-K3 vs plain (share)",
+              r["b_grad_err"], TOL_GRAD["float32"])
+        leg = r["c_ep2"]
+        _leg_line("c_ep2", leg, card)
+        err = max(abs(a - c) / abs(c) for a, c in zip(leg["losses"],
+                                                     moe_one))
+        log("  (c) losses %s vs one rank %s" % (leg["losses"], moe_one))
+        check("(c) MoE losses at model=2 vs one rank (relative)", err,
+              TOL_MESH_LM)
+        want = {k: plan["moe_layers"] for k in
+                ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+        if plan["count"] and any(l != want for l in leg["launches"]):
+            raise AssertionError("(c) launches a step %s != %s"
+                                 % (leg["launches"], want))
+        leg = r["d_pipe"]
+        log("  (d) pipeline loss %.6f, sequential %.6f, step %.1f ms [%s]"
+            % (leg["loss"], leg["ref"], leg["ms"][0], card))
+        check("(d) pipeline loss vs reference_loss_fn (relative)",
+              abs(leg["loss"] - leg["ref"]) / abs(leg["ref"]), TOL_MESH_PIPE)
+    if nccl is not None:
+        log("  (e) NCCL world 1 (%s): second step %.1f ms vs unsharded "
+            "%.1f ms, losses %s, staged bytes %d, params bitwise the "
+            "unsharded steps: %s [%s]" % (nccl["backend"], nccl["ms"][1], nccl["ms"][0],
+                               nccl["losses"], nccl["staged"],
+                               nccl["bitwise"], card))
+        if nccl["backend"] != "nccl" or not nccl["bitwise"] or \
+                nccl["staged"]:
+            raise AssertionError("(e) NCCL at world 1: %s" % (nccl,))
+    launches = {}
+    for r in ranks + ([nccl] if nccl is not None else []):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["wall_s"] = time.monotonic() - t_phase
+    log("  phase 21 %.1f s (world of 2: %.1f s, NCCL world: %.1f s); "
+        "launches over the ranks %s [%s]"
+        % (out["wall_s"], world_s, nccl_s, launches, card))
+    return out, launches
+
+
 class Counters:
     """Every kernel's launch counter, read and reset together."""
 
@@ -5339,6 +5864,7 @@ def main():
     state, state_launches = state_phase(torch, counters, dev, card, train,
                                         classifier, classifier_graph)
     state_parity = state_parity_phase(torch, dev, card)
+    mesh, mesh_launches = mesh_phase(torch, dev, card)
 
     # each main path's launches, counted from 0 around that path alone
     by_path = {"serving": serve_launches, "training": train_launches,
@@ -5350,7 +5876,8 @@ def main():
                "unit-graph classifier": classifier_graph_launches,
                "input pipeline": pipeline_launches,
                "unit families and zoo": zoo_launches,
-               "state": state_launches}
+               "state": state_launches,
+               "mesh": mesh_launches}
     kernels = []
     for name, row in rows.items():
         paths = {p: n.get(name, 0) for p, n in by_path.items()
@@ -5374,7 +5901,7 @@ def main():
                   unit_graph_classifier=classifier_graph,
                   unit_graph_parity=classifier_graph_parity,
                   input_pipeline=pipeline, zoo=zoo, zoo_parity=zoo_parity,
-                  state=state, state_parity=state_parity,
+                  state=state, state_parity=state_parity, mesh=mesh,
                   wall_s=time.monotonic() - t_start)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:

@@ -56,7 +56,7 @@ def test_device_factory_and_cpu_backend(device):
     assert device.compute_dtype is torch.bfloat16
     with pytest.raises(ValueError, match="Unknown backend"):
         Device(backend="tpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(RuntimeError, match="joined process group"):
         device.mesh({"data": 1})
 
 

@@ -1917,3 +1917,109 @@ def test_lm_load_state_keeps_the_captured_step_tensors(cuda):
     assert ptrs() == before
     assert float(trainer.step(tokens)["loss"]) == first
     assert float(trainer.step(tokens)["loss"]) == second
+
+
+# ---------------------------------------------------------------------------
+# the mesh on the card: host-staged collectives and the ring's hops
+# ---------------------------------------------------------------------------
+
+def staged_world(rank):
+    """A rank of a 2-rank gloo world on the card: each collective on
+    CUDA tensors (staged through pinned host buffers), its input still
+    being computed by a queued kernel when the collective starts."""
+    from veles_tpu_torch.parallel import collectives
+    from veles_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    mesh = make_mesh(MeshConfig(data=2))
+    ax = mesh.axis("data")
+    dev = mesh.device
+    collectives.reset_staged()
+    big = torch.ones(4096, 4096, device=dev)
+    # a slow producer queued ahead of the value the collectives read
+    base = (big @ big)[:3, :4] / 4096
+    x = base * (torch.arange(12., device=dev).reshape(3, 4) + 100 * rank)
+    out = {"device": str(dev)}
+    y = collectives.all_reduce_sum(x, ax)
+    out["psum"] = (str(y.device), y.cpu().numpy())
+    out["gather_bf16"] = collectives.all_gather_cat(
+        x.to(torch.bfloat16) / 3, ax, 0).float().cpu().numpy()
+    out["exchange"] = collectives.exchange(x, ax, 1 - rank,
+                                           1 - rank).cpu().numpy()
+    out["scatter"] = collectives.reduce_scatter_sum(x, ax, 1).cpu().numpy()
+    out["staged"] = dict(collectives.STAGED_BYTES)
+    return out
+
+
+def test_collectives_stage_cuda_tensors_through_host(cuda):
+    from veles_tpu_torch.parallel import collectives
+    from veles_tpu_torch.parallel.multiprocess import run_world
+    x = torch.randn(1000, 37, device=cuda).to(torch.bfloat16)
+    host = collectives.to_host(x)
+    assert host.device.type == "cpu" and host.is_pinned()
+    back = collectives.to_device(host, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(back, x)
+    ranks = run_world(staged_world, 2, "gloo", None, timeout_s=180)
+    xs = [np.arange(12, dtype=np.float32).reshape(3, 4) + 100 * r
+          for r in range(2)]
+    for rank, out in enumerate(ranks):
+        assert out["device"] == "cuda:0"
+        device, total = out["psum"]
+        assert device.startswith("cuda")
+        np.testing.assert_array_equal(total, xs[0] + xs[1])
+        want = torch.cat([torch.from_numpy(a).to(torch.bfloat16) / 3
+                          for a in xs]).float().numpy()
+        np.testing.assert_array_equal(out["gather_bf16"], want)
+        np.testing.assert_array_equal(out["exchange"], xs[1 - rank])
+        np.testing.assert_array_equal(
+            out["scatter"], (xs[0] + xs[1])[:, 2 * rank:2 * rank + 2])
+        assert out["staged"]["to_host"] > 0
+        assert out["staged"]["to_device"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_hops_through_the_kernels_match_plain(cuda, dtype):
+    """The second rank of a 2-chunk ring: its causal hop (own chunk) and
+    its full hop (chunk 0) through K1, merged, against the plain path
+    and against attention over the whole sequence; then each hop's
+    backward through K2/K3 with the merged (global) l and m against
+    ``_plain_bwd``'s with the same statistics."""
+    from veles_tpu_torch.parallel.ring_attention import (hop_bwd,
+                                                         merge_hop,
+                                                         merged_output)
+    rng = np.random.default_rng(11)
+    b, t, h, d = 2, 256, 4, 128
+    q0, k0, v0, q1, k1, v1, do = (_randn(rng, (b, t, h, d), dtype, cuda)
+                                  for _ in range(7))
+    hops = ((k1, v1, True), (k0, v0, False))
+    merged = {}
+    for impl in ("cuda", "plain"):
+        acc = torch.zeros(q1.shape, dtype=torch.float32, device=cuda)
+        l_acc = torch.zeros((b, h, t), dtype=torch.float32, device=cuda)
+        m_acc = torch.full((b, h, t), float("-inf"), device=cuda)
+        for kk, vv, causal in hops:
+            acc, l_acc, m_acc = merge_hop(acc, l_acc, m_acc,
+                                          *fa.flash_attention_fwd(
+                                              q1, kk, vv, causal,
+                                              block_k=64, impl=impl))
+        merged[impl] = merged_output(acc, l_acc, m_acc, dtype)
+    whole, _, _ = fa.flash_attention_fwd(
+        torch.cat([q0, q1], 1), torch.cat([k0, k1], 1),
+        torch.cat([v0, v1], 1), True, block_q=64, block_k=64,
+        impl="plain")
+    torch.cuda.synchronize()
+    (o, l, m), (po, pl, pm) = merged["cuda"], merged["plain"]
+    torch.testing.assert_close(o.float(), po.float(), **TOL[dtype])
+    torch.testing.assert_close(o.float(), whole[:, t:].float(), **TOL[dtype])
+    torch.testing.assert_close(l, pl, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(m, pm, atol=1e-3, rtol=1e-3)
+    from veles_tpu_torch.ops.flash_attention import LAUNCHES
+    before = dict(LAUNCHES)
+    for kk, vv, causal in hops:
+        got = hop_bwd(q1, kk, vv, po, pl, pm, do, causal, 64, "cuda")
+        want = hop_bwd(q1, kk, vv, po, pl, pm, do, causal, 64, "plain")
+        torch.cuda.synchronize()
+        for name, a, c in zip(("dq", "dk", "dv"), got, want):
+            assert a.dtype == dtype
+            assert _rel(a, c) <= BWD_TOL[dtype], (name, causal)
+    assert LAUNCHES["flash_bwd_dkv"] - before["flash_bwd_dkv"] == 2
+    assert LAUNCHES["flash_bwd_dq"] - before["flash_bwd_dq"] == 2

@@ -48,7 +48,10 @@ def test_import_closure_has_no_jax_and_no_veles_tpu():
                  "models.lenet", "models.cifar", "models.vgg",
                  "models.stl10", "checkpoint", "snapshotter",
                  "models.lm", "ensemble", "ensemble.workflows",
-                 "genetics", "genetics.core", "genetics.optimizer"):
+                 "genetics", "genetics.core", "genetics.optimizer",
+                 "parallel.mesh", "parallel.collectives",
+                 "parallel.multiprocess", "parallel.ring_attention",
+                 "parallel.pipeline"):
         assert "veles_tpu_torch." + name in modules
     script = (
         "import importlib, json, sys\n"
@@ -169,6 +172,32 @@ def test_input_pipeline_entry_points_need_the_card(monkeypatch):
         InferenceEngine.from_specs(
             [("fc", "softmax")], params,
             normalizer=normalization.normalizer("none"))
+
+
+def test_mesh_entry_points_pick_neither_the_cpu_nor_gloo(monkeypatch):
+    """The mesh's entry points take the card by default and NCCL as the
+    transport: without a card ``initialize`` raises (naming
+    ``device='cpu'`` and gloo as the caller's choice), a mesh raises
+    without a joined group, and nothing joins one on its own."""
+    import inspect
+
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.parallel import multiprocess
+    from veles_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    assert inspect.signature(multiprocess.initialize).parameters[
+        "backend"].default == "nccl"
+    with pytest.raises(RuntimeError, match="backend='gloo'"):
+        multiprocess.initialize("127.0.0.1:1", 1, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multiprocess.initialize("127.0.0.1:1", 1, 0, backend="gloo")
+    with pytest.raises(RuntimeError, match="joined process group"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="joined process group"):
+        Device(backend="cpu").mesh({"data": 1})
+    assert not multiprocess.is_initialized()
 
 
 def test_compute_dtype_policy():

@@ -201,5 +201,7 @@ def test_load_state_copies_into_the_trainer_tensors():
 
 
 def test_mesh_waits_for_the_ports_mesh():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """``mesh=`` takes a ``parallel.mesh.Mesh`` over a joined group (the
+    meshed LM runs are tests/test_torch_parallel.py's)."""
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         P_lm.TransformerWorkflow(mesh=object())

@@ -155,10 +155,13 @@ def test_train_fused_matches_reference(lr_policy):
 
 
 def test_train_fused_raises_for_a_mesh():
+    """A mesh is a ``parallel.mesh.Mesh`` over a joined group (the
+    meshed runs are tests/test_torch_parallel.py's); tensor parallelism
+    needs one."""
     wf = _build(PORT, "mnist")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         P_fused.train_fused(wf, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         P_fused.train_fused(wf, tensor_parallel=True)
 
 

@@ -12,8 +12,9 @@ policy, explicit transfers (``put``, ``get``, ``sync``) and a
 and raises as it does without one: the CPU runs only when the caller
 asks for it with ``Device(backend="cpu")``, as the tests do. There is
 no silent fallback. :meth:`Device.benchmark` is a bf16 ``torch.matmul`` probe (a
-plain product, so a library call is the right tool). The mesh of
-several cards waits for ROADMAP.md queue 1 item 7.
+plain product, so a library call is the right tool).
+:meth:`Device.mesh` names the ranks of a joined process group as a grid
+(``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -146,11 +147,12 @@ class Device(Logger, metaclass=BackendRegistry):
 
     # -- mesh --------------------------------------------------------------
     def mesh(self, axes: Dict[str, int]):
-        """A device mesh over several cards: waits for the parallel
-        strategies of ROADMAP.md queue 1 item 7."""
-        raise NotImplementedError(
-            "Device.mesh needs the mesh over torch.distributed, "
-            "ROADMAP.md queue 1 item 7")
+        """A mesh over the joined process group with this device as the
+        rank's, e.g. ``device.mesh({"data": 4, "model": 2})`` (the
+        sizes multiply to the world size). Raises without a group:
+        join first (``parallel.multiprocess.initialize``)."""
+        from veles_tpu_torch.parallel.mesh import grid_mesh
+        return grid_mesh(axes, device=self.torch_device)
 
     # -- benchmark / computing power --------------------------------------
     def benchmark(self, size: int = 2048, repeats: int = 4) -> float:

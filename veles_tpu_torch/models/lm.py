@@ -19,6 +19,10 @@ On a CUDA device the trainer replays one captured train step
 therefore copies the snapshot's values into those tensors
 (``TransformerTrainer.load_state``) and never rebinds them, where the
 reference assigns new arrays.
+
+``mesh=`` (a ``parallel.mesh.Mesh`` over a joined process group) trains
+the LM SPMD on every rank of it, as ``TransformerTrainer(mesh=)`` does;
+the workflow runs on each rank with the mesh's device.
 """
 
 from __future__ import annotations
@@ -26,24 +30,16 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from veles_tpu_torch.accelerated_units import (AcceleratedUnit,
                                                AcceleratedWorkflow)
 from veles_tpu_torch.loader.base import CLASS_NAME, TRAIN
 from veles_tpu_torch.loader.text import SyntheticTextLoader
 from veles_tpu_torch.models.transformer import (TransformerConfig,
-                                                TransformerTrainer, _loss,
-                                                _tree_map)
+                                                TransformerTrainer, _tree_map)
 from veles_tpu_torch.nn.decision import DecisionGD
+from veles_tpu_torch.parallel.mesh import check_mesh
 from veles_tpu_torch.plumbing import Repeater
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded LM workflow waits for the port's mesh (ROADMAP.md "
-            "queue 1 item 7)")
 
 
 class DecisionLM(DecisionGD):
@@ -95,12 +91,13 @@ class TransformerUnit(AcceleratedUnit):
     def __init__(self, workflow, config: TransformerConfig,
                  mesh=None, learning_rate: float = 3e-4,
                  seed: int = 0, **kwargs: Any) -> None:
-        _no_mesh(mesh)
+        check_mesh(mesh)
         kwargs.setdefault("view_group", "TRAINER")
         super().__init__(workflow, **kwargs)
         # job pieces are whole trainer state with replacement semantics
         self.job_data_is_param_state = True
         self.config = config
+        self.mesh = mesh
         self.learning_rate = learning_rate
         self.seed = seed
         self.input = None
@@ -124,7 +121,8 @@ class TransformerUnit(AcceleratedUnit):
         if self._trainer_ is None:
             self._trainer_ = TransformerTrainer(
                 self.config, device=self.device.torch_device,
-                learning_rate=self.learning_rate, seed=self.seed)
+                learning_rate=self.learning_rate, seed=self.seed,
+                mesh=self.mesh)
             if self._saved_state is not None:
                 self._load_state(self._saved_state)
                 self._saved_state = None
@@ -155,6 +153,9 @@ class TransformerUnit(AcceleratedUnit):
 
     def __getstate__(self) -> Dict[str, Any]:
         state = super().__getstate__()
+        # process groups do not pickle: a restored unit takes its mesh
+        # anew (each rank's state holds its own shards)
+        state["mesh"] = None
         if self._trainer_ is not None:
             state["_saved_state"] = self._host_state()
         return state
@@ -168,10 +169,7 @@ class TransformerUnit(AcceleratedUnit):
             trainer.learning_rate = float(self.learning_rate)
             self.loss = float(trainer.step(tokens)["loss"])
         else:
-            tokens = trainer._tokens(tokens)
-            with torch.no_grad():
-                self.loss = float(_loss(trainer.params, tokens[:, :-1],
-                                        tokens[:, 1:], self.config))
+            self.loss = float(trainer.eval_loss(tokens))
         self.sum_loss = self.loss * size
 
     # -- coordinator job farming -------------------------------------------
@@ -215,7 +213,6 @@ class TransformerWorkflow(AcceleratedWorkflow):
                  snapshot_dir: Optional[str] = None,
                  snapshot_prefix: Optional[str] = None,
                  **kwargs: Any) -> None:
-        _no_mesh(mesh)
         super().__init__(workflow, **kwargs)
         if config is None:
             config = TransformerConfig(vocab=64, embed=64, heads=2,
@@ -236,7 +233,8 @@ class TransformerWorkflow(AcceleratedWorkflow):
         self.loader.link_from(self.repeater)
 
         self.trainer_unit = TransformerUnit(
-            self, config=config, learning_rate=learning_rate, seed=seed)
+            self, config=config, mesh=mesh, learning_rate=learning_rate,
+            seed=seed)
         self.trainer_unit.link_attrs(
             self.loader, ("input", "minibatch_data"),
             "minibatch_class", "minibatch_size")

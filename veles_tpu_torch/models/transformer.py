@@ -28,10 +28,17 @@ its compiled step (the same rounding, so the same numbers). On a CUDA
 device :class:`TransformerTrainer` captures its train step into a CUDA
 graph (``veles_tpu_torch.graphs``) and replays it, once per step.
 
-Training is single-device: the reference's mesh paths (sequence ring,
-expert sharding) and AOT dispatch are queued in ROADMAP.md. A trainer
-whose ``sched_tenant`` is set runs each ``step``/``step_many`` as one
-quantum of a shared device (``veles_tpu_torch.sched``).
+Given a mesh (``parallel.mesh``), :class:`TransformerTrainer` trains
+SPMD, one process a rank, as the reference's meshed trainer: the token
+batch over ``data``; the sequence over ``seq``, attention then a ring
+(``parallel.ring_attention``, K1-K3 on every hop); the experts of a
+mixture over ``model``. Each rank's objective is its tokens' share of
+the global token mean, and one all-reduce of one flat buffer over
+``data x seq`` sums the gradients. On a mesh of more than one rank the
+step runs eagerly (see :class:`TransformerTrainer`). The reference's
+AOT dispatch is queued in ROADMAP.md. A trainer whose ``sched_tenant``
+is set runs each ``step``/``step_many`` as one quantum of a shared
+device (``veles_tpu_torch.sched``).
 """
 
 from __future__ import annotations
@@ -53,7 +60,10 @@ from veles_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_decode,
                                                  flash_decode_paged,
                                                  flash_verify_paged)
+from veles_tpu_torch.parallel import collectives
 from veles_tpu_torch.parallel.fused import NonFiniteSentinel, update_ok
+from veles_tpu_torch.parallel.mesh import check_mesh
+from veles_tpu_torch.parallel.ring_attention import ring_attention_local
 from veles_tpu_torch.sched import quantum_or_null
 
 
@@ -144,29 +154,32 @@ def init_params(config: TransformerConfig, seed: int = 0) -> Dict[str, Any]:
     return params
 
 
-def _expected_shapes(config: TransformerConfig) -> Dict[str, Any]:
+def _expected_shapes(config: TransformerConfig,
+                     experts: Optional[int] = None) -> Dict[str, Any]:
     e, m = config.embed, config.embed * config.mlp_ratio
     ln = {"g": (e,), "b": (e,)}
     block = {"ln1": ln, "qkv": (e, 3 * e), "proj": (e, e), "ln2": ln}
     if config.moe_experts > 0:
         n_exp = config.moe_experts
-        block.update(gate=(e, n_exp), mlp_in=(n_exp, e, m),
-                     mlp_out=(n_exp, m, e))
+        held = n_exp if experts is None else experts
+        block.update(gate=(e, n_exp), mlp_in=(held, e, m),
+                     mlp_out=(held, m, e))
     else:
         block.update(mlp_in=(e, m), mlp_out=(m, e))
     return {"embed": (config.vocab, e), "pos": (config.seq_len, e),
             "ln_f": ln, "blocks": [block] * config.layers}
 
 
-def params_from_numpy(tree, config: TransformerConfig,
-                      device) -> Dict[str, Any]:
+def params_from_numpy(tree, config: TransformerConfig, device,
+                      experts: Optional[int] = None) -> Dict[str, Any]:
     """The JAX package's parameter tree (``init_params`` output, or
     ``jax.tree.map(np.asarray, trainer.params)``) -> the port's tree of
     f32 tensors on ``device``, same structure, same ``[in, out]``
     layouts. Tensor leaves are copied (detached), never aliased: a
     trainer updates its tensors in place, and a tree taken from it
-    must not move with it. Raises ``ValueError`` when the tree does not
-    fit ``config``."""
+    must not move with it. ``experts``: the experts a block holds, where
+    an expert-parallel rank holds fewer than ``config.moe_experts``.
+    Raises ``ValueError`` when the tree does not fit ``config``."""
     device = torch.device(device)
 
     def convert(node, shape, path):
@@ -199,7 +212,7 @@ def params_from_numpy(tree, config: TransformerConfig,
                              "wants %s" % (path, tuple(leaf.shape), shape))
         return leaf
 
-    return convert(tree, _expected_shapes(config), "")
+    return convert(tree, _expected_shapes(config, experts), "")
 
 
 #: the weight matrices, which every step reads in the compute dtype
@@ -247,11 +260,19 @@ def _qkv(x, block, config: TransformerConfig):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
-def _moe_ffn(h, block, config: TransformerConfig):
-    """Top-1-routed mixture-of-experts FFN, single device, in the
-    reference's dense formulation: every expert runs on every token
-    and the gate masks the combine. Returns (y, aux) — aux is the
-    Switch load-balance term E * sum_e(f_e * P_e)."""
+def _moe_ffn(h, block, config: TransformerConfig, par=None):
+    """Top-1-routed mixture-of-experts FFN in the reference's dense
+    formulation: every expert runs on every token and the gate masks
+    the combine. Returns (y, aux) — aux is the Switch load-balance term
+    E * sum_e(f_e * P_e).
+
+    Expert-parallel (``par.expert``): the rank holds its run of experts
+    (``mlp_in``/``mlp_out`` sliced on their expert dim over ``model``),
+    computes them for every token, and the combine is summed over
+    ``model``; the gate and its inputs are the same on every ``model``
+    rank, so their cotangents are summed back (``pvary``). Over a token
+    mesh f_e and P_e are the GLOBAL means (each rank's mean summed over
+    ``data x seq``, shards being equal) before their product."""
     cd = config.compute_dtype()
     n_exp = config.moe_experts
     # gate logits in f32 from compute-dtype operands
@@ -262,28 +283,42 @@ def _moe_ffn(h, block, config: TransformerConfig):
     experts = torch.arange(n_exp, device=h.device)
     mask = (top1[..., None] == experts).float()             # [B,T,E]
     combine = (mask * gates).to(cd)
+    if par is not None and par.expert:
+        held = block["mlp_in"].shape[0]
+        first = par.model.index * held
+        h = collectives.pvary(h, par.model)
+        combine = collectives.pvary(combine, par.model)[
+            ..., first:first + held]
     hidden = torch.einsum("btd,edh->bteh", h, block["mlp_in"].to(cd))
     outs = torch.einsum("bteh,ehd->bted", F.gelu(hidden, approximate="tanh"),
                         block["mlp_out"].to(cd))
     y = torch.einsum("bted,bte->btd", outs, combine)
     frac = mask.mean(dim=(0, 1))           # tokens routed per expert
     prob = gates.mean(dim=(0, 1))          # mean gate mass per expert
+    if par is not None:
+        if par.expert:
+            y = collectives.psum(y, par.model)
+        if par.tokens.size > 1:
+            frac = collectives.psum(frac, par.tokens) / par.tokens.size
+            prob = collectives.psum(prob, par.tokens) / par.tokens.size
     return y, n_exp * torch.sum(frac * prob)
 
 
-def _ffn(h, block, config: TransformerConfig):
+def _ffn(h, block, config: TransformerConfig, par=None):
     """The FFN branch; returns the residual delta: the dense gelu MLP
     (``jax.nn.gelu`` defaults to the tanh approximation, so does this)
     or the MoE combine with its aux term dropped."""
     if config.moe_experts > 0:
-        return _moe_ffn(h, block, config)[0]
+        return _moe_ffn(h, block, config, par)[0]
     cd = config.compute_dtype()
     h = F.gelu(h @ block["mlp_in"].to(cd), approximate="tanh")
     return h @ block["mlp_out"].to(cd)
 
 
-def _attention_forward(x, block, config: TransformerConfig):
-    """Pre-LN causal attention branch; returns (delta, k, v)."""
+def _attention_forward(x, block, config: TransformerConfig, par=None):
+    """Pre-LN causal attention branch; returns (delta, k, v). Over a
+    ``seq`` mesh axis (``par.seq``) it is the ring of this rank's
+    chunk."""
     if config.attention != "flash":
         raise ValueError("the port's TransformerConfig.attention is "
                          "'flash', got %r" % (config.attention,))
@@ -291,9 +326,14 @@ def _attention_forward(x, block, config: TransformerConfig):
     cd = config.compute_dtype()
     h = _layer_norm(x, block["ln1"]["g"], block["ln1"]["b"])
     q, k, v = _qkv(h, block, config)
-    out = flash_attention(q, k, v, causal=True, block_q=config.block_q,
-                          block_k=config.block_k,
-                          impl=config.attention_impl)
+    if par is not None and par.seq.size > 1:
+        out = ring_attention_local(q, k, v, par.seq, causal=True,
+                                   impl=config.attention_impl,
+                                   block_k=config.block_k)
+    else:
+        out = flash_attention(q, k, v, causal=True, block_q=config.block_q,
+                              block_k=config.block_k,
+                              impl=config.attention_impl)
     return out.reshape(b, t, e) @ block["proj"].to(cd), k, v
 
 
@@ -557,22 +597,22 @@ def verify_step(params, tokens, cache, lengths, block_tables,
 # training: blocks with remat, chunked loss, Adam, the trainer
 # ---------------------------------------------------------------------------
 
-def _attention_delta(x, block, config: TransformerConfig):
-    return _attention_forward(x, block, config)[0]
+def _attention_delta(x, block, config: TransformerConfig, par=None):
+    return _attention_forward(x, block, config, par)[0]
 
 
-def _mlp_residual(x, block, config: TransformerConfig):
+def _mlp_residual(x, block, config: TransformerConfig, par=None):
     h = _layer_norm(x, block["ln2"]["g"], block["ln2"]["b"])
-    return x + _ffn(h, block, config)
+    return x + _ffn(h, block, config, par)
 
 
-def _block_forward(x, block, config: TransformerConfig):
+def _block_forward(x, block, config: TransformerConfig, par=None):
     """One pre-LN block (attention + MLP residual branches)."""
-    x = x + _attention_delta(x, block, config)
-    return _mlp_residual(x, block, config)
+    x = x + _attention_delta(x, block, config, par)
+    return _mlp_residual(x, block, config, par)
 
 
-def _maybe_remat(config: TransformerConfig):
+def _maybe_remat(config: TransformerConfig, par=None):
     """The block body under the config's remat policy. "attn" runs the
     attention branch and the MLP branch as two checkpointed regions:
     the backward keeps only their inputs — the block input and the
@@ -585,41 +625,45 @@ def _maybe_remat(config: TransformerConfig):
 
     def block_fn(x, block):
         if config.remat == "none" or not torch.is_grad_enabled():
-            return _block_forward(x, block, config)
-        x = x + checkpoint(_attention_delta, x, block, config,
+            return _block_forward(x, block, config, par)
+        x = x + checkpoint(_attention_delta, x, block, config, par,
                            use_reentrant=False, preserve_rng_state=False)
-        return checkpoint(_mlp_residual, x, block, config,
+        return checkpoint(_mlp_residual, x, block, config, par,
                           use_reentrant=False, preserve_rng_state=False)
 
     return block_fn
 
 
-def _encode(params, tokens, config: TransformerConfig):
+def _encode(params, tokens, config: TransformerConfig, par=None,
+            pos0: int = 0):
     """tokens [B, T] int -> (final hidden [B, T, E] after ln_f in the
     compute dtype, moe aux loss f32). The layer stack is a loop (the
     reference's ``lax.scan`` over stacked blocks computes the same);
-    MoE blocks run unrematerialized, as in the reference."""
+    MoE blocks run unrematerialized, as in the reference. ``pos0``: the
+    position of the first token (a ``seq`` rank's chunk offset)."""
     cd = config.compute_dtype()
-    x = _embed(params, tokens, slice(0, tokens.shape[1]), cd)
+    x = _embed(params, tokens, slice(pos0, pos0 + tokens.shape[1]), cd)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if config.moe_experts > 0:
         for block in params["blocks"]:
-            x = x + _attention_delta(x, block, config)
+            x = x + _attention_delta(x, block, config, par)
             h = _layer_norm(x, block["ln2"]["g"], block["ln2"]["b"])
-            y, aux = _moe_ffn(h, block, config)
+            y, aux = _moe_ffn(h, block, config, par)
             x = x + y
             aux_total = aux_total + aux
     else:
-        step = _maybe_remat(config)
+        step = _maybe_remat(config, par)
         for block in params["blocks"]:
             x = step(x, block)
     return (_layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"]),
             aux_total)
 
 
-def _ce_chunk(config: TransformerConfig, t: int) -> int:
-    """Resolved cross-entropy chunk length (0 = full logits)."""
-    if config.ce_chunk == 0:
+def _ce_chunk(config: TransformerConfig, t: int, par=None) -> int:
+    """Resolved cross-entropy chunk length (0 = full logits). A
+    sequence-sharded run keeps its chunk's full head, as the
+    reference."""
+    if config.ce_chunk == 0 or (par is not None and par.seq.size > 1):
         return 0
     if config.ce_chunk:
         return config.ce_chunk if t % config.ce_chunk == 0 else 0
@@ -638,16 +682,17 @@ def _chunk_nll(x, targets, params, cd):
     return -logp.gather(-1, targets[..., None])[..., 0].sum()
 
 
-def _loss(params, tokens, targets, config: TransformerConfig):
-    """Mean causal cross-entropy + MoE aux. When the full [B, T, V] f32
-    logits would be material the head runs per sequence chunk, each
-    chunk checkpointed: peak logits memory is one chunk, and the
-    backward recomputes each chunk's logits instead of keeping them.
-    The chunk NLLs sum in f32 and divide by ``b * t``."""
-    x, aux = _encode(params, tokens, config)
+def _loss_parts(params, tokens, targets, config: TransformerConfig,
+                par=None, pos0: int = 0):
+    """(summed causal NLL f32, MoE aux f32) of the tokens. When the full
+    [B, T, V] f32 logits would be material the head runs per sequence
+    chunk, each chunk checkpointed: peak logits memory is one chunk,
+    and the backward recomputes each chunk's logits instead of keeping
+    them. The chunk NLLs sum in f32."""
+    x, aux = _encode(params, tokens, config, par, pos0)
     cd = config.compute_dtype()
     b, t, _ = x.shape
-    chunk = _ce_chunk(config, t)
+    chunk = _ce_chunk(config, t, par)
     if chunk:
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for c0 in range(0, t, chunk):
@@ -659,10 +704,15 @@ def _loss(params, tokens, targets, config: TransformerConfig):
             else:
                 nll = _chunk_nll(xc, tc, params, cd)
             total = total + nll
-        nll_mean = total / (b * t)
-    else:
-        nll_mean = _chunk_nll(x, targets, params, cd) / (b * t)
-    return nll_mean + config.moe_aux_weight * aux
+        return total, aux
+    return _chunk_nll(x, targets, params, cd), aux
+
+
+def _loss(params, tokens, targets, config: TransformerConfig):
+    """Mean causal cross-entropy + MoE aux (:func:`_loss_parts`, the
+    NLL divided by ``b * t``)."""
+    total, aux = _loss_parts(params, tokens, targets, config)
+    return total / targets.numel() + config.moe_aux_weight * aux
 
 
 #: Adam coefficients — module constants so the nan_policy="skip"
@@ -730,6 +780,45 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+class _Par:
+    """The mesh of a trainer's step: the ``seq`` ring, the token axes
+    ``data x seq`` (gradients and the MoE statistics are summed over
+    them) and ``model`` (expert parallelism when the config has
+    experts)."""
+
+    def __init__(self, mesh, seq_axis: Optional[str],
+                 config: TransformerConfig) -> None:
+        self.mesh = mesh
+        seq = seq_axis if seq_axis in mesh.shape else None
+        self.seq_name = seq
+        self.seq = mesh.axis(*((seq,) if seq else ()))
+        self.tokens = mesh.axis("data", *((seq,) if seq else ()))
+        self.model = mesh.axis("model")
+        self.expert = config.moe_experts > 0 and self.model.size > 1
+        if self.expert and config.moe_experts % self.model.size:
+            raise ValueError("%d experts do not split over a 'model' axis "
+                             "of %d" % (config.moe_experts, self.model.size))
+
+    def tokens_of(self, tokens: torch.Tensor):
+        """This rank's (inputs, targets, first position) of a global
+        ``[B, T+1]`` batch: its ``data`` rows, shifted by one token, then
+        its ``seq`` chunk of the T positions."""
+        d, n_data = self.mesh.index("data"), self.mesh.size("data")
+        b, t1 = tokens.shape
+        if b % n_data:
+            raise ValueError("a batch of %d does not split over 'data' %d"
+                             % (b, n_data))
+        rows = tokens[d * (b // n_data):(d + 1) * (b // n_data)]
+        t = t1 - 1
+        if t % self.seq.size:
+            raise ValueError("%d positions do not split over '%s' %d"
+                             % (t, self.seq_name, self.seq.size))
+        chunk = t // self.seq.size
+        pos0 = self.seq.index * chunk
+        return (rows[:, pos0:pos0 + chunk], rows[:, pos0 + 1:pos0 + chunk + 1],
+                pos0)
+
+
 class TransformerTrainer:
     """Owns f32 master params and Adam state on one device; one train
     step = forward + chunked loss + backward + Adam, in place.
@@ -755,17 +844,49 @@ class TransformerTrainer:
     included, runs as ONE scheduler quantum; leases are revocable only
     between quanta, so the trajectory stays bitwise that of an
     unscheduled run.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; its device is the trainer's):
+    SPMD over the mesh's ranks, every rank calling :meth:`step` with
+    the same GLOBAL ``[B, T+1]`` tokens. The rows shard over ``data``;
+    over ``seq_axis`` each rank takes its chunk of the inputs and the
+    targets after the one-token shift and attends through the ring;
+    with ``moe_experts`` the experts shard over ``model``. Params are
+    replicated but for the experts; each rank's objective is its
+    tokens' NLL over the global token count plus the (global) MoE aux
+    term, so the gradients summed over ``data x seq`` (one flat
+    all-reduce, the loss in it) are the one-device gradients. On a mesh
+    of more than one rank the step runs eagerly: a step whose
+    collectives are host-staged (gloo) cannot be captured, and
+    ``cuda_graphs=True`` raises there.
     """
 
     def __init__(self, config: TransformerConfig, device=None,
                  learning_rate: float = 3e-4, seed: int = 0,
                  steps_per_dispatch: int = 1,
                  nan_policy: Optional[str] = None,
-                 cuda_graphs: Optional[bool] = None) -> None:
+                 cuda_graphs: Optional[bool] = None, mesh=None,
+                 seq_axis: Optional[str] = "seq") -> None:
+        check_mesh(mesh)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError("device %s is not the mesh's %s"
+                                 % (device, mesh.device))
+            device = mesh.device
         self.device = resolve(device)
         if nan_policy is None:
             nan_policy = get(root.common.train.nan_policy, "warn")
         self.config = config
+        self.mesh = mesh
+        self._par = None
+        if mesh is not None and mesh.n_devices > 1:
+            if cuda_graphs:
+                raise ValueError(
+                    "cuda_graphs=True on a mesh of %d ranks: the step's "
+                    "collectives (%s) run on the host and cannot be "
+                    "captured; the meshed step runs eagerly"
+                    % (mesh.n_devices, mesh.backend))
+            cuda_graphs = False
+            self._par = _Par(mesh, seq_axis, config)
         self._graphs_on = use_graphs(cuda_graphs, self.device)
         if steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1, got %d" %
@@ -810,13 +931,17 @@ class TransformerTrainer:
         that trainer stopped. Missing m/v start at zero. After the
         first call the values are copied into the trainer's tensors,
         which a captured step reads."""
-        new = params_from_numpy(params, self.config, self.device)
+        held = None
+        if self._par is not None and self._par.expert:
+            held = self.config.moe_experts // self._par.model.size
+        new = params_from_numpy(self._held(params), self.config,
+                                self.device, held)
 
         def state(tree):
             if tree is None:
                 return [torch.zeros_like(p) for p in _tree_leaves(new)]
-            return _tree_leaves(params_from_numpy(tree, self.config,
-                                                  self.device))
+            return _tree_leaves(params_from_numpy(
+                self._held(tree), self.config, self.device, held))
 
         m, v = state(opt_m), state(opt_v)
         if self.params is None:
@@ -834,6 +959,24 @@ class TransformerTrainer:
                     dst.copy_(src)
         self._step.fill_(float(step))
         self._step_count = int(step)
+
+    def _held(self, tree):
+        """An expert-parallel rank's part of a params-shaped tree: each
+        block's ``mlp_in``/``mlp_out`` sliced to this rank's experts
+        (a tree that holds only them already passes as it is)."""
+        if self._par is None or not self._par.expert:
+            return tree
+        n = self._par.model.size
+        held = self.config.moe_experts // n
+        first = self._par.model.index * held
+        blocks = []
+        for block in tree["blocks"]:
+            block = dict(block)
+            for key in ("mlp_in", "mlp_out"):
+                if block[key].shape[0] == self.config.moe_experts:
+                    block[key] = block[key][first:first + held]
+            blocks.append(block)
+        return dict(tree, blocks=blocks)
 
     def _tokens(self, tokens) -> torch.Tensor:
         if isinstance(tokens, torch.Tensor):
@@ -862,10 +1005,79 @@ class TransformerTrainer:
                     _adam_update(p, g, m, v, corrections, self._lr)
         return loss, (~ok).to(torch.int32)
 
+    def _mesh_grads(self, tokens: torch.Tensor):
+        """(global loss, gradients summed over ``data x seq``) of this
+        rank's share of the global batch ``tokens``."""
+        par = self._par
+        inputs, targets, pos0 = par.tokens_of(tokens)
+        n_tokens = (tokens.shape[1] - 1) * tokens.shape[0]
+        params = _tree_leaves(self.params)
+        nll, aux = _loss_parts(self.params, inputs, targets, self.config,
+                               par, pos0)
+        nll = nll / n_tokens
+        aux = self.config.moe_aux_weight * aux
+        grads = torch.autograd.grad(nll + aux, params)
+        summed = collectives.sum_flat(list(grads) + [nll.detach()[None]],
+                                      par.tokens)
+        return summed[-1][0] + aux.detach(), summed[:-1]
+
+    def loss_and_grads(self, tokens):
+        """(loss, gradients in ``params`` leaf order) of a global token
+        batch under the current weights, nothing updated: on a mesh the
+        global loss and this rank's summed gradients, as :meth:`step`
+        computes them."""
+        tokens = self._tokens(tokens)
+        if self._par is not None:
+            return self._mesh_grads(tokens)
+        params = _tree_leaves(self.params)
+        loss = _loss(self.params, tokens[:, :-1], tokens[:, 1:], self.config)
+        return loss.detach(), list(torch.autograd.grad(loss, params))
+
+    def _mesh_step(self, tokens: torch.Tensor):
+        """The eager step on a mesh: the rank's gradients summed over the
+        token axes, then Adam on the rank's params (the same update as
+        :meth:`_train_step`)."""
+        self._step.add_(1)
+        corrections = _bias_corrections(self._step)
+        loss, grads = self._mesh_grads(tokens)
+        params = _tree_leaves(self.params)
+        with torch.no_grad():
+            ok = update_ok(loss, grads)
+            if self._par.expert:
+                # a rank's own experts: agree on the flag over ``model``
+                bad = collectives.all_reduce_sum((~ok).float(),
+                                                 self._par.model)
+                ok = bad == 0
+            for p, g, m, v in zip(params, grads, _tree_leaves(self.opt_m),
+                                  _tree_leaves(self.opt_v)):
+                if self.nan_policy == "skip":
+                    _adam_update_gated(p, g, m, v, corrections, self._lr,
+                                       ok)
+                else:
+                    _adam_update(p, g, m, v, corrections, self._lr)
+        return loss, (~ok).to(torch.int32)
+
+    def eval_loss(self, tokens) -> torch.Tensor:
+        """The loss of a global token batch without a step (0-d f32
+        device tensor; on a mesh the global loss on every rank)."""
+        tokens = self._tokens(tokens)
+        with torch.no_grad():
+            if self._par is None:
+                return _loss(self.params, tokens[:, :-1], tokens[:, 1:],
+                             self.config)
+            inputs, targets, pos0 = self._par.tokens_of(tokens)
+            nll, aux = _loss_parts(self.params, inputs, targets,
+                                   self.config, self._par, pos0)
+            nll = collectives.all_reduce_sum(
+                nll / tokens[:, 1:].numel(), self._par.tokens)
+            return nll + self.config.moe_aux_weight * aux
+
     def _run_step(self, tokens: torch.Tensor):
         """One step: a replay of the step captured for this batch shape
         (captured at its first call), or the eager step. The captured
         outputs are overwritten by the next replay: callers copy them."""
+        if self._par is not None:
+            return self._mesh_step(tokens)
         if not self._graphs_on:
             return self._train_step(tokens)
         graph = self._graphs.get(tuple(tokens.shape))
@@ -926,7 +1138,13 @@ class TransformerTrainer:
 
     def generate_logits(self, tokens) -> torch.Tensor:
         """Full-sequence logits [B, T, V] f32 under the current
-        weights."""
+        weights (one device: the sharded forward is the serving half of
+        the mesh, ROADMAP.md queue 1 item 7b)."""
+        if self._par is not None:
+            raise NotImplementedError(
+                "generate_logits on a mesh of %d ranks waits for sharded "
+                "serving (ROADMAP.md queue 1 item 7b)"
+                % self.mesh.n_devices)
         with torch.inference_mode():
             return forward(self.params, self._tokens(tokens),
                            self.config)[0]

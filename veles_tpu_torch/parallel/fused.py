@@ -40,9 +40,14 @@ and each loader-step dispatch as one quantum of a shared device
 
 :func:`fuse_forwards`, ``FusedClassifierTrainer.from_forwards``,
 :meth:`~FusedClassifierTrainer.write_back` and :func:`train_fused`
-carry a unit graph's forward stack onto this plane and back. The
-reference's mesh and tensor-parallel placement, ``shard_*`` and AOT
-dispatch are queued in ROADMAP.md.
+carry a unit graph's forward stack onto this plane and back.
+
+Over a mesh (``parallel.mesh``; ``mesh=``, ``tensor_parallel=``) the
+trainer is SPMD, one process a rank: data parallelism over ``data``
+and the reference's Megatron layout (:func:`param_specs`) over
+``model``, with the collectives written out (``parallel.collectives``)
+where the reference's GSPMD inserts them. The reference's AOT dispatch
+is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -65,6 +70,8 @@ from veles_tpu_torch.nn.pooling import pool_raw
 from veles_tpu_torch.obs import profile as obs_profile
 from veles_tpu_torch.ops import _build
 from veles_tpu_torch.ops.rng import fold_in, uniform_fill
+from veles_tpu_torch.parallel import collectives
+from veles_tpu_torch.parallel.mesh import check_mesh
 from veles_tpu_torch.sched import quantum_or_null
 
 
@@ -196,37 +203,151 @@ def _fc(h, w, b, compute_dtype, out_dtype):
     .astype(out_dtype) + b``: operands rounded to the compute dtype,
     f32 accumulation. An f32 result (the logits head) takes the
     product in f32 on the rounded operands; a compute-dtype result is
-    the compute-dtype product (f32 accumulation, one rounding)."""
+    the compute-dtype product (f32 accumulation, one rounding). ``b``
+    None: no bias."""
     h2 = h.reshape(h.shape[0], -1).to(compute_dtype)
     wc = w.to(compute_dtype)
     if out_dtype != compute_dtype:
         z = (h2.float() @ wc.float()).to(out_dtype)
     else:
         z = h2 @ wc
-    return z + b.to(out_dtype)
+    return z if b is None else z + b.to(out_dtype)
+
+
+def param_specs(specs: Tuple[Any, ...], tensor_parallel: bool):
+    """The reference's PartitionSpecs as tuples (an axis name or None a
+    dim): pure data parallelism replicates everything; tensor
+    parallelism alternates the sharded dim per *parametric* layer
+    (Megatron column then row for FC, output then input channels for
+    conv), one psum a pair."""
+    out = []
+    parametric_idx = 0
+    for spec in specs:
+        kind = spec[0]
+        if kind not in ("fc", "conv"):
+            out.append({})
+            continue
+        if not tensor_parallel:
+            out.append({"w": (), "b": ()})
+        elif parametric_idx % 2 == 0:   # shard output features/channels
+            w = (None, "model") if kind == "fc" else \
+                (None, None, None, "model")
+            out.append({"w": w, "b": ("model",)})
+        else:                           # shard input features/channels
+            w = ("model", None) if kind == "fc" else \
+                (None, None, "model", None)
+            out.append({"w": w, "b": ()})
+        parametric_idx += 1
+    return out
+
+
+class _Shards:
+    """A classifier's place on a mesh: its ``data`` rows and, under
+    tensor parallelism, its ``model`` shards (the layouts of
+    :func:`param_specs`, the role of each parametric layer: "col"
+    shards the output channels, "row" the input channels)."""
+
+    def __init__(self, mesh, specs, tensor_parallel: bool) -> None:
+        self.mesh = mesh
+        self.data = mesh.axis("data")
+        self.model = mesh.axis("model") if tensor_parallel else \
+            mesh.axis()
+        self.pspecs = param_specs(specs, self.model.size > 1)
+        self.roles = [None if not p or not p["w"] else
+                      ("col" if p["w"][-1] == "model" else "row")
+                      for p in self.pspecs]
+
+    def rows(self, x):
+        """This rank's rows of a global batch (dim 0 over ``data``)."""
+        n = self.data.size
+        if x.shape[0] % n:
+            raise ValueError("a batch of %d does not split over 'data' %d"
+                             % (x.shape[0], n))
+        step = x.shape[0] // n
+        return x[self.data.index * step:(self.data.index + 1) * step]
+
+    def local(self, leaf, spec):
+        """This rank's shard of a whole leaf under ``spec``."""
+        for dim, name in enumerate(spec):
+            if name is not None:
+                n = self.model.size
+                if leaf.shape[dim] % n:
+                    raise ValueError("dim %d of %s does not split over "
+                                     "'model' %d" % (dim,
+                                                     tuple(leaf.shape), n))
+                step = leaf.shape[dim] // n
+                idx = [slice(None)] * leaf.ndim
+                idx[dim] = slice(self.model.index * step,
+                                 (self.model.index + 1) * step)
+                leaf = leaf[tuple(idx)]
+        return leaf
+
+
+def _gather_channels(h, shards):
+    """A channel-sharded activation made whole (varying: the ranks'
+    cotangents of it are summed back by the gather's transpose). The
+    operations that need the whole channel axis (LRN, the flatten into
+    a row-sharded FC) take it here, where GSPMD reshards in the
+    reference."""
+    return collectives.all_gather(h, shards.model, h.ndim - 1)
 
 
 def _apply(specs: Tuple[Any, ...], train: bool, params, x, key: int,
-           compute_dtype: torch.dtype, kernel_impl: Optional[str] = None):
+           compute_dtype: torch.dtype, kernel_impl: Optional[str] = None,
+           shards: Optional[_Shards] = None, masks: Optional[list] = None):
     """Forward pass; a softmax tail returns LOGITS (the loss takes
     log_softmax). Inter-layer activations live in the compute dtype,
     the logits head in the params' dtype (f32). ``key`` is the step's
     dropout seed (unused unless ``train``); ``kernel_impl`` goes to the
-    LRN and fill wrappers."""
+    LRN and fill wrappers.
+
+    ``shards`` (a mesh): ``x`` is this rank's rows and ``params`` its
+    shards. A column layer computes its output channels; a row layer
+    its input channels' partial product, summed over ``model``
+    (``psum``); an activation held alike by every ``model`` rank enters
+    a column layer through ``pvary``. LRN, the flatten into a row FC
+    and a sharded logits head gather the channels first. Dropout fills
+    the mask of the GLOBAL activation (K8, the one-rank key) and takes
+    this rank's rows and channels, so the masks are the one-rank masks.
+    ``masks``: a list that receives each dropout's keep mask."""
     h = x.to(compute_dtype)
     if h.ndim == 3:
         h = h[..., None]
     last_parametric = max(
         (i for i, s in enumerate(specs) if s[0] in ("fc", "conv")),
         default=-1)
+    model = shards.model if shards is not None else None
+    tp = model is not None and model.size > 1
+    sharded = False     # channels split over ``model`` (else whole)
+    invariant = True    # the same on every ``model`` rank
     for i, (spec, p) in enumerate(zip(specs, params)):
         kind = spec[0]
         last = i == last_parametric
+        role = shards.roles[i] if tp else None
+        if kind in ("fc", "conv"):
+            out_dtype = p["w"].dtype if last else compute_dtype
+            if role == "col":
+                if sharded:
+                    h, sharded, invariant = (_gather_channels(h, shards),
+                                             False, False)
+                if invariant and h.requires_grad:
+                    h = collectives.pvary(h, model)
+            elif role == "row":
+                if kind == "fc" and h.ndim > 2:
+                    if sharded:
+                        h = _gather_channels(h, shards)
+                    elif invariant:
+                        h = collectives.pvary(h, model)
+                    h = h.reshape(h.shape[0], -1).chunk(
+                        model.size, dim=1)[model.index]
+                elif not sharded:
+                    if invariant:
+                        h = collectives.pvary(h, model)
+                    h = h.chunk(model.size, dim=-1)[model.index]
+            bias = None if role == "row" else p["b"]
         if kind == "fc":
             act = spec[1]
-            out_dtype = p["w"].dtype if last else compute_dtype
-            z = _fc(h, p["w"], p["b"], compute_dtype, out_dtype)
-            h = z if act == "softmax" else ACTIVATIONS[act](z)
+            z = _fc(h, p["w"], bias, compute_dtype, out_dtype)
         elif kind == "conv":
             _, act, strides, padding = spec
             # space-to-depth for strided few-channel stems (conv1), as
@@ -238,37 +359,61 @@ def _apply(specs: Tuple[Any, ...], train: bool, params, x, key: int,
                       padding[0][0] == padding[0][1] and
                       padding[1][0] == padding[1][1])
             conv_fn = conv_s2d_raw if s2d_ok else conv_raw
-            z = conv_fn(h, p["w"], p["b"], strides, padding,
-                        compute_dtype,
-                        out_dtype=p["w"].dtype if last else compute_dtype)
-            h = z if act == "softmax" else ACTIVATIONS[act](z)
+            z = conv_fn(h, p["w"], bias, strides, padding, compute_dtype,
+                        out_dtype=out_dtype)
         elif kind == "pool":
             _, pkind, ky, kx, strides = spec
             h = pool_raw(pkind, ky, kx, strides, h)
         elif kind == "lrn":
             _, k, n, alpha, beta = spec
+            if sharded:
+                h, sharded, invariant = (_gather_channels(h, shards), False,
+                                         False)
             h = lrn_raw(h, k, n, alpha, beta, impl=kernel_impl)
         elif kind == "dropout":
             if train:
                 keep = 1.0 - spec[1]
-                fill = uniform_fill(fold_in(key, i), h.shape,
+                shape = tuple(h.shape)
+                if shards is not None:
+                    shape = (shape[0] * shards.data.size,) + shape[1:-1] + (
+                        shape[-1] * (model.size if sharded else 1),)
+                fill = uniform_fill(fold_in(key, i), shape,
                                     device=h.device, impl=kernel_impl)
-                h = h * ((fill < keep).to(h.dtype) / keep)
+                if shards is not None:
+                    fill = shards.rows(fill)
+                    if sharded:
+                        fill = fill.chunk(model.size, dim=-1)[model.index]
+                mask = fill < keep
+                if masks is not None:
+                    masks.append(mask)
+                h = h * (mask.to(h.dtype) / keep)
         else:
             raise ValueError("unknown fused layer kind %r" % (kind,))
+        if kind in ("fc", "conv"):
+            if role == "row":
+                z = collectives.psum(z, model) + p["b"].to(out_dtype)
+                sharded, invariant = False, True
+            elif role == "col":
+                sharded, invariant = True, False
+            h = z if act == "softmax" else ACTIVATIONS[act](z)
+    if sharded:
+        h = collectives.all_gather_invariant(h, model, h.ndim - 1)
     return h
 
 
 def _loss_fn(specs, train, params, x, labels, key, compute_dtype,
-             kernel_impl=None):
+             kernel_impl=None, shards=None, n_valid=None, masks=None):
     """Mean softmax cross-entropy over the rows with ``labels >= 0``
-    (padding rows carry -1); returns (loss, logits)."""
+    (padding rows carry -1); returns (loss, logits). ``n_valid``: the
+    count to divide by (a mesh rank's rows count toward the GLOBAL
+    batch's mean; default: these rows' count)."""
     logits = _apply(specs, train, params, x, key, compute_dtype,
-                    kernel_impl)
+                    kernel_impl, shards, masks)
     valid = labels >= 0
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits, dim=-1).gather(1, safe[:, None])[:, 0]
-    n_valid = valid.sum().clamp_min(1)
+    if n_valid is None:
+        n_valid = valid.sum().clamp_min(1)
     loss = -(logp * valid).sum() / n_valid
     return loss, logits
 
@@ -280,15 +425,27 @@ def _leaves(params) -> List[torch.Tensor]:
 def _train_step(specs, params, velocity, x, labels, key, lr: float,
                 weight_decay: float, momentum: float, compute_dtype,
                 skip_nonfinite: bool = False,
-                kernel_impl: Optional[str] = None):
+                kernel_impl: Optional[str] = None,
+                shards: Optional[_Shards] = None, n_valid=None,
+                masks: Optional[list] = None):
     """One step in place on ``params`` and ``velocity``: forward, loss,
     autograd backward, then ``v = momentum v - lr (g + wd w)`` (no
     decay on biases) and ``p += v``. Returns (loss, n_err, nonfinite)
-    as 0-d device tensors."""
+    as 0-d device tensors. On a mesh (``shards``; ``x``/``labels`` this
+    rank's rows, ``n_valid`` the global batch's valid rows) the
+    gradients, the loss and the error count are summed over ``data``
+    by ONE all-reduce of one flat buffer before the update."""
     loss, logits = _loss_fn(specs, True, params, x, labels, key,
-                            compute_dtype, kernel_impl)
+                            compute_dtype, kernel_impl, shards, n_valid,
+                            masks)
     grads = torch.autograd.grad(loss, _leaves(params))
     loss = loss.detach()
+    valid = labels >= 0
+    n_err = (valid & (logits.detach().argmax(dim=-1) != labels)).sum()
+    if shards is not None and shards.data.size > 1:
+        summed = collectives.sum_flat(
+            list(grads) + [loss[None], n_err.float()[None]], shards.data)
+        grads, loss, n_err = summed[:-2], summed[-2][0], summed[-1][0]
     with torch.no_grad():
         ok = update_ok(loss, grads)
         if skip_nonfinite:
@@ -318,23 +475,26 @@ def _train_step(specs, params, velocity, x, labels, key, lr: float,
             else:
                 p["w"].copy_(p["w"] + nv_w)
                 p["b"].copy_(p["b"] + nv_b)
-        valid = labels >= 0
-        pred = logits.detach().argmax(dim=-1)
-        n_err = (valid & (pred != labels)).sum().to(torch.int32)
-    return loss, n_err, (~ok).to(torch.int32)
+    return loss, n_err.to(torch.int32), (~ok).to(torch.int32)
 
 
 def _train_multi_step(specs, params, velocity, xs, labels, key: int,
                       counters, lrs, weight_decay, momentum, compute_dtype,
-                      skip_nonfinite=False, kernel_impl=None):
+                      skip_nonfinite=False, kernel_impl=None, local=None):
     """K steps over ``xs``/``labels`` ([K, B, ...]), step k's dropout
     seed folded from ``counters[k]`` and its learning rate ``lrs[k]``:
     the same ops as K :func:`_train_step` calls. Returns the [K] losses,
-    error counts and non-finite flags."""
-    out = [_train_step(specs, params, velocity, x, lbl, fold_in(key, c),
-                       lr, weight_decay, momentum, compute_dtype,
-                       skip_nonfinite, kernel_impl)
-           for x, lbl, c, lr in zip(xs, labels, counters, lrs)]
+    error counts and non-finite flags. ``local``: a mesh rank's
+    ``(x, labels) -> (x, labels, shards, n_valid)``."""
+    out = []
+    for x, lbl, c, lr in zip(xs, labels, counters, lrs):
+        extra = ()
+        if local is not None:
+            x, lbl, *extra = local(x, lbl)
+        out.append(_train_step(specs, params, velocity, x, lbl,
+                               fold_in(key, c), lr, weight_decay, momentum,
+                               compute_dtype, skip_nonfinite, kernel_impl,
+                               *extra))
     return tuple(torch.stack(m) for m in zip(*out))
 
 
@@ -369,6 +529,15 @@ class FusedClassifierTrainer:
     scheduler quantum, with
     the same counters, dropout keys and learning-rate stream, so the
     trajectory stays bitwise that of an unscheduled run.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; its device is the trainer's):
+    SPMD over its ranks, every rank calling :meth:`step` with the same
+    GLOBAL batch. The rows shard over ``data``; ``tensor_parallel``
+    shards the params over ``model`` as the reference's
+    :func:`param_specs` place them, each rank holding exactly its
+    shards. The loss is the mean over the global batch, and the
+    gradients are summed over ``data`` by one all-reduce of one flat
+    buffer a step.
     """
 
     def __init__(self, specs: Sequence[Any], params: List[Dict[str, Any]],
@@ -376,7 +545,16 @@ class FusedClassifierTrainer:
                  momentum: float = 0.9, lr_policy=None, compute_dtype=None,
                  dropout_seed: int = 0, steps_per_dispatch: int = 1,
                  nan_policy: Optional[str] = None,
-                 kernel_impl: Optional[str] = None, device=None) -> None:
+                 kernel_impl: Optional[str] = None, device=None,
+                 mesh=None, tensor_parallel: bool = False) -> None:
+        check_mesh(mesh)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError("device %s is not the mesh's %s"
+                                 % (device, mesh.device))
+            device = mesh.device
+        elif tensor_parallel:
+            raise ValueError("tensor_parallel needs a mesh")
         self.device = resolve(device)
         if steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1, got %d" %
@@ -399,6 +577,13 @@ class FusedClassifierTrainer:
         self.weight_decay = weight_decay
         self.momentum = momentum
         self.dropout_seed = int(dropout_seed)
+        self.mesh = mesh
+        self.tensor_parallel = bool(tensor_parallel)
+        self._shards = None if mesh is None else _Shards(
+            mesh, self.specs, self.tensor_parallel)
+        #: a list to receive each step's dropout keep masks (this rank's
+        #: part), or None
+        self.record_masks: Optional[list] = None
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" \
                 else torch.float32
@@ -429,13 +614,19 @@ class FusedClassifierTrainer:
         tensors in the reference's layout, e.g. a JAX trainer's through
         ``jax.device_get``: training continues where that trainer
         stopped. Missing momentum starts at zero."""
-        def tensor(v):
+        def tensor(v, spec):
+            if self._shards is not None:
+                v = self._shards.local(v, spec)
             if torch.is_tensor(v):
                 return v.detach().to(self.device, torch.float32, copy=True)
             return torch.from_numpy(np.array(v, np.float32)).to(self.device)
 
+        specs = self._shards.pspecs if self._shards is not None else \
+            [{k: () for k in p} for p in params]
+
         def tensors(tree):
-            return [{k: tensor(v) for k, v in p.items()} for p in tree]
+            return [{k: tensor(v, sp[k]) for k, v in p.items()}
+                    for p, sp in zip(tree, specs)]
 
         self.params = tensors(params)
         for leaf in _leaves(self.params):
@@ -445,12 +636,48 @@ class FusedClassifierTrainer:
              for k, v in p.items()} for p in self.params]
         self._step_counter = int(step)
 
-    def params_numpy(self) -> List[Dict[str, np.ndarray]]:
+    def params_numpy(self, whole: bool = False
+                     ) -> List[Dict[str, np.ndarray]]:
         """The params as numpy in the reference's layout (the
         counterpart of the reference's ``write_back``); ``{}`` for
-        parameterless layers, so the list feeds a new trainer as is."""
-        return [{k: v.detach().cpu().numpy().copy() for k, v in p.items()}
-                for p in self.params]
+        parameterless layers, so the list feeds a new trainer as is. On
+        a tensor-parallel mesh: this rank's shards, or with ``whole``
+        the whole params, gathered over ``model`` (a collective: every
+        rank of the mesh calls it)."""
+        out = []
+        for p, sp in zip(self.params, self._pspecs()):
+            leaves = {}
+            for k, v in p.items():
+                v = v.detach()
+                if whole and "model" in sp[k]:
+                    v = collectives.all_gather_cat(
+                        v.contiguous(), self._shards.model,
+                        sp[k].index("model"))
+                leaves[k] = v.cpu().numpy().copy()
+            out.append(leaves)
+        return out
+
+    def _pspecs(self):
+        if self._shards is not None:
+            return self._shards.pspecs
+        return [{k: () for k in p} for p in self.params]
+
+    def _local(self, x, labels):
+        """(x, labels) of a global batch -> this rank's (x rows, label
+        rows, shards, global valid-row count) on the device; only the
+        rank's rows cross to it."""
+        sh = self._shards
+        labels = self._labels(labels)
+        n_valid = (labels >= 0).sum().clamp_min(1)
+        x = sh.rows(x)
+        return (self._x(x), sh.rows(labels), sh, n_valid)
+
+    def _step_args(self, x, labels):
+        """The batch arguments of :func:`_train_step` for this trainer:
+        the whole batch, or on a mesh this rank's part of it."""
+        if self._shards is not None:
+            return self._local(x, labels)
+        return (self._x(x), self._labels(labels))
 
     # -- non-finite sentinel ------------------------------------------------
     @property
@@ -486,14 +713,15 @@ class FusedClassifierTrainer:
         "n_err", "nonfinite"}`` as 0-d device tensors."""
         self._step_counter += 1
         key = fold_in(self.dropout_seed, self._step_counter)
-        x, labels = self._x(x), self._labels(labels)
+        x, labels, *extra = self._step_args(x, labels)
         lr = self._lr(self._step_counter)
         with self._quantum():
             loss, n_err, nonfinite = _train_step(
                 self.specs, self.params, self.velocity, x, labels, key,
                 lr, float(self.weight_decay), float(self.momentum),
                 self.compute_dtype, self.nan_policy == "skip",
-                self.kernel_impl)
+                self.kernel_impl, *(extra or (None, None)),
+                self.record_masks)
         self._sentinel.note(nonfinite)
         obs_profile.on_step()
         return {"loss": loss, "n_err": n_err, "nonfinite": nonfinite}
@@ -503,10 +731,12 @@ class FusedClassifierTrainer:
         batches). Returns ``{"loss", "n_err", "nonfinite"}`` as [K]
         device tensors; numerics equal K sequential :meth:`step` calls
         (same dropout seeds and learning-rate stream)."""
+        local = self._local if self._shards is not None else None
         if isinstance(xs, (list, tuple)):
-            xs = torch.stack([self._x(x) for x in xs])
-            labels = torch.stack([self._labels(lb) for lb in labels])
-        xs, labels = self._x(xs), self._labels(labels)
+            xs = torch.stack([torch.as_tensor(x) for x in xs])
+            labels = torch.stack([torch.as_tensor(lb) for lb in labels])
+        if local is None:
+            xs, labels = self._x(xs), self._labels(labels)
         k = int(xs.shape[0])
         counters = list(range(self._step_counter + 1,
                               self._step_counter + k + 1))
@@ -518,7 +748,7 @@ class FusedClassifierTrainer:
                 self.dropout_seed, counters, lrs,
                 float(self.weight_decay), float(self.momentum),
                 self.compute_dtype, self.nan_policy == "skip",
-                self.kernel_impl)
+                self.kernel_impl, local)
         self._sentinel.note(nonfinite)
         obs_profile.on_step(k)
         return {"loss": losses, "n_err": n_errs, "nonfinite": nonfinite}
@@ -592,12 +822,14 @@ class FusedClassifierTrainer:
                 for (perm, start, size), c, lr in zip(windows, counters,
                                                       lrs):
                     x, labels = loader.gather(start, size, dataset, perm)
+                    x, labels, *extra = self._step_args(x, labels)
                     out.append(_train_step(
                         self.specs, self.params, self.velocity, x,
-                        labels.long(), fold_in(self.dropout_seed, c), lr,
+                        labels, fold_in(self.dropout_seed, c), lr,
                         float(self.weight_decay), float(self.momentum),
                         self.compute_dtype, self.nan_policy == "skip",
-                        self.kernel_impl))
+                        self.kernel_impl, *(extra or (None, None)),
+                        self.record_masks))
             return out
 
         def step() -> Dict[str, Any]:
@@ -623,10 +855,18 @@ class FusedClassifierTrainer:
         return multi_step
 
     def predict(self, x) -> torch.Tensor:
-        """Logits [B, classes] f32 of the forward without dropout."""
+        """Logits [B, classes] f32 of the forward without dropout (on a
+        mesh: every rank computes its rows, and all get the whole
+        batch's logits; a collective)."""
         with torch.no_grad():
-            return _apply(self.specs, False, self.params, self._x(x), 0,
-                          self.compute_dtype, self.kernel_impl)
+            if self._shards is None:
+                return _apply(self.specs, False, self.params, self._x(x), 0,
+                              self.compute_dtype, self.kernel_impl)
+            logits = _apply(self.specs, False, self.params,
+                            self._x(self._shards.rows(x)), 0,
+                            self.compute_dtype, self.kernel_impl,
+                            self._shards)
+            return collectives.all_gather_cat(logits, self._shards.data, 0)
 
     def count_errors(self, x, labels) -> int:
         """Masked argmax error count on a (possibly padded) batch."""
@@ -640,11 +880,10 @@ class FusedClassifierTrainer:
         """Put the trained params into the forward units' Arrays (host
         copies; the next device read uploads them). The gradient-descent
         units share these Arrays."""
-        for unit, p in zip(forwards, self.params):
+        for unit, p in zip(forwards, self.params_numpy(whole=True)):
             if p:
-                unit.weights.reset(p["w"].detach().to("cpu",
-                                                      copy=True).numpy())
-                unit.bias.reset(p["b"].detach().to("cpu", copy=True).numpy())
+                unit.weights.reset(p["w"])
+                unit.bias.reset(p["b"])
 
 
 def train_fused(workflow, mesh=None, tensor_parallel: bool = False,
@@ -669,14 +908,14 @@ def train_fused(workflow, mesh=None, tensor_parallel: bool = False,
     a VALID minibatch reads its count when scored. The run ends with a
     VALID sweep of the trained params, as the unit graph's decision
     scores them. Returns the decision's metrics (min validation error
-    %, its epoch, min train error %, epochs). ``mesh`` and
-    ``tensor_parallel`` wait for the port's mesh."""
+    %, its epoch, min train error %, epochs).
+
+    ``mesh``/``tensor_parallel``: the fused trainer's (every rank runs
+    the same workflow, whose loader serves the same global minibatches;
+    each rank steps on its rows and shards, and the whole params are
+    written back on every rank)."""
     from veles_tpu_torch.loader.base import TRAIN, VALID
 
-    if mesh is not None or tensor_parallel:
-        raise NotImplementedError(
-            "train_fused over a mesh waits for the port's mesh "
-            "(ROADMAP.md queue 1 item 7)")
     if workflow.device is None:
         raise RuntimeError("train_fused needs an initialized workflow "
                            "(workflow.initialize(device=...))")
@@ -697,7 +936,8 @@ def train_fused(workflow, mesh=None, tensor_parallel: bool = False,
         momentum=float(getattr(gd, "momentum", 0.0)),
         lr_policy=policy, compute_dtype=compute_dtype,
         steps_per_dispatch=steps_per_dispatch, kernel_impl=kernel_impl,
-        device=workflow.device.torch_device)
+        device=workflow.device.torch_device, mesh=mesh,
+        tensor_parallel=tensor_parallel)
 
     if max_epochs is None:
         max_epochs = getattr(workflow.decision, "max_epochs", 10) or 10

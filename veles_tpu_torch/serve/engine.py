@@ -136,8 +136,8 @@ class InferenceEngine:
                  cuda_graphs: Optional[bool] = None, mesh=None) -> None:
         if mesh is not None:
             raise NotImplementedError(
-                "a sharded InferenceEngine waits for the port's mesh "
-                "(ROADMAP.md queue 1 item 7)")
+                "a sharded InferenceEngine waits for sharded serving "
+                "(ROADMAP.md queue 1 item 7b)")
         self.device = resolve(device)
         self._graphs_on = use_graphs(cuda_graphs, self.device)
         self.name = name
