@@ -263,7 +263,41 @@ without them, and on any failed phase. Phases, in order:
    at 2 stages against ``reference_loss_fn``; (e) (a)'s data-parallel
    step over NCCL with one rank, bitwise the unsharded step. Each leg's
    step p50 and the gloo bytes staged a step are logged; the two ranks
-   time-share the card, so the times say nothing of scaling over cards.
+   time-share the card, so the times say nothing of scaling over cards;
+22. sharded serving at full width (``veles_tpu_torch.serve.sharding``,
+   the engines' ``mesh=``): phase 3's LM (bf16, ``init_params(seed=0)``)
+   at tp=2, two ranks sharing the card over gloo, rank 0 serving and
+   rank 1 following its device calls: the slab engine (8 slots of 2048)
+   and the paged engine (16-token pages, its pool sized per shard by
+   ``PagePool.from_device(16, token_bytes // 2)``) behind the registry
+   and ``ServeServer``, phase 3's 8 prompts x 32 tokens over HTTP (each
+   sent once the previous one streamed its first token): the greedy
+   tokens against phase 3's one-rank tokens (how many are equal, the
+   first divergence and the one-rank logit gap there: the sum over
+   ``model`` reorders bf16 additions, so this is reported, not
+   required); K1 and K4 (slab) or K5 (pool) launched by every rank,
+   ``layers`` a device call, on its 4 heads; ``kv_bytes_per_shard`` x 2
+   == ``kv_bytes_total``; prefill of 8 x 1024 and 32 rounds timed
+   (p50/p99) with the bytes a round staged, beside phase 3's one-rank
+   engine; the same LM at f32 and 2 layers on both planes, token for
+   token one rank's; ``alexnet_fused()`` at tp=2 through
+   ``InferenceEngine.from_specs(mesh=)``, phase 11's buckets within
+   phase 11's bound of one rank, 2 K6 an apply on each rank; and NCCL at
+   world 1: the tp=1 engine's tokens and K/V slab bitwise the
+   unsharded engine's, both keeping their CUDA graphs;
+23. the training farm (``veles_tpu_torch.distributed``) over phase 14's
+   ``AlexNetWorkflow`` (its widths, one epoch of 1,024 TRAIN and 256
+   VALID images): (a) a coordinator and one worker on a thread of this
+   process, the weights, biases and validation error bitwise the
+   standalone run's under deterministic cuDNN; (b) two worker processes
+   of their own on the card under the ``none`` and the ``int8`` codecs:
+   the minibatches applied are the standalone run's, each once, the
+   jobs conserved, the wire bytes an update (``WireStats``) and TRAIN
+   images/s beside phase 14; (c) the same farm with a worker killed by
+   ``FaultPlan("kill:1@2")``: its job requeued, the minibatches
+   conserved; (d) phase 19a's ``TransformerWorkflow`` at 2 layers
+   through one worker, its params bitwise the standalone run's;
+   exactly 2 K6 a job on every worker.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -5784,6 +5818,853 @@ def mesh_phase(torch, dev, card, plan=None):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: sharded serving at full width
+# ---------------------------------------------------------------------------
+
+#: the tensor-parallel degree: two ranks share the card over gloo
+SHARD_TP = 2
+#: decode rounds timed on each sharded engine directly (phase 3's count)
+SHARD_ROUNDS = 32
+#: the share of the card's memory headroom each rank's page pool takes
+#: (``PagePool.from_device``): two ranks and this process share the card
+SHARD_POOL_FRACTION = 0.2
+#: the f32 legs: full width, this depth
+SHARD_F32_LAYERS = 2
+
+
+def _shard_plan(dev):
+    """What the ranks of phase 22 run (they import this module afresh,
+    so nothing set on it in this process reaches them)."""
+    return dict(full=FULL, tp=SHARD_TP, rounds=SHARD_ROUNDS, n_tok=32,
+                prompts=serving_prompts(FULL["vocab"]), timing_len=1024,
+                pool_fraction=SHARD_POOL_FRACTION,
+                f32_layers=SHARD_F32_LAYERS, buckets=APPLY_BUCKETS,
+                apply_rows=APPLY_BUCKETS[-1], count=dev.type == "cuda")
+
+
+def _apply_rows(n):
+    """phase 11's rows (seed 12)."""
+    return np.random.default_rng(12).random((n, 224, 224, 3),
+                                            dtype=np.float32)
+
+
+def _engine_timing(torch, engine, step, vocab, plan):
+    """Prefill of 8 x ``timing_len`` tokens (phase 3's batch of 8 x 1024,
+    its shape warmed first) and the plan's decode rounds timed on the
+    engine directly (each ends synchronized: the tokens come to the
+    host), with the bytes a round staged through the host."""
+    from veles_tpu_torch.parallel import collectives
+    rng = np.random.default_rng(2)
+    batch = [rng.integers(1, vocab, plan["timing_len"]) for _ in range(8)]
+    rounds = plan["rounds"]
+    for slot in engine.admit(batch)[0]:
+        engine.release(slot)
+    t0 = time.monotonic()
+    slots, _ = engine.admit(batch)
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    step()
+    staged0 = sum(collectives.STAGED_BYTES.values())
+    _, ms = timed_rounds(step, rounds)
+    staged = (sum(collectives.STAGED_BYTES.values()) - staged0) / rounds
+    for slot in slots:
+        engine.release(slot)
+    return dict(prefill_8x1024_ms=prefill_ms, round_ms=pcts(ms),
+                staged_per_round=staged)
+
+
+def _serve_http(engine, prompts, n_tok):
+    """The leader's engine behind the registry and the HTTP front:
+    phase 3's prompts over ``POST /generate``, each sent once the
+    previous one streamed its first token."""
+    from veles_tpu_torch.serve import ModelRegistry, ServeServer
+    registry = ModelRegistry()
+    registry.add_generative("lm", engine)
+    server = ServeServer(registry, port=0, timeout=600)
+    try:
+        with _post(server.url, {"prompt": [1, 2, 3],
+                                "max_tokens": 2}) as resp:
+            json.loads(resp.read())
+        t0 = time.monotonic()
+        tokens = _staggered_generate(server.url, prompts, n_tok)
+        wall = time.monotonic() - t0
+    finally:
+        server.stop()
+    for i, a in enumerate(tokens):
+        if not isinstance(a, list) or len(a) != n_tok:
+            raise AssertionError("sharded request %d answered %r" % (i, a))
+    return tokens, wall
+
+
+def shard_rank(rank, plan):
+    """A rank of phase 22's world: the leader (model index 0) serves,
+    the other follows, leg by leg; every rank reports its launches,
+    staged bytes, device calls and shard shapes for each leg."""
+    import torch
+
+    from veles_tpu_torch.models.flagship import alexnet_fused
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params)
+    from veles_tpu_torch.parallel import collectives
+    from veles_tpu_torch.serve import (GenerativeEngine, InferenceEngine,
+                                       PagedGenerativeEngine, PagePool)
+    from veles_tpu_torch.serve.paging import kv_bytes_per_token
+    from veles_tpu_torch.serve.sharding import serve_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = _mesh_counters()
+    collectives.reset_staged()
+    mesh = serve_mesh(plan["tp"], timeout_s=MESH_TIMEOUT_S)
+    dev = mesh.device
+    leader = mesh.index("model") == 0
+    out = {"device": str(dev), "leader": leader, "coords": mesh.coords}
+    full, n_tok, prompts = plan["full"], plan["n_tok"], plan["prompts"]
+
+    def leg(name, engine, drive):
+        before, staged0 = counters.read(), dict(collectives.STAGED_BYTES)
+        calls0 = dict(engine._shard.calls)
+        t0 = time.monotonic()
+        if leader:
+            try:
+                got = drive(engine)
+            finally:
+                engine.stop_followers()
+        else:
+            got = engine.follow()
+        _mesh_sync(torch, dev)
+        out[name] = dict(
+            result=got, wall_s=time.monotonic() - t0,
+            launches=counters.delta(before),
+            staged={k: v - staged0.get(k, 0)
+                    for k, v in collectives.STAGED_BYTES.items()},
+            calls={k: v - calls0.get(k, 0)
+                   for k, v in engine._shard.calls.items()})
+        if hasattr(engine, "_weights"):     # the LM engines' shards
+            out[name].update(
+                kv_shard=tuple(engine._cache["k"].shape),
+                qkv_shard=tuple(engine._weights["blocks"][0]["qkv"].shape))
+
+    # the slab, bf16 at full width, over HTTP
+    config = TransformerConfig(compute="bfloat16", **full)
+    params = init_params(config, seed=0)
+    engine = GenerativeEngine(config, params, max_slots=8, mesh=mesh)
+
+    def drive_slab(engine):
+        tokens, wall = _serve_http(engine, prompts, n_tok)
+        timing = _engine_timing(torch, engine, engine.decode,
+                                full["vocab"], plan)
+        return dict(tokens=tokens, http_s=wall, stats=engine.decode_stats(),
+                    **timing)
+    leg("slab", engine, drive_slab)
+    del engine
+    _mesh_free(torch)
+
+    # the page pool sized per shard from the card's budget
+    token_bytes = kv_bytes_per_token(config.layers, config.heads,
+                                     config.head_dim, 2)
+    sizes = None
+    if leader:
+        sizes = (PagePool.from_device(
+            16, token_bytes // plan["tp"],
+            fraction=plan["pool_fraction"]).n_pages,
+            PagePool.from_device(16, token_bytes,
+                                 fraction=plan["pool_fraction"]).n_pages)
+    n_pages, one_rank_pages = collectives.broadcast_object(
+        sizes, mesh.axis("model"))
+    out["pool_pages"] = (n_pages, one_rank_pages)
+    engine = PagedGenerativeEngine(config, params, max_slots=8,
+                                   page_size=16, n_pages=n_pages, mesh=mesh)
+
+    def drive_paged(engine):
+        tokens, wall = _serve_http(engine, prompts, n_tok)
+        timing = _engine_timing(torch, engine,
+                                lambda: engine.decode_many()[0],
+                                full["vocab"], plan)
+        return dict(tokens=tokens, http_s=wall, stats=engine.decode_stats(),
+                    free=(engine.pool.free_pages, engine.pool.n_pages),
+                    **timing)
+    leg("paged", engine, drive_paged)
+    del engine, params
+    _mesh_free(torch)
+
+    # f32, 2 layers at full width: token for token the one-rank engines
+    f32 = TransformerConfig(compute="float32",
+                            **dict(full, layers=plan["f32_layers"]))
+    p32 = init_params(f32, seed=0)
+    rows = [np.asarray(p, np.int32) for p in prompts]
+    for name, make in (
+            ("f32_slab", lambda: GenerativeEngine(f32, p32, max_slots=8,
+                                                  mesh=mesh)),
+            ("f32_paged", lambda: PagedGenerativeEngine(
+                f32, p32, max_slots=8, page_size=16, mesh=mesh))):
+        leg(name, make(), lambda e: [g.tolist() for g in e.generate(
+            rows, n_tok)])
+    del p32
+    _mesh_free(torch)
+
+    # phase 11's bucket ladder of alexnet_fused() at tp=2
+    specs, aparams, _ = alexnet_fused()
+    engine = InferenceEngine.from_specs(specs, aparams, mesh=mesh,
+                                        name="alexnet")
+    x = _apply_rows(plan["apply_rows"])
+
+    def drive_apply(engine):
+        got, ms = {}, {}
+        for b in plan["buckets"]:
+            got[b] = engine.apply(x[:b])
+            ms[b] = pcts(timed_rounds(lambda: engine.apply(x[:b]), 3)[1])
+        return dict(outputs=got, ms=ms)
+    leg("apply", engine, drive_apply)
+    out["apply"]["w_shards"] = [tuple(p["w"].shape) for p in engine.params
+                                if "w" in p]
+    return out
+
+
+def shard_nccl_rank(rank, plan):
+    """NCCL at world 1: the sharded engine at tp=1 against the unsharded
+    one on the same weights, both captured: tokens, the K/V slab
+    bitwise, the graph kept, nothing staged."""
+    import torch
+
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params)
+    from veles_tpu_torch.parallel import collectives
+    from veles_tpu_torch.serve import GenerativeEngine
+    from veles_tpu_torch.serve.sharding import serve_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    collectives.reset_staged()
+    mesh = serve_mesh(1)
+    config = TransformerConfig(compute="bfloat16", **plan["full"])
+    params = init_params(config, seed=0)
+    rows = [np.asarray(p, np.int32) for p in plan["prompts"]]
+    runs = {}
+    for key, kw in (("unsharded", dict(device=mesh.device)),
+                    ("tp1", dict(mesh=mesh))):
+        engine = GenerativeEngine(config, params, max_slots=8, **kw)
+        tokens = [g.tolist() for g in engine.generate(rows, plan["n_tok"])]
+        timing = _engine_timing(torch, engine, engine.decode,
+                                config.vocab, plan)
+        runs[key] = dict(tokens=tokens, graph=engine._graph is not None,
+                         cache=[engine._cache[k].clone() for k in "kv"],
+                         **timing)
+        del engine
+    a, b = runs["unsharded"], runs["tp1"]
+    return dict(backend=mesh.backend, tokens_equal=a["tokens"] == b["tokens"],
+                cache_bitwise=all(torch.equal(x, y) for x, y in
+                                  zip(a["cache"], b["cache"])),
+                graphs=(a["graph"], b["graph"]),
+                round_ms=(a["round_ms"], b["round_ms"]),
+                staged=sum(collectives.STAGED_BYTES.values()))
+
+
+def _first_divergence(a, b):
+    """(prompt, position) of the first token where two answer lists
+    differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (u, v) in enumerate(zip(x, y)):
+            if u != v:
+                return i, j
+    return None
+
+
+def _logit_gap(torch, dev, config, prompt, tokens, j, want, got):
+    """The one-rank model's logit of its own token minus its logit of
+    the sharded run's token, at the first divergence."""
+    from veles_tpu_torch.models.transformer import (compute_weights,
+                                                    init_params,
+                                                    params_from_numpy,
+                                                    prefill)
+    weights = compute_weights(params_from_numpy(
+        init_params(config, seed=0), config, dev), config)
+    seq = list(prompt) + list(tokens[:j])
+    with torch.inference_mode():
+        logits, _ = prefill(weights, torch.tensor([seq], device=dev),
+                            torch.tensor([len(seq)], device=dev), config)
+    row = logits[0].float()
+    return float(row[want] - row[got])
+
+
+def sharded_serving_phase(torch, dev, card, serve, apply):
+    """Phase 22; see the module docstring."""
+    from veles_tpu_torch.models.flagship import alexnet_fused
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params)
+    from veles_tpu_torch.parallel.multiprocess import run_world
+    from veles_tpu_torch.serve import (GenerativeEngine, InferenceEngine,
+                                       PagedGenerativeEngine)
+    plan = _shard_plan(dev)
+    full, n_tok = plan["full"], plan["n_tok"]
+    log("phase 22: sharded serving at tp=%d: 2 ranks on %s over gloo "
+        "(rank 0 serves, rank 1 follows), the LM %s bf16 behind the slab "
+        "(8 slots x 2048) and the page pool (16-token pages, sized per "
+        "shard), phase 3's 8 prompts x %d tokens over HTTP; f32 at %d "
+        "layers on both planes; alexnet_fused() buckets %s; NCCL at world "
+        "1" % (plan["tp"], dev, full, n_tok, plan["f32_layers"],
+               plan["buckets"]))
+    t_phase = time.monotonic()
+    # the one-rank references, computed here before the world starts
+    prompts = plan["prompts"]
+    rows = [np.asarray(p, np.int32) for p in prompts]
+    f32 = TransformerConfig(compute="float32",
+                            **dict(full, layers=plan["f32_layers"]))
+    p32 = init_params(f32, seed=0)
+    one = {"f32_slab": [g.tolist() for g in GenerativeEngine(
+        f32, p32, max_slots=8, device=dev).generate(rows, n_tok)],
+           "f32_paged": [g.tolist() for g in PagedGenerativeEngine(
+               f32, p32, max_slots=8, page_size=16, device=dev).generate(
+                   rows, n_tok)]}
+    specs, aparams, _ = alexnet_fused()
+    ref_engine = InferenceEngine.from_specs(specs, aparams, device=dev)
+    x = _apply_rows(plan["apply_rows"])
+    one["apply"] = {b: ref_engine.apply(x[:b]) for b in plan["buckets"]}
+    del ref_engine, aparams, p32
+    _mesh_sync(torch, dev)
+    _mesh_free(torch)
+    t0 = time.monotonic()
+    ranks = run_world(shard_rank, plan["tp"], "gloo",
+                      None if dev.type == "cuda" else "cpu", args=(plan,),
+                      timeout_s=MESH_TIMEOUT_S)
+    world_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    nccl = run_world(shard_nccl_rank, 1, "nccl", None, args=(plan,),
+                     timeout_s=MESH_TIMEOUT_S)[0] \
+        if dev.type == "cuda" else None
+    nccl_s = time.monotonic() - t0
+    leader = ranks[0]
+    layers, heads, hd = full["layers"], full["heads"], \
+        full["embed"] // full["heads"]
+    local_heads = heads // plan["tp"]
+
+    # launches: every rank runs every device call on its own heads
+    for r, rank in enumerate(ranks):
+        for name, kernel, call in (
+                ("slab", "flash_decode", "_device_decode"),
+                ("paged", "flash_decode_paged", "_device_round")):
+            leg = rank[name]
+            calls, launches = leg["calls"], leg["launches"]
+            want = {"flash_fwd": layers * calls.get("_device_prefill", 0),
+                    kernel: layers * calls.get(call, 0)}
+            if plan["count"] and any(launches.get(k, 0) != v
+                                     for k, v in want.items()):
+                raise AssertionError("rank %d %s: launches %s, want %s "
+                                     "(calls %s)" % (r, name, launches,
+                                                     want, calls))
+            if leg["kv_shard"][3] != local_heads or \
+                    leg["qkv_shard"][-1] != 3 * local_heads * hd:
+                raise AssertionError("rank %d %s: K/V shard %s, qkv shard "
+                                     "%s" % (r, name, leg["kv_shard"],
+                                             leg["qkv_shard"]))
+            log("  rank %d %s: K1 %d, %s %d launches on %d heads a rank "
+                "(K/V shard %s); device calls %s [%s]"
+                % (r, name, launches.get("flash_fwd", 0),
+                   "K4" if kernel == "flash_decode" else "K5",
+                   launches.get(kernel, 0), local_heads, leg["kv_shard"],
+                   calls, card))
+        if rank["slab"]["calls"] != ranks[0]["slab"]["calls"]:
+            raise AssertionError("the follower ran other calls")
+    # the bf16 planes against one rank: reported, not required
+    base = serve["staggered"]
+    for name in ("slab", "paged"):
+        res = leader[name]["result"]
+        same = sum(u == v for a, b in zip(res["tokens"], base)
+                   for u, v in zip(a, b))
+        first = _first_divergence(base, res["tokens"])
+        gap = None
+        if first is not None:
+            i, j = first
+            gap = _logit_gap(torch, dev, TransformerConfig(
+                compute="bfloat16", **full), prompts[i], base[i], j,
+                base[i][j], res["tokens"][i][j])
+        res["agreement"] = dict(equal=same, total=len(base) * n_tok,
+                                first_divergence=first, logit_gap=gap)
+        log("  %s bf16 at tp=2 vs one rank (phase 3's HTTP tokens): %d of "
+            "%d tokens equal; first divergence %s, the one-rank logit gap "
+            "there %s (bf16 sums over 'model' reorder additions: reported,"
+            " not required)" % (name, same, len(base) * n_tok, first, gap))
+        stats = res["stats"]
+        if stats["kv_bytes_per_shard"] * plan["tp"] != \
+                stats["kv_bytes_total"] or stats["tp"] != plan["tp"]:
+            raise AssertionError("%s gauges %s" % (name, stats))
+        log("  %s: kv_bytes_per_shard %d x %d == kv_bytes_total %d; "
+            "prefill 8 x 1024 %.2f ms; round p50 %.3f p99 %.3f ms; staged "
+            "%.3e bytes a round; HTTP window %.3f s [%s]"
+            % (name, stats["kv_bytes_per_shard"], plan["tp"],
+               stats["kv_bytes_total"], res["prefill_8x1024_ms"],
+               res["round_ms"]["p50"], res["round_ms"]["p99"],
+               res["staged_per_round"], res["http_s"], card))
+    eng = serve["engine"]
+    log("  one rank (phase 3): prefill 8 x 1024 %.2f ms; round p50 %.3f "
+        "p99 %.3f ms captured, p50 %.3f p99 %.3f ms eager [%s]"
+        % (eng["captured"]["prefill_8x1024_ms"],
+           eng["captured"]["decode_ms"]["p50"],
+           eng["captured"]["decode_ms"]["p99"],
+           eng["eager"]["decode_ms"]["p50"],
+           eng["eager"]["decode_ms"]["p99"], card))
+    paged = leader["paged"]["result"]
+    if paged["free"][0] != paged["free"][1]:
+        raise AssertionError("pages not returned: %s" % (paged["free"],))
+    n_pages, one_pages = leader["pool_pages"]
+    log("  page pool from the card's budget (fraction %.2f): %d pages a "
+        "shard at token_bytes // %d, %d at one rank's token_bytes"
+        % (plan["pool_fraction"], n_pages, plan["tp"], one_pages))
+    if n_pages < 2 * one_pages - 1:
+        raise AssertionError("the per-shard pool holds %d pages, not twice "
+                             "%d" % (n_pages, one_pages))
+    for name in ("f32_slab", "f32_paged"):
+        if leader[name]["result"] != one[name]:
+            raise AssertionError("%s tokens at tp=2 differ from one rank"
+                                 % name)
+    log("  f32 at %d layers, full width: slab and paged greedy tokens at "
+        "tp=2 equal one rank's, token for token (%d x %d)"
+        % (plan["f32_layers"], len(prompts), n_tok))
+    errs = []
+    for b in plan["buckets"]:
+        err = float(np.abs(leader["apply"]["result"]["outputs"][b] -
+                           one["apply"][b]).max())
+        errs.append(err)
+        check("tp=2 apply bucket %d vs one rank (absolute)" % b, err,
+              TOL_APPLY)
+    apply_calls = leader["apply"]["calls"].get("_device_apply", 0)
+    for r, rank in enumerate(ranks):
+        if plan["count"] and rank["apply"]["launches"].get("lrn_fwd") != \
+                2 * apply_calls:
+            raise AssertionError("rank %d apply launches %s for %d calls"
+                                 % (r, rank["apply"]["launches"],
+                                    apply_calls))
+    log("  alexnet_fused() at tp=2 (weight shards %s): apply ms p50 by "
+        "bucket %s, one rank captured (phase 11) %s; K6 2 an apply on each"
+        " rank [%s]" % (leader["apply"]["w_shards"], {
+            b: round(v["p50"], 3) for b, v in
+            leader["apply"]["result"]["ms"].items()}, {
+            b: round(v["captured_ms"]["p50"], 3)
+            for b, v in apply["per_bucket"].items()}, card))
+    if nccl is not None:
+        log("  NCCL world 1 (%s): tp=1 tokens == unsharded %s, K/V slab "
+            "bitwise %s, graphs kept %s, staged %d; round p50 %.3f ms "
+            "(unsharded %.3f) [%s]" % (
+                nccl["backend"], nccl["tokens_equal"], nccl["cache_bitwise"],
+                nccl["graphs"], nccl["staged"], nccl["round_ms"][1]["p50"],
+                nccl["round_ms"][0]["p50"], card))
+        if nccl["backend"] != "nccl" or not nccl["tokens_equal"] or \
+                not nccl["cache_bitwise"] or not all(nccl["graphs"]) or \
+                nccl["staged"]:
+            raise AssertionError("NCCL at world 1: %s" % (nccl,))
+    launches = {}
+    for rank in ranks:
+        for name in ("slab", "paged", "apply"):
+            for k, v in rank[name]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    wall = time.monotonic() - t_phase
+    log("  phase 22 %.1f s (world of 2: %.1f s, NCCL world: %.1f s); "
+        "launches over the ranks' bf16 and apply legs %s [%s]"
+        % (wall, world_s, nccl_s, launches, card))
+    leader["apply"]["result"]["outputs"] = None
+    return dict(wall_s=wall, world_s=world_s, nccl_s=nccl_s, ranks=ranks,
+                nccl=nccl, apply_errs=errs), launches
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the training farm
+# ---------------------------------------------------------------------------
+
+#: each farm's workflow: phase 14's AlexNetWorkflow (its widths, data
+#: cut to UG_DATA) for this many epochs (8 TRAIN and 2 VALID jobs one)
+FARM_EPOCHS = 1
+#: every coordinator's job timeout and every farm's deadline
+FARM_TIMEOUT_S = 600
+#: (b) and (c): worker processes of their own on the card
+FARM_WORKERS = 2
+#: (c): the plan that kills worker 1 after its second job
+FARM_KILL = "kill:1@2"
+#: (d): phase 19a's LM, depth cut to this
+FARM_LM_LAYERS = 2
+#: the minibatch classes (loader.base): VALID, TRAIN
+FARM_VALID, FARM_TRAIN = 1, 2
+
+
+def _farm_alexnet(stream=None):
+    from veles_tpu_torch.models.alexnet import AlexNetWorkflow
+    kwargs = dict(UG_DATA)
+    if stream:
+        kwargs["prng_stream"] = stream
+    wf = AlexNetWorkflow(max_epochs=FARM_EPOCHS, loader_kwargs=kwargs)
+    wf.thread_pool = None
+    return wf
+
+
+def _farm_lm(stream=None):
+    from veles_tpu_torch.models.lm import TransformerWorkflow
+    from veles_tpu_torch.models.transformer import TransformerConfig
+    config = TransformerConfig(compute="bfloat16", remat="attn", **dict(
+        FULL, layers=FARM_LM_LAYERS))
+    kwargs = dict(minibatch_size=TRAIN_BATCH, n_tokens=STATE_TOKENS)
+    if stream:
+        kwargs["prng_stream"] = stream
+    wf = TransformerWorkflow(config=config, learning_rate=TRAIN_LR,
+                             max_epochs=1, fail_iterations=100,
+                             loader_kwargs=kwargs)
+    wf.thread_pool = None
+    return wf
+
+
+def _farm_role(wf, role, device):
+    wf.is_standalone = False
+    setattr(wf, "is_" + role, True)
+    wf.initialize(device=device)
+    return wf
+
+
+def _served_once(master):
+    """Record every minibatch the master's loader takes back from a
+    worker: (class, offset, size) a minibatch."""
+    loader = master.loader
+    applied = []
+    take = loader.apply_data_from_slave
+
+    def record(data, slave=None):
+        take(data, slave)
+        if slave is not None:
+            applied.append((loader.minibatch_class,
+                            loader.minibatch_offset, loader.minibatch_size))
+    loader.apply_data_from_slave = record
+    return applied
+
+
+def _served_alone(wf):
+    """Record every minibatch a standalone run's loader serves, as
+    :func:`_served_once` records a master's."""
+    loader = wf.loader
+    served = []
+    serve = loader.run
+
+    def record():
+        serve()
+        served.append((loader.minibatch_class, loader.minibatch_offset,
+                       loader.minibatch_size))
+    loader.run = record
+    return served
+
+
+def _check_served_once(label, applied, alone):
+    """The minibatches a farm applied are the standalone run's, each as
+    many times (every minibatch served exactly once: a requeued one
+    once, on the worker that finished it)."""
+    if sorted(applied) != sorted(alone):
+        raise AssertionError("%s: minibatches applied %s, the standalone "
+                             "run serves %s" % (label, applied, alone))
+    return {c: sum(1 for k, _, _ in applied if k == c)
+            for c in (FARM_VALID, FARM_TRAIN)}
+
+
+def _weights(wf):
+    """Every parametric forward unit's weights and bias, on the host."""
+    return [np.array(a.map_read()) for f in wf.forwards
+            if hasattr(f, "weights") for a in (f.weights, f.bias)]
+
+
+def _farm_in_process(master, worker_wf, timeout=FARM_TIMEOUT_S,
+                     **coordinator_kw):
+    """``master`` under a coordinator and ``worker_wf`` under a Worker on
+    a thread of this process: (finished, worker jobs or error, wall s,
+    coordinator)."""
+    from veles_tpu_torch.distributed import Coordinator, Worker
+    coordinator = Coordinator(master, "127.0.0.1:0", job_timeout=timeout,
+                              **coordinator_kw)
+    coordinator.start()
+    result = {}
+
+    def work():
+        try:
+            result["jobs"] = Worker(worker_wf, coordinator.address).run()
+        except BaseException as e:  # noqa: BLE001 — reported below
+            result["jobs"] = repr(e)
+
+    thread = threading.Thread(target=work)
+    t0 = time.monotonic()
+    thread.start()
+    try:
+        finished = coordinator.run(timeout)
+    finally:
+        coordinator.stop()
+        thread.join(60)
+    return finished, result.get("jobs"), time.monotonic() - t0, coordinator
+
+
+def farm_worker_proc(index, farms, queue):
+    """A worker process of phase 23 (b), (c): a fresh AlexNetWorkflow
+    for each farm in ``farms`` (joined in turn), its launches and wall
+    time a farm."""
+    import traceback
+    try:
+        import torch
+
+        from veles_tpu_torch import prng
+        from veles_tpu_torch.backends import Device
+        from veles_tpu_torch.config import root
+        from veles_tpu_torch.distributed import Worker
+        from veles_tpu_torch.distributed.client import WorkerDeath
+        from veles_tpu_torch.distributed.faults import FaultPlan
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        counters = _mesh_counters()
+        device = Device()
+        out = []
+        for farm in farms:
+            root.common.random.seed = UG_SEED + 1 + index
+            prng.reset()
+            wf = _farm_role(_farm_alexnet("farm_worker%d_loader" % index),
+                            "slave", device)
+            worker = Worker(wf, farm["address"], fault_index=index,
+                            fault_plan=FaultPlan(farm["faults"])
+                            if farm["faults"] else None)
+            counters.reset()
+            t0 = time.monotonic()
+            try:
+                worker.run()
+                status = "done"
+            except WorkerDeath:
+                status = "died"
+            torch.cuda.synchronize()
+            out.append(dict(label=farm["label"], status=status,
+                            jobs=worker.jobs_done,
+                            wall_s=time.monotonic() - t0,
+                            launches=counters.read()))
+            del wf, worker
+            gc.collect()
+            torch.cuda.empty_cache()
+        queue.put((index, True, out))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        queue.put((index, False, traceback.format_exc()))
+
+
+def _farm_processes(torch, dev, card):
+    """(b) and (c): three coordinators in this process (encodings none
+    and int8, and none under a plan that kills worker 1), joined in turn
+    by FARM_WORKERS worker processes of their own on the card."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.distributed import Coordinator
+    device = Device()
+    farms = {}
+    for label, encoding in (("none", "none"), ("int8", "int8"),
+                            ("fault", "none")):
+        root.common.random.seed = UG_SEED
+        prng.reset()
+        master = _farm_role(_farm_alexnet(), "master", device)
+        applied = _served_once(master)
+        coordinator = Coordinator(master, "127.0.0.1:0",
+                                  job_timeout=FARM_TIMEOUT_S,
+                                  encoding=encoding)
+        coordinator.start()
+        farms[label] = dict(master=master, coordinator=coordinator,
+                            applied=applied, encoding=encoding)
+    joins = [dict(label=label, address=f["coordinator"].address,
+                  faults=FARM_KILL if label == "fault" else None)
+             for label, f in farms.items()]
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=farm_worker_proc, args=(i, joins, queue),
+                         daemon=True) for i in range(FARM_WORKERS)]
+    t0 = time.monotonic()
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for label, f in farms.items():
+            coordinator = f["coordinator"]
+            f["finished"] = coordinator.run(FARM_TIMEOUT_S)
+            f["wire"] = coordinator.wire_stats()
+            f["counts"] = dict(issued=coordinator.jobs_issued,
+                               applied=coordinator.total_updates,
+                               discarded=coordinator.discarded_updates,
+                               requeued=coordinator.requeued_jobs,
+                               stale=coordinator.stale_applies)
+            coordinator.stop()
+            if not f["finished"]:
+                raise AssertionError("farm %s did not finish" % label)
+        deadline = time.monotonic() + FARM_TIMEOUT_S
+        while len(results) < len(procs):
+            index, ok, value = queue.get(timeout=max(
+                1.0, deadline - time.monotonic()))
+            if not ok:
+                raise AssertionError("worker process %d failed:\n%s"
+                                     % (index, value))
+            results[index] = value
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        queue.close()
+    wall = time.monotonic() - t0
+    for label, f in farms.items():
+        f["workers"] = [r for i in sorted(results) for r in results[i]
+                        if r["label"] == label]
+        del f["master"], f["coordinator"]
+    return farms, wall
+
+
+def farm_phase(torch, counters, dev, card, classifier_graph):
+    """Phase 23; see the module docstring."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models.transformer import _tree_leaves
+    log("phase 23: the training farm: phase 14's AlexNetWorkflow (%s, %d "
+        "epoch a farm): (a) a coordinator and one in-process worker "
+        "against standalone; (b) %d worker processes on %s under none and "
+        "int8; (c) the same under FaultPlan(%r); (d) TransformerWorkflow "
+        "(phase 19a's, %d layers) through one worker against standalone"
+        % (UG_DATA, FARM_EPOCHS, FARM_WORKERS, dev, FARM_KILL,
+           FARM_LM_LAYERS))
+    t_phase = time.monotonic()
+    device = Device()
+    count = dev.type == "cuda"
+    # (a) one in-process worker, bitwise the standalone run; cuDNN held to
+    # its deterministic algorithms for both runs
+    torch.backends.cudnn.deterministic = True
+    try:
+        root.common.random.seed = UG_SEED
+        prng.reset()
+        standalone = _farm_alexnet()
+        standalone.initialize(device=device)
+        alone = _served_alone(standalone)
+        t0 = time.monotonic()
+        standalone.run()
+        torch.cuda.synchronize()
+        alone_s = time.monotonic() - t0
+        want = _weights(standalone)
+        want_err = standalone.decision.min_validation_error
+        del standalone
+        _mesh_free(torch)
+        root.common.random.seed = UG_SEED
+        prng.reset()
+        master = _farm_role(_farm_alexnet(), "master", device)
+        applied = _served_once(master)
+        worker_wf = _farm_role(_farm_alexnet("farm_worker0_loader"), "slave",
+                               device)
+        counters.reset()
+        finished, jobs, farm_s, coordinator = _farm_in_process(master,
+                                                               worker_wf)
+        torch.cuda.synchronize()
+        launches_a = counters.read()
+        if not finished or not isinstance(jobs, int):
+            raise AssertionError("(a) farm: finished %s, worker %r"
+                                 % (finished, jobs))
+        jobs_a = jobs
+        got = _weights(master)
+        bitwise = all(np.array_equal(a, b) for a, b in zip(got, want))
+        served = _check_served_once("(a)", applied, alone)
+        wire = coordinator.wire_stats()
+        log("  (a) one worker: %d jobs in %.1f s (standalone %.1f s), "
+            "minibatches applied once each %s, min validation error %s vs "
+            "standalone %s, weights and biases bitwise the standalone "
+            "run's: %s; %.3e wire bytes an update; launches %s [%s]"
+            % (jobs, farm_s, alone_s, served,
+               master.decision.min_validation_error, want_err, bitwise,
+               wire["bytes_in"] / max(1, coordinator.total_updates),
+               {k: v for k, v in launches_a.items() if v}, card))
+        if not bitwise or master.decision.min_validation_error != want_err:
+            raise AssertionError("(a) the one-worker farm is not the "
+                                 "standalone run")
+        if count and launches_a["lrn_fwd"] != 2 * jobs:
+            raise AssertionError("(a) launches %s for %d jobs"
+                                 % (launches_a, jobs))
+        del master, worker_wf, coordinator, want, got
+        _mesh_free(torch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # (b), (c): worker processes of their own
+    farms, procs_s = _farm_processes(torch, dev, card)
+    ug_ips = classifier_graph["images_per_s"]
+    launches_bc = {}
+    for label, f in farms.items():
+        counts = f["counts"]
+        if counts["issued"] != counts["applied"] + counts["discarded"] + \
+                counts["requeued"] or counts["stale"]:
+            raise AssertionError("%s: jobs not conserved %s"
+                                 % (label, counts))
+        served = _check_served_once(label, f["applied"], alone)
+        workers = f["workers"]
+        for w in workers:
+            if count and w["launches"]["lrn_fwd"] != 2 * w["jobs"]:
+                raise AssertionError("%s worker launches %s for %d jobs"
+                                     % (label, w["launches"], w["jobs"]))
+            for k, v in w["launches"].items():
+                launches_bc[k] = launches_bc.get(k, 0) + v
+        wall = max(w["wall_s"] for w in workers)
+        per_update = f["wire"]["bytes_in"] / max(1, counts["applied"])
+        log("  (%s) %d workers %s: jobs %s, counts %s, minibatches applied "
+            "once each %s; %.3e wire bytes an update (updates' params "
+            "%.3e raw, %.3e on the wire); %.1f TRAIN images/s over the "
+            "farm's %.1f s (phase 14 standalone %.1f) [%s]"
+            % (label, len(workers), [w["status"] for w in workers],
+               [w["jobs"] for w in workers], counts, served, per_update,
+               f["wire"].get("update_raw_bytes", 0),
+               f["wire"].get("update_wire_bytes", 0),
+               UG_DATA["n_train"] * FARM_EPOCHS / wall, wall, ug_ips, card))
+        f["per_update_bytes"] = per_update
+    if farms["fault"]["counts"]["requeued"] < 1 or \
+            [w["status"] for w in farms["fault"]["workers"]] != \
+            ["done", "died"]:
+        raise AssertionError("(c) the plan killed no worker mid-run: %s"
+                             % farms["fault"])
+    if farms["int8"]["per_update_bytes"] * 2 > \
+            farms["none"]["per_update_bytes"]:
+        raise AssertionError("(b) int8 updates are not smaller: %s vs %s"
+                             % (farms["int8"]["per_update_bytes"],
+                                farms["none"]["per_update_bytes"]))
+
+    # (d) the LM through one worker, bitwise the standalone run
+    root.common.random.seed = STATE_SEED
+    prng.reset()
+    standalone = _farm_lm()
+    standalone.initialize(device=device)
+    standalone.run()
+    want = [t.detach().cpu() for t in _tree_leaves(
+        standalone.trainer_unit._trainer_.params)]
+    del standalone
+    _mesh_free(torch)
+    root.common.random.seed = STATE_SEED
+    prng.reset()
+    master = _farm_role(_farm_lm(), "master", device)
+    worker_wf = _farm_role(_farm_lm("farm_lm_worker_loader"), "slave",
+                           device)
+    counters.reset()
+    finished, jobs, lm_s, coordinator = _farm_in_process(master, worker_wf)
+    torch.cuda.synchronize()
+    launches_d = counters.read()
+    if not finished or not isinstance(jobs, int):
+        raise AssertionError("(d) farm: finished %s, worker %r"
+                             % (finished, jobs))
+    got = [t.detach().cpu() for t in _tree_leaves(
+        master.trainer_unit._trainer_.params)]
+    lm_bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    log("  (d) TransformerWorkflow (%d layers) through one worker: %d jobs "
+        "in %.1f s, params bitwise the standalone run's: %s; launches %s "
+        "[%s]" % (FARM_LM_LAYERS, jobs, lm_s, lm_bitwise,
+                  {k: v for k, v in launches_d.items() if v}, card))
+    if not lm_bitwise:
+        raise AssertionError("(d) the LM farm is not the standalone run")
+    del master, worker_wf, coordinator
+    _mesh_free(torch)
+    launches = {}
+    for part in (launches_a, launches_bc, launches_d):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    wall = time.monotonic() - t_phase
+    log("  phase 23 %.1f s (worker processes %.1f s); launches %s [%s]"
+        % (wall, procs_s, launches, card))
+    return dict(wall_s=wall, procs_s=procs_s, farms={
+        label: dict(counts=f["counts"], wire=f["wire"],
+                    workers=f["workers"]) for label, f in farms.items()},
+        a=dict(jobs=jobs_a, farm_s=farm_s, standalone_s=alone_s),
+        d=dict(jobs=jobs, farm_s=lm_s)), launches
+
+
 class Counters:
     """Every kernel's launch counter, read and reset together."""
 
@@ -5865,6 +6746,10 @@ def main():
                                         classifier, classifier_graph)
     state_parity = state_parity_phase(torch, dev, card)
     mesh, mesh_launches = mesh_phase(torch, dev, card)
+    sharded, sharded_launches = sharded_serving_phase(torch, dev, card,
+                                                      serve, apply)
+    farm, farm_launches = farm_phase(torch, counters, dev, card,
+                                     classifier_graph)
 
     # each main path's launches, counted from 0 around that path alone
     by_path = {"serving": serve_launches, "training": train_launches,
@@ -5877,7 +6762,9 @@ def main():
                "input pipeline": pipeline_launches,
                "unit families and zoo": zoo_launches,
                "state": state_launches,
-               "mesh": mesh_launches}
+               "mesh": mesh_launches,
+               "sharded serving": sharded_launches,
+               "farm": farm_launches}
     kernels = []
     for name, row in rows.items():
         paths = {p: n.get(name, 0) for p, n in by_path.items()
@@ -5902,6 +6789,7 @@ def main():
                   unit_graph_parity=classifier_graph_parity,
                   input_pipeline=pipeline, zoo=zoo, zoo_parity=zoo_parity,
                   state=state, state_parity=state_parity, mesh=mesh,
+                  sharded_serving=sharded, farm=farm,
                   wall_s=time.monotonic() - t_start)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:

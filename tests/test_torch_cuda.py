@@ -890,6 +890,53 @@ def test_train_step_graph_equals_eager(cuda, moe):
     assert bool(torch.isfinite(lg).all()) and float(lg[-1]) < float(lg[0])
 
 
+def test_capture_outlasts_a_dead_cycle_holding_a_graph(cuda):
+    """A graph that only a dead reference cycle holds (an engine dropped
+    with its threads) is not destroyed in the middle of another
+    capture by an automatic collection (which would invalidate that
+    capture): the collector waits until the capture ends."""
+    import gc
+    import weakref
+
+    from veles_tpu_torch.graphs import StepGraph
+
+    x = torch.randn(256, 256, device=cuda)
+
+    class Holder:
+        pass
+
+    old = Holder()
+    old.graph = StepGraph(lambda a: a @ a, inputs=(x,))
+    old.cycle = old
+    alive, keep = weakref.ref(old), [old]
+    del old
+    calls = []
+
+    def step(a):
+        calls.append(len(calls))
+        if len(calls) == StepGraph.WARMUP + 1:      # the capture
+            keep.pop()                    # now only its own cycle holds it
+            # far more container allocations than a collection's
+            # threshold: a collection would run here
+            junk = [[i] for i in range(20 * gc.get_threshold()[0])]
+            del junk
+        return a * 2 + 1
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(10)
+    try:
+        graph = StepGraph(step, inputs=(x,))
+    finally:
+        gc.set_threshold(*threshold)
+    assert alive() is not None
+    x.copy_(torch.randn(256, 256, device=cuda))
+    out = graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, x * 2 + 1)
+    gc.collect()
+    assert alive() is None
+
+
 def test_inference_engine_buckets_graph_equal_eager(cuda):
     """The 10-class 64 x 64 AlexNet served through buckets 1-64,
     captured (one graph per bucket, one pool) and eager: equal outputs

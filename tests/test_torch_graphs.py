@@ -84,6 +84,44 @@ def test_use_graphs_resolution():
         use_graphs(True, cpu)
 
 
+def test_collector_pauses_for_captures_and_restores():
+    """The cyclic collector is off while any capture is under way (on
+    any thread) and comes back as it was when the last one ends."""
+    import gc
+    import threading
+
+    from veles_tpu_torch.graphs import _collector_paused
+
+    was = gc.isenabled()
+    try:
+        for before in (True, False):
+            (gc.enable if before else gc.disable)()
+            inside, second_open, first_done = [], threading.Event(), \
+                threading.Event()
+
+            def second():
+                with _collector_paused():
+                    second_open.set()
+                    first_done.wait(10)
+                    inside.append(gc.isenabled())
+
+            with _collector_paused():
+                inside.append(gc.isenabled())
+                t = threading.Thread(target=second)
+                t.start()
+                assert second_open.wait(10)
+            first_done.set()
+            t.join(10)
+            assert inside == [False, False]
+            assert gc.isenabled() == before
+            with pytest.raises(RuntimeError):
+                with _collector_paused():
+                    raise RuntimeError("a capture that fails")
+            assert gc.isenabled() == before
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
 # -- the serving weights ---------------------------------------------------
 
 def test_compute_weights_equal_the_per_step_casts_bitwise():

@@ -51,7 +51,12 @@ def test_import_closure_has_no_jax_and_no_veles_tpu():
                  "genetics", "genetics.core", "genetics.optimizer",
                  "parallel.mesh", "parallel.collectives",
                  "parallel.multiprocess", "parallel.ring_attention",
-                 "parallel.pipeline"):
+                 "parallel.pipeline", "serve.sharding", "distributed",
+                 "distributed.protocol", "distributed.compress",
+                 "distributed.faults", "distributed.server",
+                 "distributed.client", "distributed.relay",
+                 "distributed.discovery", "distributed.spawn",
+                 "launcher", "obs.trace", "obs.metrics"):
         assert "veles_tpu_torch." + name in modules
     script = (
         "import importlib, json, sys\n"
@@ -177,13 +182,20 @@ def test_input_pipeline_entry_points_need_the_card(monkeypatch):
 def test_mesh_entry_points_pick_neither_the_cpu_nor_gloo(monkeypatch):
     """The mesh's entry points take the card by default and NCCL as the
     transport: without a card ``initialize`` raises (naming
-    ``device='cpu'`` and gloo as the caller's choice), a mesh raises
-    without a joined group, and nothing joins one on its own."""
+    ``device='cpu'`` and gloo as the caller's choice), a mesh (a serve
+    mesh too) raises without a joined group, nothing joins one on its
+    own, and a meshed engine takes a mesh's device or raises, never
+    the CPU's."""
     import inspect
 
     from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params)
     from veles_tpu_torch.parallel import multiprocess
     from veles_tpu_torch.parallel.mesh import make_mesh
+    from veles_tpu_torch.serve import (GenerativeEngine, InferenceEngine,
+                                       PagedGenerativeEngine)
+    from veles_tpu_torch.serve.sharding import serve_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
@@ -197,6 +209,23 @@ def test_mesh_entry_points_pick_neither_the_cpu_nor_gloo(monkeypatch):
         make_mesh()
     with pytest.raises(RuntimeError, match="joined process group"):
         Device(backend="cpu").mesh({"data": 1})
+    with pytest.raises(RuntimeError, match="joined process group"):
+        serve_mesh(2)
+    assert inspect.signature(serve_mesh).parameters["device"].default \
+        is None
+    cfg = TransformerConfig(vocab=16, embed=16, heads=2, layers=1,
+                            seq_len=16)
+    params = init_params(cfg)
+    for cls in (GenerativeEngine, PagedGenerativeEngine, InferenceEngine):
+        assert inspect.signature(cls).parameters["mesh"].default is None
+    for make in (lambda **kw: GenerativeEngine(cfg, params, **kw),
+                 lambda **kw: PagedGenerativeEngine(cfg, params, **kw),
+                 lambda **kw: InferenceEngine.from_transformer(
+                     cfg, params, **kw)):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+            make(mesh=object())
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
     assert not multiprocess.is_initialized()
 
 

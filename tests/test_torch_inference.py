@@ -167,10 +167,10 @@ def test_swap_params_in_place_and_validated():
 
 def test_device_policy_and_unported_constructors():
     """Graphs need a CUDA device; the constructor that waits for a later
-    slice says which (``from_specs(normalizer=)`` is ported: its parity
-    test is below; ``from_forwards``, ``from_workflow`` and
-    ``from_snapshot`` are held to the reference in
-    ``tests/test_torch_train_fused.py``)."""
+    slice says which; ``mesh=`` takes a mesh (``from_specs(normalizer=)``
+    is ported: its parity test is below; ``from_forwards``,
+    ``from_workflow`` and ``from_snapshot`` are held to the reference
+    in ``tests/test_torch_train_fused.py``)."""
     with pytest.raises(ValueError, match="cuda_graphs"):
         _mlp(cuda_graphs=True)
     assert _mlp(cuda_graphs=False).apply(
@@ -179,8 +179,13 @@ def test_device_policy_and_unported_constructors():
         np.ones((1, 6), np.float32)).shape == (1, 4)
     with pytest.raises(NotImplementedError, match="item 10"):
         InferenceEngine.from_package("x")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # a mesh is a parallel.mesh.Mesh (the sharded engine's parity is
+    # tests/test_torch_sharded_serving.py's), and shardings need one
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         InferenceEngine(lambda p, x: x, [], device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="without a mesh"):
+        InferenceEngine(lambda p, x: x, [], device="cpu",
+                        param_shardings=[])
 
 
 NORMALIZED = {

@@ -7,7 +7,7 @@ fused params, and the tester's ``ensemble_error_pt`` and
 ``ensemble_n_err`` are the reference's (f32: equal error counts; the
 params within 1e-4 of their scale, the two frameworks' sum orders
 differ); the job methods hand members out and take results back
-in-process (cluster runs wait for ROADMAP.md queue 1 item 8).
+in-process (the cluster runs are tests/test_torch_farm_users.py's).
 Genetics: a seeded population with a deterministic evaluator evolves
 exactly as the reference's, both encodings (its genes are host floats
 drawn from the same numpy streams); the Gray code round-trips; the

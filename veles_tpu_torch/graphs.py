@@ -18,17 +18,49 @@ launches without a call. So the graph takes back what each counter
 (``ops.flash_attention``, ``ops.lrn``, ``ops.rng``) gained during the
 capture and adds it on every replay; the warm-up calls before the
 capture launch for real and stay counted. The counts stay true.
+
+Python's cyclic garbage collector pauses while a capture is under way.
+A collection may run on any allocation, and one that frees a dead
+cycle holding an earlier graph (an engine or trainer dropped with its
+threads) destroys that graph on the capturing thread, which
+invalidates the capture; the cycle is collected after it instead.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence
+import contextlib
+import gc
+import threading
+from typing import Any, Callable, Iterator, Optional, Sequence
 
 import torch
 
 from veles_tpu_torch.ops import flash_attention, lrn, rng
 
 _COUNTERS = (flash_attention.LAUNCHES, lrn.LAUNCHES, rng.LAUNCHES)
+
+#: captures under way in this process, and whether the collector ran
+#: before the first of them began (``_collector_paused``)
+_PAUSE_LOCK = threading.Lock()
+_PAUSE = {"captures": 0, "was_enabled": False}
+
+
+@contextlib.contextmanager
+def _collector_paused() -> Iterator[None]:
+    """The cyclic garbage collector off for the block; captures on
+    several threads nest, and the last to end restores it."""
+    with _PAUSE_LOCK:
+        if _PAUSE["captures"] == 0:
+            _PAUSE["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _PAUSE["captures"] += 1
+    try:
+        yield
+    finally:
+        with _PAUSE_LOCK:
+            _PAUSE["captures"] -= 1
+            if _PAUSE["captures"] == 0 and _PAUSE["was_enabled"]:
+                gc.enable()
 
 
 def use_graphs(cuda_graphs: Optional[bool], device: torch.device) -> bool:
@@ -80,8 +112,9 @@ class StepGraph:
         del saved
         self.graph = torch.cuda.CUDAGraph()
         before = [dict(counter) for counter in _COUNTERS]
-        with torch.cuda.graph(self.graph, pool=self.pool,
-                              capture_error_mode="thread_local"):
+        with _collector_paused(), \
+                torch.cuda.graph(self.graph, pool=self.pool,
+                                 capture_error_mode="thread_local"):
             self.outputs = fn(*self.inputs)
         self._launches = []
         for counter, old in zip(_COUNTERS, before):

@@ -35,8 +35,12 @@ batch over ``data``; the sequence over ``seq``, attention then a ring
 mixture over ``model``. Each rank's objective is its tokens' share of
 the global token mean, and one all-reduce of one flat buffer over
 ``data x seq`` sums the gradients. On a mesh of more than one rank the
-step runs eagerly (see :class:`TransformerTrainer`). The reference's
-AOT dispatch is queued in ROADMAP.md. A trainer whose ``sched_tenant``
+step runs eagerly (see :class:`TransformerTrainer`). The serving steps
+(:func:`prefill`, :func:`decode_step`, :func:`paged_decode_step`,
+:func:`verify_step`) take a :class:`ServeContext`: tensor parallelism
+over a mesh's ``model`` axis, each rank on its ``H/tp`` heads (the
+layouts of ``serve/sharding.py``). The reference's AOT dispatch is
+queued in ROADMAP.md. A trainer whose ``sched_tenant``
 is set runs each ``step``/``step_many`` as one quantum of a shared
 device (``veles_tpu_torch.sched``).
 """
@@ -252,11 +256,14 @@ def _layer_norm(x, g, b):
 
 def _qkv(x, block, config: TransformerConfig):
     """x [B,T,E] -> (q, k, v) each [B,T,H,Dh]: strided views into one
-    fused projection (the kernels read them in place)."""
+    fused projection (the kernels read them in place). ``H`` is the
+    heads the block's ``qkv`` holds: all of them, or a tensor-parallel
+    rank's ``H/tp`` (its q, k and v columns by head)."""
     b, t, _ = x.shape
     cd = config.compute_dtype()
+    heads = block["qkv"].shape[-1] // (3 * config.head_dim)
     qkv = x @ block["qkv"].to(cd)                         # [B,T,3E]
-    qkv = qkv.view(b, t, 3, config.heads, config.head_dim)
+    qkv = qkv.view(b, t, 3, heads, config.head_dim)
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
@@ -296,7 +303,9 @@ def _moe_ffn(h, block, config: TransformerConfig, par=None):
     frac = mask.mean(dim=(0, 1))           # tokens routed per expert
     prob = gates.mean(dim=(0, 1))          # mean gate mass per expert
     if par is not None:
-        if par.expert:
+        if par.expert or par.tensor:
+            # a rank's experts, or its slice of every expert's hidden
+            # features (tensor parallel): partial combines
             y = collectives.psum(y, par.model)
         if par.tokens.size > 1:
             frac = collectives.psum(frac, par.tokens) / par.tokens.size
@@ -312,7 +321,22 @@ def _ffn(h, block, config: TransformerConfig, par=None):
         return _moe_ffn(h, block, config, par)[0]
     cd = config.compute_dtype()
     h = F.gelu(h @ block["mlp_in"].to(cd), approximate="tanh")
-    return h @ block["mlp_out"].to(cd)
+    return _model_sum(h @ block["mlp_out"].to(cd), par)
+
+
+def _model_sum(y, par):
+    """A row-parallel layer's output: under tensor parallelism
+    (``par.tensor``) each rank's product is a partial sum over its
+    input features, summed over ``model``; else ``y`` as it is."""
+    if par is not None and par.tensor:
+        return collectives.psum(y, par.model)
+    return y
+
+
+def _out_proj(attn, block, cd, par):
+    """The attention output ``[B, T, H*Dh]`` (this rank's heads)
+    through ``proj``."""
+    return _model_sum(attn @ block["proj"].to(cd), par)
 
 
 def _attention_forward(x, block, config: TransformerConfig, par=None):
@@ -322,7 +346,7 @@ def _attention_forward(x, block, config: TransformerConfig, par=None):
     if config.attention != "flash":
         raise ValueError("the port's TransformerConfig.attention is "
                          "'flash', got %r" % (config.attention,))
-    b, t, e = x.shape
+    b, t, _ = x.shape
     cd = config.compute_dtype()
     h = _layer_norm(x, block["ln1"]["g"], block["ln1"]["b"])
     q, k, v = _qkv(h, block, config)
@@ -334,14 +358,14 @@ def _attention_forward(x, block, config: TransformerConfig, par=None):
         out = flash_attention(q, k, v, causal=True, block_q=config.block_q,
                               block_k=config.block_k,
                               impl=config.attention_impl)
-    return out.reshape(b, t, e) @ block["proj"].to(cd), k, v
+    return _out_proj(out.reshape(b, t, -1), block, cd, par), k, v
 
 
-def _block_forward_kv(x, block, config: TransformerConfig):
+def _block_forward_kv(x, block, config: TransformerConfig, par=None):
     """One pre-LN block that also returns its (k, v): the prefill
     body, the same ops in the same order as the full forward."""
-    delta, k, v = _attention_forward(x, block, config)
-    return _mlp_residual(x + delta, block, config), (k, v)
+    delta, k, v = _attention_forward(x, block, config, par)
+    return _mlp_residual(x + delta, block, config, par), (k, v)
 
 
 def _embed(params, tokens, positions, cd):
@@ -385,7 +409,7 @@ def init_kv_cache(config: TransformerConfig, batch: int,
 
 
 def prefill(params, tokens, lengths, config: TransformerConfig,
-            cache=None):
+            cache=None, par=None):
     """Run the prompt through the stack once, capturing per-layer K/V.
 
     tokens ``[B, T]`` int (right-padded); lengths ``[B]`` actual
@@ -394,7 +418,9 @@ def prefill(params, tokens, lengths, config: TransformerConfig,
     ``init_kv_cache`` dict with positions ``[0, T)`` written IN PLACE
     (the reference returns an updated copy of a donated buffer; pad
     positions hold K/V that every reader masks by length), or a fresh
-    exactly-``T`` cache when ``cache=None``."""
+    exactly-``T`` cache when ``cache=None``. ``par``: a
+    :class:`ServeContext` (tensor parallelism: the cache holds this
+    rank's heads)."""
     b, t = tokens.shape
     if t > config.seq_len:
         raise ValueError("prompt length %d exceeds seq_len %d"
@@ -407,7 +433,7 @@ def prefill(params, tokens, lengths, config: TransformerConfig,
     x = _embed(params, tokens, slice(0, t), cd)
     ks, vs = [], []
     for block in params["blocks"]:
-        x, (k, v) = _block_forward_kv(x, block, config)
+        x, (k, v) = _block_forward_kv(x, block, config, par)
         ks.append(k)
         vs.append(v)
     x = _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"])
@@ -424,7 +450,7 @@ def prefill(params, tokens, lengths, config: TransformerConfig,
 
 
 def decode_step(params, tokens, cache, lengths,
-                config: TransformerConfig, active=None):
+                config: TransformerConfig, active=None, par=None):
     """One autoregressive step for the whole batch: embed the incoming
     token at its sequence's position, write its K/V into the cache IN
     PLACE (where the reference updates a donated buffer), and
@@ -433,7 +459,8 @@ def decode_step(params, tokens, cache, lengths,
     tokens ``[B]`` int (the last emitted token per sequence);
     ``lengths`` ``[B]`` int32 — valid cache entries BEFORE this step;
     ``active`` optional ``[B]`` bool — inactive rows still compute
-    (and write K/V at their clipped position) but keep their length.
+    (and write K/V at their clipped position) but keep their length;
+    ``par`` as :func:`prefill`'s.
     Returns ``(logits [B, V] f32, cache, new_lengths)``."""
     cd = config.compute_dtype()
     b = tokens.shape[0]
@@ -454,9 +481,9 @@ def decode_step(params, tokens, cache, lengths,
         attn = flash_decode(q[:, 0], kc, vc, new_len,
                             block_k=config.block_k,
                             impl=config.attention_impl)
-        x = x + attn.reshape(b, 1, -1) @ block["proj"].to(cd)
+        x = x + _out_proj(attn.reshape(b, 1, -1), block, cd, par)
         h = _layer_norm(x, block["ln2"]["g"], block["ln2"]["b"])
-        x = x + _ffn(h, block, config)
+        x = x + _ffn(h, block, config, par)
     x = _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"])[:, 0]
     logits = _lm_head(x, params, cd)
     if active is not None:
@@ -509,7 +536,7 @@ def _paged_targets(cache, block_tables, pos, active):
 
 
 def paged_decode_step(params, tokens, cache, lengths, block_tables,
-                      config: TransformerConfig, active=None):
+                      config: TransformerConfig, active=None, par=None):
     """One autoregressive step over PAGED K/V: write the new token's
     K/V IN PLACE into page ``block_tables[b, lengths[b] // page_size]``
     at offset ``lengths[b] % page_size``, then flash-decode every layer
@@ -518,7 +545,8 @@ def paged_decode_step(params, tokens, cache, lengths, block_tables,
     tokens/lengths/active as :func:`decode_step`; ``cache`` the
     :func:`init_paged_kv_cache` pool; ``block_tables`` ``[B,
     n_blocks]`` int (entry ``n_pages`` = the unallocated sentinel:
-    reads clamp it, an inactive row's write goes to the trash page).
+    reads clamp it, an inactive row's write goes to the trash page);
+    ``par`` as :func:`prefill`'s.
     Returns ``(logits [B, V] f32, cache, new_lengths)``."""
     cd = config.compute_dtype()
     b = tokens.shape[0]
@@ -542,9 +570,9 @@ def paged_decode_step(params, tokens, cache, lengths, block_tables,
         attn = flash_decode_paged(q[:, 0], kc[:n_pages], vc[:n_pages],
                                   block_tables, new_len,
                                   impl=config.attention_impl)
-        x = x + attn.reshape(b, 1, -1) @ block["proj"].to(cd)
+        x = x + _out_proj(attn.reshape(b, 1, -1), block, cd, par)
         h = _layer_norm(x, block["ln2"]["g"], block["ln2"]["b"])
-        x = x + _ffn(h, block, config)
+        x = x + _ffn(h, block, config, par)
     x = _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"])[:, 0]
     logits = _lm_head(x, params, cd)
     if active is not None:
@@ -553,7 +581,7 @@ def paged_decode_step(params, tokens, cache, lengths, block_tables,
 
 
 def verify_step(params, tokens, cache, lengths, block_tables,
-                config: TransformerConfig, active=None):
+                config: TransformerConfig, active=None, par=None):
     """The speculative-decode VERIFY step: a ``K1``-token chunk (the
     last committed token plus K draft proposals) through the target
     model in ONE batched step over the same pages as
@@ -563,8 +591,9 @@ def verify_step(params, tokens, cache, lengths, block_tables,
     ``lengths[b] + i``: its K/V is written there, and its query attends
     positions ``< lengths[b] + i + 1`` (chunked causality as per-query
     lengths). Rejected proposals leave K/V beyond the accepted length;
-    every later read masks it and real tokens overwrite it. Returns
-    ``(logits [B, K1, V] f32, cache)``; lengths are NOT advanced here."""
+    every later read masks it and real tokens overwrite it. ``par`` as
+    :func:`prefill`'s. Returns ``(logits [B, K1, V] f32, cache)``;
+    lengths are NOT advanced here."""
     cd = config.compute_dtype()
     b, k1 = tokens.shape
     dev = tokens.device
@@ -586,9 +615,9 @@ def verify_step(params, tokens, cache, lengths, block_tables,
         vc[page, off] = v.to(vc.dtype)
         attn = flash_verify_paged(q, kc[:n_pages], vc[:n_pages],
                                   block_tables, kv_len)
-        x = x + attn.reshape(b, k1, -1) @ block["proj"].to(cd)
+        x = x + _out_proj(attn.reshape(b, k1, -1), block, cd, par)
         h = _layer_norm(x, block["ln2"]["g"], block["ln2"]["b"])
-        x = x + _ffn(h, block, config)
+        x = x + _ffn(h, block, config, par)
     x = _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"])
     return _lm_head(x, params, cd), cache
 
@@ -795,6 +824,8 @@ class _Par:
         self.tokens = mesh.axis("data", *((seq,) if seq else ()))
         self.model = mesh.axis("model")
         self.expert = config.moe_experts > 0 and self.model.size > 1
+        #: training replicates the dense weights over ``model``
+        self.tensor = False
         if self.expert and config.moe_experts % self.model.size:
             raise ValueError("%d experts do not split over a 'model' axis "
                              "of %d" % (config.moe_experts, self.model.size))
@@ -817,6 +848,28 @@ class _Par:
         pos0 = self.seq.index * chunk
         return (rows[:, pos0:pos0 + chunk], rows[:, pos0 + 1:pos0 + chunk + 1],
                 pos0)
+
+
+class ServeContext:
+    """The serving steps' place on a mesh, the counterpart of the
+    trainer's ``_Par``: tensor parallelism over the ``model`` axis.
+    Each rank holds ``H/tp`` heads (its ``qkv`` columns by head and its
+    rows of ``proj``), its columns of ``mlp_in`` and rows of
+    ``mlp_out`` (of every expert, for a mixture), and its heads of the
+    K/V cache (``serve/sharding.py``); the outputs of ``proj`` and
+    ``mlp_out`` are partial sums, summed over ``model``. Embeddings,
+    layer norms and the LM head are replicated, so every rank computes
+    the same logits. ``expert=True``: the ranks hold runs of whole
+    experts instead (an expert-parallel trainer's weights) and the MoE
+    combine is what sums. Every rank of the axis runs every step."""
+
+    def __init__(self, mesh, expert: bool = False) -> None:
+        self.model = mesh.axis("model")
+        self.expert = bool(expert) and self.model.size > 1
+        self.tensor = self.model.size > 1 and not self.expert
+        # no sequence ring and no token axes: every rank sees the
+        # whole batch
+        self.seq = self.tokens = mesh.axis()
 
 
 class TransformerTrainer:
@@ -1138,16 +1191,25 @@ class TransformerTrainer:
 
     def generate_logits(self, tokens) -> torch.Tensor:
         """Full-sequence logits [B, T, V] f32 under the current
-        weights (one device: the sharded forward is the serving half of
-        the mesh, ROADMAP.md queue 1 item 7b)."""
-        if self._par is not None:
-            raise NotImplementedError(
-                "generate_logits on a mesh of %d ranks waits for sharded "
-                "serving (ROADMAP.md queue 1 item 7b)"
-                % self.mesh.n_devices)
+        weights. On a mesh every rank passes the same global tokens and
+        gets the same logits, through the serving forward
+        (:class:`ServeContext` over ``model``): the heads and MLP
+        features of the replicated weights split over ``model``, or the
+        experts where the trainer holds them split; ``data`` and
+        ``seq`` replicate it."""
+        tokens = self._tokens(tokens)
         with torch.inference_mode():
-            return forward(self.params, self._tokens(tokens),
-                           self.config)[0]
+            if self._par is None:
+                return forward(self.params, tokens, self.config)[0]
+            ctx = ServeContext(self.mesh, expert=self._par.expert)
+            params = self.params
+            if ctx.tensor:
+                from veles_tpu_torch.serve.sharding import (
+                    place_tree, transformer_param_shardings)
+                params = place_tree(transformer_param_shardings(
+                    self.mesh, params), params)
+            x, _ = _encode(params, tokens, self.config, ctx)
+            return _lm_head(x, params, self.config.compute_dtype())
 
 
 #: The LM trainer under its workload name.

@@ -1,5 +1,6 @@
 """One metrics registry, one renderer (port of
-``veles_tpu/obs/metrics.py``, trimmed to the serving slice).
+``veles_tpu/obs/metrics.py``: the serving slice's converters, the
+instruments and the farm's wire form).
 
 A :class:`Sample` is ``(metric, kind, series, labels, value)``;
 ``render`` is the one Prometheus text renderer, grouping samples by
@@ -8,7 +9,11 @@ metric so each family's lines stay contiguous. The process-wide
 device-memory reading) that every ``/metrics`` exposition appends.
 The JSON snapshot keys of the engine and batcher are the contract;
 the text is derived from them (:func:`serve_samples`,
-:func:`gen_samples`, :func:`sched_samples`).
+:func:`gen_samples`, :func:`sched_samples`). The farm adds direct
+instruments (``counter``/``gauge``/``summary``), absorbs its workers'
+registries through their wire form (``as_wire``/``absorb``), and
+renders its wire and checkpoint stats (:func:`wire_samples`,
+:func:`checkpoint_samples`).
 """
 
 from __future__ import annotations
@@ -32,6 +37,20 @@ class Sample:
         self.series = series if series is not None else metric
         self.labels = tuple(labels)
         self.value = value
+
+    def as_wire(self) -> List[Any]:
+        return [self.metric, self.kind, self.series,
+                [list(kv) for kv in self.labels], self.value]
+
+    @staticmethod
+    def from_wire(doc: Any) -> Optional["Sample"]:
+        try:
+            metric, kind, series, labels, value = doc
+            return Sample(str(metric), str(kind), float(value),
+                          tuple((str(k), str(v)) for k, v in labels),
+                          series=str(series))
+        except (TypeError, ValueError):
+            return None
 
     def __repr__(self) -> str:
         return "<Sample %s%r %g>" % (self.series, self.labels,
@@ -82,34 +101,191 @@ def render(samples: Iterable[Sample]) -> str:
     return "\n".join(lines) + ("\n" if lines else "")
 
 
+class _Instrument:
+    """Direct counter/gauge: one value per label set."""
+
+    __slots__ = ("name", "kind", "_lock", "_values")
+
+    def __init__(self, name: str, kind: str) -> None:
+        self.name = name
+        self.kind = kind
+        self._lock = threading.Lock()
+        self._values: Dict[Labels, float] = {}
+
+    def _key(self, labels: Dict[str, Any]) -> Labels:
+        return tuple(sorted((k, str(v)) for k, v in labels.items()))
+
+    def inc(self, value: float = 1.0, **labels: Any) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + value
+
+    def set(self, value: float, **labels: Any) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = float(value)
+
+    def get(self, **labels: Any) -> float:
+        with self._lock:
+            return self._values.get(self._key(labels), 0.0)
+
+    def collect(self) -> List[Sample]:
+        with self._lock:
+            items = list(self._values.items())
+        return [Sample(self.name, self.kind, value, labels)
+                for labels, value in items]
+
+
+class _Summary:
+    """Bounded-reservoir quantile summary (the platform's existing
+    p50/p95/p99 idiom, now behind the shared model)."""
+
+    __slots__ = ("name", "_lock", "_window", "_values", "quantiles")
+
+    def __init__(self, name: str, window: int = 2048,
+                 quantiles: Tuple[float, ...] = (0.5, 0.95, 0.99)
+                 ) -> None:
+        self.name = name
+        self._lock = threading.Lock()
+        self._window = window
+        self._values: Dict[Labels, Any] = {}
+        self.quantiles = quantiles
+
+    def observe(self, value: float, **labels: Any) -> None:
+        key = tuple(sorted((k, str(v)) for k, v in labels.items()))
+        with self._lock:
+            reservoir = self._values.get(key)
+            if reservoir is None:
+                from collections import deque
+                reservoir = self._values[key] = deque(
+                    maxlen=self._window)
+            reservoir.append(float(value))
+
+    def collect(self) -> List[Sample]:
+        import numpy as np
+        with self._lock:
+            items = [(labels, list(r))
+                     for labels, r in self._values.items()]
+        out = []
+        for labels, values in items:
+            if not values:
+                continue
+            pts = np.percentile(np.asarray(values),
+                                [q * 100 for q in self.quantiles])
+            for q, v in zip(self.quantiles, pts):
+                out.append(Sample(
+                    self.name, "summary", float(v),
+                    labels + (("quantile", "%g" % q),)))
+        return out
+
+
 class MetricsRegistry:
-    """Named collectors -> one sample stream, one JSON snapshot, one
-    Prometheus text."""
+    """Named collectors + direct instruments + absorbed peers ->
+    one sample stream, one JSON snapshot, one Prometheus text."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._collectors: Dict[str, Callable[[], Iterable[Sample]]] = {}
+        self._instruments: Dict[str, Any] = {}
+        self._absorbed: Dict[str, Tuple[Labels, List[Sample]]] = {}
 
+    # -- sources -----------------------------------------------------------
     def register(self, name: str,
                  collector: Callable[[], Iterable[Sample]]) -> None:
-        """Add/replace a named collector (``collector()`` -> samples)."""
+        """Add/replace a named collector (``collector()`` -> samples).
+        Replacement semantics keep a re-created component (new server,
+        new coordinator) from double-reporting."""
         with self._lock:
             self._collectors[name] = collector
 
+    def unregister(self, name: str) -> None:
+        with self._lock:
+            self._collectors.pop(name, None)
+
+    def _instrument(self, name: str, kind: str):
+        with self._lock:
+            inst = self._instruments.get(name)
+            if inst is None:
+                inst = self._instruments[name] = _Instrument(name, kind)
+            elif inst.kind != kind:
+                raise ValueError("metric %r is a %s, not a %s"
+                                 % (name, inst.kind, kind))
+            return inst
+
+    def counter(self, name: str) -> _Instrument:
+        return self._instrument(name, "counter")
+
+    def gauge(self, name: str) -> _Instrument:
+        return self._instrument(name, "gauge")
+
+    def summary(self, name: str, window: int = 2048) -> _Summary:
+        with self._lock:
+            inst = self._instruments.get(name)
+            if inst is None:
+                inst = self._instruments[name] = _Summary(name, window)
+            elif not isinstance(inst, _Summary):
+                raise ValueError("metric %r is not a summary" % name)
+            return inst
+
+    # -- farm-wide aggregation ---------------------------------------------
+    def absorb(self, peer: str, wire: Any,
+               labels: Optional[Dict[str, Any]] = None) -> int:
+        """Store a peer registry document (``as_wire()`` output) under
+        ``peer``; its samples join :meth:`samples` with ``labels``
+        appended (e.g. ``worker="w0001"``). Replacement per peer — a
+        worker's next document supersedes its last."""
+        extra: Labels = tuple(sorted(
+            (k, str(v)) for k, v in (labels or {}).items()))
+        samples = []
+        if isinstance(wire, (list, tuple)):
+            for doc in wire:
+                sample = Sample.from_wire(doc)
+                if sample is not None:
+                    samples.append(Sample(
+                        sample.metric, sample.kind, sample.value,
+                        sample.labels + extra, series=sample.series))
+        with self._lock:
+            self._absorbed[peer] = (extra, samples)
+        return len(samples)
+
+    def forget(self, peer: str, subtree: bool = False) -> None:
+        """Drop a departed peer's absorbed samples. ``subtree=True``
+        also drops every ``"<peer>/..."`` key — a relay's downstream
+        workers were absorbed under relay-scoped names, and they
+        depart with it."""
+        with self._lock:
+            self._absorbed.pop(peer, None)
+            if subtree:
+                prefix = peer + "/"
+                for key in [k for k in self._absorbed
+                            if k.startswith(prefix)]:
+                    del self._absorbed[key]
+
+    # -- reading -----------------------------------------------------------
     def samples(self) -> List[Sample]:
         with self._lock:
             collectors = list(self._collectors.values())
+            instruments = list(self._instruments.values())
+            absorbed = [s for _, ss in self._absorbed.values()
+                        for s in ss]
         out: List[Sample] = []
+        for instrument in instruments:
+            out.extend(instrument.collect())
         for collector in collectors:
             try:
                 out.extend(collector())
             except Exception:  # noqa: BLE001 — one sick source must
                 # not take down the whole exposition
                 continue
+        out.extend(absorbed)
         return out
 
+    def as_wire(self) -> List[List[Any]]:
+        return [s.as_wire() for s in self.samples()]
+
     def snapshot(self) -> Dict[str, Any]:
-        """JSON surface: {series: {label-string: value}}."""
+        """JSON surface: {series: {label-string: value}} (flat label
+        string keys keep the document greppable and diffable)."""
         doc: Dict[str, Any] = {}
         for sample in self.samples():
             series = doc.setdefault(sample.series, {})
@@ -227,6 +403,35 @@ def sched_samples(snap: Dict[str, Any]) -> List[Sample]:
                 "veles_sched_queue_wait_ms", "summary",
                 t["queue_wait_ms"][key],
                 (("tenant", name), ("quantile", q))))
+    return out
+
+
+def wire_samples(stats: Dict[str, Any],
+                 labels: Labels = ()) -> List[Sample]:
+    """``WireStats.as_dict()`` / ``Coordinator.wire_stats()`` -> the
+    ``veles_wire_*`` series."""
+    kinds = {"compression_ratio": "gauge"}
+    out = []
+    for key, value in sorted(stats.items()):
+        if not isinstance(value, (int, float)):
+            continue
+        out.append(Sample("veles_wire_%s" % key,
+                          kinds.get(key, "counter"), value, labels))
+    return out
+
+
+def checkpoint_samples(stats: Optional[Dict[str, Any]],
+                       labels: Labels = ()) -> List[Sample]:
+    """``checkpoint_stats()`` -> the ``veles_ckpt_*`` series."""
+    if not stats:
+        return []
+    out = []
+    for key, value in sorted(stats.items()):
+        if isinstance(value, bool) or not isinstance(value,
+                                                     (int, float)):
+            continue
+        out.append(Sample("veles_ckpt_%s" % key, "gauge", value,
+                          labels))
     return out
 
 

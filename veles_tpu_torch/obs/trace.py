@@ -1,5 +1,6 @@
-"""Lightweight request tracing (port of ``veles_tpu/obs/trace.py``,
-trimmed to what the serving slice records).
+"""Lightweight request and job tracing (port of
+``veles_tpu/obs/trace.py``: the serving slice's spans plus the farm's
+wire form).
 
 Spans are (name, category, ids, monotonic t0/t1) records in a bounded
 ring buffer — two clock reads, a tuple and a deque append, cheap
@@ -7,7 +8,9 @@ enough to leave on. A :class:`TraceContext` is the propagated
 identity: an HTTP request's ticket carries its trace id through the
 batcher queue and the prefill/decode dispatch. Export is Chrome-trace
 JSON (``GET /debug/trace``). The :class:`ExemplarTable` keeps the N
-slowest requests with their queue-vs-device breakdown.
+slowest requests with their queue-vs-device breakdown. A farm worker
+ships its job's spans in the wire form of :func:`make_span` with its
+update, and the coordinator stitches them in (:meth:`Tracer.ingest`).
 """
 
 from __future__ import annotations
@@ -51,6 +54,29 @@ class TraceContext:
     def new(cls) -> "TraceContext":
         return cls(new_trace_id())
 
+    def child(self, span_id: int) -> "TraceContext":
+        return TraceContext(self.trace_id, span_id)
+
+    # -- wire form (job frames) --------------------------------------------
+    def to_wire(self) -> Dict[str, Any]:
+        wire: Dict[str, Any] = {"t": self.trace_id}
+        if self.parent_id is not None:
+            wire["s"] = self.parent_id
+        return wire
+
+    @staticmethod
+    def from_wire(wire: Any) -> Optional["TraceContext"]:
+        """None on anything that is not a well-formed context: a peer's
+        junk degrades to 'untraced', never raises."""
+        if not isinstance(wire, dict):
+            return None
+        trace_id = wire.get("t")
+        if not isinstance(trace_id, str) or not trace_id:
+            return None
+        parent = wire.get("s")
+        return TraceContext(
+            trace_id, parent if isinstance(parent, int) else None)
+
     def __repr__(self) -> str:
         return "<TraceContext %s/%s>" % (self.trace_id, self.parent_id)
 
@@ -88,9 +114,41 @@ class Tracer:
             self.recorded += 1
         return span_id
 
+    def ingest(self, spans: Optional[List[Dict[str, Any]]]) -> int:
+        """Absorb span dicts shipped by a peer (worker -> relay ->
+        coordinator stitching), in the :meth:`spans` field names;
+        malformed entries are skipped, never raised: a peer cannot
+        poison the collector. Returns the spans taken."""
+        if not spans or not self.enabled:
+            return 0
+        n = 0
+        with self._lock:
+            for span in spans:
+                if not isinstance(span, dict):
+                    continue
+                trace_id = span.get("trace")
+                t0, t1 = span.get("t0"), span.get("t1")
+                if not isinstance(trace_id, str) or \
+                        not isinstance(t0, (int, float)) or \
+                        not isinstance(t1, (int, float)):
+                    continue
+                if len(self._spans) == self.capacity:
+                    self.dropped += 1
+                self._spans.append((
+                    str(span.get("name", "?")),
+                    str(span.get("cat", "app")), trace_id,
+                    span.get("id") or next(_IDS), span.get("parent"),
+                    float(t0), float(t1),
+                    (span.get("pid", 0), span.get("tid", 0)),
+                    span.get("args")))
+                self.recorded += 1
+                n += 1
+        return n
+
     def spans(self, trace_id: Optional[str] = None
               ) -> List[Dict[str, Any]]:
-        """Span dicts, oldest first; optionally one trace."""
+        """Span dicts (the :meth:`ingest` schema), oldest first;
+        optionally one trace."""
         with self._lock:
             records = list(self._spans)
         out = []
@@ -130,6 +188,26 @@ class Tracer:
         return {"enabled": self.enabled, "capacity": self.capacity,
                 "buffered": buffered, "recorded": self.recorded,
                 "dropped": self.dropped}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self.dropped = 0
+            self.recorded = 0
+
+
+def make_span(name: str, cat: str, ctx: TraceContext, t0: float,
+              t1: float, **args: Any) -> Dict[str, Any]:
+    """A wire-form span dict (the :meth:`Tracer.ingest` schema): what a
+    farm worker attaches to its update so the coordinator can stitch
+    the job's timeline across processes."""
+    span = {"name": name, "cat": cat, "trace": ctx.trace_id,
+            "id": next(_IDS), "parent": ctx.parent_id,
+            "t0": t0, "t1": t1, "pid": os.getpid(),
+            "tid": threading.get_ident()}
+    if args:
+        span["args"] = args
+    return span
 
 
 class ExemplarTable:

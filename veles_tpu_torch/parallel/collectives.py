@@ -32,18 +32,25 @@ back ``non_blocking``. :data:`STAGED_BYTES` counts the bytes that
 crossed, both ways. Gloo has no reduce-scatter: there it is an
 all-reduce followed by the slice. bf16 crosses gloo as its bits
 (in an f16 tensor) and is summed in f32.
+
+:func:`broadcast_object` sends a picklable host object from one rank
+of an axis to the others (a sharded engine's leader sends each device
+call and its host inputs so); its bytes count under
+``STAGED_BYTES["broadcast"]``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import pickle
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 #: bytes staged through host memory for gloo: device to host, host to
-#: device
-STAGED_BYTES: Dict[str, int] = {"to_host": 0, "to_device": 0}
+#: device, and the pickled host objects of :func:`broadcast_object`
+STAGED_BYTES: Dict[str, int] = {"to_host": 0, "to_device": 0,
+                                "broadcast": 0}
 
 
 def reset_staged() -> None:
@@ -189,6 +196,38 @@ def recv(shape, dtype, device, axis, src: int) -> torch.Tensor:
     dist.recv(buf, axis.ranks[src], group=axis.group)
     out = _unwire(buf, dtype)
     return to_device(out, device) if staged else out
+
+
+def _transport_buffer(n: int, dtype, axis) -> torch.Tensor:
+    """A transport buffer of the axis's backend: host memory for gloo,
+    the rank's card for NCCL."""
+    device = "cpu"
+    if dist.get_backend(axis.group) == "nccl":
+        device = torch.device("cuda", torch.cuda.current_device())
+    return torch.empty(n, dtype=dtype, device=device)
+
+
+def broadcast_object(obj: Any, axis, src: int = 0) -> Any:
+    """A picklable object of the axis index ``src`` on every rank of the
+    axis (the others pass anything, e.g. None): its size, then its
+    pickle as bytes. Every wait is the group's timeout."""
+    if axis.size == 1:
+        return obj
+    size = _transport_buffer(1, torch.int64, axis)
+    payload = None
+    if axis.index == src:
+        payload = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        size.fill_(len(payload))
+    dist.broadcast(size, axis.ranks[src], group=axis.group)
+    n = int(size.item())
+    buf = _transport_buffer(n, torch.uint8, axis)
+    if axis.index == src:
+        buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
+    dist.broadcast(buf, axis.ranks[src], group=axis.group)
+    STAGED_BYTES["broadcast"] += n
+    if axis.index == src:
+        return obj
+    return pickle.loads(buf.cpu().numpy().tobytes())
 
 
 def sum_flat(tensors: Sequence[torch.Tensor], axis) -> List[torch.Tensor]:

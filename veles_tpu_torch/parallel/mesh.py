@@ -95,6 +95,8 @@ class Mesh:
         self.rank = int(rank)
         self.device = torch.device(device)
         self.backend = backend
+        #: every collective's deadline (None: the process group's)
+        self.timeout_s = timeout_s
         sizes = tuple(self.shape.values())
         self.ranks = np.arange(int(np.prod(sizes)), dtype=np.int64).reshape(
             sizes)

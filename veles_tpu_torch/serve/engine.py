@@ -6,8 +6,8 @@ decoding.
 
 Port of ``veles_tpu/serve/engine.py`` (``InferenceEngine``,
 ``GenerativeEngine``, ``_sample_tokens``, ``PagedGenerativeEngine``,
-``bucket_for``, ``_validated_swap``), single device: no mesh, no AOT
-plan, no memory plan. Where the reference compiles one executable per
+``bucket_for``, ``_validated_swap``, ``_mesh_stats``): no AOT plan, no
+memory plan. Where the reference compiles one executable per
 shape, the port on a CUDA device captures one CUDA graph
 (``veles_tpu_torch.graphs``): one per batch bucket of the forward
 plane, one per decode round body (greedy, sampled, speculative) of the
@@ -17,11 +17,25 @@ place between replays; prefill runs eagerly. ``compile_count`` keeps
 its meaning: distinct shapes served (captured graphs on the card, the
 same record on the CPU, where nothing is captured). Every tensor lives
 on ``self.device``; serving runs under ``torch.inference_mode()``.
+
+``mesh=`` (a serve mesh, ``serve/sharding.py:serve_mesh``) makes an
+engine tensor-parallel over the mesh's ``model`` axis, one process a
+rank: every rank builds the same engine from the same host weights and
+keeps its shards (the layouts of ``serve/sharding.py``) on the mesh's
+device. The reference drives every shard from one process; here the
+``model`` axis's first rank is the leader, whose engine the batchers
+and the HTTP front call, and the other ranks run :meth:`follow` until
+the leader's ``stop_followers()``: each device call of the leader is
+broadcast with its host inputs and run on every rank (see
+:class:`_Shard`; ROADMAP.md queue 3, deliberate divergences). On a
+mesh of more than one rank the steps run eagerly: collectives staged
+through the host (gloo) cannot be captured.
 """
 
 from __future__ import annotations
 
 import threading
+from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -30,18 +44,26 @@ import torch
 from veles_tpu_torch.device import compute_dtype as _compute_dtype
 from veles_tpu_torch.device import resolve
 from veles_tpu_torch.graphs import StepGraph, use_graphs
-from veles_tpu_torch.models.transformer import (compute_weights,
+from veles_tpu_torch.models.transformer import (ServeContext, _encode,
+                                                _lm_head, _tree_map,
+                                                compute_weights,
                                                 decode_step,
-                                                forward as lm_forward,
                                                 init_kv_cache,
                                                 init_paged_kv_cache,
                                                 paged_decode_step,
                                                 params_from_numpy,
                                                 prefill, refresh_weights,
                                                 verify_step)
-from veles_tpu_torch.parallel.fused import _apply, normalize_specs
+from veles_tpu_torch.parallel import collectives
+from veles_tpu_torch.parallel.fused import _apply, _Shards, normalize_specs
+from veles_tpu_torch.parallel.mesh import Axis, check_mesh
+from veles_tpu_torch.serve import sharding as serve_sharding
 from veles_tpu_torch.serve.paging import (PagePool, PagesExhausted,
                                           kv_bytes_per_token)
+
+#: how long a follower waits for the leader's next call (an idle
+#: server sends none)
+IDLE_TIMEOUT_S = 7 * 86400.0
 
 
 def bucket_for(n: int, min_bucket: int = 1) -> int:
@@ -82,17 +104,185 @@ def _validated_swap(new: Any, current_params: Any) -> Any:
     return new
 
 
+def _place_lm(params, config, device, mesh=None) -> Dict[str, Any]:
+    """An LM's f32 params on ``device``: whole, or this rank's shards on
+    a mesh (``serve_sharding.transformer_param_shardings``)."""
+    if mesh is None:
+        return params_from_numpy(params, config, device)
+    host = _host_tree(params, config)
+    return serve_sharding.place_tree(
+        serve_sharding.transformer_param_shardings(mesh, host), host)
+
+
 @torch.no_grad()
 def _swap_lm_weights(engine, params: Any) -> None:
-    """An LM engine's hot swap: validate, copy into the f32 master
-    leaves, recompute the compute-dtype weights in place (a captured
-    decode round reads both)."""
-    new = _validated_swap(params_from_numpy(params, engine.config,
-                                            engine.device), engine.params)
+    """An LM engine's hot swap (on every rank of a mesh): re-shard,
+    validate, copy into the f32 master leaves, recompute the
+    compute-dtype weights in place (a captured decode round reads
+    both)."""
+    new = _validated_swap(_place_lm(params, engine.config, engine.device,
+                                    engine.mesh), engine.params)
     with engine._lock:
         for (_, dst), (_, src) in zip(_leaves(engine.params), _leaves(new)):
             dst.copy_(src)
         refresh_weights(engine._weights, engine.params, engine.config)
+
+
+def _mesh_stats(mesh, kv_cache) -> Dict[str, Any]:
+    """Per-shard gauges for a sharded engine (empty when mesh=None):
+    KV bytes divide by tp (heads-partitioned); control state
+    replicates. ``kv_cache`` is this rank's shard."""
+    if mesh is None:
+        return {}
+    tp = serve_sharding.mesh_tp(mesh)
+    per_shard = sum(int(t.numel()) * t.element_size()
+                    for t in kv_cache.values())
+    return {
+        "mesh_axes": {str(k): int(v) for k, v in dict(mesh.shape).items()},
+        "mesh_devices": int(mesh.n_devices),
+        "tp": tp,
+        "kv_bytes_total": per_shard * tp,
+        "kv_bytes_per_shard": per_shard,
+    }
+
+
+class _Shard:
+    """A sharded engine's place on its serve mesh, one process a rank:
+    the ``model`` axis and the leader/follower protocol.
+
+    The ``model`` axis's first rank is the leader. Every device call of
+    an engine is one method over host inputs (prefill with its tokens,
+    lengths and slots; a decode round with its active mask, block
+    tables and fault mask; a copy-on-write page copy; an apply; a
+    weight swap). The leader broadcasts the method's name and inputs
+    over the slice's control group and runs it; each follower, in
+    :meth:`follow`, receives and runs the same, so every rank runs the
+    same step and meets the same collectives. After each call the
+    ranks acknowledge it over a second group whose waits are the mesh's
+    (``Mesh.timeout_s``); a follower whose call failed raises instead,
+    and the leader's call then raises within that timeout, as it does
+    when a follower died. A follower waits for the next call up to
+    :data:`IDLE_TIMEOUT_S`; a leader that died breaks that wait at
+    once."""
+
+    def __init__(self, mesh) -> None:
+        self.mesh = mesh
+        self.model = mesh.axis(serve_sharding.MODEL_AXIS)
+        self.tp = self.model.size
+        self.leader = self.model.index == 0
+        self.stopped = False
+        #: device calls run on this rank, by name (the same on every
+        #: rank of the slice)
+        self.calls: Dict[str, int] = {}
+        # every rank of the world builds both groups, in this order
+        self._control = self._axis(serve_sharding.control_group(
+            mesh, IDLE_TIMEOUT_S))
+        self._ack = self._axis(serve_sharding.control_group(
+            mesh, mesh.timeout_s))
+
+    def _axis(self, group) -> Axis:
+        return Axis(self.model.names, self.model.ranks, self.model.index,
+                    group)
+
+    def call(self, engine, name: str, args: tuple) -> Any:
+        """The leader's device call ``engine.<name>(*args)`` on every
+        rank of the slice; returns the leader's result."""
+        if self.tp == 1:
+            return getattr(engine, name)(*args)
+        if not self.leader:
+            raise RuntimeError(
+                "rank %d follows the leader of its 'model' slice: call "
+                "%s.follow() there, and the engine on the leader"
+                % (self.mesh.rank, type(engine).__name__))
+        if self.stopped:
+            raise RuntimeError("the followers of this engine were stopped")
+        collectives.broadcast_object((name, args), self._control)
+        return self._run(engine, name, args)
+
+    def _run(self, engine, name: str, args: tuple) -> Any:
+        self.calls[name] = self.calls.get(name, 0) + 1
+        try:
+            out = getattr(engine, name)(*args)
+        except BaseException:
+            # a follower raises its own failure at once: the leader's
+            # acknowledgement then waits out the mesh's timeout
+            if self.leader:
+                self._acknowledge(True)
+            raise
+        if self._acknowledge(False) and self.leader:
+            raise RuntimeError("a follower of %s failed in %s"
+                               % (type(engine).__name__, name))
+        return out
+
+    def _acknowledge(self, failed: bool) -> int:
+        """Every rank's word on the call just run: the failures of the
+        others (their count)."""
+        flag = torch.tensor([int(failed)], dtype=torch.int64)
+        return int(collectives.all_reduce_sum(flag, self._ack)[0]) - \
+            int(failed)
+
+    def follow(self, engine) -> int:
+        """A follower's loop: run the leader's calls until it stops the
+        followers; returns the calls run. Raises this rank's own
+        failure, or the transport's when the leader is gone."""
+        if self.leader or self.tp == 1:
+            raise RuntimeError("rank %d leads its 'model' slice; only "
+                               "the other ranks follow" % self.mesh.rank)
+        calls = 0
+        while True:
+            name, args = collectives.broadcast_object(None, self._control)
+            if name is None:
+                return calls
+            self._run(engine, name, args)
+            calls += 1
+
+    def stop(self) -> None:
+        """The leader releases its followers from :meth:`follow`."""
+        if self.leader and self.tp > 1 and not self.stopped:
+            collectives.broadcast_object((None, ()), self._control)
+        self.stopped = True
+
+
+def _mesh_device(mesh, device):
+    """A meshed engine's device: the mesh's (a different explicit
+    ``device`` is an error)."""
+    check_mesh(mesh)
+    if mesh is None:
+        return device
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError("device %s is not the mesh's %s"
+                         % (device, mesh.device))
+    return mesh.device
+
+
+def _mesh_graphs(mesh, cuda_graphs):
+    """``cuda_graphs`` on a mesh: a mesh of more than one rank runs its
+    steps eagerly, and ``True`` raises there."""
+    if mesh is None or mesh.n_devices == 1:
+        return cuda_graphs
+    if cuda_graphs:
+        raise ValueError(
+            "cuda_graphs=True on a mesh of %d ranks: the steps' "
+            "collectives (%s) run on the host and cannot be captured; "
+            "the sharded engine runs eagerly"
+            % (mesh.n_devices, mesh.backend))
+    return False
+
+
+def _host_tree(params, config) -> Dict[str, Any]:
+    """A params tree checked against ``config`` and held as host f32
+    tensors (the source every rank takes its shards from)."""
+    return params_from_numpy(params, config, "cpu")
+
+
+def _kv_cache(mesh, device, make: Callable[..., Dict[str, Any]]):
+    """The zeroed K/V cache ``make(device=)`` builds (a slab or a page
+    pool): whole, or this rank's heads of it on a mesh (no full-size
+    buffer anywhere)."""
+    if mesh is None:
+        return make(device=device)
+    return serve_sharding.zeros_tree(
+        serve_sharding.kv_cache_shardings(mesh), make(device="meta"))
 
 
 def _upload(buffer: torch.Tensor, host: np.ndarray) -> None:
@@ -113,7 +303,33 @@ def _place_tree(tree, device) -> Any:
     return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
 
 
-class InferenceEngine:
+class _Sharded:
+    """The leader/follower face of an engine (``self._shard``, a
+    :class:`_Shard` on a mesh, else None): each device call goes
+    through :meth:`_dev`, which on a mesh runs it on every rank."""
+
+    _shard: Optional[_Shard] = None
+
+    def _dev(self, name: str, *args) -> Any:
+        if self._shard is None:
+            return getattr(self, name)(*args)
+        return self._shard.call(self, name, args)
+
+    def follow(self) -> int:
+        """A follower rank's loop (a sharded engine off the leader of
+        its ``model`` slice): run the leader's device calls until its
+        :meth:`stop_followers`; returns the calls run."""
+        if self._shard is None:
+            raise RuntimeError("follow() is for an engine on a mesh")
+        return self._shard.follow(self)
+
+    def stop_followers(self) -> None:
+        """The leader releases its followers (a no-op off a mesh)."""
+        if self._shard is not None:
+            self._shard.stop()
+
+
+class InferenceEngine(_Sharded):
     """Forward + params + the bucketed shape record, one captured CUDA
     graph per batch bucket.
 
@@ -128,23 +344,44 @@ class InferenceEngine:
     graphs. ``cuda_graphs=False`` (and the CPU) runs the forward eagerly
     and records the shapes served. Use the ``from_*`` constructors
     unless you serve a custom function.
+
+    ``mesh`` (a serve mesh; its device is the engine's): SPMD over its
+    ranks, ``forward_fn`` then being the sharded forward of this rank's
+    params, placed per ``param_shardings`` (a congruent tree of
+    ``serve_sharding.NamedSharding``; replicated when omitted; the
+    ``from_*`` constructors give both). Inputs and outputs are
+    replicated; the leader serves, the other ranks :meth:`follow`.
     """
 
     def __init__(self, forward_fn: Callable[[Any, torch.Tensor], Any],
                  params: Any, *, input_dtype=np.float32,
                  min_bucket: int = 1, name: str = "model", device=None,
-                 cuda_graphs: Optional[bool] = None, mesh=None) -> None:
+                 cuda_graphs: Optional[bool] = None, mesh=None,
+                 param_shardings=None) -> None:
+        self.device = resolve(_mesh_device(mesh, device))
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "a sharded InferenceEngine waits for sharded serving "
-                "(ROADMAP.md queue 1 item 7b)")
-        self.device = resolve(device)
-        self._graphs_on = use_graphs(cuda_graphs, self.device)
+            axes = tuple(mesh.axis_names)
+            if serve_sharding.MODEL_AXIS not in axes:
+                raise ValueError(
+                    "sharded engine needs a mesh with a %r axis, got "
+                    "axes %r" % (serve_sharding.MODEL_AXIS, axes))
+            self._shard = _Shard(mesh)
+            if param_shardings is None:
+                param_shardings = _tree_map(
+                    lambda _: serve_sharding.replicated(mesh), params)
+        elif param_shardings is not None:
+            raise ValueError(
+                "param_shardings given without a mesh: pass mesh= or "
+                "drop the shardings")
+        self._param_shardings = param_shardings
+        self._graphs_on = use_graphs(_mesh_graphs(mesh, cuda_graphs),
+                                     self.device)
         self.name = name
         self.input_dtype = np.dtype(input_dtype)
         self.min_bucket = int(min_bucket)
         self._forward_fn = forward_fn
-        self.params = _place_tree(params, self.device)
+        self.params = self._place(params)
         #: shape -> its captured graph (None where nothing is captured)
         self._cache: Dict[Tuple[int, ...], Optional[StepGraph]] = {}
         self._pool = None
@@ -152,6 +389,14 @@ class InferenceEngine:
         #: trailing params entries a body-only swap keeps (the
         #: normalizer's statistics of from_specs)
         self._swap_tail = 0
+
+    def _place(self, params: Any) -> Any:
+        """A params tree as f32 tensors on the device: whole, or this
+        rank's shards on a mesh."""
+        if self._param_shardings is None:
+            return _place_tree(params, self.device)
+        return serve_sharding.place_tree(self._param_shardings,
+                                         _place_tree(params, "cpu"))
 
     # -- the shape record --------------------------------------------------
     @property
@@ -194,6 +439,10 @@ class InferenceEngine:
                            dtype=self.input_dtype)
             pad[:n] = batch
             batch = pad
+        return self._dev("_device_apply", batch)[:n]
+
+    def _device_apply(self, batch: np.ndarray) -> np.ndarray:
+        """The forward of one padded bucket (every rank on a mesh)."""
         x = torch.from_numpy(batch)
         with self._swap_lock, torch.inference_mode():
             if self._graphs_on:
@@ -201,7 +450,7 @@ class InferenceEngine:
             else:
                 self._cache.setdefault(batch.shape, None)
                 out = self._forward_fn(self.params, x.to(self.device))
-            return out[:n].cpu().numpy()
+            return out.cpu().numpy()
 
     def warmup(self, sample_shape: Sequence[int], max_batch: int) -> int:
         """Serve every bucket up to ``max_batch`` once for one sample
@@ -225,11 +474,14 @@ class InferenceEngine:
         normalizer's statistics as its last params entry
         (``from_specs(normalizer=)``) also takes the body's params alone
         and keeps the statistics."""
+        self._dev("_device_swap", params)
+
+    def _device_swap(self, params: Any) -> None:
         tail = self._swap_tail
         if tail and isinstance(params, (list, tuple)) and \
                 len(params) == len(self.params) - tail:
             params = list(params) + list(self.params[-tail:])
-        new = _validated_swap(_place_tree(params, self.device), self.params)
+        new = _validated_swap(self._place(params), self.params)
         with self._swap_lock, torch.no_grad():
             for (_, dst), (_, src) in zip(_leaves(self.params),
                                           _leaves(new)):
@@ -251,7 +503,10 @@ class InferenceEngine:
         alone keeps them). A softmax tail returns probabilities (the
         reference's graph parity). ``compute_dtype``: None = bfloat16
         on a CUDA device, float32 elsewhere; params and the output stay
-        f32."""
+        f32. ``mesh=``: Megatron tensor parallelism over ``model``
+        (``serve_sharding.mlp_param_shardings``, the training side's
+        column/row alternation), the forward gathering channels where
+        the fused trainer's does."""
         specs = normalize_specs(specs)
         pre_n = 0
         for s in specs:
@@ -263,7 +518,9 @@ class InferenceEngine:
                 "('normalize',) specs must lead the stack; got %s"
                 % (specs,))
         body = specs[pre_n:]
-        device = resolve(kwargs.pop("device", None))
+        mesh = kwargs.get("mesh")
+        shards = _Shards(mesh, body, True) if mesh is not None else None
+        device = resolve(_mesh_device(mesh, kwargs.pop("device", None)))
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if device.type == "cuda" \
                 else torch.float32
@@ -286,13 +543,17 @@ class InferenceEngine:
             if normalizer is not None:
                 x = normalizer.apply_torch(
                     x, all_params[-1] if has_norm_tail else None)
-            h = _apply(body, False, body_params, x, 0, compute_dtype)
+            h = _apply(body, False, body_params, x, 0, compute_dtype,
+                       shards=shards)
             if tail_act == "softmax":
                 h = torch.softmax(h.float(), dim=-1)
             return h
 
         if has_norm_tail:
             params = list(params) + [norm_arrays]
+        if mesh is not None and kwargs.get("param_shardings") is None:
+            kwargs["param_shardings"] = serve_sharding.mlp_param_shardings(
+                mesh, specs, params)
         engine = cls(forward, params, name=name, device=device, **kwargs)
         if has_norm_tail:
             engine._swap_tail = 1
@@ -303,16 +564,27 @@ class InferenceEngine:
             "InferenceEngine":
         """Engine over a TransformerConfig LM: int32 token rows [N, T]
         in, f32 logits [N, T, V] out. Pass a trained
-        ``TransformerTrainer.params`` (or ``init_params`` output)."""
-        device = resolve(kwargs.pop("device", None))
+        ``TransformerTrainer.params`` (or ``init_params`` output).
+        ``mesh=``: the serving forward over ``model`` (each rank on its
+        heads, ``serve_sharding.transformer_param_shardings``)."""
+        mesh = kwargs.get("mesh")
+        device = resolve(_mesh_device(mesh, kwargs.pop("device", None)))
+        host = _host_tree(params, config)
+        ctx = None
+        if mesh is not None:
+            serve_sharding.validate_serve_mesh(mesh, config)
+            ctx = ServeContext(mesh)
+            kwargs.setdefault(
+                "param_shardings",
+                serve_sharding.transformer_param_shardings(mesh, host))
 
         def fwd(p, tokens):
-            return lm_forward(p, tokens.long(), config)[0]
+            x, _ = _encode(p, tokens.long(), config, ctx)
+            return _lm_head(x, p, config.compute_dtype())
 
         kwargs.setdefault("input_dtype", np.int32)
         kwargs.setdefault("name", "transformer_lm")
-        return cls(fwd, params_from_numpy(params, config, device),
-                   device=device, **kwargs)
+        return cls(fwd, host, device=device, **kwargs)
 
     @classmethod
     def from_forwards(cls, forwards: Sequence[Any],
@@ -347,7 +619,7 @@ class InferenceEngine:
             "AOT artifacts (ROADMAP.md queue 1 item 10)")
 
 
-class GenerativeEngine:
+class GenerativeEngine(_Sharded):
     """KV-cache autoregressive decode plane over a transformer LM.
 
     A prompt is prefilled ONCE into a slot of a device-resident KV
@@ -374,15 +646,28 @@ class GenerativeEngine:
     :meth:`decode`, replayed by every later one; admit, release, a
     fault mask and :meth:`swap_params` rewrite its inputs in place and
     never capture again. ``False`` runs the same step eagerly.
+
+    ``mesh`` (a serve mesh; its device is the engine's): tensor
+    parallel over ``model``, each rank holding its heads of the weights
+    and of the slab (see the module docstring); the leader serves, the
+    other ranks :meth:`follow`.
     """
 
     def __init__(self, config, params, *, max_slots: int = 8,
                  max_len: Optional[int] = None,
                  min_prefill_bucket: int = 8,
                  name: str = "generative_lm",
-                 device=None, cuda_graphs: Optional[bool] = None) -> None:
-        self.device = resolve(device)
-        self._graphs_on = use_graphs(cuda_graphs, self.device)
+                 device=None, cuda_graphs: Optional[bool] = None,
+                 mesh=None) -> None:
+        self.device = resolve(_mesh_device(mesh, device))
+        self.mesh = mesh
+        self._serve = None
+        if mesh is not None:
+            serve_sharding.validate_serve_mesh(mesh, config)
+            self._shard = _Shard(mesh)
+            self._serve = ServeContext(mesh)
+        self._graphs_on = use_graphs(_mesh_graphs(mesh, cuda_graphs),
+                                     self.device)
         self.config = config
         self.name = name
         self.max_len = int(min(max_len or config.seq_len,
@@ -392,11 +677,10 @@ class GenerativeEngine:
         self.slots = int(max_slots)
         self.cache_capacity = bucket_for(self.max_len)
         self.min_prefill_bucket = int(min_prefill_bucket)
-        self.params = params_from_numpy(params, config, self.device)
+        self.params = _place_lm(params, config, self.device, mesh)
         self._weights = compute_weights(self.params, config)
-        self._cache = init_kv_cache(config, self.slots,
-                                    self.cache_capacity,
-                                    device=self.device)
+        self._cache = _kv_cache(mesh, self.device, partial(
+            init_kv_cache, config, self.slots, self.cache_capacity))
         # the decode step's static inputs: written in place, never
         # rebound (a captured step reads them at fixed addresses)
         self._lengths = torch.zeros(self.slots, dtype=torch.int32,
@@ -439,7 +723,7 @@ class GenerativeEngine:
         active = self._active_dev
         logits, _, lengths = decode_step(
             self._weights, self._last_tokens, self._cache, self._lengths,
-            self.config, active=active)
+            self.config, active=active, par=self._serve)
         # all-False outside fault injection: bitwise the identity
         logits = logits.masked_fill(self._inject_dev[:, None],
                                     float("nan"))
@@ -456,7 +740,7 @@ class GenerativeEngine:
     def _prefill_fn(self, tokens: torch.Tensor, lengths: torch.Tensor,
                     slots: Sequence[int]) -> torch.Tensor:
         logits, prompt = prefill(self._weights, tokens, lengths,
-                                 self.config)
+                                 self.config, par=self._serve)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         # scatter the real rows into their slots (padding rows of the
         # batch bucket are dropped, as the reference's out-of-range
@@ -472,6 +756,41 @@ class GenerativeEngine:
         self._lengths[idx] = lengths[:n].to(torch.int32)
         self._last_tokens[idx] = nxt[:n]
         return nxt[:n]
+
+    # -- the device calls (host inputs in, host outputs back) ---------------
+    def _device_prefill(self, tokens: np.ndarray, lengths: np.ndarray,
+                        slots: List[int]) -> np.ndarray:
+        with self._lock, torch.inference_mode():
+            return self._prefill_fn(
+                torch.from_numpy(tokens).to(self.device).long(),
+                torch.from_numpy(lengths).to(self.device),
+                slots).cpu().numpy()
+
+    def _device_decode(self, active: Optional[np.ndarray],
+                       inject: Optional[np.ndarray]) -> np.ndarray:
+        """One decode step after rewriting the static inputs whose host
+        copies changed (None: unchanged); the ``[2, slots]`` block."""
+        with self._lock, torch.inference_mode():
+            if active is not None:
+                _upload(self._active_dev, active)
+            if inject is not None:
+                _upload(self._inject_dev, inject)
+            if not self._graphs_on:
+                out = self._decode_fn()
+            else:
+                if self._graph is None:
+                    # the warm-up calls write K/V only at each slot's
+                    # length, which every read masks and the captured
+                    # step rewrites; the lengths and tokens come back
+                    self._graph = StepGraph(
+                        self._decode_fn,
+                        keep=(self._lengths, self._last_tokens))
+                out = self._graph.replay()
+            # one transfer: tokens and flags as int32 [2, slots]
+            return out.cpu().numpy()
+
+    def _device_swap(self, params: Any) -> None:
+        _swap_lm_weights(self, params)
 
     # -- the shape record --------------------------------------------------
     @property
@@ -536,11 +855,7 @@ class GenerativeEngine:
             for i, row in enumerate(rows):
                 tokens[i, :lens[i]] = row
                 lengths[i] = lens[i]
-            with self._lock, torch.inference_mode():
-                nxt = self._prefill_fn(
-                    torch.from_numpy(tokens).to(self.device).long(),
-                    torch.from_numpy(lengths).to(self.device), taken)
-                first = nxt.cpu().numpy()
+            first = self._dev("_device_prefill", tokens, lengths, taken)
         except BaseException:
             self._free.extend(taken)  # a failed prefill must not leak
             raise
@@ -561,26 +876,11 @@ class GenerativeEngine:
         inject = _fault_mask(self.decode_fault_hook, self._decode_steps,
                              self.slots)
         self._decode_steps += 1
-        with self._lock, torch.inference_mode():
-            if self._active_stale:
-                _upload(self._active_dev, self._active)
-                self._active_stale = False
-            if not np.array_equal(inject, self._inject):
-                _upload(self._inject_dev, inject)
-                self._inject = inject
-            if not self._graphs_on:
-                out = self._decode_fn()
-            else:
-                if self._graph is None:
-                    # the warm-up calls write K/V only at each slot's
-                    # length, which every read masks and the captured
-                    # step rewrites; the lengths and tokens come back
-                    self._graph = StepGraph(
-                        self._decode_fn,
-                        keep=(self._lengths, self._last_tokens))
-                out = self._graph.replay()
-            # one transfer: tokens and flags as int32 [2, slots]
-            host = out.cpu().numpy()
+        active = self._active.copy() if self._active_stale else None
+        changed = None if np.array_equal(inject, self._inject) else inject
+        host = self._dev("_device_decode", active, changed)
+        self._active_stale = False
+        self._inject = inject
         self._decode_ran = True
         live = np.flatnonzero(self._active)
         self._host_len[live] = np.minimum(self._host_len[live] + 1,
@@ -661,14 +961,15 @@ class GenerativeEngine:
             "prefill_buckets": ["%dx%d" % b for b in
                                 self.prefill_buckets],
             "device": str(self.device),
+            **_mesh_stats(self.mesh, self._cache),
         }
 
     # -- hot swap ----------------------------------------------------------
     def swap_params(self, params: Any) -> None:
         """Replace the weights (same tree structure, shapes and dtypes),
-        in place. Sequences mid-decode continue with the new weights
-        from their next step."""
-        _swap_lm_weights(self, params)
+        in place, re-sharded on a mesh. Sequences mid-decode continue
+        with the new weights from their next step."""
+        self._dev("_device_swap", params)
 
     # -- constructors ------------------------------------------------------
     @classmethod
@@ -765,7 +1066,7 @@ def _sample_tokens(logits, temp, top_k, top_p, seed, counter):
     return torch.where(temp > 0, sampled, greedy)
 
 
-class PagedGenerativeEngine:
+class PagedGenerativeEngine(_Sharded):
     """Paged KV decode plane: the :class:`GenerativeEngine` contract
     over a shared PAGE POOL instead of a per-slot slab.
 
@@ -808,6 +1109,11 @@ class PagedGenerativeEngine:
     place; page admission, preemption and the COW copies run on the
     host and the device before the replay and never capture again.
     ``False`` runs the same rounds eagerly.
+
+    ``mesh`` as :class:`GenerativeEngine`'s: each rank holds its heads
+    of every page (and of the draft's slab), so ``hbm_bytes`` is a
+    per-shard budget, ``token_bytes // tp`` a position: tp=2 holds
+    twice the pages. The page pool's bookkeeping lives on the leader.
     """
 
     def __init__(self, config, params, *, max_slots: int = 8,
@@ -820,9 +1126,20 @@ class PagedGenerativeEngine:
                  draft_config: Any = None,
                  draft_tokens: int = 4,
                  name: str = "paged_lm",
-                 device=None, cuda_graphs: Optional[bool] = None) -> None:
-        self.device = resolve(device)
-        self._graphs_on = use_graphs(cuda_graphs, self.device)
+                 device=None, cuda_graphs: Optional[bool] = None,
+                 mesh=None) -> None:
+        self.device = resolve(_mesh_device(mesh, device))
+        self.mesh = mesh
+        self._serve = None
+        tp = 1
+        if mesh is not None:
+            tp = serve_sharding.validate_serve_mesh(
+                mesh, config,
+                draft_config if draft_params is not None else None)
+            self._shard = _Shard(mesh)
+            self._serve = ServeContext(mesh)
+        self._graphs_on = use_graphs(_mesh_graphs(mesh, cuda_graphs),
+                                     self.device)
         self.config = config
         self.name = name
         self.input_dtype = np.dtype(np.int32)
@@ -846,7 +1163,10 @@ class PagedGenerativeEngine:
         if n_pages is not None:
             pool_pages = int(n_pages)
         elif hbm_bytes is not None:
-            pool_pages = int(hbm_bytes) // (self.page_size * token_bytes)
+            # a head-partitioned pool costs token_bytes/tp per rank: the
+            # same per-device budget holds tp x the pages
+            pool_pages = int(hbm_bytes) // (self.page_size *
+                                            max(1, token_bytes // tp))
         else:
             # un-oversubscribed default: worst case, every slot full
             pool_pages = self.slots * self.n_blocks
@@ -857,11 +1177,10 @@ class PagedGenerativeEngine:
                                               self.page_size))
         self.pool = PagePool(pool_pages, self.page_size)
         self.min_prefill_bucket = int(min_prefill_bucket)
-        self.params = params_from_numpy(params, config, self.device)
+        self.params = _place_lm(params, config, self.device, mesh)
         self._weights = compute_weights(self.params, config)
-        self._cache = init_paged_kv_cache(config, self.pool.n_pages,
-                                          self.page_size,
-                                          device=self.device)
+        self._cache = _kv_cache(mesh, self.device, partial(
+            init_paged_kv_cache, config, self.pool.n_pages, self.page_size))
         # speculative plane (optional)
         self.draft_config = draft_config
         self.draft_tokens = int(draft_tokens)
@@ -883,16 +1202,15 @@ class PagedGenerativeEngine:
                     % (draft_config.seq_len, self.max_len))
             if self.draft_tokens < 1:
                 raise ValueError("draft_tokens must be >= 1")
-            self.draft_params = params_from_numpy(draft_params,
-                                                  draft_config,
-                                                  self.device)
+            self.draft_params = _place_lm(draft_params, draft_config,
+                                          self.device, mesh)
             self._draft_weights = compute_weights(self.draft_params,
                                                   draft_config)
             # the draft keeps a plain slab: it is small by construction,
             # so paging it would spend bookkeeping to save little
-            self._draft_cache = init_kv_cache(draft_config, self.slots,
-                                              self.cache_capacity,
-                                              device=self.device)
+            self._draft_cache = _kv_cache(mesh, self.device, partial(
+                init_kv_cache, draft_config, self.slots,
+                self.cache_capacity))
         self.supports_sampling = True
         # per-slot decode state on the device, written at prefill and
         # advanced IN PLACE by every decode round
@@ -979,13 +1297,14 @@ class PagedGenerativeEngine:
         sentinel for SHARED pages (never overwrite a donor) and pad
         tiles: their writes land on the trash page."""
         logits, prompt = prefill(self._weights, tokens, lengths,
-                                 self.config)
+                                 self.config, par=self._serve)
         nxt = self._next_tokens(logits, req, sampling)
         bb, tb = tokens.shape
         ps = self.page_size
         n_tiles = -(-tb // ps)
-        layers, heads, hd = (self.config.layers, self.config.heads,
-                             self.config.head_dim)
+        # this rank's heads (all of them off a mesh)
+        layers, heads, hd = prompt["k"].shape[0], prompt["k"].shape[-2], \
+            self.config.head_dim
         for key in ("k", "v"):
             tiles = torch.nn.functional.pad(
                 prompt[key], (0, 0, 0, 0, 0, n_tiles * ps - tb)).reshape(
@@ -1004,7 +1323,7 @@ class PagedGenerativeEngine:
             # the draft ingests EVERY admitted prompt (speculating or
             # not), and its slot's tail is zeroed like the slab's
             _, dprompt = prefill(self._draft_weights, tokens, lengths,
-                                 self.draft_config)
+                                 self.draft_config, par=self._serve)
             for key in ("k", "v"):
                 self._draft_cache[key][:, idx, :tb] = dprompt[key][:, :n].to(
                     self._draft_cache[key].dtype)
@@ -1018,7 +1337,7 @@ class PagedGenerativeEngine:
         state = self._state
         logits, self._cache, new_len = paged_decode_step(
             self._weights, state["tokens"], self._cache, state["lengths"],
-            tables, self.config, active=active)
+            tables, self.config, active=active, par=self._serve)
         logits = logits.masked_fill(inject[:, None], float("nan"))
         finite = torch.isfinite(logits).all(dim=-1)
         nxt = self._next_tokens(logits, state, sampling)
@@ -1043,7 +1362,7 @@ class PagedGenerativeEngine:
         for _ in range(self.draft_tokens + 1):
             logits, self._draft_cache, lengths = decode_step(
                 self._draft_weights, tok, self._draft_cache, lengths,
-                self.draft_config, active=active)
+                self.draft_config, active=active, par=self._serve)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             tok = torch.where(active, nxt, tok)
             props.append(nxt)
@@ -1062,7 +1381,7 @@ class PagedGenerativeEngine:
         chunk = torch.cat([state["tokens"][:, None], proposals], dim=1)
         logits, self._cache = verify_step(
             self._weights, chunk, self._cache, state["lengths"], tables,
-            self.config, active=active)
+            self.config, active=active, par=self._serve)
         logits = logits.masked_fill(inject[:, None, None], float("nan"))
         finite = torch.isfinite(logits).all(dim=-1).all(dim=-1)
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -1104,15 +1423,49 @@ class PagedGenerativeEngine:
                                       sampling)
         return torch.stack([nxt, finite.to(torch.int32)])
 
-    def _copy_pages(self, src: np.ndarray, dst: np.ndarray) -> None:
+    # -- the device calls (host inputs in, host outputs back) ---------------
+    def _device_prefill(self, tokens, lengths, slots, write_tables, req,
+                        sampling: bool) -> np.ndarray:
+        with self._lock, torch.inference_mode():
+            dev = {key: torch.from_numpy(val).to(self.device)
+                   for key, val in req.items()}
+            return self._prefill_fn(
+                torch.from_numpy(tokens).to(self.device).long(),
+                torch.from_numpy(lengths).to(self.device), slots,
+                torch.from_numpy(write_tables).to(self.device), dev,
+                sampling).cpu().numpy()
+
+    def _device_copy(self, src: np.ndarray, dst: np.ndarray) -> None:
         """Copy-on-write page copies for every layer's K and V in one
         indexed copy (the rows a COW re-pointed; none is a no-op)."""
-        if len(dst):
-            s = torch.as_tensor(src, dtype=torch.long, device=self.device)
-            d = torch.as_tensor(dst, dtype=torch.long, device=self.device)
-            for key in ("k", "v"):
-                self._cache[key][:, d] = self._cache[key][:, s]
+        with self._lock, torch.inference_mode():
+            if len(dst):
+                s = torch.as_tensor(src, dtype=torch.long,
+                                    device=self.device)
+                d = torch.as_tensor(dst, dtype=torch.long,
+                                    device=self.device)
+                for key in ("k", "v"):
+                    self._cache[key][:, d] = self._cache[key][:, s]
         self._copy_ran = True
+
+    def _device_round(self, active: Optional[np.ndarray],
+                      tables: Optional[np.ndarray],
+                      inject: Optional[np.ndarray],
+                      sampling: bool) -> np.ndarray:
+        """One decode round after rewriting the static inputs whose
+        host copies changed (None: unchanged); the round's int32
+        block."""
+        with self._lock, torch.inference_mode():
+            for buffer, host in ((self._active_dev, active),
+                                 (self._tables_dev, tables),
+                                 (self._inject_dev, inject)):
+                if host is not None:
+                    _upload(buffer, host)
+            # one transfer of the round's int32 block
+            return self._run_round(sampling).cpu().numpy()
+
+    def _device_swap(self, params: Any) -> None:
+        _swap_lm_weights(self, params)
 
     # -- the shape record --------------------------------------------------
     @property
@@ -1240,15 +1593,9 @@ class PagedGenerativeEngine:
                 req["counters"][i] = int(opts.get("counter", 0))
                 req["draft"][i] = bool(opts.get("draft", False)) and \
                     self.has_draft
-            with self._lock, torch.inference_mode():
-                dev = {key: torch.from_numpy(val).to(self.device)
-                       for key, val in req.items()}
-                nxt = self._prefill_fn(
-                    torch.from_numpy(tokens).to(self.device).long(),
-                    torch.from_numpy(lengths).to(self.device), taken,
-                    torch.from_numpy(write_tables).to(self.device), dev,
-                    bool((req["temp"] > 0).any()))
-                first = nxt.cpu().numpy()
+            first = self._dev("_device_prefill", tokens, lengths, taken,
+                              write_tables, req,
+                              bool((req["temp"] > 0).any()))
         except BaseException:
             self._free.extend(taken)
             for taken_pages in page_lists:
@@ -1306,8 +1653,7 @@ class PagedGenerativeEngine:
                     preempted.append(victim)
         rows = np.flatnonzero(cow_dst != self.pool.n_pages)
         if rows.size:
-            with self._lock, torch.inference_mode():
-                self._copy_pages(cow_src[rows], cow_dst[rows])
+            self._dev("_device_copy", cow_src[rows], cow_dst[rows])
         self._prepared = True
         return preempted
 
@@ -1379,18 +1725,14 @@ class PagedGenerativeEngine:
                              self.slots)
         self._decode_steps += 1
         sampling = bool((self._temp_np[self._active] > 0).any())
-        with self._lock, torch.inference_mode():
-            if self._active_stale:
-                _upload(self._active_dev, self._active)
-                self._active_stale = False
-            if self._tables_stale:
-                _upload(self._tables_dev, self._tables)
-                self._tables_stale = False
-            if not np.array_equal(inject, self._inject):
-                _upload(self._inject_dev, inject)
-                self._inject = inject
-            # one transfer of the round's int32 block
-            host = self._run_round(sampling).cpu().numpy()
+        host = self._dev(
+            "_device_round",
+            self._active.copy() if self._active_stale else None,
+            self._tables.copy() if self._tables_stale else None,
+            None if np.array_equal(inject, self._inject) else inject,
+            sampling)
+        self._active_stale = self._tables_stale = False
+        self._inject = inject
         if self.has_draft:
             self._propose_ran = self._verify_ran = True
             k1 = self.draft_tokens + 1
@@ -1533,13 +1875,13 @@ class PagedGenerativeEngine:
             for slot in slots:
                 self.release(slot)
         self.decode_many()
-        with self._lock, torch.inference_mode():
-            if self._graphs_on:
-                # the sampled round's graph too, so that no round of
-                # traffic captures (with no slot active, a round
-                # changes no state)
-                self._run_round(True)
-            self._copy_pages(np.zeros(0, np.int64), np.zeros(0, np.int64))
+        if self._graphs_on:
+            # the sampled round's graph too, so that no round of
+            # traffic captures (with no slot active, a round changes no
+            # state)
+            self._dev("_device_round", None, None, None, True)
+        self._dev("_device_copy", np.zeros(0, np.int64),
+                  np.zeros(0, np.int64))
         return self.compile_count - before
 
     # -- observability -----------------------------------------------------
@@ -1572,6 +1914,7 @@ class PagedGenerativeEngine:
             "cow_total": pool.cow_total,
             "preempted_total": self.preempted_total,
             "device": str(self.device),
+            **_mesh_stats(self.mesh, self._cache),
         }
         if self.has_draft:
             proposed = self.spec_proposed_total
@@ -1585,9 +1928,9 @@ class PagedGenerativeEngine:
     def swap_params(self, params: Any) -> None:
         """Replace the TARGET weights (same tree structure, shapes and
         dtypes; the draft is construction state and does not swap), in
-        place. Sequences mid-decode continue with the new weights from
-        their next step."""
-        _swap_lm_weights(self, params)
+        place, re-sharded on a mesh. Sequences mid-decode continue with
+        the new weights from their next step."""
+        self._dev("_device_swap", params)
 
     # -- constructors ------------------------------------------------------
     @classmethod

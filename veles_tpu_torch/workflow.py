@@ -6,8 +6,9 @@ with the partial-init requeue; ``run`` drives the graph to completion
 on the thread pool and reports a stall when every unit went idle
 before the end point ran; the job-farm methods
 (``generate_data_for_slave`` ... ``apply_initial_data_from_master``,
-pieces matched by unit id, ``NoMoreJobs``, postponement) are host-side
-and wait for the farm (ROADMAP.md queue 1 item 8) to call them; DOT
+pieces matched by unit id, ``NoMoreJobs``, postponement) are host-side,
+called by the farm's coordinator and workers
+(``veles_tpu_torch.distributed``); DOT
 graph export, per-unit run-time stats, results JSON through
 ``IResultProvider`` and a checksum pairing coordinator and workers.
 ``package_export`` raises until the package archive is ported.
