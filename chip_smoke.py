@@ -297,7 +297,42 @@ without them, and on any failed phase. Phases, in order:
    ``FaultPlan("kill:1@2")``: its job requeued, the minibatches
    conserved; (d) phase 19a's ``TransformerWorkflow`` at 2 layers
    through one worker, its params bitwise the standalone run's;
-   exactly 2 K6 a job on every worker.
+   exactly 2 K6 a job on every worker;
+24. the serving fleet (``serve/router.py``, ``serve/fleet.py``) and the
+   command line, the earlier phases' engines freed first: (a) a
+   ``RouterServer`` over three ``LocalReplica``s of phase 3's LM (its
+   host weights; bf16, 8 slots x 2048, each engine warmed, its round
+   captured): two slab engines and one paged (16-token pages, 1,024 of
+   them); phase 3's 8 prompts through the router, each on a session of
+   its own, one streamed, each sent once the previous one was admitted:
+   the tokens bitwise phase 3's; exactly 12 K1 a prefill and 12 K4 (slab)
+   or K5 (paged) a round, counted around the window (the router
+   launches nothing); request times, each replica's round p50/p99
+   beside phase 3's, and the router's share of a one-token request
+   (direct against routed); (b) the slab replica r1 killed
+   (``FaultPlan("kill-replica@1")``) while a non-streamed request is in
+   flight on it: the ticket re-admitted once on a sibling with phase
+   3's tokens, the supervisor's respawn (the dead engine released and
+   collected on its thread, a fresh engine warmed and captured there)
+   routable again, its tokens phase 3's, the time to recover logged;
+   (c) three ``LocalReplica``s of phase 11's ``alexnet_fused()``
+   engine (buckets 1-64, captured), raw-row ``POST /apply`` through the
+   router: 9 requests one after another with exactly 2 K6 a dispatch;
+   then, four client lanes running throughout, a poisoned canary
+   (every batch raises) rolled back with no failure off the canary,
+   and a clean rollout to ``alexnet_fused(seed=1)`` without a failure,
+   every replica then within ``TOL_APPLY`` of a lone seed-1 engine
+   with 2 K6 a dispatch; (d) ``python -m veles_tpu_torch
+   veles_tpu_torch/models/lm.py CONFIG --route 127.0.0.1:0 --replicas
+   2`` (CONFIG: ``FULL``, bf16) in a subprocess: two ``--serve``
+   processes on the card, each routable at a logged time after the
+   start, loading the kernels phase 1 built (none built again); the 8
+   prompts pinned to each replica in turn, the tokens of both equal to
+   each other and to an in-process ``GenerativeEngine.from_trainer``
+   of the workflow's seed; a replica's ``POST /admin/swap`` answering
+   500 naming the package archives' queue item; SIGINT: the router and
+   both replicas exit 0 and none is left. Each leg logs its largest
+   request time (and whether it sits near a sum of TCP SYN retries).
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -310,6 +345,7 @@ import multiprocessing
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -1380,6 +1416,7 @@ def serving_phase(torch, fa, dev, card):
     log("phase 3: serving %s" % (config,))
     t0 = time.monotonic()
     params = init_params(config, seed=0)
+    _HOST["lm"] = params  # phase 24's replicas serve these weights
     n_params = sum(int(np.prod(x.shape)) for x in (
         [params["embed"], params["pos"], params["ln_f"]["g"],
          params["ln_f"]["b"]] +
@@ -2505,6 +2542,7 @@ def apply_phase(torch, counters, dev, card):
         "InferenceEngine -> MicroBatcher -> registry -> POST /apply, "
         "buckets %s" % (APPLY_BUCKETS,))
     specs, params, _ = alexnet_fused()
+    _HOST["alexnet"] = (specs, params)  # phase 24's replicas serve these
     engine = InferenceEngine.from_specs(specs, params, device=dev,
                                         name="alexnet")
     eager = InferenceEngine.from_specs(specs, params, device=dev,
@@ -6665,6 +6703,708 @@ def farm_phase(torch, counters, dev, card, classifier_graph):
         d=dict(jobs=jobs, farm_s=lm_s)), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the serving fleet (router, fleet manager, replicas) and the
+# command line
+# ---------------------------------------------------------------------------
+
+#: host weights kept by phases 3 and 11 for the fleet's replicas
+_HOST = {}
+
+FLEET_TIMEOUT_S = 600
+#: phase 3's tokens a request
+FLEET_TOKENS = 32
+#: /apply client lanes during the rollouts, and their rows a request
+FLEET_LANES = 4
+FLEET_LANE_ROWS = 2
+#: the clean rollout's weights: ``alexnet_fused(seed=FLEET_NEW_SEED)``
+FLEET_NEW_SEED = 1
+#: requests of one token timed direct and through the router
+FLEET_OVERHEAD_REQUESTS = 20
+#: request times near TCP's SYN retries (1 + 2 + ... s) are flagged
+SYN_RETRY_S = (1, 3, 7, 15, 31, 63)
+
+
+def _fleet_post(url, doc, headers=None, timeout=FLEET_TIMEOUT_S):
+    """(status, body doc, headers, ms) of one JSON POST."""
+    req = urllib.request.Request(url, data=json.dumps(doc).encode(),
+                                 headers={"Content-Type":
+                                          "application/json",
+                                          **(headers or {})})
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            body = json.loads(resp.read())
+            return (resp.status, body, dict(resp.headers),
+                    (time.monotonic() - t0) * 1e3)
+    except urllib.error.HTTPError as e:
+        return (e.code, json.loads(e.read() or b"{}"), dict(e.headers),
+                (time.monotonic() - t0) * 1e3)
+
+
+def _fleet_raw(url, rows, timeout=FLEET_TIMEOUT_S):
+    """(status, output, replica, ms) of one raw-row ``POST /apply``
+    (``application/octet-stream``, the shape in ``X-Shape``)."""
+    rows = np.ascontiguousarray(rows, np.float32)
+    req = urllib.request.Request(url, data=rows.tobytes(), headers={
+        "Content-Type": "application/octet-stream",
+        "X-Shape": ",".join(str(d) for d in rows.shape)})
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            out = np.asarray(json.loads(resp.read())["output"],
+                             np.float32)
+            return (resp.status, out, resp.headers.get("X-Replica"),
+                    (time.monotonic() - t0) * 1e3)
+    except urllib.error.HTTPError as e:
+        return (e.code, json.loads(e.read() or b"{}"),
+                e.headers.get("X-Replica"), (time.monotonic() - t0) * 1e3)
+
+
+def _fleet_wait(predicate, what, timeout=FLEET_TIMEOUT_S, step=0.02):
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError("phase 24: %s (after %d s)"
+                                 % (what, timeout))
+        time.sleep(step)
+
+
+def _syn_flags(label, ms):
+    """Log the largest request time of a leg; flag one near a sum of
+    SYN retries (the listen backlog overflowing) that also stands out
+    of its leg (over 3 x the median of 5 or more)."""
+    worst = max(ms) if ms else 0.0
+    near = [t for t in SYN_RETRY_S if abs(worst / 1e3 - t) < 0.25 and
+            len(ms) >= 5 and worst > 3 * float(np.median(ms))]
+    log("  %s: largest request time %.1f ms%s" % (
+        label, worst, " (near %d s: SYN retries?)" % near[0] if near
+        else ""))
+    return dict(max_ms=worst, near_syn_retry_s=near[0] if near else None)
+
+
+def _gen_totals(handles):
+    """{replica: (prefills, decode steps)} of in-process replicas."""
+    out = {}
+    for h in handles:
+        snap = h.registry.metrics_snapshot()["default"]
+        out[h.name] = (snap["prefills_total"], snap["decode_steps_total"])
+    return out
+
+
+def _pin(url, session_prefix, want, generative, body):
+    """A session id the router pins to replica ``want``."""
+    for i in range(64):
+        session = "%s-%d" % (session_prefix, i)
+        doc = dict(body, session=session)
+        code, out, headers, _ = _fleet_post(
+            url + ("/generate" if generative else "/apply"), doc)
+        if code != 200:
+            raise AssertionError("pinning %s: %d %s" % (want, code, out))
+        if headers.get("X-Replica") == want:
+            return session
+    raise AssertionError("no session pinned to %s" % want)
+
+
+def _fleet_generate(url, prompts, n_tok, sessions, streamed, admitted):
+    """Phase 3's prompts through the router, prompt i on session i,
+    the ``streamed`` one streamed: each sent once the previous one was
+    admitted (``admitted(i)`` true), so every admission holds one
+    prompt, as phase 3's staggered requests did. Returns (tokens per
+    prompt, client ms per request, replica per prompt)."""
+    answers = [None] * len(prompts)
+    ms = [None] * len(prompts)
+    where = [None] * len(prompts)
+    threads = []
+    for i, prompt in enumerate(prompts):
+        def client(i=i, prompt=prompt):
+            t0 = time.monotonic()
+            try:
+                doc = {"prompt": prompt, "max_tokens": n_tok,
+                       "session": sessions[i]}
+                if i == streamed:
+                    doc["stream"] = True
+                    toks, done = [], None
+                    with _post(url + "/generate", doc) as resp:
+                        where[i] = resp.headers.get("X-Replica")
+                        for line in resp:
+                            rec = json.loads(line)
+                            if "token" in rec:
+                                toks.append(rec["token"])
+                            elif "done" in rec:
+                                done = rec["tokens"]
+                            else:
+                                raise RuntimeError(rec)
+                    if done != toks:
+                        raise RuntimeError("stream record mismatch")
+                    answers[i] = toks
+                else:
+                    code, out, headers, _ = _fleet_post(url + "/generate",
+                                                        doc)
+                    if code != 200:
+                        raise RuntimeError("%d %s" % (code, out))
+                    where[i] = headers.get("X-Replica")
+                    answers[i] = out["tokens"][0]
+            except BaseException as e:  # noqa: BLE001 — reported by caller
+                answers[i] = e
+            ms[i] = (time.monotonic() - t0) * 1e3
+
+        thread = threading.Thread(target=client)
+        thread.start()
+        threads.append(thread)
+        _fleet_wait(lambda i=i: admitted(i + 1) or not threads[-1]
+                    .is_alive(), "prompt %d never admitted" % i)
+    for thread in threads:
+        thread.join(FLEET_TIMEOUT_S)
+    return answers, ms, where
+
+
+class _PoisonedApply:
+    """The poisoned canary: every batch raises (the batcher bisects,
+    each row fails alone: ``poisoned_total`` spikes)."""
+
+    input_dtype = np.dtype(np.float32)
+    compile_count = 0
+    buckets = []
+
+    def apply(self, rows):
+        raise RuntimeError("poisoned weights")
+
+
+def _apply_lanes(url, n, rows, stop, record):
+    def lane(k):
+        while not stop.is_set():
+            sent = time.monotonic()
+            code, out, replica, ms = _fleet_raw(url + "/apply", rows)
+            record.append((code, replica, ms,
+                           None if code == 200 else out, sent))
+            stop.wait(0.01)
+
+    threads = [threading.Thread(target=lane, args=(k,)) for k in range(n)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def _fleet_generative(torch, counters, dev, card, serve, out):
+    """Legs (a) and (b); see the module docstring."""
+    from veles_tpu_torch.distributed.faults import FaultPlan
+    from veles_tpu_torch.models.transformer import TransformerConfig
+    from veles_tpu_torch.serve import (FleetManager, GenerativeEngine,
+                                       LocalReplica, PagedGenerativeEngine,
+                                       Router, RouterServer)
+    config = TransformerConfig(compute="bfloat16", **FULL)
+    params = _HOST["lm"]
+    prompts = serving_prompts(config.vocab)
+    want = serve["staggered"]
+    n_tok = FLEET_TOKENS
+    engines = {}
+
+    def factory(name, paged):
+        def make():
+            t0 = time.monotonic()
+            if paged:
+                engine = PagedGenerativeEngine(config, params, max_slots=8,
+                                               page_size=16, n_pages=1024,
+                                               device=dev)
+            else:
+                engine = GenerativeEngine(config, params, max_slots=8,
+                                          device=dev)
+            engine.warm()
+            torch.cuda.synchronize()
+            engines.setdefault(name, []).append(
+                (engine, time.monotonic() - t0))
+            return engine
+        return make
+
+    t0 = time.monotonic()
+    # r0, r1: the slab engine (K1, K4); r2: the paged engine (K1, K5)
+    handles = [LocalReplica(
+        name, factory(name, paged=name == "r2"), generative=True,
+        batcher_kwargs={"max_queue": 64}, watchdog_s=None)
+        for name in ("r0", "r1", "r2")]
+    router = RouterServer(Router(health_interval_s=0.05),
+                          replica_timeout=FLEET_TIMEOUT_S)
+    fleet = FleetManager(router.router, replicas=handles,
+                         respawn_backoff_s=0.1)
+    url = router.url
+    try:
+        _fleet_wait(lambda: router.router.routable_count() == 3,
+                    "generative replicas never routable")
+        setup_s = time.monotonic() - t0
+        log("  (a) 3 replicas up in %.1f s (engine build + warm: %s)" % (
+            setup_s, ", ".join("%s %.1f s" % (k, v[0][1])
+                               for k, v in sorted(engines.items()))))
+        # (a) the 8 prompts through the router, a session each
+        totals0 = _gen_totals(handles)
+        base = sum(p for p, _ in totals0.values())
+        metrics0 = router.metrics.snapshot()
+        counters.reset()
+        t_win = time.monotonic()
+        sessions = ["fleet-%d" % i for i in range(len(prompts))]
+        answers, req_ms, where = _fleet_generate(
+            url, prompts, n_tok, sessions, 0,
+            lambda k: sum(p for p, _ in _gen_totals(handles).values())
+            >= base + k)
+        wall = time.monotonic() - t_win
+        launches = counters.read()
+        totals1 = _gen_totals(handles)
+        for i, a in enumerate(answers):
+            if a != want[i]:
+                raise AssertionError("(a) prompt %d on %s: %r != phase 3's "
+                                     "%r" % (i, where[i], a, want[i]))
+        prefills = {n: totals1[n][0] - totals0[n][0] for n in totals1}
+        steps = {n: totals1[n][1] - totals0[n][1] for n in totals1}
+        serving = [n for n in prefills if prefills[n]]
+        if len(serving) < 2:
+            raise AssertionError("(a) the router used only %s" % serving)
+        k1 = config.layers * sum(prefills.values())
+        k4 = config.layers * (steps["r0"] + steps["r1"])
+        k5 = config.layers * steps["r2"]
+        got = (launches.get("flash_fwd", 0), launches.get("flash_decode", 0),
+               launches.get("flash_decode_paged", 0))
+        if got != (k1, k4, k5):
+            raise AssertionError(
+                "(a) launches %s != %d layers x prefills %s, decode rounds "
+                "%s (the router launches nothing)" % (
+                    {k: v for k, v in launches.items() if v},
+                    config.layers, prefills, steps))
+        rounds = {h.name: h.registry.metrics_snapshot()["default"][
+            "decode_ms"] for h in handles}
+        log("  (a) 8 requests (one streamed) on %s in %.3f s: tokens == "
+            "phase 3's bitwise; prefills %s, decode rounds %s; launches "
+            "%s == layers x those [%s]" % (
+                where, wall, prefills, steps,
+                {k: v for k, v in launches.items() if v}, card))
+        log("  (a) request ms through the router p50 %.1f max %.1f; decode "
+            "round ms p50/p99 by replica %s; phase 3 direct: captured "
+            "round p50 %.3f p99 %.3f ms, 8 requests over HTTP %.3f s" % (
+                float(np.percentile(req_ms, 50)), max(req_ms),
+                {n: "%.3f/%.3f" % (r.get("p50", 0.0), r.get("p99", 0.0))
+                 for n, r in rounds.items()},
+                serve["engine"]["captured"]["decode_ms"]["p50"],
+                serve["engine"]["captured"]["decode_ms"]["p99"],
+                serve["http"]["wall_s"]))
+        # the router's own share: one-token requests direct and routed
+        direct_url = "http://%s" % handles[0].address
+        session0 = _pin(url, "share", "r0", True,
+                        {"prompt": prompts[0][:16], "max_tokens": 1})
+        direct, routed = [], []
+        for _ in range(FLEET_OVERHEAD_REQUESTS):
+            doc = {"prompt": prompts[0][:16], "max_tokens": 1}
+            direct.append(_fleet_post(direct_url + "/generate", doc)[3])
+            routed.append(_fleet_post(url + "/generate",
+                                      dict(doc, session=session0))[3])
+        share = (np.median(routed) - np.median(direct)) / \
+            np.median(routed)
+        log("  (a) one-token request direct p50 %.3f ms, through the "
+            "router p50 %.3f ms: the router's share %.3f" % (
+                np.median(direct), np.median(routed), share))
+        out["a"] = dict(setup_s=setup_s, wall_s=wall, request_ms=req_ms,
+                        replicas=where, prefills=prefills,
+                        decode_rounds=steps, launches=launches,
+                        round_ms=rounds, direct_ms=pcts(direct),
+                        routed_ms=pcts(routed), router_share=float(share),
+                        router=router.metrics.snapshot(),
+                        syn=_syn_flags("(a)", req_ms))
+
+        # (b) chaos: r1 killed while a non-streamed request is in flight
+        victim = handles[1]
+        session = _pin(url, "victim", "r1", True,
+                       {"prompt": prompts[1][:16], "max_tokens": 1})
+        before = router.metrics.snapshot()
+        result = {}
+
+        def request():
+            result["r"] = _fleet_post(url + "/generate", {
+                "prompt": prompts[3], "max_tokens": n_tok,
+                "session": session})
+
+        p0 = _gen_totals([victim])["r1"][0]
+        old_engine = victim.registry.get("default").engine._engine
+        thread = threading.Thread(target=request)
+        thread.start()
+        _fleet_wait(lambda: _gen_totals([victim])["r1"][0] > p0,
+                    "(b) the victim never admitted the request")
+        t_kill = time.monotonic()
+        fleet.arm_faults(FaultPlan("kill-replica@1"))
+        thread.join(FLEET_TIMEOUT_S)
+        code, doc, headers, ms = result["r"]
+        sibling = headers.get("X-Replica")
+        if code != 200 or doc["tokens"][0] != want[3] or sibling == "r1":
+            raise AssertionError("(b) answered %d %s on %s" % (
+                code, doc, sibling))
+        after = router.metrics.snapshot()
+        readmitted = after["readmitted_total"] - before["readmitted_total"]
+        if readmitted != 1:
+            raise AssertionError("(b) readmitted %d times" % readmitted)
+        _fleet_wait(lambda: victim.alive and
+                    router.router.routable_count() == 3,
+                    "(b) the fleet never recovered")
+        recover_s = time.monotonic() - t_kill
+        new_engine = victim.registry.get("default").engine._engine
+        if new_engine is old_engine or (dev.type == "cuda" and
+                                        new_engine._graph is None):
+            raise AssertionError("(b) the respawn kept the old engine or "
+                                 "captured no graph")
+        del old_engine
+        session = _pin(url, "respawned", "r1", True,
+                       {"prompt": prompts[1][:16], "max_tokens": 1})
+        code, doc, headers, _ = _fleet_post(url + "/generate", {
+            "prompt": prompts[5], "max_tokens": n_tok, "session": session})
+        if code != 200 or doc["tokens"][0] != want[5]:
+            raise AssertionError("(b) the respawned replica answered %d "
+                                 "%s" % (code, doc))
+        log("  (b) r1 killed mid-request: the ticket re-admitted once on "
+            "%s (%.1f ms), tokens == phase 3's; r1 respawned (a fresh "
+            "engine, its round captured again, %.1f s to build and warm) "
+            "and routable again %.1f s after the kill; its tokens == "
+            "phase 3's" % (sibling, ms,
+                           engines["r1"][-1][1], recover_s))
+        out["b"] = dict(readmitted=readmitted, readmit_ms=ms,
+                        recover_s=recover_s,
+                        respawn_build_s=engines["r1"][-1][1],
+                        syn=_syn_flags("(b)", [ms]))
+    finally:
+        fleet.stop()
+        router.stop()
+    del handles, fleet, router, engines
+
+
+def _fleet_apply(torch, counters, dev, card, out):
+    """Leg (c); see the module docstring."""
+    from veles_tpu_torch.models.flagship import alexnet_fused
+    from veles_tpu_torch.serve import (FleetManager, InferenceEngine,
+                                       LocalReplica, Router, RouterServer)
+    specs, params = _HOST["alexnet"]
+    _, params1, _ = alexnet_fused(seed=FLEET_NEW_SEED)
+    shape = APPLY_SHAPE
+
+    def make(p):
+        def build():
+            engine = InferenceEngine.from_specs(specs, p, device=dev)
+            engine.warmup(shape, APPLY_BUCKETS[-1])
+            return engine
+        return build
+
+    t0 = time.monotonic()
+    handles = [LocalReplica(name, make(params), batcher_kwargs={
+        "max_batch": APPLY_BUCKETS[-1], "max_delay_ms": 5},
+        watchdog_s=None) for name in ("a0", "a1", "a2")]
+    router = RouterServer(Router(health_interval_s=0.05),
+                          replica_timeout=FLEET_TIMEOUT_S)
+    fleet = FleetManager(router.router, replicas=handles)
+    url = router.url
+    rng = np.random.default_rng(24)
+    rows = rng.random((FLEET_LANE_ROWS,) + shape, dtype=np.float32)
+    stop = threading.Event()
+    record = []
+    lanes = []
+    try:
+        _fleet_wait(lambda: router.router.routable_count() == 3,
+                    "/apply replicas never routable")
+        setup_s = time.monotonic() - t0
+
+        def dispatches():
+            return {h.name: h.registry.metrics_snapshot()["default"][
+                "dispatches_total"] for h in handles}
+
+        # K6: exactly 2 a bucket replay, requests one after another
+        d0 = dispatches()
+        counters.reset()
+        seq_ms = []
+        for n in (1, 2, 3, 1, 2, 3, 1, 2, 3):
+            code, _, _, ms = _fleet_raw(url + "/apply", rows[:1].repeat(
+                n, axis=0))
+            if code != 200:
+                raise AssertionError("(c) /apply answered %d" % code)
+            seq_ms.append(ms)
+        launches = counters.read()
+        d1 = dispatches()
+        n_disp = {k: d1[k] - d0[k] for k in d1}
+        if launches.get("lrn_fwd", 0) != 2 * sum(n_disp.values()) or \
+                sum(1 for v in n_disp.values() if v) < 2:
+            raise AssertionError("(c) lrn_fwd %s for dispatches %s" % (
+                launches, n_disp))
+        lanes = _apply_lanes(url, FLEET_LANES, rows, stop, record)
+        _fleet_wait(lambda: len(record) >= 2 * FLEET_LANES,
+                    "(c) the lanes never answered")
+        # the poisoned canary (a request counts in the window it was
+        # sent in)
+        t_roll = time.monotonic()
+        ok = fleet.rollout(make_engine=_PoisonedApply, bake_s=30.0,
+                           min_bad_events=3, spike_factor=3.0)
+        t_clean = time.monotonic()
+        poisoned_s = t_clean - t_roll
+        status = fleet.rollout_status()
+        canary = status.get("canary")
+        bad = [r for r in list(record) if r[0] != 200 and r[4] < t_clean]
+        if ok or status["state"] != "rolled_back" or \
+                any(r[1] != canary for r in bad) or not bad:
+            raise AssertionError("(c) poisoned rollout %s: %s; failures %s"
+                                 % (ok, status, bad[:4]))
+        n_canary_failures = len(bad)
+        # the clean rollout to seed-1 weights, lanes still running
+        ok = fleet.rollout(make_engine=make(params1), bake_s=1.0)
+        clean_s = time.monotonic() - t_clean
+        stop.set()
+        for t in lanes:
+            t.join(FLEET_TIMEOUT_S)
+        in_clean = [r for r in record if r[4] >= t_clean]
+        bad = [r for r in in_clean if r[0] != 200]
+        if not ok or fleet.rollout_status()["state"] != "done" or bad:
+            raise AssertionError("(c) clean rollout %s: %s; failures %s"
+                                 % (ok, fleet.rollout_status(), bad[:4]))
+        lone = make(params1)()
+        x = rng.random((8,) + shape, dtype=np.float32)
+        ref = lone.apply(x)
+        del lone
+        errs, per_replica = {}, {}
+        for h in handles:
+            d0 = dispatches()[h.name]
+            counters.reset()
+            code, got, _, _ = _fleet_raw("http://%s/apply" % h.address, x)
+            one = counters.read()
+            n = dispatches()[h.name] - d0
+            if code != 200 or one.get("lrn_fwd", 0) != 2 * n or not n:
+                raise AssertionError("(c) %s: %d, launches %s over %d "
+                                     "dispatches" % (h.name, code, one, n))
+            errs[h.name] = float(np.abs(got - ref).max())
+            per_replica[h.name] = n
+            check("(c) %s after the rollout vs a lone seed-%d engine "
+                  "(absolute)" % (h.name, FLEET_NEW_SEED), errs[h.name],
+                  TOL_APPLY)
+        lane_ms = [r[2] for r in record]
+        log("  (c) 3 /apply replicas up in %.1f s; 9 sequential requests: "
+            "lrn_fwd %d == 2 x %d dispatches (%s); poisoned canary %s "
+            "rolled back in %.1f s, %d failures, all on it; clean rollout "
+            "in %.1f s, 0 failures over %d lane requests (p50 %.1f ms, "
+            "max %.1f); every replica within %.1e of a lone seed-%d engine "
+            "[%s]" % (setup_s, launches.get("lrn_fwd", 0),
+                      sum(n_disp.values()), n_disp, canary, poisoned_s,
+                      n_canary_failures, clean_s, len(in_clean),
+                      float(np.percentile(lane_ms, 50)), max(lane_ms),
+                      max(errs.values()), FLEET_NEW_SEED, card))
+        out["c"] = dict(setup_s=setup_s, launches=launches,
+                        dispatches=n_disp, poisoned_s=poisoned_s,
+                        canary=canary, canary_failures=n_canary_failures,
+                        clean_s=clean_s, lane_requests=len(record),
+                        lane_ms=pcts(lane_ms), seq_ms=pcts(seq_ms),
+                        errs=errs, syn=_syn_flags("(c)", lane_ms + seq_ms))
+        return launches
+    finally:
+        stop.set()
+        for t in lanes:
+            t.join(FLEET_TIMEOUT_S)
+        fleet.stop()
+        router.stop()
+
+
+FLEET_CLI_CONFIG = """\
+from veles_tpu_torch.models.transformer import TransformerConfig
+root.lm.config = TransformerConfig(compute="bfloat16", **%r)
+root.lm.loader_kwargs = {"minibatch_size": 2, "n_tokens": 16 * %d}
+"""
+
+
+def _cli_staggered(url, prompts, n_tok, session):
+    """The prompts streamed one admission at a time on ``session``."""
+    answers = [None] * len(prompts)
+    ms = [None] * len(prompts)
+    where = set()
+    threads = []
+    for i, prompt in enumerate(prompts):
+        first = threading.Event()
+
+        def client(i=i, prompt=prompt, first=first):
+            t0 = time.monotonic()
+            try:
+                toks = []
+                with _post(url + "/generate", {
+                        "prompt": prompt, "max_tokens": n_tok,
+                        "stream": True, "session": session}) as resp:
+                    where.add(resp.headers.get("X-Replica"))
+                    for line in resp:
+                        rec = json.loads(line)
+                        if "token" in rec:
+                            toks.append(rec["token"])
+                            first.set()
+                        elif "error" in rec:
+                            raise RuntimeError(rec)
+                answers[i] = toks
+            except BaseException as e:  # noqa: BLE001 — reported by caller
+                answers[i] = e
+            finally:
+                ms[i] = (time.monotonic() - t0) * 1e3
+                first.set()
+
+        thread = threading.Thread(target=client)
+        thread.start()
+        threads.append(thread)
+        first.wait(FLEET_TIMEOUT_S)
+    for thread in threads:
+        thread.join(FLEET_TIMEOUT_S)
+    return answers, ms, where
+
+
+def _fleet_cli(torch, dev, card, serve, out):
+    """Leg (d); see the module docstring."""
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerTrainer)
+    from veles_tpu_torch.ops import _build
+    from veles_tpu_torch.serve import GenerativeEngine
+    config = TransformerConfig(compute="bfloat16", **FULL)
+    prompts = serving_prompts(config.vocab)
+    n_tok = FLEET_TOKENS
+    work = os.path.abspath(os.path.join("chip_smoke_out", "fleet_cli"))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = os.path.join(work, "lm_full.py")
+    with open(cfg, "w") as f:
+        f.write(FLEET_CLI_CONFIG % (FULL, FULL["seq_len"] + 1))
+    built = {p: os.path.getmtime(os.path.join(_build.BUILD_DIR, p))
+             for p in os.listdir(_build.BUILD_DIR)}
+    log_path = os.path.join(work, "route.log")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.monotonic()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "veles_tpu_torch",
+             "veles_tpu_torch/models/lm.py", cfg, "-v", "--route",
+             "127.0.0.1:0", "--replicas", "2"], cwd=HERE, env=env,
+            stdout=logf, stderr=subprocess.STDOUT, text=True)
+    try:
+        def text():
+            with open(log_path) as f:
+                return f.read()
+
+        def router_url():
+            m = re.search(r"fleet router on (http://\S+)", text())
+            return m.group(1) if m else None
+
+        _fleet_wait(lambda: router_url() or proc.poll() is not None,
+                    "(d) the router never bound")
+        url = router_url()
+        if url is None:
+            raise AssertionError("(d) the router exited: %s"
+                                 % text()[-3000:])
+        routable_s = {}
+
+        def states():
+            try:
+                with urllib.request.urlopen(url + "/healthz",
+                                            timeout=5) as resp:
+                    return json.loads(resp.read())["replica_states"]
+            except urllib.error.HTTPError as e:
+                return json.loads(e.read())["replica_states"]
+            except OSError:
+                return {}
+
+        def all_routable():
+            for name, st in states().items():
+                if st["routable"] and name not in routable_s:
+                    routable_s[name] = time.monotonic() - t0
+            return len(routable_s) == 2 or proc.poll() is not None
+
+        _fleet_wait(all_routable, "(d) the replicas never routable",
+                    step=0.25)
+        if len(routable_s) != 2:
+            raise AssertionError("(d) %s" % text()[-3000:])
+        log("  (d) `python -m veles_tpu_torch ... --route 127.0.0.1:0 "
+            "--replicas 2`: start to routable %s s" % {
+                k: round(v, 1) for k, v in sorted(routable_s.items())})
+        # the in-process reference: a trainer of the workflow's seed
+        trainer = TransformerTrainer(config, device=dev, seed=0)
+        engine = GenerativeEngine.from_trainer(trainer, max_slots=8,
+                                               device=dev)
+        del trainer
+        ref = [engine.generate([np.asarray(p, np.int32)], n_tok)[0]
+               .tolist() for p in prompts]
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        tokens, cli_ms = {}, []
+        for name in ("r0", "r1"):
+            session = _pin(url, "cli-" + name, name, True,
+                           {"prompt": prompts[0][:16], "max_tokens": 1})
+            answers, ms, where = _cli_staggered(url, prompts, n_tok,
+                                                session)
+            if where != {name}:
+                raise AssertionError("(d) pinned to %s, served by %s"
+                                     % (name, where))
+            tokens[name] = answers
+            cli_ms += ms
+        if not tokens["r0"] == tokens["r1"] == ref == serve["staggered"]:
+            raise AssertionError("(d) tokens r0 %s, r1 %s, in-process %s, "
+                                 "phase 3 %s"
+                                 % (tokens["r0"][:2], tokens["r1"][:2],
+                                    ref[:2], serve["staggered"][:2]))
+        # a process replica's swap channel waits for package archives
+        replica_url = "http://%s" % states()["r0"]["address"]
+        code, doc, _, swap_ms = _fleet_post(replica_url + "/admin/swap",
+                                            {"package": "/none.zip"})
+        if code != 500 or "item 10" not in doc.get("error", ""):
+            raise AssertionError("(d) /admin/swap answered %d %s"
+                                 % (code, doc))
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(120)
+        exits = re.findall(r"replica (r\d) \(pid (\d+)\) exited with "
+                           r"(-?\d+)", text())
+        if rc != 0 or sorted((n, c) for n, _, c in exits) != \
+                [("r0", "0"), ("r1", "0")]:
+            raise AssertionError("(d) router rc %s, replicas %s: %s"
+                                 % (rc, exits, text()[-3000:]))
+        for _, pid, _ in exits:
+            try:
+                os.kill(int(pid), 0)
+            except ProcessLookupError:
+                continue
+            raise AssertionError("(d) replica pid %s still alive" % pid)
+        rebuilt = {p: os.path.getmtime(os.path.join(_build.BUILD_DIR, p))
+                   for p in os.listdir(_build.BUILD_DIR)}
+        if rebuilt != built:
+            raise AssertionError("(d) the replicas built kernels again")
+        log("  (d) phase 3's 8 prompts on r0 and on r1: tokens equal each "
+            "other, an in-process from_trainer engine and phase 3's; "
+            "/admin/swap 500 naming item 10 in %.1f ms; SIGINT: router "
+            "and replicas exited 0, none left; no kernel built again [%s]"
+            % (swap_ms, card))
+        out["d"] = dict(routable_s=routable_s,
+                        request_ms=pcts(cli_ms), exits=exits,
+                        syn=_syn_flags("(d)", cli_ms))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def fleet_phase(torch, counters, dev, card, serve):
+    """Phase 24; see the module docstring."""
+    log("phase 24: the fleet: RouterServer over three LocalReplicas of "
+        "phase 3's LM (two slab, one paged), a chaos kill, an /apply "
+        "rollout over three AlexNet replicas, and `python -m "
+        "veles_tpu_torch --route --replicas 2`")
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    counters.reset()
+    _fleet_generative(torch, counters, dev, card, serve, out)
+    gen = out["a"]["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    apply_launches = _fleet_apply(torch, counters, dev, card, out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _fleet_cli(torch, dev, card, serve, out)
+    launches = {k: gen.get(k, 0) + apply_launches.get(k, 0)
+                for k in set(gen) | set(apply_launches)}
+    out["phase_s"] = time.monotonic() - t_phase
+    log("  phase 24 took %.1f s; launches on the fleet's paths %s" % (
+        out["phase_s"], {k: v for k, v in launches.items() if v}))
+    return out, launches
+
+
 class Counters:
     """Every kernel's launch counter, read and reset together."""
 
@@ -6750,6 +7490,7 @@ def main():
                                                       serve, apply)
     farm, farm_launches = farm_phase(torch, counters, dev, card,
                                      classifier_graph)
+    fleet, fleet_launches = fleet_phase(torch, counters, dev, card, serve)
 
     # each main path's launches, counted from 0 around that path alone
     by_path = {"serving": serve_launches, "training": train_launches,
@@ -6764,7 +7505,8 @@ def main():
                "state": state_launches,
                "mesh": mesh_launches,
                "sharded serving": sharded_launches,
-               "farm": farm_launches}
+               "farm": farm_launches,
+               "fleet": fleet_launches}
     kernels = []
     for name, row in rows.items():
         paths = {p: n.get(name, 0) for p, n in by_path.items()
@@ -6789,7 +7531,7 @@ def main():
                   unit_graph_parity=classifier_graph_parity,
                   input_pipeline=pipeline, zoo=zoo, zoo_parity=zoo_parity,
                   state=state, state_parity=state_parity, mesh=mesh,
-                  sharded_serving=sharded, farm=farm,
+                  sharded_serving=sharded, farm=farm, fleet=fleet,
                   wall_s=time.monotonic() - t_start)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:

@@ -1030,6 +1030,53 @@ def test_step_graph_counts_launches_under_replay(cuda):
     assert torch.equal(y, lrn.lrn_fwd_cuda(x, 2.0, 5, 1e-4, 0.75))
 
 
+def test_step_graphs_built_on_two_threads_at_once(cuda):
+    """Two threads build StepGraphs at the same moment (a respawn and a
+    rollout): the captures take turns, each keeps its own tally, and
+    both replay right."""
+    import threading
+
+    from veles_tpu_torch.graphs import StepGraph
+    from veles_tpu_torch.ops import lrn
+
+    rng = np.random.default_rng(13)
+    x = _randn(rng, (64, 96), torch.bfloat16, cuda)
+    q = _randn(rng, (4, 3, 64), torch.bfloat16, cuda)
+    kc = _randn(rng, (4, 300, 3, 64), torch.bfloat16, cuda)
+    lengths = torch.tensor([1, 100, 299, 300], dtype=torch.int32,
+                           device=cuda)
+    steps = {"lrn": lambda: lrn.lrn_fwd_cuda(x, 2.0, 5, 1e-4, 0.75),
+             "decode": lambda: fa.flash_decode_cuda(q, kc, kc, lengths)}
+    fa.reset_launches()
+    lrn.reset_launches()
+    barrier = threading.Barrier(2)
+    graphs, errors = {}, []
+
+    def build(name):
+        try:
+            barrier.wait(60)
+            graphs[name] = StepGraph(steps[name])
+        except BaseException as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(n,)) for n in steps]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not errors, errors
+    assert lrn.LAUNCHES["lrn_fwd"] == StepGraph.WARMUP
+    assert fa.LAUNCHES["flash_decode"] == StepGraph.WARMUP
+    for _ in range(3):
+        y = graphs["lrn"].replay()
+        o = graphs["decode"].replay()
+    torch.cuda.synchronize()
+    assert lrn.LAUNCHES["lrn_fwd"] == StepGraph.WARMUP + 3
+    assert fa.LAUNCHES["flash_decode"] == StepGraph.WARMUP + 3
+    assert torch.equal(y, steps["lrn"]())
+    assert torch.equal(o, steps["decode"]())
+
+
 # -- scheduler tenancy on the card --------------------------------------------
 
 def _tenancy_lm():
@@ -2070,3 +2117,100 @@ def test_ring_hops_through_the_kernels_match_plain(cuda, dtype):
             assert _rel(a, c) <= BWD_TOL[dtype], (name, causal)
     assert LAUNCHES["flash_bwd_dkv"] - before["flash_bwd_dkv"] == 2
     assert LAUNCHES["flash_bwd_dq"] - before["flash_bwd_dq"] == 2
+
+
+def test_fleet_respawn_captures_while_two_siblings_stream(cuda):
+    """Three LocalReplicas of a captured slab engine behind the router;
+    one is killed and respawned (its fresh engine warmed, its decode
+    round captured on the supervisor thread, after the dead engine was
+    released there) while the two siblings stream: every stream is
+    token-exact against an engine alone, the respawned replica serves
+    the same tokens, and no capture is invalidated."""
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    from veles_tpu_torch.models.transformer import init_params
+    from veles_tpu_torch.serve import (FleetManager, GenerativeEngine,
+                                       LocalReplica, Router, RouterServer)
+    config = _graph_lm()
+    params = init_params(config, seed=3)
+    prompt = _lm_prompts(7, (40,))[0]
+    want = GenerativeEngine(config, params, max_slots=4,
+                            device=cuda).generate([prompt], 120)[0].tolist()
+    built = []
+
+    def make():
+        engine = GenerativeEngine(config, params, max_slots=4, device=cuda)
+        engine.warm()
+        built.append(engine)
+        return engine
+
+    handles = [LocalReplica(n, make, generative=True, watchdog_s=None)
+               for n in ("g0", "g1", "g2")]
+    server = RouterServer(Router(health_interval_s=0.05))
+    fleet = FleetManager(server.router, replicas=handles,
+                         respawn_backoff_s=0.05)
+
+    def post(url, doc):
+        req = urllib.request.Request(url, data=json.dumps(doc).encode(),
+                                     headers={"Content-Type":
+                                              "application/json"})
+        return urllib.request.urlopen(req, timeout=120)
+
+    def wait(pred, what):
+        deadline = time.monotonic() + 120
+        while not pred():
+            assert time.monotonic() < deadline, what
+            time.sleep(0.01)
+
+    try:
+        wait(lambda: server.router.routable_count() == 3, "routable")
+        streams, started = {"g0": [], "g2": []}, []
+        respawned = threading.Event()
+
+        def stream(name):
+            # streams back to back until the respawn is done, so the
+            # capture overlaps the siblings' replays
+            first = threading.Event()
+            started.append(first)
+            while True:
+                toks = []
+                with post("http://%s/generate"
+                          % fleet.handle(name).address,
+                          {"prompt": prompt.tolist(), "max_tokens": 120,
+                           "stream": True}) as resp:
+                    for line in resp:
+                        rec = json.loads(line)
+                        if "token" in rec:
+                            toks.append(rec["token"])
+                            first.set()
+                streams[name].append(toks)
+                if respawned.is_set():
+                    return
+
+        threads = [threading.Thread(target=stream, args=(n,))
+                   for n in ("g0", "g2")]
+        for t in threads:
+            t.start()
+        wait(lambda: len(started) == 2 and all(e.is_set()
+                                               for e in started),
+             "the siblings never streamed")
+        n_built = len(built)
+        handles[1].kill()
+        wait(lambda: len(built) > n_built and handles[1].alive and
+             server.router.routable_count() == 3, "no respawn")
+        respawned.set()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+        for name, runs in streams.items():
+            assert runs and all(toks == want for toks in runs), name
+        assert built[-1]._graph is not None
+        with post("http://%s/generate" % handles[1].address,
+                  {"prompt": prompt.tolist(), "max_tokens": 120}) as resp:
+            assert json.loads(resp.read())["tokens"][0] == want
+    finally:
+        fleet.stop()
+        server.stop()

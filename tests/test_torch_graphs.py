@@ -398,3 +398,92 @@ def test_profiler_hooks_fire_where_the_reference_hooks(profiler):
     finally:
         gen.stop()
     assert profiler.seen - seen == 3     # one prefill, two decode steps
+
+
+def test_a_capture_tallies_its_own_stream_only(monkeypatch):
+    """While a graph is captured on a stream, the wrapper calls made on
+    that stream (from any thread: autograd runs the backward on its
+    own) go to the capture's tally; launches on another stream in that
+    window (a sibling replica replaying) count as usual and are not
+    taken back; a replay adds the tally. Streams stand in as names
+    here (no card on the CPU)."""
+    import threading
+
+    from veles_tpu_torch.ops import launches
+    stream = threading.local()
+    monkeypatch.setattr(launches, "_stream_key",
+                        lambda: getattr(stream, "name", "default"))
+    counter = {"k": 0}
+    inside = threading.Event()
+
+    def on(name, n):
+        stream.name = name
+        assert inside.wait(30)
+        for _ in range(n):
+            launches.count(counter, "k")
+
+    sibling = threading.Thread(target=on, args=("sibling", 5))
+    backward = threading.Thread(target=on, args=("capture", 3))
+    sibling.start()
+    stream.name = "capture"
+    with launches.capturing() as tally:
+        launches.count(counter, "k")
+        launches.count(counter, "k")
+        inside.set()
+        backward.start()
+        backward.join(30)
+        sibling.join(30)
+    assert counter == {"k": 5}
+    assert tally == [(counter, {"k": 5})]
+    launches.add(tally)
+    launches.add(tally)
+    assert counter == {"k": 15}
+    launches.count(counter, "k")  # no capture under way
+    assert counter == {"k": 16}
+
+
+def test_overlapping_captures_keep_their_own_tallies(monkeypatch):
+    """Two captures under way at once on two streams (a respawn and a
+    rollout building engines on two threads) each keep the calls of
+    their own stream, and either may end first; a second capture on a
+    stream that is capturing raises and leaves the first's tally in
+    place."""
+    import threading
+
+    from veles_tpu_torch.ops import launches
+    stream = threading.local()
+    monkeypatch.setattr(launches, "_stream_key",
+                        lambda: getattr(stream, "name", "default"))
+    counter = {"k": 0}
+    first_in = threading.Event()
+    second_out = threading.Event()
+    tallies = {}
+
+    def second():
+        stream.name = "b"
+        assert first_in.wait(30)
+        with launches.capturing() as tally:
+            for _ in range(2):
+                launches.count(counter, "k")
+        tallies["b"] = tally
+        second_out.set()
+
+    thread = threading.Thread(target=second)
+    thread.start()
+    stream.name = "a"
+    with launches.capturing() as tally:
+        launches.count(counter, "k")
+        first_in.set()
+        assert second_out.wait(30)
+        with pytest.raises(RuntimeError, match="already under way"):
+            with launches.capturing():
+                pass
+        launches.count(counter, "k")
+        launches.count(counter, "k")
+    thread.join(30)
+    assert counter == {"k": 0}
+    assert tally == [(counter, {"k": 3})]
+    assert tallies["b"] == [(counter, {"k": 2})]
+    assert not launches._TALLIES
+    launches.count(counter, "k")
+    assert counter == {"k": 1}

@@ -56,7 +56,8 @@ def test_import_closure_has_no_jax_and_no_veles_tpu():
                  "distributed.faults", "distributed.server",
                  "distributed.client", "distributed.relay",
                  "distributed.discovery", "distributed.spawn",
-                 "launcher", "obs.trace", "obs.metrics"):
+                 "launcher", "obs.trace", "obs.metrics", "__main__",
+                 "cmdline", "serve.router", "serve.fleet"):
         assert "veles_tpu_torch." + name in modules
     script = (
         "import importlib, json, sys\n"
@@ -71,6 +72,30 @@ def test_import_closure_has_no_jax_and_no_veles_tpu():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_cli_help_loads_no_jax():
+    """``python -m veles_tpu_torch --help`` (the command line's whole
+    parser and ``Main``) runs and leaves ``jax`` and ``veles_tpu`` out
+    of ``sys.modules``."""
+    script = (
+        "import json, runpy, sys\n"
+        "sys.argv = ['veles_tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('veles_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "tops = {m.split('.')[0] for m in sys.modules}\n"
+        "print(json.dumps(sorted(tops & {'jax', 'jaxlib', "
+        "'veles_tpu'})))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert any("--route ADDR:PORT" in line for line in lines)
+    assert lines[-1] == "[]"
 
 
 def test_sources_import_no_jax_and_no_veles_tpu():

@@ -370,3 +370,56 @@ def test_log_context_tags_log_lines():
         root.removeHandler(handler)
         root.setLevel(level)
     assert records == ["step done [model=lm slot=3]", "outside", "off"]
+
+
+def _normalized_events(doc):
+    """A Chrome-trace document's events with the process's ids and the
+    clock readings taken out (span ids replaced by their order)."""
+    events = doc["traceEvents"]
+    order = {e["args"]["span"]: i for i, e in enumerate(events)}
+    out = []
+    for e in events:
+        args = dict(e["args"])
+        args["span"] = order[args["span"]]
+        if "parent" in args:
+            args["parent"] = order.get(args["parent"], "outside")
+        out.append({"ph": e["ph"], "name": e["name"], "cat": e["cat"],
+                    "args": args, "dur_ok": e["dur"] >= 0})
+    return {"displayTimeUnit": doc["displayTimeUnit"], "events": out}
+
+
+def _nested_spans(tracer, ctx_cls):
+    ctx = ctx_cls("abc123")
+    with tracer.span("outer", "serve", ctx, path="/apply") as outer:
+        with tracer.span("inner", "device", ctx):
+            pass
+    with tracer.span("leaf", ctx=ctx.child(outer.span_id), rows=3):
+        pass
+    with tracer.span("untraced"):  # no context: nothing recorded
+        pass
+    return outer
+
+
+def test_trace_span_scopes_and_exports_match_reference(tmp_path):
+    """``Tracer.span`` records on exit (its id then valid for child
+    contexts, nothing without a context), and ``export_json`` and
+    ``write`` give the reference's documents for the same spans."""
+    from veles_tpu.obs import trace as R_trace
+    from veles_tpu_torch.obs import trace as P_trace
+
+    docs, written = [], []
+    for mod in (R_trace, P_trace):
+        tracer = mod.Tracer()
+        outer = _nested_spans(tracer, mod.TraceContext)
+        assert outer.span_id is not None
+        spans = tracer.spans("abc123")
+        assert [s["name"] for s in spans] == ["inner", "outer", "leaf"]
+        assert spans[2]["parent"] == outer.span_id
+        docs.append(_normalized_events(json.loads(tracer.export_json())))
+        path = tmp_path / ("%s.json" % mod.__name__)
+        assert tracer.write(str(path)) == 3
+        written.append(_normalized_events(json.loads(path.read_text())))
+        assert json.loads(tracer.export_json("nobody"))[
+            "traceEvents"] == []
+    assert docs[1] == docs[0]
+    assert written[1] == written[0] == docs[0]

@@ -2,8 +2,8 @@
 
 Port of ``veles_tpu/distributed/faults.py`` (the grammar and the
 schedules are the reference's). The serving fault engines are ported
-with it; wiring them into a fleet comes with the port's router and
-fleet (ROADMAP.md queue 1 item 9).
+with it; ``serve/fleet.py`` wires them into a fleet
+(``FleetManager.arm_faults``, ``LocalReplica``).
 
 The reference had exactly one chaos knob — ``--slave-death-probability``
 (veles/client.py:303-307), a per-job coin flip. A probability cannot
@@ -453,7 +453,15 @@ class ReplicaFaultEngine(Logger):
 
     def __getattr__(self, name):
         # free_slots, release, max_len, last_finite, swap_params, ...
-        return getattr(self._engine, name)
+        attr = getattr(self._engine, name)
+        if name == "decode_many":
+            # a paged engine's decode round: killable like decode(),
+            # and absent (hasattr False) over a slab engine
+            def decode_many():
+                self._maybe_kill()
+                return attr()
+            return decode_many
+        return attr
 
     def _maybe_kill(self) -> None:
         if not self._armed.is_set():
@@ -468,9 +476,10 @@ class ReplicaFaultEngine(Logger):
         self._maybe_kill()
         return self._engine.apply(rows)
 
-    def admit(self, prompts):
+    def admit(self, prompts, *sampling):
+        # a paged engine's admit takes the tickets' sampling options too
         self._maybe_kill()
-        return self._engine.admit(prompts)
+        return self._engine.admit(prompts, *sampling)
 
     def decode(self):
         self._maybe_kill()

@@ -1,10 +1,9 @@
 """Worker process spawning + respawn supervision (local and ssh).
 
-Port of ``veles_tpu/distributed/spawn.py``: spawned commands name
-``python -m veles_tpu_torch`` (the port's CLI, ROADMAP.md queue 1 item
-11). Until that entry point exists a spawned farm is driven through the
-same supervision with a caller's command (``WorkerPool(ssh_command=)``),
-as the tests do.
+Port of ``veles_tpu/distributed/spawn.py``: spawned commands run
+``python -m veles_tpu_torch`` (the port's CLI, ``__main__.py``); a
+caller's transport prefix (``WorkerPool(ssh_command=)``) runs them on
+other hosts.
 
 Reference capability: veles/launcher.py:808-842 (_launch_nodes — one
 slave process per device spec, slave cmdline = own argv filtered +
@@ -169,7 +168,9 @@ class ReplicaProcess(Logger):
         if self.alive:
             self._proc.kill()
 
-    def stop(self, grace: float = 10.0) -> None:
+    def stop(self, grace: float = 10.0) -> Optional[int]:
+        """SIGTERM (a ``--serve`` process drains and exits 0), SIGKILL
+        after ``grace`` seconds; returns the exit code."""
         if self._proc.poll() is None:
             self._proc.terminate()
         try:
@@ -177,6 +178,7 @@ class ReplicaProcess(Logger):
         except subprocess.TimeoutExpired:
             self._proc.kill()
             self._proc.wait(grace)
+        return self._proc.returncode
 
 
 class WorkerPool(Logger):

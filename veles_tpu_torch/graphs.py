@@ -14,10 +14,19 @@ replay of any graph of that pool.
 
 The kernel wrappers count their launches on the host, once per Python
 call. A capture makes those calls but launches nothing, and a replay
-launches without a call. So the graph takes back what each counter
-(``ops.flash_attention``, ``ops.lrn``, ``ops.rng``) gained during the
-capture and adds it on every replay; the warm-up calls before the
-capture launch for real and stay counted. The counts stay true.
+launches without a call. So the calls made on the capturing stream
+(the step's backward too, which autograd runs on a thread of its own)
+go to the graph's own tally (``ops.launches.capturing``), which every
+replay adds to the counters (``ops.flash_attention``, ``ops.lrn``,
+``ops.rng``); launches on other streams during the capture count as
+usual, and the warm-up calls before the capture launch for real and
+stay counted. The counts stay true.
+
+Captures take turns (``_CAPTURE_LOCK``), each on a stream of its own:
+entering ``torch.cuda.graph`` synchronises the device, runs a
+collection and empties the allocator's cache, none of which may happen
+while another thread's capture is under way. Replays and eager work on
+other threads go on beside a capture.
 
 Python's cyclic garbage collector pauses while a capture is under way.
 A collection may run on any allocation, and one that frees a dead
@@ -35,10 +44,10 @@ from typing import Any, Callable, Iterator, Optional, Sequence
 
 import torch
 
-from veles_tpu_torch.ops import flash_attention, lrn, rng
+from veles_tpu_torch.ops import launches
 
-_COUNTERS = (flash_attention.LAUNCHES, lrn.LAUNCHES, rng.LAUNCHES)
-
+#: held by the capture under way in this process
+_CAPTURE_LOCK = threading.Lock()
 #: captures under way in this process, and whether the collector ran
 #: before the first of them began (``_collector_paused``)
 _PAUSE_LOCK = threading.Lock()
@@ -111,17 +120,12 @@ class StepGraph:
                 t.copy_(value)
         del saved
         self.graph = torch.cuda.CUDAGraph()
-        before = [dict(counter) for counter in _COUNTERS]
-        with _collector_paused(), \
+        with _CAPTURE_LOCK, _collector_paused(), \
                 torch.cuda.graph(self.graph, pool=self.pool,
-                                 capture_error_mode="thread_local"):
+                                 stream=torch.cuda.Stream(),
+                                 capture_error_mode="thread_local"), \
+                launches.capturing() as self._launches:
             self.outputs = fn(*self.inputs)
-        self._launches = []
-        for counter, old in zip(_COUNTERS, before):
-            self._launches.append({name: n - old[name]
-                                   for name, n in counter.items()
-                                   if n != old[name]})
-            counter.update(old)
 
     def replay(self, *values: torch.Tensor) -> Any:
         """Copy ``values`` (as many as leading static inputs) into the
@@ -130,7 +134,5 @@ class StepGraph:
         for static, value in zip(self.inputs, values):
             static.copy_(value)
         self.graph.replay()
-        for counter, gained in zip(_COUNTERS, self._launches):
-            for name, n in gained.items():
-                counter[name] += n
+        launches.add(self._launches)
         return self.outputs

@@ -1,6 +1,7 @@
 """Lightweight request and job tracing (port of
 ``veles_tpu/obs/trace.py``: the serving slice's spans plus the farm's
-wire form).
+wire form, and the ``span`` scope and file export the fleet and the
+command line use).
 
 Spans are (name, category, ids, monotonic t0/t1) records in a bounded
 ring buffer — two clock reads, a tuple and a deque append, cheap
@@ -16,6 +17,7 @@ update, and the coordinator stitches them in (:meth:`Tracer.ingest`).
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import random
 import threading
@@ -81,6 +83,33 @@ class TraceContext:
         return "<TraceContext %s/%s>" % (self.trace_id, self.parent_id)
 
 
+class _SpanScope:
+    """Context manager recording one span on exit."""
+
+    __slots__ = ("_tracer", "_name", "_cat", "_ctx", "_args", "_t0",
+                 "span_id")
+
+    def __init__(self, tracer: "Tracer", name: str, cat: str,
+                 ctx: Optional[TraceContext], args: Dict) -> None:
+        self._tracer = tracer
+        self._name = name
+        self._cat = cat
+        self._ctx = ctx
+        self._args = args
+        self._t0 = 0.0
+        self.span_id: Optional[int] = None
+
+    def __enter__(self) -> "_SpanScope":
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.span_id = self._tracer.add(
+            self._name, self._cat, self._ctx, self._t0,
+            time.monotonic(), **self._args)
+        return None
+
+
 class Tracer:
     """Bounded ring-buffer span collector.
 
@@ -113,6 +142,13 @@ class Tracer:
             self._spans.append(record)
             self.recorded += 1
         return span_id
+
+    def span(self, name: str, cat: str = "app",
+             ctx: Optional[TraceContext] = None,
+             **args: Any) -> _SpanScope:
+        """``with TRACER.span("prefill", "serve", ctx):`` records on
+        exit; ``scope.span_id`` is then valid for child contexts."""
+        return _SpanScope(self, name, cat, ctx, args)
 
     def ingest(self, spans: Optional[List[Dict[str, Any]]]) -> int:
         """Absorb span dicts shipped by a peer (worker -> relay ->
@@ -181,6 +217,17 @@ class Tracer:
                 "pid": span["pid"], "tid": span["tid"], "args": ev_args,
             })
         return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def export_json(self, trace_id: Optional[str] = None) -> str:
+        return json.dumps(self.export_chrome(trace_id))
+
+    def write(self, path: str) -> int:
+        """``--trace-out``: write the Chrome trace; returns the event
+        count."""
+        doc = self.export_chrome()
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        return len(doc["traceEvents"])
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:

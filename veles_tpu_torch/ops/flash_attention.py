@@ -43,7 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from veles_tpu_torch.ops import _build
+from veles_tpu_torch.ops import _build, launches
 
 #: Default sequence tile of the plain path (the kernels tile on their
 #: own: see :data:`TMA_TILES`, per-key for decode).
@@ -406,7 +406,7 @@ def flash_fwd_cuda(q, k, v, causal: bool):
             *o.stride()[:3], int(bool(causal)), d ** -0.5,
             _DTYPE_CODES[q.dtype], maps, stream)
     _build.check(lib, "flash_fwd", rc)
-    LAUNCHES["flash_fwd"] += 1
+    launches.count(LAUNCHES, "flash_fwd")
     return o, l, m
 
 
@@ -477,7 +477,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, l, m, di, causal: bool):
             int(bool(causal)), d ** -0.5, _DTYPE_CODES[q.dtype], maps,
             stream)
     _build.check(lib, "flash_bwd_dkv", rc)
-    LAUNCHES["flash_bwd_dkv"] += 1
+    launches.count(LAUNCHES, "flash_bwd_dkv")
     return dk, dv
 
 
@@ -500,7 +500,7 @@ def flash_bwd_dq_cuda(q, k, v, do, l, m, di, causal: bool):
             int(bool(causal)), d ** -0.5, _DTYPE_CODES[q.dtype], maps,
             stream)
     _build.check(lib, "flash_bwd_dq", rc)
-    LAUNCHES["flash_bwd_dq"] += 1
+    launches.count(LAUNCHES, "flash_bwd_dq")
     return dq
 
 
@@ -564,7 +564,7 @@ def flash_decode_cuda(q, k_cache, v_cache, lengths):
             *o.stride()[:2], DECODE_CHUNK, d ** -0.5,
             _DTYPE_CODES[q.dtype], stream)
     _build.check(lib, "flash_decode", rc)
-    LAUNCHES["flash_decode"] += 1
+    launches.count(LAUNCHES, "flash_decode")
     return o
 
 
@@ -613,7 +613,7 @@ def flash_decode_paged_cuda(q, k_pages, v_pages, block_tables, lengths):
             block_tables.stride(0), *o.stride()[:2], DECODE_CHUNK,
             d ** -0.5, _DTYPE_CODES[q.dtype], stream)
     _build.check(lib, "flash_decode_paged", rc)
-    LAUNCHES["flash_decode_paged"] += 1
+    launches.count(LAUNCHES, "flash_decode_paged")
     return o
 
 

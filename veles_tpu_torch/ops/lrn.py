@@ -28,7 +28,7 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from veles_tpu_torch.ops import _build
+from veles_tpu_torch.ops import _build, launches
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
 LAUNCHES: Dict[str, int] = {"lrn_fwd": 0, "lrn_bwd": 0}
@@ -155,7 +155,7 @@ def lrn_fwd_cuda(x, k: float, n: int, alpha: float, beta: float):
             x2.stride(0), y2.stride(0), int(n), vec, float(k), alpha / n,
             -beta, _DTYPE_CODES[x.dtype], stream)
     _build.check(lib, "lrn_fwd", rc)
-    LAUNCHES["lrn_fwd"] += 1
+    launches.count(LAUNCHES, "lrn_fwd")
     return y
 
 
@@ -178,7 +178,7 @@ def lrn_bwd_cuda(x, dy, k: float, n: int, alpha: float, beta: float):
             float(k), coef, -beta, 2.0 * coef * beta,
             _DTYPE_CODES[x.dtype], stream)
     _build.check(lib, "lrn_bwd", rc)
-    LAUNCHES["lrn_bwd"] += 1
+    launches.count(LAUNCHES, "lrn_bwd")
     return dx
 
 

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from veles_tpu_torch.device import resolve
-from veles_tpu_torch.ops import _build
+from veles_tpu_torch.ops import _build, launches
 
 #: Philox-4x32 multipliers and Weyl key increments (Random123).
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -153,7 +153,7 @@ def uniform_fill_cuda(n: int, key: Tuple[int, int], device,
         rc = lib.veles_uniform_fill(out.data_ptr(), n, key[0], key[1],
                                     scale, low, int(affine), stream)
     _build.check(lib, "uniform_fill", rc)
-    LAUNCHES["uniform_fill"] += 1
+    launches.count(LAUNCHES, "uniform_fill")
     return out
 
 

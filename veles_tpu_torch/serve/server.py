@@ -38,6 +38,15 @@
   returns the one Prometheus exposition of the same numbers
   (``veles_sched_*`` for the scheduler).
 - ``GET /debug/trace[?trace=ID]`` — Chrome-trace JSON of the span ring.
+- ``POST /admin/swap`` — ``{"package": path[, "model": name]}``:
+  hot-swap a model's engine from a package archive, the fleet's
+  rollout channel into a replica process. Off unless ``admin_swap``;
+  package archives are not ported yet, so a swap answers 500 ``swap
+  failed: ...`` naming what it waits for.
+
+The fleet's hooks: ``draining``, :meth:`ServeServer.blackhole` (accept,
+answer nothing for a window) and :meth:`ServeServer.kill` (sever every
+live connection, as a process death would).
 
 Stop is a graceful drain by default: /healthz flips unhealthy, new
 POSTs get 503, accepted work finishes, then the listener closes.
@@ -48,6 +57,8 @@ from __future__ import annotations
 import json
 import math
 import re
+import socket
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -74,13 +85,47 @@ _TRACE_ID_RE = re.compile(r"^[0-9a-fA-F]{1,64}$")
 MAX_PROMPTS_PER_REQUEST = 64
 
 
-class _QuietHTTPServer(ThreadingHTTPServer):
-    """Connection-level errors are ordinary here (streaming clients
-    disconnect mid-reply): no stderr traceback per event."""
+class _TrackingHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer that remembers its live client sockets, so a
+    chaos :meth:`ServeServer.kill` can sever in-flight connections the
+    way a process death would (peers see a reset mid-exchange, not a
+    clean reply): the failure the fleet router's failover absorbs."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self._client_lock = threading.Lock()
+        self._client_socks: set = set()
+        self.killed = False
+
+    def get_request(self):
+        sock, addr = super().get_request()
+        with self._client_lock:
+            self._client_socks.add(sock)
+        return sock, addr
+
+    def shutdown_request(self, request) -> None:
+        with self._client_lock:
+            self._client_socks.discard(request)
+        super().shutdown_request(request)
+
+    def sever_connections(self) -> None:
+        with self._client_lock:
+            socks = list(self._client_socks)
+        for sock in socks:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                sock.close()
+            except OSError:
+                pass
 
     def handle_error(self, request, client_address) -> None:
-        import sys
-        if isinstance(sys.exc_info()[1], (OSError, ConnectionError)):
+        # connection-level errors are ordinary here: streaming clients
+        # disconnect, chaos kills sever sockets mid-reply
+        exc = sys.exc_info()[1]
+        if isinstance(exc, (OSError, ConnectionError)) or self.killed:
             return
         super().handle_error(request, client_address)
 
@@ -91,7 +136,9 @@ class ServeServer:
     def __init__(self, registry: ModelRegistry,
                  host: str = "127.0.0.1", port: int = 0,
                  timeout: float = 30.0, scheduler=None,
-                 watchdog_s: Optional[float] = 30.0) -> None:
+                 watchdog_s: Optional[float] = 30.0,
+                 default_deadline_ms: Optional[float] = None,
+                 admin_swap: bool = False) -> None:
         self.registry = registry
         self.timeout = float(timeout)
         #: a veles_tpu_torch.sched.Scheduler whose per-tenant accounting
@@ -102,8 +149,19 @@ class ServeServer:
         #: has been out longer than this, /healthz answers 503
         #: ``{"stuck": true}``. None disables.
         self.watchdog_s = watchdog_s
+        #: deadline applied to requests that carry none (the CLI's
+        #: ``--serve-deadline-ms``); None = patient clients
+        self.default_deadline_ms = default_deadline_ms
+        #: ``POST /admin/swap``: off by default (an open swap endpoint
+        #: replaces weights); fleet-spawned replicas enable it through
+        #: ``VELES_SERVE_ADMIN=1``
+        self.admin_swap = bool(admin_swap)
+        #: chaos: monotonic instant until which this server accepts
+        #: connections but never answers (``blackhole@N:MS``)
+        self._blackhole_until: Optional[float] = None
         self._draining = False
-        self._httpd = _QuietHTTPServer((host, port), self._make_handler())
+        self._httpd = _TrackingHTTPServer((host, port),
+                                          self._make_handler())
         # joined in stop(): the listener must not outlive the server
         self._threads = ManagedThreads(name="serve-http")
         self._threads.spawn(self._httpd.serve_forever, name="listener")
@@ -117,6 +175,10 @@ class ServeServer:
     def url(self) -> str:
         """The generation endpoint of the default model."""
         return "http://%s:%d/generate" % self.endpoint
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
 
     def _model_for(self, path: str, base: str):
         """Registry entry for a <base>[/name] path."""
@@ -160,13 +222,15 @@ class ServeServer:
 
             def _deadline(self, doc) -> Optional[float]:
                 """Body ``deadline_ms``, else ``X-Deadline-Ms``, else
-                None. Raises ValueError on junk."""
+                the server-wide default. Raises ValueError on junk."""
                 deadline = doc.get("deadline_ms")
                 if deadline is None:
                     header = self.headers.get("X-Deadline-Ms")
                     deadline = float(header) if header else None
                 else:
                     deadline = float(deadline)
+                if deadline is None:
+                    deadline = server.default_deadline_ms
                 if deadline is not None and deadline <= 0:
                     raise ValueError("deadline_ms must be > 0")
                 return deadline
@@ -420,10 +484,56 @@ class ServeServer:
                     except OSError:
                         self.close_connection = True
 
+            def _blackholed(self) -> bool:
+                """The ``blackhole@N:MS`` window: hold the request
+                until the window passes, then drop the connection
+                without a reply, what a wedged but accepting replica
+                looks like from a router."""
+                until = server._blackhole_until
+                if until is None:
+                    return False
+                remaining = until - time.monotonic()
+                if remaining <= 0:
+                    server._blackhole_until = None
+                    return False
+                time.sleep(remaining)
+                self.close_connection = True
+                return True
+
+            # -- POST /admin/swap ---------------------------------------
+            def _do_admin_swap(self, raw: bytes) -> None:
+                if not server.admin_swap:
+                    self._reply(404, {"error": "not found"})
+                    return
+                try:
+                    doc = json.loads(raw)
+                    package = doc["package"]
+                    name = doc.get("model") or \
+                        server.registry.default_name
+                except (ValueError, KeyError, TypeError):
+                    self._reply(400, {"error": "bad request"})
+                    return
+                try:
+                    from veles_tpu_torch.serve.engine import \
+                        InferenceEngine
+                    engine = InferenceEngine.from_package(package)
+                    server.registry.swap(name, engine)
+                except KeyError:
+                    self._reply(404, {"error": "unknown model %r"
+                                      % name})
+                    return
+                except Exception as e:  # noqa: BLE001 — a bad
+                    # package answers, it never tears the connection
+                    self._reply(500, {"error": "swap failed: %s" % e})
+                    return
+                self._reply(200, {"swapped": name, "package": package})
+
             def do_POST(self) -> None:
                 # reset FIRST: the handler persists across keep-alive
                 # requests, and a stale ctx would stamp this reply
                 self._trace_ctx = None
+                if self._blackholed():
+                    return
                 url = urlparse(self.path)
                 if "chunked" in (self.headers.get(
                         "Transfer-Encoding") or "").lower():
@@ -444,6 +554,8 @@ class ServeServer:
                     if url.path == "/generate" or \
                             url.path.startswith("/generate/"):
                         self._do_generate(url, raw)
+                    elif url.path == "/admin/swap":
+                        self._do_admin_swap(raw)
                     elif url.path == "/apply" or \
                             url.path.startswith("/apply/"):
                         self._do_apply(url, raw)
@@ -458,6 +570,8 @@ class ServeServer:
             # -- GET /healthz | /metrics | /debug/trace -----------------
             def do_GET(self) -> None:
                 self._trace_ctx = None
+                if self._blackholed():
+                    return
                 url = urlparse(self.path)
                 if url.path == "/healthz":
                     if server._draining:
@@ -510,6 +624,28 @@ class ServeServer:
                 self._reply(404, {"error": "not found"})
 
         return Handler
+
+    # -- chaos hooks -------------------------------------------------------
+    def blackhole(self, seconds: float) -> None:
+        """Arm ``blackhole@N:MS``: for ``seconds`` this server accepts
+        connections but answers nothing (requests are held through the
+        window, then dropped without a reply)."""
+        self._blackhole_until = time.monotonic() + float(seconds)
+
+    def kill(self) -> None:
+        """Abrupt chaos death: stop accepting, sever every live
+        connection (peers see a reset mid-exchange), refuse whatever
+        arrives in the gap. No drain and no join: call :meth:`stop`
+        afterwards. Safe from a batcher's dispatch thread."""
+        self._draining = True
+        self._httpd.killed = True
+        # sever first: shutdown() blocks up to a poll interval, and in
+        # that window live handlers would still answer cleanly
+        self._httpd.sever_connections()
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        # connections accepted during the shutdown window
+        self._httpd.sever_connections()
 
     # -- lifecycle ---------------------------------------------------------
     def begin_drain(self) -> None:
