@@ -232,7 +232,7 @@ without them, and on any failed phase. Phases, in order:
    the fused forward of the written-back params (the errors of
    ``train_fused``'s closing sweep; rows whose argmax differ must lie
    within bf16 rounding of a tie), a ``compression=None`` snapshot and
-   gzip's rate at the codec's level over 16 slices of it,
+   gzip's rate at the codec's level over 4 slices of it,
    ``InferenceEngine.from_snapshot`` against ``from_workflow`` bitwise
    (2 K6 a replay) and one ``POST /apply`` on the restored engine;
 20. the state half, card against CPU at f32: the LM workflow (the JAX
@@ -247,14 +247,14 @@ without them, and on any failed phase. Phases, in order:
    through host memory (NCCL refuses two ranks on one card), each leg
    against one rank: (a) ``alexnet_fused()`` (batch 1536, bf16,
    bench.py's lr/momentum/decay) at ``data=2`` and at ``model=2`` (the
-   reference's Megatron layout), 3 steps, params within
+   reference's Megatron layout), 2 steps, params within
    ``TOL_CLASSIFIER["bfloat16"]`` of the one-rank steps' update, or twice
    bf16's own rounding of those steps where larger (measured: the
    one-rank f32 steps against the bf16 ones), and at 64 x 64 f32 within
    1e-4 of each leaf's scale, the dropout masks bitwise the one-rank
    masks, exactly 2 each of
    K6/K7/K8 a rank a step; (b) the LM (``FULL``, batch 8, bf16, remat
-   "attn") at ``seq=2``, 3 steps, losses within ``TOL_MESH_LM`` of the
+   "attn") at ``seq=2``, 2 steps, losses within ``TOL_MESH_LM`` of the
    one-rank eager steps, exactly 2 L h K1 and L h each of K2/K3 a step
    on a rank whose ring has h hops to compute (1 and 2), and the f32
    2-layer ring's gradients through K1-K3 against the plain path;
@@ -286,7 +286,7 @@ without them, and on any failed phase. Phases, in order:
    world 1: the tp=1 engine's tokens and K/V slab bitwise the
    unsharded engine's, both keeping their CUDA graphs;
 23. the training farm (``veles_tpu_torch.distributed``) over phase 14's
-   ``AlexNetWorkflow`` (its widths, one epoch of 1,024 TRAIN and 256
+   ``AlexNetWorkflow`` (its widths, one epoch of 768 TRAIN and 256
    VALID images): (a) a coordinator and one worker on a thread of this
    process, the weights, biases and validation error bitwise the
    standalone run's under deterministic cuDNN; (b) two worker processes
@@ -296,7 +296,8 @@ without them, and on any failed phase. Phases, in order:
    images/s beside phase 14; (c) the same farm with a worker killed by
    ``FaultPlan("kill:1@2")``: its job requeued, the minibatches
    conserved; (d) phase 19a's ``TransformerWorkflow`` at 2 layers
-   through one worker, its params bitwise the standalone run's;
+   (its corpus cut to ``FARM_LM_WINDOWS`` windows) through one worker,
+   its params bitwise the standalone run's;
    exactly 2 K6 a job on every worker;
 24. the serving fleet (``serve/router.py``, ``serve/fleet.py``) and the
    command line, the earlier phases' engines freed first: (a) a
@@ -329,10 +330,42 @@ without them, and on any failed phase. Phases, in order:
    start, loading the kernels phase 1 built (none built again); the 8
    prompts pinned to each replica in turn, the tokens of both equal to
    each other and to an in-process ``GenerativeEngine.from_trainer``
-   of the workflow's seed; a replica's ``POST /admin/swap`` answering
-   500 naming the package archives' queue item; SIGINT: the router and
-   both replicas exit 0 and none is left. Each leg logs its largest
-   request time (and whether it sits near a sum of TCP SYN retries).
+   of the workflow's seed; a replica's ``POST /admin/swap`` of a
+   package into its generative model refused (409); SIGINT: the router
+   and both replicas exit 0 and none is left. Each leg logs its largest
+   request time (and whether it sits near a sum of TCP SYN retries);
+25. packages and the AOT plane (``veles_tpu_torch.aot``): (a)
+   ``package_export`` of phase 14's ``AlexNetWorkflow`` (its widths,
+   seeded weights; its loader's images, which no package holds, cut to
+   ``AOT_DATA``) into a tar archive, its MB, export and extraction
+   seconds, then ``InferenceEngine.from_package`` on the card: buckets 1,
+   8 and 64 bitwise ``from_workflow``'s on the same workflow, exactly 2
+   K6 a dispatch; a second package from seed 43; (b) ``python -m
+   veles_tpu_torch PKG --serve 127.0.0.1:0 --aot-cache DIR`` on an empty
+   ``DIR``: its startup report shows every kernel library built fresh
+   by ``nvcc`` into ``DIR/kernels/`` and the seconds it took, then
+   mixed-size raw-row ``/apply`` requests; a second process on the same
+   ``DIR``: no ``nvcc`` run, every capture before ready and planned (its
+   hits the first's records, no miss), no capture after ready across
+   the same requests (``compile_count`` unmoved), its answers bitwise
+   the first's, 2 K6 a dispatch by its ``/metrics``; both start-to-ready
+   times; (c) ``--route 127.0.0.1:0 --replicas 2 --rollout PKG2
+   --aot-cache DIR`` over the first package: the rollout canary-first
+   through each replica's ``POST /admin/swap`` under 4 raw-row client
+   lanes, no failed request off the canary, every replica then
+   answering the second package's outputs (within ``TOL_APPLY`` of an
+   in-process engine of it; bitwise logged); SIGINT: all exit 0; (d)
+   phase 3's LM (``FULL``, bf16) by ``--serve --aot-cache DIR``: the 8
+   prompts staggered, tokens equal to phase 3's, 12 K1 a prefill and 12
+   K4 a round by its ``/metrics``, no capture after ready; one
+   ``lm_step_many`` (batch 8) and one ``mlp_step_many`` (AlexNet, batch
+   1536) dispatch of K = 2 under a plan bitwise the same dispatch
+   without one (losses, params and optimizer state, under deterministic
+   cuDNN), their records holding one replay's (one dispatch's)
+   launches; the LM behind ``PagedGenerativeEngine`` (1,024 16-token
+   pages) warmed under the plan, its greedy and sampled round records
+   each holding 12 K5, phase 3's prompts one at a time giving phase 3's
+   tokens with 12 K1 a prefill and 12 K5 a round.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -4664,7 +4697,8 @@ RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6
 #: the gzip level of the Snapshotter's "gz" codec (gzip.open's
 #: default), and the slices of the snapshot it is timed over
 GZIP_LEVEL = 9
-GZIP_SAMPLES = 16
+#: (16 until phase 25 came: 4 x 16 MB at ~8 MB/s time the rate in ~8 s)
+GZIP_SAMPLES = 4
 GZIP_SLICE = 16 << 20
 
 
@@ -5359,8 +5393,9 @@ def state_parity_phase(torch, dev, card):
 
 #: each world's deadline: the join, every collective and the whole run
 MESH_TIMEOUT_S = 600
-#: steps of every meshed leg (each against as many one-rank steps)
-MESH_STEPS = 3
+#: steps of every meshed leg (each against as many one-rank steps; 3
+#: until phase 25 came, cut to keep the script's time)
+MESH_STEPS = 2
 #: (b): the meshed bf16 LM's losses against the one-rank eager trainer's
 #: (relative): the ring's per-hop bf16 rounding (2^-8 of a hop's output,
 #: ``parallel/ring_attention.py``), the sequence chunk's unchunked head
@@ -6306,7 +6341,9 @@ def sharded_serving_phase(torch, dev, card, serve, apply):
 # ---------------------------------------------------------------------------
 
 #: each farm's workflow: phase 14's AlexNetWorkflow (its widths, data
-#: cut to UG_DATA) for this many epochs (8 TRAIN and 2 VALID jobs one)
+#: cut to FARM_DATA: 1,024 TRAIN images until phase 25 came) for this
+#: many epochs (6 TRAIN and 2 VALID jobs one)
+FARM_DATA = dict(n_train=768, n_valid=256)
 FARM_EPOCHS = 1
 #: every coordinator's job timeout and every farm's deadline
 FARM_TIMEOUT_S = 600
@@ -6314,15 +6351,18 @@ FARM_TIMEOUT_S = 600
 FARM_WORKERS = 2
 #: (c): the plan that kills worker 1 after its second job
 FARM_KILL = "kill:1@2"
-#: (d): phase 19a's LM, depth cut to this
+#: (d): phase 19a's LM, depth cut to this, and its corpus to this many
+#: windows of seq_len + 1 tokens (88 until phase 25 came: the script's
+#: time)
 FARM_LM_LAYERS = 2
+FARM_LM_WINDOWS = 44
 #: the minibatch classes (loader.base): VALID, TRAIN
 FARM_VALID, FARM_TRAIN = 1, 2
 
 
 def _farm_alexnet(stream=None):
     from veles_tpu_torch.models.alexnet import AlexNetWorkflow
-    kwargs = dict(UG_DATA)
+    kwargs = dict(FARM_DATA)
     if stream:
         kwargs["prng_stream"] = stream
     wf = AlexNetWorkflow(max_epochs=FARM_EPOCHS, loader_kwargs=kwargs)
@@ -6335,7 +6375,8 @@ def _farm_lm(stream=None):
     from veles_tpu_torch.models.transformer import TransformerConfig
     config = TransformerConfig(compute="bfloat16", remat="attn", **dict(
         FULL, layers=FARM_LM_LAYERS))
-    kwargs = dict(minibatch_size=TRAIN_BATCH, n_tokens=STATE_TOKENS)
+    kwargs = dict(minibatch_size=TRAIN_BATCH,
+                  n_tokens=FARM_LM_WINDOWS * (FULL["seq_len"] + 1))
     if stream:
         kwargs["prng_stream"] = stream
     wf = TransformerWorkflow(config=config, learning_rate=TRAIN_LR,
@@ -6555,7 +6596,7 @@ def farm_phase(torch, counters, dev, card, classifier_graph):
         "against standalone; (b) %d worker processes on %s under none and "
         "int8; (c) the same under FaultPlan(%r); (d) TransformerWorkflow "
         "(phase 19a's, %d layers) through one worker against standalone"
-        % (UG_DATA, FARM_EPOCHS, FARM_WORKERS, dev, FARM_KILL,
+        % (FARM_DATA, FARM_EPOCHS, FARM_WORKERS, dev, FARM_KILL,
            FARM_LM_LAYERS))
     t_phase = time.monotonic()
     device = Device()
@@ -6643,7 +6684,8 @@ def farm_phase(torch, counters, dev, card, classifier_graph):
                [w["jobs"] for w in workers], counts, served, per_update,
                f["wire"].get("update_raw_bytes", 0),
                f["wire"].get("update_wire_bytes", 0),
-               UG_DATA["n_train"] * FARM_EPOCHS / wall, wall, ug_ips, card))
+               FARM_DATA["n_train"] * FARM_EPOCHS / wall, wall, ug_ips,
+               card))
         f["per_update_bytes"] = per_update
     if farms["fault"]["counts"]["requeued"] < 1 or \
             [w["status"] for w in farms["fault"]["workers"]] != \
@@ -7339,11 +7381,13 @@ def _fleet_cli(torch, dev, card, serve, out):
                                  "phase 3 %s"
                                  % (tokens["r0"][:2], tokens["r1"][:2],
                                     ref[:2], serve["staggered"][:2]))
-        # a process replica's swap channel waits for package archives
+        # a replica's swap channel is open; a package (a forward
+        # engine) into the generative model is refused, the tokens stay
+        # (phase 25 (c) rolls packages through /admin/swap)
         replica_url = "http://%s" % states()["r0"]["address"]
         code, doc, _, swap_ms = _fleet_post(replica_url + "/admin/swap",
                                             {"package": "/none.zip"})
-        if code != 500 or "item 10" not in doc.get("error", ""):
+        if code != 409 or "serves /generate" not in doc.get("error", ""):
             raise AssertionError("(d) /admin/swap answered %d %s"
                                  % (code, doc))
         proc.send_signal(signal.SIGINT)
@@ -7366,7 +7410,8 @@ def _fleet_cli(torch, dev, card, serve, out):
             raise AssertionError("(d) the replicas built kernels again")
         log("  (d) phase 3's 8 prompts on r0 and on r1: tokens equal each "
             "other, an in-process from_trainer engine and phase 3's; "
-            "/admin/swap 500 naming item 10 in %.1f ms; SIGINT: router "
+            "/admin/swap of a package into the LM refused (409) in %.1f "
+            "ms; SIGINT: router "
             "and replicas exited 0, none left; no kernel built again [%s]"
             % (swap_ms, card))
         out["d"] = dict(routable_s=routable_s,
@@ -7402,6 +7447,558 @@ def fleet_phase(torch, counters, dev, card, serve):
     out["phase_s"] = time.monotonic() - t_phase
     log("  phase 24 took %.1f s; launches on the fleet's paths %s" % (
         out["phase_s"], {k: v for k, v in launches.items() if v}))
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 25: packages and the AOT plane
+# ---------------------------------------------------------------------------
+
+#: (a): the package's workflow is phase 14's AlexNetWorkflow; its loader's
+#: images are not part of a package, so they are cut to this
+AOT_DATA = dict(n_train=128, n_valid=128)
+#: (a): the buckets held against from_workflow, bitwise
+AOT_BUCKETS = [1, 8, 64]
+#: (b): the mixed-size raw-row /apply requests after ready
+AOT_APPLY_ROWS = [1, 3, 8, 20, 64, 5]
+#: (c): client lanes through the router during the rollout
+AOT_LANES = 4
+AOT_LANE_ROWS = 2
+#: (d): the trainers' K steps a dispatch
+AOT_K = 2
+AOT_TIMEOUT_S = 600
+#: (d): one replay's launches in a capture record (12 layers: the
+#: forward and the remat recompute, each backward kernel once a layer;
+#: AlexNet's 2 LRN layers and 2 dropout masks a step, K steps)
+AOT_LM_TALLY = {"flash_fwd": 24, "flash_bwd_dkv": 12, "flash_bwd_dq": 12}
+AOT_MLP_TALLY = {"lrn_fwd": 2 * AOT_K, "lrn_bwd": 2 * AOT_K,
+                 "uniform_fill": 2 * AOT_K}
+#: eager warm-up calls before each capture (``graphs.StepGraph.WARMUP``)
+AOT_CAPTURE_WARMUP = 2
+
+_AOT_STARTUP = re.compile(
+    r"aot startup \(serve\): (\d+) fresh kernel build\(s\) in "
+    r"([\d.]+)s, (\d+) from the cache, (\d+) capture\(s\) before ready, "
+    r"(\d+) planned \S+ hit, (\d+) missed, (\d+) record\(s\) written, "
+    r"([\d.]+)s to ready")
+
+
+def _aot_workflow(torch, seed):
+    """Phase 14's AlexNetWorkflow at its widths, initialized on the card
+    from ``seed`` (no training: the package carries seeded weights)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models.alexnet import AlexNetWorkflow
+    root.common.random.seed = seed
+    prng.reset()
+    wf = AlexNetWorkflow(max_epochs=1, loader_kwargs=dict(AOT_DATA))
+    wf.initialize(device=Device())
+    return wf
+
+
+def _aot_roundtrip(torch, counters, card, work, out):
+    """Leg (a); see the module docstring."""
+    from veles_tpu_torch.aot import package as aot_package
+    from veles_tpu_torch.serve import InferenceEngine
+    pkg_a = os.path.join(work, "alexnet_a.tar")
+    pkg_b = os.path.join(work, "alexnet_b.tar")
+    wf = _aot_workflow(torch, UG_SEED)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    wf.package_export(pkg_a)
+    export_s = time.monotonic() - t0
+    mb = os.path.getsize(pkg_a) / 1e6
+    aot_package.clear_extraction_memo()
+    t0 = time.monotonic()
+    extracted = aot_package.extract_package(pkg_a)
+    extract_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    from_pkg = InferenceEngine.from_package(pkg_a)
+    build_s = time.monotonic() - t0
+    from_wf = InferenceEngine.from_workflow(wf)
+    rng = np.random.default_rng(25)
+    buckets = {}
+    for b in AOT_BUCKETS:
+        x = rng.random((b,) + APPLY_SHAPE, dtype=np.float32)
+        want = from_wf.apply(x)
+        from_pkg.apply(x)                    # captures the bucket
+        before = counters.read()
+        got = from_pkg.apply(x)
+        delta = _nonzero(counters.delta(before))
+        if delta != {"lrn_fwd": 2}:
+            raise AssertionError("(a) bucket %d launched %s, not 2 K6"
+                                 % (b, delta))
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                "(a) bucket %d: from_package against from_workflow max "
+                "abs %g" % (b, float(np.abs(got - want).max())))
+        buckets[b] = delta
+    wf.thread_pool.shutdown()
+    del wf, from_wf, from_pkg
+    wf = _aot_workflow(torch, UG_SEED + 1)
+    wf.package_export(pkg_b)
+    wf.thread_pool.shutdown()
+    del wf
+    log("  (a) package_export of AlexNetWorkflow (%d units, %d arrays): %.1f "
+        "MB in %.2f s; extracted in %.2f s, the engine built in %.2f s; "
+        "buckets %s bitwise from_workflow's, 2 K6 a dispatch [%s]"
+        % (len(extracted.contents["units"]), sum(
+            n.endswith(".npy") for n in extracted.members), mb, export_s,
+           extract_s, build_s, AOT_BUCKETS, card))
+    out["a"] = dict(archive_mb=mb, export_s=export_s, extract_s=extract_s,
+                    engine_s=build_s, launches=buckets)
+    return pkg_a, pkg_b
+
+
+def _aot_start(args, work, tag):
+    """A ``python -m veles_tpu_torch`` process logging into
+    ``work/tag.log``: (process, log path, start time)."""
+    log_path = os.path.join(work, tag + ".log")
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "veles_tpu_torch"] + list(args) + ["-v"],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), stdout=logf,
+            stderr=subprocess.STDOUT, text=True)
+    return proc, log_path, time.monotonic()
+
+
+def _aot_text(log_path):
+    with open(log_path) as f:
+        return f.read()
+
+
+def _aot_url(proc, log_path, pattern, what):
+    def url():
+        m = re.search(pattern, _aot_text(log_path))
+        return m.group(1) if m else None
+
+    _fleet_wait(lambda: url() or proc.poll() is not None, what,
+                timeout=AOT_TIMEOUT_S, step=0.1)
+    if url() is None:
+        raise AssertionError("%s: %s" % (what, _aot_text(log_path)[-3000:]))
+    return url()
+
+
+def _aot_stop(proc, log_path, what):
+    proc.send_signal(signal.SIGINT)
+    rc = proc.wait(120)
+    if rc != 0:
+        raise AssertionError("%s exited with %s: %s"
+                             % (what, rc, _aot_text(log_path)[-3000:]))
+
+
+def _aot_metrics(base):
+    doc = json.loads(_get(base + "/metrics"))
+    kernels = doc["_obs"].get("veles_kernel_launches_total", {})
+    return doc, {re.search(r'kernel="(\w+)"', k).group(1): int(v)
+                 for k, v in kernels.items()}
+
+
+def _aot_serve(work, pkg, cache, tag):
+    """One ``--serve PKG --aot-cache DIR`` process: its startup report,
+    wall seconds to serving, the mixed-size answers, and what its
+    /metrics says around them."""
+    proc, log_path, t0 = _aot_start(
+        [pkg, "--serve", "127.0.0.1:0", "--aot-cache", cache], work, tag)
+    try:
+        base = _aot_url(proc, log_path,
+                        r"serving \S+ on (http://[\d.]+:\d+)",
+                        "(b) %s never served" % tag)
+        wall_s = time.monotonic() - t0
+        m = _AOT_STARTUP.search(_aot_text(log_path))
+        if m is None:
+            raise AssertionError("(b) %s logged no startup report: %s"
+                                 % (tag, _aot_text(log_path)[-3000:]))
+        report = dict(zip(("fresh", "fresh_s", "cached", "captures",
+                           "hits", "misses", "written", "ready_s"),
+                          (float(g) if "." in g else int(g)
+                           for g in m.groups())))
+        before, k_before = _aot_metrics(base)
+        rng = np.random.default_rng(27)
+        answers, ms = [], []
+        for n in AOT_APPLY_ROWS:
+            code, got, _, t = _fleet_raw(
+                base + "/apply", rng.random((n,) + APPLY_SHAPE,
+                                            dtype=np.float32))
+            if code != 200:
+                raise AssertionError("(b) %s /apply %d rows: %s %s"
+                                     % (tag, n, code, got))
+            answers.append(got)
+            ms.append(t)
+        after, k_after = _aot_metrics(base)
+    finally:
+        if proc.poll() is None:
+            _aot_stop(proc, log_path, "(b) " + tag)
+    dispatches = after["default"]["dispatches_total"] - \
+        before["default"]["dispatches_total"]
+    captures = after["default"]["compile_count"] - \
+        before["default"]["compile_count"]
+    k6 = k_after.get("lrn_fwd", 0) - k_before.get("lrn_fwd", 0)
+    # 2 a dispatch, and 2 a warm-up call of each capture after ready
+    # (graphs.StepGraph.WARMUP calls launch for real before a capture)
+    if k6 != 2 * (dispatches + AOT_CAPTURE_WARMUP * captures):
+        raise AssertionError("(b) %s: %d K6 over %d dispatches and %d "
+                             "captures" % (tag, k6, dispatches, captures))
+    return dict(report=report, wall_s=wall_s, answers=answers,
+                request_ms=ms, compile_before=before["default"][
+                    "compile_count"],
+                compile_after=after["default"]["compile_count"],
+                after_ready=after["_aot"]["captures_after_ready"],
+                records=after["_aot"]["exports"],
+                dispatches=dispatches, k6=k6)
+
+
+def _aot_cold_start(torch, card, work, pkg, cache, out):
+    """Leg (b); see the module docstring."""
+    from veles_tpu_torch.ops import _build
+    n_libs = len(_build.sources())
+    runs = {}
+    for tag in ("cold", "warm"):
+        runs[tag] = run = _aot_serve(work, pkg, cache, tag)
+        rep = run["report"]
+        log("  (b) %s `--serve %s --aot-cache`: %d fresh kernel build(s) in "
+            "%.1f s, %d from the cache, %d capture(s) before ready (hits %d,"
+            " misses %d), start-to-ready %.2f s (report) / %.1f s (wall); "
+            "%d mixed-size requests: %d captures after ready, compile_count"
+            " %d -> %d, %d K6 over %d dispatches (2 a dispatch, 4 a "
+            "capture's warm-up) [%s]"
+            % (tag, os.path.basename(pkg), rep["fresh"], rep["fresh_s"],
+               rep["cached"], rep["captures"], rep["hits"], rep["misses"],
+               rep["ready_s"], run["wall_s"], len(AOT_APPLY_ROWS),
+               run["after_ready"], run["compile_before"],
+               run["compile_after"], run["k6"], run["dispatches"], card))
+    # a conv-first package implies no input shape: the cold process
+    # captures each bucket at its first request and records it; the warm
+    # one captures every recorded bucket before its port opens
+    if runs["warm"]["after_ready"] != 0 or \
+            runs["warm"]["compile_after"] != runs["warm"]["compile_before"]:
+        raise AssertionError("(b) the warm process captured after ready")
+    cold, warm = runs["cold"]["report"], runs["warm"]["report"]
+    records = runs["cold"]["records"]
+    libs = sorted(f for f in os.listdir(os.path.join(cache, "kernels"))
+                  if f.endswith(".so"))
+    if cold["fresh"] != n_libs or len(libs) != n_libs:
+        raise AssertionError("(b) the cold process built %d, %s under "
+                             "kernels/" % (cold["fresh"], libs))
+    if warm["fresh"] != 0 or warm["cached"] != n_libs:
+        raise AssertionError("(b) the warm process ran nvcc: %s" % warm)
+    if warm["captures"] != records or warm["hits"] != records or \
+            warm["misses"] != 0 or runs["warm"]["records"] != 0:
+        raise AssertionError("(b) warm %s against the cold process's %d "
+                             "records" % (warm, records))
+    for a, b in zip(runs["cold"]["answers"], runs["warm"]["answers"]):
+        if not np.array_equal(a, b):
+            raise AssertionError("(b) the warm answers differ from the "
+                                 "cold ones")
+    log("  (b) warm against cold: 0 nvcc runs, every capture (%d) before "
+        "ready and planned, answers bitwise equal" % warm["captures"])
+    out["b"] = {tag: {k: v for k, v in run.items() if k != "answers"}
+                for tag, run in runs.items()}
+
+
+def _aot_rollout(torch, card, work, pkg_a, pkg_b, cache, out):
+    """Leg (c); see the module docstring."""
+    from veles_tpu_torch.serve import InferenceEngine
+    proc, log_path, t0 = _aot_start(
+        [pkg_a, "--route", "127.0.0.1:0", "--replicas", "2", "--rollout",
+         pkg_b, "--aot-cache", cache], work, "route")
+    record, stop, threads = [], threading.Event(), []
+    try:
+        url = _aot_url(proc, log_path, r"fleet router on (http://\S+)",
+                       "(c) the router never bound")
+
+        def states():
+            try:
+                with urllib.request.urlopen(url + "/healthz",
+                                            timeout=5) as resp:
+                    return json.loads(resp.read())["replica_states"]
+            except urllib.error.HTTPError as e:
+                return json.loads(e.read())["replica_states"]
+            except OSError:
+                return {}
+
+        _fleet_wait(lambda: sum(st["routable"] for st in states().values())
+                    == 2 or proc.poll() is not None,
+                    "(c) the replicas never routable", timeout=AOT_TIMEOUT_S,
+                    step=0.1)
+        routable_s = time.monotonic() - t0
+        rows = np.random.default_rng(28).random(
+            (AOT_LANE_ROWS,) + APPLY_SHAPE, dtype=np.float32)
+        threads = _apply_lanes(url, AOT_LANES, rows, stop, record)
+        t_roll = time.monotonic()
+        _fleet_wait(lambda: re.search(r"rolled out over 2|auto-rollback",
+                                      _aot_text(log_path)) or
+                    proc.poll() is not None, "(c) the rollout never ended",
+                    timeout=AOT_TIMEOUT_S, step=0.1)
+        rollout_s = time.monotonic() - t_roll
+        stop.set()
+        for t in threads:
+            t.join(AOT_TIMEOUT_S)
+        if "rolled out over 2" not in _aot_text(log_path):
+            raise AssertionError("(c) %s" % _aot_text(log_path)[-3000:])
+        x = np.random.default_rng(29).random((8,) + APPLY_SHAPE,
+                                             dtype=np.float32)
+        want = InferenceEngine.from_package(pkg_b).apply(x)
+        errs, bitwise = {}, {}
+        for name, st in sorted(states().items()):
+            code, got, _, _ = _fleet_raw("http://%s/apply" % st["address"],
+                                         x)
+            if code != 200:
+                raise AssertionError("(c) %s answered %s" % (name, code))
+            errs[name] = float(np.abs(got - want).max())
+            bitwise[name] = bool(np.array_equal(got, want))
+            if errs[name] > TOL_APPLY * max(1.0, float(np.abs(want).max())):
+                raise AssertionError("(c) %s is %g off the second package"
+                                     % (name, errs[name]))
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(AOT_TIMEOUT_S)
+        if proc.poll() is None:
+            _aot_stop(proc, log_path, "(c) the router")
+    exits = re.findall(r"replica (r\d) \(pid \d+\) exited with (-?\d+)",
+                       _aot_text(log_path))
+    if sorted(exits) != [("r0", "0"), ("r1", "0")]:
+        raise AssertionError("(c) replicas exited %s" % exits)
+    off_canary = [r for r in record if r[0] != 200 and r[1] != "r0"]
+    failed = [r for r in record if r[0] != 200]
+    if off_canary:
+        raise AssertionError("(c) %d failed requests off the canary: %s"
+                             % (len(off_canary), off_canary[:3]))
+    ms = [r[2] for r in record]
+    log("  (c) `--route --replicas 2 --rollout %s --aot-cache`: routable in "
+        "%.1f s, rolled out %.1f s after the lanes started; %d lane "
+        "requests, %d failed (0 off the canary r0), p50 %.1f max %.1f ms; "
+        "every replica answers the second package (max abs %s, bitwise %s);"
+        " SIGINT: router and replicas exited 0 [%s]"
+        % (os.path.basename(pkg_b), routable_s, rollout_s, len(record),
+           len(failed), float(np.percentile(ms, 50)) if ms else 0.0,
+           max(ms) if ms else 0.0, errs, bitwise, card))
+    out["c"] = dict(routable_s=routable_s, rollout_s=rollout_s,
+                    requests=len(record), failed=len(failed),
+                    request_ms=pcts(ms) if ms else None, max_abs=errs,
+                    bitwise=bitwise, syn=_syn_flags("(c)", ms))
+
+
+def _aot_lm_serve(torch, card, work, cache, serve, out):
+    """Leg (d), the served LM; see the module docstring."""
+    from veles_tpu_torch.models.transformer import TransformerConfig
+    config = TransformerConfig(compute="bfloat16", **FULL)
+    cfg = os.path.join(work, "lm_full.py")
+    with open(cfg, "w") as f:
+        f.write(FLEET_CLI_CONFIG % (FULL, FULL["seq_len"] + 1))
+    proc, log_path, t0 = _aot_start(
+        ["veles_tpu_torch/models/lm.py", cfg, "--serve", "127.0.0.1:0",
+         "--aot-cache", cache], work, "lm")
+    try:
+        base = _aot_url(proc, log_path,
+                        r"serving \S+ on (http://[\d.]+:\d+)",
+                        "(d) the LM never served")
+        wall_s = time.monotonic() - t0
+        m = _AOT_STARTUP.search(_aot_text(log_path))
+        before, k_before = _aot_metrics(base)
+        answers, ms, _ = _cli_staggered(base, serving_prompts(config.vocab),
+                                        FLEET_TOKENS, "aot")
+        after, k_after = _aot_metrics(base)
+    finally:
+        if proc.poll() is None:
+            _aot_stop(proc, log_path, "(d) the LM")
+    if answers != serve["staggered"]:
+        raise AssertionError("(d) tokens %s, phase 3 %s"
+                             % (answers[:2], serve["staggered"][:2]))
+    prefills = after["default"]["prefills_total"] - \
+        before["default"]["prefills_total"]
+    rounds = after["default"]["decode_steps_total"] - \
+        before["default"]["decode_steps_total"]
+    k1 = k_after["flash_fwd"] - k_before["flash_fwd"]
+    k4 = k_after["flash_decode"] - k_before["flash_decode"]
+    if k1 != FULL["layers"] * prefills or k4 != FULL["layers"] * rounds:
+        raise AssertionError("(d) %d K1 over %d prefills, %d K4 over %d "
+                             "rounds" % (k1, prefills, k4, rounds))
+    if after["_aot"]["captures_after_ready"] != 0:
+        raise AssertionError("(d) the LM captured after ready")
+    log("  (d) the LM `--serve --aot-cache`: %s; serving %.1f s after the "
+        "start; phase 3's 8 prompts staggered: tokens == phase 3's, %d K1 "
+        "over %d prefills, %d K4 over %d rounds, 0 captures after ready "
+        "[%s]" % (m.group(0) if m else "no startup report", wall_s, k1,
+                  prefills, k4, rounds, card))
+    out["d"] = dict(serve_wall_s=wall_s, startup=m.group(0) if m else None,
+                    prefills=prefills, rounds=rounds, k1=k1, k4=k4,
+                    request_ms=pcts(ms))
+
+
+def _aot_trainers(torch, dev, card, cache, out):
+    """Leg (d), the trainers' dispatches; see the module docstring."""
+    from veles_tpu_torch import aot
+    from veles_tpu_torch.aot.export import (fused_trainer_fingerprint,
+                                            transformer_trainer_fingerprint,
+                                            unpack_record)
+    from veles_tpu_torch.models.flagship import alexnet_fused
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerTrainer)
+    from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
+    config = TransformerConfig(compute="bfloat16", remat="attn", **FULL)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    tokens = torch.randint(0, config.vocab, (AOT_K, TRAIN_BATCH,
+                                             config.seq_len + 1),
+                           generator=gen, device=dev)
+    xs = torch.rand((AOT_K, CLASSIFIER_BATCH) + APPLY_SHAPE, generator=gen,
+                    device=dev)
+    specs, params, _ = alexnet_fused()
+    labels = torch.randint(0, params[-1]["w"].shape[-1],
+                           (AOT_K, CLASSIFIER_BATCH), generator=gen,
+                           device=dev)
+    from veles_tpu_torch.aot.export import _tree_leaves
+
+    def state(lm, mlp):
+        return [t.detach().cpu() for t in _tree_leaves(
+            [lm.params, lm.opt_m, lm.opt_v, mlp.params, mlp.velocity])]
+
+    deterministic = torch.backends.cudnn.deterministic
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs = {}
+    try:
+        for armed in (False, True):
+            plan = aot.configure(cache_dir=cache) if armed else None
+            lm = TransformerTrainer(config, device=dev, seed=0,
+                                    learning_rate=TRAIN_LR)
+            mlp = FusedClassifierTrainer(specs, params, device=dev,
+                                         **CLASSIFIER_HYPER)
+            t0 = time.monotonic()
+            lm_loss = lm.step_many(tokens)["loss"].cpu()
+            mlp_loss = mlp.step_many(xs, labels)["loss"].cpu()
+            torch.cuda.synchronize()
+            runs[armed] = dict(lm_loss=lm_loss, mlp_loss=mlp_loss,
+                               s=time.monotonic() - t0,
+                               state=state(lm, mlp))
+            if armed:
+                lm_rec = unpack_record(plan.cache.get(
+                    transformer_trainer_fingerprint(lm),
+                    "lm_step_many/%dx%d" % (TRAIN_BATCH,
+                                            config.seq_len + 1)))
+                mlp_rec = unpack_record(plan.cache.get(
+                    fused_trainer_fingerprint(mlp),
+                    "mlp_step_many/k%d_%d%s_%d" % (
+                        AOT_K, CLASSIFIER_BATCH, "".join(
+                            "x%d" % d for d in APPLY_SHAPE),
+                        CLASSIFIER_BATCH)))
+                aot.deactivate()
+            del lm, mlp
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = benchmark
+    plain, planned = runs[False], runs[True]
+    for key in ("lm_loss", "mlp_loss"):
+        if not torch.equal(plain[key], planned[key]):
+            raise AssertionError("(d) %s under a plan %s, without %s"
+                                 % (key, planned[key], plain[key]))
+    if len(plain["state"]) != len(planned["state"]) or not all(
+            torch.equal(a, b) for a, b in zip(plain["state"],
+                                              planned["state"])):
+        raise AssertionError("(d) the trainers' state under a plan is not "
+                             "bitwise the unplanned one")
+    if lm_rec["launches"] != AOT_LM_TALLY or \
+            mlp_rec["launches"] != AOT_MLP_TALLY:
+        raise AssertionError("(d) records %s / %s" % (lm_rec["launches"],
+                                                      mlp_rec["launches"]))
+    log("  (d) lm_step_many and mlp_step_many (K = %d) under a plan: losses "
+        "and state bitwise the unplanned dispatch's; records: LM replay %s "
+        "(captured %s), AlexNet dispatch %s (eager), kernels %s [%s]"
+        % (AOT_K, lm_rec["launches"], lm_rec["captured"],
+           mlp_rec["launches"], sorted(set(lm_rec["kernels"]) |
+                                       set(mlp_rec["kernels"])), card))
+    out["d_trainers"] = dict(lm_record=lm_rec, mlp_record=mlp_rec,
+                             s={str(k): v["s"] for k, v in runs.items()})
+    del runs, plain, planned, xs, tokens
+
+
+def _aot_paged(torch, counters, dev, card, cache, serve, out):
+    """Leg (d), the paged rounds under a plan; see the module
+    docstring."""
+    from veles_tpu_torch import aot
+    from veles_tpu_torch.aot.export import unpack_record
+    from veles_tpu_torch.models.transformer import TransformerConfig
+    from veles_tpu_torch.serve import PagedGenerativeEngine
+    config = TransformerConfig(compute="bfloat16", **FULL)
+    layers = FULL["layers"]
+    plan = aot.configure(cache_dir=cache)
+    try:
+        engine = PagedGenerativeEngine(config, _HOST["lm"], max_slots=8,
+                                       page_size=16, n_pages=1024,
+                                       device=dev)
+        t0 = time.monotonic()
+        engine.warm()
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+        records = {name: unpack_record(plan.cache.get(
+            engine._fingerprint(), name))["launches"]
+            for name in ("decode", "decode/sampled")}
+        before = counters.read()
+        rounds0 = engine._decode_steps
+        got = [engine.generate([np.asarray(p, np.int32)],
+                               FLEET_TOKENS)[0].tolist()
+               for p in serving_prompts(config.vocab)]
+        torch.cuda.synchronize()
+        delta = _nonzero(counters.delta(before))
+        rounds = engine._decode_steps - rounds0
+        del engine
+    finally:
+        aot.deactivate()
+    if got != serve["staggered"]:
+        raise AssertionError("(d) paged tokens %s, phase 3 %s"
+                             % (got[:2], serve["staggered"][:2]))
+    want = {"flash_decode_paged": layers}
+    if records != {"decode": want, "decode/sampled": want}:
+        raise AssertionError("(d) paged records %s" % records)
+    if delta != {"flash_fwd": layers * len(got),
+                 "flash_decode_paged": layers * rounds}:
+        raise AssertionError("(d) paged launches %s over %d rounds"
+                             % (delta, rounds))
+    log("  (d) the paged engine under a plan (1,024 pages): warmed in %.1f "
+        "s, its greedy and sampled round records each hold %s; phase 3's 8 "
+        "prompts one at a time: tokens == phase 3's, %s over %d rounds "
+        "[%s]" % (warm_s, want, delta, rounds, card))
+    out["d_paged"] = dict(warm_s=warm_s, records=records, rounds=rounds,
+                          launches=delta)
+
+
+def aot_phase(torch, counters, dev, card, serve):
+    """Phase 25; see the module docstring."""
+    log("phase 25: packages and the AOT plane: package_export of phase 14's "
+        "AlexNetWorkflow and from_package, `--serve PKG --aot-cache` cold "
+        "then warm, `--route --replicas 2 --rollout`, phase 3's LM and the "
+        "trainers under a plan")
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = os.path.abspath(os.path.join("chip_smoke_out", "aot"))
+    shutil.rmtree(work, ignore_errors=True)
+    cache = os.path.join(work, "cache")
+    os.makedirs(work)
+    out = {}
+    counters.reset()
+    pkg_a, pkg_b = _aot_roundtrip(torch, counters, card, work, out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _aot_cold_start(torch, card, work, pkg_a, cache, out)
+    _aot_rollout(torch, card, work, pkg_a, pkg_b, cache, out)
+    _aot_lm_serve(torch, card, work, cache, serve, out)
+    _aot_trainers(torch, dev, card, cache, out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _aot_paged(torch, counters, dev, card, cache, serve, out)
+    launches = counters.read()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    log("  phase 25 took %.1f s; launches in this process %s" % (
+        out["phase_s"], _nonzero(launches)))
     return out, launches
 
 
@@ -7491,6 +8088,7 @@ def main():
     farm, farm_launches = farm_phase(torch, counters, dev, card,
                                      classifier_graph)
     fleet, fleet_launches = fleet_phase(torch, counters, dev, card, serve)
+    aot_out, aot_launches = aot_phase(torch, counters, dev, card, serve)
 
     # each main path's launches, counted from 0 around that path alone
     by_path = {"serving": serve_launches, "training": train_launches,
@@ -7506,7 +8104,8 @@ def main():
                "mesh": mesh_launches,
                "sharded serving": sharded_launches,
                "farm": farm_launches,
-               "fleet": fleet_launches}
+               "fleet": fleet_launches,
+               "packages and AOT": aot_launches}
     kernels = []
     for name, row in rows.items():
         paths = {p: n.get(name, 0) for p, n in by_path.items()
@@ -7532,6 +8131,7 @@ def main():
                   input_pipeline=pipeline, zoo=zoo, zoo_parity=zoo_parity,
                   state=state, state_parity=state_parity, mesh=mesh,
                   sharded_serving=sharded, farm=farm, fleet=fleet,
+                  aot=aot_out,
                   wall_s=time.monotonic() - t_start)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:

@@ -451,23 +451,16 @@ def test_cli_serve_while_training_answers_generate(tmp_path, port_state):
 
 
 @pytest.mark.parametrize("args, item", [
-    (["--aot-cache", "cache"], "item 10"),
-    (["--aot-cache-mb", "64"], "item 10"),
-    (["--aot-export", "out.zip"], "item 10"),
-    (["--route", "127.0.0.1:0", "--rollout", "pkg.zip"], "item 10"),
-    (["--serve", "127.0.0.1:0"], "item 10"),
     (["--manhole"], "item 11"),
     (["--route", "127.0.0.1:0",
       "root.common.web.status_url='http://127.0.0.1:1'"], "item 11"),
-], ids=["aot-cache", "aot-cache-mb", "aot-export", "rollout",
-        "serve-package", "manhole", "fleet-reporter"])
+], ids=["manhole", "fleet-reporter"])
 def test_unported_flags_exit_naming_their_item(args, item, port_state):
     from veles_tpu_torch.__main__ import Main
-    workflow = "model.zip" if "--serve" in args else \
-        "veles_tpu_torch/models/mnist.py"
     try:
         with pytest.raises(SystemExit, match=item):
-            Main([workflow, "-d", "cpu"] + args).run()
+            Main(["veles_tpu_torch/models/mnist.py", "-d", "cpu"] +
+                 args).run()
     finally:
         port_state.common.web.status_url = None
 

@@ -696,10 +696,18 @@ def test_nested_workflow_run_inside_unit(pkg):
     assert counts == [50, 50, 50]
 
 
-def test_port_package_export_waits_for_its_item():
+def test_port_package_export_writes_an_archive_the_reference_reads(
+        tmp_path):
+    """A graph without exportable units exports an empty package in
+    the reference's layout (the full parity: tests/test_torch_package.py)."""
+    from veles_tpu.aot.package import read_package
     wf = port_workflow.Workflow(None, name="wf")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        wf.package_export("model.zip")
+    path = str(tmp_path / "model.zip")
+    assert wf.package_export(path) == path
+    contents, arrays = read_package(path)
+    assert contents["workflow"] == "Workflow"
+    assert contents["units"] == [] and arrays == {}
+    assert contents["checksum"] == wf.checksum
 
 
 # -------------------------------------------------------------- verifier

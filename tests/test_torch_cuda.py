@@ -17,6 +17,8 @@ the plain path keeps p in f32, and both round the result, so they
 agree to 2e-2 of the scale.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -2214,3 +2216,120 @@ def test_fleet_respawn_captures_while_two_siblings_stream(cuda):
     finally:
         fleet.stop()
         server.stop()
+
+
+# -- the AOT plane on the card ------------------------------------------------
+
+def _lrn_package(path, seed=0):
+    """A package of conv -> LRN -> softmax on 8 x 8 x 3 rows."""
+    from veles_tpu_torch.aot.package import write_package
+    rng = np.random.default_rng(seed)
+    w0 = (rng.standard_normal((3, 3, 3, 16)) / 5).astype(np.float32)
+    w1 = (rng.standard_normal((8 * 8 * 16, 10)) / 32).astype(np.float32)
+    units = [{"class": "Conv", "uuid": "veles.tpu.conv", "name": "conv",
+              "properties": {"activation": "relu", "strides_hw": [1, 1],
+                             "padding": "SAME"},
+              "arrays": {"weights": "0000_weights.npy"}},
+             {"class": "LRN", "uuid": "veles.tpu.lrn", "name": "lrn",
+              "properties": {"k": 2.0, "n": 5, "alpha": 1e-4,
+                             "beta": 0.75}, "arrays": {}},
+             {"class": "Softmax", "uuid": "veles.tpu.all2all",
+              "name": "fc", "properties": {"activation": "softmax"},
+              "arrays": {"weights": "0001_weights.npy"}}]
+    write_package(path, {"workflow": "Lrn", "checksum": "", "precision":
+                         "float32", "units": units},
+                  [("0000_weights.npy", w0), ("0001_weights.npy", w1)])
+    return path
+
+
+@pytest.fixture
+def aot_plan_dir(tmp_path):
+    from veles_tpu_torch import aot
+    from veles_tpu_torch.ops import _build
+    yield str(tmp_path / "cache")
+    aot.deactivate()
+    _build.set_library_dir(None)
+
+
+def test_aot_package_engine_records_its_k6_capture(cuda, tmp_path,
+                                                   aot_plan_dir):
+    """A package's engine on the card captures one graph a bucket with
+    one K6 a replay, bitwise the spec engine's; the capture's record
+    holds that tally and the LRN library's key, and a second engine on
+    the same directory hits it."""
+    from veles_tpu_torch import aot
+    from veles_tpu_torch.analysis.recompile import CaptureWatcher
+    from veles_tpu_torch.aot.export import unpack_record
+    from veles_tpu_torch.ops import _build
+    from veles_tpu_torch.ops import lrn as lrn_ops
+    from veles_tpu_torch.serve.engine import InferenceEngine
+    pkg = _lrn_package(str(tmp_path / "lrn.zip"))
+    x = np.random.default_rng(1).standard_normal((3, 8, 8, 3)).astype(
+        np.float32)
+    plan = aot.configure(cache_dir=aot_plan_dir)
+    engine = InferenceEngine.from_package(pkg)
+    with CaptureWatcher() as watcher:
+        out = engine.apply(x)
+    assert watcher.graph_count == 1 and engine.aot_misses == 1
+    lrn_ops.reset_launches()
+    assert np.array_equal(engine.apply(x), out)
+    assert lrn_ops.LAUNCHES["lrn_fwd"] == 1
+    record = unpack_record(plan.cache.get(engine._fingerprint(),
+                                          "forward/4x8x8x3"))
+    assert record["launches"] == {"lrn_fwd": 1} and record["captured"]
+    assert record["kernels"] == {"lrn": _build.library_key("lrn")}
+    assert _build.toolchain()["capability"] == "sm_90"
+    aot.configure(cache_dir=aot_plan_dir)
+    again = InferenceEngine.from_package(pkg)
+    again.input_hint = None
+    assert aot.warm_engine(again) == 1 and again.aot_hits == 1
+    assert np.array_equal(again.apply(x), out)
+
+
+def test_aot_kernel_dir_builds_once_then_loads(cuda, tmp_path, monkeypatch):
+    """Libraries under a chosen directory: built by nvcc once, then
+    found (no nvcc) by a process that has not counted them."""
+    from veles_tpu_torch.analysis.recompile import CaptureWatcher
+    from veles_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "_COUNTED", set())
+    _build.set_library_dir(str(tmp_path / "kernels"))
+    try:
+        with CaptureWatcher() as cold:
+            path = _build.build(["rng"])["rng"]
+        assert os.path.dirname(path) == str(tmp_path / "kernels")
+        assert cold.fresh_build_count == 1
+        _build._COUNTED.clear()
+        with CaptureWatcher() as warm:
+            assert _build.build(["rng"])["rng"] == path
+        assert warm.fresh_build_count == 0 and warm.cached_build_count == 1
+    finally:
+        _build.set_library_dir(None)
+
+
+def test_aot_lm_step_record_and_planned_run_bitwise(cuda, aot_plan_dir):
+    """A captured LM step's record holds one replay's K1-K3 tally; a
+    trainer under the plan takes bitwise the unplanned trainer's
+    steps."""
+    from veles_tpu_torch import aot
+    from veles_tpu_torch.aot.export import (transformer_trainer_fingerprint,
+                                            unpack_record)
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerTrainer)
+    config = TransformerConfig(vocab=64, embed=64, heads=2, layers=2,
+                               seq_len=64, compute="bfloat16")
+    tokens = np.random.default_rng(2).integers(0, 64, (2, 2, 65))
+    plain = TransformerTrainer(config, seed=4)
+    want = plain.step_many(tokens)["loss"].cpu()
+    plan = aot.configure(cache_dir=aot_plan_dir)
+    planned = TransformerTrainer(config, seed=4)
+    got = planned.step_many(tokens)["loss"].cpu()
+    assert torch.equal(got, want)
+    from veles_tpu_torch.aot.export import _tree_leaves
+    for a, b in zip(_tree_leaves([plain.params, plain.opt_m]),
+                    _tree_leaves([planned.params, planned.opt_m])):
+        assert torch.equal(a, b)
+    record = unpack_record(plan.cache.get(
+        transformer_trainer_fingerprint(planned), "lm_step_many/2x65"))
+    assert record["launches"] == {"flash_bwd_dkv": 2, "flash_bwd_dq": 2,
+                                  "flash_fwd": 4}
+    assert sorted(record["kernels"]) == ["flash_bwd", "flash_fwd"]

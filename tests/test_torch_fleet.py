@@ -1158,21 +1158,84 @@ def test_default_deadline_applies_to_a_request_without_one():
         server.stop()
 
 
+def _package_of(path, scale):
+    """A package archive (the reference's layout) of one identity-sized
+    FC layer times ``scale``: [[x]] -> [[scale * x]]."""
+    from veles_tpu_torch.aot.package import write_package
+    contents = {"workflow": "Scaled", "checksum": "", "precision":
+                "float32", "units": [{
+                    "class": "All2All", "uuid": "veles.tpu.all2all",
+                    "name": "fc", "properties": {"activation": "linear"},
+                    "arrays": {"weights": "0000_weights.npy",
+                               "bias": "0001_bias.npy"}}]}
+    write_package(path, contents, [
+        ("0000_weights.npy", np.full((1, 1), scale, np.float32)),
+        ("0001_bias.npy", np.zeros(1, np.float32))])
+    return path
+
+
 @pytest.mark.parametrize("admin", [False, True])
-def test_admin_swap_is_off_by_default_and_waits_for_packages(admin):
+def test_admin_swap_is_off_by_default_and_swaps_a_package(admin, tmp_path):
+    """Off: 404 and the engine stays. On: the package's engine is built
+    on the served engine's device, warmed over its buckets, and
+    answers the next request; a broken package answers 500 and the
+    served engine stays."""
+    from veles_tpu_torch.serve.engine import InferenceEngine
     registry = ModelRegistry()
-    registry.add("m", StubEngine())
+    engine = InferenceEngine.from_package(
+        _package_of(str(tmp_path / "two.zip"), 2.0), device="cpu")
+    registry.add("m", engine)
     server = ServeServer(registry, watchdog_s=None, admin_swap=admin)
+    url = "http://%s:%d" % server.endpoint
     try:
-        code, doc, _ = _post("http://%s:%d/admin/swap" % server.endpoint,
-                             {"package": "/nonexistent.zip"})
+        assert _post(url + "/apply", {"input": [[1.0]]})[1] == \
+            {"output": [[2.0]]}
+        code, doc, _ = _post(url + "/admin/swap", {"package": _package_of(
+            str(tmp_path / "three.zip"), 3.0)})
         if admin:
-            assert code == 500
-            assert doc["error"].startswith("swap failed: ")
-            assert "item 10" in doc["error"]
+            assert code == 200 and doc["swapped"] == "m"
+            swapped = registry.get("m").engine
+            assert swapped is not engine and swapped.buckets == [1]
+            assert _post(url + "/apply", {"input": [[1.0]]})[1] == \
+                {"output": [[3.0]]}
+            code, doc, _ = _post(url + "/admin/swap",
+                                 {"package": "/nonexistent.zip"})
+            assert code == 500 and doc["error"].startswith("swap failed")
+            assert registry.get("m").engine is swapped
         else:
             assert code == 404
-        assert _post("http://%s:%d/apply" % server.endpoint,
-                     {"input": [[1.0]]})[1] == {"output": [[2.0]]}
+            assert _post(url + "/apply", {"input": [[1.0]]})[1] == \
+                {"output": [[2.0]]}
     finally:
         server.stop()
+
+
+def test_rollout_of_a_package_over_local_replicas(tmp_path):
+    """``rollout(package=)`` over in-process replicas: each swaps in the
+    package's engine (on its engine's device, warmed over its buckets),
+    canary first, and the fleet answers from the new weights."""
+    from veles_tpu_torch.serve.engine import InferenceEngine
+    two = _package_of(str(tmp_path / "two.zip"), 2.0)
+    three = _package_of(str(tmp_path / "three.zip"), 3.0)
+    names = ["p0", "p1"]
+    server, fleet = _fleet([LocalReplica(
+        name, lambda: InferenceEngine.from_package(two, device="cpu"),
+        batcher_kwargs={"max_batch": 8, "max_delay_ms": 1.0},
+        watchdog_s=None) for name in names])
+    try:
+        assert _post(server.url + "/apply", {"input": [[1.0]]})[1] == \
+            {"output": [[2.0]]}
+        assert fleet.rollout(package=three, bake_s=0.2) is True
+        assert fleet.rollout_status()["completed"] == names
+        seen = {}
+        _until(lambda: seen.update({h["X-Replica"]: d["output"]
+                                    for c, d, h in [_post(
+                                        server.url + "/apply",
+                                        {"input": [[1.0]]})]})
+               or len(seen) == 2, "some replica never answered")
+        assert seen == {name: [[3.0]] for name in names}
+        for name in names:
+            engine = fleet.handle(name).registry.get("default").engine
+            assert engine.device == torch.device("cpu")
+    finally:
+        _teardown(server, fleet)

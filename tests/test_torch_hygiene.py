@@ -57,7 +57,9 @@ def test_import_closure_has_no_jax_and_no_veles_tpu():
                  "distributed.client", "distributed.relay",
                  "distributed.discovery", "distributed.spawn",
                  "launcher", "obs.trace", "obs.metrics", "__main__",
-                 "cmdline", "serve.router", "serve.fleet"):
+                 "cmdline", "serve.router", "serve.fleet", "aot",
+                 "aot.package", "aot.export", "aot.cache", "aot.warmup",
+                 "aot.registry", "analysis.recompile"):
         assert "veles_tpu_torch." + name in modules
     script = (
         "import importlib, json, sys\n"
@@ -171,6 +173,33 @@ def test_no_silent_cpu_fallback(monkeypatch):
     engine = GenerativeEngine(config, params, max_slots=1, device="cpu")
     assert engine.device == torch.device("cpu")
     assert engine.generate([np.asarray([1, 2], np.int32)], 2)[0].size == 2
+
+
+def test_aot_plane_picks_no_cpu(monkeypatch, tmp_path):
+    """A package's engine takes the card unless asked for the CPU, and
+    an armed AOT plan leaves that as it is; the CPU's records never
+    carry the card's platform."""
+    from veles_tpu_torch import aot
+    from veles_tpu_torch.aot.export import environment_signature
+    from veles_tpu_torch.aot.package import write_package
+    from veles_tpu_torch.serve.engine import InferenceEngine
+    path = write_package(str(tmp_path / "p.zip"), {
+        "workflow": "W", "checksum": "", "precision": "float32",
+        "units": [{"class": "All2All", "uuid": "veles.tpu.all2all",
+                   "name": "fc", "properties": {"activation": "linear"},
+                   "arrays": {"weights": "0000_weights.npy"}}]},
+        [("0000_weights.npy", np.ones((2, 2), np.float32))])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    aot.configure(cache_dir=str(tmp_path / "cache"))
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            InferenceEngine.from_package(path)
+        engine = InferenceEngine.from_package(path, device="cpu")
+        assert engine.apply(np.ones((1, 2), np.float32)).tolist() == \
+            [[2.0, 2.0]]
+        assert environment_signature()["platform"] == "cpu"
+    finally:
+        aot.deactivate()
 
 
 def test_input_pipeline_entry_points_need_the_card(monkeypatch):

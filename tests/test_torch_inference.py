@@ -166,18 +166,19 @@ def test_swap_params_in_place_and_validated():
 
 
 def test_device_policy_and_unported_constructors():
-    """Graphs need a CUDA device; the constructor that waits for a later
-    slice says which; ``mesh=`` takes a mesh (``from_specs(normalizer=)``
-    is ported: its parity test is below; ``from_forwards``,
-    ``from_workflow`` and ``from_snapshot`` are held to the reference
-    in ``tests/test_torch_train_fused.py``)."""
+    """Graphs need a CUDA device; ``mesh=`` takes a mesh
+    (``from_specs(normalizer=)`` is ported: its parity test is below;
+    ``from_forwards``, ``from_workflow`` and ``from_snapshot`` are held
+    to the reference in ``tests/test_torch_train_fused.py``,
+    ``from_package`` in ``tests/test_torch_package.py``; a missing
+    archive raises)."""
     with pytest.raises(ValueError, match="cuda_graphs"):
         _mlp(cuda_graphs=True)
     assert _mlp(cuda_graphs=False).apply(
         np.ones((1, 6), np.float32)).shape == (1, 4)
     assert _mlp(normalizer=P_norm.normalizer("none")).apply(
         np.ones((1, 6), np.float32)).shape == (1, 4)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(FileNotFoundError):
         InferenceEngine.from_package("x")
     # a mesh is a parallel.mesh.Mesh (the sharded engine's parity is
     # tests/test_torch_sharded_serving.py's), and shardings need one

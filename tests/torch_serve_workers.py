@@ -210,3 +210,26 @@ def follower_failure_world(rank, config, params, prompts):
         return {"raised": type(e).__name__ + ": " + str(e)[:300],
                 "seconds": time.monotonic() - t0}
     return {"raised": None}
+
+
+def aot_fingerprint_world(rank, config, params):
+    """Each engine's AOT identity off the mesh and on a tp=2 serve mesh
+    (every rank builds both; nothing is served): name -> (the
+    unsharded signature's mesh field, the sharded one's, both
+    fingerprints)."""
+    mesh = serve_mesh(2, device="cpu")
+    makers = {
+        "slab": lambda m: GenerativeEngine(config, params, max_slots=2,
+                                           device="cpu", mesh=m),
+        "paged": lambda m: PagedGenerativeEngine(
+            config, params, max_slots=2, page_size=16, device="cpu",
+            mesh=m),
+        "apply": lambda m: InferenceEngine.from_transformer(
+            config, params, device="cpu", mesh=m)}
+    out = {}
+    for name, make in makers.items():
+        single, sharded = make(None), make(mesh)
+        out[name] = (single.aot_signature[1].get("mesh"),
+                     sharded.aot_signature[1]["mesh"],
+                     single._fingerprint(), sharded._fingerprint())
+    return out

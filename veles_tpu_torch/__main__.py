@@ -16,10 +16,17 @@ Modes: standalone training; ``--serve`` (an LM workflow serves ``POST
 ``--optimize``, ``--ensemble-train`` and ``--ensemble-test``.
 
 Everything runs on the CUDA card unless ``-d cpu`` asks for the host.
-The AOT plane (``--aot-cache``, ``--aot-cache-mb``, ``--aot-export``,
-``--rollout`` and ``--serve`` of a package archive; ROADMAP.md queue 1
-item 10) and the services (``--manhole`` and the fleet's status
-reporter; item 11) are not ported yet: they exit naming their item.
+``--serve`` of a ``package_export`` archive (``model.zip``, ``.tar``,
+``.tgz``) serves it through ``InferenceEngine.from_package`` with no
+workflow module. ``--aot-cache DIR`` arms the AOT plan
+(``veles_tpu_torch.aot``) before anything is built: kernel libraries
+under ``DIR/kernels/``, capture records under ``DIR/artifacts/``; a
+serving process builds every kernel and captures every planned entry
+before its port opens, and logs the startup report. ``--aot-export PKG`` writes the records
+into PKG at exit. ``--route --replicas N --rollout PKG`` rolls a
+package through the fleet canary-first. The services (``--manhole``
+and the fleet's status reporter; ROADMAP.md queue 1 item 11) are not
+ported yet: they exit naming their item.
 
 A ``--serve`` or ``--route`` process drains and exits 0 on SIGINT and
 on SIGTERM (the fleet stops its replica processes with SIGTERM).
@@ -27,6 +34,7 @@ on SIGTERM (the fleet stops its replica processes with SIGTERM).
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import importlib.util
 import json
@@ -35,6 +43,7 @@ import os
 import signal
 import sys
 import threading
+import time
 from typing import Any, Optional, Tuple
 
 from veles_tpu_torch import prng
@@ -43,8 +52,6 @@ from veles_tpu_torch.launcher import Launcher
 from veles_tpu_torch.snapshotter import Snapshotter
 
 #: what a flag of a plane still to port says when it is refused
-_AOT_ITEM = ("waits for the port's AOT plane and package archives "
-             "(ROADMAP.md queue 1 item 10)")
 _SERVICES_ITEM = ("waits for the port's services (ROADMAP.md queue 1 "
                   "item 11)")
 
@@ -91,22 +98,13 @@ class Main:
     def _refuse_unported(self) -> None:
         """Exit naming the queue item a flag waits for, before any
         work starts."""
-        args = self.args
-        for flag, given in (
-                ("--aot-cache", args.aot_cache),
-                ("--aot-cache-mb", any(
-                    t == "--aot-cache-mb" or
-                    t.startswith("--aot-cache-mb=")
-                    for t in self._argv)),
-                ("--aot-export", args.aot_export),
-                ("--rollout", args.rollout)):
-            if given:
-                raise SystemExit("%s %s" % (flag, _AOT_ITEM))
-        if args.serve and args.workflow.endswith(_PACKAGE_SUFFIXES):
-            raise SystemExit("--serve of a package archive (%s) %s"
-                             % (args.workflow, _AOT_ITEM))
-        if args.manhole:
+        if self.args.manhole:
             raise SystemExit("--manhole %s" % _SERVICES_ITEM)
+
+    def _is_package(self) -> bool:
+        """The workflow argument is a package archive."""
+        return os.path.isfile(self.args.workflow) and \
+            self.args.workflow.endswith(_PACKAGE_SUFFIXES)
 
     def _load_model(self):
         """Import the workflow file as a module (or a dotted name)."""
@@ -415,10 +413,7 @@ class Main:
             engine.follow()
             return
         generative = isinstance(engine, GenerativeEngine)
-        if generative and engine.device.type == "cuda":
-            # the cold-start tax before the port opens: every prefill
-            # bucket runs once and the decode round is captured
-            engine.warm()
+        self._warm(engine, "serve")
         registry = ModelRegistry()
         if generative:
             registry.add_generative("default", engine,
@@ -458,6 +453,51 @@ class Main:
         """Ask a blocked serve or route loop to drain and return."""
         self._serve_stop.set()
 
+    def _warm(self, engine, context: str, tenant=None) -> None:
+        """The cold-start tax before the port opens. Under an AOT plan:
+        every kernel library built or loaded (on the card), every
+        planned entry and the warm ladder captured (the
+        micro-batcher's whole bucket range), then the startup report.
+        Without one, a generative engine on the card warms its ladder
+        (every prefill bucket, the decode round captured)."""
+        from veles_tpu_torch import aot
+        from veles_tpu_torch.serve.engine import InferenceEngine
+        plan = aot.active()
+        quantum = tenant.quantum() if tenant is not None else \
+            contextlib.nullcontext()
+        if plan is None:
+            if not isinstance(engine, InferenceEngine) and \
+                    engine.device.type == "cuda":
+                with quantum:
+                    engine.warm()
+            return
+        if engine.device.type == "cuda":
+            # every library built (all nvcc at once) or found under
+            # DIR/kernels/, inside the startup window
+            from veles_tpu_torch.ops import _build
+            _build.build()
+        engine.warm_max_batch = self.args.serve_max_batch
+        with quantum:
+            warmed = aot.warm_engine(engine)
+        report = aot.startup_report(context=context)
+        logging.info("aot: warmed %d capture(s); start-to-ready %.2fs",
+                     warmed, report["seconds"])
+
+    def _serve_package(self) -> int:
+        """``--serve`` with a package archive as the workflow
+        argument: the engine straight from the archive (no module, no
+        launcher, no training graph). With ``--serve-mesh`` the process
+        joins its mesh first."""
+        from veles_tpu_torch.serve.engine import InferenceEngine
+        join = self._mesh_join()
+        if join:
+            from veles_tpu_torch.parallel import multiprocess
+            multiprocess.initialize(**join)
+        self._serve(InferenceEngine.from_package(
+            self.args.workflow, mesh=self._serve_mesh(),
+            device=self._engine_device()))
+        return 0
+
     # -- multi-tenant serve-while-training ----------------------------------
     def _setup_serve_while_training(self) -> None:
         """Before initialize: the scheduler, and the training
@@ -494,9 +534,6 @@ class Main:
             engine = GenerativeEngine.from_trainer(
                 trainer, max_slots=self.args.serve_gen_slots,
                 device=device)
-            if engine.device.type == "cuda":
-                with serve_tenant.quantum():
-                    engine.warm()
             registry.add_generative(
                 "default", engine,
                 max_queue=self.args.serve_gen_queue,
@@ -517,6 +554,9 @@ class Main:
             def current_params():
                 from veles_tpu_torch.parallel.fused import fuse_forwards
                 return fuse_forwards(self.workflow.forwards)[1]
+        # before the port opens, inside the serve tenant's quantum: the
+        # training tenant has not stepped yet
+        self._warm(engine, "serve-while-training", tenant=serve_tenant)
         self.serve_server = ServeServer(
             registry, host=host, port=port,
             scheduler=self.scheduler,
@@ -792,6 +832,8 @@ class Main:
             ", watching replica beacons" if self.args.announce
             else "")
         try:
+            if self.args.rollout:
+                self._route_rollout(server, fleet)
             self._wait_for_stop()
         finally:
             handles = fleet.handles()
@@ -802,6 +844,32 @@ class Main:
                              handle.name, handle.pid, code)
             server.stop()
         return self.exit_code
+
+    #: how long ``--rollout`` waits for the spawned replicas
+    ROLLOUT_WAIT_S = 600.0
+
+    def _route_rollout(self, server, fleet) -> None:
+        """``--rollout PKG``: wait until every spawned replica is
+        routable, then roll the package through the fleet canary-first
+        (a canary whose bad outcomes spike is swapped back)."""
+        want = max(self.args.replicas, 1)
+        deadline = time.monotonic() + self.ROLLOUT_WAIT_S
+        while server.router.routable_count() < want and \
+                time.monotonic() < deadline and \
+                not self._serve_stop.is_set():
+            time.sleep(0.25)
+        if server.router.routable_count() == 0:
+            logging.error("--rollout: no routable replica came up")
+            self.exit_code = 1
+            return
+        ok = fleet.rollout(package=os.path.abspath(self.args.rollout))
+        if ok:
+            logging.info("--rollout: %s rolled out over %d replica(s)",
+                         self.args.rollout, len(fleet.handles()))
+        else:
+            logging.error("--rollout: canary auto-rollback tripped (%s)",
+                          fleet.rollout_status().get("reason"))
+            self.exit_code = 1
 
     def _refuse_fleet_reporter(self) -> None:
         """The fleet card for the web status server waits for the
@@ -867,17 +935,39 @@ class Main:
                          "chrome://tracing or Perfetto)", n,
                          self.args.trace_out)
 
+    # -- the AOT plane -------------------------------------------------------
+    def _setup_aot(self) -> None:
+        """--aot-cache / --aot-export: arm the process's plan before
+        anything builds or captures, in every mode (--serve, replicas,
+        workers, training)."""
+        if not (self.args.aot_cache or self.args.aot_export):
+            return
+        from veles_tpu_torch import aot
+        aot.configure(cache_dir=self.args.aot_cache,
+                      export_to=self.args.aot_export,
+                      max_bytes=self.args.aot_cache_mb << 20)
+
+    def _finish_aot(self) -> None:
+        from veles_tpu_torch import aot
+        if aot.active() is None:
+            return
+        # a training run reports at exit, so the counts always log
+        aot.startup_report(context="exit")
+        aot.flush_export()
+
     # -- entry -------------------------------------------------------------
     def run(self) -> int:
         self._refuse_unported()
         try:
             return self._run()
         finally:
+            self._finish_aot()
             self._finish_obs()
 
     def _run(self) -> int:
         self._setup_logging()
         self._setup_obs()
+        self._setup_aot()
         if self.args.serve and self.args.serve_while_training:
             raise SystemExit(
                 "--serve REPLACES training; pass exactly one of "
@@ -900,6 +990,8 @@ class Main:
         try:
             self._apply_config()
             self._seed_random()
+            if self.args.serve and self._is_package():
+                return self._serve_package()
             self._module = self._load_model()
             if not hasattr(self._module, "run"):
                 print("workflow module %s has no run(load, main)" %

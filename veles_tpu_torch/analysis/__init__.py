@@ -1,2 +1,3 @@
-"""Static analysis of the port: the workflow graph verifier
-(:mod:`veles_tpu_torch.analysis.graph`)."""
+"""Analysis of the port: the workflow graph verifier
+(:mod:`veles_tpu_torch.analysis.graph`) and the capture counter
+(:mod:`veles_tpu_torch.analysis.recompile`)."""

@@ -44,8 +44,10 @@ WG009 of the reference (a tenant unit that host-syncs inside its
 quantum holds the lease through its device work) has no counterpart:
 on a CUDA device the port's quantum waits for its device work before
 it releases the lease anyway (``veles_tpu_torch.sched``), so a host
-sync inside ``run()`` holds it no longer. The other passes of the
-reference's ``analysis/`` wait for ROADMAP.md queue 1 item 10.
+sync inside ``run()`` holds it no longer. The capture counter is
+``analysis/recompile.py``; the reference's static gates (baseline,
+lint, lockcheck, concurrency, jitcheck, jaxpr_audit, memplan) wait for
+ROADMAP.md queue 1 item 10b.
 """
 
 from __future__ import annotations

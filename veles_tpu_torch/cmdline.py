@@ -308,15 +308,23 @@ def make_parser() -> argparse.ArgumentParser:
              "aging_ms x priority gap")
     parser.add_argument(
         "--aot-cache", default=None, metavar="DIR",
-        help="persistent artifact cache (the AOT plane; not ported "
-             "yet: refused, see ROADMAP.md queue 1 item 10)")
+        help="persistent AOT cache (the cold-start plane): kernel "
+             "libraries built and loaded under DIR/kernels/ (keyed by "
+             "sources, flags, compute capability and CUDA versions), "
+             "capture records under DIR/artifacts/; a serving process "
+             "warms every recorded entry before its port opens. Shared "
+             "by every process pointed at DIR (spawned replicas and "
+             "workers inherit it)")
     parser.add_argument(
         "--aot-cache-mb", type=int, default=512, metavar="MB",
-        help="--aot-cache size bound (not ported yet: refused)")
+        help="--aot-cache size bound of the capture records (LRU "
+             "evicted beyond it)")
     parser.add_argument(
         "--aot-export", default=None, metavar="PKG",
-        help="at exit, write the traced computations into PKG (not "
-             "ported yet: refused)")
+        help="at exit, write this process's capture records into PKG "
+             "(aot/ members of an existing package archive, else a "
+             "standalone bundle); packages never carry a shared "
+             "library")
     parser.add_argument(
         "--trace-out", default=None, metavar="PATH",
         help="observability: at exit, write the span ring buffer as "

@@ -28,6 +28,10 @@ collection and empties the allocator's cache, none of which may happen
 while another thread's capture is under way. Replays and eager work on
 other threads go on beside a capture.
 
+Each capture, and each new shape an engine that runs eagerly records in
+its place (:func:`note_shape`), is reported to the listeners
+(``analysis.recompile.CaptureWatcher`` counts them over a region).
+
 Python's cyclic garbage collector pauses while a capture is under way.
 A collection may run on any allocation, and one that frees a dead
 cycle holding an earlier graph (an engine or trainer dropped with its
@@ -45,6 +49,10 @@ from typing import Any, Callable, Iterator, Optional, Sequence
 import torch
 
 from veles_tpu_torch.ops import launches
+
+#: called as ``fn(kind)``, kind "graph" for a capture and "shape" for a
+#: shape an eager engine recorded
+_LISTENERS: list = []
 
 #: held by the capture under way in this process
 _CAPTURE_LOCK = threading.Lock()
@@ -70,6 +78,17 @@ def _collector_paused() -> Iterator[None]:
             _PAUSE["captures"] -= 1
             if _PAUSE["captures"] == 0 and _PAUSE["was_enabled"]:
                 gc.enable()
+
+
+def _notify(kind: str) -> None:
+    for fn in list(_LISTENERS):
+        fn(kind)
+
+
+def note_shape() -> None:
+    """An engine that runs eagerly served a shape it had not served:
+    the counterpart of a capture where nothing is captured."""
+    _notify("shape")
 
 
 def use_graphs(cuda_graphs: Optional[bool], device: torch.device) -> bool:
@@ -126,6 +145,15 @@ class StepGraph:
                                  capture_error_mode="thread_local"), \
                 launches.capturing() as self._launches:
             self.outputs = fn(*self.inputs)
+        _notify("graph")
+
+    def tally(self) -> dict:
+        """The launches of one replay, by counter name."""
+        out: dict = {}
+        for _, gained in self._launches:
+            for name, n in gained.items():
+                out[name] = out.get(name, 0) + n
+        return out
 
     def replay(self, *values: torch.Tensor) -> Any:
         """Copy ``values`` (as many as leading static inputs) into the

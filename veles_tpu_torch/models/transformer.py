@@ -39,8 +39,10 @@ step runs eagerly (see :class:`TransformerTrainer`). The serving steps
 (:func:`prefill`, :func:`decode_step`, :func:`paged_decode_step`,
 :func:`verify_step`) take a :class:`ServeContext`: tensor parallelism
 over a mesh's ``model`` axis, each rank on its ``H/tp`` heads (the
-layouts of ``serve/sharding.py``). The reference's AOT dispatch is
-queued in ROADMAP.md. A trainer whose ``sched_tenant``
+layouts of ``serve/sharding.py``). Under an AOT plan
+(``aot/warmup.py``) each captured (or first eager) step of a token
+shape hands its record to the plan as ``lm_step_many/<shape>``; the
+step runs as it would without one. A trainer whose ``sched_tenant``
 is set runs each ``step``/``step_many`` as one quantum of a shared
 device (``veles_tpu_torch.sched``).
 """
@@ -48,6 +50,7 @@ device (``veles_tpu_torch.sched``).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -55,11 +58,15 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from veles_tpu_torch import graphs
+from veles_tpu_torch.aot import export as aot_export
+from veles_tpu_torch.aot import warmup as aot_warmup
 from veles_tpu_torch.config import get, root
 from veles_tpu_torch.device import compute_dtype as _compute_dtype
 from veles_tpu_torch.device import resolve
 from veles_tpu_torch.graphs import StepGraph, use_graphs
 from veles_tpu_torch.obs import profile as obs_profile
+from veles_tpu_torch.ops import launches
 from veles_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_decode,
                                                  flash_decode_paged,
@@ -962,6 +969,9 @@ class TransformerTrainer:
         #: captured steps by token-batch shape, sharing one pool
         self._graphs: Dict[Any, StepGraph] = {}
         self._pool = None
+        #: token shapes whose eager step made its AOT record
+        self._eager_noted: set = set()
+        self.aot_hits = self.aot_misses = self.aot_fallbacks = 0
         self.params: Optional[Dict[str, Any]] = None
         self.load_state(init_params(config, seed))
 
@@ -1129,11 +1139,19 @@ class TransformerTrainer:
         """One step: a replay of the step captured for this batch shape
         (captured at its first call), or the eager step. The captured
         outputs are overwritten by the next replay: callers copy them."""
-        if self._par is not None:
-            return self._mesh_step(tokens)
-        if not self._graphs_on:
-            return self._train_step(tokens)
-        graph = self._graphs.get(tuple(tokens.shape))
+        shape = tuple(tokens.shape)
+        if self._par is not None or not self._graphs_on:
+            step = self._mesh_step if self._par is not None \
+                else self._train_step
+            if shape in self._eager_noted:
+                return step(tokens)
+            with launches.observing(self.device) as seen:
+                out = step(tokens)
+            self._eager_noted.add(shape)
+            graphs.note_shape()
+            self._aot_note(shape, tokens, seen, captured=False)
+            return out
+        graph = self._graphs.get(shape)
         if graph is None:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
@@ -1141,8 +1159,17 @@ class TransformerTrainer:
                      _tree_leaves(self.opt_v) + [self._step])
             graph = StepGraph(self._train_step, inputs=(tokens.clone(),),
                               keep=state, pool=self._pool)
-            self._graphs[tuple(tokens.shape)] = graph
+            self._graphs[shape] = graph
+            self._aot_note(shape, tokens, graph.tally())
         return graph.replay(tokens)
+
+    def _aot_note(self, shape, tokens, tally, captured=True) -> None:
+        """A step's capture record, ``lm_step_many/<B>x<T+1>``."""
+        aot_warmup.note(
+            self, partial(aot_export.transformer_trainer_fingerprint, self),
+            "lm_step_many/%s" % "x".join(str(d) for d in shape), (tokens,),
+            ("params", "opt_m", "opt_v", "step"), tally, captured,
+            owner="trainer")
 
     def _quantum(self):
         """One scheduler quantum when this trainer is a tenant of a

@@ -478,5 +478,17 @@ def hbm_samples() -> List[Sample]:
             for key, value in sorted(hbm_runtime_stats().items())]
 
 
+def kernel_samples() -> List[Sample]:
+    """The kernel wrappers' launch counters (replays included) ->
+    ``veles_kernel_launches_total{kernel=...}``: how a process's
+    ``/metrics`` shows which hand-written kernels its paths ran."""
+    from veles_tpu_torch.ops import flash_attention, lrn, rng
+    return [Sample("veles_kernel_launches_total", "counter", float(n),
+                   (("kernel", name),))
+            for mod in (flash_attention, lrn, rng)
+            for name, n in sorted(mod.LAUNCHES.items())]
+
+
 REGISTRY.register("trace", trace_samples)
 REGISTRY.register("hbm", hbm_samples)
+REGISTRY.register("kernels", kernel_samples)

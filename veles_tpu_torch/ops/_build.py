@@ -3,10 +3,21 @@
 Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface, loaded through
 ``ctypes``. Builds start together (one ``nvcc`` per source, in
-parallel) on first use and land in ``ops/csrc/build/``, keyed by a
-hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
-so an unchanged kernel is built once per checkout. ``ptxas`` resource usage (registers, shared memory,
-spills) is kept beside each library as ``<name>-<key>.log``.
+parallel) on first use. ``ptxas`` resource usage (registers, shared
+memory, spills) is kept beside each library as ``<name>-<key>.log``.
+
+A library's key hashes the source, the shared headers
+(``csrc/*.cuh``), the flags, the card's compute capability, the
+``nvcc`` release and ``torch.version.cuda``, so a library built from
+other sources, or for another card or toolkit, is never loaded. The
+libraries land in ``ops/csrc/build/``, or under the directory
+:func:`set_library_dir` names (``--aot-cache DIR`` names
+``DIR/kernels/``: a fresh checkout or a second process then loads them
+with no ``nvcc`` run). A library is written through a tmp file, fsync
+and an atomic link: a concurrent builder of the same key uses the
+first one committed. :data:`BUILDS` counts fresh builds (``nvcc``
+runs) apart from libraries found already built, each library once a
+process, and the capture counter (``analysis.recompile``) sees both.
 
 Nothing here runs at import: the CPU-only test machine has no
 ``nvcc``, and only a launch on a CUDA tensor asks for a library.
@@ -17,10 +28,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional
+import time
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -30,8 +43,25 @@ BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: the library each launch counter's kernel lives in
+LIBRARY_OF = {"flash_fwd": "flash_fwd", "flash_bwd_dkv": "flash_bwd",
+              "flash_bwd_dq": "flash_bwd", "flash_decode": "flash_decode",
+              "flash_decode_paged": "flash_decode", "lrn_fwd": "lrn",
+              "lrn_bwd": "lrn", "uniform_fill": "rng"}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: where libraries are looked up and built (None: ``BUILD_DIR``)
+_LIB_DIR: Dict[str, Optional[str]] = {"dir": None}
+_TOOLCHAIN: Dict[str, str] = {}
+#: libraries built by ``nvcc`` (``fresh``) and found already built
+#: (``cached``) in this process, and the seconds the fresh builds took
+BUILDS: Dict[str, float] = {"fresh": 0, "cached": 0, "fresh_s": 0.0}
+#: the library paths BUILDS has counted (each once a process)
+_COUNTED: set = set()
+#: called as ``fn(kind, n)`` with kind "fresh" or "cached" (the capture
+#: counter's hook)
+_LISTENERS: List[Callable[[str, int], None]] = []
 
 
 def sources() -> List[str]:
@@ -56,14 +86,87 @@ def headers() -> List[str]:
     return sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
 
 
-def _paths(name: str):
+def set_library_dir(directory: Optional[str]) -> None:
+    """Look libraries up and build them under ``directory`` (None:
+    back to ``BUILD_DIR``). Libraries already loaded stay loaded."""
+    _LIB_DIR["dir"] = directory
+
+
+def library_dir() -> str:
+    return _LIB_DIR["dir"] or BUILD_DIR
+
+
+def source_digest(name: str) -> str:
+    """Hash of a kernel's source, the shared headers and the flags."""
     digest = hashlib.sha256()
     for fname in [name + ".cu"] + headers():
         with open(os.path.join(CSRC, fname), "rb") as fin:
             digest.update(fin.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    stem = os.path.join(BUILD_DIR, "%s-%s" % (name, digest.hexdigest()[:16]))
+    return digest.hexdigest()
+
+
+def sources_key() -> str:
+    """One hash over every kernel's :func:`source_digest` (the kernel
+    part of an AOT fingerprint's environment)."""
+    digest = hashlib.sha256()
+    for name in sources():
+        digest.update(("%s:%s;" % (name, source_digest(name))).encode())
+    return digest.hexdigest()[:16]
+
+
+def toolchain() -> Dict[str, str]:
+    """The card's compute capability, the ``nvcc`` release and the CUDA
+    version torch was built with (asked once a process; ``none`` where
+    a machine has no card or no ``nvcc``, which then builds nothing)."""
+    if not _TOOLCHAIN:
+        capability = release = "none"
+        if torch.cuda.is_available():
+            capability = "sm_%d%d" % torch.cuda.get_device_capability()
+        try:
+            text = subprocess.run([nvcc(), "--version"],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+            m = re.search(r"release (\S+?),", text)
+            release = m.group(1) if m else text.strip()[-40:]
+        except (RuntimeError, OSError, subprocess.CalledProcessError):
+            pass
+        _TOOLCHAIN.update(capability=capability, nvcc=release,
+                          torch_cuda=str(torch.version.cuda))
+    return dict(_TOOLCHAIN)
+
+
+def library_key(name: str) -> str:
+    """A library's key: its sources, flags, card and toolkit."""
+    digest = hashlib.sha256(source_digest(name).encode())
+    for k, v in sorted(toolchain().items()):
+        digest.update(("%s=%s;" % (k, v)).encode())
+    return digest.hexdigest()[:16]
+
+
+def _paths(name: str):
+    stem = os.path.join(library_dir(), "%s-%s" % (name, library_key(name)))
     return stem + ".so", stem + ".log"
+
+
+def _notify(kind: str, n: int) -> None:
+    if n:
+        BUILDS[kind] += n
+        for fn in list(_LISTENERS):
+            fn(kind, n)
+
+
+def _commit(tmp: str, lib: str) -> None:
+    """fsync ``tmp`` and link it to ``lib``; a library another builder
+    committed first stays, and ``tmp`` goes."""
+    with open(tmp, "rb") as f:
+        os.fsync(f.fileno())
+    try:
+        os.link(tmp, lib)
+    except FileExistsError:
+        pass
+    finally:
+        os.unlink(tmp)
 
 
 def build(names: Optional[List[str]] = None) -> Dict[str, str]:
@@ -71,15 +174,20 @@ def build(names: Optional[List[str]] = None) -> Dict[str, str]:
     ``nvcc`` processes at once; returns name -> library path. Raises
     ``RuntimeError`` with the compiler's output when a build fails."""
     names = sources() if names is None else list(names)
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(library_dir(), exist_ok=True)
     procs = []
     out: Dict[str, str] = {}
+    t0 = time.monotonic()
+    cached = 0
     for name in names:
         lib, log = _paths(name)
         out[name] = lib
         if os.path.exists(lib):
+            if lib not in _COUNTED:
+                _COUNTED.add(lib)
+                cached += 1
             continue
-        tmp = "%s.%d.tmp" % (lib, os.getpid())
+        tmp = "%s.%d.%d.tmp" % (lib, os.getpid(), threading.get_ident())
         cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
                os.path.join(CSRC, name + ".cu")]
         procs.append((name, lib, log, tmp, subprocess.Popen(
@@ -93,9 +201,14 @@ def build(names: Optional[List[str]] = None) -> Dict[str, str]:
             failed.append("%s (nvcc rc %d):\n%s"
                           % (name, proc.returncode, text))
             continue
-        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or none
+        _commit(tmp, lib)
+        _COUNTED.add(lib)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    if procs:
+        BUILDS["fresh_s"] += time.monotonic() - t0
+    _notify("fresh", len(procs))
+    _notify("cached", cached)
     return out
 
 

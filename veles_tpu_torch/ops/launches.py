@@ -8,6 +8,10 @@ replay (:func:`add`). The stream decides, not the thread: autograd runs
 a captured step's backward on a thread of its own, on the capturing
 stream. Launches on other streams during the capture (a sibling replica
 replaying while a respawned one captures) count as usual.
+
+:func:`observing` reports the launches an eager call makes on its
+stream (they count as usual): what an eager dispatch's capture record
+(``aot/export.py``) holds in place of a replay's tally.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ Tally = List[Tuple[Dict[str, int], Dict[str, int]]]
 _LOCK = threading.Lock()
 #: the tallies of the captures under way, by capturing stream
 _TALLIES: Dict[int, Tally] = {}
+#: the observers of eager calls under way, by stream
+_OBSERVERS: Dict[int, List[Dict[str, int]]] = {}
 
 
 def _stream_key() -> int:
@@ -32,10 +38,13 @@ def _stream_key() -> int:
 def count(counter: Dict[str, int], name: str) -> None:
     """One launch of ``name``: into the tally of a capture on the
     current stream, else into ``counter``."""
-    tally = _TALLIES.get(_stream_key()) if _TALLIES else None
+    key = _stream_key() if (_TALLIES or _OBSERVERS) else None
+    tally = _TALLIES.get(key) if _TALLIES else None
     with _LOCK:
         if tally is None:
             counter[name] += 1
+            for seen in _OBSERVERS.get(key, ()):
+                seen[name] = seen.get(name, 0) + 1
             return
         for known, gained in tally:
             if known is counter:
@@ -69,3 +78,24 @@ def capturing() -> Iterator[Tally]:
     finally:
         with _LOCK:
             del _TALLIES[key]
+
+
+@contextlib.contextmanager
+def observing(device) -> Iterator[Dict[str, int]]:
+    """The launches made on the current stream during the block, by
+    name, in the yielded dict (they also count as usual). Off a CUDA
+    device nothing launches and the dict stays empty."""
+    seen: Dict[str, int] = {}
+    if torch.device(device).type != "cuda":
+        yield seen
+        return
+    key = _stream_key()
+    with _LOCK:
+        _OBSERVERS.setdefault(key, []).append(seen)
+    try:
+        yield seen
+    finally:
+        with _LOCK:
+            _OBSERVERS[key].remove(seen)
+            if not _OBSERVERS[key]:
+                del _OBSERVERS[key]

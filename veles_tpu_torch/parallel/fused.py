@@ -46,19 +46,29 @@ Over a mesh (``parallel.mesh``; ``mesh=``, ``tensor_parallel=``) the
 trainer is SPMD, one process a rank: data parallelism over ``data``
 and the reference's Megatron layout (:func:`param_specs`) over
 ``model``, with the collectives written out (``parallel.collectives``)
-where the reference's GSPMD inserts them. The reference's AOT dispatch
-is queued in ROADMAP.md.
+where the reference's GSPMD inserts them.
+
+Under an AOT plan (``aot/warmup.py``) the first dispatch of each
+``step_many`` shape and of each loader step hands its record to the
+plan (``mlp_step_many/...``, ``loader_step_many/...``); the dispatch
+runs as it would without one, so a planned run is bitwise an
+unplanned one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from collections import deque
+from functools import partial
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from veles_tpu_torch import graphs
+from veles_tpu_torch.aot import export as aot_export
+from veles_tpu_torch.aot import warmup as aot_warmup
 from veles_tpu_torch.config import get, root
 from veles_tpu_torch.device import compute_dtype as _dtype_of
 from veles_tpu_torch.device import resolve
@@ -68,7 +78,7 @@ from veles_tpu_torch.nn.lr_policy import make_policy
 from veles_tpu_torch.nn.lrn import lrn_raw
 from veles_tpu_torch.nn.pooling import pool_raw
 from veles_tpu_torch.obs import profile as obs_profile
-from veles_tpu_torch.ops import _build
+from veles_tpu_torch.ops import _build, launches
 from veles_tpu_torch.ops.rng import fold_in, uniform_fill
 from veles_tpu_torch.parallel import collectives
 from veles_tpu_torch.parallel.mesh import check_mesh
@@ -597,6 +607,9 @@ class FusedClassifierTrainer:
         #: to a TenantHandle, every step/step_many dispatch runs as ONE
         #: scheduler quantum
         self.sched_tenant = None
+        #: dispatch shapes whose AOT record was made
+        self._aot_seen: set = set()
+        self.aot_hits = self.aot_misses = self.aot_fallbacks = 0
         self.load_state(params)
 
     @classmethod
@@ -742,7 +755,10 @@ class FusedClassifierTrainer:
                               self._step_counter + k + 1))
         self._step_counter += k
         lrs = [self._lr(c) for c in counters]
-        with self._quantum():
+        name = "mlp_step_many/k%d_%s_%s" % (
+            k, "x".join(str(d) for d in xs.shape[1:]),
+            "x".join(str(d) for d in labels.shape[1:]))
+        with self._quantum(), self._dispatch_record(name, (xs, labels)):
             losses, n_errs, nonfinite = _train_multi_step(
                 self.specs, self.params, self.velocity, xs, labels,
                 self.dropout_seed, counters, lrs,
@@ -818,18 +834,14 @@ class FusedClassifierTrainer:
                 # inside the quantum: a first cast of the dataset is a
                 # whole-dataset device copy, scheduled like the steps
                 dataset = current_dataset()
-                out = []
-                for (perm, start, size), c, lr in zip(windows, counters,
-                                                      lrs):
-                    x, labels = loader.gather(start, size, dataset, perm)
-                    x, labels, *extra = self._step_args(x, labels)
-                    out.append(_train_step(
-                        self.specs, self.params, self.velocity, x,
-                        labels, fold_in(self.dropout_seed, c), lr,
-                        float(self.weight_decay), float(self.momentum),
-                        self.compute_dtype, self.nan_policy == "skip",
-                        self.kernel_impl, *(extra or (None, None)),
-                        self.record_masks))
+                name = "loader_step_many/k%d_%s" % (
+                    len(windows), "x".join(str(d) for d in dataset.shape))
+                with self._dispatch_record(name, (dataset,), partial(
+                        aot_export.loader_fingerprint, self,
+                        loader.normalizer, loader.minibatch_size, dataset,
+                        "step_many")):
+                    out = [self._window_step(loader, dataset, window, c, lr)
+                           for window, c, lr in zip(windows, counters, lrs)]
             return out
 
         def step() -> Dict[str, Any]:
@@ -853,6 +865,34 @@ class FusedClassifierTrainer:
             return {"loss": losses, "n_err": n_errs, "nonfinite": nonfinite}
 
         return multi_step
+
+    def _window_step(self, loader, dataset, window, counter, lr):
+        """One loader step over ``window`` (perm, start, size)."""
+        perm, start, size = window
+        x, labels = loader.gather(start, size, dataset, perm)
+        x, labels, *extra = self._step_args(x, labels)
+        return _train_step(
+            self.specs, self.params, self.velocity, x, labels,
+            fold_in(self.dropout_seed, counter), lr,
+            float(self.weight_decay), float(self.momentum),
+            self.compute_dtype, self.nan_policy == "skip",
+            self.kernel_impl, *(extra or (None, None)), self.record_masks)
+
+    @contextlib.contextmanager
+    def _dispatch_record(self, name: str, inputs, fingerprint=None):
+        """Around a dispatch: its AOT record at the first dispatch of
+        ``name`` (the launches it made, observed; an eager dispatch
+        has no replay), nothing at a later one."""
+        if name in self._aot_seen:
+            yield
+            return
+        with launches.observing(self.device) as seen:
+            yield
+        self._aot_seen.add(name)
+        graphs.note_shape()
+        aot_warmup.note(self, fingerprint or partial(
+            aot_export.fused_trainer_fingerprint, self), name, inputs,
+            ("params", "velocity"), seen, captured=False, owner="trainer")
 
     def predict(self, x) -> torch.Tensor:
         """Logits [B, classes] f32 of the forward without dropout (on a

@@ -6,8 +6,10 @@ decoding.
 
 Port of ``veles_tpu/serve/engine.py`` (``InferenceEngine``,
 ``GenerativeEngine``, ``_sample_tokens``, ``PagedGenerativeEngine``,
-``bucket_for``, ``_validated_swap``, ``_mesh_stats``): no AOT plan, no
-memory plan. Where the reference compiles one executable per
+``bucket_for``, ``_validated_swap``, ``_mesh_stats``) with their AOT
+hooks (``aot_signature``, ``aot_hits``/``aot_misses``; every capture
+site hands its record to the process's plan, ``aot/warmup.py``); no
+memory plan yet. Where the reference compiles one executable per
 shape, the port on a CUDA device captures one CUDA graph
 (``veles_tpu_torch.graphs``): one per batch bucket of the forward
 plane, one per decode round body (greedy, sampled, speculative) of the
@@ -34,6 +36,7 @@ through the host (gloo) cannot be captured.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
@@ -41,6 +44,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from veles_tpu_torch import graphs
+from veles_tpu_torch.aot import warmup as aot_warmup
+from veles_tpu_torch.aot.export import fingerprint as aot_fingerprint
+from veles_tpu_torch.aot.export import (normalizer_signature,
+                                        tree_signature)
+from veles_tpu_torch.aot.package import read_package
 from veles_tpu_torch.device import compute_dtype as _compute_dtype
 from veles_tpu_torch.device import resolve
 from veles_tpu_torch.graphs import StepGraph, use_graphs
@@ -54,6 +63,7 @@ from veles_tpu_torch.models.transformer import (ServeContext, _encode,
                                                 params_from_numpy,
                                                 prefill, refresh_weights,
                                                 verify_step)
+from veles_tpu_torch.ops import launches
 from veles_tpu_torch.parallel import collectives
 from veles_tpu_torch.parallel.fused import _apply, _Shards, normalize_specs
 from veles_tpu_torch.parallel.mesh import Axis, check_mesh
@@ -64,6 +74,11 @@ from veles_tpu_torch.serve.paging import (PagePool, PagesExhausted,
 #: how long a follower waits for the leader's next call (an idle
 #: server sends none)
 IDLE_TIMEOUT_S = 7 * 86400.0
+
+#: specs the package importer understands, by export UUID
+_PACKAGE_UUIDS = ("veles.tpu.all2all", "veles.tpu.conv",
+                  "veles.tpu.pooling", "veles.tpu.lrn",
+                  "veles.tpu.dropout", "veles.tpu.mean_disp")
 
 
 def bucket_for(n: int, min_bucket: int = 1) -> int:
@@ -285,6 +300,24 @@ def _kv_cache(mesh, device, make: Callable[..., Dict[str, Any]]):
         serve_sharding.kv_cache_shardings(mesh), make(device="meta"))
 
 
+def _forward_entry(shape: Sequence[int]) -> str:
+    """An ``InferenceEngine`` bucket's AOT entry name."""
+    return "forward/%s" % "x".join(str(int(d)) for d in shape)
+
+
+def _input_hint_for(specs, params) -> Optional[Tuple[int, ...]]:
+    """The per-row input shape a spec stack implies: a leading
+    normalize spec's mean is it; a leading fc layer means a flat
+    ``(fan_in,)`` row; a conv-first stack has none (warmed lazily)."""
+    for spec, p in zip(specs, params):
+        if spec[0] == "normalize" and "mean" in p:
+            return tuple(np.shape(p["mean"]))
+        if spec[0] == "fc" and "w" in p:
+            return (int(np.shape(p["w"])[0]),)
+        break
+    return None
+
+
 def _upload(buffer: torch.Tensor, host: np.ndarray) -> None:
     """Rewrite a static device input from its host copy, in place."""
     buffer.copy_(torch.from_numpy(host))
@@ -306,9 +339,54 @@ def _place_tree(tree, device) -> Any:
 class _Sharded:
     """The leader/follower face of an engine (``self._shard``, a
     :class:`_Shard` on a mesh, else None): each device call goes
-    through :meth:`_dev`, which on a mesh runs it on every rank."""
+    through :meth:`_dev`, which on a mesh runs it on every rank; and
+    its AOT hooks: ``aot_signature`` (``(kind, payload)``, hashed with
+    :meth:`_aot_identity` and the mesh into :meth:`_fingerprint`),
+    ``aot_hits``/``aot_misses``/``aot_fallbacks`` and
+    :meth:`_aot_note`, which every capture site calls."""
 
     _shard: Optional[_Shard] = None
+    mesh = None
+    #: None opts the engine out of the plan: a custom forward may bake
+    #: constants a fingerprint cannot see
+    aot_signature: Optional[Tuple[str, Dict[str, Any]]] = None
+    aot_hits = 0
+    aot_misses = 0
+    aot_fallbacks = 0
+    #: a package's ``aot/`` bundle (``from_package``), engine-local
+    _aot_bundle = None
+    _aot_fingerprint: Optional[str] = None
+
+    def _aot_identity(self) -> Dict[str, Any]:
+        """What the fingerprint adds to ``aot_signature``."""
+        return {"params": tree_signature(self.params)}
+
+    def _fingerprint(self) -> Optional[str]:
+        if self.aot_signature is None:
+            return None
+        if self._aot_fingerprint is None:
+            kind, payload = self.aot_signature
+            payload = dict(payload, **self._aot_identity())
+            self._aot_fingerprint = aot_fingerprint(kind, payload,
+                                                    self.device)
+        return self._aot_fingerprint
+
+    def _aot_note(self, name: str, inputs, donation=(), tally=None,
+                  captured: bool = True) -> Optional[str]:
+        """Hand a capture's record to the plan (or the package bundle):
+        ``inputs`` its static inputs, ``tally`` one replay's launches
+        (an eager call's where ``captured`` is False)."""
+        return aot_warmup.note(self, self._fingerprint, name, inputs,
+                               donation, tally, captured,
+                               bundle=self._aot_bundle)
+
+    def _sign(self, kind: str, payload: Dict[str, Any]) -> None:
+        """Set ``aot_signature``, the mesh's topology in it: a mesh
+        change is a clean miss, never a record of another layout."""
+        payload = dict(payload)
+        if self.mesh is not None:
+            payload["mesh"] = serve_sharding.mesh_signature(self.mesh)
+        self.aot_signature = (kind, payload)
 
     def _dev(self, name: str, *args) -> Any:
         if self._shard is None:
@@ -357,7 +435,9 @@ class InferenceEngine(_Sharded):
                  params: Any, *, input_dtype=np.float32,
                  min_bucket: int = 1, name: str = "model", device=None,
                  cuda_graphs: Optional[bool] = None, mesh=None,
-                 param_shardings=None) -> None:
+                 param_shardings=None,
+                 aot_signature: Optional[Tuple[str, Dict[str, Any]]] = None,
+                 input_hint: Optional[Sequence[int]] = None) -> None:
         self.device = resolve(_mesh_device(mesh, device))
         self.mesh = mesh
         if mesh is not None:
@@ -389,6 +469,13 @@ class InferenceEngine(_Sharded):
         #: trailing params entries a body-only swap keeps (the
         #: normalizer's statistics of from_specs)
         self._swap_tail = 0
+        if aot_signature is not None:
+            self._sign(*aot_signature)
+        #: per-row input shape of the warm ladder (None: nothing to warm)
+        self.input_hint = tuple(input_hint) if input_hint else None
+        #: the warm ladder's ceiling (``aot.warm_engine`` captures buckets
+        #: ``min_bucket..bucket_for(warm_max_batch)``)
+        self.warm_max_batch = 64
 
     def _place(self, params: Any) -> Any:
         """A params tree as f32 tensors on the device: whole, or this
@@ -409,6 +496,10 @@ class InferenceEngine(_Sharded):
     def buckets(self) -> List[int]:
         return sorted({shape[0] for shape in self._cache})
 
+    def _aot_identity(self) -> Dict[str, Any]:
+        return {"params": tree_signature(self.params),
+                "input_dtype": self.input_dtype.name}
+
     def _graph_for(self, shape: Tuple[int, ...]) -> StepGraph:
         graph = self._cache.get(shape)
         if graph is None:
@@ -419,6 +510,8 @@ class InferenceEngine(_Sharded):
             graph = StepGraph(lambda x: self._forward_fn(self.params, x),
                               inputs=(static,), pool=self._pool)
             self._cache[shape] = graph
+            self._aot_note(_forward_entry(shape), graph.inputs,
+                           tally=graph.tally())
         return graph
 
     # -- serving -----------------------------------------------------------
@@ -447,9 +540,16 @@ class InferenceEngine(_Sharded):
         with self._swap_lock, torch.inference_mode():
             if self._graphs_on:
                 out = self._graph_for(batch.shape).replay(x)
-            else:
-                self._cache.setdefault(batch.shape, None)
+            elif batch.shape in self._cache:
                 out = self._forward_fn(self.params, x.to(self.device))
+            else:
+                x = x.to(self.device)
+                with launches.observing(self.device) as seen:
+                    out = self._forward_fn(self.params, x)
+                self._cache[batch.shape] = None
+                graphs.note_shape()
+                self._aot_note(_forward_entry(batch.shape), (x,),
+                               tally=seen, captured=False)
             return out.cpu().numpy()
 
     def warmup(self, sample_shape: Sequence[int], max_batch: int) -> int:
@@ -554,6 +654,15 @@ class InferenceEngine(_Sharded):
         if mesh is not None and kwargs.get("param_shardings") is None:
             kwargs["param_shardings"] = serve_sharding.mlp_param_shardings(
                 mesh, specs, params)
+        # the AOT identity: the spec stack and the dtype policy are
+        # structural; the normalizer hashes by content, and one that
+        # cannot be fingerprinted keeps the engine out of the plan
+        norm_sig = normalizer_signature(normalizer)
+        if norm_sig is not False:
+            kwargs.setdefault("aot_signature", ("mlp_specs", {
+                "specs": specs, "normalizer": norm_sig,
+                "compute_dtype": str(compute_dtype).replace("torch.", "")}))
+        kwargs.setdefault("input_hint", _input_hint_for(specs, params))
         engine = cls(forward, params, name=name, device=device, **kwargs)
         if has_norm_tail:
             engine._swap_tail = 1
@@ -584,6 +693,8 @@ class InferenceEngine(_Sharded):
 
         kwargs.setdefault("input_dtype", np.int32)
         kwargs.setdefault("name", "transformer_lm")
+        kwargs.setdefault("aot_signature", (
+            "transformer_forward", {"config": dataclasses.asdict(config)}))
         return cls(fwd, host, device=device, **kwargs)
 
     @classmethod
@@ -614,9 +725,83 @@ class InferenceEngine(_Sharded):
 
     @classmethod
     def from_package(cls, path: str, **kwargs) -> "InferenceEngine":
-        raise NotImplementedError(
-            "package archives wait for the port's package export and "
-            "AOT artifacts (ROADMAP.md queue 1 item 10)")
+        """Engine from a ``Workflow.package_export`` archive (zip or
+        tar[.gz], either package's): a ``mean_disp`` unit becomes an
+        on-device normalize step, ``all2all``, ``conv``, ``pooling``,
+        ``lrn`` (K6 on the card) and ``dropout`` (the identity) their
+        specs; any other unit raises ``ValueError``. The archive's
+        ``aot/`` bundle, if any, attaches to this engine alone (no
+        process plan is armed): its records plan the engine's warm
+        ladder and judge its captures."""
+        contents, arrays = read_package(path)
+        specs: List[Any] = []
+        params: List[Dict[str, Any]] = []
+        for unit in contents["units"]:
+            uuid = unit.get("uuid")
+            props = unit.get("properties", {})
+            refs = unit.get("arrays", {})
+
+            def arr(key):
+                return arrays[refs[key]]
+
+            if uuid == "veles.tpu.mean_disp":
+                specs.append(("normalize",))
+                params.append({"mean": arr("mean"), "rdisp": arr("rdisp")})
+            elif uuid == "veles.tpu.all2all":
+                specs.append(("fc", props["activation"]))
+                w = arr("weights")
+                b = arr("bias") if "bias" in refs else \
+                    np.zeros(w.shape[1], np.float32)
+                params.append({"w": w, "b": b})
+            elif uuid == "veles.tpu.conv":
+                padding = props["padding"]
+                if not isinstance(padding, str):
+                    padding = tuple(tuple(p) for p in padding)
+                specs.append(("conv", props["activation"],
+                              tuple(props["strides_hw"]), padding))
+                w = arr("weights")
+                b = arr("bias") if "bias" in refs else \
+                    np.zeros(w.shape[3], np.float32)
+                params.append({"w": w, "b": b})
+            elif uuid == "veles.tpu.pooling":
+                specs.append(("pool", props["kind"], props["ky"],
+                              props["kx"], tuple(props["strides_hw"])))
+                params.append({})
+            elif uuid == "veles.tpu.lrn":
+                specs.append(("lrn", props["k"], props["n"],
+                              props["alpha"], props["beta"]))
+                params.append({})
+            elif uuid == "veles.tpu.dropout":
+                specs.append(("dropout", props.get("dropout_ratio", 0.0)))
+                params.append({})
+            else:
+                raise ValueError(
+                    "package unit %r (uuid %r) has no serving "
+                    "translation; known: %s"
+                    % (unit.get("name"), uuid, list(_PACKAGE_UUIDS)))
+        kwargs.setdefault("name", contents.get("workflow", "package"))
+        engine = cls.from_specs(specs, params, **kwargs)
+        bundle = aot_warmup.read_bundle(path)
+        if bundle is not None and engine.aot_signature is not None:
+            engine._aot_bundle = bundle
+        return engine
+
+    @classmethod
+    def from_package_like(cls, path: str, current) -> "InferenceEngine":
+        """A swap's engine: from the package ``path`` on ``current``'s
+        device, warmed before it takes traffic over the buckets
+        ``current`` served (those of its sample shape) and, under an
+        AOT plan, the plan's entries and ladder."""
+        engine = cls.from_package(path, device=getattr(current, "device",
+                                                       None))
+        engine.warm_max_batch = getattr(current, "warm_max_batch", 64)
+        if aot_warmup.active() is not None:
+            aot_warmup.warm_engine(engine)
+        for shape in sorted(getattr(current, "_cache", None) or ()):
+            if engine.input_hint is None or \
+                    tuple(shape[1:]) == engine.input_hint:
+                engine.apply(np.zeros(shape, engine.input_dtype))
+        return engine
 
 
 class GenerativeEngine(_Sharded):
@@ -705,6 +890,8 @@ class GenerativeEngine(_Sharded):
         self._free = list(range(self.slots))
         self._prefill_seen: Set[Tuple[int, int]] = set()
         self._decode_ran = False
+        #: the eager decode step's record was made (every rank)
+        self._decode_noted = False
         self._decode_steps = 0
         #: per-slot finite-logits sentinel from the LAST decode step
         #: (host bool [slots]; True = healthy). All-True until the
@@ -715,6 +902,17 @@ class GenerativeEngine(_Sharded):
         #: logits get NaN'd on the device this step — exercises the
         #: real sentinel path.
         self.decode_fault_hook: Optional[Callable[[int], Any]] = None
+        #: the AOT identity: the decode and prefill steps are fixed by
+        #: the config and the slab (the weights are tensors, so a swap
+        #: keeps every record valid)
+        self._sign("generative", {
+            "config": dataclasses.asdict(config), "slots": self.slots,
+            "cache_capacity": self.cache_capacity,
+            "max_len": self.max_len})
+
+    def _aot_identity(self) -> Dict[str, Any]:
+        return {"params": tree_signature(self.params),
+                "slab": tree_signature(self._cache)}
 
     # -- device bodies -----------------------------------------------------
     def _decode_fn(self) -> torch.Tensor:
@@ -776,7 +974,15 @@ class GenerativeEngine(_Sharded):
             if inject is not None:
                 _upload(self._inject_dev, inject)
             if not self._graphs_on:
-                out = self._decode_fn()
+                if self._decode_noted:
+                    out = self._decode_fn()
+                else:
+                    with launches.observing(self.device) as seen:
+                        out = self._decode_fn()
+                    self._decode_noted = True
+                    graphs.note_shape()
+                    self._aot_note("decode", self._decode_inputs(),
+                                   _DECODE_DONATION, seen, captured=False)
             else:
                 if self._graph is None:
                     # the warm-up calls write K/V only at each slot's
@@ -785,9 +991,16 @@ class GenerativeEngine(_Sharded):
                     self._graph = StepGraph(
                         self._decode_fn,
                         keep=(self._lengths, self._last_tokens))
+                    self._aot_note("decode", self._decode_inputs(),
+                                   _DECODE_DONATION, self._graph.tally())
                 out = self._graph.replay()
             # one transfer: tokens and flags as int32 [2, slots]
             return out.cpu().numpy()
+
+    def _decode_inputs(self) -> List[torch.Tensor]:
+        """The decode step's static inputs, for its capture record."""
+        return [self._last_tokens, self._lengths, self._active_dev,
+                self._inject_dev, self._cache["k"], self._cache["v"]]
 
     def _device_swap(self, params: Any) -> None:
         _swap_lm_weights(self, params)
@@ -977,6 +1190,12 @@ class GenerativeEngine(_Sharded):
         """Engine over anything with ``.config`` / ``.params``."""
         kwargs.setdefault("name", "generative_lm")
         return cls(trainer.config, trainer.params, **kwargs)
+
+
+#: what the slab decode step updates in place (its donation)
+_DECODE_DONATION = ("cache", "lengths", "last_tokens")
+#: what a paged round updates in place
+_ROUND_DONATION = ("cache", "draft_cache", "lengths", "tokens", "counters")
 
 
 def _fault_mask(hook, step: int, slots: int) -> np.ndarray:
@@ -1275,6 +1494,16 @@ class PagedGenerativeEngine(_Sharded):
         self.spec_proposed_total = 0
         self.spec_accepted_total = 0
         self.preempted_total = 0
+        #: the eager rounds whose records were made, by ``sampling``
+        self._rounds_noted: Set[bool] = set()
+        self._sign("generative_paged", {
+            "config": dataclasses.asdict(config), "slots": self.slots,
+            "cache_capacity": self.cache_capacity,
+            "max_len": self.max_len, "page_size": self.page_size,
+            "n_pages": self.pool.n_pages,
+            "draft_config": dataclasses.asdict(draft_config)
+            if draft_config is not None and self.has_draft else None,
+            "draft_tokens": self.draft_tokens if self.has_draft else 0})
 
     # -- device bodies -----------------------------------------------------
     def _next_tokens(self, logits, opts, sampling: bool) -> torch.Tensor:
@@ -1691,11 +1920,37 @@ class PagedGenerativeEngine(_Sharded):
         self.release(slot)
         self.preempted_total += 1
 
+    def _aot_identity(self) -> Dict[str, Any]:
+        return {"params": tree_signature(self.params),
+                "draft_params": tree_signature(self.draft_params),
+                "pool": tree_signature(self._cache),
+                "draft_slab": tree_signature(self._draft_cache)}
+
+    def _round_entry(self, sampling: bool) -> str:
+        """A round body's AOT entry name."""
+        return ("propose+verify" if self.has_draft else "decode") + \
+            ("/sampled" if sampling else "")
+
+    def _round_inputs(self) -> List[torch.Tensor]:
+        """A round's static inputs, for its capture record."""
+        state = self._state
+        return [self._active_dev, self._tables_dev, self._inject_dev] + \
+            [state[k] for k in sorted(state)]
+
     def _run_round(self, sampling: bool) -> torch.Tensor:
         """The round: the replay of its captured body (captured at the
         body's first round), or the eager body."""
         if not self._graphs_on:
-            return self._round_fn(sampling)
+            if sampling in self._rounds_noted:
+                return self._round_fn(sampling)
+            with launches.observing(self.device) as seen:
+                out = self._round_fn(sampling)
+            self._rounds_noted.add(sampling)
+            graphs.note_shape()
+            self._aot_note(self._round_entry(sampling),
+                           self._round_inputs(), _ROUND_DONATION, seen,
+                           captured=False)
+            return out
         graph = self._graphs.get(sampling)
         if graph is None:
             if self._pool is None:
@@ -1710,6 +1965,9 @@ class PagedGenerativeEngine(_Sharded):
                 keep=(state["lengths"], state["tokens"],
                       state["counters"]))
             self._graphs[sampling] = graph
+            self._aot_note(self._round_entry(sampling),
+                           self._round_inputs(), _ROUND_DONATION,
+                           graph.tally())
         return graph.replay()
 
     def decode_many(self) -> Tuple[np.ndarray, np.ndarray]:

@@ -220,7 +220,9 @@ class LocalReplica(Logger):
         (the fleet manager's rollback token)."""
         if isinstance(new, str):
             from veles_tpu_torch.serve.engine import InferenceEngine
-            new = InferenceEngine.from_package(new)
+            model = self.registry.get("default")
+            new = InferenceEngine.from_package_like(
+                new, getattr(model, "engine", None))
         return self.registry.get("default").swap(new)
 
     # -- chaos -------------------------------------------------------------

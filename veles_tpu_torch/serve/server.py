@@ -40,9 +40,11 @@
 - ``GET /debug/trace[?trace=ID]`` — Chrome-trace JSON of the span ring.
 - ``POST /admin/swap`` — ``{"package": path[, "model": name]}``:
   hot-swap a model's engine from a package archive, the fleet's
-  rollout channel into a replica process. Off unless ``admin_swap``;
-  package archives are not ported yet, so a swap answers 500 ``swap
-  failed: ...`` naming what it waits for.
+  rollout channel into a replica process. Off unless ``admin_swap``
+  (404). The new engine (``InferenceEngine.from_package_like``) is
+  built on the served engine's device and warmed over its buckets
+  before the swap; a package that fails to load or to warm answers
+  500 and the served engine stays; a generative model answers 409.
 
 The fleet's hooks: ``draining``, :meth:`ServeServer.blackhole` (accept,
 answer nothing for a window) and :meth:`ServeServer.kill` (sever every
@@ -516,7 +518,17 @@ class ServeServer:
                 try:
                     from veles_tpu_torch.serve.engine import \
                         InferenceEngine
-                    engine = InferenceEngine.from_package(package)
+                    from veles_tpu_torch.serve.registry import \
+                        GenerativeModel
+                    model = server.registry.get(name)
+                    if isinstance(model, GenerativeModel):
+                        self._reply(409, {
+                            "error": "model %r serves /generate; a "
+                                     "package holds a forward engine"
+                                     % name})
+                        return
+                    engine = InferenceEngine.from_package_like(
+                        package, getattr(model, "engine", None))
                     server.registry.swap(name, engine)
                 except KeyError:
                     self._reply(404, {"error": "unknown model %r"
@@ -614,6 +626,10 @@ class ServeServer:
                                 server.scheduler.snapshot()
                         doc["_slowest"] = EXEMPLARS.snapshot()
                         doc["_obs"] = obs_metrics.REGISTRY.snapshot()
+                        from veles_tpu_torch import aot
+                        plan = aot.active()
+                        if plan is not None:
+                            doc["_aot"] = plan.status_doc()
                         self._reply(200, doc)
                     return
                 if url.path == "/debug/trace":

@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from veles_tpu_torch.memory import Array
 from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.plumbing import StartPoint, EndPoint
 from veles_tpu_torch.units import Container, Unit, fresh_trampoline
@@ -642,11 +643,59 @@ class Workflow(Container):
 
     # -- package export ----------------------------------------------------
     def package_export(self, filename: str, precision: str = "float32"):
-        """Export the trained graph to an inference archive: waits for
-        the port of ``aot/package.py`` (ROADMAP.md queue 1 item 10)."""
-        raise NotImplementedError(
-            "Workflow.package_export needs the package archive "
-            "(aot/package.py), ROADMAP.md queue 1 item 10")
+        """Export the trained graph to an inference archive, the
+        reference's layout (reference: veles/workflow.py:868-975):
+        ``contents.json`` describing the units in execution order plus
+        ``NNNN_<name>.npy`` arrays, zip or tar[.gz]. Units take part by
+        implementing ``export_spec() -> (props, {name: array})``, each
+        array read to the host once (``Array.map_read``). A unit that
+        transforms data but cannot export is warned about: the
+        exported graph would skip it. ``InferenceEngine.from_package``
+        (either package's) serves the archive."""
+        units_json = []
+        arrays: List[tuple] = []
+        counter = 0
+        for unit in self.units_in_dependency_order:
+            spec = getattr(unit, "export_spec", None)
+            if spec is None:
+                demands = getattr(unit, "_demanded", ())
+                # trainer and evaluator units stay out of an inference
+                # package; anything else mapping input -> output is part
+                # of the forward graph
+                training_only = getattr(unit, "view_group", None) in (
+                    "TRAINER", "EVALUATOR")
+                if not training_only and \
+                        isinstance(getattr(unit, "output", None), Array) and \
+                        any(d.startswith("input") for d in demands):
+                    self.warning(
+                        "package_export: unit %s (%s) transforms data "
+                        "but has no export_spec — the exported graph "
+                        "will NOT apply it", unit.name, type(unit).__name__)
+                continue
+            props, unit_arrays = spec()
+            refs = {}
+            for aname, arr in unit_arrays.items():
+                fname = "%04d_%s.npy" % (counter, aname)
+                refs[aname] = fname
+                arrays.append((fname, np.asarray(arr, dtype=precision)))
+                counter += 1
+            units_json.append({
+                "class": type(unit).__name__,
+                "uuid": getattr(unit, "EXPORT_UUID", type(unit).__name__),
+                "name": unit.name,
+                "properties": props,
+                "arrays": refs,
+            })
+        contents = {
+            "workflow": type(self).__name__,
+            "checksum": self.checksum,
+            "precision": precision,
+            "units": units_json,
+        }
+        from veles_tpu_torch.aot.package import write_package
+        write_package(filename, contents, arrays)
+        self.info("exported package to %s (%d arrays)", filename, counter)
+        return filename
 
 
 def _json_default(obj):
