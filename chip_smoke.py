@@ -365,7 +365,26 @@ without them, and on any failed phase. Phases, in order:
    launches; the LM behind ``PagedGenerativeEngine`` (1,024 16-token
    pages) warmed under the plan, its greedy and sampled round records
    each holding 12 K5, phase 3's prompts one at a time giving phase 3's
-   tokens with 12 K1 a prefill and 12 K5 a round.
+   tokens with 12 K1 a prefill and 12 K5 a round;
+26. the static gates and the memory plan (``veles_tpu_torch.analysis``):
+   (a) ``python -m veles_tpu_torch.analysis --json`` in a process of its
+   own, running on the CPU beside (b) and (c): every leg passes (ruff
+   ``skipped`` where it is not installed), its seconds; (b) each of the 11 registry entries planned from a CPU
+   build (``analysis.memplan``: ``torch.cuda.memory_allocated()``
+   unmoved) and built on the card (``build("cuda")``), one call measured
+   (``memplan.measure_call``: a captured entry's first call is its
+   capture, so the figure is its resident set plus its graph's pool),
+   its K1-K5 launches: the plan's peak within ``PLAN_PEAK_X`` and its
+   resident set within ``PLAN_RESIDENT_X`` of the card's, less the
+   cuBLAS workspaces the call took (each new handle and stream a capture
+   runs matmuls on takes one, which no plan holds; counted, and the raw
+   figures logged beside); (c) ``PagedGenerativeEngine`` at phase 7's
+   geometry (``FULL``, bf16, 8 slots, 1024 pages of 16):
+   ``plan_footprint()`` with device memory unmoved, its peak within
+   ``PLAN_PEAK_X`` of one measured round (the first: its capture), a
+   pool sized by ``PagePool.from_device(reserve_bytes=<the plan's
+   peak>)``, then phase 3's 8 prompts one at a time: phase 3's tokens,
+   12 K1 a prefill and 12 K5 a round.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -8002,6 +8021,236 @@ def aot_phase(torch, counters, dev, card, serve):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the static gates and the memory plan
+# ---------------------------------------------------------------------------
+
+#: (a): the gate's legs; ruff may be absent on the card's machine
+STATIC_LEGS = ("ruff", "lint", "concurrency", "jitcheck", "jaxpr", "memplan")
+STATIC_GATE_TIMEOUT_S = 300
+#: (b), (c): the plan against the card, the reference's bounds
+#: (tests/test_memplan.py:563-575): peak within 2x, resident within 1.5x
+PLAN_PEAK_X = 2.0
+PLAN_RESIDENT_X = 1.5
+#: (c): phase 7's geometry
+STATIC_SLOTS, STATIC_PAGE, STATIC_PAGES = 8, 16, 1024
+
+
+def _within(plan, measured, x):
+    return measured / x <= plan <= measured * x
+
+
+def _start_gate():
+    """Leg (a)'s process: ``python -m veles_tpu_torch.analysis --json``
+    (its legs run on the CPU, beside legs (b) and (c) on the card)."""
+    path = os.path.abspath(os.path.join("chip_smoke_out", "gate.json"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "veles_tpu_torch.analysis", "--json", path],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, path, time.monotonic()
+
+
+def _static_gate(torch, card, gate, out):
+    """Leg (a): the gate's verdict, every leg ``pass`` (ruff may be
+    ``skipped``)."""
+    proc, path, t0 = gate
+    try:
+        stdout, stderr = proc.communicate(timeout=STATIC_GATE_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    gate_s = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError("(a) the gate failed (rc %d):\n%s\n%s" % (
+            proc.returncode, stdout[-4000:], stderr[-2000:]))
+    with open(path) as fin:
+        doc = json.load(fin)
+    legs = {name: leg["status"] for name, leg in doc["tools"].items()}
+    for name in STATIC_LEGS:
+        ok = ("pass", "skipped") if name == "ruff" else ("pass",)
+        if legs.get(name) not in ok:
+            raise AssertionError("(a) leg %s: %s" % (name, legs.get(name)))
+    log("  (a) python -m veles_tpu_torch.analysis --json: %s, %.1f s from "
+        "its start (beside (b) and (c); torch %s) [%s]"
+        % (legs, gate_s, torch.__version__, card))
+    out["a_gate"] = dict(legs=legs, seconds=gate_s)
+
+
+def _static_registry(torch, counters, card, out):
+    """Leg (b): every registry entry planned (from a CPU build: no
+    device memory touched) and built on the card, one call measured."""
+    from veles_tpu_torch.analysis import memplan
+    from veles_tpu_torch.aot.registry import canonical_computations
+    rows = {}
+    for comp in canonical_computations():
+        gc.collect()
+        torch.cuda.empty_cache()
+        fn, args = comp.build("cpu")
+        before = torch.cuda.memory_allocated()
+        plan = memplan.estimate_callable(fn, args)
+        if torch.cuda.memory_allocated() != before:
+            raise AssertionError("(b) %s: the plan moved device memory"
+                                 % comp.name)
+        del fn, args
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        fn, args = comp.build("cuda")
+        launched = counters.read()
+        got = memplan.measure_call(fn, args, base=base)
+        got["launches"] = _nonzero(counters.delta(launched))
+        got.update(plan_peak=plan["peak_bytes"],
+                   plan_resident=plan["resident_bytes"],
+                   captured=comp.captured)
+        if not _within(plan["peak_bytes"], got["peak_net"], PLAN_PEAK_X) \
+                or not _within(plan["resident_bytes"], got["after_net"],
+                               PLAN_RESIDENT_X):
+            raise AssertionError("(b) %s: plan %s against the card %s"
+                                 % (comp.name, plan, got))
+        rows[comp.name] = got
+        log("    %-18s plan peak %.3f MB resident %.3f MB | card peak "
+            "%.3f MB after %.3f MB less %d cuBLAS workspace(s) of %.0f MiB "
+            "(raw %.3f / %.3f MB)%s; launches %s" % (
+                comp.name, plan["peak_bytes"] / 2 ** 20,
+                plan["resident_bytes"] / 2 ** 20,
+                got["peak_net"] / 2 ** 20, got["after_net"] / 2 ** 20,
+                got["workspaces"], memplan.cublas_workspace_bytes() / 2 ** 20,
+                got["peak"] / 2 ** 20, got["after"] / 2 ** 20,
+                " (captured)" if comp.captured else "", got["launches"]))
+        del fn, args
+    log("  (b) the 11 registry entries: plan peak within %gx and resident "
+        "within %gx of the card's [%s]" % (PLAN_PEAK_X, PLAN_RESIDENT_X,
+                                           card))
+    out["b_registry"] = dict(rows=rows,
+                             cublas_workspace=memplan.cublas_workspace_bytes())
+
+
+def _static_full_width(torch, counters, dev, card, reference, out):
+    """Leg (c): the paged engine at phase 7's geometry, its plan, one
+    measured round, a pool sized by the plan, the prompts one at a
+    time."""
+    from veles_tpu_torch.analysis import memplan
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params)
+    from veles_tpu_torch.serve import PagedGenerativeEngine
+    from veles_tpu_torch.serve.paging import PagePool, kv_bytes_per_token
+    config = TransformerConfig(compute="bfloat16", **FULL)
+    layers = FULL["layers"]
+    params = _HOST["lm"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    engine = PagedGenerativeEngine(config, params, max_slots=STATIC_SLOTS,
+                                   page_size=STATIC_PAGE,
+                                   n_pages=STATIC_PAGES, device=dev)
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated() - base
+    before = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    t0 = time.monotonic()
+    plan = engine.plan_footprint()
+    plan_s = time.monotonic() - t0
+    if (torch.cuda.memory_allocated(), torch.cuda.memory_reserved()) != \
+            before:
+        raise AssertionError("(c) plan_footprint moved device memory")
+    prompts = serving_prompts(config.vocab)
+    slots, _ = engine.admit([np.asarray(p, np.int32) for p in prompts])
+    launched = counters.read()
+    got = memplan.measure_call(engine.decode_many, (), base=base)
+    round_launches = _nonzero(counters.delta(launched))
+    for slot in slots:
+        engine.release(slot)
+    if round_launches != {"flash_decode_paged": layers * (1 + 2)}:
+        # the capture's two warm-up rounds and the replay
+        raise AssertionError("(c) first round launches %s" % round_launches)
+    if not _within(plan["peak_bytes"], got["peak"], PLAN_PEAK_X):
+        raise AssertionError("(c) plan peak %d B against one round %s"
+                             % (plan["peak_bytes"], got))
+    token_bytes = kv_bytes_per_token(layers, config.heads, config.head_dim,
+                                     2)
+    reserve = int(plan["peak_mb"] * 2 ** 20)
+    pool = PagePool.from_device(STATIC_PAGE, token_bytes,
+                                reserve_bytes=reserve)
+    if pool.n_pages < STATIC_PAGES:
+        raise AssertionError("(c) a pool sized with the plan's reserve "
+                             "holds %d pages" % pool.n_pages)
+    # the prompts one at a time on an engine of its own, as phase 25(d)
+    # serves them (no page of the measured batch left behind)
+    del engine
+    gc.collect()
+    engine = PagedGenerativeEngine(config, params, max_slots=STATIC_SLOTS,
+                                   page_size=STATIC_PAGE,
+                                   n_pages=STATIC_PAGES, device=dev)
+    launched = counters.read()
+    rounds0 = engine._decode_steps
+    tokens = [engine.generate([np.asarray(p, np.int32)],
+                              FLEET_TOKENS)[0].tolist() for p in prompts]
+    torch.cuda.synchronize()
+    delta = _nonzero(counters.delta(launched))
+    rounds = engine._decode_steps - rounds0
+    if tokens != reference:
+        raise AssertionError("(c) tokens %s, phase 3's %s"
+                             % (tokens[:2], reference[:2]))
+    # its round is captured at the first one: 2 warm-up rounds more
+    if delta != {"flash_fwd": layers * len(prompts),
+                 "flash_decode_paged": layers * (rounds + 2)}:
+        raise AssertionError("(c) launches %s over %d prompts and %d "
+                             "rounds" % (delta, len(prompts), rounds))
+    del engine
+    log("  (c) PagedGenerativeEngine (FULL, bf16, %d slots, %d pages of %d): "
+        "built %.1f MB; plan_footprint in %.2f s, device memory unmoved: "
+        "peak %.1f MB, resident %.1f MB, donated %.1f MB (at %s; K5's "
+        "declared partials %.2f MB); one round on the card (its capture): "
+        "peak %.1f MB, after %.1f MB (less %d cuBLAS workspace(s): %.1f / "
+        "%.1f MB); plan/card peak %.3f; PagePool.from_device(reserve = the "
+        "plan's peak) holds %d pages; phase 3's 8 prompts one at a time: "
+        "tokens == phase 3's, %s over %d rounds [%s]" % (
+            STATIC_SLOTS, STATIC_PAGES, STATIC_PAGE, built / 1e6, plan_s,
+            plan["peak_mb"] * 2 ** 20 / 1e6,
+            plan["resident_mb"] * 2 ** 20 / 1e6,
+            plan["donated_mb"] * 2 ** 20 / 1e6, plan["peak_src"],
+            plan["workspace_bytes"] / 1e6, got["peak"] / 1e6,
+            got["after"] / 1e6, got["workspaces"], got["peak_net"] / 1e6,
+            got["after_net"] / 1e6, plan["peak_bytes"] / got["peak"],
+            pool.n_pages, delta, rounds, card))
+    out["c_full_width"] = dict(
+        built=built, plan={k: v for k, v in plan.items()
+                           if k != "written"}, plan_s=plan_s, round=got,
+        round_launches=round_launches, pool_pages=pool.n_pages,
+        reserve_bytes=reserve, launches=delta, rounds=rounds,
+        tokens_equal=True)
+
+
+def static_phase(torch, counters, dev, card, reference):
+    """Phase 26; see the module docstring."""
+    log("phase 26: the static gates and the memory plan: the one gate, "
+        "every registry entry planned and measured on the card, the paged "
+        "engine's plan at full width")
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    gate = _start_gate()
+    try:
+        counters.reset()
+        _static_registry(torch, counters, card, out)
+        _static_full_width(torch, counters, dev, card, reference, out)
+        launches = counters.read()
+    except BaseException:
+        gate[0].kill()
+        gate[0].communicate()
+        raise
+    _static_gate(torch, card, gate, out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    log("  phase 26 took %.1f s; launches on its path %s" % (
+        out["phase_s"], _nonzero(launches)))
+    return out, launches
+
+
 class Counters:
     """Every kernel's launch counter, read and reset together."""
 
@@ -8089,6 +8338,8 @@ def main():
                                      classifier_graph)
     fleet, fleet_launches = fleet_phase(torch, counters, dev, card, serve)
     aot_out, aot_launches = aot_phase(torch, counters, dev, card, serve)
+    static, static_launches = static_phase(torch, counters, dev, card,
+                                           serve["staggered"])
 
     # each main path's launches, counted from 0 around that path alone
     by_path = {"serving": serve_launches, "training": train_launches,
@@ -8105,7 +8356,8 @@ def main():
                "sharded serving": sharded_launches,
                "farm": farm_launches,
                "fleet": fleet_launches,
-               "packages and AOT": aot_launches}
+               "packages and AOT": aot_launches,
+               "static gates and memory plan": static_launches}
     kernels = []
     for name, row in rows.items():
         paths = {p: n.get(name, 0) for p, n in by_path.items()
@@ -8131,7 +8383,7 @@ def main():
                   input_pipeline=pipeline, zoo=zoo, zoo_parity=zoo_parity,
                   state=state, state_parity=state_parity, mesh=mesh,
                   sharded_serving=sharded, farm=farm, fleet=fleet,
-                  aot=aot_out,
+                  aot=aot_out, static=static,
                   wall_s=time.monotonic() - t_start)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:

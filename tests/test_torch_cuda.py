@@ -2333,3 +2333,92 @@ def test_aot_lm_step_record_and_planned_run_bitwise(cuda, aot_plan_dir):
     assert record["launches"] == {"flash_bwd_dkv": 2, "flash_bwd_dq": 2,
                                   "flash_fwd": 4}
     assert sorted(record["kernels"]) == ["flash_bwd", "flash_fwd"]
+
+
+# ---------------------------------------------------------------------------
+# the memory plan against the card, and the kernel builds' locks
+# ---------------------------------------------------------------------------
+
+def test_plan_footprint_touches_no_device_memory(cuda):
+    """``PagedGenerativeEngine.plan_footprint`` of an engine on the card
+    runs on meta shadows: allocated and reserved bytes are unmoved."""
+    from veles_tpu_torch.aot import registry
+    from veles_tpu_torch.models.transformer import init_params
+    from veles_tpu_torch.serve import PagedGenerativeEngine
+    config = registry._lm_config()
+    engine = PagedGenerativeEngine(config, init_params(config, seed=0),
+                                   max_slots=4, page_size=16, device=cuda)
+    engine.admit([np.arange(1, 17, dtype=np.int32)])
+    torch.cuda.synchronize()
+    before = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    plan = engine.plan_footprint()
+    assert (torch.cuda.memory_allocated(),
+            torch.cuda.memory_reserved()) == before
+    assert plan["peak_mb"] >= plan["resident_mb"] > 0
+
+
+def _registry_names():
+    from veles_tpu_torch.aot.registry import canonical_computations
+    return [c.name for c in canonical_computations()]
+
+
+@pytest.mark.parametrize("name", _registry_names())
+def test_registry_plan_within_2x_of_the_card(cuda, name):
+    """Each registry entry's plan (from a CPU build) against one call of
+    the entry built on the card (a captured entry's first call is its
+    capture: resident set plus pool), less the cuBLAS workspaces the
+    call took: peak within 2x, resident within 1.5x
+    (tests/test_memplan.py:563-575's bounds)."""
+    import gc
+
+    from veles_tpu_torch.analysis import memplan
+    from veles_tpu_torch.aot.registry import canonical_computations
+    comp = {c.name: c for c in canonical_computations()}[name]
+    fn, args = comp.build("cpu")
+    plan = memplan.estimate_callable(fn, args)
+    del fn, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    fn, args = comp.build("cuda")
+    got = memplan.measure_call(fn, args, base=base)
+    assert got["peak_net"] / 2 <= plan["peak_bytes"] <= got["peak_net"] * 2, \
+        (plan, got)
+    assert got["after_net"] / 1.5 <= plan["resident_bytes"] <= \
+        got["after_net"] * 1.5, (plan, got)
+
+
+def test_library_of_a_built_kernel_is_not_held_by_another_build(
+        cuda, monkeypatch):
+    """A loaded kernel's ``library()`` returns while another kernel's
+    build is under way (each build holds its own name's lock)."""
+    import threading
+    import time
+
+    from veles_tpu_torch.ops import _build
+    loaded = _build.library("rng")
+    real_build = _build.build
+    entered, release = threading.Event(), threading.Event()
+
+    def slow_build(names):
+        if names == ["slow_kernel"]:
+            entered.set()
+            release.wait(60)
+            raise RuntimeError("stand-in build")
+        return real_build(names)
+
+    monkeypatch.setattr(_build, "build", slow_build)
+    errors = []
+    thread = threading.Thread(target=lambda: errors.append(
+        pytest.raises(RuntimeError, _build.library, "slow_kernel")))
+    thread.start()
+    try:
+        assert entered.wait(60)
+        t0 = time.monotonic()
+        assert _build.library("rng") is loaded
+        assert time.monotonic() - t0 < 1.0
+    finally:
+        release.set()
+        thread.join(60)
+    assert errors

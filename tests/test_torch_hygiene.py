@@ -59,7 +59,11 @@ def test_import_closure_has_no_jax_and_no_veles_tpu():
                  "launcher", "obs.trace", "obs.metrics", "__main__",
                  "cmdline", "serve.router", "serve.fleet", "aot",
                  "aot.package", "aot.export", "aot.cache", "aot.warmup",
-                 "aot.registry", "analysis.recompile"):
+                 "aot.registry", "analysis.recompile",
+                 "analysis.baseline", "analysis.lint",
+                 "analysis.concurrency", "analysis.lockcheck",
+                 "analysis.jitcheck", "analysis.jaxpr_audit",
+                 "analysis.memplan", "analysis.__main__"):
         assert "veles_tpu_torch." + name in modules
     script = (
         "import importlib, json, sys\n"

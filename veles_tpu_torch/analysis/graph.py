@@ -45,9 +45,10 @@ quantum holds the lease through its device work) has no counterpart:
 on a CUDA device the port's quantum waits for its device work before
 it releases the lease anyway (``veles_tpu_torch.sched``), so a host
 sync inside ``run()`` holds it no longer. The capture counter is
-``analysis/recompile.py``; the reference's static gates (baseline,
-lint, lockcheck, concurrency, jitcheck, jaxpr_audit, memplan) wait for
-ROADMAP.md queue 1 item 10b.
+``analysis/recompile.py``; the static gates (``baseline``, ``lint``,
+``lockcheck``, ``concurrency``, ``jitcheck``, ``jaxpr_audit``,
+``memplan``) sit beside this module and run together as ``python -m
+veles_tpu_torch.analysis``.
 """
 
 from __future__ import annotations

@@ -6,13 +6,19 @@ names. Where the reference enumerates its jitted computations, the port
 enumerates the sites that capture a CUDA graph (or, where a site runs
 eagerly, record its dispatch) and hand the plan its record
 (``aot/warmup.py``): what ships as ``aot/`` records, what a warm start
-captures before traffic, and what the memory plan will size.
+captures before traffic, what the memory plan sizes
+(``analysis.memplan``) and what the golden-graph gate fingerprints
+(``analysis.jaxpr_audit``).
 
 Each :class:`Computation` names its ``site`` (``file:Class.method``,
 the function holding the capture or the eager dispatch), its plan
 entry names (``entry``, a prefix for families keyed by shape), whether
-it is ``captured`` into a CUDA graph on the card, and the tensors it
-updates in place (``donation``, the counterpart of ``donate_argnums``).
+it is ``captured`` into a CUDA graph on the card, the tensors it
+updates in place (``donation``, the counterpart of ``donate_argnums``;
+``analysis.memplan`` checks that the site really writes them in place),
+and its dtype-policy allowance (``allowed_f32_upcasts``, the wide
+bf16->f32 upcasts its dispatched graph may hold, each named in
+``notes``; ``analysis.jaxpr_audit`` rule VJ005).
 ``build(device)`` makes the site's owner on a canonical config and
 returns ``(fn, args)``: ``fn(*args)`` runs one call of the site through
 its public entry point.
@@ -45,18 +51,20 @@ class Computation:
     """One registry entry (see the module docstring)."""
 
     __slots__ = ("name", "build", "site", "entry", "captured",
-                 "donation", "notes")
+                 "donation", "allowed_f32_upcasts", "notes")
 
     def __init__(self, name: str, build: Callable[..., Tuple[Callable,
                                                              tuple]],
                  site: str, entry: Tuple[str, ...], captured: bool,
-                 donation: Tuple[str, ...] = (), notes: str = "") -> None:
+                 donation: Tuple[str, ...] = (),
+                 allowed_f32_upcasts: int = 0, notes: str = "") -> None:
         self.name = name
         self.build = build
         self.site = site
         self.entry = tuple(entry)
         self.captured = bool(captured)
         self.donation = tuple(donation)
+        self.allowed_f32_upcasts = int(allowed_f32_upcasts)
         self.notes = notes
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
@@ -225,65 +233,114 @@ def _build_loader_step_many(device="cpu"):
     return trainer.make_loader_step(loader, steps_per_dispatch=2), ()
 
 
+#: what the allowances count (``analysis.jaxpr_audit``, VJ005): the
+#: CPU run goes through the kernels' plain versions, which lift bf16
+#: K/V, queries and scores to f32 copies where the kernels read bf16 in
+#: place and accumulate in f32 registers; those copies are named below
+#: beside the policy's own f32 islands (layer-norm statistics, the f32
+#: master gradients)
+_PLAIN_ATTN = "the plain attention's f32 copies"
+
+
 def canonical_computations() -> List[Computation]:
-    """The registry, in a fixed order."""
+    """The registry, in a fixed order. ``allowed_f32_upcasts`` values
+    are measured on the canonical configs (CPU, plain versions) and
+    each one is named; the audit fails on the first graph that exceeds
+    its allowance."""
     engine = "serve/engine.py:"
     return [
         Computation(
             "engine_forward", _build_engine_forward,
             engine + "InferenceEngine._graph_for", ("forward/",), True,
+            allowed_f32_upcasts=0,
             notes="one captured graph per bucket; eager engines record "
-                  "the bucket in _device_apply"),
+                  "the bucket in _device_apply; f32 throughout (no wide "
+                  "upcast)"),
         Computation(
             "generative_prefill", _build_generative_prefill,
             engine + "GenerativeEngine._device_prefill", (), False,
             ("cache", "lengths", "last_tokens"),
+            allowed_f32_upcasts=13,
             notes="eager in the port (queued: ROADMAP.md lever 1b); no "
-                  "plan entry: warm() runs every bucket before traffic"),
+                  "plan entry: warm() runs every bucket before traffic. "
+                  "13 wide upcasts: layer-norm inputs [bb, tb, E] (2 a "
+                  "block + ln_f = 5), " + _PLAIN_ATTN + " of q/k/v (3 a "
+                  "layer = 6) and of the score tiles [bb, H, tb, tb] (1 a "
+                  "layer = 2)"),
         Computation(
             "generative_decode", _build_generative_decode,
             engine + "GenerativeEngine._device_decode", ("decode",), True,
-            ("cache", "lengths", "last_tokens")),
+            ("cache", "lengths", "last_tokens"),
+            allowed_f32_upcasts=4,
+            notes="4 wide upcasts, all " + _PLAIN_ATTN + " of each "
+                  "layer's K and V slab [slots, S, H, Dh] (K4 reads them "
+                  "in place); single-token tensors sit below the wide "
+                  "threshold"),
         Computation(
             "paged_prefill", _build_paged_prefill,
             engine + "PagedGenerativeEngine._device_prefill", (), False,
-            ("cache", "draft_cache", "state"),
-            notes="eager, as generative_prefill"),
+            ("cache", "state"),
+            allowed_f32_upcasts=13,
+            notes="eager, as generative_prefill, with its 13 upcasts; the "
+                  "canonical engine has no draft, so the draft slab is "
+                  "not written"),
         Computation(
             "paged_decode", _build_paged_decode,
             engine + "PagedGenerativeEngine._run_round",
             ("decode", "decode/sampled"), True,
-            ("cache", "lengths", "tokens", "counters")),
+            ("cache", "lengths", "tokens", "counters"),
+            allowed_f32_upcasts=4,
+            notes="4 wide upcasts, all " + _PLAIN_ATTN + " of each "
+                  "layer's gathered K and V pages (K5 reads the pages in "
+                  "place)"),
         Computation(
             "paged_verify", _build_paged_speculative,
             engine + "PagedGenerativeEngine._run_round",
             ("propose+verify", "propose+verify/sampled"), True,
             ("cache", "draft_cache", "lengths", "tokens", "counters"),
-            notes="one captured body with paged_propose"),
+            allowed_f32_upcasts=16,
+            notes="one captured body with paged_propose (the same 16): "
+                  + _PLAIN_ATTN + " of the draft slab's K and V at each of "
+                  "its 5 steps (10), of the target's gathered pages (4) "
+                  "and of the verify chunk's scores [slots, H, K+1, S] "
+                  "(2)"),
         Computation(
             "paged_propose", _build_paged_speculative,
             engine + "PagedGenerativeEngine._run_round",
             ("propose+verify", "propose+verify/sampled"), True,
             ("draft_cache",),
-            notes="one captured body with paged_verify"),
+            allowed_f32_upcasts=16,
+            notes="one captured body with paged_verify (its 16 upcasts)"),
         Computation(
             "paged_copy", _build_paged_copy,
             engine + "PagedGenerativeEngine._device_copy", (), False,
-            ("cache",), notes="eager: an indexed copy a COW round"),
+            ("cache",), allowed_f32_upcasts=0,
+            notes="eager: an indexed copy a COW round; no converts"),
         Computation(
             "lm_step_many", _build_lm_step_many,
             "models/transformer.py:TransformerTrainer._run_step",
             ("lm_step_many/",), True,
-            ("params", "opt_m", "opt_v", "step")),
+            ("params", "opt_m", "opt_v", "step"),
+            allowed_f32_upcasts=112,
+            notes="2 steps of 56: the bf16 param-cast cotangents "
+                  "re-entering the f32 master gradients (qkv, proj, "
+                  "mlp_in, mlp_out, embed: 10), layer-norm inputs "
+                  "[B, T, E] forward, recompute and backward (16), "
+                  + _PLAIN_ATTN + " of q/k/v/o/dO in the blocked forward "
+                  "and backward (22) and of the score tiles (8)"),
         Computation(
             "mlp_step_many", _build_mlp_step_many,
             "parallel/fused.py:FusedClassifierTrainer.step_many",
             ("mlp_step_many/",), False, ("params", "velocity"),
-            notes="eager: K8's key rides by value (lever 1a)"),
+            allowed_f32_upcasts=0,
+            notes="eager: K8's key rides by value (lever 1a); f32 "
+                  "throughout"),
         Computation(
             "loader_step_many", _build_loader_step_many,
             "parallel/fused.py:FusedClassifierTrainer.make_loader_step",
-            ("loader_step_many/",), False, ("params", "velocity")),
+            ("loader_step_many/",), False, ("params", "velocity"),
+            allowed_f32_upcasts=0,
+            notes="as mlp_step_many; the gather adds no f32 island"),
     ]
 
 

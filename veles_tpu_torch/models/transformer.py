@@ -1047,9 +1047,12 @@ class TransformerTrainer:
         return torch.from_numpy(np.asarray(tokens, np.int64)).to(
             self.device)
 
-    def _train_step(self, tokens: torch.Tensor):
+    def _train_step(self, tokens: torch.Tensor):  # veles-jit: static
         """One step on the device, the captured body: advances the
-        device step count, returns (loss, nonfinite flag)."""
+        device step count, returns (loss, nonfinite flag). The params
+        and Adam state it reads are bound once (``load_state`` binds
+        them only while they are None, before any capture, and copies
+        in place after)."""
         self._step.add_(1)
         corrections = _bias_corrections(self._step)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]

@@ -472,10 +472,39 @@ def hbm_runtime_stats() -> Dict[str, int]:
     }
 
 
+_MEMPLAN_CACHE: Optional[Dict[str, Any]] = None
+
+
+def _memplan_doc() -> Dict[str, Any]:
+    """This torch release's committed golden footprints (the static
+    per-computation plans of ``analysis/memplan.py``), cached after the
+    first read; empty when the file or the release's set is missing."""
+    global _MEMPLAN_CACHE
+    if _MEMPLAN_CACHE is None:
+        try:
+            from veles_tpu_torch.analysis.memplan import (
+                default_baseline_path, load_footprint_baseline)
+            _MEMPLAN_CACHE = load_footprint_baseline(
+                default_baseline_path())[0]
+        except (OSError, ValueError):
+            _MEMPLAN_CACHE = {}
+    return _MEMPLAN_CACHE
+
+
 def hbm_samples() -> List[Sample]:
-    """The device-memory reading -> ``veles_hbm_*`` gauges."""
-    return [Sample("veles_hbm_%s" % key, "gauge", value)
-            for key, value in sorted(hbm_runtime_stats().items())]
+    """The device-memory reading next to the static memory plan ->
+    ``veles_hbm_*`` gauges: the allocator's bytes, and per registry
+    computation ``veles_hbm_plan_{peak,resident,donated}_mb``, so a
+    drift between plan and reality is one exposition."""
+    out = [Sample("veles_hbm_%s" % key, "gauge", value)
+           for key, value in sorted(hbm_runtime_stats().items())]
+    for name, plan in sorted(_memplan_doc().items()):
+        label: Labels = (("computation", name),)
+        for field in ("peak_mb", "resident_mb", "donated_mb"):
+            if field in plan:
+                out.append(Sample("veles_hbm_plan_%s" % field, "gauge",
+                                  plan[field], label))
+    return out
 
 
 def kernel_samples() -> List[Sample]:

@@ -49,8 +49,14 @@ LIBRARY_OF = {"flash_fwd": "flash_fwd", "flash_bwd_dkv": "flash_bwd",
               "flash_decode_paged": "flash_decode", "lrn_fwd": "lrn",
               "lrn_bwd": "lrn", "uniform_fill": "rng"}
 
+#: guards ``_libs``, ``_name_locks``, ``BUILDS`` and ``_COUNTED``; held
+#: only for dictionary work, never across a build
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
+#: one lock a kernel name, held across that kernel's build and load: a
+#: second caller of the same kernel waits for the library it needs,
+#: while callers of other kernels (built or not) go on
+_name_locks: Dict[str, threading.Lock] = {}  # guarded-by: _lock
 #: where libraries are looked up and built (None: ``BUILD_DIR``)
 _LIB_DIR: Dict[str, Optional[str]] = {"dir": None}
 _TOOLCHAIN: Dict[str, str] = {}
@@ -151,9 +157,19 @@ def _paths(name: str):
 
 def _notify(kind: str, n: int) -> None:
     if n:
-        BUILDS[kind] += n
+        with _lock:
+            BUILDS[kind] += n
         for fn in list(_LISTENERS):
             fn(kind, n)
+
+
+def _count_once(lib: str) -> bool:
+    """Whether ``lib`` is counted now (each library once a process)."""
+    with _lock:
+        if lib in _COUNTED:
+            return False
+        _COUNTED.add(lib)
+        return True
 
 
 def _commit(tmp: str, lib: str) -> None:
@@ -183,8 +199,7 @@ def build(names: Optional[List[str]] = None) -> Dict[str, str]:
         lib, log = _paths(name)
         out[name] = lib
         if os.path.exists(lib):
-            if lib not in _COUNTED:
-                _COUNTED.add(lib)
+            if _count_once(lib):
                 cached += 1
             continue
         tmp = "%s.%d.%d.tmp" % (lib, os.getpid(), threading.get_ident())
@@ -202,11 +217,12 @@ def build(names: Optional[List[str]] = None) -> Dict[str, str]:
                           % (name, proc.returncode, text))
             continue
         _commit(tmp, lib)
-        _COUNTED.add(lib)
+        _count_once(lib)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     if procs:
-        BUILDS["fresh_s"] += time.monotonic() - t0
+        with _lock:
+            BUILDS["fresh_s"] += time.monotonic() - t0
     _notify("fresh", len(procs))
     _notify("cached", cached)
     return out
@@ -219,14 +235,24 @@ def build_log(name: str) -> str:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
+    """The loaded library of kernel ``name``, built on first use. The
+    build runs under that kernel's own lock, outside the registry's: a
+    kernel already loaded, or one of another name, never waits out this
+    kernel's ``nvcc``."""
     with _lock:
         lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
+        with _lock:
+            lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(build([name])[name])
             lib.veles_error_string.argtypes = [ctypes.c_int]
             lib.veles_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            with _lock:
+                _libs[name] = lib
         return lib
 
 

@@ -512,6 +512,21 @@ def decode_chunks(capacity: int) -> int:
     return -(-capacity // DECODE_CHUNK)
 
 
+def kernel_workspace(name: str, b: int, h: int, d: int,
+                     capacity: int = 0, t: int = 0) -> int:
+    """Device bytes kernel ``name`` allocates that its plain version
+    does not (the memory plan adds them where the plain version stands
+    in): K4/K5's f32 split partials ``part`` ``[B, H, chunks, D + 2]``
+    (``capacity`` = S, or n_blk x page size), K2/K3's ``di = rowsum(dO
+    * O)`` ``[B, H, T]`` f32. K1 adds nothing: its ``o``, ``l`` and
+    ``m`` are the plain version's outputs too."""
+    if name in ("flash_decode", "flash_decode_paged"):
+        return b * h * decode_chunks(capacity) * (d + 2) * 4
+    if name == "flash_bwd":
+        return b * h * t * 4
+    return 0
+
+
 def _decode_operand(x: torch.Tensor) -> torch.Tensor:
     """A cache operand of the decode kernels, which read it 16 bytes at
     a time: ``x`` itself where its base and its strides are multiples of
@@ -632,6 +647,9 @@ def _core_bwd(q, k, v, o, l, m, do, causal, block_k, kv_len, impl):
     # the backward of ``out.sum()``; the kernels read rows in place
     do = do.to(q.dtype).contiguous()
     if impl == "plain":
+        launches.note_workspace("flash_bwd", kernel_workspace(
+            "flash_bwd", q.shape[0], q.shape[2], q.shape[3],
+            t=q.shape[1]))
         return _plain_bwd(q, k, v, o, l, m, do, causal, block_k, kv_len)
     # di = rowsum(dO * O), outside the kernels as in the reference
     di = torch.einsum("bqhd,bqhd->bhq", do.float(),
@@ -744,6 +762,8 @@ def flash_decode(q, k_cache, v_cache, lengths,
     if impl == "cuda":
         return flash_decode_cuda(q, k_cache, v_cache, lengths)
     s = k_cache.shape[1]
+    launches.note_workspace("flash_decode", kernel_workspace(
+        "flash_decode", q.shape[0], q.shape[1], q.shape[2], capacity=s))
     bk = min(block_k or DEFAULT_DECODE_BLOCK, _round_up(s, 8))
     s_pad = _round_up(s, bk)
     if s_pad != s:
@@ -792,6 +812,9 @@ def flash_decode_paged(q, k_pages, v_pages, block_tables, lengths,
             q, k_pages, v_pages,
             torch.as_tensor(block_tables, dtype=torch.int32,
                             device=q.device), lengths)
+    launches.note_workspace("flash_decode_paged", kernel_workspace(
+        "flash_decode_paged", q.shape[0], q.shape[1], q.shape[2],
+        capacity=n_blk * ps))
     return _plain_paged_attend(q[:, None], k_pages, v_pages,
                                torch.as_tensor(block_tables,
                                                device=q.device),

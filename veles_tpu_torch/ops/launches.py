@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import torch
 
@@ -29,6 +29,10 @@ _LOCK = threading.Lock()
 _TALLIES: Dict[int, Tally] = {}
 #: the observers of eager calls under way, by stream
 _OBSERVERS: Dict[int, List[Dict[str, int]]] = {}
+#: called as ``fn(name, nbytes)`` where a wrapper runs its kernel's
+#: plain version: the device bytes the kernel would allocate that the
+#: plain version does not (the memory plan adds them)
+_WORKSPACE: List[Callable[[str, int], None]] = []
 
 
 def _stream_key() -> int:
@@ -99,3 +103,21 @@ def observing(device) -> Iterator[Dict[str, int]]:
             _OBSERVERS[key].remove(seen)
             if not _OBSERVERS[key]:
                 del _OBSERVERS[key]
+
+
+def note_workspace(name: str, nbytes: int) -> None:
+    """A wrapper took its plain version in place of kernel ``name``,
+    whose launch would allocate ``nbytes`` more (``analysis.memplan``
+    listens while it plans)."""
+    for fn in list(_WORKSPACE):
+        fn(name, int(nbytes))
+
+
+@contextlib.contextmanager
+def workspace_listener(fn: Callable[[str, int], None]) -> Iterator[None]:
+    """``fn`` hears every :func:`note_workspace` during the block."""
+    _WORKSPACE.append(fn)
+    try:
+        yield
+    finally:
+        _WORKSPACE.remove(fn)

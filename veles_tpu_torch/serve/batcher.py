@@ -1114,12 +1114,17 @@ class TokenBatcher:
             raise ValueError("submit needs a non-empty prompt")
         if max_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
+        # advisory capability read (supports_sampling/has_draft are
+        # ctor-fixed booleans, never mutated): a stale read across a
+        # hot-swap only mis-times the 400 — dispatch re-reads the
+        # CURRENT engine's capability before passing sampling along
         sampling = _validate_sampling(
-            self.engine, temperature=temperature, top_k=top_k,
-            top_p=top_p, seed=seed, draft=draft)
-        # advisory pre-check against the CURRENT engine; _admit
-        # re-validates on the dispatch thread before prefill
-        limit = getattr(self.engine, "max_len", None)
+            self.engine, temperature=temperature,  # noqa: VC003
+            top_k=top_k, top_p=top_p, seed=seed, draft=draft)
+        # advisory pre-check against the CURRENT engine: a stale
+        # read only mis-times the error; _admit re-validates on the
+        # dispatch thread before prefill
+        limit = getattr(self.engine, "max_len", None)  # noqa: VC003
         if limit is not None and len(prompt) + max_tokens > limit:
             raise ValueError(
                 "prompt (%d) + max_tokens (%d) exceeds the engine's "
@@ -1527,7 +1532,9 @@ class TokenBatcher:
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             with self._cond:
-                if not self._pending and not self._by_slot:
+                # emptiness poll of dispatch-owned slot state: an
+                # atomic bool(dict) peek; the loop re-checks
+                if not self._pending and not self._by_slot:  # noqa: VC003
                     return True
             time.sleep(0.005)
         return False

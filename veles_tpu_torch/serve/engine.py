@@ -500,7 +500,10 @@ class InferenceEngine(_Sharded):
         return {"params": tree_signature(self.params),
                 "input_dtype": self.input_dtype.name}
 
-    def _graph_for(self, shape: Tuple[int, ...]) -> StepGraph:
+    def _graph_for(  # veles-jit: bucketed
+            self, shape: Tuple[int, ...]) -> StepGraph:
+        """The captured forward of one bucket (``apply`` pads every
+        batch to its ``bucket_for`` size before it gets here)."""
         graph = self._cache.get(shape)
         if graph is None:
             if self._pool is None:
@@ -534,7 +537,8 @@ class InferenceEngine(_Sharded):
             batch = pad
         return self._dev("_device_apply", batch)[:n]
 
-    def _device_apply(self, batch: np.ndarray) -> np.ndarray:
+    def _device_apply(  # veles-jit: bucketed
+            self, batch: np.ndarray) -> np.ndarray:
         """The forward of one padded bucket (every rank on a mesh)."""
         x = torch.from_numpy(batch)
         with self._swap_lock, torch.inference_mode():
@@ -964,8 +968,9 @@ class GenerativeEngine(_Sharded):
                 torch.from_numpy(lengths).to(self.device),
                 slots).cpu().numpy()
 
-    def _device_decode(self, active: Optional[np.ndarray],
-                       inject: Optional[np.ndarray]) -> np.ndarray:
+    def _device_decode(  # veles-jit: bucketed
+            self, active: Optional[np.ndarray],
+            inject: Optional[np.ndarray]) -> np.ndarray:
         """One decode step after rewriting the static inputs whose host
         copies changed (None: unchanged); the ``[2, slots]`` block."""
         with self._lock, torch.inference_mode():
@@ -1564,7 +1569,7 @@ class PagedGenerativeEngine(_Sharded):
         table, attend through it (K5 on the card), draw, advance the
         per-slot state in place."""
         state = self._state
-        logits, self._cache, new_len = paged_decode_step(
+        logits, _, new_len = paged_decode_step(
             self._weights, state["tokens"], self._cache, state["lengths"],
             tables, self.config, active=active, par=self._serve)
         logits = logits.masked_fill(inject[:, None], float("nan"))
@@ -1589,7 +1594,7 @@ class PagedGenerativeEngine(_Sharded):
         lengths, tok = state["lengths"], state["tokens"]
         props = []
         for _ in range(self.draft_tokens + 1):
-            logits, self._draft_cache, lengths = decode_step(
+            logits, _, lengths = decode_step(
                 self._draft_weights, tok, self._draft_cache, lengths,
                 self.draft_config, active=active, par=self._serve)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -1608,7 +1613,7 @@ class PagedGenerativeEngine(_Sharded):
         state = self._state
         k = self.draft_tokens
         chunk = torch.cat([state["tokens"][:, None], proposals], dim=1)
-        logits, self._cache = verify_step(
+        logits, _ = verify_step(
             self._weights, chunk, self._cache, state["lengths"], tables,
             self.config, active=active, par=self._serve)
         logits = logits.masked_fill(inject[:, None, None], float("nan"))
@@ -1937,7 +1942,8 @@ class PagedGenerativeEngine(_Sharded):
         return [self._active_dev, self._tables_dev, self._inject_dev] + \
             [state[k] for k in sorted(state)]
 
-    def _run_round(self, sampling: bool) -> torch.Tensor:
+    def _run_round(  # veles-jit: bucketed
+            self, sampling: bool) -> torch.Tensor:
         """The round: the replay of its captured body (captured at the
         body's first round), or the eager body."""
         if not self._graphs_on:
@@ -2183,6 +2189,26 @@ class PagedGenerativeEngine(_Sharded):
         return stats
 
     # -- hot swap ----------------------------------------------------------
+    def plan_footprint(self) -> Dict[str, Any]:
+        """The device-memory plan of THIS engine's decode round at its
+        geometry (slots, pages, dtypes): ``{peak_mb, resident_mb,
+        donated_mb, peak_src, top_buffers, ...}`` from the memplan
+        live-range scan. The round runs on ``meta`` shadows of the
+        engine's tensors, the kernels' plain versions standing in with
+        their declared workspace, so no device memory is touched;
+        ``peak_mb`` is the value to hold back when sizing a pool
+        (``PagePool.from_device(reserve_bytes=...)``). On a mesh it is
+        this rank's plan over its shards, with ``tp`` and
+        ``kv_mb_per_shard`` beside it."""
+        from veles_tpu_torch.analysis.memplan import plan_round
+        plan = plan_round(self)
+        mesh_stats = _mesh_stats(self.mesh, self._cache)
+        if mesh_stats:
+            plan["tp"] = mesh_stats["tp"]
+            plan["kv_mb_per_shard"] = round(
+                mesh_stats["kv_bytes_per_shard"] / 1e6, 3)
+        return plan
+
     def swap_params(self, params: Any) -> None:
         """Replace the TARGET weights (same tree structure, shapes and
         dtypes; the draft is construction state and does not swap), in

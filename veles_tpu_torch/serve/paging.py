@@ -125,7 +125,10 @@ class PagePool:
         arithmetic: reads ``obs.metrics.hbm_runtime_stats()`` (the
         current CUDA device's total memory and the bytes PyTorch's
         allocator holds) and spends ``fraction`` of the headroom,
-        minus ``reserve_bytes`` held back for activations. Raises
+        minus ``reserve_bytes`` held back for activations: the memory
+        plan's peak is the principled value to pass there,
+        ``int(engine.plan_footprint()["peak_mb"] * 2**20)``
+        (``analysis/memplan.py``). Raises
         ``RuntimeError`` when no CUDA device reports a budget: sizing
         silently from nothing is the hand arithmetic this replaces."""
         if not 0.0 < fraction <= 1.0:
