@@ -164,8 +164,9 @@ without them, and on any failed phase. Phases, in order:
 16. the flagship's input pipeline at full width, as bench.py measures
    it: ``alexnet_fused()`` (phase 9's configuration, batch 1536, bf16)
    and ``FullBatchLoader``s of 2 x 1536 uint8 224 x 224 x 3 images on
-   ``Device()`` with ``range_linear`` (0..255 -> 0..1), four legs in 3
-   interleaved windows of 48 steps: resident (``step`` on one device
+   ``Device()`` with ``range_linear`` (0..255 -> 0..1), four legs in
+   ``PIPE_WINDOWS`` interleaved windows of ``PIPE_STEPS`` steps:
+   resident (``step`` on one device
    batch), pipeline (``make_loader_step``, one step a call), overlap
    fused (``make_loader_step(steps_per_dispatch=8)``) and overlap
    prefetch (``PrefetchingServer(depth=2)`` with a bf16 cast ->
@@ -214,12 +215,13 @@ without them, and on any failed phase. Phases, in order:
 19. the state half at full width: K6/K7 at AlexNet's two LRN shapes at
    minibatch 128 (bf16) and K8 at [128, 4096] against their plain
    versions (K1-K3 at the LM's training shape are phase 2's); then, the
-   counts from 0, (a) phase 5's LM (``FULL``, bf16, remat "attn", batch
-   8, lr 1e-4) trained by ``TransformerWorkflow`` over
+   counts from 0, (a) phase 5's LM (``FULL``'s widths, depth cut to
+   ``STATE_LM_LAYERS``, bf16, remat "attn", batch 8, lr 1e-4) trained
+   by ``TransformerWorkflow`` over
    ``SyntheticTextLoader`` (88 windows: 10 TRAIN and 1 VALID minibatch
    an epoch) with ``Snapshotter(sharded=True)``, 3 epochs (run A): ms
-   per TRAIN step beside phase 5's, exactly 24/12/12 K1/K2/K3 a TRAIN
-   step after the one that captures and 12 K1 a VALID minibatch, each
+   per TRAIN step beside phase 5's, exactly 2L/L/L K1/K2/K3 a TRAIN
+   step after the one that captures and L K1 a VALID minibatch, each
    save's non-finite guard and its time on the training thread beside
    the writer's time and bytes, peak memory; the epoch-2 manifest loaded
    in a process that sees no card (``CUDA_VISIBLE_DEVICES=""``); run A
@@ -232,7 +234,7 @@ without them, and on any failed phase. Phases, in order:
    the fused forward of the written-back params (the errors of
    ``train_fused``'s closing sweep; rows whose argmax differ must lie
    within bf16 rounding of a tie), a ``compression=None`` snapshot and
-   gzip's rate at the codec's level over 4 slices of it,
+   gzip's rate at the codec's level over ``GZIP_SAMPLES`` slices of it,
    ``InferenceEngine.from_snapshot`` against ``from_workflow`` bitwise
    (2 K6 a replay) and one ``POST /apply`` on the restored engine;
 20. the state half, card against CPU at f32: the LM workflow (the JAX
@@ -245,7 +247,7 @@ without them, and on any failed phase. Phases, in order:
 21. the mesh on one card (``veles_tpu_torch.parallel``): two ranks
    spawned on this card, joined over gloo with their collectives staged
    through host memory (NCCL refuses two ranks on one card), each leg
-   against one rank: (a) ``alexnet_fused()`` (batch 1536, bf16,
+   against one rank: (a) ``alexnet_fused()`` (batch ``MESH_BATCH``, bf16,
    bench.py's lr/momentum/decay) at ``data=2`` and at ``model=2`` (the
    reference's Megatron layout), 2 steps, params within
    ``TOL_CLASSIFIER["bfloat16"]`` of the one-rank steps' update, or twice
@@ -253,8 +255,8 @@ without them, and on any failed phase. Phases, in order:
    one-rank f32 steps against the bf16 ones), and at 64 x 64 f32 within
    1e-4 of each leaf's scale, the dropout masks bitwise the one-rank
    masks, exactly 2 each of
-   K6/K7/K8 a rank a step; (b) the LM (``FULL``, batch 8, bf16, remat
-   "attn") at ``seq=2``, 2 steps, losses within ``TOL_MESH_LM`` of the
+   K6/K7/K8 a rank a step; (b) the LM (``FULL``'s widths at
+   ``MESH_LM_LAYERS`` layers, batch 8, bf16, remat "attn") at ``seq=2``, 2 steps, losses within ``TOL_MESH_LM`` of the
    one-rank eager steps, exactly 2 L h K1 and L h each of K2/K3 a step
    on a rank whose ring has h hops to compute (1 and 2), and the f32
    2-layer ring's gradients through K1-K3 against the plain path;
@@ -286,17 +288,18 @@ without them, and on any failed phase. Phases, in order:
    world 1: the tp=1 engine's tokens and K/V slab bitwise the
    unsharded engine's, both keeping their CUDA graphs;
 23. the training farm (``veles_tpu_torch.distributed``) over phase 14's
-   ``AlexNetWorkflow`` (its widths, one epoch of 768 TRAIN and 256
-   VALID images): (a) a coordinator and one worker on a thread of this
+   ``AlexNetWorkflow`` (its widths, one epoch of ``FARM_DATA``'s
+   images): (a) a coordinator and one worker on a thread of this
    process, the weights, biases and validation error bitwise the
    standalone run's under deterministic cuDNN; (b) two worker processes
    of their own on the card under the ``none`` and the ``int8`` codecs:
    the minibatches applied are the standalone run's, each once, the
    jobs conserved, the wire bytes an update (``WireStats``) and TRAIN
-   images/s beside phase 14; (c) the same farm with a worker killed by
-   ``FaultPlan("kill:1@2")``: its job requeued, the minibatches
-   conserved; (d) phase 19a's ``TransformerWorkflow`` at 2 layers
-   (its corpus cut to ``FARM_LM_WINDOWS`` windows) through one worker,
+   images/s beside phase 14; (c) the ``int8`` farm, joined first, with
+   a worker killed by ``FaultPlan(FARM_KILL)``: its job requeued, the
+   minibatches conserved; (d) phase 19a's ``TransformerWorkflow`` at
+   ``FARM_LM_LAYERS`` layers (its corpus cut to ``FARM_LM_WINDOWS``
+   windows) through one worker,
    its params bitwise the standalone run's;
    exactly 2 K6 a job on every worker;
 24. the serving fleet (``serve/router.py``, ``serve/fleet.py``) and the
@@ -323,17 +326,12 @@ without them, and on any failed phase. Phases, in order:
    (every batch raises) rolled back with no failure off the canary,
    and a clean rollout to ``alexnet_fused(seed=1)`` without a failure,
    every replica then within ``TOL_APPLY`` of a lone seed-1 engine
-   with 2 K6 a dispatch; (d) ``python -m veles_tpu_torch
-   veles_tpu_torch/models/lm.py CONFIG --route 127.0.0.1:0 --replicas
-   2`` (CONFIG: ``FULL``, bf16) in a subprocess: two ``--serve``
-   processes on the card, each routable at a logged time after the
-   start, loading the kernels phase 1 built (none built again); the 8
-   prompts pinned to each replica in turn, the tokens of both equal to
-   each other and to an in-process ``GenerativeEngine.from_trainer``
-   of the workflow's seed; a replica's ``POST /admin/swap`` of a
-   package into its generative model refused (409); SIGINT: the router
-   and both replicas exit 0 and none is left. Each leg logs its largest
-   request time (and whether it sits near a sum of TCP SYN retries);
+   with 2 K6 a dispatch. (Until phase 27 came, (d) also ran ``python -m
+   veles_tpu_torch ... --route --replicas 2`` over the LM; phase 25 (c)
+   runs the same router and replica processes over packages, and 25 (d)
+   the LM's ``--serve``: cut for the script's time.) Each leg logs its
+   largest request time (and whether it sits near a sum of TCP SYN
+   retries);
 25. packages and the AOT plane (``veles_tpu_torch.aot``): (a)
    ``package_export`` of phase 14's ``AlexNetWorkflow`` (its widths,
    seeded weights; its loader's images, which no package holds, cut to
@@ -368,7 +366,8 @@ without them, and on any failed phase. Phases, in order:
    tokens with 12 K1 a prefill and 12 K5 a round;
 26. the static gates and the memory plan (``veles_tpu_torch.analysis``):
    (a) ``python -m veles_tpu_torch.analysis --json`` in a process of its
-   own, running on the CPU beside (b) and (c): every leg passes (ruff
+   own on one thread, started before phase 14 and running on the CPU
+   beside the phases after it: every leg passes (ruff
    ``skipped`` where it is not installed), its seconds; (b) each of the 11 registry entries planned from a CPU
    build (``analysis.memplan``: ``torch.cuda.memory_allocated()``
    unmoved) and built on the card (``build("cuda")``), one call measured
@@ -384,7 +383,43 @@ without them, and on any failed phase. Phases, in order:
    ``PLAN_PEAK_X`` of one measured round (the first: its capture), a
    pool sized by ``PagePool.from_device(reserve_bytes=<the plan's
    peak>)``, then phase 3's 8 prompts one at a time: phase 3's tokens,
-   12 K1 a prefill and 12 K5 a round.
+   12 K1 a prefill and 12 K5 a round;
+27. the services (``web_status``, ``plotting``, ``restful_api``,
+   ``forge``, ``native``, ``publishing``): (a) the ``Launcher`` trains
+   phase 14's ``AlexNetWorkflow(plotters=True)`` (its widths, seed
+   ``UG_SEED``, the data cut to ``SVC_DATA``) for ``SVC_EPOCHS``
+   epochs with ``graphics.dir`` (a spawned renderer) and
+   ``web.status_url`` (an in-process ``WebStatusServer``, a report
+   every 0.5 s) set: the validation-error and confusion specs arrive
+   (PNGs, or ``plots.jsonl`` without matplotlib), status documents
+   arrive with ``epoch``, ``best_error``, ``device`` and ``metrics``,
+   ``/metrics?format=prometheus`` renders, K6, K7 and K8 launch; the
+   TRAIN minibatches' wall time after the first epoch (p50, an epoch's
+   last, where the plotters run, and the total) against the same run
+   with both services off, run first (same seed, same minibatches),
+   and the services' direct costs: the plotter units' run time and one
+   document built by the launcher's reporter and posted; (b)
+   ``RESTfulAPI.for_workflow`` of the trained workflow (its engine on
+   the card) and a loader-graph ``RESTfulAPI`` (a ``RestfulLoader``
+   feeding the workflow's own forward units) each answer
+   ``SVC_REQUESTS`` raw-row ``POST /apply``: the engine's replies
+   within ``TOL_APPLY`` of a direct ``InferenceEngine`` call, the
+   graph's within ``TOL_CLASSIFIER`` (bf16 units against the fused
+   engine); p50 and p99 latency a mode and K6's launches; (c)
+   ``package_export`` of the trained workflow uploaded to a
+   ``ForgeServer`` with a write token and fetched back (beside it, the
+   rate of one xz stream at the reference's preset on
+   ``SVC_XZ_PROBE`` bytes of the package):
+   ``InferenceEngine.from_package`` of the fetched archive bitwise the
+   engine of (b); ``NativeWorkflow.run`` of it on the host at batch
+   ``SVC_NATIVE_ROWS`` against an f32 engine of it on the card (TF32
+   off) within the reference's conv-stack bound (rtol 1e-3, atol
+   1e-4); the native build's seconds and the run's ms; (d) a
+   ``FleetManager`` over two ``LocalReplica``s of phase 11's AlexNet
+   weights posts its fleet card through a ``StatusReporter``: ``GET /``
+   and ``/status.json`` show it; (e) ``render_report`` writes markdown,
+   json and html of the trained workflow; the json parses and the
+   report's facts hold no tensor.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -403,6 +438,7 @@ import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -475,7 +511,14 @@ APPLY_SHAPE = (224, 224, 3)
 TOL_APPLY = 2e-3
 
 
+#: the script's start: every phase header carries its offset, so a
+#: run's log says where its time went
+T_START = time.monotonic()
+
+
 def log(msg):
+    if msg.startswith("phase "):
+        msg = "[%.1f s] %s" % (time.monotonic() - T_START, msg)
     print(msg, flush=True)
 
 
@@ -643,6 +686,8 @@ def profile_device(torch, fn, steps, host_ops=True):
 #: loads, 16-byte global loads
 SASS_OPS = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b",
             "LDG.128": r"\bLDG\.\S*128\b"}
+#: a line holds one of SASS_OPS only if it holds one of these
+SASS_WORDS = ("HGMMA", "UTMALDG", "LDG.")
 
 
 def lrn_instance(name):
@@ -702,14 +747,14 @@ def sass_counts(lib_path):
     """Per kernel of a library: how many of its SASS instructions are
     each of SASS_OPS (``cuobjdump -sass``)."""
     counts, name = {}, None
+    patterns = {op: re.compile(p) for op, p in SASS_OPS.items()}
     for line in sass_text(lib_path).splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1)
+        if "Function : " in line:
+            name = re.search(r"Function : (\S+)", line).group(1)
             counts[name] = dict.fromkeys(SASS_OPS, 0)
-        elif name is not None:
-            for op, pattern in SASS_OPS.items():
-                if re.search(pattern, line):
+        elif name is not None and any(w in line for w in SASS_WORDS):
+            for op, pattern in patterns.items():
+                if pattern.search(line):
                     counts[name][op] += 1
     plain = demangle(counts)
     return {plain[n]: c for n, c in counts.items()}
@@ -748,8 +793,14 @@ def hopper_units(_build, fa):
     the dynamic shared memory; fails when an instance lacks one of its
     ops or spills, or a library lacks a kernel."""
     record = {}
+    libs = sorted({lib for lib, _, _ in HOPPER_KERNELS.values()})
+    paths = _build.build(libs)
+    # one cuobjdump a library, all at once
+    with ThreadPoolExecutor(len(libs)) as pool:
+        sass = dict(zip(libs, pool.map(lambda l: sass_counts(paths[l]),
+                                       libs)))
     for stem, (lib, entry, needs) in HOPPER_KERNELS.items():
-        counts = sass_counts(_build.build([lib])[lib])
+        counts = sass[lib]
         usage = ptxas_usage(_build.build_log(lib))
         groups = {}
         for name in sorted(counts):
@@ -2890,7 +2941,8 @@ def unit_graph_phase(torch, counters, dev, card):
 #: COTENANT_WINDOWS in window A (the first captures the step and is not
 #: timed) and COTENANT_PROFILED_WINDOWS in the profiled window B
 COTENANT_K = 4
-COTENANT_WINDOWS = 16
+#: (16 until phase 27 came: the script's time)
+COTENANT_WINDOWS = 4
 COTENANT_PROFILED_WINDOWS = 3
 #: /apply clients: each a thread that sends its own image row once every
 #: APPLY_PERIOD_S (or as soon as the previous answer came, when that was
@@ -3757,10 +3809,12 @@ def unit_graph_parity_phase(torch, dev, card):
 # phase 16: the flagship's input pipeline at full width
 # ---------------------------------------------------------------------------
 
-#: bench.py's legs: 3 interleaved windows of 48 steps, K = 8 steps a
-#: dispatch, a prefetch ring of depth 2; the parity runs take 8 steps
-PIPE_WINDOWS = 3
-PIPE_STEPS = 48
+#: bench.py's legs in interleaved windows, K = 8 steps a dispatch, a
+#: prefetch ring of depth 2; the parity runs take 8 steps. 2 windows of
+#: 16 steps here (bench.py's 3 of 48 until phase 27 came: the script's
+#: time)
+PIPE_WINDOWS = 2
+PIPE_STEPS = 16
 PIPE_K = 8
 PIPE_DEPTH = 2
 PIPE_PARITY_STEPS = 8
@@ -4696,19 +4750,24 @@ def zoo_parity_phase(torch, dev, card):
 # phase 19: the state half at full width
 # ---------------------------------------------------------------------------
 
-#: phase 19a: the LM of phase 5 (FULL, bf16, remat "attn", batch 8, lr
-#: 1e-4) trained by TransformerWorkflow over SyntheticTextLoader for 3
+#: phase 19a: the LM of phase 5 (FULL's widths at STATE_LM_LAYERS, bf16,
+#: remat "attn", batch 8, lr 1e-4) trained by TransformerWorkflow over SyntheticTextLoader for 3
 #: epochs; 88 windows of seq_len + 1 tokens a corpus: 8 VALID windows
 #: (valid_ratio 0.1, one minibatch) and 80 TRAIN (10 minibatches)
 STATE_EPOCHS = 3
 STATE_TOKENS = 88 * (FULL["seq_len"] + 1)
 STATE_SEED = 7
+#: the LM's depth here (FULL's 12 until phase 27 came: the script's time;
+#: a save's bytes and the card-less load shrink with it)
+STATE_LM_LAYERS = 4
 #: launches of one captured LM TRAIN step (K1 twice a layer: forward
 #: and the recompute of remat "attn"; K2, K3 once a layer), of one VALID
 #: minibatch (the forward), and of one train_fused step (phase 14's
 #: TRAIN minibatch)
-STATE_LM_STEP = {"flash_fwd": 24, "flash_bwd_dkv": 12, "flash_bwd_dq": 12}
-STATE_LM_VALID = {"flash_fwd": 12}
+STATE_LM_STEP = {"flash_fwd": 2 * STATE_LM_LAYERS,
+                 "flash_bwd_dkv": STATE_LM_LAYERS,
+                 "flash_bwd_dq": STATE_LM_LAYERS}
+STATE_LM_VALID = {"flash_fwd": STATE_LM_LAYERS}
 STATE_FUSED_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "uniform_fill": 2}
 #: the JAX package's own bound on a resumed run's params
 #: (tests/test_snapshot.py), held where they are not bitwise
@@ -4716,8 +4775,9 @@ RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6
 #: the gzip level of the Snapshotter's "gz" codec (gzip.open's
 #: default), and the slices of the snapshot it is timed over
 GZIP_LEVEL = 9
-#: (16 until phase 25 came: 4 x 16 MB at ~8 MB/s time the rate in ~8 s)
-GZIP_SAMPLES = 4
+#: (16 until phase 25 came, 4 until phase 27 came: 2 x 16 MB at ~7 MB/s
+#: time the rate in ~4.5 s)
+GZIP_SAMPLES = 2
 GZIP_SLICE = 16 << 20
 
 
@@ -4840,7 +4900,8 @@ def state_lm_phase(torch, counters, card, train):
     from veles_tpu_torch.models.transformer import TransformerConfig
     from veles_tpu_torch.snapshotter import Snapshotter
 
-    config = TransformerConfig(compute="bfloat16", remat="attn", **FULL)
+    config = TransformerConfig(compute="bfloat16", remat="attn",
+                               **dict(FULL, layers=STATE_LM_LAYERS))
     log("phase 19a: TransformerWorkflow at full width (%s), batch %d, lr "
         "%g, SyntheticTextLoader of %d tokens (10 TRAIN and 1 VALID "
         "minibatch an epoch), Snapshotter(sharded=True), %d epochs (run A)"
@@ -4892,7 +4953,7 @@ def state_lm_phase(torch, counters, card, train):
     log("  run A: set-up %.1f s, run %.1f s; %d TRAIN steps, ms per TRAIN "
         "step (host wall, its loss read included; the first, which "
         "captures, excluded) p50 %.3f (%s) against phase 5's captured step "
-        "%.3f ms; launches a TRAIN step %s, a VALID minibatch %s; losses "
+        "of 12 layers %.3f ms; launches a TRAIN step %s, a VALID minibatch %s; losses "
         "%.4f -> %.4f; VALID loss by epoch %s; peak memory %.2f GB [%s]"
         % (setup_s, run_a_s, len(losses), step_p50,
            ", ".join("%.1f" % v for v in train_ms),
@@ -5430,7 +5491,13 @@ TOL_MESH_LM = 2e-2
 #: runs each a rounding away from f32 lie about sqrt(2) of it apart.
 #: At f32 (64 x 64) each leaf is held to 1e-4 of its scale.
 #: (c): expert parallelism at FULL's widths, depth cut to fit the phase
-MESH_MOE_LAYERS = 4
+#: (4 until phase 27 came: the script's time)
+MESH_MOE_LAYERS = 2
+#: (a) and (e): the flagship's minibatch here, and (b): the LM's depth
+#: (CLASSIFIER_BATCH's 1536 and FULL's 12 until phase 27 came: the
+#: script's time; gloo stages every collective through the host)
+MESH_BATCH = 256
+MESH_LM_LAYERS = 2
 #: (d): the JAX package's only pipeline configuration (graft entry)
 MESH_PIPE = dict(n_features=8, hidden=16, n_classes=6, n_stages=2)
 TOL_MESH_PIPE = 1e-5
@@ -5439,9 +5506,10 @@ TOL_MESH_PIPE = 1e-5
 def _mesh_plan(dev):
     """What every leg runs, handed to the ranks (they import this
     module afresh, so nothing set on it in this process reaches them)."""
-    return dict(batch=CLASSIFIER_BATCH, image=224, classes=1000,
+    return dict(batch=MESH_BATCH, image=224, classes=1000,
                 hyper=CLASSIFIER_HYPER, parity_image=64, parity_classes=10,
-                parity_batch=8, full=FULL, lm_batch=TRAIN_BATCH,
+                parity_batch=8, full=dict(FULL, layers=MESH_LM_LAYERS),
+                lm_batch=TRAIN_BATCH,
                 lm_lr=TRAIN_LR, moe_layers=MESH_MOE_LAYERS,
                 steps=MESH_STEPS, pipe=MESH_PIPE, count=dev.type == "cuda",
                 out=os.path.join("chip_smoke_out", "mesh"))
@@ -5916,8 +5984,9 @@ def mesh_phase(torch, dev, card, plan=None):
 
 #: the tensor-parallel degree: two ranks share the card over gloo
 SHARD_TP = 2
-#: decode rounds timed on each sharded engine directly (phase 3's count)
-SHARD_ROUNDS = 32
+#: decode rounds timed on each sharded engine directly (phase 3's count,
+#: 32, until phase 27 came: the script's time)
+SHARD_ROUNDS = 16
 #: the share of the card's memory headroom each rank's page pool takes
 #: (``PagePool.from_device``): two ranks and this process share the card
 SHARD_POOL_FRACTION = 0.2
@@ -6360,21 +6429,25 @@ def sharded_serving_phase(torch, dev, card, serve, apply):
 # ---------------------------------------------------------------------------
 
 #: each farm's workflow: phase 14's AlexNetWorkflow (its widths, data
-#: cut to FARM_DATA: 1,024 TRAIN images until phase 25 came) for this
-#: many epochs (6 TRAIN and 2 VALID jobs one)
-FARM_DATA = dict(n_train=768, n_valid=256)
+#: cut to FARM_DATA: 1,024 TRAIN images until phase 25 came, 768 until
+#: phase 27 came, then 640 TRAIN and 256 VALID: the script's time) for
+#: this many epochs (4 TRAIN jobs and 2 VALID ones)
+FARM_DATA = dict(n_train=512, n_valid=128)
 FARM_EPOCHS = 1
 #: every coordinator's job timeout and every farm's deadline
 FARM_TIMEOUT_S = 600
 #: (b) and (c): worker processes of their own on the card
 FARM_WORKERS = 2
-#: (c): the plan that kills worker 1 after its second job
-FARM_KILL = "kill:1@2"
-#: (d): phase 19a's LM, depth cut to this, and its corpus to this many
-#: windows of seq_len + 1 tokens (88 until phase 25 came: the script's
-#: time)
-FARM_LM_LAYERS = 2
-FARM_LM_WINDOWS = 44
+#: (c): the plan that kills worker 1 after its first job (its second
+#: until FARM_DATA's last cut: with 6 jobs a farm, worker 1 could finish
+#: without a third). It runs on (b)'s int8 farm (a farm of its own until
+#: phase 27 came: the script's time), the one both workers join first.
+FARM_KILL = "kill:1@1"
+#: (d): phase 19a's LM, depth cut to this (2 until phase 27 came), and
+#: its corpus to this many windows of seq_len + 1 tokens (88 until phase
+#: 25 came, 44 until phase 27 came, then 24: the script's time)
+FARM_LM_LAYERS = 1
+FARM_LM_WINDOWS = 16
 #: the minibatch classes (loader.base): VALID, TRAIN
 FARM_VALID, FARM_TRAIN = 1, 2
 
@@ -6536,17 +6609,16 @@ def farm_worker_proc(index, farms, queue):
 
 
 def _farm_processes(torch, dev, card):
-    """(b) and (c): three coordinators in this process (encodings none
-    and int8, and none under a plan that kills worker 1), joined in turn
-    by FARM_WORKERS worker processes of their own on the card."""
+    """(b) and (c): two coordinators in this process (int8 under a plan
+    that kills worker 1, then none), joined in turn by FARM_WORKERS
+    worker processes of their own on the card."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.config import root
     from veles_tpu_torch.distributed import Coordinator
     device = Device()
     farms = {}
-    for label, encoding in (("none", "none"), ("int8", "int8"),
-                            ("fault", "none")):
+    for label, encoding in (("int8", "int8"), ("none", "none")):
         root.common.random.seed = UG_SEED
         prng.reset()
         master = _farm_role(_farm_alexnet(), "master", device)
@@ -6558,7 +6630,7 @@ def _farm_processes(torch, dev, card):
         farms[label] = dict(master=master, coordinator=coordinator,
                             applied=applied, encoding=encoding)
     joins = [dict(label=label, address=f["coordinator"].address,
-                  faults=FARM_KILL if label == "fault" else None)
+                  faults=FARM_KILL if label == "int8" else None)
              for label, f in farms.items()]
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
@@ -6612,8 +6684,8 @@ def farm_phase(torch, counters, dev, card, classifier_graph):
     from veles_tpu_torch.models.transformer import _tree_leaves
     log("phase 23: the training farm: phase 14's AlexNetWorkflow (%s, %d "
         "epoch a farm): (a) a coordinator and one in-process worker "
-        "against standalone; (b) %d worker processes on %s under none and "
-        "int8; (c) the same under FaultPlan(%r); (d) TransformerWorkflow "
+        "against standalone; (b) %d worker processes on %s under int8 and "
+        "none; (c) the int8 farm under FaultPlan(%r); (d) TransformerWorkflow "
         "(phase 19a's, %d layers) through one worker against standalone"
         % (FARM_DATA, FARM_EPOCHS, FARM_WORKERS, dev, FARM_KILL,
            FARM_LM_LAYERS))
@@ -6706,11 +6778,11 @@ def farm_phase(torch, counters, dev, card, classifier_graph):
                FARM_DATA["n_train"] * FARM_EPOCHS / wall, wall, ug_ips,
                card))
         f["per_update_bytes"] = per_update
-    if farms["fault"]["counts"]["requeued"] < 1 or \
-            [w["status"] for w in farms["fault"]["workers"]] != \
+    if farms["int8"]["counts"]["requeued"] < 1 or \
+            [w["status"] for w in farms["int8"]["workers"]] != \
             ["done", "died"]:
         raise AssertionError("(c) the plan killed no worker mid-run: %s"
-                             % farms["fault"])
+                             % farms["int8"])
     if farms["int8"]["per_update_bytes"] * 2 > \
             farms["none"]["per_update_bytes"]:
         raise AssertionError("(b) int8 updates are not smaller: %s vs %s"
@@ -7308,146 +7380,12 @@ def _cli_staggered(url, prompts, n_tok, session):
     return answers, ms, where
 
 
-def _fleet_cli(torch, dev, card, serve, out):
-    """Leg (d); see the module docstring."""
-    from veles_tpu_torch.models.transformer import (TransformerConfig,
-                                                    TransformerTrainer)
-    from veles_tpu_torch.ops import _build
-    from veles_tpu_torch.serve import GenerativeEngine
-    config = TransformerConfig(compute="bfloat16", **FULL)
-    prompts = serving_prompts(config.vocab)
-    n_tok = FLEET_TOKENS
-    work = os.path.abspath(os.path.join("chip_smoke_out", "fleet_cli"))
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    cfg = os.path.join(work, "lm_full.py")
-    with open(cfg, "w") as f:
-        f.write(FLEET_CLI_CONFIG % (FULL, FULL["seq_len"] + 1))
-    built = {p: os.path.getmtime(os.path.join(_build.BUILD_DIR, p))
-             for p in os.listdir(_build.BUILD_DIR)}
-    log_path = os.path.join(work, "route.log")
-    env = dict(os.environ, PYTHONPATH=HERE)
-    t0 = time.monotonic()
-    with open(log_path, "w") as logf:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "veles_tpu_torch",
-             "veles_tpu_torch/models/lm.py", cfg, "-v", "--route",
-             "127.0.0.1:0", "--replicas", "2"], cwd=HERE, env=env,
-            stdout=logf, stderr=subprocess.STDOUT, text=True)
-    try:
-        def text():
-            with open(log_path) as f:
-                return f.read()
-
-        def router_url():
-            m = re.search(r"fleet router on (http://\S+)", text())
-            return m.group(1) if m else None
-
-        _fleet_wait(lambda: router_url() or proc.poll() is not None,
-                    "(d) the router never bound")
-        url = router_url()
-        if url is None:
-            raise AssertionError("(d) the router exited: %s"
-                                 % text()[-3000:])
-        routable_s = {}
-
-        def states():
-            try:
-                with urllib.request.urlopen(url + "/healthz",
-                                            timeout=5) as resp:
-                    return json.loads(resp.read())["replica_states"]
-            except urllib.error.HTTPError as e:
-                return json.loads(e.read())["replica_states"]
-            except OSError:
-                return {}
-
-        def all_routable():
-            for name, st in states().items():
-                if st["routable"] and name not in routable_s:
-                    routable_s[name] = time.monotonic() - t0
-            return len(routable_s) == 2 or proc.poll() is not None
-
-        _fleet_wait(all_routable, "(d) the replicas never routable",
-                    step=0.25)
-        if len(routable_s) != 2:
-            raise AssertionError("(d) %s" % text()[-3000:])
-        log("  (d) `python -m veles_tpu_torch ... --route 127.0.0.1:0 "
-            "--replicas 2`: start to routable %s s" % {
-                k: round(v, 1) for k, v in sorted(routable_s.items())})
-        # the in-process reference: a trainer of the workflow's seed
-        trainer = TransformerTrainer(config, device=dev, seed=0)
-        engine = GenerativeEngine.from_trainer(trainer, max_slots=8,
-                                               device=dev)
-        del trainer
-        ref = [engine.generate([np.asarray(p, np.int32)], n_tok)[0]
-               .tolist() for p in prompts]
-        del engine
-        gc.collect()
-        torch.cuda.empty_cache()
-        tokens, cli_ms = {}, []
-        for name in ("r0", "r1"):
-            session = _pin(url, "cli-" + name, name, True,
-                           {"prompt": prompts[0][:16], "max_tokens": 1})
-            answers, ms, where = _cli_staggered(url, prompts, n_tok,
-                                                session)
-            if where != {name}:
-                raise AssertionError("(d) pinned to %s, served by %s"
-                                     % (name, where))
-            tokens[name] = answers
-            cli_ms += ms
-        if not tokens["r0"] == tokens["r1"] == ref == serve["staggered"]:
-            raise AssertionError("(d) tokens r0 %s, r1 %s, in-process %s, "
-                                 "phase 3 %s"
-                                 % (tokens["r0"][:2], tokens["r1"][:2],
-                                    ref[:2], serve["staggered"][:2]))
-        # a replica's swap channel is open; a package (a forward
-        # engine) into the generative model is refused, the tokens stay
-        # (phase 25 (c) rolls packages through /admin/swap)
-        replica_url = "http://%s" % states()["r0"]["address"]
-        code, doc, _, swap_ms = _fleet_post(replica_url + "/admin/swap",
-                                            {"package": "/none.zip"})
-        if code != 409 or "serves /generate" not in doc.get("error", ""):
-            raise AssertionError("(d) /admin/swap answered %d %s"
-                                 % (code, doc))
-        proc.send_signal(signal.SIGINT)
-        rc = proc.wait(120)
-        exits = re.findall(r"replica (r\d) \(pid (\d+)\) exited with "
-                           r"(-?\d+)", text())
-        if rc != 0 or sorted((n, c) for n, _, c in exits) != \
-                [("r0", "0"), ("r1", "0")]:
-            raise AssertionError("(d) router rc %s, replicas %s: %s"
-                                 % (rc, exits, text()[-3000:]))
-        for _, pid, _ in exits:
-            try:
-                os.kill(int(pid), 0)
-            except ProcessLookupError:
-                continue
-            raise AssertionError("(d) replica pid %s still alive" % pid)
-        rebuilt = {p: os.path.getmtime(os.path.join(_build.BUILD_DIR, p))
-                   for p in os.listdir(_build.BUILD_DIR)}
-        if rebuilt != built:
-            raise AssertionError("(d) the replicas built kernels again")
-        log("  (d) phase 3's 8 prompts on r0 and on r1: tokens equal each "
-            "other, an in-process from_trainer engine and phase 3's; "
-            "/admin/swap of a package into the LM refused (409) in %.1f "
-            "ms; SIGINT: router "
-            "and replicas exited 0, none left; no kernel built again [%s]"
-            % (swap_ms, card))
-        out["d"] = dict(routable_s=routable_s,
-                        request_ms=pcts(cli_ms), exits=exits,
-                        syn=_syn_flags("(d)", cli_ms))
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-
-
 def fleet_phase(torch, counters, dev, card, serve):
     """Phase 24; see the module docstring."""
     log("phase 24: the fleet: RouterServer over three LocalReplicas of "
-        "phase 3's LM (two slab, one paged), a chaos kill, an /apply "
-        "rollout over three AlexNet replicas, and `python -m "
-        "veles_tpu_torch --route --replicas 2`")
+        "phase 3's LM (two slab, one paged), a chaos kill, and an /apply "
+        "rollout over three AlexNet replicas (the command line's router "
+        "and replica processes: phase 25 (c))")
     t_phase = time.monotonic()
     gc.collect()
     torch.cuda.empty_cache()
@@ -7458,9 +7396,6 @@ def fleet_phase(torch, counters, dev, card, serve):
     gc.collect()
     torch.cuda.empty_cache()
     apply_launches = _fleet_apply(torch, counters, dev, card, out)
-    gc.collect()
-    torch.cuda.empty_cache()
-    _fleet_cli(torch, dev, card, serve, out)
     launches = {k: gen.get(k, 0) + apply_launches.get(k, 0)
                 for k in set(gen) | set(apply_launches)}
     out["phase_s"] = time.monotonic() - t_phase
@@ -8042,12 +7977,20 @@ def _within(plan, measured, x):
 
 def _start_gate():
     """Leg (a)'s process: ``python -m veles_tpu_torch.analysis --json``
-    (its legs run on the CPU, beside legs (b) and (c) on the card)."""
+    (its legs run on the CPU, on one thread, beside phases 14-20 and
+    legs (b) and (c) on the card)."""
     path = os.path.abspath(os.path.join("chip_smoke_out", "gate.json"))
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "veles_tpu_torch.analysis", "--json", path],
-        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    # one thread: it runs beside phases 14-20, whose host threads it
+    # must not crowd (OpenMP's spinning threads would, on 8 cores)
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    # its output goes to a file: a pipe read only in phase 26 could fill
+    # and stall it
+    with open(path + ".log", "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "veles_tpu_torch.analysis", "--json",
+             path], cwd=HERE, stdout=log_file, stderr=subprocess.STDOUT,
+            env=env)
     return proc, path, time.monotonic()
 
 
@@ -8056,15 +7999,17 @@ def _static_gate(torch, card, gate, out):
     ``skipped``)."""
     proc, path, t0 = gate
     try:
-        stdout, stderr = proc.communicate(timeout=STATIC_GATE_TIMEOUT_S)
+        proc.wait(timeout=STATIC_GATE_TIMEOUT_S)
     finally:
         if proc.poll() is None:
             proc.kill()
-            proc.communicate()
+            proc.wait()
     gate_s = time.monotonic() - t0
     if proc.returncode != 0:
-        raise AssertionError("(a) the gate failed (rc %d):\n%s\n%s" % (
-            proc.returncode, stdout[-4000:], stderr[-2000:]))
+        with open(path + ".log") as fin:
+            text = fin.read()
+        raise AssertionError("(a) the gate failed (rc %d):\n%s" % (
+            proc.returncode, text[-6000:]))
     with open(path) as fin:
         doc = json.load(fin)
     legs = {name: leg["status"] for name, leg in doc["tools"].items()}
@@ -8073,7 +8018,8 @@ def _static_gate(torch, card, gate, out):
         if legs.get(name) not in ok:
             raise AssertionError("(a) leg %s: %s" % (name, legs.get(name)))
     log("  (a) python -m veles_tpu_torch.analysis --json: %s, %.1f s from "
-        "its start (beside (b) and (c); torch %s) [%s]"
+        "its start (one thread, started before phase 14, on the CPU "
+        "beside phases 14-25 and (b), (c); torch %s) [%s]"
         % (legs, gate_s, torch.__version__, card))
     out["a_gate"] = dict(legs=legs, seconds=gate_s)
 
@@ -8223,8 +8169,9 @@ def _static_full_width(torch, counters, dev, card, reference, out):
         tokens_equal=True)
 
 
-def static_phase(torch, counters, dev, card, reference):
-    """Phase 26; see the module docstring."""
+def static_phase(torch, counters, dev, card, reference, gate):
+    """Phase 26; see the module docstring. ``gate`` is leg (a)'s process
+    (:func:`_start_gate`), started before phase 14."""
     log("phase 26: the static gates and the memory plan: the one gate, "
         "every registry entry planned and measured on the card, the paged "
         "engine's plan at full width")
@@ -8232,7 +8179,6 @@ def static_phase(torch, counters, dev, card, reference):
     gc.collect()
     torch.cuda.empty_cache()
     out = {}
-    gate = _start_gate()
     try:
         counters.reset()
         _static_registry(torch, counters, card, out)
@@ -8240,7 +8186,7 @@ def static_phase(torch, counters, dev, card, reference):
         launches = counters.read()
     except BaseException:
         gate[0].kill()
-        gate[0].communicate()
+        gate[0].wait()
         raise
     _static_gate(torch, card, gate, out)
     gc.collect()
@@ -8248,6 +8194,488 @@ def static_phase(torch, counters, dev, card, reference):
     out["phase_s"] = time.monotonic() - t_phase
     log("  phase 26 took %.1f s; launches on its path %s" % (
         out["phase_s"], _nonzero(launches)))
+    return out, launches
+
+
+# -- phase 27: the services -------------------------------------------------
+
+#: phase 14's AlexNetWorkflow cut to these many images (no width
+#: changes): 3 TRAIN and 1 VALID minibatch of 128 an epoch (6 TRAIN in
+#: the phase's first runs: the script's time)
+SVC_DATA = dict(n_train=384, n_valid=128)
+#: (6 in the phase's first runs: the script's time)
+SVC_EPOCHS = 3
+#: the status reporter's period, s
+SVC_STATUS_INTERVAL = 0.5
+#: requests to each REST mode, their rows cycling through these sizes
+SVC_REQUESTS = 16
+SVC_ROWS = (1, 2, 3, 4)
+SVC_NATIVE_ROWS = 2
+#: the reference's bound for a conv stack, tests/test_native.py
+SVC_NATIVE_TOL = dict(rtol=1e-3, atol=1e-4)
+SVC_FORGE_TOKEN = "phase-27-admin"
+#: bytes of the package that one xz stream at the reference's preset (6)
+#: compresses, for its rate against the forge's sliced pack
+SVC_XZ_PROBE = 4 << 20
+
+
+def _svc_train(torch, work, status, services):
+    """(a): the Launcher trains phase 14's AlexNetWorkflow, with both
+    services on or both off; returns the workflow, the launcher's status
+    reporter's document source (None with the services off) and, by
+    epoch after the first (its captures and cuDNN's plans), the wall ms
+    of each TRAIN minibatch (loader start to loader start; the plotters
+    run in an epoch's last)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.models.alexnet import AlexNetWorkflow
+    root.common.random.seed = UG_SEED
+    prng.reset()
+    root.common.graphics.dir = os.path.join(work, "plots") \
+        if services else None
+    root.common.graphics.spawn_process = True
+    root.common.web.status_url = status.url if services else None
+    root.common.web.status_interval = SVC_STATUS_INTERVAL
+    launcher = Launcher()
+    wf = AlexNetWorkflow(launcher, max_epochs=SVC_EPOCHS,
+                         plotters=services, loader_kwargs=dict(SVC_DATA))
+    marks = []
+    serve = wf.loader.run
+
+    def serving():
+        marks.append(time.perf_counter())
+        serve()
+        marks[-1] = (marks[-1], wf.loader.minibatch_class,
+                     wf.loader.epoch_number)
+
+    wf.loader.run = serving
+    source = None
+    try:
+        launcher.initialize()
+        if services:
+            source = launcher._reporter._source
+        launcher.run()
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), None, None))
+    finally:
+        launcher.stop()
+        root.common.graphics.dir = None
+        root.common.web.status_url = None
+    del wf.loader.run
+    train_ms = {}
+    for a, b in zip(marks, marks[1:]):
+        if a[1] == 2 and a[2] > 0:
+            train_ms.setdefault(a[2], []).append((b[0] - a[0]) * 1e3)
+    return wf, source, [train_ms[e] for e in sorted(train_ms)]
+
+
+def _svc_status_doc(source, status):
+    """One status document built by the launcher's own reporter source
+    and posted."""
+    from veles_tpu_torch.web_status import StatusReporter
+    if not StatusReporter(status.url, "doc-cost").post(source()):
+        raise AssertionError("(a) a status document was not accepted")
+
+
+def _svc_plots(work):
+    """The specs the renderer child wrote: {name: count}."""
+    out = os.path.join(work, "plots")
+    names = sorted(os.listdir(out))
+    if names == ["plots.jsonl"]:
+        counts = {}
+        with open(os.path.join(out, "plots.jsonl")) as fin:
+            for line in fin:
+                name = json.loads(line)["name"]
+                counts[name] = counts.get(name, 0) + 1
+        return counts
+    return {n[:-4]: 1 for n in names if n.endswith(".png")}
+
+
+def _svc_post_rows(url, x):
+    """One raw-row POST: (reply rows, ms)."""
+    req = urllib.request.Request(
+        url, data=np.ascontiguousarray(x, np.float32).tobytes(),
+        headers={"Content-Type": "application/octet-stream",
+                 "X-Shape": ",".join(str(d) for d in x.shape)})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        doc = json.load(resp)
+    return np.asarray(doc["output"], np.float32), \
+        (time.perf_counter() - t0) * 1e3
+
+
+def _svc_stats(ms):
+    """p50 and p99 of a small sample (its p99 is its second largest
+    value or its largest, by interpolation), its max and size."""
+    p50, p99 = np.percentile(np.asarray(ms, np.float64), (50, 99))
+    return dict(n=len(ms), p50=float(p50), p99=float(p99),
+                max=float(max(ms)))
+
+
+def _svc_rest(counters, card, wf, out):
+    """(b): both RESTfulAPI modes over the trained workflow."""
+    from veles_tpu_torch.restful_api import RESTfulAPI, RestfulLoader
+    from veles_tpu_torch.workflow import Workflow
+    rng = np.random.default_rng(27)
+    requests = [rng.random((SVC_ROWS[i % len(SVC_ROWS)],) + APPLY_SHAPE,
+                           dtype=np.float32) for i in range(SVC_REQUESTS)]
+    api = RESTfulAPI.for_workflow(wf, max_delay_ms=1.0)
+    api.initialize()
+    engine = api.engine_
+    if engine.device.type != wf.device.torch_device.type:
+        raise AssertionError("(b) the engine is on %s, the workflow on %s"
+                             % (engine.device, wf.device))
+    want = [engine.apply(x) for x in requests]   # warms every bucket
+    before = counters.read()
+    lat, err = [], 0.0
+    try:
+        for x, w in zip(requests, want):
+            got, ms = _svc_post_rows(api.url, x)
+            lat.append(ms)
+            err = max(err, float(np.abs(got - w).max()))
+    finally:
+        api.stop()
+    engine_k6 = _nonzero(counters.delta(before)).get("lrn_fwd", 0)
+    if err > TOL_APPLY:
+        raise AssertionError("(b) engine mode: max abs %g > %g against "
+                             "a direct call" % (err, TOL_APPLY))
+    if engine_k6 != 2 * SVC_REQUESTS:
+        raise AssertionError("(b) engine mode launched %d K6 for %d "
+                             "requests, not 2 each" % (engine_k6,
+                                                       SVC_REQUESTS))
+
+    # loader-graph mode: a RestfulLoader in a workflow of its own, the
+    # trained forward units reading its minibatch (the first forward
+    # relinked to it for the run), then RESTfulAPI.run (the host read)
+    gwf = Workflow()
+    gwf.thread_pool = None
+    mbs = wf.loader.max_minibatch_size
+    loader = RestfulLoader(gwf, sample_shape=APPLY_SHAPE,
+                           minibatch_size=mbs)
+    loader.initialize(device=wf.device)
+    loader.minibatch_data.initialize(wf.device)
+    graph_api = RESTfulAPI(gwf)
+    graph_api.output = wf.forwards[-1].output
+    graph_api.loader = loader
+    graph_api.initialize()
+    wf.loader.minibatch_class = 1   # VALID: dropout is the identity
+    first = wf.forwards[0]
+    first.link_attrs(loader, ("input", "minibatch_data"))
+    stop = threading.Event()
+    failure = []
+
+    def graph_loop():
+        try:
+            while not stop.is_set() and not loader.complete:
+                loader.run()
+                if loader.minibatch_size == 0:
+                    continue
+                for unit in wf.forwards:
+                    unit.run()
+                graph_api.run()
+        except BaseException as e:  # noqa: BLE001 — surfaced below
+            failure.append(e)
+
+    thread = threading.Thread(target=graph_loop, name="svc-graph")
+    thread.start()
+    before = counters.read()
+    glat, gerr = [], 0.0
+    try:
+        for x, w in zip(requests, want):
+            got, ms = _svc_post_rows(graph_api.url, x)
+            glat.append(ms)
+            gerr = max(gerr, float(np.abs(got - w).max() /
+                                   np.abs(w).max()))
+    finally:
+        loader.close()
+        stop.set()
+        thread.join(timeout=60)
+        graph_api.stop()
+        first.link_attrs(wf.loader, ("input", "minibatch_data"))
+    if failure:
+        raise failure[0]
+    if thread.is_alive():
+        raise AssertionError("(b) the graph loop did not stop")
+    graph_k6 = _nonzero(counters.delta(before)).get("lrn_fwd", 0)
+    if gerr > TOL_CLASSIFIER["bfloat16"]:
+        raise AssertionError("(b) loader-graph mode: %g of the outputs' "
+                             "scale > %g against the engine"
+                             % (gerr, TOL_CLASSIFIER["bfloat16"]))
+    if graph_k6 != 2 * SVC_REQUESTS:
+        raise AssertionError("(b) loader-graph mode launched %d K6 for "
+                             "%d requests, not 2 a minibatch"
+                             % (graph_k6, SVC_REQUESTS))
+    out["b"] = dict(engine=dict(latency_ms=_svc_stats(lat),
+                                max_abs_err=err, k6=engine_k6),
+                    graph=dict(latency_ms=_svc_stats(glat),
+                               rel_err=gerr, k6=graph_k6))
+    log("  (b) %d raw-row POST /apply (1-4 rows of %s) a mode: engine "
+        "p50 %.2f p99 %.2f ms, max abs %g against a direct call, %d K6; "
+        "loader graph p50 %.2f p99 %.2f ms, %.3g of the outputs' scale "
+        "against the engine, %d K6 [%s]"
+        % (SVC_REQUESTS, APPLY_SHAPE, out["b"]["engine"]["latency_ms"]
+           ["p50"], out["b"]["engine"]["latency_ms"]["p99"], err,
+           engine_k6, out["b"]["graph"]["latency_ms"]["p50"],
+           out["b"]["graph"]["latency_ms"]["p99"], gerr, graph_k6, card))
+    return engine, requests
+
+
+def _svc_package(torch, card, wf, work, engine, requests, out):
+    """(c): the package through the forge, then on the card and in the
+    native runtime."""
+    from veles_tpu_torch import native
+    from veles_tpu_torch.forge import ForgeClient, ForgeServer
+    from veles_tpu_torch.serve import InferenceEngine
+    pkg_dir = os.path.join(work, "package")
+    os.makedirs(pkg_dir)
+
+    def build_native():
+        t0 = time.monotonic()
+        native.build()
+        return time.monotonic() - t0
+
+    # the native library (g++ on the host) builds beside the forge's
+    # round trip, its own wall time logged
+    builder = ThreadPoolExecutor(1)
+    native_build = builder.submit(build_native)
+    t0 = time.monotonic()
+    wf.package_export(os.path.join(pkg_dir, "alexnet.tar"))
+    export_s = time.monotonic() - t0
+    forge = ForgeServer(os.path.join(work, "forge"),
+                        token=SVC_FORGE_TOKEN)
+    try:
+        t0 = time.monotonic()
+        ForgeClient(forge.url, token=SVC_FORGE_TOKEN).upload(
+            pkg_dir, "alexnet", version="1")
+        upload_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        manifest = ForgeClient(forge.url).fetch(
+            "alexnet", os.path.join(work, "fetched"))
+        fetch_s = time.monotonic() - t0
+        stored_mb = os.path.getsize(os.path.join(
+            work, "forge", "alexnet", "1.tar.xz")) / 1e6
+    finally:
+        forge.close()
+    import lzma
+    tar = os.path.join(pkg_dir, "alexnet.tar")
+    with open(tar, "rb") as fin:
+        probe = fin.read(SVC_XZ_PROBE)
+    t0 = time.perf_counter()
+    lzma.compress(probe, preset=6)
+    ref_mb_s = len(probe) / 1e6 / (time.perf_counter() - t0)
+    tar_mb = os.path.getsize(tar) / 1e6
+    fetched = os.path.join(work, "fetched", "alexnet.tar")
+    if manifest["version"] != "1":
+        raise AssertionError("(c) fetched %s" % manifest)
+    from_pkg = InferenceEngine.from_package(fetched)
+    for x in requests[:len(SVC_ROWS)]:
+        got, want = from_pkg.apply(x), engine.apply(x)
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                "(c) from_package of the fetched archive against (b)'s "
+                "engine: max abs %g" % float(np.abs(got - want).max()))
+    del from_pkg
+    build_s = native_build.result()
+    builder.shutdown()
+    nwf = native.NativeWorkflow(fetched)
+    x = np.random.default_rng(270).random(
+        (SVC_NATIVE_ROWS,) + APPLY_SHAPE, dtype=np.float32)
+    t0 = time.perf_counter()
+    host = nwf.run(x)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    f32 = InferenceEngine.from_package(fetched, compute_dtype=torch.float32)
+    card_out = f32.apply(x)
+    del f32
+    np.testing.assert_allclose(host, card_out, **SVC_NATIVE_TOL)
+    nerr = float(np.abs(host - card_out).max())
+    out["c"] = dict(export_s=export_s, upload_s=upload_s, fetch_s=fetch_s,
+                    stored_mb=stored_mb, ref_xz_mb_s=ref_mb_s,
+                    ref_xz_s=tar_mb / ref_mb_s, native_build_s=build_s,
+                    native_fresh=native.BUILD_STATS["fresh"],
+                    native_ms=native_ms, native_max_abs_err=nerr,
+                    native_rel_err=nerr / float(np.abs(card_out).max()))
+    log("  (c) package_export %.2f s; forge upload (tar.xz, %.1f MB "
+        "stored, write token) %.2f s, fetch %.2f s; one xz stream at the "
+        "reference's preset 6 packs %.3f MB/s on one thread (the "
+        "package's first %d bytes): %.1f s for its %.1f MB; from_package "
+        "of the fetched archive bitwise (b)'s engine at %s rows; native build "
+        "%.1f s (g++, %d fresh, beside the forge), NativeWorkflow.run of %d rows %.1f ms "
+        "on the host, max abs %g (%.3g of scale) against the card at f32 "
+        "[%s]" % (export_s, stored_mb, upload_s, fetch_s, ref_mb_s,
+                  len(probe), out["c"]["ref_xz_s"], tar_mb,
+                  list(SVC_ROWS), build_s, native.BUILD_STATS["fresh"],
+                  SVC_NATIVE_ROWS, native_ms, nerr,
+                  out["c"]["native_rel_err"], card))
+
+
+def _svc_fleet(dev, card, status, out):
+    """(d): a two-replica fleet's card through a StatusReporter."""
+    from veles_tpu_torch.obs import metrics as obs_metrics
+    from veles_tpu_torch.serve import (FleetManager, InferenceEngine,
+                                       LocalReplica, Router, RouterServer)
+    from veles_tpu_torch.web_status import StatusReporter
+    specs, params = _HOST["alexnet"]
+
+    def build():
+        return InferenceEngine.from_specs(specs, params, device=dev)
+
+    handles = [LocalReplica(name, build, batcher_kwargs={
+        "max_batch": 8, "max_delay_ms": 2}, watchdog_s=None)
+        for name in ("s0", "s1")]
+    router = RouterServer(Router(health_interval_s=0.05),
+                          replica_timeout=FLEET_TIMEOUT_S)
+    fleet = FleetManager(router.router, replicas=handles)
+    reporter = StatusReporter(status.url, "fleet-svc",
+                              interval=SVC_STATUS_INTERVAL)
+    try:
+        _fleet_wait(lambda: router.router.routable_count() == 2,
+                    "(d) replicas never routable")
+        x = np.random.default_rng(271).random((1,) + APPLY_SHAPE,
+                                               dtype=np.float32)
+        url = router.url + "/apply"
+        for _ in range(4):
+            _svc_post_rows(url, x)
+        reporter.start(lambda: {
+            "mode": "router", "workflow": "alexnet",
+            "fleet": fleet.status_doc(),
+            "metrics": obs_metrics.REGISTRY.as_wire()})
+        doc = json.loads(_get(status.url + "/status.json"))["fleet-svc"]
+        page = _get(status.url + "/")
+    finally:
+        reporter.stop()
+        fleet.stop()
+        router.stop()
+    replicas = sorted(doc["fleet"]["replicas"])
+    if replicas != ["s0", "s1"] or "fleetTable" not in page:
+        raise AssertionError("(d) the fleet card shows %s" % replicas)
+    out["d"] = dict(replicas=replicas,
+                    routable=[r for r in replicas
+                              if doc["fleet"]["replicas"][r]["routable"]])
+    log("  (d) FleetManager over 2 LocalReplicas of phase 11's AlexNet "
+        "weights: its card on /status.json (replicas %s, routable %s) "
+        "and the dashboard's fleet table [%s]"
+        % (replicas, out["d"]["routable"], card))
+
+
+def _svc_report(wf, dev, work, out):
+    """(e): the training report in three backends."""
+    from veles_tpu_torch.publishing import render_report
+    from veles_tpu_torch.publishing.publisher import gather_info
+
+    def host_only(value):
+        if type(value).__module__.split(".")[0] == "torch":
+            raise AssertionError("(e) the report holds a %s" % type(value))
+        if isinstance(value, dict):
+            for v in value.values():
+                host_only(v)
+        elif isinstance(value, (list, tuple)):
+            for v in value:
+                host_only(v)
+
+    host_only(gather_info(wf))
+    paths = {b: render_report(wf, b, os.path.join(work, "report"))
+             for b in ("markdown", "json", "html")}
+    with open(paths["json"]) as fin:
+        doc = json.load(fin)
+    if doc["workflow"] != type(wf).__name__ or dev.type not in doc["device"]:
+        raise AssertionError("(e) report %s" % {k: doc[k] for k in
+                                                ("workflow", "device")})
+    out["e"] = {b: os.path.getsize(p) for b, p in paths.items()}
+    log("  (e) render_report: %s bytes; the json parses, no tensor"
+        % out["e"])
+
+
+def services_phase(torch, counters, dev, card):
+    """Phase 27; see the module docstring. Returns (record, launches of
+    the services path: (a)'s run with the services on, then (b)-(d))."""
+    from veles_tpu_torch.web_status import WebStatusServer
+    log("phase 27: the services around phase 14's AlexNetWorkflow "
+        "(1000 classes, 224 x 224 x 3, minibatch 128, data %s, %d epochs)"
+        % (SVC_DATA, SVC_EPOCHS))
+    t_phase = time.monotonic()
+    work = os.path.join("chip_smoke_out", "services")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {}
+    status = WebStatusServer()
+    try:
+        _, _, off_ms = _svc_train(torch, work, status, False)
+        counters.reset()
+        wf, source, on_ms = _svc_train(torch, work, status, True)
+        train_launches = _nonzero(counters.read())
+        for name in ("lrn_fwd", "lrn_bwd", "uniform_fill"):
+            if not train_launches.get(name):
+                raise AssertionError("(a) %s never launched: %s"
+                                     % (name, train_launches))
+        plots = _svc_plots(work)
+        if set(plots) != {"validation_error", "confusion"}:
+            raise AssertionError("(a) the renderer wrote %s" % plots)
+        docs = status.store.snapshot()
+        (run_id,) = [r for r in docs
+                     if r.startswith(type(wf).__name__ + "-")]
+        doc = docs[run_id]
+        missing = {"epoch", "best_error", "device", "metrics"} - set(doc)
+        if missing or dev.type not in doc["device"]:
+            raise AssertionError("(a) the status document lacks %s: %s"
+                                 % (missing, sorted(doc)))
+        prom = _get(status.url + "/metrics?format=prometheus")
+        if 'veles_kernel_launches_total{kernel="lrn_fwd",run="%s"}' \
+                % run_id not in prom:
+            raise AssertionError("(a) /metrics?format=prometheus lacks "
+                                 "the kernel counters")
+        n_docs = len(status.store.history()[run_id])
+        # the services' own costs, read directly: the plotter units' run
+        # time on the graph's thread (they sit in the chain), and one
+        # status document's build (the launcher's obs wire) and POST
+        plot_ms = sum(u.total_run_time_ for u in wf.plotters) * 1e3
+        doc_ms = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            _svc_status_doc(source, status)
+            doc_ms.append((time.perf_counter() - t0) * 1e3)
+        flat = {k: [t for ep in ms for t in ep]
+                for k, ms in (("on", on_ms), ("off", off_ms))}
+        last = {k: [ep[-1] for ep in ms]
+                for k, ms in (("on", on_ms), ("off", off_ms))}
+        p50 = {k: float(np.percentile(v, 50)) for k, v in flat.items()}
+        share = sum(flat["on"]) / sum(flat["off"]) - 1.0
+        out["a"] = dict(train_ms_on=on_ms, train_ms_off=off_ms,
+                        p50_on=p50["on"], p50_off=p50["off"],
+                        last_mean_on=float(np.mean(last["on"])),
+                        last_mean_off=float(np.mean(last["off"])),
+                        added_share=share, plots=plots, status_docs=n_docs,
+                        plotters_ms=plot_ms, status_doc_ms=doc_ms,
+                        launches=train_launches)
+        log("  (a) plots %s (%s); %d status documents (epoch %s, best "
+            "error %s), /metrics in Prometheus; %s; TRAIN minibatches of "
+            "epochs 1-%d (%d a run): p50 %.3f ms with the services, %.3f "
+            "without; an epoch's last (the plotters') mean %.3f against "
+            "%.3f; on/off TRAIN wall %+.4f (the run without the services "
+            "always first: run-to-run noise, not their cost); their "
+            "direct costs: the plotter units ran %.1f ms in all (%d "
+            "epochs), the launcher's reporter builds and posts a status "
+            "document in %.2f ms (p50 of 10) [%s]"
+            % (plots, "plots.jsonl" if os.path.exists(os.path.join(
+                work, "plots", "plots.jsonl")) else "PNG", n_docs,
+               doc["epoch"], doc["best_error"], train_launches,
+               SVC_EPOCHS - 1, len(flat["on"]), p50["on"], p50["off"],
+               out["a"]["last_mean_on"], out["a"]["last_mean_off"], share,
+               plot_ms, SVC_EPOCHS, float(np.percentile(doc_ms, 50)),
+               card))
+        engine, requests = _svc_rest(counters, card, wf, out)
+        _svc_package(torch, card, wf, work, engine, requests, out)
+        del engine
+        _svc_fleet(dev, card, status, out)
+        _svc_report(wf, dev, work, out)
+        wf.thread_pool.shutdown()
+        del wf, source
+    finally:
+        status.close()
+    launches = _nonzero(counters.read())
+    out["phase_s"] = time.monotonic() - t_phase
+    log("  services path launches %s; phase %.1f s" % (launches,
+                                                       out["phase_s"]))
     return out, launches
 
 
@@ -8322,24 +8750,38 @@ def main():
                                                          dev, card)
     cotenancy, cotenancy_launches = cotenancy_phase(
         torch, counters, dev, card, serve, train, apply, graph_objs)
-    classifier_graph, classifier_graph_launches = \
-        unit_graph_classifier_phase(torch, counters, dev, card, classifier)
-    classifier_graph_parity = unit_graph_parity_phase(torch, dev, card)
-    pipeline, pipeline_launches = pipeline_phase(torch, counters, dev, card)
-    zoo, zoo_launches = zoo_phase(torch, counters, dev, card)
-    zoo_parity = zoo_parity_phase(torch, dev, card)
-    state, state_launches = state_phase(torch, counters, dev, card, train,
-                                        classifier, classifier_graph)
-    state_parity = state_parity_phase(torch, dev, card)
-    mesh, mesh_launches = mesh_phase(torch, dev, card)
-    sharded, sharded_launches = sharded_serving_phase(torch, dev, card,
-                                                      serve, apply)
-    farm, farm_launches = farm_phase(torch, counters, dev, card,
-                                     classifier_graph)
-    fleet, fleet_launches = fleet_phase(torch, counters, dev, card, serve)
-    aot_out, aot_launches = aot_phase(torch, counters, dev, card, serve)
+    # phase 26's gate runs on the CPU alone, on one thread: started here,
+    # it overlaps phases 14-25 instead of adding its time to the script's
+    gate = _start_gate()
+    try:
+        classifier_graph, classifier_graph_launches = \
+            unit_graph_classifier_phase(torch, counters, dev, card,
+                                        classifier)
+        classifier_graph_parity = unit_graph_parity_phase(torch, dev, card)
+        pipeline, pipeline_launches = pipeline_phase(torch, counters, dev,
+                                                     card)
+        zoo, zoo_launches = zoo_phase(torch, counters, dev, card)
+        zoo_parity = zoo_parity_phase(torch, dev, card)
+        state, state_launches = state_phase(torch, counters, dev, card,
+                                            train, classifier,
+                                            classifier_graph)
+        state_parity = state_parity_phase(torch, dev, card)
+        mesh, mesh_launches = mesh_phase(torch, dev, card)
+        sharded, sharded_launches = sharded_serving_phase(torch, dev, card,
+                                                          serve, apply)
+        farm, farm_launches = farm_phase(torch, counters, dev, card,
+                                         classifier_graph)
+        fleet, fleet_launches = fleet_phase(torch, counters, dev, card,
+                                            serve)
+        aot_out, aot_launches = aot_phase(torch, counters, dev, card, serve)
+    except BaseException:
+        gate[0].kill()
+        gate[0].wait()
+        raise
     static, static_launches = static_phase(torch, counters, dev, card,
-                                           serve["staggered"])
+                                           serve["staggered"], gate)
+    services, services_launches = services_phase(torch, counters, dev,
+                                                 card)
 
     # each main path's launches, counted from 0 around that path alone
     by_path = {"serving": serve_launches, "training": train_launches,
@@ -8357,7 +8799,8 @@ def main():
                "farm": farm_launches,
                "fleet": fleet_launches,
                "packages and AOT": aot_launches,
-               "static gates and memory plan": static_launches}
+               "static gates and memory plan": static_launches,
+               "services": services_launches}
     kernels = []
     for name, row in rows.items():
         paths = {p: n.get(name, 0) for p, n in by_path.items()
@@ -8383,7 +8826,7 @@ def main():
                   input_pipeline=pipeline, zoo=zoo, zoo_parity=zoo_parity,
                   state=state, state_parity=state_parity, mesh=mesh,
                   sharded_serving=sharded, farm=farm, fleet=fleet,
-                  aot=aot_out, static=static,
+                  aot=aot_out, static=static, services=services,
                   wall_s=time.monotonic() - t_start)
     os.makedirs("chip_smoke_out", exist_ok=True)
     with open(os.path.join("chip_smoke_out", "chip_smoke.json"), "w") as f:

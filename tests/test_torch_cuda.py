@@ -2422,3 +2422,85 @@ def test_library_of_a_built_kernel_is_not_held_by_another_build(
         release.set()
         thread.join(60)
     assert errors
+
+
+def _rest_post(url, rows):
+    import json
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=json.dumps({"input": rows.tolist()}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return np.asarray(json.load(resp)["output"], np.float32)
+
+
+def test_restful_api_on_the_card_matches_the_cpu(f32_units):
+    """``RESTfulAPI.for_workflow`` of a workflow initialized on the card
+    serves from an engine on the card, and its replies equal the same
+    workflow's on the CPU (same seed, f32 weights) within 2e-2 of their
+    scale: the engine computes in bf16 on a CUDA device and in f32 on
+    the CPU (``InferenceEngine.from_specs``'s policy), so the bound is
+    bf16's."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.restful_api import RESTfulAPI
+    x = np.random.default_rng(3).random((5, 28, 28), dtype=np.float32)
+    outs = []
+    for device in (Device(), Device(backend="cpu")):
+        prng.reset()
+        wf = _small_mnist()
+        wf.initialize(device=device)
+        api = RESTfulAPI.for_workflow(wf, max_delay_ms=1.0)
+        api.initialize()
+        try:
+            assert api.engine_.device.type == device.torch_device.type
+            outs.append(_rest_post(api.url, x))
+        finally:
+            api.stop()
+    card, cpu = outs
+    assert card.shape == (5, 10)
+    assert np.abs(card - cpu).max() <= 2e-2 * np.abs(cpu).max()
+
+
+def test_services_on_a_card_trained_workflow_publish_no_tensor(f32_units,
+                                                               tmp_path):
+    """The plotters and the status reporter around a workflow trained
+    on the card: every spec and every status document is plain JSON
+    (the plotters read the decision's host numbers; a tensor would make
+    the sink or the reporter raise)."""
+    import json
+
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.models.mnist import MnistWorkflow
+    from veles_tpu_torch.plotting import InlineSink
+    from veles_tpu_torch.web_status import WebStatusServer
+    prng.reset()
+    status = WebStatusServer()
+    root.common.web.status_url = status.url
+    root.common.web.status_interval = 0.1
+    try:
+        launcher = Launcher()
+        wf = MnistWorkflow(launcher, layers=(32, 10), max_epochs=3,
+                           plotters=True,
+                           loader_kwargs=dict(n_train=300, n_valid=100,
+                                              minibatch_size=50))
+        sink = InlineSink()
+        try:
+            launcher.initialize()
+            assert wf.forwards[0].weights.devmem.is_cuda
+            wf.graphics_sink_ = sink
+            launcher.run()
+        finally:
+            launcher.stop()
+        assert {s["name"] for s in sink.specs} == {"validation_error",
+                                                   "confusion"}
+        json.dumps(sink.specs)
+        (doc,) = status.store.snapshot().values()
+        assert "cuda" in doc["device"] and doc["epoch"] is not None
+        json.dumps(doc)
+    finally:
+        root.common.web.status_url = None
+        root.common.web.status_interval = 10.0
+        status.close()

@@ -310,18 +310,51 @@ def test_launcher_joins_through_multiprocess(monkeypatch):
     assert joined == [join]
 
 
-@pytest.mark.parametrize("key,value", [("graphics.dir", "/nonexistent"),
-                                       ("web.status_url",
-                                        "http://127.0.0.1:1/status")])
-def test_launcher_unported_services_raise(key, value):
-    """The graphics server and the status reporter wait for item 11: a
-    config that asks for one raises, naming it."""
-    section, name = key.split(".")
-    node = getattr(P_config.root.common, section)
-    setattr(node, name, value)
+@pytest.mark.parametrize("key", ["graphics.dir", "web.status_url"])
+def test_launcher_unported_services_raise(key, tmp_path):
+    """The graphics server and the status reporter, refused before the
+    services were ported, start under the Launcher now:
+    ``graphics.dir`` spawns the renderer child, which writes the
+    plotters' PNGs (or ``plots.jsonl`` without matplotlib) there;
+    ``web.status_url`` posts status documents to a web-status server.
+    Both stop with the launcher. (The name is the refusal test's, kept
+    so that this case replaces it one for one.)"""
+    import json
+    import os
+    import urllib.request
+
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.web_status import WebStatusServer
+    common = P_config.root.common
+    status = WebStatusServer() if key == "web.status_url" else None
+    if status is not None:
+        common.web.status_url = status.url
+        common.web.status_interval = 0.1
+    else:
+        common.graphics.dir = str(tmp_path / "plots")
     try:
-        launcher, _ = _launched("standalone")
-        with pytest.raises(NotImplementedError, match="item 11"):
-            launcher.initialize(backend="cpu")
+        launcher = Launcher()
+        wf = MnistWorkflow(launcher, layers=(16, 10), max_epochs=2,
+                           plotters=True,
+                           loader_kwargs={"n_train": 120, "n_valid": 40,
+                                          "minibatch_size": 40})
+        wf.thread_pool = None
+        launcher.boot(backend="cpu")
+        assert launcher._reporter is None and launcher._graphics is None
+        if status is None:
+            written = sorted(os.listdir(tmp_path / "plots"))
+            assert written in (["confusion.png", "validation_error.png"],
+                               ["plots.jsonl"]), written
+        else:
+            docs = json.load(urllib.request.urlopen(
+                status.url + "/status.json", timeout=10))
+            (doc,) = docs.values()
+            assert doc["workflow"] == "MnistWorkflow"
+            assert doc["mode"] == "standalone" and "cpu" in doc["device"]
+            assert {"epoch", "best_error", "metrics"} <= set(doc)
     finally:
-        setattr(node, name, None)
+        common.graphics.dir = None
+        common.web.status_url = None
+        common.web.status_interval = 10.0
+        if status is not None:
+            status.close()

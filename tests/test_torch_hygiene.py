@@ -63,7 +63,11 @@ def test_import_closure_has_no_jax_and_no_veles_tpu():
                  "analysis.baseline", "analysis.lint",
                  "analysis.concurrency", "analysis.lockcheck",
                  "analysis.jitcheck", "analysis.jaxpr_audit",
-                 "analysis.memplan", "analysis.__main__"):
+                 "analysis.memplan", "analysis.__main__", "web_status",
+                 "plotting", "restful_api", "publishing",
+                 "publishing.publisher", "forge", "forge.client",
+                 "forge.server", "forge.__main__", "interaction",
+                 "manhole", "frontend", "native"):
         assert "veles_tpu_torch." + name in modules
     script = (
         "import importlib, json, sys\n"

@@ -287,8 +287,22 @@ def test_export_specs_match_reference():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        P_mnist.MnistWorkflow(plotters=True, **MNIST)
+    # the name is the refusal test's, kept so that this case replaces
+    # it one for one; plotters=True is ported (tests/test_torch_services.py): the
+    # validation-error curve and the confusion matrix, both gated on
+    # the loader's epoch end and fed from the decision
+    from veles_tpu_torch.plotting import AccumulatingPlotter, MatrixPlotter
+    wf = P_mnist.MnistWorkflow(plotters=True, **MNIST)
+    err_plot, conf_plot = wf.plotters
+    assert isinstance(err_plot, AccumulatingPlotter)
+    assert isinstance(conf_plot, MatrixPlotter)
+    assert (err_plot.plot_name, conf_plot.plot_name) == (
+        "validation_error", "confusion")
+    # one chain: decision -> validation-error curve -> confusion -> the
+    # first GD unit, so the next minibatch waits for both plots
+    assert set(err_plot._links_from) == {wf.decision}
+    assert set(conf_plot._links_from) == {err_plot}
+    assert set(wf.gds[0]._links_from) == {conf_plot}
     # snapshot_dir= is ported (tests/test_torch_snapshot.py): it
     # attaches a Snapshotter and writes nothing before a run
     wf = P_mnist.MnistWorkflow(snapshot_dir="snap", **MNIST)

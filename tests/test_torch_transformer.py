@@ -189,8 +189,38 @@ def test_bf16_logits_within_stated_bound():
 
 
 def test_moe_and_dense_attention_are_refused():
-    """The dense-attention oracle is not ported and is refused (MoE is
-    ported now: tests/test_torch_train.py checks it)."""
+    """The dense-attention oracle runs now; an attention the port does
+    not know is refused (MoE is ported too: tests/test_torch_train.py
+    checks it), and so is the dense oracle over a ``seq`` mesh axis,
+    as in the reference."""
+    from types import SimpleNamespace
+    toks = torch.ones((1, 4), dtype=torch.long)
     config, params = _port(attention="dense")
+    logits, _ = PT.forward(params, toks, config)
+    assert logits.shape == (1, 4, SMALL["vocab"])
+    config, params = _port(attention="sparse")
     with pytest.raises(ValueError, match="flash"):
-        PT.forward(params, torch.ones((1, 4), dtype=torch.long), config)
+        PT.forward(params, toks, config)
+    config, params = _port(attention="dense")
+    x = torch.zeros((1, 4, SMALL["embed"]))
+    seq_axis = SimpleNamespace(seq=SimpleNamespace(size=2))
+    with pytest.raises(ValueError, match="single-device"):
+        PT._attention_forward(x, params["blocks"][0], config, seq_axis)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dense_attention_oracle_matches_reference_and_flash(seed):
+    """``attention="dense"`` (the quadratic causal oracle): the port's
+    f32 logits are within 1e-4 (of the logits' scale) of the
+    reference's dense path and of the port's own flash path."""
+    toks = np.random.default_rng(seed).integers(
+        1, SMALL["vocab"], (2, 24)).astype(np.int32)
+    jcfg = JT.TransformerConfig(**dict(SMALL, attention="dense",
+                                       attention_impl="lax"))
+    ref, _ = JT.forward(PARAMS, jnp.asarray(toks), jcfg, mesh=None)
+    config, params = _port(attention="dense")
+    dense, _ = PT.forward(params, torch.from_numpy(toks).long(), config)
+    config, params = _port(attention_impl="plain")
+    flash, _ = PT.forward(params, torch.from_numpy(toks).long(), config)
+    assert _rel_err(dense.numpy(), np.asarray(ref, np.float32)) <= 1e-4
+    assert _rel_err(dense.numpy(), flash.numpy()) <= 1e-4

@@ -24,9 +24,10 @@ under ``DIR/kernels/``, capture records under ``DIR/artifacts/``; a
 serving process builds every kernel and captures every planned entry
 before its port opens, and logs the startup report. ``--aot-export PKG`` writes the records
 into PKG at exit. ``--route --replicas N --rollout PKG`` rolls a
-package through the fleet canary-first. The services (``--manhole``
-and the fleet's status reporter; ROADMAP.md queue 1 item 11) are not
-ported yet: they exit naming their item.
+package through the fleet canary-first. ``--manhole`` opens a
+unix-socket REPL into the process (``veles_tpu_torch.manhole``);
+``root.common.web.status_url`` makes a training run, and the
+``--route`` fleet, POST status documents to a web-status server.
 
 A ``--serve`` or ``--route`` process drains and exits 0 on SIGINT and
 on SIGTERM (the fleet stops its replica processes with SIGTERM).
@@ -50,10 +51,6 @@ from veles_tpu_torch import prng
 from veles_tpu_torch.config import apply_config_file, apply_overrides, root
 from veles_tpu_torch.launcher import Launcher
 from veles_tpu_torch.snapshotter import Snapshotter
-
-#: what a flag of a plane still to port says when it is refused
-_SERVICES_ITEM = ("waits for the port's services (ROADMAP.md queue 1 "
-                  "item 11)")
 
 _PACKAGE_SUFFIXES = (".zip", ".tar", ".tgz", ".tar.gz")
 
@@ -84,6 +81,7 @@ class Main:
         self._refresh_threads = None
         self._serve_bind = None
         self._early_pool = None
+        self._manhole = None              # --manhole
 
     # -- pieces ------------------------------------------------------------
     def _setup_logging(self) -> None:
@@ -94,12 +92,6 @@ class Main:
             root.common.trace.run = True
             if level > logging.DEBUG:
                 logging.getLogger().setLevel(logging.DEBUG)
-
-    def _refuse_unported(self) -> None:
-        """Exit naming the queue item a flag waits for, before any
-        work starts."""
-        if self.args.manhole:
-            raise SystemExit("--manhole %s" % _SERVICES_ITEM)
 
     def _is_package(self) -> bool:
         """The workflow argument is a package archive."""
@@ -807,7 +799,6 @@ class Main:
                              "exactly one of --route / --serve / "
                              "--serve-while-training")
         self._apply_config()
-        self._refuse_fleet_reporter()
         server = RouterServer(
             host=host or "127.0.0.1", port=int(port),
             default_deadline_ms=self.args.serve_deadline_ms)
@@ -826,6 +817,7 @@ class Main:
             # of different models on one network never cross-join
             server.router.watch_beacons(
                 checksum=os.path.basename(self.args.workflow))
+        reporter = self._start_fleet_reporter(fleet)
         logging.info(
             "fleet router on %s (%d spawned replica(s)%s)",
             server.url, self.args.replicas,
@@ -836,6 +828,8 @@ class Main:
                 self._route_rollout(server, fleet)
             self._wait_for_stop()
         finally:
+            if reporter is not None:
+                reporter.stop()
             handles = fleet.handles()
             fleet.stop(stop_replicas=False)
             for handle in handles:
@@ -871,15 +865,28 @@ class Main:
                           fleet.rollout_status().get("reason"))
             self.exit_code = 1
 
-    def _refuse_fleet_reporter(self) -> None:
-        """The fleet card for the web status server waits for the
-        port's web_status."""
+    def _start_fleet_reporter(self, fleet):
+        """Periodic fleet-card POST to web_status when configured
+        (the same ``root.common.web.status_url`` plumbing training
+        runs use; the dashboard renders ``doc["fleet"]``)."""
         from veles_tpu_torch.config import get
         url = get(root.common.web.status_url)
-        if url:
-            raise SystemExit(
-                "root.common.web.status_url=%r: the fleet's status "
-                "reporter %s" % (url, _SERVICES_ITEM))
+        if not url:
+            return None
+        from veles_tpu_torch.web_status import StatusReporter
+        reporter = StatusReporter(
+            url, "router-%d" % os.getpid(),
+            interval=float(get(root.common.web.status_interval, 10.0)))
+
+        def source():
+            from veles_tpu_torch.obs import metrics as obs_metrics
+            return {"mode": "router",
+                    "workflow": os.path.basename(self.args.workflow),
+                    "fleet": fleet.status_doc(),
+                    "metrics": obs_metrics.REGISTRY.as_wire()}
+
+        reporter.start(source)
+        return reporter
 
     # -- elastic scale-out --------------------------------------------------
     def _run_join(self) -> int:
@@ -957,10 +964,11 @@ class Main:
 
     # -- entry -------------------------------------------------------------
     def run(self) -> int:
-        self._refuse_unported()
         try:
             return self._run()
         finally:
+            if self._manhole is not None:
+                self._manhole.close()
             self._finish_aot()
             self._finish_obs()
 
@@ -976,6 +984,11 @@ class Main:
             return self._run_join()
         if self.args.route:
             return self._run_route()
+        if self.args.manhole:
+            from veles_tpu_torch import manhole
+            self._manhole = manhole.install(namespace={"main": self})
+            logging.info("manhole at %s (SIGUSR2 dumps stacks)",
+                         self._manhole.path)
         join = self._mesh_join()
         if join and self._mode() == "coordinator" and self.args.workers:
             if join["num_processes"] != self.args.workers + 1:

@@ -357,8 +357,8 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--manhole", action="store_true",
         help="open a unix-socket REPL for attaching to this (possibly "
-             "hung) process (not ported yet: refused, see ROADMAP.md "
-             "queue 1 item 11)")
+             "hung) process: python -m veles_tpu_torch.manhole PID "
+             "attaches; SIGUSR2 dumps every thread's stack")
     parser.add_argument(
         "--timings", action="store_true",
         help="per-unit run-time debug prints "

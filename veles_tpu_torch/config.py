@@ -153,6 +153,22 @@ root.common.analysis.verify = "error"
 # Raise RunAfterStopError when a stopped unit is re-triggered.
 root.common.exceptions.run_after_stop = True
 
+root.common.web.host = "localhost"
+root.common.web.port = 8090
+# When set (http://host:port), the Launcher POSTs periodic status
+# documents there (reference: veles/launcher.py:852-885 -> web_status).
+root.common.web.status_url = None
+root.common.web.status_interval = 10.0
+# When set, the Launcher owns a GraphicsServer rendering the
+# workflow's plotter units into this directory (reference: the
+# Launcher launched GraphicsServer — veles/launcher.py:431-548);
+# broadcast = "host:port" also streams every spec to subscribers.
+root.common.graphics.dir = None
+root.common.graphics.spawn_process = True
+root.common.graphics.broadcast = None
+root.common.api.port = 8180
+root.common.forge.dir = os.path.expanduser("~/.veles_tpu_torch/forge")
+
 root.common.snapshot.compression = "gz"
 root.common.snapshot.interval = 1
 

@@ -12,11 +12,15 @@ reports status. The modes:
   traffic on the mesh collectives, not the job channel.
 
 The reactor collapses to plain threads: CUDA launches are asynchronous
-already, so the host side only needs the unit thread pool. The graphics
-server and the status reporter are not ported yet (ROADMAP.md queue 1
-item 11): a config that asks for one (``root.common.graphics.dir``,
-``root.common.web.status_url``) makes :meth:`Launcher.initialize`
-raise. Both are off by default.
+already, so the host side only needs the unit thread pool. The launcher
+owns two services, both off by default: the plot renderer
+(``root.common.graphics.dir``, :class:`~veles_tpu_torch.plotting.
+GraphicsServer`) and the periodic status POST to a web-status server
+(``root.common.web.status_url``, :class:`~veles_tpu_torch.web_status.
+StatusReporter`). Their documents hold host values only: the
+reporter's thread reads the decision's host numbers, never a device
+tensor (a read would wait on the training stream, and for the whole
+window while a step graph is being captured).
 """
 
 from __future__ import annotations
@@ -107,30 +111,98 @@ class Launcher(Logger):
         self._graphics = self._start_graphics()
 
     def _start_graphics(self):
-        """The plot renderer (reference: the Launcher launched
-        GraphicsServer, veles/launcher.py:431-548) is not ported yet:
-        a config that asks for it raises."""
+        """Own the plot renderer when configured (reference: the
+        Launcher launched GraphicsServer — veles/launcher.py:431-548).
+        Plotter units publish through workflow.graphics_sink_
+        (trailing underscore: sinks hold sockets and must stay out of
+        snapshots — Pickleable drops *_ attributes)."""
         from veles_tpu_torch.config import get, root
         directory = get(root.common.graphics.dir)
         if not directory or self.is_slave:
             return None
-        raise NotImplementedError(
-            "root.common.graphics.dir=%r: the graphics server waits for "
-            "the port's plotting (ROADMAP.md queue 1 item 11)"
-            % (directory,))
+        from veles_tpu_torch.plotting import GraphicsServer
+        server = GraphicsServer(
+            out_dir=str(directory),
+            spawn_process=bool(get(root.common.graphics.spawn_process,
+                                   True)),
+            # root.common.graphics.broadcast = "0.0.0.0:5001" opens
+            # the any-machine subscription stream (subscribers:
+            # python -m veles_tpu_torch.plotting --endpoint host:5001
+            # --out dir)
+            broadcast=get(root.common.graphics.broadcast) or None)
+        server.attach(self.workflow)
+        if server.broadcast_endpoint:
+            self.info("graphics renderer -> %s (broadcast on %s:%d)",
+                      directory, *server.broadcast_endpoint)
+        else:
+            self.info("graphics renderer -> %s", directory)
+        return server
 
     def _start_status_reporter(self):
-        """The periodic status POST to a web-status server (reference:
-        veles/launcher.py:852-885 _notify_status) is not ported yet: a
-        config that asks for it raises."""
+        """Periodic status POST to a web-status server when configured
+        (reference: veles/launcher.py:852-885 _notify_status — masters
+        and standalone runs report; workers do not)."""
         from veles_tpu_torch.config import get, root
         url = get(root.common.web.status_url)
         if not url or self.is_slave:
             return None
-        raise NotImplementedError(
-            "root.common.web.status_url=%r: the status reporter waits "
-            "for the port's web_status (ROADMAP.md queue 1 item 11)"
-            % (url,))
+        import os
+
+        from veles_tpu_torch.web_status import StatusReporter
+        run_id = "%s-%d" % (type(self.workflow).__name__, os.getpid())
+        reporter = StatusReporter(
+            url, run_id,
+            interval=float(get(root.common.web.status_interval, 10.0)))
+
+        def source():
+            wf = self.workflow
+            doc = {"mode": self.mode,
+                   "workflow": type(wf).__name__,
+                   "device": repr(self.device),
+                   "run_time": time.monotonic() - (
+                       self._start_time or time.monotonic())}
+            decision = getattr(wf, "decision", None)
+            if decision is not None:
+                doc["epoch"] = decision.epoch_number
+                doc["best_error"] = float(decision.min_validation_error)
+            server = getattr(wf, "_coordinator_", None)
+            if server is not None and hasattr(server, "worker_states"):
+                doc["workers"] = server.worker_states()
+            if server is not None and \
+                    hasattr(server, "checkpoint_stats"):
+                stats = server.checkpoint_stats()
+                if stats:
+                    doc["checkpoint"] = stats
+            sched = self.scheduler
+            if sched is None:
+                tenant = getattr(wf, "sched_pool_tenant_", None)
+                sched = getattr(tenant, "scheduler", None)
+            if sched is not None:
+                doc["scheduler"] = sched.snapshot()
+            if self.serve_registry is not None:
+                doc["serve"] = self.serve_registry.metrics_snapshot()
+            from veles_tpu_torch import aot
+            aot_doc = aot.status_doc()
+            if aot_doc:
+                doc["aot"] = aot_doc
+            # the obs plane: this process's registry (tracer health +
+            # registered collectors), the coordinator's farm-wide
+            # registry when one runs here, and the slowest-requests
+            # exemplars — web_status serves /metrics and renders the
+            # breakdown table from exactly these keys
+            from veles_tpu_torch.obs.trace import EXEMPLARS
+            from veles_tpu_torch.obs import metrics as obs_metrics
+            samples = obs_metrics.REGISTRY.as_wire()
+            if server is not None and hasattr(server, "metrics_wire"):
+                samples += server.metrics_wire()
+            doc["metrics"] = samples
+            slowest = EXEMPLARS.snapshot()
+            if slowest:
+                doc["slowest"] = slowest
+            return doc
+
+        reporter.start(source)
+        return reporter
 
     def run(self) -> None:
         self._start_time = time.monotonic()

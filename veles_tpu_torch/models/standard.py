@@ -64,10 +64,6 @@ class StandardWorkflow(AcceleratedWorkflow):
                  snapshot_dir: Optional[str] = None,
                  snapshot_prefix: Optional[str] = None,
                  **kwargs: Any) -> None:
-        if plotters:
-            raise NotImplementedError(
-                "StandardWorkflow(plotters=True) needs plotting.py, "
-                "ROADMAP.md queue 1 item 11")
         super().__init__(workflow, **kwargs)
         if loader_cls is None:
             from veles_tpu_torch.loader.datasets import SyntheticDigitsLoader
@@ -113,6 +109,37 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.end_point.link_from(self.gds[-1])
         self.end_point.gate_block = ~self.decision.complete
         self._slave_rewired = False
+
+        self.plotters: List[Any] = []
+        if plotters:
+            from veles_tpu_torch.plotting import (AccumulatingPlotter,
+                                                  MatrixPlotter)
+            # both read host values the decision already holds
+            err_plot = AccumulatingPlotter(
+                self, plot_name="validation_error")
+            err_plot.link_attrs(self.decision,
+                                ("input", "min_validation_error"))
+            err_plot.gate_skip = ~self.loader.epoch_ended
+            # the decision accumulates per-minibatch confusions over
+            # the whole VALID class — plotting the evaluator's own
+            # matrix would show only the LAST minibatch of the epoch
+            self.decision.link_attrs(self.evaluator, "confusion_matrix")
+            conf_plot = MatrixPlotter(self, plot_name="confusion")
+            conf_plot.link_attrs(self.decision,
+                                 ("input", "last_epoch_confusion"))
+            conf_plot.gate_skip = ~self.loader.epoch_ended
+            # One chain, decision -> plotters -> backward: the next
+            # minibatch (behind the repeater) cannot start, and clear
+            # loader.epoch_ended, before they read their gate, and the
+            # end point cannot stop the graph under the last epoch's
+            # plots. The reference runs them beside the chain, where
+            # either race drops plots; a chain also hands no extra
+            # branch to the thread pool each minibatch.
+            self.gds[0].unlink_from(self.decision)
+            err_plot.link_from(self.decision)
+            conf_plot.link_from(err_plot)
+            self.gds[0].link_from(conf_plot)
+            self.plotters = [err_plot, conf_plot]
 
         self.snapshotter = None
         if snapshot_dir:

@@ -74,7 +74,8 @@ from veles_tpu_torch.ops.flash_attention import (flash_attention,
 from veles_tpu_torch.parallel import collectives
 from veles_tpu_torch.parallel.fused import NonFiniteSentinel, update_ok
 from veles_tpu_torch.parallel.mesh import check_mesh
-from veles_tpu_torch.parallel.ring_attention import ring_attention_local
+from veles_tpu_torch.parallel.ring_attention import (attention_reference,
+                                                   ring_attention_local)
 from veles_tpu_torch.sched import quantum_or_null
 
 
@@ -94,8 +95,9 @@ class TransformerConfig:
     #: "float32" | "bfloat16": the activation dtype (f32 master
     #: params, f32 layer-norm stats and logits either way).
     compute: str = "float32"
-    #: "flash" is the only attention of the port; the reference's
-    #: "dense" oracle is a debugging path left unported.
+    #: "flash" (the K1-K3 kernels on the card) or "dense": the
+    #: quadratic causal oracle on one device (plain PyTorch, for
+    #: debugging and parity; it refuses a ``seq`` mesh axis).
     attention: str = "flash"
     #: Force the flash implementation: "plain" | "cuda" | None (auto:
     #: the kernels on CUDA tensors, the plain path on CPU tensors).
@@ -350,17 +352,25 @@ def _attention_forward(x, block, config: TransformerConfig, par=None):
     """Pre-LN causal attention branch; returns (delta, k, v). Over a
     ``seq`` mesh axis (``par.seq``) it is the ring of this rank's
     chunk."""
-    if config.attention != "flash":
-        raise ValueError("the port's TransformerConfig.attention is "
-                         "'flash', got %r" % (config.attention,))
+    if config.attention not in ("flash", "dense"):
+        raise ValueError("TransformerConfig.attention must be 'flash' "
+                         "or 'dense', got %r" % (config.attention,))
     b, t, _ = x.shape
     cd = config.compute_dtype()
     h = _layer_norm(x, block["ln1"]["g"], block["ln1"]["b"])
     q, k, v = _qkv(h, block, config)
     if par is not None and par.seq.size > 1:
+        if config.attention == "dense":
+            # the seq ring IS the attention there: a dense oracle run
+            # must drop the seq axis, not be silently ignored
+            raise ValueError(
+                "attention='dense' is single-device only; remove the "
+                "mesh seq axis to compare against the oracle")
         out = ring_attention_local(q, k, v, par.seq, causal=True,
                                    impl=config.attention_impl,
                                    block_k=config.block_k)
+    elif config.attention == "dense":
+        out = attention_reference(q, k, v, causal=True)
     else:
         out = flash_attention(q, k, v, causal=True, block_q=config.block_q,
                               block_k=config.block_k,

@@ -3,7 +3,8 @@
 
 - ``POST /apply`` — forward a batch through the default forward-plane
   model (``ModelRegistry.add``); ``POST /apply/<name>`` targets one by
-  name. Body ``{"input": rows}`` (a non-empty ``[N, ...]`` batch in the
+  name (``/apply`` is the default ``path``; a server built with
+  ``path="/predict"`` answers ``/predict`` and ``/predict/<name>``). Body ``{"input": rows}`` (a non-empty ``[N, ...]`` batch in the
   engine's ``input_dtype``), optional ``"deadline_ms"`` (or
   ``X-Deadline-Ms``) and ``"priority"`` (or ``X-Priority``:
   ``interactive`` | ``batch``). A body of ``Content-Type:
@@ -137,11 +138,15 @@ class ServeServer:
 
     def __init__(self, registry: ModelRegistry,
                  host: str = "127.0.0.1", port: int = 0,
+                 path: str = "/apply",
                  timeout: float = 30.0, scheduler=None,
                  watchdog_s: Optional[float] = 30.0,
                  default_deadline_ms: Optional[float] = None,
                  admin_swap: bool = False) -> None:
         self.registry = registry
+        #: the forward plane's route: ``path`` serves the default
+        #: model, ``path/<name>`` a named one (``RESTfulAPI`` sets it)
+        self.path = path
         self.timeout = float(timeout)
         #: a veles_tpu_torch.sched.Scheduler whose per-tenant accounting
         #: rides /metrics (``_scheduler`` key in the JSON document,
@@ -279,7 +284,7 @@ class ServeServer:
             # -- POST /apply[/<model>] ----------------------------------
             def _do_apply(self, url, raw: bytes) -> None:
                 try:
-                    model = server._model_for(url.path, "/apply")
+                    model = server._model_for(url.path, server.path)
                 except KeyError as e:
                     self._reply(404, {"error": "unknown model %s" % e})
                     return
@@ -568,8 +573,8 @@ class ServeServer:
                         self._do_generate(url, raw)
                     elif url.path == "/admin/swap":
                         self._do_admin_swap(raw)
-                    elif url.path == "/apply" or \
-                            url.path.startswith("/apply/"):
+                    elif url.path == server.path or \
+                            url.path.startswith(server.path + "/"):
                         self._do_apply(url, raw)
                     else:
                         self._reply(404, {"error": "not found"})
