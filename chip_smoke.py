@@ -8,7 +8,9 @@ without them, and on any failed phase. Phases, in order:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of every kernel in ``veles_tpu_torch/ops/csrc`` (parallel
-   ``nvcc``, timed, with each kernel's ``ptxas`` registers and spills);
+   ``nvcc``, all started at once, timed, with each kernel's ``ptxas``
+   registers and spills; ``BACKGROUND_BUILD``'s sources are awaited, and
+   their kernels checked, only after phase 2's flash kernels);
    ``cuobjdump -sass`` counts the Hopper instructions of the flash
    libraries' kernels (``HGMMA``: wgmma; ``UTMALDG``: TMA loads), and
    the phase fails unless the bf16 forward (K1), dK/dV (K2) and dQ (K3)
@@ -36,7 +38,14 @@ without them, and on any failed phase. Phases, in order:
    kernels (K2 dK/dV, K3 dQ) at batch 2 (bf16 and f32, full and
    ragged T), then K1, K2 and K3 at the
    training shape and layout (batch 8, q, k, v strided views of one
-   fused QKV projection, SDPA timed on the same views); the LRN forward
+   fused QKV projection, SDPA timed on the same views); then K1 (the
+   serving view ``[2, 2048, 8, D]`` at bf16, a ragged f32 one, and the
+   training view of a fused ``[2, 2048, 3, 8, D]`` projection), K4
+   (the serving slab ``[8, 2048, 8, D]``, bf16 and f32) and K5 (that
+   slab in scrambled pages) at the head dims ``WIDE_HEAD_DIMS`` (80
+   and 96 on the 128-wide instances, 256 on its own), each checked and
+   at bf16 timed beside its bound, plain version and library call; the
+   LRN forward
    and backward kernels (K6, K7)
    at AlexNet's two LRN shapes at batch 1536 (bf16 and f32) and at a
    ragged row count with an odd C and an even window; the uniform fill
@@ -218,7 +227,7 @@ without them, and on any failed phase. Phases, in order:
    counts from 0, (a) phase 5's LM (``FULL``'s widths, depth cut to
    ``STATE_LM_LAYERS``, bf16, remat "attn", batch 8, lr 1e-4) trained
    by ``TransformerWorkflow`` over
-   ``SyntheticTextLoader`` (88 windows: 10 TRAIN and 1 VALID minibatch
+   ``SyntheticTextLoader`` (44 windows: 5 TRAIN and 1 VALID minibatch
    an epoch) with ``Snapshotter(sharded=True)``, 3 epochs (run A): ms
    per TRAIN step beside phase 5's, exactly 2L/L/L K1/K2/K3 a TRAIN
    step after the one that captures and L K1 a VALID minibatch, each
@@ -285,8 +294,9 @@ without them, and on any failed phase. Phases, in order:
    token one rank's; ``alexnet_fused()`` at tp=2 through
    ``InferenceEngine.from_specs(mesh=)``, phase 11's buckets within
    phase 11's bound of one rank, 2 K6 an apply on each rank; and NCCL at
-   world 1: the tp=1 engine's tokens and K/V slab bitwise the
-   unsharded engine's, both keeping their CUDA graphs;
+   world 1 (run in phase 21's NCCL world): the tp=1 engine's tokens and
+   K/V slab bitwise the unsharded engine's, both keeping their CUDA
+   graphs;
 23. the training farm (``veles_tpu_torch.distributed``) over phase 14's
    ``AlexNetWorkflow`` (its widths, one epoch of ``FARM_DATA``'s
    images): (a) a coordinator and one worker on a thread of this
@@ -353,10 +363,12 @@ without them, and on any failed phase. Phases, in order:
    lanes, no failed request off the canary, every replica then
    answering the second package's outputs (within ``TOL_APPLY`` of an
    in-process engine of it; bitwise logged); SIGINT: all exit 0; (d)
-   phase 3's LM (``FULL``, bf16) by ``--serve --aot-cache DIR``: the 8
-   prompts staggered, tokens equal to phase 3's, 12 K1 a prefill and 12
-   K4 a round by its ``/metrics``, no capture after ready; one
-   ``lm_step_many`` (batch 8) and one ``mlp_step_many`` (AlexNet, batch
+   phase 3's LM (``FULL``, bf16) by ``--serve --aot-cache DIR``, its
+   process started beside the trainers' dispatches below: the 8 prompts
+   staggered, tokens equal to phase 3's, 12 K1 a prefill and 12 K4 a
+   round by its ``/metrics``, no capture after ready; one
+   ``lm_step_many`` (batch 8, ``AOT_LM_LAYERS`` layers of ``FULL``'s
+   widths) and one ``mlp_step_many`` (AlexNet, batch
    1536) dispatch of K = 2 under a plan bitwise the same dispatch
    without one (losses, params and optimizer state, under deterministic
    cuDNN), their records holding one replay's (one dispatch's)
@@ -420,6 +432,19 @@ without them, and on any failed phase. Phases, in order:
    and ``/status.json`` show it; (e) ``render_report`` writes markdown,
    json and html of the trained workflow; the json parses and the
    report's facts hold no tensor.
+
+28. (run after phase 8) the full-width LM at 4 heads of 256
+   (``WIDE_LM``: phase 3's configuration with ``heads=4``, seed 4,
+   bf16) behind a ``GenerativeEngine`` (K1 prefill, K4 decode) and a
+   ``PagedGenerativeEngine`` (K1, K5; 512 16-token pages), each warmed
+   and registered with its own ``TokenBatcher`` on one ``ServeServer``:
+   the prompts ``WIDE_PROMPTS`` (16 to 1,500 tokens) sent staggered to
+   each, ``WIDE_TOKENS`` tokens a request, at least 12 K1 a prefill and
+   12 K4 (K5) a round in each window, every page back; one batch of the
+   prompts on both engines gives the same greedy tokens; at f32 and 2
+   layers of the same width, greedy tokens through the kernels equal
+   the plain path's on both engines; the bf16 full-width prefill logits
+   against the plain path.
 
 It prints the per-kernel JSON line and the card line before its last
 line, ``{"ok": true, "device": {...}}``; the full record goes to
@@ -682,6 +707,11 @@ def profile_device(torch, fn, steps, host_ops=True):
                      for k, ms, n in rows[:8]])
 
 
+#: the kernel sources phase 1 starts building but awaits only after
+#: phase 2's flash kernels (LRN's: 38 s of nvcc alone on the card's
+#: host, the others 4-14 s)
+BACKGROUND_BUILD = ("lrn",)
+
 #: SASS instructions counted in phase 1, by their patterns: wgmma, TMA
 #: loads, 16-byte global loads
 SASS_OPS = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b",
@@ -786,20 +816,24 @@ def spill_bytes(lines):
                for n in re.findall(r"(\d+) bytes spill", line))
 
 
-def hopper_units(_build, fa):
+def hopper_units(_build, fa, only=None):
     """Phase 1's proof that the flash kernels reach the units they were
-    written for: for every instance of each of HOPPER_KERNELS, its SASS
-    counts, ptxas's registers and spills and, for the bf16 TMA kernels,
-    the dynamic shared memory; fails when an instance lacks one of its
-    ops or spills, or a library lacks a kernel."""
+    written for: for every instance of each of HOPPER_KERNELS (of the
+    libraries ``only``, None: all), its SASS counts, ptxas's registers
+    and spills and, for the bf16 TMA kernels, the dynamic shared memory;
+    fails when an instance lacks one of its ops or spills, or a library
+    lacks a kernel."""
     record = {}
-    libs = sorted({lib for lib, _, _ in HOPPER_KERNELS.values()})
+    libs = sorted({lib for lib, _, _ in HOPPER_KERNELS.values()
+                   if only is None or lib in only})
     paths = _build.build(libs)
     # one cuobjdump a library, all at once
     with ThreadPoolExecutor(len(libs)) as pool:
         sass = dict(zip(libs, pool.map(lambda l: sass_counts(paths[l]),
                                        libs)))
     for stem, (lib, entry, needs) in HOPPER_KERNELS.items():
+        if lib not in libs:
+            continue
         counts = sass[lib]
         usage = ptxas_usage(_build.build_log(lib))
         groups = {}
@@ -963,6 +997,7 @@ def kernel_phase(torch, fa, dev):
                 library_ms=lib_ms)
             log("  flash_decode: %s" % decode_chunks(fa, s, lengths, h))
     backward_kernels(torch, fa, dev, randn, h, d, rows)
+    wide_head_kernels(torch, fa, dev, randn, rows)
     for row in rows.values():
         log("  %s: kernel %.4f ms (back to back %.4f), plain %.4f ms, "
             "library %.4f ms, bound %.4f ms (%s), max abs err %.3e [%s]" % (
@@ -983,6 +1018,129 @@ def kernel_phase(torch, fa, dev):
         "dV) %.4f ms" % (rows["flash_bwd_dq"]["k2_plus_k3_ms"],
                          rows["flash_bwd_dq"]["library_ms"]))
     return rows
+
+
+#: head dims outside the instance widths, and the widest: K1, K4 and K5
+#: run 80 and 96 on the 128-wide instance (zero columns past D) and 256
+#: on its own (one consumer warpgroup, 64-key tiles)
+WIDE_HEAD_DIMS = (80, 96, 256)
+
+
+def wide_head_kernels(torch, fa, dev, randn, rows):
+    """K1 (the serving view [2, 2048, 8, D] at bf16, a ragged T = 1000
+    at f32, and the training view: q, k, v strided views of one fused
+    [2, 2048, 3, 8, D] projection), K4 (the serving slab [8, 2048, 8, D],
+    phase 2's ragged lengths, bf16 and f32) and K5 (that slab in
+    scrambled 16-token pages) against their plain versions at each of
+    WIDE_HEAD_DIMS; at bf16 each timed beside its bound, the plain
+    version and the library call. Adds ``head_dims`` to the three
+    rows."""
+    h, b, s = 8, 8, 2048
+    lengths = torch.tensor([0, 1, 777, 2048, 1500, 64, 1024, 2000],
+                           dtype=torch.int32, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name in ("flash_fwd", "flash_decode", "flash_decode_paged"):
+        rows[name]["head_dims"] = {}
+    for d in WIDE_HEAD_DIMS:
+        log("  head dim %d (instance width %d)" % (d, fa.kernel_width(d)))
+        # K1, f32: the parity path at a ragged length
+        q, k, v = (randn((2, 1000, h, d), torch.float32) for _ in range(3))
+        o, l, m = fa.flash_attention_fwd(q, k, v, causal=True, impl="cuda")
+        po, pl, pm = fa.flash_attention_fwd(q, k, v, causal=True,
+                                            impl="plain")
+        torch.cuda.synchronize()
+        check("flash_fwd float32 T=1000 D=%d O" % d,
+              float((o - po).abs().max()), TOL_OUT["float32"])
+        # K1, bf16: the serving view, then the training view
+        t = 2048
+        q, k, v = (randn((2, t, h, d), torch.bfloat16) for _ in range(3))
+        o, l, m = fa.flash_attention_fwd(q, k, v, causal=True, impl="cuda")
+        again = fa.flash_attention_fwd(q, k, v, causal=True, impl="cuda")
+        po, pl, pm = fa.flash_attention_fwd(q, k, v, causal=True,
+                                            impl="plain")
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b_) for a, b_ in zip((o, l, m), again)):
+            raise AssertionError("flash_fwd D=%d: two launches on the same "
+                                 "inputs differ" % d)
+        err = float((o.float() - po.float()).abs().max())
+        check("flash_fwd bfloat16 [2,2048,8,%d] O" % d, err,
+              TOL_OUT["bfloat16"])
+        check("flash_fwd bfloat16 [2,2048,8,%d] l (rel)" % d,
+              float(((l - pl).abs() / pl.abs()).max()), TOL_L_REL)
+        check("flash_fwd bfloat16 [2,2048,8,%d] m" % d,
+              float((m - pm).abs().max()), TOL_M)
+        qkv = randn((2, t, 3, h, d), torch.bfloat16)
+        views = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        vo, _, _ = fa.flash_fwd_cuda(*views, True)
+        vpo, _, _ = fa.flash_attention_fwd(*views, causal=True,
+                                           impl="plain")
+        torch.cuda.synchronize()
+        check("flash_fwd bfloat16 [2,2048,3,8,%d] views O" % d,
+              float((vo.float() - vpo.float()).abs().max()),
+              TOL_OUT["bfloat16"])
+        del qkv, views, vo, vpo, again
+        flops = 4.0 * d * 2 * h * t * (t + 1) / 2
+        nbytes = 4 * q.numel() * q.element_size() + 2 * l.numel() * 4
+        bms, by = bound(flops, nbytes, "bfloat16")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = device_ms(lambda: fa.flash_fwd_cuda(q, k, v, True), 20)
+        k1 = dict(shape="q,k,v [2, 2048, 8, %d] bf16, causal" % d,
+                  width=fa.kernel_width(d), max_abs_err=err, ms=ms,
+                  tflops=flops / ms / 1e9,
+                  plain_ms=time_ms(lambda: fa.flash_attention_fwd(
+                      q, k, v, causal=True, impl="plain"), 2),
+                  bound_ms=bms, bound_by=by,
+                  library_ms=device_ms(lambda: sdpa(qt, kt, vt,
+                                                    is_causal=True), 20))
+        rows["flash_fwd"]["head_dims"][d] = k1
+        del q, k, v, qt, kt, vt, o, po
+        # K4 and K5 over the serving slab
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            kc, vc = randn((b, s, h, d), dtype), randn((b, s, h, d), dtype)
+            q = randn((b, h, d), dtype)
+            out = fa.flash_decode(q, kc, vc, lengths, impl="cuda")
+            ref = fa.flash_decode(q, kc, vc, lengths, impl="plain")
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            check("flash_decode %s slab [8,2048,8,%d]" % (dn, d), err,
+                  TOL_OUT[dn])
+            if float(out[0].abs().max()) != 0.0:
+                raise AssertionError("flash_decode D=%d: length-0 row is "
+                                     "not zero" % d)
+            k5 = paged_kernel(torch, fa, dev, dn, q, kc, vc, lengths, out,
+                              rows["flash_decode_paged"]["head_dims"].get(
+                                  d))
+            rows["flash_decode_paged"]["head_dims"][d] = k5
+            if dtype is not torch.bfloat16:
+                continue
+            live = int(lengths.sum())
+            nbytes = (2 * live * h * d + 2 * b * h * d) * \
+                q.element_size() + 4 * b
+            bms, by = bound(4.0 * d * h * live, nbytes, dn)
+            mask = (torch.arange(s, device=dev)[None, :] <
+                    lengths[:, None])[:, None, None, :]
+            q4, kt, vt = q[:, :, None], kc.transpose(1, 2), \
+                vc.transpose(1, 2)
+            rows["flash_decode"]["head_dims"][d] = dict(
+                shape="q [8, 8, %d], slab [8, 2048, 8, %d] bf16" % (d, d),
+                width=fa.kernel_width(d), max_abs_err=err,
+                ms=device_ms(lambda: fa.flash_decode_cuda(
+                    q, kc, vc, lengths), 50, cold=True),
+                plain_ms=time_ms(lambda: fa.flash_decode(
+                    q, kc, vc, lengths, impl="plain"), 3),
+                bound_ms=bms, bound_by=by,
+                library_ms=device_ms(lambda: sdpa(q4, kt, vt,
+                                                  attn_mask=mask), 50,
+                                     cold=True))
+            del q4, kt, vt
+        for name in ("flash_fwd", "flash_decode", "flash_decode_paged"):
+            r = rows[name]["head_dims"][d]
+            log("  %s D=%d: kernel %.4f ms, plain %.4f ms, library %.4f "
+                "ms, bound %.4f ms (%s), max abs err %.3e [%s]" % (
+                    name, d, r["ms"], r["plain_ms"], r["library_ms"],
+                    r["bound_ms"], r["bound_by"], r["max_abs_err"],
+                    r["shape"]))
 
 
 def decode_chunks(fa, capacity, lengths, heads):
@@ -1023,8 +1181,8 @@ def paged_kernel(torch, fa, dev, dn, q, kc, vc, lengths, slab_out, row):
     ref = fa.flash_decode_paged(q, kp, vp, table, lengths, impl="plain")
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
-    check("flash_decode_paged %s pool [%d,16,8,128]" % (dn, n_pages), err,
-          TOL_OUT[dn])
+    check("flash_decode_paged %s pool [%d,16,%d,%d]" % (dn, n_pages, h, d),
+          err, TOL_OUT[dn])
     if float(out[0].abs().max()) != 0.0:
         raise AssertionError("flash_decode_paged: length-0 row is not zero")
     bitwise = bool(torch.equal(out, slab_out))
@@ -1058,9 +1216,10 @@ def paged_kernel(torch, fa, dev, dn, q, kc, vc, lengths, slab_out, row):
         name="flash_decode_paged", route="cuda",
         source="veles_tpu_torch/ops/csrc/flash_decode.cu",
         replaces="veles_tpu/ops/flash_attention.py:1060",
-        shape="q [8, 8, 128], pool [%d, 16, 8, 128] bf16 (K4's slab in "
-              "scrambled pages), block tables [8, %d] with sentinels, "
-              "lengths %s" % (n_pages, n_blk, lengths.tolist()),
+        shape="q [%d, %d, %d], pool [%d, 16, %d, %d] bf16 (K4's slab in "
+              "scrambled pages), block tables [%d, %d] with sentinels, "
+              "lengths %s" % (b, h, d, n_pages, h, d, b, n_blk,
+                              lengths.tolist()),
         max_abs_err=err, bitwise_equal_k4=bitwise,
         ms=device_ms(lambda: fa.flash_decode_paged_cuda(
             q, kp, vp, table, lengths), 50, cold=True),
@@ -2285,6 +2444,160 @@ def _spec_pair(config_cls, init_params, width, t_layers, d_layers,
     return tcfg, tparams, dcfg, dparams
 
 
+#: phase 28: the full-width LM at 4 heads of 256 (the head dim of
+#: Gemma and GPT-J; ``bench_transformer.py``'s heads knob), its requests
+#: (prompt indices of ``serving_prompts``: 16, 250, 777 and 1500 tokens)
+#: and tokens a request
+WIDE_LM = dict(FULL, heads=4)
+WIDE_PROMPTS = (0, 2, 4, 7)
+WIDE_TOKENS = 16
+
+
+def wide_head_phase(torch, fa, dev, card):
+    """Phase 28: the full-width LM with 4 heads of 256 served through
+    the slab engine (K1 prefill, K4 decode) and the paged engine (K1,
+    K5), each behind a ``TokenBatcher`` and ``ServeServer``; one batch
+    of the prompts gives the same greedy tokens on both; the kernels
+    against the plain path at f32 (2 layers of the same width, slab and
+    paged, greedy token for token) and the bf16 full-width prefill
+    logits against plain. Returns (record, the launches of the two HTTP
+    windows)."""
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params,
+                                                    params_from_numpy,
+                                                    prefill)
+    from veles_tpu_torch.serve import (GenerativeEngine, ModelRegistry,
+                                       PagedGenerativeEngine, ServeServer)
+
+    config = TransformerConfig(compute="bfloat16", **WIDE_LM)
+    head_dim = config.embed // config.heads
+    log("phase 28: serving %s (head dim %d)" % (config, head_dim))
+    if head_dim != 256:
+        raise AssertionError("phase 28 serves head dim 256, got %d"
+                             % head_dim)
+    t0 = time.monotonic()
+    params = init_params(config, seed=4)
+    prompts = [serving_prompts(config.vocab)[i] for i in WIDE_PROMPTS]
+    n_tok = WIDE_TOKENS
+    engines = {"slab": GenerativeEngine(config, params, max_slots=4,
+                                        device=dev),
+               "paged": PagedGenerativeEngine(config, params, max_slots=4,
+                                              page_size=16, n_pages=512,
+                                              device=dev)}
+    for engine in engines.values():
+        engine.warm()
+    log("  engines built and warmed in %.1f s" % (time.monotonic() - t0))
+    registry = ModelRegistry()
+    models = {name: registry.add_generative(name, engine)
+              for name, engine in engines.items()}
+    server = ServeServer(registry, port=0, timeout=600)
+    result, launches = {}, dict.fromkeys(fa.LAUNCHES, 0)
+    try:
+        base = "http://%s:%d" % server.endpoint
+        for name, engine in engines.items():
+            url = "%s/generate/%s" % (base, name)
+            with _post(url, {"prompt": [1, 2, 3], "max_tokens": 2}) as r:
+                json.loads(r.read())                      # warm-up
+            snap0 = models[name].metrics.snapshot()
+            fa.reset_launches()
+            t1 = time.monotonic()
+            answers = _staggered_generate(url, prompts, n_tok)
+            wall = time.monotonic() - t1
+            got = dict(fa.LAUNCHES)
+            snap1 = models[name].metrics.snapshot()
+            for i, a in enumerate(answers):
+                if not isinstance(a, list) or len(a) != n_tok or \
+                        not all(0 <= x < config.vocab for x in a):
+                    raise AssertionError("%s request %d answered %r"
+                                         % (name, i, a))
+            admits = snap1["prefills_total"] - snap0["prefills_total"]
+            steps = snap1["decode_steps_total"] - \
+                snap0["decode_steps_total"]
+            decode = "flash_decode" if name == "slab" else \
+                "flash_decode_paged"
+            log("  %s: %d requests (prompts %s, %d tokens each) in %.3f s, "
+                "%.1f tokens/s over HTTP; %d prefills, %d decode rounds; "
+                "launches %s [%s]" % (
+                    name, len(prompts), [len(p) for p in prompts], n_tok,
+                    wall, len(prompts) * n_tok / wall, admits, steps, got,
+                    card))
+            if admits < 1 or got["flash_fwd"] < config.layers * admits:
+                raise AssertionError("%s: flash_fwd launches %d < %d layers "
+                                     "x %d prefills" % (
+                                         name, got["flash_fwd"],
+                                         config.layers, admits))
+            if steps < 1 or got[decode] < config.layers * steps:
+                raise AssertionError("%s: %s launches %d < %d layers x %d "
+                                     "rounds" % (name, decode, got[decode],
+                                                 config.layers, steps))
+            for key, n in got.items():
+                launches[key] += n
+            result[name] = dict(wall_s=wall, prefills=admits,
+                                decode_rounds=steps, launches=got,
+                                tokens_per_s=len(prompts) * n_tok / wall,
+                                answers=answers)
+    finally:
+        server.stop()
+    pages = engines["paged"].pool
+    if pages.free_pages != 512 or engines["paged"].active_slots:
+        raise AssertionError("paged: %d of 512 pages back, %d active"
+                             % (pages.free_pages,
+                                engines["paged"].active_slots))
+    # one batch of the prompts on both engines: the same prefill and
+    # decode shapes, so K4 and K5 (bitwise equal on the same K/V) give
+    # the same greedy tokens
+    rows = [np.asarray(p, np.int32) for p in prompts]
+    batch = {name: [g.tolist() for g in engine.generate(rows, n_tok)]
+             for name, engine in engines.items()}
+    if batch["slab"] != batch["paged"]:
+        raise AssertionError("4 x 256 heads: paged batch tokens != slab's")
+    log("  one batch of the %d prompts: paged == slab token for token"
+        % len(rows))
+    del engines, models, registry
+    # the kernels against the plain path: f32, 2 layers of the width
+    small = dict(WIDE_LM, layers=2)
+    sparams = init_params(TransformerConfig(**small), seed=3)
+    rng = np.random.default_rng(3)
+    short = [rng.integers(1, small["vocab"], n).astype(np.int32)
+             for n in (10, 100, 700)]
+    gens = {}
+    for impl in ("cuda", "plain"):
+        cfg = TransformerConfig(compute="float32", attention_impl=impl,
+                                **small)
+        for name, cls in (("slab", GenerativeEngine),
+                          ("paged", PagedGenerativeEngine)):
+            engine = cls(cfg, sparams, max_slots=4, device=dev)
+            gens[impl, name] = [g.tolist()
+                                for g in engine.generate(short, 32)]
+            del engine
+    same = len({json.dumps(g) for g in gens.values()}) == 1
+    log("  f32 2-layer greedy at 4 x 256 heads, 3 prompts x 32 tokens: "
+        "kernels (K4, K5) == plain == across engines: %s" % same)
+    if not same:
+        raise AssertionError("4 x 256 greedy tokens differ: %r" % gens)
+    tree = params_from_numpy(params, config, dev)
+    tokens = torch.from_numpy(rng.integers(1, config.vocab,
+                                           (2, 1024))).to(dev)
+    lengths = torch.tensor([1024, 700], device=dev)
+    with torch.inference_mode():
+        lk, _ = prefill(tree, tokens, lengths, config)
+        lp, _ = prefill(tree, tokens, lengths, TransformerConfig(
+            compute="bfloat16", attention_impl="plain", **WIDE_LM))
+    err = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    log("  bf16 full width prefill logits [2, 8192]: max |kernel - plain| "
+        "%.4e (logit scale %.3f)" % (err, scale))
+    if not np.isfinite(err) or err > 0.05 * scale:
+        raise AssertionError("4 x 256 bf16 prefill logits off by %g" % err)
+    del tree, lk, lp
+    result.update(config=dict(WIDE_LM), head_dim=head_dim,
+                  batch_equal=True, f32_greedy_equal=same,
+                  f32_tokens=gens["cuda", "slab"],
+                  bf16_prefill_logit_err=err, bf16_logit_scale=scale,
+                  phase_s=time.monotonic() - t0)
+    return result, launches
+
+
 def paged_parity_phase(torch, fa, dev, card):
     from veles_tpu_torch.models.transformer import (TransformerConfig,
                                                     init_params)
@@ -2941,9 +3254,10 @@ def unit_graph_phase(torch, counters, dev, card):
 #: COTENANT_WINDOWS in window A (the first captures the step and is not
 #: timed) and COTENANT_PROFILED_WINDOWS in the profiled window B
 COTENANT_K = 4
-#: (16 until phase 27 came: the script's time)
-COTENANT_WINDOWS = 4
-COTENANT_PROFILED_WINDOWS = 3
+#: (16 and 3 until phase 27 came, 4 and 3 until phase 28 came: the
+#: script's time)
+COTENANT_WINDOWS = 3
+COTENANT_PROFILED_WINDOWS = 2
 #: /apply clients: each a thread that sends its own image row once every
 #: APPLY_PERIOD_S (or as soon as the previous answer came, when that was
 #: later), each request with ``deadline_ms``, as raw f32 bytes (no JSON
@@ -3811,10 +4125,10 @@ def unit_graph_parity_phase(torch, dev, card):
 
 #: bench.py's legs in interleaved windows, K = 8 steps a dispatch, a
 #: prefetch ring of depth 2; the parity runs take 8 steps. 2 windows of
-#: 16 steps here (bench.py's 3 of 48 until phase 27 came: the script's
-#: time)
+#: 8 steps here (bench.py's 3 of 48 until phase 27 came, 16 steps until
+#: phase 28 came: the script's time)
 PIPE_WINDOWS = 2
-PIPE_STEPS = 16
+PIPE_STEPS = 8
 PIPE_K = 8
 PIPE_DEPTH = 2
 PIPE_PARITY_STEPS = 8
@@ -4751,15 +5065,18 @@ def zoo_parity_phase(torch, dev, card):
 # ---------------------------------------------------------------------------
 
 #: phase 19a: the LM of phase 5 (FULL's widths at STATE_LM_LAYERS, bf16,
-#: remat "attn", batch 8, lr 1e-4) trained by TransformerWorkflow over SyntheticTextLoader for 3
-#: epochs; 88 windows of seq_len + 1 tokens a corpus: 8 VALID windows
-#: (valid_ratio 0.1, one minibatch) and 80 TRAIN (10 minibatches)
+#: remat "attn", batch 8, lr 1e-4) trained by TransformerWorkflow over
+#: SyntheticTextLoader for 3 epochs; 44 windows of seq_len + 1 tokens a
+#: corpus (88 until phase 28 came: the script's time): 4 VALID windows
+#: (valid_ratio 0.1, one minibatch) and 40 TRAIN (5 minibatches of 8:
+#: a ragged one would capture the step at a second shape)
 STATE_EPOCHS = 3
-STATE_TOKENS = 88 * (FULL["seq_len"] + 1)
+STATE_TOKENS = 44 * (FULL["seq_len"] + 1)
 STATE_SEED = 7
-#: the LM's depth here (FULL's 12 until phase 27 came: the script's time;
-#: a save's bytes and the card-less load shrink with it)
-STATE_LM_LAYERS = 4
+#: the LM's depth here (FULL's 12 until phase 27 came, 4 until phase 28
+#: came: the script's time; a save's bytes and the card-less load shrink
+#: with it)
+STATE_LM_LAYERS = 2
 #: launches of one captured LM TRAIN step (K1 twice a layer: forward
 #: and the recompute of remat "attn"; K2, K3 once a layer), of one VALID
 #: minibatch (the forward), and of one train_fused step (phase 14's
@@ -4903,7 +5220,7 @@ def state_lm_phase(torch, counters, card, train):
     config = TransformerConfig(compute="bfloat16", remat="attn",
                                **dict(FULL, layers=STATE_LM_LAYERS))
     log("phase 19a: TransformerWorkflow at full width (%s), batch %d, lr "
-        "%g, SyntheticTextLoader of %d tokens (10 TRAIN and 1 VALID "
+        "%g, SyntheticTextLoader of %d tokens (5 TRAIN and 1 VALID "
         "minibatch an epoch), Snapshotter(sharded=True), %d epochs (run A)"
         "; run B resumes from the epoch-2 manifest"
         % (config, TRAIN_BATCH, TRAIN_LR, STATE_TOKENS, STATE_EPOCHS))
@@ -5491,13 +5808,14 @@ TOL_MESH_LM = 2e-2
 #: runs each a rounding away from f32 lie about sqrt(2) of it apart.
 #: At f32 (64 x 64) each leaf is held to 1e-4 of its scale.
 #: (c): expert parallelism at FULL's widths, depth cut to fit the phase
-#: (4 until phase 27 came: the script's time)
-MESH_MOE_LAYERS = 2
+#: (4 until phase 27 came, 2 until phase 28 came: the script's time)
+MESH_MOE_LAYERS = 1
 #: (a) and (e): the flagship's minibatch here, and (b): the LM's depth
-#: (CLASSIFIER_BATCH's 1536 and FULL's 12 until phase 27 came: the
-#: script's time; gloo stages every collective through the host)
-MESH_BATCH = 256
-MESH_LM_LAYERS = 2
+#: (CLASSIFIER_BATCH's 1536 and FULL's 12 until phase 27 came, then 256
+#: and 2 until phase 28 came: the script's time; gloo stages every
+#: collective through the host)
+MESH_BATCH = 128
+MESH_LM_LAYERS = 1
 #: (d): the JAX package's only pipeline configuration (graft entry)
 MESH_PIPE = dict(n_features=8, hidden=16, n_classes=6, n_stages=2)
 TOL_MESH_PIPE = 1e-5
@@ -5885,8 +6203,11 @@ def mesh_phase(torch, dev, card, plan=None):
         world_s = time.monotonic() - t0
         t0 = time.monotonic()
         if dev.type == "cuda":
-            nccl = run_world(nccl_rank, 1, "nccl", None, args=(plan,),
-                             timeout_s=MESH_TIMEOUT_S)[0]
+            # one world of one rank for (e) and phase 22's NCCL leg: a
+            # process start-up, a CUDA context and an NCCL join fewer
+            nccl, _HOST["shard_nccl"] = run_world(
+                nccl_ranks, 1, "nccl", None, args=(plan, _shard_plan(dev)),
+                timeout_s=MESH_TIMEOUT_S)[0]
         else:
             nccl = None
         nccl_s = time.monotonic() - t0
@@ -5985,13 +6306,16 @@ def mesh_phase(torch, dev, card, plan=None):
 #: the tensor-parallel degree: two ranks share the card over gloo
 SHARD_TP = 2
 #: decode rounds timed on each sharded engine directly (phase 3's count,
-#: 32, until phase 27 came: the script's time)
-SHARD_ROUNDS = 16
+#: 32, until phase 27 came, 16 until phase 28 came: the script's time)
+SHARD_ROUNDS = 8
 #: the share of the card's memory headroom each rank's page pool takes
 #: (``PagePool.from_device``): two ranks and this process share the card
 SHARD_POOL_FRACTION = 0.2
 #: the f32 legs: full width, this depth
 SHARD_F32_LAYERS = 2
+#: the /apply buckets timed at tp=2 (phase 11's seven until phase 28
+#: came: the script's time)
+SHARD_APPLY_BUCKETS = [1, 8, 64]
 
 
 def _shard_plan(dev):
@@ -6000,7 +6324,7 @@ def _shard_plan(dev):
     return dict(full=FULL, tp=SHARD_TP, rounds=SHARD_ROUNDS, n_tok=32,
                 prompts=serving_prompts(FULL["vocab"]), timing_len=1024,
                 pool_fraction=SHARD_POOL_FRACTION,
-                f32_layers=SHARD_F32_LAYERS, buckets=APPLY_BUCKETS,
+                f32_layers=SHARD_F32_LAYERS, buckets=SHARD_APPLY_BUCKETS,
                 apply_rows=APPLY_BUCKETS[-1], count=dev.type == "cuda")
 
 
@@ -6218,6 +6542,12 @@ def shard_nccl_rank(rank, plan):
                 staged=sum(collectives.STAGED_BYTES.values()))
 
 
+def nccl_ranks(rank, mesh_plan, shard_plan):
+    """Phase 21's (e) and phase 22's NCCL leg in one world of one rank
+    (both at world size 1 over NCCL)."""
+    return nccl_rank(rank, mesh_plan), shard_nccl_rank(rank, shard_plan)
+
+
 def _first_divergence(a, b):
     """(prompt, position) of the first token where two answer lists
     differ, or None."""
@@ -6287,9 +6617,12 @@ def sharded_serving_phase(torch, dev, card, serve, apply):
                       timeout_s=MESH_TIMEOUT_S)
     world_s = time.monotonic() - t0
     t0 = time.monotonic()
-    nccl = run_world(shard_nccl_rank, 1, "nccl", None, args=(plan,),
-                     timeout_s=MESH_TIMEOUT_S)[0] \
-        if dev.type == "cuda" else None
+    # phase 21's NCCL world ran this leg too (``nccl_ranks``); run alone,
+    # this phase spawns its own
+    nccl = _HOST.pop("shard_nccl", None)
+    if nccl is None and dev.type == "cuda":
+        nccl = run_world(shard_nccl_rank, 1, "nccl", None, args=(plan,),
+                         timeout_s=MESH_TIMEOUT_S)[0]
     nccl_s = time.monotonic() - t0
     leader = ranks[0]
     layers, heads, hd = full["layers"], full["heads"], \
@@ -6431,7 +6764,8 @@ def sharded_serving_phase(torch, dev, card, serve, apply):
 #: each farm's workflow: phase 14's AlexNetWorkflow (its widths, data
 #: cut to FARM_DATA: 1,024 TRAIN images until phase 25 came, 768 until
 #: phase 27 came, then 640 TRAIN and 256 VALID: the script's time) for
-#: this many epochs (4 TRAIN jobs and 2 VALID ones)
+#: this many epochs (4 TRAIN jobs and 2 VALID ones: with 5, worker 1
+#: may finish with one job and FARM_KILL never fires)
 FARM_DATA = dict(n_train=512, n_valid=128)
 FARM_EPOCHS = 1
 #: every coordinator's job timeout and every farm's deadline
@@ -6445,9 +6779,11 @@ FARM_WORKERS = 2
 FARM_KILL = "kill:1@1"
 #: (d): phase 19a's LM, depth cut to this (2 until phase 27 came), and
 #: its corpus to this many windows of seq_len + 1 tokens (88 until phase
-#: 25 came, 44 until phase 27 came, then 24: the script's time)
+#: 25 came, 44 until phase 27 came, then 24, then 16 until phase 28
+#: came: the script's time): one TRAIN minibatch of TRAIN_BATCH, no
+#: VALID window (valid_ratio 0.1 of 8 rounds down), one job
 FARM_LM_LAYERS = 1
-FARM_LM_WINDOWS = 16
+FARM_LM_WINDOWS = 8
 #: the minibatch classes (loader.base): VALID, TRAIN
 FARM_VALID, FARM_TRAIN = 1, 2
 
@@ -6650,9 +6986,12 @@ def _farm_processes(torch, dev, card):
                                discarded=coordinator.discarded_updates,
                                requeued=coordinator.requeued_jobs,
                                stale=coordinator.stale_applies)
-            coordinator.stop()
             if not f["finished"]:
                 raise AssertionError("farm %s did not finish" % label)
+        # the coordinators stay up, answering "done", until every worker
+        # process reported: one worker can finish the `none` farm alone
+        # (the killed one, which leaves `int8` first) before the other
+        # reaches it, which must then learn it is done, not be refused
         deadline = time.monotonic() + FARM_TIMEOUT_S
         while len(results) < len(procs):
             index, ok, value = queue.get(timeout=max(
@@ -6662,6 +7001,8 @@ def _farm_processes(torch, dev, card):
                                      % (index, value))
             results[index] = value
     finally:
+        for f in farms.values():
+            f["coordinator"].stop()
         for p in procs:
             p.join(30)
             if p.is_alive():
@@ -7333,53 +7674,6 @@ def _fleet_apply(torch, counters, dev, card, out):
         router.stop()
 
 
-FLEET_CLI_CONFIG = """\
-from veles_tpu_torch.models.transformer import TransformerConfig
-root.lm.config = TransformerConfig(compute="bfloat16", **%r)
-root.lm.loader_kwargs = {"minibatch_size": 2, "n_tokens": 16 * %d}
-"""
-
-
-def _cli_staggered(url, prompts, n_tok, session):
-    """The prompts streamed one admission at a time on ``session``."""
-    answers = [None] * len(prompts)
-    ms = [None] * len(prompts)
-    where = set()
-    threads = []
-    for i, prompt in enumerate(prompts):
-        first = threading.Event()
-
-        def client(i=i, prompt=prompt, first=first):
-            t0 = time.monotonic()
-            try:
-                toks = []
-                with _post(url + "/generate", {
-                        "prompt": prompt, "max_tokens": n_tok,
-                        "stream": True, "session": session}) as resp:
-                    where.add(resp.headers.get("X-Replica"))
-                    for line in resp:
-                        rec = json.loads(line)
-                        if "token" in rec:
-                            toks.append(rec["token"])
-                            first.set()
-                        elif "error" in rec:
-                            raise RuntimeError(rec)
-                answers[i] = toks
-            except BaseException as e:  # noqa: BLE001 — reported by caller
-                answers[i] = e
-            finally:
-                ms[i] = (time.monotonic() - t0) * 1e3
-                first.set()
-
-        thread = threading.Thread(target=client)
-        thread.start()
-        threads.append(thread)
-        first.wait(FLEET_TIMEOUT_S)
-    for thread in threads:
-        thread.join(FLEET_TIMEOUT_S)
-    return answers, ms, where
-
-
 def fleet_phase(torch, counters, dev, card, serve):
     """Phase 24; see the module docstring."""
     log("phase 24: the fleet: RouterServer over three LocalReplicas of "
@@ -7424,7 +7718,11 @@ AOT_TIMEOUT_S = 600
 #: (d): one replay's launches in a capture record (12 layers: the
 #: forward and the remat recompute, each backward kernel once a layer;
 #: AlexNet's 2 LRN layers and 2 dropout masks a step, K steps)
-AOT_LM_TALLY = {"flash_fwd": 24, "flash_bwd_dkv": 12, "flash_bwd_dq": 12}
+#: the LM trainer's depth there (FULL's 12 until phase 28 came: the
+#: script's time), and its step's launches
+AOT_LM_LAYERS = 2
+AOT_LM_TALLY = {"flash_fwd": 2 * AOT_LM_LAYERS,
+                "flash_bwd_dkv": AOT_LM_LAYERS, "flash_bwd_dq": AOT_LM_LAYERS}
 AOT_MLP_TALLY = {"lrn_fwd": 2 * AOT_K, "lrn_bwd": 2 * AOT_K,
                  "uniform_fill": 2 * AOT_K}
 #: eager warm-up calls before each capture (``graphs.StepGraph.WARMUP``)
@@ -7735,16 +8033,30 @@ def _aot_rollout(torch, card, work, pkg_a, pkg_b, cache, out):
                     bitwise=bitwise, syn=_syn_flags("(c)", ms))
 
 
-def _aot_lm_serve(torch, card, work, cache, serve, out):
+#: (d): the served LM's command-line config (phase 3's weights: seed 0)
+LM_CLI_CONFIG = """\
+from veles_tpu_torch.models.transformer import TransformerConfig
+root.lm.config = TransformerConfig(compute="bfloat16", **%r)
+root.lm.loader_kwargs = {"minibatch_size": 2, "n_tokens": 16 * %d}
+"""
+
+
+def _aot_lm_start(work, cache):
+    """Leg (d): start the served LM's process (it warms while the
+    trainers' dispatches run)."""
+    cfg = os.path.join(work, "lm_full.py")
+    with open(cfg, "w") as f:
+        f.write(LM_CLI_CONFIG % (FULL, FULL["seq_len"] + 1))
+    return _aot_start(
+        ["veles_tpu_torch/models/lm.py", cfg, "--serve", "127.0.0.1:0",
+         "--aot-cache", cache], work, "lm")
+
+
+def _aot_lm_serve(started, card, serve, out):
     """Leg (d), the served LM; see the module docstring."""
     from veles_tpu_torch.models.transformer import TransformerConfig
     config = TransformerConfig(compute="bfloat16", **FULL)
-    cfg = os.path.join(work, "lm_full.py")
-    with open(cfg, "w") as f:
-        f.write(FLEET_CLI_CONFIG % (FULL, FULL["seq_len"] + 1))
-    proc, log_path, t0 = _aot_start(
-        ["veles_tpu_torch/models/lm.py", cfg, "--serve", "127.0.0.1:0",
-         "--aot-cache", cache], work, "lm")
+    proc, log_path, t0 = started
     try:
         base = _aot_url(proc, log_path,
                         r"serving \S+ on (http://[\d.]+:\d+)",
@@ -7752,8 +8064,11 @@ def _aot_lm_serve(torch, card, work, cache, serve, out):
         wall_s = time.monotonic() - t0
         m = _AOT_STARTUP.search(_aot_text(log_path))
         before, k_before = _aot_metrics(base)
-        answers, ms, _ = _cli_staggered(base, serving_prompts(config.vocab),
-                                        FLEET_TOKENS, "aot")
+        t_req = time.monotonic()
+        answers = _staggered_generate(base + "/generate",
+                                      serving_prompts(config.vocab),
+                                      FLEET_TOKENS, AOT_TIMEOUT_S)
+        window_s = time.monotonic() - t_req
         after, k_after = _aot_metrics(base)
     finally:
         if proc.poll() is None:
@@ -7773,13 +8088,14 @@ def _aot_lm_serve(torch, card, work, cache, serve, out):
     if after["_aot"]["captures_after_ready"] != 0:
         raise AssertionError("(d) the LM captured after ready")
     log("  (d) the LM `--serve --aot-cache`: %s; serving %.1f s after the "
-        "start; phase 3's 8 prompts staggered: tokens == phase 3's, %d K1 "
-        "over %d prefills, %d K4 over %d rounds, 0 captures after ready "
-        "[%s]" % (m.group(0) if m else "no startup report", wall_s, k1,
-                  prefills, k4, rounds, card))
+        "start (the trainers' dispatches ran beside it); phase 3's 8 "
+        "prompts staggered in %.1f s: tokens == phase 3's, %d K1 over %d "
+        "prefills, %d K4 over %d rounds, 0 captures after ready [%s]"
+        % (m.group(0) if m else "no startup report", wall_s, window_s, k1,
+           prefills, k4, rounds, card))
     out["d"] = dict(serve_wall_s=wall_s, startup=m.group(0) if m else None,
                     prefills=prefills, rounds=rounds, k1=k1, k4=k4,
-                    request_ms=pcts(ms))
+                    window_s=window_s)
 
 
 def _aot_trainers(torch, dev, card, cache, out):
@@ -7792,7 +8108,8 @@ def _aot_trainers(torch, dev, card, cache, out):
     from veles_tpu_torch.models.transformer import (TransformerConfig,
                                                     TransformerTrainer)
     from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
-    config = TransformerConfig(compute="bfloat16", remat="attn", **FULL)
+    config = TransformerConfig(compute="bfloat16", remat="attn",
+                               **dict(FULL, layers=AOT_LM_LAYERS))
     gen = torch.Generator(device=dev)
     gen.manual_seed(26)
     tokens = torch.randint(0, config.vocab, (AOT_K, TRAIN_BATCH,
@@ -7926,8 +8243,9 @@ def aot_phase(torch, counters, dev, card, serve):
     """Phase 25; see the module docstring."""
     log("phase 25: packages and the AOT plane: package_export of phase 14's "
         "AlexNetWorkflow and from_package, `--serve PKG --aot-cache` cold "
-        "then warm, `--route --replicas 2 --rollout`, phase 3's LM and the "
-        "trainers under a plan")
+        "then warm, `--route --replicas 2 --rollout`, phase 3's LM "
+        "`--serve --aot-cache`, the trainers and the paged LM under a "
+        "plan")
     t_phase = time.monotonic()
     gc.collect()
     torch.cuda.empty_cache()
@@ -7942,8 +8260,14 @@ def aot_phase(torch, counters, dev, card, serve):
     torch.cuda.empty_cache()
     _aot_cold_start(torch, card, work, pkg_a, cache, out)
     _aot_rollout(torch, card, work, pkg_a, pkg_b, cache, out)
-    _aot_lm_serve(torch, card, work, cache, serve, out)
-    _aot_trainers(torch, dev, card, cache, out)
+    lm_serve = _aot_lm_start(work, cache)
+    try:
+        _aot_trainers(torch, dev, card, cache, out)
+    except BaseException:
+        lm_serve[0].kill()
+        lm_serve[0].wait()
+        raise
+    _aot_lm_serve(lm_serve, card, serve, out)
     gc.collect()
     torch.cuda.empty_cache()
     _aot_paged(torch, counters, dev, card, cache, serve, out)
@@ -8723,16 +9047,36 @@ def main():
     log("phase 1: card %s; torch %s, CUDA %s" % (
         card, torch.__version__, torch.version.cuda))
     t0 = time.monotonic()
-    _build.build()
-    build_s = time.monotonic() - t0
-    log("  built %s in %.1f s" % (_build.sources(), build_s))
-    for name in _build.sources():
-        for kernel, lines in ptxas_usage(_build.build_log(name)).items():
-            if not kernel.startswith(SUMMED_KERNELS):
-                log("    %s %s: %s" % (name, kernel, "; ".join(lines)))
-    hopper = hopper_units(_build, fa)
+    # every nvcc starts now, but lrn.cu (154 instances, the slowest
+    # source by far) is awaited only where its kernels are first needed,
+    # after phase 2's flash kernels: its build runs beside them
+    background = ThreadPoolExecutor(1)
+    late = BACKGROUND_BUILD
+    late_done = background.submit(
+        lambda: (_build.build(list(late)), time.monotonic())[1])
+    rest = [name for name in _build.sources() if name not in late]
+    _build.build(rest)
+    rest_end = time.monotonic()
+    log("  built %s in %.1f s; %s building beside phases 1-2"
+        % (rest, rest_end - t0, list(late)))
+
+    def log_ptxas(names):
+        for name in names:
+            for kernel, lines in ptxas_usage(
+                    _build.build_log(name)).items():
+                if not kernel.startswith(SUMMED_KERNELS):
+                    log("    %s %s: %s" % (name, kernel, "; ".join(lines)))
+
+    log_ptxas(rest)
+    hopper = hopper_units(_build, fa, only=rest)
 
     rows = kernel_phase(torch, fa, dev)
+    build_s = max(late_done.result(), rest_end) - t0
+    background.shutdown()
+    log("  built %s too: every kernel built %.1f s after the start"
+        % (list(late), build_s))
+    log_ptxas(late)
+    hopper.update(hopper_units(_build, fa, only=late))
     rows.update(lrn_fill_kernels(torch, dev))
     log("  profiler readings taken again (records lost): %d" % RETAKES[0])
     serve, serve_launches = serving_phase(torch, fa, dev, card)
@@ -8741,6 +9085,7 @@ def main():
     train_parity = train_parity_phase(torch, dev)
     paged, paged_launches = paged_serving_phase(torch, fa, dev, card, serve)
     paged_parity = paged_parity_phase(torch, fa, dev, card)
+    wide, wide_launches = wide_head_phase(torch, fa, dev, card)
     counters = Counters(fa, lrn_ops, rng_ops)
     classifier, classifier_launches = classifier_phase(torch, counters, dev,
                                                        card)
@@ -8786,6 +9131,7 @@ def main():
     # each main path's launches, counted from 0 around that path alone
     by_path = {"serving": serve_launches, "training": train_launches,
                "paged serving": paged_launches,
+               "4 heads of 256": wide_launches,
                "classifier training": classifier_launches,
                "apply serving": apply_launches,
                "unit graph": graph_launches,
@@ -8818,6 +9164,7 @@ def main():
                   kernels=kernels, serving=serve, parity=parity,
                   training=train, training_parity=train_parity,
                   paged_serving=paged, paged_parity=paged_parity,
+                  wide_heads=wide,
                   classifier=classifier,
                   classifier_parity=classifier_parity, apply=apply,
                   unit_graph=graph, cotenancy=cotenancy,

@@ -30,6 +30,11 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=0)}
 
+#: Head dims of the forward and decode kernels: the instance widths and
+#: dims that run on the next width with zero columns (48 and 80 on 64
+#: and 128, 96 on 128, 8 on 32)
+WIDE_D = [8, 32, 48, 64, 80, 96, 128, 256]
+
 
 @pytest.fixture
 def cuda():
@@ -45,7 +50,7 @@ def _randn(rng, shape, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", WIDE_D)
 @pytest.mark.parametrize("t,causal", [(64, True), (200, True),
                                       (130, False), (1, True)])
 def test_flash_fwd_kernel_matches_plain(cuda, dtype, d, t, causal):
@@ -74,7 +79,7 @@ def test_flash_fwd_kernel_reads_strided_views(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", WIDE_D)
 def test_flash_decode_kernel_matches_plain(cuda, dtype, d):
     rng = np.random.default_rng(d)
     b, s, h = 6, 300, 3
@@ -158,7 +163,7 @@ EDGE_T = [1, 63, 64, 127, 128, 129, 1000]
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", WIDE_D)
 @pytest.mark.parametrize("t", EDGE_T)
 def test_tma_forward_tiling_edges(cuda, t, d, causal):
     """K1's bf16 kernel (TMA ring, wgmma) against the plain forward at
@@ -227,6 +232,41 @@ def test_tma_kernels_read_strided_views_bitwise(cuda, t, d):
                        *fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, True))
     for a, b in zip(out["views"], out["copies"]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [80, 256])
+def test_tma_forward_reads_fused_views_at_wide_head_dims(cuda, d):
+    """K1 on views of one fused [B, T, 3, H, D] projection at a padded
+    (80) and at the widest (256) head dim: bitwise what it gives on
+    contiguous copies, and within the bf16 bound of plain."""
+    rng = np.random.default_rng(d + 3)
+    qkv = _randn(rng, (2, 300, 3, 4, d), torch.bfloat16, cuda)
+    views = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    got = fa.flash_fwd_cuda(*views, True)
+    ref = fa.flash_fwd_cuda(*(x.contiguous() for x in views), True)
+    po, _, _ = fa.flash_attention_fwd(*views, causal=True, impl="plain")
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got[0].float(), po.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [48, 80, 96, 256])
+def test_backward_kernels_at_a_new_head_dim_raise_naming_the_slice(
+        cuda, dtype, d):
+    """K2 and K3 are instantiated for head dims 32, 64 and 128: at any
+    other the backward raises, naming the roadmap item that brings it,
+    and counts no launch (the forward K1 ran)."""
+    rng = np.random.default_rng(d)
+    q, k, v = (_randn(rng, (1, 70, 2, d), dtype, cuda).requires_grad_()
+               for _ in range(3))
+    fa.reset_launches()
+    out = fa.flash_attention(q, k, v, causal=True)
+    assert fa.LAUNCHES["flash_fwd"] == 1
+    with pytest.raises(NotImplementedError, match="K2/K3 at every head"):
+        out.sum().backward()
+    assert fa.LAUNCHES["flash_bwd_dkv"] == fa.LAUNCHES["flash_bwd_dq"] == 0
 
 
 def test_tma_kernels_copy_misaligned_operands(cuda):
@@ -304,9 +344,12 @@ def test_kernels_count_launches_and_reject_bad_input(cuda):
     fa.flash_attention(xg, xg, xg, causal=True).sum().backward()
     counts.update(flash_fwd=2, flash_bwd_dkv=1, flash_bwd_dq=1)
     assert fa.LAUNCHES == counts
-    bad = torch.zeros((1, 8, 1, 48), device=cuda)
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention(bad, bad, bad)
+    for d in (44, 264):          # not a multiple of 8; past 256
+        bad = torch.zeros((1, 8, 1, d), device=cuda)
+        with pytest.raises(ValueError, match="multiples of 8 from 8 to 256"):
+            fa.flash_attention(bad, bad, bad)
+        with pytest.raises(ValueError, match="multiples of 8 from 8 to 256"):
+            fa.flash_decode(bad[:, 0], bad, bad, [1])
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(x.half(), x.half(), x.half())
     stats = torch.zeros((1, 1, 8), device=cuda)
@@ -352,7 +395,7 @@ def _paged_case(rng, dtype, d, device, ps=16, n_pages=40):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", WIDE_D)
 def test_flash_decode_paged_kernel_matches_plain(cuda, dtype, d):
     """K5 against the plain paged path: scrambled table, sentinel ids,
     lengths of 0 and of n_blk * ps, the pool's last page; two launches
@@ -427,7 +470,7 @@ def _split_case(rng, dtype, d, device, ps, extra_blocks=13):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", WIDE_D)
 def test_flash_decode_split_edges_match_plain(cuda, dtype, d):
     """K4 and K5 at lengths C - 1, C, C + 1, several chunks and the full
     capacity, against the plain paths; a second launch of each is

@@ -20,6 +20,8 @@ any other cache is copied.
 
 import importlib
 import math
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -181,14 +183,73 @@ def _elements_through(x, y):
     return torch.as_strided(y, x.shape, y.stride(), y.storage_offset())
 
 
+_CSRC = os.path.join(os.path.dirname(P.__file__), "csrc", "flash_decode.cu")
+
+
+def _cu_int(src, name):
+    return int(re.search(r"constexpr int %s = (\d+);" % name, src).group(1))
+
+
+def decode_split(d, element_size):
+    """How K4/K5 cut a row of head dim ``d``: the constants of
+    ``flash_decode.cu``'s ``Split`` at the instance width, evaluated from
+    the kernel's own source (``VEC`` elements a 16-byte vector, ``NV``
+    vectors a lane, ``LPR`` lanes a row, ``G`` rows in flight a block,
+    ``U`` a group's rows a stage, ``STAGES`` a chunk)."""
+    width = P.kernel_width(d)
+    if not width:
+        raise ValueError("no decode instance for head dim %d" % d)
+    with open(_CSRC) as f:
+        src = f.read()
+    body = re.search(r"struct Split \{(.*?)\n\};", src, re.S).group(1)
+    env = {n: _cu_int(src, n) for n in ("NT", "CHUNK", "U_VECS")}
+    env["D"] = width
+    for name, expr in re.findall(r"static constexpr int (\w+) = ([^;]+);",
+                                 body):
+        expr = expr.replace("Vec<T>::N", str(16 // element_size))
+        cond = re.fullmatch(r"(.+?) \? (.+?) : (.+)", expr)
+        if cond:
+            expr = "(%s) if (%s) else (%s)" % (cond.group(2), cond.group(1),
+                                               cond.group(3))
+        env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+    return {"width": width, "vec": env["VEC"], "nv": env["NV"],
+            "lanes": env["LPR"], "groups": env["G"], "rows": env["U"],
+            "stages": env["STAGES"]}
+
+
 def test_decode_constants():
-    """A chunk is a power of two that every instance's stages divide:
-    U = 4 rows a group, G = 128 threads / (D / 16-byte lanes) groups."""
+    """A chunk is a power of two that every instance's stages divide: a
+    lane owns NV 16-byte vectors of a row (2 for an f32 row of 256, so a
+    row's lanes stay within a warp), a group of lanes a row, U = 4 / NV
+    rows a group a stage, G = 128 threads / lanes groups."""
     assert C & (C - 1) == 0
     for es in (2, 4):
         for d in P.KERNEL_HEAD_DIMS:
-            groups = 128 // (d * es // 16)
-            assert C % (4 * groups) == 0
+            split = decode_split(d, es)
+            assert split["width"] == d
+            assert split["nv"] * split["lanes"] * split["vec"] == d
+            assert split["lanes"] <= 32 and 128 % split["lanes"] == 0
+            assert split["groups"] * split["lanes"] == 128
+            assert split["rows"] * split["nv"] == 4
+            assert C % (split["rows"] * split["groups"]) == 0
+            assert split["stages"] * split["rows"] * split["groups"] == C
+    assert decode_split(256, 4)["nv"] == 2
+    assert decode_split(256, 2)["nv"] == 1
+
+
+@pytest.mark.parametrize("d", [8, 48, 80, 96, 136, 256])
+@pytest.mark.parametrize("es", [2, 4])
+def test_padded_head_dims_leave_whole_lanes_idle(d, es):
+    """A head dim d runs on the next width: a lane's vectors lie either
+    wholly inside the d columns or wholly past them (d is a multiple of
+    8, a lane owns a multiple of 4 or 8 columns from a multiple of its
+    width), so a lane loads all its bytes or none; the idle lanes are
+    the padding's whole cost (no byte beyond the d columns is read)."""
+    split = decode_split(d, es)
+    cols = split["nv"] * split["vec"]
+    owning = [lane for lane in range(split["lanes"]) if lane * cols < d]
+    assert all((lane + 1) * cols <= d for lane in owning)
+    assert len(owning) * cols == d
 
 
 @pytest.mark.parametrize("capacity,chunks", [(1, 1), (C - 1, 1), (C, 1),

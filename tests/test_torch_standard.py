@@ -24,6 +24,9 @@ compared: the port's masks are Philox draws, not JAX's; the port is
 held to itself with dropout on, bitwise, from one seed.
 """
 
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -346,3 +349,64 @@ def test_initialize_without_a_device_takes_the_card():
     assert isinstance(wf, AcceleratedWorkflow)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         wf.initialize()
+
+
+def test_a_late_trigger_of_the_last_run_starts_no_pass():
+    """The last backward unit fans out to the repeater (on a pool
+    thread) and the end point (on its own): the end point can finish
+    the run, and the caller resume it, before the repeater's trigger is
+    checked. Held back here until the resumed run has cleared
+    ``stopped`` (at most 2 s), that trigger must not start a second
+    chain of minibatches beside the resumed run's own: it belongs to
+    the finished run and is dropped. Run 1 and its resumption then
+    serve the minibatches of one uninterrupted run."""
+    P_prng.reset()
+    whole = P_mnist.MnistWorkflow(**MNIST)
+    whole.initialize(device=P_backends.Device(backend="cpu"))
+    whole.run()
+    whole.thread_pool.shutdown()
+
+    P_prng.reset()
+    wf = P_mnist.MnistWorkflow(**dict(MNIST, max_epochs=1))
+    wf.initialize(device=P_backends.Device(backend="cpu"))
+    check, body = wf.repeater._check_gate_and_run, wf.repeater.run
+    held, stale = [], []
+    on_held = threading.local()
+
+    def late(src, *run):
+        # the final pass's trigger: checked while run 1 is complete, or
+        # (a loaded host) only after the resumption began
+        final = src is wf.gds[-1] and not held and (
+            bool(wf.decision.complete) or
+            bool(run) and run[0] != wf.run_count)
+        if final:
+            held.append(src)
+            deadline = time.monotonic() + 2.0
+            while wf.stopped and time.monotonic() < deadline:
+                time.sleep(0.01)
+        on_held.now = final
+        try:
+            check(src, *run)
+        finally:
+            on_held.now = False
+
+    def repeater_run():
+        if getattr(on_held, "now", False):
+            stale.append(wf.run_count)   # the held trigger ran the cycle
+        body()
+
+    wf.repeater._check_gate_and_run = late
+    wf.repeater.run = repeater_run
+    try:
+        wf.run()
+        assert len(wf.decision.epoch_errors[2]) == 1
+        wf.resume_overrides(max_epochs=2)
+        wf.run()
+        assert held and not stale
+        assert bool(wf.decision.complete)
+        assert wf.decision.epoch_errors == whole.decision.epoch_errors
+        assert wf.loader.minibatches_served == \
+            whole.loader.minibatches_served
+    finally:
+        del wf.repeater._check_gate_and_run, wf.repeater.run
+        wf.thread_pool.shutdown()

@@ -186,3 +186,48 @@ def test_maps_flatten_for_the_c_entry():
     assert len(maps) == 4 * 12 * 8
     values = memoryview(maps).cast("q")
     assert tuple(values[12:24]) == layouts[1]
+
+
+@pytest.mark.parametrize("d,width,cols,swizzle", [
+    (8, 32, 32, 64), (48, 64, 64, 128), (80, 128, 64, 128),
+    (96, 128, 64, 128), (136, 256, 64, 128), (256, 256, 64, 128)])
+def test_padded_head_dims_take_their_width_s_box(d, width, cols, swizzle):
+    """A head dim that runs on a wider instance keeps its own dim D in
+    the map (so the columns past it load as zeros) and takes the
+    instance's box and swizzle: 80 on the 128-wide instance reads two
+    boxes of 64 columns, the second 16 in the row and 48 past it."""
+    x = torch.zeros((2, 100, 4, d), dtype=BF16)
+    assert fa.kernel_width(d) == width
+    layout = fa.tma_layout(x.shape, x.stride(), 2, x.data_ptr(), 128,
+                           width)
+    assert layout == (d, 4, 100, 2, 2 * d, 2 * 4 * d, 2 * 100 * 4 * d,
+                      cols, 1, 128, 1, swizzle)
+    assert width % cols == 0 and cols * 2 == swizzle
+    with pytest.raises(ValueError, match="cannot read rows"):
+        fa.tma_layout(x.shape, x.stride(), 2, x.data_ptr(), 128, d - 8)
+
+
+@pytest.mark.parametrize("d,tiles", [(80, (128, 128)), (96, (128, 128)),
+                                     (136, (64, 64)), (256, (64, 64))])
+def test_forward_operands_take_the_tiles_of_their_width(d, tiles):
+    """K1's operands at a padded and at the widest head dim, views of one
+    fused projection read in place: q boxed by the query tile, k and v
+    by the key tile of the instance (64 x 64 at 256 columns, where one
+    64-row consumer warpgroup fits the card's shared memory and
+    registers)."""
+    b, t, h = 2, 130, 2
+    qkv = torch.randn((b, t, 3, h, d)).to(BF16)
+    xs = [qkv[:, :, i] for i in range(3)]
+    assert fa.tma_tiles("flash_fwd", fa.kernel_width(d)) == tiles
+    out, maps = fa._tma_operands("flash_fwd", *xs)
+    assert all(y is x for y, x in zip(out, xs))
+    values = memoryview(maps).cast("q")
+    width = fa.kernel_width(d)
+    for x, rows, i in zip(xs, (tiles[0], tiles[1], tiles[1]), range(3)):
+        layout = tuple(values[12 * i:12 * i + 12])
+        assert layout[0] == d and layout[9] == rows
+        assert layout[7] == min(64, width)
+        assert torch.equal(_elements_through(layout, x), x)
+    # the backward's tiles stay one per entry (K2/K3 take D <= 128)
+    for entry in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.tma_tiles(entry, 256) == fa.TMA_TILES[entry]

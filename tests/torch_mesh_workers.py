@@ -269,3 +269,130 @@ def parallel_world(rank, classifier_cases, lm_cases, extras):
     for name, (fn, args) in extras.items():
         out[name] = globals()[fn](rank, *args)
     return out
+
+
+# ---------------------------------------------------------------------------
+# batch placement (tests/test_torch_placement.py)
+# ---------------------------------------------------------------------------
+
+def _host_loader(n_samples, shape, minibatch):
+    """A loader serving samples of ``shape`` with 5 classes from host
+    buffers (so ``PrefetchingServer`` places each batch), TRAIN only."""
+    from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+
+    class HostLoader(FullBatchLoader):
+        def load_data(self):
+            rng = np.random.default_rng(7)
+            self.has_labels = True
+            self.original_data = rng.random((n_samples,) + shape,
+                                            dtype=np.float32)
+            self.original_labels = (np.arange(n_samples) % 5).astype(
+                np.int32)
+            self.class_lengths[:] = [0, 0, n_samples]
+
+    loader = HostLoader(AcceleratedWorkflow(None, name="wf"),
+                        minibatch_size=minibatch, shuffle_limit=0,
+                        store_on_device=False)
+    assert loader.initialize(device=Device(backend="cpu")) is None
+    loader.minibatch_class = TRAIN
+    return loader
+
+
+def placement_world(rank, specs, params, batches, hyper, loader_case,
+                    tcfg, tokens, lr):
+    """The meshed classifier (``data=2``) fed four ways: every rank the
+    global batch (today's step), ``shard_batch`` of it,
+    ``shard_local_batch`` of this rank's rows alone, and one
+    ``shard_batch_stack`` of all the batches for ``step_many`` (and
+    this rank's rows through ``.contiguous()``; a placed batch that
+    lost its mark to a clone, and the raw global batch, after a
+    placement: the refusals' messages); then ``PrefetchingServer(place=trainer.shard_batch)`` against the raw
+    loader's batches (``loader_case``: specs, params, batches); then the
+    meshed LM on global and on ``shard_tokens``-placed tokens. Returns
+    each run's losses and whole params (the LM's losses and two
+    leaves)."""
+    from veles_tpu_torch.loader import PrefetchingServer
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerTrainer)
+    from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
+    mesh = make_mesh(MeshConfig(data=2), device="cpu")
+    p = mesh.index("data")
+    out = {"data_index": p}
+
+    def run(feed, model=(specs, params)):
+        tr = FusedClassifierTrainer(*model, mesh=mesh, **hyper)
+        losses = feed(tr)
+        return dict(losses=[float(v) for v in losses],
+                    params=tr.params_numpy(whole=True))
+
+    def rows(a):
+        n = a.shape[0] // 2
+        return a[p * n:(p + 1) * n]
+
+    out["global"] = run(lambda tr: [tr.step(x, lb)["loss"]
+                                    for x, lb in batches])
+    out["placed"] = run(lambda tr: [tr.step(*tr.shard_batch(x, lb))["loss"]
+                                    for x, lb in batches])
+    out["local"] = run(lambda tr: [
+        tr.step(*tr.shard_local_batch(rows(x), rows(lb)))["loss"]
+        for x, lb in batches])
+    out["local_contiguous"] = run(lambda tr: [
+        tr.step(*(t.contiguous() for t in tr.shard_local_batch(
+            rows(x), rows(lb))))["loss"] for x, lb in batches])
+
+    def lost(step, batch):
+        try:
+            step(*batch)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    tr = FusedClassifierTrainer(specs, params, mesh=mesh, **hyper)
+    x, lb = batches[0]
+    px, pl = tr.shard_local_batch(rows(x), rows(lb))
+    out["lost"] = [lost(tr.step, (px, pl.clone())),
+                   lost(tr.step, (x, lb))]
+    xs = np.stack([x for x, _ in batches])
+    ls = np.stack([lb for _, lb in batches])
+    out["stack"] = run(lambda tr: tr.step_many(
+        *tr.shard_batch_stack(xs, ls))["loss"].tolist())
+
+    lspecs, lparams, n_batches = loader_case
+
+    def raw(tr):
+        loader = _host_loader(32, (6, 6, 3), 8)
+        losses = []
+        for _ in range(n_batches):
+            loader.run()
+            losses.append(tr.step(
+                np.array(loader.minibatch_data.map_read()),
+                np.array(loader.minibatch_labels.map_read()))["loss"])
+        return losses
+
+    def prefetched(tr):
+        loader = _host_loader(32, (6, 6, 3), 8)
+        with PrefetchingServer(loader, depth=2,
+                               place=tr.shard_batch) as server:
+            got = [server.get(timeout=60) for _ in range(n_batches)]
+        return [tr.step(b.data, b.labels)["loss"] for b in got]
+
+    out["raw"] = run(raw, (lspecs, lparams))
+    out["prefetched"] = run(prefetched, (lspecs, lparams))
+
+    lm = {}
+    stack = np.stack([tokens, tokens[::-1]])
+    for key in ("global", "placed"):
+        tr = TransformerTrainer(TransformerConfig(**tcfg), mesh=mesh,
+                                learning_rate=lr, seq_axis=None)
+        one = tokens if key == "global" else tr.shard_tokens(tokens)
+        lm[key] = [float(tr.step(one)["loss"]) for _ in range(2)]
+        many = stack if key == "global" else tr.shard_tokens(stack)
+        lm[key] += tr.step_many(many)["loss"].tolist()
+        lm[key + "_params"] = [_np(tr.params["embed"]),
+                               _np(tr.params["blocks"][0]["qkv"])]
+    lm["lost"] = lost(tr.step, (tr.shard_tokens(tokens)[1:].clone(),))
+    out["lm"] = lm
+    return out

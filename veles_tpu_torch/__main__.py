@@ -403,6 +403,7 @@ class Main:
             logging.info("serve mesh rank %d follows its leader",
                          shard.mesh.rank)
             engine.follow()
+            self._leave_mesh(shard)
             return
         generative = isinstance(engine, GenerativeEngine)
         self._warm(engine, "serve")
@@ -440,6 +441,15 @@ class Main:
                 announcer.stop()
             self.serve_server.stop(drain=True)
             engine.stop_followers()
+            self._leave_mesh(shard)
+
+    @staticmethod
+    def _leave_mesh(shard) -> None:
+        """A serve mesh's ranks leave their group together once the
+        leader has released its followers."""
+        if shard is not None and shard.tp > 1:
+            from veles_tpu_torch.parallel import multiprocess
+            multiprocess.leave()
 
     def stop_serving(self) -> None:
         """Ask a blocked serve or route loop to drain and return."""

@@ -72,7 +72,9 @@ from veles_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_decode_paged,
                                                  flash_verify_paged)
 from veles_tpu_torch.parallel import collectives
-from veles_tpu_torch.parallel.fused import NonFiniteSentinel, update_ok
+from veles_tpu_torch.parallel.fused import (NonFiniteSentinel, _Placement,
+                                            mark_placed, placement_of,
+                                            update_ok)
 from veles_tpu_torch.parallel.mesh import check_mesh
 from veles_tpu_torch.parallel.ring_attention import (attention_reference,
                                                    ring_attention_local)
@@ -847,16 +849,23 @@ class _Par:
             raise ValueError("%d experts do not split over a 'model' axis "
                              "of %d" % (config.moe_experts, self.model.size))
 
-    def tokens_of(self, tokens: torch.Tensor):
-        """This rank's (inputs, targets, first position) of a global
-        ``[B, T+1]`` batch: its ``data`` rows, shifted by one token, then
-        its ``seq`` chunk of the T positions."""
+    def rows(self, tokens: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's ``data`` rows of a global token batch (the batch
+        on ``dim``)."""
         d, n_data = self.mesh.index("data"), self.mesh.size("data")
-        b, t1 = tokens.shape
+        b = tokens.shape[dim]
         if b % n_data:
             raise ValueError("a batch of %d does not split over 'data' %d"
                              % (b, n_data))
-        rows = tokens[d * (b // n_data):(d + 1) * (b // n_data)]
+        return tokens.narrow(dim, d * (b // n_data), b // n_data)
+
+    def tokens_of(self, tokens: torch.Tensor, local: bool = False):
+        """This rank's (inputs, targets, first position) of a global
+        ``[B, T+1]`` batch (``local``: of this rank's rows alone): its
+        ``data`` rows, shifted by one token, then its ``seq`` chunk of
+        the T positions."""
+        t1 = tokens.shape[1]
+        rows = tokens if local else self.rows(tokens)
         t = t1 - 1
         if t % self.seq.size:
             raise ValueError("%d positions do not split over '%s' %d"
@@ -1081,12 +1090,14 @@ class TransformerTrainer:
                     _adam_update(p, g, m, v, corrections, self._lr)
         return loss, (~ok).to(torch.int32)
 
-    def _mesh_grads(self, tokens: torch.Tensor):
+    def _mesh_grads(self, tokens: torch.Tensor, local: bool = False):
         """(global loss, gradients summed over ``data x seq``) of this
-        rank's share of the global batch ``tokens``."""
+        rank's share of the global batch ``tokens`` (``local``: tokens
+        holds this rank's ``data`` rows alone)."""
         par = self._par
-        inputs, targets, pos0 = par.tokens_of(tokens)
-        n_tokens = (tokens.shape[1] - 1) * tokens.shape[0]
+        inputs, targets, pos0 = par.tokens_of(tokens, local)
+        n_tokens = (tokens.shape[1] - 1) * tokens.shape[0] * (
+            self.mesh.size("data") if local else 1)
         params = _tree_leaves(self.params)
         nll, aux = _loss_parts(self.params, inputs, targets, self.config,
                                par, pos0)
@@ -1109,13 +1120,13 @@ class TransformerTrainer:
         loss = _loss(self.params, tokens[:, :-1], tokens[:, 1:], self.config)
         return loss.detach(), list(torch.autograd.grad(loss, params))
 
-    def _mesh_step(self, tokens: torch.Tensor):
+    def _mesh_step(self, tokens: torch.Tensor, local: bool = False):
         """The eager step on a mesh: the rank's gradients summed over the
         token axes, then Adam on the rank's params (the same update as
         :meth:`_train_step`)."""
         self._step.add_(1)
         corrections = _bias_corrections(self._step)
-        loss, grads = self._mesh_grads(tokens)
+        loss, grads = self._mesh_grads(tokens, local)
         params = _tree_leaves(self.params)
         with torch.no_grad():
             ok = update_ok(loss, grads)
@@ -1148,14 +1159,16 @@ class TransformerTrainer:
                 nll / tokens[:, 1:].numel(), self._par.tokens)
             return nll + self.config.moe_aux_weight * aux
 
-    def _run_step(self, tokens: torch.Tensor):
+    def _run_step(self, tokens: torch.Tensor, local: bool = False):
         """One step: a replay of the step captured for this batch shape
         (captured at its first call), or the eager step. The captured
-        outputs are overwritten by the next replay: callers copy them."""
+        outputs are overwritten by the next replay: callers copy them.
+        ``local``: on a mesh, ``tokens`` holds this rank's rows alone
+        (:meth:`shard_tokens`)."""
         shape = tuple(tokens.shape)
         if self._par is not None or not self._graphs_on:
-            step = self._mesh_step if self._par is not None \
-                else self._train_step
+            step = partial(self._mesh_step, local=local) \
+                if self._par is not None else self._train_step
             if shape in self._eager_noted:
                 return step(tokens)
             with launches.observing(self.device) as seen:
@@ -1196,13 +1209,34 @@ class TransformerTrainer:
         (reading syncs the device accumulator)."""
         return self._sentinel.count
 
-    def step(self, tokens) -> Dict[str, Any]:
-        """tokens [B, T+1] int (inputs + shifted targets). Returns
-        ``{"loss", "nonfinite"}`` as device tensors."""
-        self._step_count += 1
+    def shard_tokens(self, tokens):
+        """Place a global [B, T+1] token batch (or a [K, B, T+1] stack
+        for :meth:`step_many`: the K dim whole) as the step takes it:
+        the whole batch on the trainer's device, or on a mesh this
+        rank's ``data`` rows only (its ``seq`` chunk is cut inside the
+        step, where the shift by one token needs the neighbour).
+        :meth:`step` and :meth:`step_many` do not place it again."""
         tokens = self._tokens(tokens)
+        if self._par is not None:
+            tokens = self._par.rows(tokens, tokens.ndim - 2)
+        return mark_placed(tokens, _Placement(self),
+                           meshed=self._par is not None)
+
+    def _take(self, tokens):
+        """(device tokens, whether they are this rank's rows alone)."""
+        if placement_of(self, tokens) is not None:
+            return tokens, self._par is not None
+        return self._tokens(tokens), False
+
+    def step(self, tokens) -> Dict[str, Any]:
+        """tokens [B, T+1] int (inputs + shifted targets), or a batch
+        :meth:`shard_tokens` placed. Returns ``{"loss", "nonfinite"}``
+        as device tensors."""
+        self._step_count += 1
+        tokens, local = self._take(tokens)
         with self._quantum():
-            loss, nonfinite = (x.clone() for x in self._run_step(tokens))
+            loss, nonfinite = (x.clone()
+                               for x in self._run_step(tokens, local))
         self._sentinel.note(nonfinite)
         obs_profile.on_step()
         return {"loss": loss, "nonfinite": nonfinite}
@@ -1215,13 +1249,13 @@ class TransformerTrainer:
         sequential :meth:`step` calls (per-step bias correction)."""
         if isinstance(tokens_k, (list, tuple)):
             tokens_k = np.stack([np.asarray(t) for t in tokens_k])
-        tokens_k = self._tokens(tokens_k)
+        tokens_k, local = self._take(tokens_k)
         k = int(tokens_k.shape[0])
         losses = torch.empty(k, dtype=torch.float32, device=self.device)
         flags = torch.empty(k, dtype=torch.int32, device=self.device)
         with self._quantum():
             for i in range(k):
-                loss, nonfinite = self._run_step(tokens_k[i])
+                loss, nonfinite = self._run_step(tokens_k[i], local)
                 losses[i] = loss
                 flags[i] = nonfinite
         self._step_count += k

@@ -284,6 +284,12 @@ class ExemplarTable:
         with self._lock:
             return sorted(self._rows, key=lambda r: -r["total_ms"])
 
+    def clear(self) -> None:
+        """Forget every row and the request count."""
+        with self._lock:
+            self._rows = []
+            self.requests = 0
+
 
 #: process-wide collector instances (VELES_TRACE=0 disables tracing)
 TRACER = Tracer(enabled=os.environ.get("VELES_TRACE", "1") != "0")

@@ -40,8 +40,13 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 
+#: ``-split-compile=0``: the optimizer's passes of one source on every
+#: core (``lrn.cu``'s 154 instances: 37.9 -> 26.2 s on an H100 host,
+#: ``scripts/torch_nvcc_times.sh``; the same registers, spills and SASS
+#: counts), a cold start's and the smoke run's wall
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 #: the library each launch counter's kernel lives in
 LIBRARY_OF = {"flash_fwd": "flash_fwd", "flash_bwd_dkv": "flash_bwd",

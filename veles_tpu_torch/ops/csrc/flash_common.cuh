@@ -27,23 +27,33 @@ template <int D> struct FmaTile {
   static constexpr int KS = D + 1;  // floats per smem row
 };
 
-// rows [r0, r0 + 64) of a [T, D] f32 slice into a padded smem tile,
-// zeros past t_len
+// rows [r0, r0 + 64) of a [T, d] f32 slice into a padded smem tile of
+// D columns, zeros past t_len and in columns d..D-1 (an instance of
+// width D serves every head dim d <= D)
 template <int D>
 __device__ inline void load_tile_f32(float* dst, const float* src,
                                      int64_t st, int r0, int t_len,
-                                     int tid) {
+                                     int tid, int d = D) {
   constexpr int KS = FmaTile<D>::KS;
   for (int idx = tid; idx < 64 * D; idx += FMA_THREADS) {
     const int r = idx / D, c = idx % D;
     const int t = r0 + r;
-    dst[r * KS + c] = t < t_len ? src[int64_t(t) * st + c] : 0.f;
+    dst[r * KS + c] = t < t_len && c < d ? src[int64_t(t) * st + c] : 0.f;
   }
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
+
+// The instance width a head dim d runs on: the next of 32, 64, 128 and
+// 256 (the columns past d read as zeros and are never stored), for d a
+// multiple of 8 from 8 to 256 (16-byte bf16 rows for TMA, and shared
+// memory caps the width); 0 for any other d.
+inline int64_t kernel_width(int64_t d) {
+  if (d < 8 || d > 256 || d % 8) return 0;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
 
 // Dynamic smem above 48 KB needs the attribute, set once per kernel
 // instantiation (`configured` is that instantiation's flag).

@@ -28,14 +28,22 @@
 //   writes an empty partial (l = 0) and exits. At eight sequences of
 //   lengths up to 2048 and eight heads that is ~490 live blocks on 132
 //   SMs, where one block per (head, sequence) gave 64.
-// - The block splits into G groups of D / VEC lanes, each lane owning
-//   16 bytes of a row. A stage is U rows per group (rows u * G + g of
-//   the stage for group g); each lane loads its 16 bytes of the stage's
-//   K and V rows straight from global memory into registers, and the
-//   loads of stage k + 1 are issued before stage k is computed, so 2 x
-//   2 x U 16-byte loads a lane are in flight, with no shared-memory
-//   staging, no barrier in the loop and no tensor map. Rows at or past
-//   the length are not read.
+// - The block splits into G groups of LPR lanes, each lane owning NV
+//   16-byte vectors of a row (NV = 1, and 2 for an f32 row of 256
+//   columns, so a group stays within a warp). A stage is U rows per
+//   group (rows u * G + g of the stage for group g; U = 4 / NV); each
+//   lane loads its vectors of the stage's K and V rows straight from
+//   global memory into registers, and the loads of stage k + 1 are
+//   issued before stage k is computed, so 2 x 2 x 4 16-byte loads a
+//   lane are in flight, with no shared-memory staging, no barrier in
+//   the loop and no tensor map. Rows at or past the length are not
+//   read.
+// - Head dims: instances of width 32, 64, 128 and 256; a head dim d (a
+//   multiple of 8 up to 256) runs on the next width. A lane whose
+//   vectors lie past d loads nothing and holds zeros, which add
+//   nothing to a score or an output; the scale is the caller's
+//   1 / sqrt(d), and only the d columns are stored. The padding costs
+//   idle lanes, not bytes.
 // - Each group runs its own online softmax (f32 scores and statistics,
 //   p rounded to the cache dtype before P.V, as the plain path does).
 //   The groups' states merge in shared memory in group order and the
@@ -60,13 +68,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using veles_flash::kernel_width;
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int NT = 128;     // threads per block
 constexpr int CHUNK = 128;  // keys per block
-constexpr int U = 4;        // rows per group per stage
+constexpr int U_VECS = 4;   // 16-byte vectors of K (and of V) a lane
+                            // loads per stage
 
 // 16 bytes of a row: 4 floats or 8 bf16, loaded raw and widened to f32
 template <typename T> struct Vec;
@@ -160,20 +173,34 @@ struct PagedRows {
   }
 };
 
+// Lanes, vectors and rows of the instance of width D over element T
+template <typename T, int D> struct Split {
+  static constexpr int VEC = Vec<T>::N;           // elements a vector
+  static constexpr int ROW_VECS = D / VEC;        // vectors a row
+  static constexpr int NV = ROW_VECS > 32 ? ROW_VECS / 32 : 1;  // a lane's
+  static constexpr int LPR = ROW_VECS / NV;       // lanes per key row
+  static constexpr int G = NT / LPR;              // key groups per block
+  static constexpr int U = U_VECS / NV;           // rows per group, stage
+  static constexpr int STAGE = U * G;             // rows per stage
+  static constexpr int STAGES = CHUNK / STAGE;    // stages per chunk
+  static constexpr int LANE_COLS = NV * VEC;      // columns a lane owns
+  static_assert(LPR <= 32 && NT % LPR == 0 && CHUNK % STAGE == 0,
+                "row split");
+};
+
 // At least one block an SM: without that bound ptxas held the D = 64
 // slab instances to 128 (bf16) and 96 (f32) registers and spilled.
+// d: the operands' head dim (<= D); the workspace rows are D + 2 wide.
 template <typename T, int D, typename Rows>
 __global__ void __launch_bounds__(NT, 1) flash_decode_split_kernel(
     const T* __restrict__ k, const T* __restrict__ v, Strides ks,
     Strides vs, const T* __restrict__ q, const int* __restrict__ lengths,
     float* __restrict__ part, Rows rows, int64_t qsb, int64_t qsh,
-    float scale) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int LPR = D / VEC;          // lanes per key row
-  constexpr int G = NT / LPR;           // key groups per block
-  constexpr int STAGE = U * G;          // rows per stage
-  constexpr int STAGES = CHUNK / STAGE;  // stages per chunk
-  static_assert(NT % LPR == 0 && CHUNK % STAGE == 0, "row split");
+    float scale, int d) {
+  using S = Split<T, D>;
+  constexpr int NV = S::NV, LPR = S::LPR, G = S::G, U = S::U;
+  constexpr int STAGE = S::STAGE, STAGES = S::STAGES;
+  constexpr int COLS = S::LANE_COLS;
 
   __shared__ float g_m[G];
   __shared__ float g_l[G];
@@ -186,7 +213,8 @@ __global__ void __launch_bounds__(NT, 1) flash_decode_split_kernel(
   const int tid = threadIdx.x;
   const int lane = tid % LPR;
   const int g = tid / LPR;
-  const int d0 = lane * VEC;
+  const int d0 = lane * COLS;
+  const bool owns = d0 < d;  // a lane past d holds zeros
   float* out =
       part + ((int64_t(b) * gridDim.y + h) * gridDim.x + c) * (D + 2);
 
@@ -203,36 +231,37 @@ __global__ void __launch_bounds__(NT, 1) flash_decode_split_kernel(
   const int n_stages = (live + STAGE - 1) / STAGE;
   rows.bind(b, row0, tbl);
 
-  // stage i's K and V for this lane (zeros for rows at or past the
-  // length, which are never read)
-  auto fetch = [&](int i, uint4 (&kr)[U], uint4 (&vr)[U]) {
+  // stage i's K and V vectors for this lane (zeros for rows at or past
+  // the length, which are never read, and for a lane past d)
+  auto fetch = [&](int i, uint4 (&kr)[U][NV], uint4 (&vr)[U][NV]) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int rel = i * STAGE + u * G + g;
       const int j = row0 + rel;
-      if (j < len) {
-        kr[u] = load16(k + rows.at(ks, b, h, j, rel, tbl) + d0);
-        vr[u] = load16(v + rows.at(vs, b, h, j, rel, tbl) + d0);
-      } else {
-        kr[u] = make_uint4(0, 0, 0, 0);
-        vr[u] = make_uint4(0, 0, 0, 0);
+      const bool in = owns && j < len;
+      const T* kp = k + (in ? rows.at(ks, b, h, j, rel, tbl) + d0 : 0);
+      const T* vp = v + (in ? rows.at(vs, b, h, j, rel, tbl) + d0 : 0);
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        kr[u][n] = in ? load16(kp + n * Vec<T>::N) : make_uint4(0, 0, 0, 0);
+        vr[u][n] = in ? load16(vp + n * Vec<T>::N) : make_uint4(0, 0, 0, 0);
       }
     }
   };
 
-  uint4 kbuf[2][U], vbuf[2][U];
+  uint4 kbuf[2][U][NV], vbuf[2][U][NV];
   fetch(0, kbuf[0], vbuf[0]);
 
   const T* qb = q + b * qsb + h * qsh + d0;
-  float qv[VEC];
+  float qv[COLS];
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) qv[e] = to_f(qb[e]);
+  for (int e = 0; e < COLS; ++e) qv[e] = owns ? to_f(qb[e]) : 0.f;
 
   float m = -INFINITY;
   float l = 0.f;
-  float acc[VEC];
+  float acc[COLS];
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  for (int e = 0; e < COLS; ++e) acc[e] = 0.f;
 
   // every lane of a warp runs every stage, so the shuffles below always
   // see the full warp; unrolled, so the double buffer stays in registers
@@ -241,17 +270,21 @@ __global__ void __launch_bounds__(NT, 1) flash_decode_split_kernel(
     if (i >= n_stages) continue;
     if (i + 1 < STAGES && i + 1 < n_stages)
       fetch(i + 1, kbuf[(i + 1) & 1], vbuf[(i + 1) & 1]);
-    const uint4(&kr)[U] = kbuf[i & 1];
-    const uint4(&vr)[U] = vbuf[i & 1];
+    const uint4(&kr)[U][NV] = kbuf[i & 1];
+    const uint4(&vr)[U][NV] = vbuf[i & 1];
     const int srow = row0 + i * STAGE;
     float sc[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[VEC];
-      Vec<T>::widen(kr[u], kf);
       float dot = 0.f;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) dot = fmaf(qv[e], kf[e], dot);
+      for (int n = 0; n < NV; ++n) {
+        float kf[Vec<T>::N];
+        Vec<T>::widen(kr[u][n], kf);
+#pragma unroll
+        for (int e = 0; e < Vec<T>::N; ++e)
+          dot = fmaf(qv[n * Vec<T>::N + e], kf[e], dot);
+      }
       sc[u] = dot;
     }
 #pragma unroll
@@ -270,24 +303,28 @@ __global__ void __launch_bounds__(NT, 1) flash_decode_split_kernel(
       const float alpha = expf(m - m_new);  // m = -inf -> 0
       l *= alpha;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] *= alpha;
+      for (int e = 0; e < COLS; ++e) acc[e] *= alpha;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (srow + u * G + g >= len) continue;  // rows past the length
         const float p = expf(sc[u] - m_new);
         l += p;
         const float pr = round_to(p, q);
-        float vf[VEC];
-        Vec<T>::widen(vr[u], vf);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(pr, vf[e], acc[e]);
+        for (int n = 0; n < NV; ++n) {
+          float vf[Vec<T>::N];
+          Vec<T>::widen(vr[u][n], vf);
+#pragma unroll
+          for (int e = 0; e < Vec<T>::N; ++e)
+            acc[n * Vec<T>::N + e] = fmaf(pr, vf[e], acc[n * Vec<T>::N + e]);
+        }
       }
       m = m_new;
     }
   }
 
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) g_acc[g][d0 + e] = acc[e];
+  for (int e = 0; e < COLS; ++e) g_acc[g][d0 + e] = acc[e];
   if (lane == 0) {
     g_m[g] = m;
     g_l[g] = l;
@@ -295,7 +332,7 @@ __global__ void __launch_bounds__(NT, 1) flash_decode_split_kernel(
   __syncthreads();
 
   // the groups' states in group order, as flash_block_update merges
-  if (tid < D) {
+  for (int col = tid; col < D; col += NT) {
     float mm = -INFINITY, ll = 0.f, oo = 0.f;
     for (int i = 0; i < G; ++i) {
       if (g_l[i] == 0.f) continue;
@@ -303,11 +340,11 @@ __global__ void __launch_bounds__(NT, 1) flash_decode_split_kernel(
       const float a = expf(mm - m_new);
       const float w = expf(g_m[i] - m_new);
       ll = ll * a + g_l[i] * w;
-      oo = oo * a + g_acc[i][tid] * w;
+      oo = oo * a + g_acc[i][col] * w;
       mm = m_new;
     }
-    out[tid] = oo;
-    if (tid == 0) {
+    out[col] = oo;
+    if (col == 0) {
       out[D] = mm;
       out[D + 1] = ll;
     }
@@ -321,7 +358,8 @@ __global__ void __launch_bounds__(NT, 1) flash_decode_split_kernel(
 template <typename T, int D>
 __global__ void __launch_bounds__(D) flash_decode_merge_kernel(
     const float* __restrict__ part, const int* __restrict__ lengths,
-    int cap, int n_chunks, T* __restrict__ o, int64_t osb, int64_t osh) {
+    int cap, int n_chunks, T* __restrict__ o, int64_t osb, int64_t osh,
+    int d_len) {
   constexpr int TILE = 16;  // partials loaded together
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -349,7 +387,7 @@ __global__ void __launch_bounds__(D) flash_decode_merge_kernel(
       m = m_new;
     }
   }
-  store(o + b * osb + h * osh + d, l > 0.f ? acc / l : 0.f);
+  if (d < d_len) store(o + b * osb + h * osh + d, l > 0.f ? acc / l : 0.f);
 }
 
 // q, o: (sb, sh) element strides
@@ -358,18 +396,19 @@ cudaError_t launch(const void* k, const void* v, const Strides& ks,
                    const Strides& vs, const void* q, const int* lengths,
                    void* o, float* part, int64_t b, int64_t h,
                    const Rows& rows, const int64_t* qst, const int64_t* ost,
-                   float scale, cudaStream_t stream) {
+                   float scale, int d, cudaStream_t stream) {
   const int n_chunks = (rows.cap + CHUNK - 1) / CHUNK;
   const dim3 grid{unsigned(n_chunks), unsigned(h), unsigned(b)};
   flash_decode_split_kernel<T, D, Rows><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(k), static_cast<const T*>(v), ks, vs,
-      static_cast<const T*>(q), lengths, part, rows, qst[0], qst[1], scale);
+      static_cast<const T*>(q), lengths, part, rows, qst[0], qst[1], scale,
+      d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_decode_merge_kernel<T, D>
       <<<dim3{unsigned(h), unsigned(b)}, D, 0, stream>>>(
           part, lengths, rows.cap, n_chunks, static_cast<T*>(o), ost[0],
-          ost[1]);
+          ost[1], d);
   return cudaGetLastError();
 }
 
@@ -399,13 +438,14 @@ int dispatch(int dtype, int64_t d, const void* k, const void* v,
 #define VELES_DECODE_CASE(D)                                                \
   case D:                                                                   \
     return dtype == 0 ? launch<float, D>(k, v, ks, vs, q, len, o, ws, b, h, \
-                                         rows, qst, ost, scale, s)          \
+                                         rows, qst, ost, scale, int(d), s)  \
                       : launch<bf16, D>(k, v, ks, vs, q, len, o, ws, b, h,  \
-                                        rows, qst, ost, scale, s);
-  switch (d) {
+                                        rows, qst, ost, scale, int(d), s);
+  switch (kernel_width(d)) {
     VELES_DECODE_CASE(32)
     VELES_DECODE_CASE(64)
     VELES_DECODE_CASE(128)
+    VELES_DECODE_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
@@ -418,11 +458,12 @@ extern "C" {
 
 // K4. k, v: [B, S, H, D] with element strides (k_sb, k_ss, k_sh) and
 // (v_sb, v_ss, v_sh), unit stride on D, 16-byte aligned bases and
-// strides; q: [B, H, D]; o: [B, H, D]; part: f32 workspace [B, H,
-// ceil(S / chunk), D + 2]. lengths: [B] int32 on the device, clamped to
-// [0, S]. chunk must be CHUNK. dtype: 0 = float32, 1 = bfloat16.
-// Launches the split and the merge kernel; returns the CUDA error of
-// the launches (0 = launched).
+// strides, D a multiple of 8 from 8 to 256; q: [B, H, D]; o: [B, H, D];
+// part: f32 workspace [B, H, ceil(S / chunk), W + 2], W the instance
+// width D runs on (the next of 32, 64, 128, 256). lengths: [B] int32
+// on the device, clamped to [0, S]. chunk must be CHUNK. dtype: 0 =
+// float32, 1 = bfloat16. Launches the split and the merge kernel;
+// returns the CUDA error of the launches (0 = launched).
 int veles_flash_decode(const void* k, const void* v, const void* q,
                        const void* lengths, void* o, void* part, int64_t b,
                        int64_t s, int64_t h, int64_t d, int64_t k_sb,
@@ -442,7 +483,7 @@ int veles_flash_decode(const void* k, const void* v, const void* q,
 // (page, row, head) and alignment as K4's caches; tables: [B, n_blk]
 // int32 page ids (row stride tsb; ids outside [0, P) are clamped to the
 // pool); lengths: [B] int32, clamped to [0, n_blk * ps]; part: f32
-// workspace [B, H, ceil(n_blk * ps / chunk), D + 2]; the rest as K4's.
+// workspace [B, H, ceil(n_blk * ps / chunk), W + 2]; the rest as K4's.
 int veles_flash_decode_paged(const void* k, const void* v, const void* q,
                              const void* tables, const void* lengths,
                              void* o, void* part, int64_t b, int64_t p,

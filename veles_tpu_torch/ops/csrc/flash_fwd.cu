@@ -19,7 +19,8 @@
 // is short.
 //
 // - bfloat16 (the serving and training path), 384 threads in three
-//   warpgroups (flash_hopper.cuh has the building blocks):
+//   warpgroups (two of 256 at D = 256: FwdTma; flash_hopper.cuh has
+//   the building blocks):
 //   - one producer warp loads the block's Q tile once and streams
 //     128-key K and V tiles through a three-stage ring in shared memory
 //     (225 KB with Q at D = 128) with TMA, straight from the
@@ -37,6 +38,13 @@
 //     multiply-add, and stores m in natural units.
 // - float32 (the parity path): 256 threads on FMA units over shared
 //   memory tiles, full f32 products, as the plain version computes.
+// - Head dims: instances of width 32, 64, 128 and 256; a head dim d (a
+//   multiple of 8 up to 256) runs on the next width, its columns past d
+//   read as zeros (TMA's out-of-bounds fill for bf16, masked loads for
+//   f32) and never stored. A zero column adds nothing to a score or an
+//   output, and the softmax scale is the caller's 1 / sqrt(d). The cost
+//   is the padding's share of the products: d = 80 does the tensor-core
+//   work of d = 128.
 //
 // Numerics mirror the plain PyTorch version (ops/flash_attention.py):
 // scores and statistics in f32, masked probabilities exactly 0, p
@@ -59,13 +67,23 @@ constexpr float LN2 = 0.6931471805599453f;
 // bfloat16: TMA ring, warp-specialised, wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int TMA_THREADS = 384;   // producer + two consumer warpgroups
-constexpr int CONSUMER_WARPS = 8;  // arrivals that free a stage
-
+// The instance of width D (32, 64, 128 or 256 columns; a narrower head
+// dim runs on the next width, its missing columns loaded as zeros).
+// Up to D = 128: two consumer warpgroups own 64 query rows each of a
+// 128-row block and stream 128-key tiles through three stages (225 KB
+// of shared memory at D = 128). At D = 256 that ring would take 448 KB
+// of the card's 227 KB, and two 64 x 256 f32 output accumulators would
+// not fit the 168 registers ptxas gives each of 384 threads: the block
+// is one consumer warpgroup of 64 rows (256 threads; ptxas gives them
+// 216 registers each, 128 of them the accumulator) over 64-key tiles in
+// two stages (164,904 bytes of dynamic shared memory).
 template <int D> struct FwdTma {
-  static constexpr int BM = 128;  // query rows per block
-  static constexpr int BN = 128;  // keys per tile
-  static constexpr int STAGES = 3;
+  static constexpr int CONSUMERS = D > 128 ? 1 : 2;  // warpgroups
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  static constexpr int CONSUMER_WARPS = 4 * CONSUMERS;  // free a stage
+  static constexpr int BM = 64 * CONSUMERS;  // query rows per block
+  static constexpr int BN = D > 128 ? 64 : 128;  // keys per tile
+  static constexpr int STAGES = D > 128 ? 2 : 3;
   typedef Tile<BM, D> QTile;
   typedef Tile<BN, D> KvTile;
   static constexpr uint32_t KV_OFF = QTile::BYTES;
@@ -130,14 +148,17 @@ __device__ inline void softmax_tile(float (&s)[BN / 2], float (&o)[D / 2],
   }
 }
 
+// d: the operand's head dim (<= D); its columns past d are zeros in
+// the tiles and are not stored
 template <int D>
-__global__ void __launch_bounds__(TMA_THREADS, 1) flash_fwd_tma_kernel(
-    const __grid_constant__ CUtensorMap q_map,
-    const __grid_constant__ CUtensorMap k_map,
-    const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
-    float* __restrict__ l_out, float* __restrict__ m_out, int t_len,
-    int n_heads, int64_t osb, int64_t ost, int64_t osh, int causal,
-    float scale) {
+__global__ void __launch_bounds__(FwdTma<D>::THREADS, 1)
+    flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         bf16* __restrict__ o, float* __restrict__ l_out,
+                         float* __restrict__ m_out, int t_len, int n_heads,
+                         int64_t osb, int64_t ost, int64_t osh, int causal,
+                         float scale, int d) {
   using L = FwdTma<D>;
   constexpr int BM = L::BM, BN = L::BN, STAGES = L::STAGES;
   typedef typename L::QTile QTile;
@@ -160,7 +181,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1) flash_fwd_tma_kernel(
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMER_WARPS);
+      mbar_init(&empty[s], L::CONSUMER_WARPS);
     }
     mbar_init(q_full, 1);
     mbar_fence_init();
@@ -169,7 +190,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1) flash_fwd_tma_kernel(
 
   if (tid < 128) {
     // producer warpgroup: one thread starts every load
-    regs_dec<24>();
+    if constexpr (L::CONSUMERS > 1) regs_dec<24>();
     if (tid == 0) {
       tma_prefetch_map(&q_map);
       tma_prefetch_map(&k_map);
@@ -189,7 +210,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1) flash_fwd_tma_kernel(
   }
 
   // consumer warpgroup w: query rows [q0 + 64 w, q0 + 64 w + 64)
-  regs_inc<240>();
+  if constexpr (L::CONSUMERS > 1) regs_inc<240>();
   const int w = tid / 128 - 1;
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
@@ -256,9 +277,10 @@ __global__ void __launch_bounds__(TMA_THREADS, 1) flash_fwd_tma_kernel(
     bf16* orow = ob + int64_t(row[i]) * ost + tq * 2;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv,
-                                acc[4 * j + 2 * i + 1] * inv);
+      if (j * 8 < d)
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv,
+                                  acc[4 * j + 2 * i + 1] * inv);
     if (tq == 0) {
       const int64_t at = (int64_t(b) * n_heads + h) * t_len + row[i];
       l_out[at] = l_r[i];
@@ -290,7 +312,7 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_fwd_fma_kernel(
     float* __restrict__ l_out, float* __restrict__ m_out, int t_len,
     int n_heads, int64_t qsb, int64_t qst, int64_t qsh, int64_t ksb,
     int64_t kst, int64_t ksh, int64_t vsb, int64_t vst, int64_t vsh,
-    int64_t osb, int64_t ost, int64_t osh, int causal, float scale) {
+    int64_t osb, int64_t ost, int64_t osh, int causal, float scale, int d) {
   using L = FmaLayout<D>;
   constexpr int KS = L::KS;
   constexpr int PS = L::PS;
@@ -319,7 +341,7 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_fwd_fma_kernel(
   const float* vb = v + b * vsb + h * vsh;
   float* ob = o + b * osb + h * osh;
 
-  load_tile_f32<D>(qs, qb, qst, q0, t_len, tid);
+  load_tile_f32<D>(qs, qb, qst, q0, t_len, tid, d);
   if (tid < BQ) {
     m_s[tid] = MASK_VALUE;
     l_s[tid] = 0.f;
@@ -340,7 +362,7 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_fwd_fma_kernel(
     for (int idx = tid; idx < BK * D; idx += FMA_THREADS) {
       const int r = idx / D, c = idx % D;
       const int t = k0 + r;
-      const bool in = t < t_len;
+      const bool in = t < t_len && c < d;
       ks[r * KS + c] = in ? kb[int64_t(t) * kst + c] : 0.f;
       vs[r * D + c] = in ? vb[int64_t(t) * vst + c] : 0.f;
     }
@@ -353,12 +375,12 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_fwd_fma_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int e = 0; e < D; ++e) {
       float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * KS + d];
+      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * KS + e];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * KS + d];
+      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * KS + e];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -442,7 +464,8 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_fwd_fma_kernel(
     const float inv = lf == 0.f ? 1.f : 1.f / lf;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      ob[int64_t(t) * ost + tx + 16 * j] = acc[i][j] * inv;
+      if (tx + 16 * j < d)
+        ob[int64_t(t) * ost + tx + 16 * j] = acc[i][j] * inv;
   }
   if (tid < BQ && q0 + tid < t_len) {
     const float lf = l_s[tid];
@@ -461,7 +484,7 @@ struct Args {
   const void *q, *k, *v;
   void* o;
   float *l, *m;
-  int64_t b, t, h;
+  int64_t b, t, h, d;
   int64_t st[12];
   int causal;
   float scale;
@@ -476,7 +499,7 @@ int launch_tma(const Args& a, cudaStream_t stream) {
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
     const int64_t* layout = a.maps + i * LAYOUT_LEN;
-    if (!layout_matches(layout, D, i == 0 ? L::BM : L::BN))
+    if (!layout_matches(layout, a.d, D, i == 0 ? L::BM : L::BN))
       return cudaErrorInvalidValue;
     const int rc = encode_map(&maps[i], ptrs[i], layout);
     if (rc != 0) return rc;
@@ -486,9 +509,10 @@ int launch_tma(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const dim3 grid{unsigned(a.h), unsigned(a.b),
                   unsigned((a.t + L::BM - 1) / L::BM)};
-  flash_fwd_tma_kernel<D><<<grid, TMA_THREADS, L::bytes, stream>>>(
+  flash_fwd_tma_kernel<D><<<grid, L::THREADS, L::bytes, stream>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(a.o), a.l, a.m,
-      int(a.t), int(a.h), a.st[9], a.st[10], a.st[11], a.causal, a.scale);
+      int(a.t), int(a.h), a.st[9], a.st[10], a.st[11], a.causal, a.scale,
+      int(a.d));
   return cudaGetLastError();
 }
 
@@ -506,7 +530,7 @@ int launch_fma(const Args& a, cudaStream_t stream) {
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.l, a.m,
       int(a.t), int(a.h), a.st[0], a.st[1], a.st[2], a.st[3], a.st[4],
       a.st[5], a.st[6], a.st[7], a.st[8], a.st[9], a.st[10], a.st[11],
-      a.causal, a.scale);
+      a.causal, a.scale, int(a.d));
   return cudaGetLastError();
 }
 
@@ -521,13 +545,15 @@ int launch_d(int dtype, const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// q, k, v, o: [B, T, H, D] with unit stride on D; strides in elements,
-// (b, t, h) for q, k, v, o in that order. l, m: [B, H, T] f32,
+// q, k, v, o: [B, T, H, D] with unit stride on D, D a multiple of 8
+// from 8 to 256 (it runs on the instance of the next width of 32, 64,
+// 128, 256); strides in elements, (b, t, h) for q, k, v, o in that
+// order. l, m: [B, H, T] f32,
 // contiguous. dtype: 0 = float32, 1 = bfloat16. bfloat16 operands are
 // read through TMA: `maps` holds the q, k, v layouts (3 x 12 int64, from
 // ops/flash_attention.py:tma_layout, whose box rows must be this
-// kernel's tiles); float32 takes maps = NULL. Returns 0 when launched,
-// else the CUDA error of the launch or ENCODE_ERROR +
+// kernel's tiles at its width); float32 takes maps = NULL. Returns 0
+// when launched, else the CUDA error of the launch or ENCODE_ERROR +
 // cuTensorMapEncodeTiled's CUresult.
 int veles_flash_fwd(const void* q, const void* k, const void* v, void* o,
                     void* l, void* m, int64_t b, int64_t t, int64_t h,
@@ -538,17 +564,19 @@ int veles_flash_fwd(const void* q, const void* k, const void* v, void* o,
                     const int64_t* maps, void* stream) {
   if (t <= 0 || b <= 0 || h <= 0) return 0;
   const Args a{q, k, v, o, static_cast<float*>(l), static_cast<float*>(m),
-               b, t, h,
+               b, t, h, d,
                {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh},
                causal, scale, maps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
+  switch (kernel_width(d)) {
     case 32:
       return launch_d<32>(dtype, a, s);
     case 64:
       return launch_d<64>(dtype, a, s);
     case 128:
       return launch_d<128>(dtype, a, s);
+    case 256:
+      return launch_d<256>(dtype, a, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -557,9 +585,18 @@ int veles_flash_fwd(const void* q, const void* k, const void* v, void* o,
 // Dynamic shared memory of the bf16 kernel at head dim d (bytes; 0 for
 // an unsupported d): ptxas reports static shared memory only.
 int64_t veles_flash_fwd_smem(int64_t d) {
-  return d == 32 ? FwdTma<32>::bytes
-                 : d == 64 ? FwdTma<64>::bytes
-                           : d == 128 ? FwdTma<128>::bytes : 0;
+  switch (kernel_width(d)) {
+    case 32:
+      return FwdTma<32>::bytes;
+    case 64:
+      return FwdTma<64>::bytes;
+    case 128:
+      return FwdTma<128>::bytes;
+    case 256:
+      return FwdTma<256>::bytes;
+    default:
+      return 0;
+  }
 }
 
 const char* veles_error_string(int code) { return error_string(code); }

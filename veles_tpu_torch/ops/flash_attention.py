@@ -52,8 +52,20 @@ DEFAULT_BLOCK = 512
 #: Default K/V tile of the plain decode path.
 DEFAULT_DECODE_BLOCK = 256
 
-#: Head dims the kernels are instantiated for.
-KERNEL_HEAD_DIMS = (32, 64, 128)
+#: Widths the forward and decode kernels (K1, K4, K5) are instantiated
+#: for. A head dim d runs on the next width (:func:`kernel_width`), its
+#: columns past d read as zeros and never stored.
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+
+#: Head dims the backward kernels K2 and K3 are instantiated for.
+BWD_HEAD_DIMS = (32, 64, 128)
+
+#: The widest head dim a kernel takes: shared memory caps the tiles.
+MAX_HEAD_DIM = 256
+
+#: Head dims the kernels take are multiples of this: a bf16 row of TMA
+#: (and a 16-byte lane of the decode kernels) is a multiple of 16 bytes.
+HEAD_DIM_MULTIPLE = 8
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkv": 0,
@@ -88,6 +100,26 @@ TMA_STRIDE_LIMIT = 1 << 40
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def kernel_width(d: int) -> int:
+    """The instance width head dim ``d`` runs on: the next of
+    :data:`KERNEL_HEAD_DIMS` (``flash_common.cuh`` kernel_width), for d a
+    multiple of 8 from 8 to 256; 0 for any other d."""
+    if d < HEAD_DIM_MULTIPLE or d > MAX_HEAD_DIM or d % HEAD_DIM_MULTIPLE:
+        return 0
+    return next(w for w in KERNEL_HEAD_DIMS if w >= d)
+
+
+def tma_tiles(entry: str, width: int):
+    """(query tile, key tile) rows of the TMA kernel of ``entry`` at
+    instance width ``width``: :data:`TMA_TILES`, but K1 wider than 128
+    columns holds one 64-row consumer warpgroup over 64-key tiles
+    (``flash_fwd.cu`` FwdTma), which fit the card's shared memory and
+    registers."""
+    if entry == "flash_fwd" and width > 128:
+        return (64, 64)
+    return TMA_TILES[entry]
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -277,9 +309,18 @@ def _check_kernel_operands(entry: str, *tensors: torch.Tensor) -> None:
         raise ValueError("%s kernel takes float32 or bfloat16, got %s"
                          % (entry, dtype))
     d = tensors[0].shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError("%s kernel supports head dims %s, got %d"
-                         % (entry, KERNEL_HEAD_DIMS, d))
+    if not kernel_width(d):
+        raise ValueError(
+            "%s kernel takes head dims that are multiples of %d from %d "
+            "to %d (a bf16 row of TMA is a multiple of 16 bytes; shared "
+            "memory caps the tiles at %d columns), got %d"
+            % (entry, HEAD_DIM_MULTIPLE, HEAD_DIM_MULTIPLE, MAX_HEAD_DIM,
+               MAX_HEAD_DIM, d))
+    if entry.startswith("flash_bwd") and d not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            "%s kernel is instantiated for head dims %s; head dim %d is "
+            "the next slice of the port (ROADMAP.md queue 1: K2/K3 at "
+            "every head dim up to 256)" % (entry, BWD_HEAD_DIMS, d))
     for x in tensors:
         if not x.is_cuda or x.device != dev or x.dtype != dtype:
             raise ValueError("%s kernel operands must share one CUDA "
@@ -290,7 +331,7 @@ def _check_kernel_operands(entry: str, *tensors: torch.Tensor) -> None:
 
 
 def tma_layout(shape, strides, element_size: int, data_ptr: int,
-               box_rows: int):
+               box_rows: int, width: Optional[int] = None):
     """The TMA tensor map of one ``[B, T, H, D]`` operand of the bf16
     Hopper kernels, as ``cuTensorMapEncodeTiled`` takes it (the kernels
     encode exactly these values): a tuple of 12 ints, the dims innermost
@@ -300,6 +341,11 @@ def tma_layout(shape, strides, element_size: int, data_ptr: int,
     bytes)``, which the kernels' shared-memory descriptors assume. A row
     wider than the span loads as several boxes, one per chunk of
     columns. Rows past T, and a box past any edge, load as zeros.
+
+    ``width`` (default D): the row width of the kernel instance that
+    reads the operand, at least D. The box and the swizzle are that
+    width's; its columns past D load as zeros (D = 80 on the 128-wide
+    instance: two boxes of 64 columns, 48 of the second past the row).
 
     Returns None when TMA cannot read the operand in place, and it must
     be copied: the head dim not at unit stride, a base address or a
@@ -321,20 +367,25 @@ def tma_layout(shape, strides, element_size: int, data_ptr: int,
     if data_ptr % 16 or sb % 16 or st % 16 or sh % 16 or \
             min(sb, st, sh) <= 0 or max(sb, st, sh) >= TMA_STRIDE_LIMIT:
         return None
-    swizzle = min(TMA_SWIZZLE_MAX, d * element_size)
+    width = d if width is None else width
+    if width < d:
+        raise ValueError("a %d-wide instance cannot read rows of %d"
+                         % (width, d))
+    swizzle = min(TMA_SWIZZLE_MAX, width * element_size)
     return (d, h, t, b, sh, st, sb, swizzle // element_size, 1, box_rows, 1,
             swizzle)
 
 
-def _tma_operand(x: torch.Tensor, box_rows: int):
+def _tma_operand(x: torch.Tensor, box_rows: int,
+                 width: Optional[int] = None):
     """``x`` and its :func:`tma_layout`; a contiguous copy of ``x`` where
     TMA cannot read it in place."""
     layout = tma_layout(x.shape, x.stride(), x.element_size(),
-                        x.data_ptr(), box_rows)
+                        x.data_ptr(), box_rows, width)
     if layout is None:
         x = x.clone(memory_format=torch.contiguous_format)
         layout = tma_layout(x.shape, x.stride(), x.element_size(),
-                            x.data_ptr(), box_rows)
+                            x.data_ptr(), box_rows, width)
     return x, layout
 
 
@@ -349,10 +400,12 @@ def _tma_operands(entry: str, *xs: torch.Tensor):
     """The bf16 operands q, k, v (and dO) of the TMA kernel of ``entry``,
     each copied where TMA cannot read it in place, and their layouts
     packed for the C entry: q and dO take the query tile's rows, k and v
-    the key tile's (:data:`TMA_TILES`)."""
-    rows_q, rows_k = TMA_TILES[entry]
+    the key tile's (:func:`tma_tiles` at the instance width the head dim
+    runs on)."""
+    width = kernel_width(xs[0].shape[-1])
+    rows_q, rows_k = tma_tiles(entry, width)
     rows = (rows_q, rows_k, rows_k, rows_q)
-    pairs = [_tma_operand(x, r) for x, r in zip(xs, rows)]
+    pairs = [_tma_operand(x, r, width) for x, r in zip(xs, rows)]
     xs, layouts = zip(*pairs)
     return xs, _tma_maps(layouts)
 
@@ -429,8 +482,8 @@ def _bwd_lib() -> ctypes.CDLL:
 
 def hopper_smem_bytes(entry: str, d: int) -> int:
     """Dynamic shared memory of the bf16 TMA kernel of ``entry`` (a key
-    of :data:`TMA_TILES`) at head dim ``d``, in bytes (ptxas reports
-    only static shared memory)."""
+    of :data:`TMA_TILES`) at head dim ``d`` (its instance's width's), in
+    bytes (ptxas reports only static shared memory)."""
     if entry not in TMA_TILES:
         raise ValueError("no TMA kernel for %r" % entry)
     lib = _fwd_lib() if entry == "flash_fwd" else _bwd_lib()
@@ -516,12 +569,14 @@ def kernel_workspace(name: str, b: int, h: int, d: int,
                      capacity: int = 0, t: int = 0) -> int:
     """Device bytes kernel ``name`` allocates that its plain version
     does not (the memory plan adds them where the plain version stands
-    in): K4/K5's f32 split partials ``part`` ``[B, H, chunks, D + 2]``
-    (``capacity`` = S, or n_blk x page size), K2/K3's ``di = rowsum(dO
-    * O)`` ``[B, H, T]`` f32. K1 adds nothing: its ``o``, ``l`` and
-    ``m`` are the plain version's outputs too."""
+    in): K4/K5's f32 split partials ``part`` ``[B, H, chunks, W + 2]``
+    (``capacity`` = S, or n_blk x page size; W the instance width head
+    dim ``d`` runs on, or d itself where no instance takes it), K2/K3's
+    ``di = rowsum(dO * O)`` ``[B, H, T]`` f32. K1 adds nothing: its
+    ``o``, ``l`` and ``m`` are the plain version's outputs too."""
     if name in ("flash_decode", "flash_decode_paged"):
-        return b * h * decode_chunks(capacity) * (d + 2) * 4
+        width = kernel_width(d) or d
+        return b * h * decode_chunks(capacity) * (width + 2) * 4
     if name == "flash_bwd":
         return b * h * t * 4
     return 0
@@ -568,7 +623,7 @@ def flash_decode_cuda(q, k_cache, v_cache, lengths):
     lib = _decode_lib()
     k_cache, v_cache = _decode_operand(k_cache), _decode_operand(v_cache)
     o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    part = torch.empty((b, h, decode_chunks(s), d + 2),
+    part = torch.empty((b, h, decode_chunks(s), kernel_width(d) + 2),
                        dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -616,7 +671,8 @@ def flash_decode_paged_cuda(q, k_pages, v_pages, block_tables, lengths):
     lib = _decode_lib()
     k_pages, v_pages = _decode_operand(k_pages), _decode_operand(v_pages)
     o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    part = torch.empty((b, h, decode_chunks(n_blk * ps), d + 2),
+    part = torch.empty((b, h, decode_chunks(n_blk * ps),
+                        kernel_width(d) + 2),
                        dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

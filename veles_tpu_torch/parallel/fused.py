@@ -293,6 +293,58 @@ class _Shards:
         return leaf
 
 
+class _Placement:
+    """How a trainer's ``shard_*`` method placed a batch, held by the
+    placed labels (or tokens) tensor as its ``_veles_placement``: the
+    trainer, and on a mesh the global batch's valid-row count (a 0-d
+    tensor, [K] for a stack), or None where the rank placed only its
+    own rows and ``count``, their valid rows, is summed over ``data``
+    at the step."""
+
+    __slots__ = ("owner", "n_valid", "count")
+
+    def __init__(self, owner, n_valid=None, count=None) -> None:
+        self.owner = owner
+        self.n_valid = n_valid
+        self.count = count
+
+
+def placement_of(owner, x) -> Optional[_Placement]:
+    """``x``'s placement by ``owner`` (a trainer), or None for a batch
+    no trainer placed. Raises for a batch another trainer placed: its
+    rows follow that trainer's mesh. Raises too for an unmarked batch
+    once ``owner`` has placed one on a mesh: a placed batch that went
+    through a copy (a clone, an index, ``.to()`` another device, a
+    loader) has lost its mark, and its rows would be cut again."""
+    placed = getattr(x, "_veles_placement", None)
+    if placed is None:
+        if getattr(owner, "_places_on_mesh", False):
+            raise ValueError(
+                "this trainer places its batches on a mesh (shard_*), and "
+                "this batch carries no placement: a copy of a placed batch "
+                "(clone, index, .to(), pin_memory) loses it; pass the "
+                "tensors shard_* returned as they are")
+        return None
+    if placed.owner is not owner:
+        raise ValueError("this batch was placed by another trainer; "
+                         "place the host batch with this trainer's "
+                         "shard_* methods")
+    return placed
+
+
+def mark_placed(x: torch.Tensor, placement: _Placement,
+                meshed: bool = False) -> torch.Tensor:
+    """A contiguous view of ``x`` that carries ``placement`` (a view, so
+    a tensor the caller holds is never marked; contiguous, so
+    ``.contiguous()`` keeps the mark). ``meshed``: the owner places on
+    a mesh, and from now on refuses a batch without a mark."""
+    x = x.contiguous().view_as(x)
+    x._veles_placement = placement
+    if meshed:
+        placement.owner._places_on_mesh = True
+    return x
+
+
 def _gather_channels(h, shards):
     """A channel-sharded activation made whole (varying: the ranks'
     cotangents of it are summed back by the gather's transpose). The
@@ -687,10 +739,72 @@ class FusedClassifierTrainer:
 
     def _step_args(self, x, labels):
         """The batch arguments of :func:`_train_step` for this trainer:
-        the whole batch, or on a mesh this rank's part of it."""
+        the whole batch, or on a mesh this rank's part of it (a batch
+        its ``shard_*`` placed is taken as it is)."""
+        placed = placement_of(self, labels)
+        if placed is not None:
+            if self._shards is None:
+                return (x, labels)
+            return (x, labels, self._shards, self._n_valid(placed))
         if self._shards is not None:
             return self._local(x, labels)
         return (self._x(x), self._labels(labels))
+
+    def _n_valid(self, placed: _Placement) -> torch.Tensor:
+        """The global valid-row count of a placed batch: its own, or the
+        sum over ``data`` of the ranks' counts (an integer sum, so the
+        count a rank handed the global batch computes)."""
+        if placed.n_valid is not None:
+            return placed.n_valid
+        return collectives.all_reduce_sum(
+            placed.count, self._shards.data).clamp_min(1)
+
+    # -- data placement ----------------------------------------------------
+    def shard_batch(self, x, labels):
+        """Place a FULL global batch (present on every rank; numpy or
+        tensors) as :meth:`step` takes it: the whole batch on the
+        trainer's device, or on a mesh this rank's ``data`` rows only,
+        with the global valid-row count taken from the labels here.
+        Returns ``(x, labels)``; :meth:`step` does not place them again
+        (``PrefetchingServer(loader, place=trainer.shard_batch)``)."""
+        labels = self._labels(labels)
+        if self._shards is None:
+            return self._x(x), mark_placed(labels, _Placement(self))
+        n_valid = (labels >= 0).sum().clamp_min(1)
+        return (self._x(self._shards.rows(x)),
+                mark_placed(self._shards.rows(labels),
+                            _Placement(self, n_valid), meshed=True))
+
+    def shard_local_batch(self, x, labels):
+        """Place this rank's SLICE of the global batch (each rank's
+        loader reads only its own rows, in the reference's order: the
+        rank at ``data`` index p holds rows ``[p n, (p + 1) n)``). The
+        step sums the ranks' valid-row counts over ``data``. On one
+        device the slice is the whole batch."""
+        if self._shards is None:
+            return self.shard_batch(x, labels)
+        labels = self._labels(labels)
+        return (self._x(x), mark_placed(labels, _Placement(
+            self, count=(labels >= 0).sum()), meshed=True))
+
+    def shard_batch_stack(self, xs, labels):
+        """Place a [K, B, ...] stack of global batches for
+        :meth:`step_many`: the batch dim over ``data`` (each rank its
+        rows of every batch), the K dim whole, with each batch's global
+        valid-row count."""
+        labels = self._labels(labels)
+        if self._shards is None:
+            return self._x(xs), mark_placed(labels, _Placement(self))
+        n_valid = (labels >= 0).sum(dim=1).clamp_min(1)
+        n, i = self._shards.data.size, self._shards.data.index
+        if labels.shape[1] % n:
+            raise ValueError("a batch of %d does not split over 'data' %d"
+                             % (labels.shape[1], n))
+        step = labels.shape[1] // n
+        rows = slice(i * step, (i + 1) * step)
+        return (self._x(xs[:, rows]),
+                mark_placed(labels[:, rows], _Placement(self, n_valid),
+                            meshed=True))
 
     # -- non-finite sentinel ------------------------------------------------
     @property
@@ -743,13 +857,25 @@ class FusedClassifierTrainer:
         """K train steps over a [K, B, ...] stack (or a list of K
         batches). Returns ``{"loss", "n_err", "nonfinite"}`` as [K]
         device tensors; numerics equal K sequential :meth:`step` calls
-        (same dropout seeds and learning-rate stream)."""
-        local = self._local if self._shards is not None else None
-        if isinstance(xs, (list, tuple)):
-            xs = torch.stack([torch.as_tensor(x) for x in xs])
-            labels = torch.stack([torch.as_tensor(lb) for lb in labels])
-        if local is None:
-            xs, labels = self._x(xs), self._labels(labels)
+        (same dropout seeds and learning-rate stream). A stack that
+        :meth:`shard_batch_stack` placed is taken as it is."""
+        local = None
+        placed = placement_of(self, labels)
+        if placed is not None:
+            if self._shards is not None:
+                n_valid = iter(self._n_valid(placed))
+                shards = self._shards
+
+                def local(x, lbl):
+                    return x, lbl, shards, next(n_valid)
+        else:
+            if isinstance(xs, (list, tuple)):
+                xs = torch.stack([torch.as_tensor(x) for x in xs])
+                labels = torch.stack([torch.as_tensor(lb) for lb in labels])
+            if self._shards is not None:
+                local = self._local
+            else:
+                xs, labels = self._x(xs), self._labels(labels)
         k = int(xs.shape[0])
         counters = list(range(self._step_counter + 1,
                               self._step_counter + k + 1))

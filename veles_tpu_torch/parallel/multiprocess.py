@@ -111,6 +111,22 @@ def shutdown() -> None:
     _STATE["device"] = None
 
 
+def leave() -> None:
+    """Leave the group in step with the other ranks: a barrier, then
+    :func:`shutdown` (a no-op when not joined). Every rank's groups,
+    and the gloo threads behind them, are torn down while the
+    interpreter is whole and no rank still uses them, never in an
+    exit's teardown; rank 0, which holds the rendezvous store, goes
+    last to the barrier's end with the rest. A barrier that fails (a
+    rank already gone) still shuts this rank's groups down."""
+    if not is_initialized():
+        return
+    try:
+        dist.barrier()
+    finally:
+        shutdown()
+
+
 def membership() -> Optional[tuple]:
     """(coordinator, num_processes, process_id, backend) of the group
     :func:`initialize` joined (None before)."""
@@ -199,8 +215,17 @@ def _world_main(fn, rank, n, port, backend, device, timeout_s, args,
                    device=device, timeout_s=timeout_s)
         try:
             result = fn(rank, *args)
-        finally:
+        except BaseException:
             shutdown()
+            raise
+        # a rank that returns first must not tear its groups down while
+        # another still connects to them (a group's first collective);
+        # a barrier that fails means a peer is already gone, and that
+        # peer's own report says why
+        try:
+            leave()
+        except RuntimeError:
+            pass
         queue.put((rank, True, result))
     except BaseException:  # noqa: BLE001 — reported to the parent
         queue.put((rank, False, traceback.format_exc()))

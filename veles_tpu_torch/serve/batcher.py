@@ -1103,6 +1103,14 @@ class TokenBatcher:
             self._next_engine = engine
             self._cond.notify_all()
 
+    @property
+    def active_sequences(self) -> int:
+        """Sequences holding a slot now (admitted, not yet retired)."""
+        with self._cond:
+            # off-thread len() of dispatch-owned state: an atomic
+            # gauge read (CPython dict len), never dereferenced
+            return len(self._by_slot)  # noqa: VC003
+
     def _enqueue(self, prompt, max_tokens: int, eos: Optional[int],
                  deadline_ms: Optional[float] = None,
                  ctx: Optional[TraceContext] = None,
@@ -1538,6 +1546,12 @@ class TokenBatcher:
                     return True
             time.sleep(0.005)
         return False
+
+    @property
+    def draining(self) -> bool:
+        # lock-free bool gauge (monotonic False->True); admission
+        # re-checks it under the lock in _enqueue()
+        return self._draining  # noqa: VC002
 
     def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
         """Drain (optionally), then stop and join. In-flight cleanup

@@ -204,6 +204,12 @@ class GenerativeModel:
         snap["stuck_for_s"] = self.stuck_for_s
         return snap
 
+    def prometheus_text(self) -> str:
+        """This model's Prometheus exposition, rendered from
+        :meth:`metrics_samples`."""
+        from veles_tpu_torch.obs import metrics as obs_metrics
+        return obs_metrics.render(self.metrics_samples())
+
     def metrics_samples(self):
         from veles_tpu_torch.obs import metrics as obs_metrics
         return obs_metrics.gen_samples(
@@ -298,6 +304,14 @@ class ModelRegistry:
         for name in self.names():
             samples.extend(self.get(name).metrics_samples())
         return obs_metrics.render(samples)
+
+    def stuck_for_s(self) -> float:
+        """The worst dispatch-watchdog heartbeat across models: the
+        longest time any batcher's current device call has been out (0
+        when every dispatch thread is between calls), as
+        :meth:`admission_signals` reports it unrounded."""
+        return max((self.get(name).stuck_for_s for name in self.names()),
+                   default=0.0)
 
     def admission_signals(self) -> Dict[str, Any]:
         """Per-model queue depth / drain rate / watchdog heartbeat plus

@@ -282,18 +282,28 @@ class Unit(Distributable, TriviallyDistributable, metaclass=UnitRegistry):
                 return True
             return False
 
-    def _check_gate_and_run(self, src: Optional["Unit"]) -> None:
+    def _check_gate_and_run(self, src: Optional["Unit"],
+                            run: Optional[int] = None) -> None:
         """The hot loop body (reference: veles/units.py:782-803).
 
         Paired with an in-flight counter on the workflow: when it drops
         to zero before the end point ran, the graph is miswired (nothing
         can ever fire again) and the workflow reports a stall instead of
         hanging (the replacement for the original design's deadlock
-        watchdogs, SURVEY.md §5)."""
+        watchdogs, SURVEY.md §5).
+
+        ``run``: the workflow's ``run_count`` when ``src`` handed this
+        trigger to the thread pool. The end point can finish that run,
+        and its caller start the next one (after resetting the gates,
+        as ``resume_overrides`` resets ``complete``), before the pool
+        checks the trigger: it then belongs to no run and is dropped,
+        where it would start a second pass beside the new run's."""
         wf = self.workflow
         try:
             if wf is not None and wf.stopped and not getattr(
                     self, "run_when_stopped", False):
+                return
+            if run is not None and wf is not None and run != wf.run_count:
                 return
             if getattr(self, "stopped", False) and not getattr(
                     self, "run_when_stopped", False):
@@ -321,6 +331,9 @@ class Unit(Distributable, TriviallyDistributable, metaclass=UnitRegistry):
             with self._run_lock_:
                 if wf is not None and wf.stopped and not getattr(
                         self, "run_when_stopped", False):
+                    return
+                if run is not None and wf is not None and \
+                        run != wf.run_count:
                     return
                 t0 = time.perf_counter()
                 try:
@@ -371,8 +384,9 @@ class Unit(Distributable, TriviallyDistributable, metaclass=UnitRegistry):
                 wf._inflight_inc()
         pool = wf.thread_pool if wf is not None else None
         if pool is not None:
+            run = wf.run_count
             for dst in targets[:-1]:
-                pool.callInThread(dst._check_gate_and_run, self)
+                pool.callInThread(dst._check_gate_and_run, self, run)
             _trampoline_run(targets[-1], self)
         else:
             for dst in targets:

@@ -226,6 +226,11 @@ class Workflow(Container):
         """Run the graph to completion (synchronous)
         (reference: veles/workflow.py:351-369)."""
         self.event("workflow_run", "begin", workflow=self.name)
+        # a new run's number before ``stopped`` clears: a trigger that an
+        # earlier run fanned out to the pool and that is checked only
+        # now sees either the finished run stopped or another run
+        # (``Unit._check_gate_and_run``), never a run of its own
+        self.run_count += 1
         self.stopped = False
         # An explicit (re-)run is intentional: clear unit-level stopped
         # flags so a stop()ped workflow can be run again.
@@ -236,7 +241,6 @@ class Workflow(Container):
         self._stalled_ = False
         self._sync_event_.clear()
         self._run_time_started_ = time.perf_counter()
-        self.run_count += 1
         self._failure_ = None
         self._inflight_inc()
         # Fresh trampoline frame: a nested run() from inside an outer
