@@ -735,8 +735,10 @@ def lrn_needs(name):
 #: the kernels phase 1 holds to their units: kernel -> (library, entry
 #: of ``hopper_smem_bytes`` or None, the SASS ops every instance holds,
 #: or a function of the instance's name giving them).
-#: The bf16 K1, K2 and K3 run on wgmma and TMA; the decode kernels K4
-#: and K5 split the key axis (16-byte loads) and merge the partials;
+#: The bf16 K1, K2 (at D = 256 its split kernel) and K3 run on wgmma
+#: and TMA; the f32 K2 and K3 are held to their registers and spills;
+#: the decode kernels K4 and K5 split the key axis (16-byte loads) and
+#: merge the partials;
 #: K6 and K7 load a lane's channels 16 bytes at once where the
 #: tensors allow it (a narrower instance otherwise).
 HOPPER_KERNELS = {
@@ -745,6 +747,10 @@ HOPPER_KERNELS = {
                                  ("HGMMA", "UTMALDG")),
     "flash_bwd_dq_tma_kernel": ("flash_bwd", "flash_bwd_dq",
                                 ("HGMMA", "UTMALDG")),
+    "flash_bwd_dkv_split_kernel": ("flash_bwd", "flash_bwd_dkv",
+                                   ("HGMMA", "UTMALDG")),
+    "flash_bwd_dkv_fma_kernel": ("flash_bwd", None, ()),
+    "flash_bwd_dq_fma_kernel": ("flash_bwd", None, ()),
     "flash_decode_split_kernel": ("flash_decode", None, ("LDG.128",)),
     "flash_decode_merge_kernel": ("flash_decode", None, ()),
     "lrn_fwd_kernel": ("lrn", None, lrn_needs),
@@ -1020,26 +1026,31 @@ def kernel_phase(torch, fa, dev):
     return rows
 
 
-#: head dims outside the instance widths, and the widest: K1, K4 and K5
-#: run 80 and 96 on the 128-wide instance (zero columns past D) and 256
-#: on its own (one consumer warpgroup, 64-key tiles)
+#: head dims outside the instance widths, and the widest: every kernel
+#: runs 80 and 96 on the 128-wide instance (zero columns past D) and 256
+#: on its own (K1, K3: one consumer warpgroup, 64-key tiles; K2: 64-key
+#: blocks whose two warpgroups split the products)
 WIDE_HEAD_DIMS = (80, 96, 256)
+
+#: the rows phase 2 times at each of WIDE_HEAD_DIMS
+WIDE_ROWS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_decode",
+             "flash_decode_paged")
 
 
 def wide_head_kernels(torch, fa, dev, randn, rows):
     """K1 (the serving view [2, 2048, 8, D] at bf16, a ragged T = 1000
     at f32, and the training view: q, k, v strided views of one fused
-    [2, 2048, 3, 8, D] projection), K4 (the serving slab [8, 2048, 8, D],
-    phase 2's ragged lengths, bf16 and f32) and K5 (that slab in
-    scrambled 16-token pages) against their plain versions at each of
-    WIDE_HEAD_DIMS; at bf16 each timed beside its bound, the plain
-    version and the library call. Adds ``head_dims`` to the three
-    rows."""
+    [2, 2048, 3, 8, D] projection), K2 and K3 (``wide_backward``), K4
+    (the serving slab [8, 2048, 8, D], phase 2's ragged lengths, bf16
+    and f32) and K5 (that slab in scrambled 16-token pages) against
+    their plain versions at each of WIDE_HEAD_DIMS; at bf16 each timed
+    beside its bound, the plain version and the library call. Adds
+    ``head_dims`` to the five rows."""
     h, b, s = 8, 8, 2048
     lengths = torch.tensor([0, 1, 777, 2048, 1500, 64, 1024, 2000],
                            dtype=torch.int32, device=dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for name in ("flash_fwd", "flash_decode", "flash_decode_paged"):
+    for name in WIDE_ROWS:
         rows[name]["head_dims"] = {}
     for d in WIDE_HEAD_DIMS:
         log("  head dim %d (instance width %d)" % (d, fa.kernel_width(d)))
@@ -1094,6 +1105,7 @@ def wide_head_kernels(torch, fa, dev, randn, rows):
                                                     is_causal=True), 20))
         rows["flash_fwd"]["head_dims"][d] = k1
         del q, k, v, qt, kt, vt, o, po
+        wide_backward(torch, fa, randn, d, rows)
         # K4 and K5 over the serving slab
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
@@ -1134,13 +1146,62 @@ def wide_head_kernels(torch, fa, dev, randn, rows):
                                                   attn_mask=mask), 50,
                                      cold=True))
             del q4, kt, vt
-        for name in ("flash_fwd", "flash_decode", "flash_decode_paged"):
+        for name in WIDE_ROWS:
             r = rows[name]["head_dims"][d]
             log("  %s D=%d: kernel %.4f ms, plain %.4f ms, library %.4f "
                 "ms, bound %.4f ms (%s), max abs err %.3e [%s]" % (
                     name, d, r["ms"], r["plain_ms"], r["library_ms"],
                     r["bound_ms"], r["bound_by"], r["max_abs_err"],
                     r["shape"]))
+
+
+def wide_backward(torch, fa, randn, d, rows):
+    """K2 and K3 at head dim d against the plain backward: f32 at a
+    ragged T = 1000 ([2, 1000, 8, D]), then bf16 on the training layout
+    (q, k, v strided views of one fused [TRAIN_BATCH, 2048, 3, 8, D]
+    projection, dO contiguous, K1's residuals), each within TOL_GRAD of
+    the gradient's scale and a second launch bitwise equal to the first;
+    the bf16 pair timed beside its bound, the plain backward and SDPA's
+    backward at the same D. Adds D to the K2/K3 rows' ``head_dims``."""
+    h = 8
+    _bwd_checked(torch, fa, "float32", "T=1000 D=%d" % d, *_bwd_inputs(
+        torch, fa, randn, (2, 1000, h, d), torch.float32))
+    b, t = TRAIN_BATCH, 2048
+    qkv = randn((b, t, 3, h, d), torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = randn((b, t, h, d), torch.bfloat16)
+    o, l, m = fa.flash_fwd_cuda(q, k, v, True)
+    di = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float()).contiguous()
+    errs = _bwd_checked(torch, fa, "bfloat16", "[%d, %d, %d, %d] views"
+                        % (b, t, h, d), q, k, v, do, o, l, m, di)
+    ms_dkv = device_ms(lambda: fa.flash_bwd_dkv_cuda(
+        q, k, v, do, l, m, di, True), 10)
+    ms_dq = device_ms(lambda: fa.flash_bwd_dq_cuda(
+        q, k, v, do, l, m, di, True), 10)
+    plain_ms = time_ms(lambda: fa._plain_bwd(q, k, v, o, l, m, do, True,
+                                             512, t), 2)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_ms = device_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10)
+    pairs = b * h * t * (t + 1) / 2
+    row_bytes = q.numel() * q.element_size()
+    for name, ms, n_prod, n_out, err in (
+            ("flash_bwd_dkv", ms_dkv, 4, 2, max(errs["dk"], errs["dv"])),
+            ("flash_bwd_dq", ms_dq, 3, 1, errs["dq"])):
+        bms, by = bound(2.0 * d * pairs * n_prod,
+                        (4 + n_out) * row_bytes + 3 * l.numel() * 4,
+                        "bfloat16")
+        rows[name]["head_dims"][d] = dict(
+            shape="q,k,v,dO [%d, %d, %d, %d] bf16, causal; q, k, v "
+                  "strided views of one fused projection" % (b, t, h, d),
+            width=fa.kernel_width(d), max_abs_err=err, ms=ms,
+            tflops=2.0 * d * pairs * n_prod / ms / 1e9, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            k2_plus_k3_ms=ms_dkv + ms_dq)
 
 
 def decode_chunks(fa, capacity, lengths, heads):
@@ -1252,6 +1313,27 @@ def _check_grads(dn, what, pairs):
     return errs
 
 
+def _bwd_checked(torch, fa, dn, what, q, k, v, do, o, l, m, di):
+    """K2 and K3 launched twice on the same inputs (the two must agree
+    bitwise: no race, no read of unwritten memory) and held against the
+    plain backward (whose key tile must divide T: it takes the padded
+    inputs of the autograd core); returns the absolute errors by
+    name."""
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, True)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, True)
+    again = fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, True) + \
+        (fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, True),)
+    t = q.shape[1]
+    pq, pk, pv = fa._plain_bwd(q, k, v, o, l, m, do, True,
+                               512 if t % 512 == 0 else t, t)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((dk, dv, dq), again)):
+        raise AssertionError("flash_bwd %s %s: two launches on the same "
+                             "inputs differ" % (dn, what))
+    return _check_grads(dn, what, (("dq", dq, pq), ("dk", dk, pk),
+                                   ("dv", dv, pv)))
+
+
 def backward_kernels(torch, fa, dev, randn, h, d, rows):
     """K2 and K3 against the plain backward (bf16 and f32, T = 2048 and
     the ragged 1000, batch 2); then K1, K2 and K3 at the training shape
@@ -1259,25 +1341,8 @@ def backward_kernels(torch, fa, dev, randn, h, d, rows):
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         for t in (2048, 1000):
-            q, k, v, do, o, l, m, di = _bwd_inputs(torch, fa, randn,
-                                                   (2, t, h, d), dtype)
-            dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, True)
-            dq = fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, True)
-            # a second launch on the same inputs must agree bitwise
-            # (no race, no read of unwritten memory)
-            dk2, dv2 = fa.flash_bwd_dkv_cuda(q, k, v, do, l, m, di, True)
-            dq2 = fa.flash_bwd_dq_cuda(q, k, v, do, l, m, di, True)
-            # the plain backward's key tile must divide T (it takes the
-            # padded inputs of the autograd core)
-            pq, pk, pv = fa._plain_bwd(q, k, v, o, l, m, do, True,
-                                       512 if t % 512 == 0 else t, t)
-            torch.cuda.synchronize()
-            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2) and
-                    torch.equal(dq, dq2)):
-                raise AssertionError("flash_bwd %s T=%d: two launches on "
-                                     "the same inputs differ" % (dn, t))
-            _check_grads(dn, "T=%d" % t, (("dq", dq, pq), ("dk", dk, pk),
-                                          ("dv", dv, pv)))
+            _bwd_checked(torch, fa, dn, "T=%d" % t, *_bwd_inputs(
+                torch, fa, randn, (2, t, h, d), dtype))
     # the training shape and layout: bench_transformer.py's batch 8,
     # q, k, v strided views of one fused [B, T, 3, H, D] projection (as
     # the model's _qkv gives them), dO contiguous (as the core makes it)
@@ -1998,19 +2063,8 @@ def training_phase(torch, fa, dev, card):
     log("  losses: %s" % ", ".join("%.4f" % x for x in losses))
     log("  launches around one step: %s (need >= %d each of flash_fwd, "
         "flash_bwd_dkv, flash_bwd_dq)" % (one_step, config.layers))
-    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
-        if one_step[name] < config.layers:
-            raise AssertionError("%s launched %d times in one train step, "
-                                 "< %d layers" % (name, one_step[name],
-                                                  config.layers))
-    if not all(np.isfinite(losses)) or trainer.nonfinite_count:
-        raise AssertionError("non-finite training loss: %s" % losses)
-    if not losses[-1] < losses[0]:
-        raise AssertionError("loss did not fall on the fixed batch: %s"
-                             % losses)
-    if len(trainer._graphs) != 1:
-        raise AssertionError("%d captured train steps, want 1"
-                             % len(trainer._graphs))
+    _check_train(config, losses, one_step, trainer.nonfinite_count,
+                 len(trainer._graphs))
     _log_train_profile("captured", run["profile"])
 
     # serve the trained weights: the engine takes a copy
@@ -2059,6 +2113,24 @@ def training_phase(torch, fa, dev, card):
                            tokens_per_s=b * t * 1e3 / erun["step_ms"],
                            profile=erun["profile"],
                            losses_equal=equal)), run["launches"]
+
+
+def _check_train(config, losses, one_step, nonfinite, graphs):
+    """A captured LM training window's checks: at least ``layers``
+    launches of K1, K2 and K3 in one step, finite losses that fall on the
+    fixed batch, one captured graph."""
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        if one_step[name] < config.layers:
+            raise AssertionError("%s launched %d times in one train step, "
+                                 "< %d layers" % (name, one_step[name],
+                                                  config.layers))
+    if not all(np.isfinite(losses)) or nonfinite:
+        raise AssertionError("non-finite training loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        raise AssertionError("loss did not fall on the fixed batch: %s"
+                             % losses)
+    if graphs != 1:
+        raise AssertionError("%d captured train steps, want 1" % graphs)
 
 
 def _log_train_profile(label, prof):
@@ -2596,6 +2668,76 @@ def wide_head_phase(torch, fa, dev, card):
                   bf16_prefill_logit_err=err, bf16_logit_scale=scale,
                   phase_s=time.monotonic() - t0)
     return result, launches
+
+
+#: phase 29: phase 28's LM trained as phase 5 trains phase 3's, with
+#: fewer timed steps (phase 5: a window of 10 and a step_many of 4)
+WIDE_TRAIN_TIMED = 5
+WIDE_TRAIN_MANY = 2
+
+
+def wide_training_phase(torch, fa, dev, card):
+    """Phase 29: ``WIDE_LM`` (4 heads of 256) trained on the card as
+    phase 5 trains phase 3's LM (bf16, ``remat="attn"``, batch
+    TRAIN_BATCH, ``init_params`` seed 4, one fixed batch): captured
+    steps through K1, K2 and K3 at D = 256 (the loss falls, at least
+    ``layers`` launches of each a step, one captured graph), then the
+    same steps eagerly from the same seed, bitwise the same losses.
+    Returns (record, the captured window's launches)."""
+    from veles_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerTrainer,
+                                                    _tree_leaves)
+
+    config = TransformerConfig(compute="bfloat16", remat="attn", **WIDE_LM)
+    b, t = TRAIN_BATCH, config.seq_len
+    log("phase 29: training %s (head dim %d), batch %d, lr %g"
+        % (config, config.head_dim, b, TRAIN_LR))
+    t0 = time.monotonic()
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, config.vocab, (b, t + 1))).to(dev)
+    runs = {}
+    for captured in (True, False):
+        trainer = TransformerTrainer(config, device=dev, seed=4,
+                                     learning_rate=TRAIN_LR,
+                                     cuda_graphs=captured)
+        runs[captured] = run = _train_window(
+            torch, fa, trainer, tokens, n_timed=WIDE_TRAIN_TIMED,
+            k_many=WIDE_TRAIN_MANY)
+        label = "captured" if captured else "eager"
+        log("  %s: ms per step %.3f (window of %d), step_many(%d) %.3f ms "
+            "per step, %.1f tokens/s; launches around one step %s [%s]"
+            % (label, run["step_ms"], run["timed_steps"],
+               run["step_many_k"], run["many_ms"],
+               b * t * 1e3 / run["step_ms"], run["one_step"], card))
+        log("  losses: %s" % ", ".join("%.4f" % x for x in run["losses"]))
+        _log_train_profile(label, run["profile"])
+        if captured:
+            n_params = sum(x.numel() for x in _tree_leaves(trainer.params))
+            graphs = len(trainer._graphs)
+            nonfinite = trainer.nonfinite_count
+        del trainer
+        torch.cuda.empty_cache()
+    losses, one_step = runs[True]["losses"], runs[True]["one_step"]
+    _check_train(config, losses, one_step, nonfinite, graphs)
+    equal = runs[False]["losses"] == losses
+    log("  eager losses equal to the captured run's bitwise: %s" % equal)
+    if not equal:
+        raise AssertionError("eager losses %s != captured %s"
+                             % (runs[False]["losses"], losses))
+    record = dict(config=dict(WIDE_LM), head_dim=config.head_dim, batch=b,
+                  n_params=n_params, learning_rate=TRAIN_LR,
+                  losses=losses, launches_one_step=one_step,
+                  captured_graphs=graphs, losses_equal_eager=equal,
+                  phase_s=time.monotonic() - t0)
+    for captured, run in runs.items():
+        record["captured" if captured else "eager"] = dict(
+            step_ms=run["step_ms"], timed_steps=run["timed_steps"],
+            step_many_k=run["step_many_k"],
+            step_many_ms_per_step=run["many_ms"],
+            tokens_per_s=b * t * 1e3 / run["step_ms"],
+            profile=run["profile"])
+    log("  phase 29 %.1f s" % record["phase_s"])
+    return record, runs[True]["launches"]
 
 
 def paged_parity_phase(torch, fa, dev, card):
@@ -9086,6 +9228,8 @@ def main():
     paged, paged_launches = paged_serving_phase(torch, fa, dev, card, serve)
     paged_parity = paged_parity_phase(torch, fa, dev, card)
     wide, wide_launches = wide_head_phase(torch, fa, dev, card)
+    wide_train, wide_train_launches = wide_training_phase(torch, fa, dev,
+                                                          card)
     counters = Counters(fa, lrn_ops, rng_ops)
     classifier, classifier_launches = classifier_phase(torch, counters, dev,
                                                        card)
@@ -9132,6 +9276,7 @@ def main():
     by_path = {"serving": serve_launches, "training": train_launches,
                "paged serving": paged_launches,
                "4 heads of 256": wide_launches,
+               "4 heads of 256 training": wide_train_launches,
                "classifier training": classifier_launches,
                "apply serving": apply_launches,
                "unit graph": graph_launches,
@@ -9164,7 +9309,7 @@ def main():
                   kernels=kernels, serving=serve, parity=parity,
                   training=train, training_parity=train_parity,
                   paged_serving=paged, paged_parity=paged_parity,
-                  wide_heads=wide,
+                  wide_heads=wide, wide_training=wide_train,
                   classifier=classifier,
                   classifier_parity=classifier_parity, apply=apply,
                   unit_graph=graph, cotenancy=cotenancy,

@@ -30,9 +30,9 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=0)}
 
-#: Head dims of the forward and decode kernels: the instance widths and
-#: dims that run on the next width with zero columns (48 and 80 on 64
-#: and 128, 96 on 128, 8 on 32)
+#: Head dims of the kernels: the instance widths and dims that run on
+#: the next width with zero columns (48 and 80 on 64 and 128, 96 on
+#: 128, 8 on 32)
 WIDE_D = [8, 32, 48, 64, 80, 96, 128, 256]
 
 
@@ -106,12 +106,13 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [8, 32, 64, 80, 96, 128, 256])
 @pytest.mark.parametrize("t,causal", [(64, True), (200, True),
                                       (130, False), (1, True)])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, d, t, causal):
     """K2 (dK, dV) and K3 (dQ) against ``_plain_bwd`` on the same
-    residuals, ragged T included."""
+    residuals, ragged T included, at the instance widths and at head dims
+    that run padded on the next width."""
     rng = np.random.default_rng(t * d + 1)
     q, k, v, do = (_randn(rng, (2, t, 3, d), dtype, cuda)
                    for _ in range(4))
@@ -126,7 +127,7 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, d, t, causal):
         assert _rel(a, b) <= BWD_TOL[dtype], name
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 def test_flash_bwd_bf16_kernels_read_strided_views(cuda, d):
     """The training layout at bf16 (the tensor-core kernels): q, k, v
     strided views of one fused [B,T,3,H,D] projection and a contiguous
@@ -158,7 +159,8 @@ def test_flash_bwd_bf16_kernels_read_strided_views(cuda, d):
 #: sequence lengths at the edges of the bf16 kernels' tiles: K1 takes
 #: 128 query rows (two warpgroups of 64) and 128-key tiles, K3 128 query
 #: rows and 64-key tiles, K2 128 keys (two warpgroups of 64) and 64-row
-#: query tiles; 1 leaves one row of one tile
+#: query tiles (at D = 256 each 64 rows a side); 1 leaves one row of
+#: one tile
 EDGE_T = [1, 63, 64, 127, 128, 129, 1000]
 
 
@@ -186,7 +188,7 @@ def test_tma_forward_tiling_edges(cuda, t, d, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", WIDE_D)
 @pytest.mark.parametrize("t", EDGE_T)
 def test_tma_dq_tiling_edges_and_dkv_on_its_residuals(cuda, t, d, causal):
     """K3's and K2's bf16 kernels (TMA ring, wgmma) at the edges of their
@@ -210,7 +212,7 @@ def test_tma_dq_tiling_edges_and_dkv_on_its_residuals(cuda, t, d, causal):
         assert _rel(a, b) <= BWD_TOL[torch.bfloat16], name
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
 @pytest.mark.parametrize("t", [129, 1000])
 def test_tma_kernels_read_strided_views_bitwise(cuda, t, d):
     """q, k, v as strided views of one fused [B, T, 3, H, D] projection
@@ -253,28 +255,37 @@ def test_tma_forward_reads_fused_views_at_wide_head_dims(cuda, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [48, 80, 96, 256])
-def test_backward_kernels_at_a_new_head_dim_raise_naming_the_slice(
+def test_backward_kernels_at_a_new_head_dim_launch_and_match_plain(
         cuda, dtype, d):
-    """K2 and K3 are instantiated for head dims 32, 64 and 128: at any
-    other the backward raises, naming the roadmap item that brings it,
-    and counts no launch (the forward K1 ran)."""
+    """The autograd backward at head dims off the 32/64/128 instances
+    (48, 80, 96 padded on the next width, 256 on its own) launches K2
+    and K3 once each and gives ``_plain_bwd``'s gradients on the same
+    residuals."""
     rng = np.random.default_rng(d)
     q, k, v = (_randn(rng, (1, 70, 2, d), dtype, cuda).requires_grad_()
                for _ in range(3))
+    do = _randn(rng, (1, 70, 2, d), dtype, cuda)
     fa.reset_launches()
     out = fa.flash_attention(q, k, v, causal=True)
     assert fa.LAUNCHES["flash_fwd"] == 1
-    with pytest.raises(NotImplementedError, match="K2/K3 at every head"):
-        out.sum().backward()
-    assert fa.LAUNCHES["flash_bwd_dkv"] == fa.LAUNCHES["flash_bwd_dq"] == 0
+    out.backward(do)
+    assert fa.LAUNCHES["flash_bwd_dkv"] == fa.LAUNCHES["flash_bwd_dq"] == 1
+    o, l, m = fa.flash_fwd_cuda(q.detach(), k.detach(), v.detach(), True)
+    plain = fa._plain_bwd(q.detach(), k.detach(), v.detach(), o, l, m, do,
+                          True, 70, 70)
+    torch.cuda.synchronize()
+    for name, x, ref in zip(("dq", "dk", "dv"), (q, k, v), plain):
+        assert x.grad.dtype == dtype
+        assert _rel(x.grad, ref) <= BWD_TOL[dtype], name
 
 
-def test_tma_kernels_copy_misaligned_operands(cuda):
+@pytest.mark.parametrize("d", [64, 256])
+def test_tma_kernels_copy_misaligned_operands(cuda, d):
     """An operand whose base is 2 bytes off a 16-byte boundary cannot be
     read by TMA in place: the wrapper copies it, and K1, K2 and K3 give
     bitwise what they give on an aligned tensor of the same values."""
     rng = np.random.default_rng(11)
-    shape = (2, 150, 2, 64)
+    shape = (2, 150, 2, d)
     q, k, v, do = (_randn(rng, shape, torch.bfloat16, cuda)
                    for _ in range(4))
     flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda)

@@ -1,8 +1,9 @@
-"""Head dims outside 32, 64 and 128: the port's attention at D = 8, 80,
-96 and 256 against the JAX package's Pallas kernels (through the
-interpreter, as its own tests run them on the CPU), one whole model at
-D = 80 decoded through both packages, and the host constants that set
-how the kernels take such a head dim.
+"""Head dims outside 32, 64 and 128: the port's attention and its
+gradients at D = 8, 80, 96 and 256 against the JAX package's Pallas
+kernels (through the interpreter, as its own tests run them on the
+CPU), one whole model at D = 80 decoded and one at D = 256 trained
+through both packages, and the host constants that set how the kernels
+take such a head dim.
 
 The reference's kernels take the whole head dim as one block, so they
 compute at any D; the port's kernels run a head dim d (a multiple of 8
@@ -15,12 +16,18 @@ softmax and differ in the order of f32 sums only: 1e-4 of the output's
 scale (the port's f32 parity bound). At bfloat16 the inputs are exact
 in both and both round p and the output to bf16: one bf16 ulp of a
 unit-scale output, 2e-2 absolute. Greedy tokens are compared exactly,
-logits to 1e-4 relative.
+logits to 1e-4 relative. Gradients at float32 (of the attention and of
+every parameter of a model) agree within 1e-4 of each gradient's scale,
+for the same reason. Parameters after Adam steps agree within 2 lr per
+step: Adam turns each gradient into about +-lr whatever its size, so a
+gradient that is zero up to f32 noise can flip sign between the two
+frameworks (the bound of ``tests/test_torch_train.py``).
 """
 
 import functools
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -65,6 +72,27 @@ def test_flash_attention_matches_pallas_f32(d, causal):
                             causal=causal)
     assert out.shape == (1, 128, 2, d) and out.dtype == torch.float32
     assert _rel(out.numpy(), ref) <= TOL_F32
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_attention_grads_match_pallas_f32(d, causal):
+    """The port's autograd backward (``_plain_bwd``, what K2 and K3
+    compute) against ``jax.grad`` through the reference's Pallas
+    forward and backward kernels."""
+    q, k, v, do = _inputs((1, 128, 2, d), seed=d + 10, n=4)
+
+    def f(q, k, v):
+        return (J.flash_attention(q, k, v, causal=causal, block_q=64,
+                                  block_k=64, **PALLAS) * do).sum()
+
+    ref = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    xs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = P.flash_attention(*xs, causal=causal)
+    (out * torch.from_numpy(do)).sum().backward()
+    for x, theirs in zip(xs, ref):
+        assert x.grad.shape == (1, 128, 2, d)
+        assert _rel(x.grad.numpy(), theirs) <= TOL_F32
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
@@ -166,6 +194,72 @@ def test_d80_model_decodes_the_reference_tokens(monkeypatch):
     assert plen.tolist() == [21, 27]
 
 
+# -- a whole model at D = 256, trained ---------------------------------------
+
+D256 = dict(vocab=64, embed=512, heads=2, layers=2, seq_len=64)
+LR = 3e-3
+
+
+def _d256_tokens(seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, D256["vocab"],
+                        (2, D256["seq_len"] + 1)).astype(np.int32)
+
+
+def test_d256_model_loss_and_grads_match_pallas(monkeypatch):
+    """2 layers of 2 heads of 256: the loss and the gradient of every
+    parameter equal the JAX package's, its flash calls (forward and both
+    backward kernels) through the Pallas interpreter."""
+    attention = JT.flash_attention
+    monkeypatch.setattr(JT, "flash_attention", lambda *a, **k: attention(
+        *a, interpret=True, **dict(k, impl="pallas")))
+    jcfg = JT.TransformerConfig(**D256, attention_impl="pallas")
+    config = PT.TransformerConfig(**D256)
+    assert config.head_dim == 256
+    params = JT.init_params(jcfg, seed=5)
+    tok = _d256_tokens(1)
+    ref_loss, ref_grads = jax.value_and_grad(JT._loss)(
+        params, jnp.asarray(tok[:, :-1]), jnp.asarray(tok[:, 1:]), jcfg,
+        None, None)
+    tree = PT.params_from_numpy(params, config, "cpu")
+    leaves = PT._tree_leaves(tree)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    t = torch.from_numpy(tok).long()
+    loss = PT._loss(tree, t[:, :-1], t[:, 1:], config)
+    grads = torch.autograd.grad(loss, leaves)
+    assert abs(float(loss.detach()) - float(ref_loss)) <= \
+        TOL_F32 * abs(float(ref_loss))
+    ref = [np.asarray(x) for x in PT._tree_leaves(
+        jax.tree.map(np.asarray, ref_grads))]
+    assert len(ref) == len(grads)
+    for ours, theirs in zip(grads, ref):
+        assert _rel(ours.numpy(), theirs) <= TOL_F32
+
+
+def test_d256_three_adam_steps_match_the_reference_trainer():
+    """Three f32 Adam steps of the port's ``TransformerTrainer`` at 2
+    heads of 256 against the reference trainer from the same seed:
+    losses within 1e-4 relative, parameters within 2 lr per step."""
+    jt = JT.TransformerTrainer(
+        JT.TransformerConfig(**D256, attention_impl="lax"), mesh=None,
+        learning_rate=LR, seed=2)
+    pt = PT.TransformerTrainer(PT.TransformerConfig(**D256), device="cpu",
+                               learning_rate=LR, seed=2)
+    for i in range(3):
+        tok = _d256_tokens(20 + i)
+        ref = float(jt.step(tok)["loss"])
+        got = pt.step(tok)
+        assert int(got["nonfinite"]) == 0
+        assert abs(float(got["loss"]) - ref) <= TOL_F32 * abs(ref)
+    ours = [x.detach().numpy() for x in PT._tree_leaves(pt.params)]
+    theirs = [np.asarray(x) for x in PT._tree_leaves(
+        jax.tree.map(np.asarray, jt.params))]
+    assert len(ours) == len(theirs)
+    for a, b in zip(ours, theirs):
+        assert np.abs(a - b).max() <= 2 * LR * 3
+
+
 @functools.lru_cache(maxsize=None)
 def _d80_reference_paged():
     return J_engine.PagedGenerativeEngine(
@@ -210,13 +304,39 @@ def test_head_dims_the_kernels_refuse(d):
         P._check_kernel_operands("flash_fwd", x)
 
 
-@pytest.mark.parametrize("d", [48, 80, 96, 256])
-def test_backward_kernels_at_a_new_head_dim_name_the_next_slice(d):
+@pytest.mark.parametrize("entry", ["flash_bwd_dkv", "flash_bwd_dq"])
+@pytest.mark.parametrize("d", [100, 264])
+def test_backward_kernels_refuse_head_dims_off_the_instances(entry, d):
+    """K2 and K3 take what K1 takes: a head dim off the multiples of 8
+    or past 256 raises naming both bounds."""
     x = torch.zeros((1, 4, 1, d))
-    for entry in ("flash_bwd_dkv", "flash_bwd_dq"):
-        with pytest.raises(NotImplementedError,
-                           match="K2/K3 at every head dim up to 256"):
-            P._check_kernel_operands(entry, x)
+    with pytest.raises(ValueError, match="multiples of 8 from 8 to 256"):
+        P._check_kernel_operands(entry, x)
+
+
+@pytest.mark.parametrize("d,tiles", [
+    (8, {"flash_bwd_dq": (128, 64), "flash_bwd_dkv": (64, 128)}),
+    (80, {"flash_bwd_dq": (128, 64), "flash_bwd_dkv": (64, 128)}),
+    (128, {"flash_bwd_dq": (128, 64), "flash_bwd_dkv": (64, 128)}),
+    (136, {"flash_bwd_dq": (64, 64), "flash_bwd_dkv": (64, 64)}),
+    (256, {"flash_bwd_dq": (64, 64), "flash_bwd_dkv": (64, 64)})])
+def test_backward_kernels_take_the_tiles_of_their_width(d, tiles):
+    """(query tile, key tile) of K3 and K2 at the width a head dim runs
+    on: 128 query rows over 64-key tiles (K3) and 128 keys over 64-row
+    query tiles (K2) up to 128 columns; at 256 both hold 64 rows a side
+    (one consumer warpgroup in K3, two warpgroups splitting the products
+    in K2), which fit the card's shared memory and registers. The bf16
+    operands are boxed by them."""
+    width = P.kernel_width(d)
+    for entry, want in tiles.items():
+        assert P.tma_tiles(entry, width) == want
+        xs = [torch.zeros((2, 130, 2, d), dtype=torch.bfloat16)
+              for _ in range(4)]
+        _, maps = P._tma_operands(entry, *xs)
+        values = memoryview(maps).cast("q")
+        rows = [values[12 * i + 9] for i in range(4)]
+        assert rows == [want[0], want[1], want[1], want[0]]
+        assert all(values[12 * i] == d for i in range(4))
 
 
 def test_decode_workspace_rows_take_the_instance_width():

@@ -228,6 +228,8 @@ def test_forward_operands_take_the_tiles_of_their_width(d, tiles):
         assert layout[0] == d and layout[9] == rows
         assert layout[7] == min(64, width)
         assert torch.equal(_elements_through(layout, x), x)
-    # the backward's tiles stay one per entry (K2/K3 take D <= 128)
+    # the backward's tiles change at the same width (64 rows a side)
     for entry in ("flash_bwd_dq", "flash_bwd_dkv"):
-        assert fa.tma_tiles(entry, 256) == fa.TMA_TILES[entry]
+        assert fa.tma_tiles(entry, 128) == fa.TMA_TILES[entry]
+        assert fa.tma_tiles(entry, 256) == fa.TMA_TILES_256[entry] == \
+            (64, 64)

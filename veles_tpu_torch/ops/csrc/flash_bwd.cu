@@ -31,31 +31,58 @@
 //   product is a wgmma chain (m64nNk16): score tiles with both operands
 //   K-major in shared memory, the gradient products with A re-packed
 //   from the f32 score accumulator in registers and B read MN-major (the
-//   descriptor's transpose). Two consumer warpgroups of 64 rows each.
-//   Only diagonal and ragged tiles evaluate the mask; p is exp2 of one
-//   multiply-add against m in base 2.
-//   - K3: 384 threads, one block per 128-row query tile; a producer
-//     warpgroup (setmaxnreg down to 24) loads Q and dO once and streams
-//     64-key K and V tiles through a four-stage ring. Per tile:
-//     s = Q K^T, dP = dO V^T, dS in the accumulators, dQ += dS K.
-//   - K2: 256 threads, one block per 128-key tile; K and V load once,
-//     64-row Q and dO tiles stream through a three-stage ring. It
-//     computes the transposed tiles s^T = K_w Q^T and dP^T = V_w dO^T
-//     (64 keys of warpgroup w by 64 queries), so p^T and dS^T are A
-//     fragments of dV += p^T dO and dK += dS^T Q, with dO and Q as the
-//     MN-major B. Each consumer thread holds both D-wide f32
-//     accumulators (dK and dV: 128 registers at D = 128) to the end,
+//   descriptor's transpose). Only diagonal and ragged tiles evaluate the
+//   mask; p is exp2 of one multiply-add against m in base 2.
+//   - K3 (DqTma): a producer warpgroup (setmaxnreg down to 24) loads Q
+//     and dO once and streams 64-key K and V tiles through a ring; per
+//     tile s = Q K^T, dP = dO V^T, dS in the accumulators, dQ += dS K.
+//     Up to D = 128: 384 threads, two consumer warpgroups of 64 query
+//     rows, four stages. At D = 256 (as K1's 256-wide instance): one
+//     consumer warpgroup, 256 threads, two stages (197,672 bytes of
+//     shared memory, 228 registers a thread; dQ alone is 128 registers
+//     a thread, and ptxas gives a 384-thread block 168).
+//   - K2 (DkvTma), up to D = 128: 256 threads, one block per 128-key
+//     tile; K and V load once, 64-row Q and dO tiles stream through a
+//     three-stage ring. It computes the transposed tiles s^T = K_w Q^T
+//     and dP^T = V_w dO^T (64 keys of warpgroup w by 64 queries), so p^T
+//     and dS^T are A fragments of dV += p^T dO and dK += dS^T Q, with dO
+//     and Q as the MN-major B. Each consumer thread holds both D-wide
+//     f32 accumulators (dK and dV: 128 registers at D = 128) to the end,
 //     ~245 registers in all: more than ptxas grants a thread of a
 //     384-thread block (168, whatever setmaxnreg hands a warpgroup
 //     later), so K2 has no producer warpgroup. Warp 0 loads besides
 //     computing: it refills the stage of tile it - 1 after tile it, so
 //     the warpgroups may drift a tile apart. The row statistics m, 1/l
-//     and Di are per column of these tiles: warp 0 stages them with
-//     each Q/dO stage (m in base 2, 1/l = 0 past T), counted in the
+//     and Di are per column of these tiles: the loading warp stages them
+//     with each Q/dO stage (m in base 2, 1/l = 0 past T), counted in the
 //     stage's full barrier; their global loads start a tile before the
 //     fill, so no warp waits for them.
+//   - K2 at D = 256 (flash_bwd_dkv_split_kernel): that layout would
+//     need ~331 KB of shared memory and 256 accumulator registers a
+//     thread. Chosen: one block per 64-key tile whose two warpgroups
+//     split the work instead of the keys. Warpgroup 0 computes
+//     s^T = K Q^T, turns it into p^T and owns dV += p^T dO; warpgroup 1
+//     computes dP^T = V dO^T and owns dK += dS^T Q. p^T goes from one to
+//     the other through a 64 x 64 f32 tile in shared memory, each thread
+//     writing and reading the accumulator slots it holds (the layouts
+//     match), under two named barriers (written, read). K and V stay
+//     resident, two stages of 64-row Q/dO stream (215,592 bytes); each
+//     thread holds one 128-register accumulator and a 32-register score
+//     tile or two (224 registers). The loader is warp 4: warpgroup 1
+//     finishes a tile last, so it refills the stage it just released.
+//     Not chosen: two blocks splitting D, each recomputing s^T and dP^T
+//     over the full D (1.5x the products).
 // - float32 (the parity path): 256 threads on FMA units over shared
-//   memory tiles, full f32 products, as the plain version computes.
+//   memory tiles, full f32 products, as the plain version computes. Up
+//   to D = 128 both tiles of a block are 64 rows; at D = 256 four 64-row
+//   padded tiles alone would take 263 KB, so the streamed tiles (Q/dO of
+//   K2, K/V of K3) are 32 rows (215,040 bytes).
+// - Head dims: instances of width 32, 64, 128 and 256; a head dim d (a
+//   multiple of 8 up to 256) runs on the next width, its columns past d
+//   read as zeros (TMA's out-of-bounds fill for bf16, masked loads for
+//   f32) and never stored. A zero column leaves s and dP as they are and
+//   gives zero in dQ, dK and dV, so the padded instance is exact; the
+//   softmax scale is the caller's 1 / sqrt(d).
 //
 // Numerics mirror the plain PyTorch version (_plain_bwd in
 // ops/flash_attention.py): scores, p, dP and dS in f32; dS rounded to
@@ -73,13 +100,14 @@ using namespace veles_hopper;
 
 constexpr float LOG2E = 1.4426950408889634f;
 
-// m, 1/l (0 where l == 0) and Di of rows [r0, r0 + 64) into smem;
+// m, 1/l (0 where l == 0) and Di of rows [r0, r0 + R) into smem;
 // rows past t_len get 1/l = 0, so their p is 0
+template <int R>
 __device__ inline void load_stats(float* m_s, float* li_s, float* di_s,
                                   const float* m, const float* l,
                                   const float* di, int64_t base, int r0,
                                   int t_len, int tid, int n_threads) {
-  for (int i = tid; i < 64; i += n_threads) {
+  for (int i = tid; i < R; i += n_threads) {
     float mv = 0.f, li = 0.f, dv = 0.f;
     if (r0 + i < t_len) {
       const float lf = l[base + r0 + i];
@@ -97,23 +125,46 @@ struct Strides {
   int64_t q[3], k[3], v[3], d_o[3], o1[3], o2[3];  // (b, t, h) each
 };
 
+// Stores rows `row` of a wgmma accumulator acc[64 x D] (the layout of
+// flash_hopper.cuh) into out (row stride `rs`), rows past t_len and
+// columns past d left out
+template <int D>
+__device__ inline void store_rows(bf16* out, int64_t rs,
+                                  const float (&acc)[D / 2],
+                                  const int (&row)[2], int tq, int t_len,
+                                  int d) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= t_len) continue;
+    bf16* r = out + int64_t(row[i]) * rs + tq * 2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      if (j * 8 < d)
+        *reinterpret_cast<__nv_bfloat162*>(r + j * 8) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K3, bfloat16: TMA ring, warp-specialised, wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int TMA_THREADS = 384;   // producer + two consumer warpgroups
-constexpr int CONSUMER_WARPS = 8;  // arrivals that free a stage
-
+// The instance of width D (see the top): consumer warpgroups of 64 query
+// rows each, a producer warpgroup, 64-key K/V tiles in a ring
 template <int D> struct DqTma {
-  static constexpr int BM = 128;  // query rows per block
-  static constexpr int BN = 64;   // keys per tile
-  static constexpr int STAGES = 4;
+  static constexpr int CONSUMERS = D > 128 ? 1 : 2;  // warpgroups
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  static constexpr int CONSUMER_WARPS = 4 * CONSUMERS;  // free a stage
+  static constexpr int BM = 64 * CONSUMERS;  // query rows per block
+  static constexpr int BN = 64;              // keys per tile
+  static constexpr int STAGES = D > 128 ? 2 : 4;
   typedef Tile<BM, D> QTile;  // Q and dO
   typedef Tile<BN, D> KvTile;
   static constexpr uint32_t DO_OFF = QTile::BYTES;
   static constexpr uint32_t KV_OFF = 2 * QTile::BYTES;
   static constexpr uint32_t STAGE_BYTES = 2 * KvTile::BYTES;  // K then V
   static constexpr uint32_t BAR_OFF = KV_OFF + STAGES * STAGE_BYTES;
+  // barriers (full, empty per stage; Q/dO) and the alignment slack
   static constexpr size_t bytes = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
 };
 
@@ -140,16 +191,20 @@ __device__ inline void ds_tile(float (&s)[BN / 2], const float (&dp)[BN / 2],
     }
 }
 
-// one block per (head, sequence, 128-query tile)
+// one block per (head, sequence, BM-query tile); d: the operands' head
+// dim (<= D), whose columns past d are zeros in the tiles and not stored
 template <int D>
-__global__ void __launch_bounds__(TMA_THREADS, 1) flash_bwd_dq_tma_kernel(
-    const __grid_constant__ CUtensorMap q_map,
-    const __grid_constant__ CUtensorMap k_map,
-    const __grid_constant__ CUtensorMap v_map,
-    const __grid_constant__ CUtensorMap do_map, const float* __restrict__ l,
-    const float* __restrict__ m, const float* __restrict__ di,
-    bf16* __restrict__ dq, int t_len, int n_heads, int64_t dqsb,
-    int64_t dqst, int64_t dqsh, int causal, float scale) {
+__global__ void __launch_bounds__(DqTma<D>::THREADS, 1)
+    flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap do_map,
+                            const float* __restrict__ l,
+                            const float* __restrict__ m,
+                            const float* __restrict__ di,
+                            bf16* __restrict__ dq, int t_len, int n_heads,
+                            int64_t dqsb, int64_t dqst, int64_t dqsh,
+                            int causal, float scale, int d) {
   using L = DqTma<D>;
   constexpr int BM = L::BM, BN = L::BN, STAGES = L::STAGES;
   typedef typename L::QTile QTile;
@@ -172,7 +227,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1) flash_bwd_dq_tma_kernel(
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMER_WARPS);
+      mbar_init(&empty[s], L::CONSUMER_WARPS);
     }
     mbar_init(q_full, 1);
     mbar_fence_init();
@@ -181,7 +236,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1) flash_bwd_dq_tma_kernel(
 
   if (tid < 128) {
     // producer warpgroup: one thread starts every load
-    regs_dec<24>();
+    if constexpr (L::CONSUMERS > 1) regs_dec<24>();
     if (tid == 0) {
       tma_prefetch_map(&q_map);
       tma_prefetch_map(&do_map);
@@ -203,7 +258,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1) flash_bwd_dq_tma_kernel(
   }
 
   // consumer warpgroup w: query rows [q0 + 64 w, q0 + 64 w + 64)
-  regs_inc<240>();
+  if constexpr (L::CONSUMERS > 1) regs_inc<240>();
   const int w = tid / 128 - 1;
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
@@ -281,16 +336,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1) flash_bwd_dq_tma_kernel(
     if (lane == 0) mbar_arrive(&empty[st]);
   }
 
-  bf16* dqb = dq + b * dqsb + h * dqsh;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= t_len) continue;
-    bf16* r = dqb + int64_t(row[i]) * dqst + tq * 2;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(r + j * 8) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
-  }
+  store_rows<D>(dq + b * dqsb + h * dqsh, dqst, acc, row, tq, t_len, d);
 }
 
 // ---------------------------------------------------------------------------
@@ -299,12 +345,18 @@ __global__ void __launch_bounds__(TMA_THREADS, 1) flash_bwd_dq_tma_kernel(
 // thread, a 256-thread one 255)
 // ---------------------------------------------------------------------------
 
-constexpr int DKV_THREADS = 256;  // two warpgroups of 64 keys each
+constexpr int DKV_THREADS = 256;  // two warpgroups
 
+// The instance of width D: up to 128, a block of 128 keys (64 a
+// warpgroup) over three stages of 64-row Q/dO; at 256 (SPLIT) one of
+// 64 keys whose warpgroups split the products, two stages and the p^T
+// exchange tile
 template <int D> struct DkvTma {
-  static constexpr int BN = 128;  // keys per block
-  static constexpr int BM = 64;   // query rows per tile
-  static constexpr int STAGES = 3;
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int CONSUMER_WARPS = 8;  // arrivals that free a stage
+  static constexpr int BN = SPLIT ? 64 : 128;  // keys per block
+  static constexpr int BM = 64;                // query rows per tile
+  static constexpr int STAGES = SPLIT ? 2 : 3;
   typedef Tile<BN, D> KvTile;  // K and V, loaded once
   typedef Tile<BM, D> QTile;   // Q and dO, streamed
   static constexpr uint32_t V_OFF = KvTile::BYTES;
@@ -313,7 +365,10 @@ template <int D> struct DkvTma {
   // per stage: m in base 2, 1/l and Di of the tile's rows, f32
   static constexpr uint32_t STATS_OFF = RING_OFF + STAGES * STAGE_BYTES;
   static constexpr uint32_t STATS_FLOATS = 3 * BM;
-  static constexpr uint32_t BAR_OFF = STATS_OFF + STAGES * STATS_FLOATS * 4;
+  // SPLIT: p^T [64 keys x 64 queries] f32, in accumulator slots
+  static constexpr uint32_t XCHG_OFF = STATS_OFF + STAGES * STATS_FLOATS * 4;
+  static constexpr uint32_t XCHG_BYTES = SPLIT ? 64 * BM * 4 : 0;
+  static constexpr uint32_t BAR_OFF = XCHG_OFF + XCHG_BYTES;
   // barriers (full, empty per stage; K/V) and the alignment slack
   static constexpr size_t bytes = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
 };
@@ -375,10 +430,10 @@ __device__ inline void stats_load(float (&v)[6], const float* l,
   }
 }
 
-// Warp 0's fill of one ring stage with query tile q0: lane 0 starts the
-// Q and dO copies, every lane stores its two rows of statistics (m in
-// base 2, 1/l, 0 where l == 0 or past T so that p = 0, and Di) and
-// arrives (the stage's full barrier counts 1 + 32 arrivals)
+// The loading warp's fill of one ring stage with query tile q0: lane 0
+// starts the Q and dO copies, every lane stores its two rows of
+// statistics (m in base 2, 1/l, 0 where l == 0 or past T so that p = 0,
+// and Di) and arrives (the stage's full barrier counts 1 + 32 arrivals)
 template <typename L>
 __device__ inline void fill_stage(unsigned char* smem, float* sr,
                                   uint64_t* full, const CUtensorMap* q_map,
@@ -402,7 +457,51 @@ __device__ inline void fill_stage(unsigned char* smem, float* sr,
   mbar_arrive(full);
 }
 
-// one block per (head, sequence, 128-key tile)
+// The set-up shared by both K2 kernels: barriers initialised, then the
+// loading warp starts the K/V copies and fills the first stages
+template <typename L>
+__device__ inline void dkv_prologue(unsigned char* smem, float* stats,
+                                    uint64_t* full, uint64_t* empty,
+                                    uint64_t* kv_full,
+                                    const CUtensorMap* q_map,
+                                    const CUtensorMap* k_map,
+                                    const CUtensorMap* v_map,
+                                    const CUtensorMap* do_map,
+                                    const float* lr, const float* mr,
+                                    const float* dr, bool loader, int tid,
+                                    int lane, int h, int b, int k0, int qt0,
+                                    int n_it, int t_len) {
+  typedef typename L::KvTile KvTile;
+  if (tid == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the loads, the statistics
+      mbar_init(&empty[s], L::CONSUMER_WARPS);
+    }
+    mbar_init(kv_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (!loader) return;
+  if (lane == 0) {
+    tma_prefetch_map(k_map);
+    tma_prefetch_map(v_map);
+    tma_prefetch_map(q_map);
+    tma_prefetch_map(do_map);
+    mbar_expect_tx(kv_full, 2 * KvTile::BYTES);
+    KvTile::load(smem, k_map, kv_full, h, k0, b);
+    KvTile::load(smem + L::V_OFF, v_map, kv_full, h, k0, b);
+  }
+  // the first stages are fresh
+  for (int it = 0; it < min(L::STAGES, n_it); ++it) {
+    float v[6];
+    const int q0 = (qt0 + it) * L::BM;
+    stats_load(v, lr, mr, dr, q0, lane, t_len);
+    fill_stage<L>(smem, stats + it * L::STATS_FLOATS, &full[it], q_map,
+                  do_map, v, it, h, q0, b, lane);
+  }
+}
+
+// one block per (head, sequence, 128-key tile), D <= 128
 template <int D>
 __global__ void __launch_bounds__(DKV_THREADS, 1) flash_bwd_dkv_tma_kernel(
     const __grid_constant__ CUtensorMap q_map,
@@ -411,7 +510,7 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_bwd_dkv_tma_kernel(
     const __grid_constant__ CUtensorMap do_map, const float* __restrict__ l,
     const float* __restrict__ m, const float* __restrict__ di,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int t_len, int n_heads,
-    Strides st, int causal, float scale) {
+    Strides st, int causal, float scale, int d) {
   using L = DkvTma<D>;
   constexpr int BN = L::BN, BM = L::BM, STAGES = L::STAGES;
   typedef typename L::KvTile KvTile;
@@ -433,16 +532,6 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_bwd_dkv_tma_kernel(
   const int n_it = n_q - qt0;
   const int tid = threadIdx.x;
 
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1 + 32);  // the loads, the statistics
-      mbar_init(&empty[s], CONSUMER_WARPS);
-    }
-    mbar_init(kv_full, 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-
   // warp-uniform roles (broadcast from lane 0, so the compiler sees
   // them so): warpgroup w takes keys [k0 + 64 w, k0 + 64 w + 64), warp 0
   // also loads
@@ -454,25 +543,9 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_bwd_dkv_tma_kernel(
   const float* lr = l + base;
   const float* mr = m + base;
   const float* dr = di + base;
-  if (loader) {
-    if (lane == 0) {
-      tma_prefetch_map(&k_map);
-      tma_prefetch_map(&v_map);
-      tma_prefetch_map(&q_map);
-      tma_prefetch_map(&do_map);
-      mbar_expect_tx(kv_full, 2 * KvTile::BYTES);
-      KvTile::load(smem, &k_map, kv_full, h, k0, b);
-      KvTile::load(smem + L::V_OFF, &v_map, kv_full, h, k0, b);
-    }
-    // the first stages are fresh
-    for (int it = 0; it < min(STAGES, n_it); ++it) {
-      float v[6];
-      const int q0 = (qt0 + it) * BM;
-      stats_load(v, lr, mr, dr, q0, lane, t_len);
-      fill_stage<L>(smem, stats + it * L::STATS_FLOATS, &full[it], &q_map,
-                    &do_map, v, it, h, q0, b, lane);
-    }
-  }
+  dkv_prologue<L>(smem, stats, full, empty, kv_full, &q_map, &k_map,
+                  &v_map, &do_map, lr, mr, dr, loader, tid, lane, h, b, k0,
+                  qt0, n_it, t_len);
 
   const int warp = warp_id % 4;
   const int g = lane >> 2;
@@ -565,34 +638,181 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_bwd_dkv_tma_kernel(
     }
   }
 
-  bf16* dkb = dk + b * st.o1[0] + h * st.o1[2];
-  bf16* dvb = dv + b * st.o2[0] + h * st.o2[2];
+  store_rows<D>(dk + b * st.o1[0] + h * st.o1[2], st.o1[1], dka, key, tq,
+                t_len, d);
+  store_rows<D>(dv + b * st.o2[0] + h * st.o2[2], st.o2[1], dva, key, tq,
+                t_len, d);
+}
+
+// ---------------------------------------------------------------------------
+// K2 at D = 256, bfloat16: the two warpgroups split the products (see
+// the top)
+// ---------------------------------------------------------------------------
+
+constexpr int XCHG_FULL = 1;   // named barrier: p^T written
+constexpr int XCHG_EMPTY = 2;  // named barrier: p^T read
+
+// one block per (head, sequence, 64-key tile)
+template <int D>
+__global__ void __launch_bounds__(DKV_THREADS, 1) flash_bwd_dkv_split_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap do_map, const float* __restrict__ l,
+    const float* __restrict__ m, const float* __restrict__ di,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int t_len, int n_heads,
+    Strides st, int causal, float scale, int d) {
+  using L = DkvTma<D>;
+  constexpr int BN = L::BN, BM = L::BM, STAGES = L::STAGES;
+  static_assert(L::SPLIT && BN == 64 && BM == 64,
+                "one 64 x 64 score tile a warpgroup");
+  typedef typename L::KvTile KvTile;
+  typedef typename L::QTile QTile;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  float* stats = reinterpret_cast<float*>(smem + L::STATS_OFF);
+  float* xchg = reinterpret_cast<float*>(smem + L::XCHG_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kv_full = empty + STAGES;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = int(blockIdx.z) * BN;  // the first key tiles see most
+  const int n_q = (t_len + BM - 1) / BM;
+  const int qt0 = causal ? k0 / BM : 0;  // every tile from it sees k0
+  const int n_it = n_q - qt0;
+  const int tid = threadIdx.x;
+
+  // warp-uniform roles: warpgroup 0 makes p^T and dV, warpgroup 1 dP^T,
+  // dS^T and dK; warp 4 also loads
+  const int warp_id = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int w = warp_id / 4;
+  const bool loader = warp_id == 4;
+  const int lane = tid % 32;
+  const int slot = tid % 128;  // the thread's column of the exchange
+  const int64_t base = (int64_t(b) * n_heads + h) * t_len;
+  const float* lr = l + base;
+  const float* mr = m + base;
+  const float* dr = di + base;
+  dkv_prologue<L>(smem, stats, full, empty, kv_full, &q_map, &k_map,
+                  &v_map, &do_map, lr, mr, dr, loader, tid, lane, h, b, k0,
+                  qt0, n_it, t_len);
+
+  const int warp = warp_id % 4;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int key[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
+  const float c = scale * LOG2E;
+  const bool edge = k0 + BN > t_len;
+
+  float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] >= t_len) continue;
-    bf16* kr = dkb + int64_t(key[i]) * st.o1[1] + tq * 2;
-    bf16* vr = dvb + int64_t(key[i]) * st.o2[1] + tq * 2;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint32_t k_base = smem_u32(smem);
+  // the score product's A: K (s^T = K Q^T) or V (dP^T = V dO^T)
+  const uint32_t a_base = k_base + (w == 0 ? 0u : L::V_OFF);
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it % STAGES;
+    const int q0 = (qt0 + it) * BM;
+    const uint32_t q_base = k_base + L::RING_OFF + stage * L::STAGE_BYTES;
+    const uint32_t do_base = q_base + QTile::BYTES;
+    // warpgroup 0: s^T from Q, then dV from dO; 1: dP^T from dO, then dK
+    // from Q
+    const uint32_t score_b = w == 0 ? q_base : do_base;
+    const uint32_t grad_b = w == 0 ? do_base : q_base;
+    const float* sr = stats + stage * L::STATS_FLOATS;
+    // warp 4 refills this stage with tile it + STAGES once both
+    // warpgroups have released it; its statistics load meanwhile
+    const int refill = it + STAGES;
+    const bool refills = loader && refill < n_it;
+    float next[6];
+    if (refills)
+      stats_load(next, lr, mr, dr, (qt0 + refill) * BM, lane, t_len);
+    mbar_wait(&full[stage], (it / STAGES) & 1);
+
+    float s[BM / 2];
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(kr + j * 8) =
-          __floats2bfloat162_rn(dka[4 * j + 2 * i], dka[4 * j + 2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(vr + j * 8) =
-          __floats2bfloat162_rn(dva[4 * j + 2 * i], dva[4 * j + 2 * i + 1]);
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<BM>::ss(s, KvTile::k_major(a_base, 0, kk),
+                    QTile::k_major(score_b, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    uint32_t fa[BM / 16][4];
+    if (w == 0) {
+      if ((causal && k0 + BN - 1 > q0) || edge)
+        pt_tile<BM, true>(s, sr, sr + BM, key, q0, tq, t_len, causal, c);
+      else
+        pt_tile<BM, false>(s, sr, sr + BM, key, q0, tq, t_len, causal, c);
+      // p^T of tile it - 1 has been read
+      if (it > 0) bar_sync(XCHG_EMPTY, DKV_THREADS);
+#pragma unroll
+      for (int j = 0; j < BM / 2; ++j) xchg[j * 128 + slot] = s[j];
+      bar_arrive(XCHG_FULL, DKV_THREADS);
+      pack_a<BM>(fa, s);
+    } else {
+      float p[BM / 2];
+      bar_sync(XCHG_FULL, DKV_THREADS);
+#pragma unroll
+      for (int j = 0; j < BM / 2; ++j) p[j] = xchg[j * 128 + slot];
+      if (it + 1 < n_it) bar_arrive(XCHG_EMPTY, DKV_THREADS);
+      dst_tile<BM>(s, p, sr + 2 * BM, tq, scale);
+      pack_a<BM>(fa, s);
+    }
+
+    // dV += p^T dO or dK += dS^T Q: the fragment of queries
+    // [16 kk, 16 kk + 16) is the A of k-step kk; dO or Q the MN-major B
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk)
+      Wgmma<D>::rs(acc, fa[kk], QTile::mn_major(grad_b, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_frags(fa);
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (refills) {
+      mbar_wait(&empty[stage], (it / STAGES) & 1);
+      fill_stage<L>(smem, stats + stage * L::STATS_FLOATS, &full[stage],
+                    &q_map, &do_map, next, stage, h, (qt0 + refill) * BM, b,
+                    lane);
     }
   }
+
+  if (w == 0)
+    store_rows<D>(dv + b * st.o2[0] + h * st.o2[2], st.o2[1], acc, key, tq,
+                  t_len, d);
+  else
+    store_rows<D>(dk + b * st.o1[0] + h * st.o1[2], st.o1[1], acc, key, tq,
+                  t_len, d);
 }
 
 // ---------------------------------------------------------------------------
 // float32: FMA units over shared-memory tiles (16 x 16 threads)
 // ---------------------------------------------------------------------------
 
+// Each block holds one 64-row tile (K/V for K2, Q/dO for K3) and streams
+// SR-row tiles of the other operands
 template <int D> struct FmaLayout {
   static constexpr int KS = FmaTile<D>::KS;
-  static constexpr int PS = 64 + 1;
+  static constexpr int SR = D > 128 ? 32 : 64;  // streamed rows
+  static constexpr int SJ = SR / 16;  // streamed rows a thread
+  static constexpr int PS = SR + 1;
   static constexpr size_t tile = size_t(64) * KS * sizeof(float);
+  static constexpr size_t s_tile = size_t(SR) * KS * sizeof(float);
   static constexpr size_t p_tile = size_t(64) * PS * sizeof(float);
-  // four operand tiles, two score tiles (K2) and three stat rows
-  static constexpr size_t bytes = 4 * tile + 2 * p_tile + 3 * 64 * 4;
+  // two held and two streamed operand tiles, two score tiles (K2) and
+  // three stat rows
+  static constexpr size_t bytes =
+      2 * tile + 2 * s_tile + 2 * p_tile + 3 * 64 * 4;
 };
 
 // K2, float32
@@ -603,18 +823,20 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_bwd_dkv_fma_kernel(
     const float* __restrict__ l, const float* __restrict__ m,
     const float* __restrict__ di, float* __restrict__ dk,
     float* __restrict__ dv, int t_len, int n_heads, Strides st, int causal,
-    float scale) {
+    float scale, int d) {
   using L = FmaLayout<D>;
   constexpr int KS = L::KS;
   constexpr int PS = L::PS;
+  constexpr int SR = L::SR;
+  constexpr int SJ = L::SJ;
   constexpr int DJ = D / 16;
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);
   float* vs = ks + 64 * KS;
   float* qs = vs + 64 * KS;
-  float* dos = qs + 64 * KS;
-  float* pt = dos + 64 * KS;   // p^T [key][query]
+  float* dos = qs + SR * KS;
+  float* pt = dos + SR * KS;   // p^T [key][query]
   float* dst = pt + 64 * PS;   // dS^T [key][query]
   float* m_s = dst + 64 * PS;
   float* li_s = m_s + 64;
@@ -629,9 +851,9 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_bwd_dkv_fma_kernel(
   const int64_t base = (int64_t(b) * n_heads + h) * t_len;
 
   load_tile_f32<D>(ks, k + b * st.k[0] + h * st.k[2], st.k[1], k0, t_len,
-                   tid);
+                   tid, d);
   load_tile_f32<D>(vs, v + b * st.v[0] + h * st.v[2], st.v[1], k0, t_len,
-                   tid);
+                   tid, d);
   const float* qb = q + b * st.q[0] + h * st.q[2];
   const float* dob = d_o + b * st.d_o[0] + h * st.d_o[2];
 
@@ -641,39 +863,39 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_bwd_dkv_fma_kernel(
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dka[i][j] = dva[i][j] = 0.f;
 
-  const int n_q = (t_len + BQ - 1) / BQ;
-  for (int qt = causal ? k0 / BQ : 0; qt < n_q; ++qt) {
-    const int q0 = qt * BQ;
+  const int n_q = (t_len + SR - 1) / SR;
+  for (int qt = causal ? k0 / SR : 0; qt < n_q; ++qt) {
+    const int q0 = qt * SR;
     __syncthreads();
-    load_tile_f32<D>(qs, qb, st.q[1], q0, t_len, tid);
-    load_tile_f32<D>(dos, dob, st.d_o[1], q0, t_len, tid);
-    load_stats(m_s, li_s, di_s, m, l, di, base, q0, t_len, tid,
-               FMA_THREADS);
+    load_tile_f32<D, SR>(qs, qb, st.q[1], q0, t_len, tid, d);
+    load_tile_f32<D, SR>(dos, dob, st.d_o[1], q0, t_len, tid, d);
+    load_stats<SR>(m_s, li_s, di_s, m, l, di, base, q0, t_len, tid,
+                   FMA_THREADS);
     __syncthreads();
 
     // s^T and dP^T for keys ty*4+i, queries tx+16j
-    float s[4][4], dp[4][4];
+    float s[4][SJ], dp[4][SJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < SJ; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], ov[4];
+    for (int e = 0; e < D; ++e) {
+      float kv[4], vv[4], qv[SJ], ov[SJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        kv[i] = ks[(ty * 4 + i) * KS + d];
-        vv[i] = vs[(ty * 4 + i) * KS + d];
+        kv[i] = ks[(ty * 4 + i) * KS + e];
+        vv[i] = vs[(ty * 4 + i) * KS + e];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = qs[(tx + 16 * j) * KS + d];
-        ov[j] = dos[(tx + 16 * j) * KS + d];
+      for (int j = 0; j < SJ; ++j) {
+        qv[j] = qs[(tx + 16 * j) * KS + e];
+        ov[j] = dos[(tx + 16 * j) * KS + e];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < SJ; ++j) {
           s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
           dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
         }
@@ -683,7 +905,7 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_bwd_dkv_fma_kernel(
       const int kr = ty * 4 + i;
       const int kp = k0 + kr;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < SJ; ++j) {
         const int qc = tx + 16 * j;
         const bool ok = kp < t_len && (!causal || kp <= q0 + qc);
         const float p =
@@ -696,7 +918,7 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_bwd_dkv_fma_kernel(
 
     // dV += p^T dO, dK += dS^T Q for keys ty*4+i, columns tx+16j
 #pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
+    for (int qq = 0; qq < SR; ++qq) {
       float pv[4], sv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -724,6 +946,7 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_bwd_dkv_fma_kernel(
     if (kp >= t_len) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
+      if (tx + 16 * j >= d) continue;
       dkb[int64_t(kp) * st.o1[1] + tx + 16 * j] = dka[i][j];
       dvb[int64_t(kp) * st.o2[1] + tx + 16 * j] = dva[i][j];
     }
@@ -737,18 +960,20 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_bwd_dq_fma_kernel(
     const float* __restrict__ v, const float* __restrict__ d_o,
     const float* __restrict__ l, const float* __restrict__ m,
     const float* __restrict__ di, float* __restrict__ dq, int t_len,
-    int n_heads, Strides st, int causal, float scale) {
+    int n_heads, Strides st, int causal, float scale, int d) {
   using L = FmaLayout<D>;
   constexpr int KS = L::KS;
   constexpr int PS = L::PS;
+  constexpr int SR = L::SR;
+  constexpr int SJ = L::SJ;
   constexpr int DJ = D / 16;
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* dos = qs + 64 * KS;
   float* ks = dos + 64 * KS;
-  float* vs = ks + 64 * KS;
-  float* ps = vs + 64 * KS;  // dS [query][key]
+  float* vs = ks + SR * KS;
+  float* ps = vs + SR * KS;  // dS [query][key]
   float* m_s = ps + 2 * 64 * PS;
   float* li_s = m_s + 64;
   float* di_s = li_s + 64;
@@ -763,10 +988,11 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_bwd_dq_fma_kernel(
   const int64_t base = (int64_t(b) * n_heads + h) * t_len;
 
   load_tile_f32<D>(qs, q + b * st.q[0] + h * st.q[2], st.q[1], q0, t_len,
-                   tid);
+                   tid, d);
   load_tile_f32<D>(dos, d_o + b * st.d_o[0] + h * st.d_o[2], st.d_o[1], q0,
-                   t_len, tid);
-  load_stats(m_s, li_s, di_s, m, l, di, base, q0, t_len, tid, FMA_THREADS);
+                   t_len, tid, d);
+  load_stats<BQ>(m_s, li_s, di_s, m, l, di, base, q0, t_len, tid,
+                 FMA_THREADS);
   const float* kb = k + b * st.k[0] + h * st.k[2];
   const float* vb = v + b * st.v[0] + h * st.v[2];
 
@@ -776,39 +1002,39 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_bwd_dq_fma_kernel(
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
-  int n_k = (t_len + BK - 1) / BK;
-  if (causal) n_k = min(n_k, (min(q0 + BQ, t_len) - 1) / BK + 1);
+  int n_k = (t_len + SR - 1) / SR;
+  if (causal) n_k = min(n_k, (min(q0 + BQ, t_len) - 1) / SR + 1);
 
   for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * SR;
     __syncthreads();
-    load_tile_f32<D>(ks, kb, st.k[1], k0, t_len, tid);
-    load_tile_f32<D>(vs, vb, st.v[1], k0, t_len, tid);
+    load_tile_f32<D, SR>(ks, kb, st.k[1], k0, t_len, tid, d);
+    load_tile_f32<D, SR>(vs, vb, st.v[1], k0, t_len, tid, d);
     __syncthreads();
 
     // s and dP for queries ty*4+i, keys tx+16j
-    float s[4][4], dp[4][4];
+    float s[4][SJ], dp[4][SJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < SJ; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+    for (int e = 0; e < D; ++e) {
+      float qv[4], ov[4], kv[SJ], vv[SJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        qv[i] = qs[(ty * 4 + i) * KS + d];
-        ov[i] = dos[(ty * 4 + i) * KS + d];
+        qv[i] = qs[(ty * 4 + i) * KS + e];
+        ov[i] = dos[(ty * 4 + i) * KS + e];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = ks[(tx + 16 * j) * KS + d];
-        vv[j] = vs[(tx + 16 * j) * KS + d];
+      for (int j = 0; j < SJ; ++j) {
+        kv[j] = ks[(tx + 16 * j) * KS + e];
+        vv[j] = vs[(tx + 16 * j) * KS + e];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < SJ; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
         }
@@ -817,7 +1043,7 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_bwd_dq_fma_kernel(
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < SJ; ++j) {
         const int c = tx + 16 * j;
         const int kp = k0 + c;
         const bool ok = kp < t_len && (!causal || kp <= q0 + r);
@@ -829,7 +1055,7 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_bwd_dq_fma_kernel(
 
     // dQ += dS K for queries ty*4+i, columns tx+16j
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
+    for (int kk = 0; kk < SR; ++kk) {
       float sv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) sv[i] = ps[(ty * 4 + i) * PS + kk];
@@ -849,7 +1075,7 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_bwd_dq_fma_kernel(
     if (t >= t_len) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      dqb[int64_t(t) * st.o1[1] + tx + 16 * j] = acc[i][j];
+      if (tx + 16 * j < d) dqb[int64_t(t) * st.o1[1] + tx + 16 * j] = acc[i][j];
   }
 }
 
@@ -861,7 +1087,7 @@ struct Args {
   const void *q, *k, *v, *d_o;
   const float *l, *m, *di;
   void *o1, *o2;  // dK, dV (K2) or dQ (K3)
-  int64_t b, t, h;
+  int64_t b, t, h, d;
   Strides st;
   int causal;
   float scale;
@@ -886,7 +1112,7 @@ int launch_fma(bool dkv, const Args& a, cudaStream_t stream) {
     flash_bwd_dkv_fma_kernel<D><<<grid, FMA_THREADS, smem, stream>>>(
         q, k, v, d_o, a.l, a.m, a.di, static_cast<float*>(a.o1),
         static_cast<float*>(a.o2), int(a.t), int(a.h), a.st, a.causal,
-        a.scale);
+        a.scale, int(a.d));
   } else {
     err = configure(flash_bwd_dq_fma_kernel<D>, smem, configured[1]);
     if (err != cudaSuccess) return err;
@@ -894,13 +1120,14 @@ int launch_fma(bool dkv, const Args& a, cudaStream_t stream) {
                     unsigned(a.b)};
     flash_bwd_dq_fma_kernel<D><<<grid, FMA_THREADS, smem, stream>>>(
         q, k, v, d_o, a.l, a.m, a.di, static_cast<float*>(a.o1), int(a.t),
-        int(a.h), a.st, a.causal, a.scale);
+        int(a.h), a.st, a.causal, a.scale, int(a.d));
   }
   return cudaGetLastError();
 }
 
 // The tensor maps of q, k, v, dO from their layouts, whose boxes must be
-// the kernel's tiles: rows_q query rows (q, dO) and rows_k keys (k, v)
+// the tiles of the instance of width D: rows_q query rows (q, dO) and
+// rows_k keys (k, v)
 template <int D>
 int encode_operands(CUtensorMap (&maps)[4], const Args& a, int rows_q,
                     int rows_k) {
@@ -908,7 +1135,8 @@ int encode_operands(CUtensorMap (&maps)[4], const Args& a, int rows_q,
   const int rows[4] = {rows_q, rows_k, rows_k, rows_q};
   for (int i = 0; i < 4; ++i) {
     const int64_t* layout = a.maps + i * LAYOUT_LEN;
-    if (!layout_matches(layout, D, rows[i])) return cudaErrorInvalidValue;
+    if (!layout_matches(layout, a.d, D, rows[i]))
+      return cudaErrorInvalidValue;
     const int rc = encode_map(&maps[i], ptrs[i], layout);
     if (rc != 0) return rc;
   }
@@ -927,10 +1155,10 @@ int launch_dq_tma(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const dim3 grid{unsigned(a.h), unsigned(a.b),
                   unsigned((a.t + L::BM - 1) / L::BM)};
-  flash_bwd_dq_tma_kernel<D><<<grid, TMA_THREADS, L::bytes, stream>>>(
+  flash_bwd_dq_tma_kernel<D><<<grid, L::THREADS, L::bytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], a.l, a.m, a.di,
       static_cast<bf16*>(a.o1), int(a.t), int(a.h), a.st.o1[0], a.st.o1[1],
-      a.st.o1[2], a.causal, a.scale);
+      a.st.o1[2], a.causal, a.scale, int(a.d));
   return cudaGetLastError();
 }
 
@@ -941,15 +1169,20 @@ int launch_dkv_tma(const Args& a, cudaStream_t stream) {
   CUtensorMap maps[4];
   const int rc = encode_operands<D>(maps, a, L::BM, L::BN);
   if (rc != 0) return rc;
-  const cudaError_t err =
-      configure(flash_bwd_dkv_tma_kernel<D>, L::bytes, configured);
+  auto kernel = [] {
+    if constexpr (L::SPLIT)
+      return flash_bwd_dkv_split_kernel<D>;
+    else
+      return flash_bwd_dkv_tma_kernel<D>;
+  }();
+  const cudaError_t err = configure(kernel, L::bytes, configured);
   if (err != cudaSuccess) return err;
   const dim3 grid{unsigned(a.h), unsigned(a.b),
                   unsigned((a.t + L::BN - 1) / L::BN)};
-  flash_bwd_dkv_tma_kernel<D><<<grid, DKV_THREADS, L::bytes, stream>>>(
+  kernel<<<grid, DKV_THREADS, L::bytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], a.l, a.m, a.di,
       static_cast<bf16*>(a.o1), static_cast<bf16*>(a.o2), int(a.t),
-      int(a.h), a.st, a.causal, a.scale);
+      int(a.h), a.st, a.causal, a.scale, int(a.d));
   return cudaGetLastError();
 }
 
@@ -961,16 +1194,18 @@ int launch_d(bool dkv, int dtype, const Args& a, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-int launch(bool dkv, int64_t d, int dtype, const Args& a, void* stream) {
+int launch(bool dkv, int dtype, const Args& a, void* stream) {
   if (a.t <= 0 || a.b <= 0 || a.h <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
+  switch (kernel_width(a.d)) {
     case 32:
       return launch_d<32>(dkv, dtype, a, s);
     case 64:
       return launch_d<64>(dkv, dtype, a, s);
     case 128:
       return launch_d<128>(dkv, dtype, a, s);
+    case 256:
+      return launch_d<256>(dkv, dtype, a, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -980,12 +1215,14 @@ int launch(bool dkv, int64_t d, int dtype, const Args& a, void* stream) {
 
 extern "C" {
 
-// q, k, v, dO, dK, dV: [B, T, H, D] with unit stride on D; strides in
-// elements, (b, t, h) for q, k, v, dO, dK, dV in that order. l, m, di:
-// [B, H, T] f32, contiguous. dtype: 0 = float32, 1 = bfloat16. bfloat16
-// operands are read through TMA: `maps` holds the q, k, v, dO layouts
-// (4 x 12 int64, from ops/flash_attention.py:tma_layout, whose box rows
-// must be this kernel's tiles); float32 takes maps = NULL. Returns 0
+// q, k, v, dO, dK, dV: [B, T, H, D] with unit stride on D, D a multiple
+// of 8 from 8 to 256 (it runs on the instance of the next width of 32,
+// 64, 128, 256); strides in elements, (b, t, h) for q, k, v, dO, dK, dV
+// in that order. l, m, di: [B, H, T] f32, contiguous. dtype: 0 =
+// float32, 1 = bfloat16. bfloat16 operands are read through TMA: `maps`
+// holds the q, k, v, dO layouts (4 x 12 int64, from
+// ops/flash_attention.py:tma_layout, whose box rows must be this
+// kernel's tiles at its width); float32 takes maps = NULL. Returns 0
 // when launched, else the CUDA error of the launch or ENCODE_ERROR +
 // cuTensorMapEncodeTiled's CUresult.
 int veles_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1000,12 +1237,12 @@ int veles_flash_bwd_dkv(const void* q, const void* k, const void* v,
                         int dtype, const int64_t* maps, void* stream) {
   const Args a{q, k, v, d_o,
                static_cast<const float*>(l), static_cast<const float*>(m),
-               static_cast<const float*>(di), dk, dv, b, t, h,
+               static_cast<const float*>(di), dk, dv, b, t, h, d,
                Strides{{qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh},
                        {osb, ost, osh}, {dksb, dkst, dksh},
                        {dvsb, dvst, dvsh}},
                causal, scale, maps};
-  return launch(true, d, dtype, a, stream);
+  return launch(true, dtype, a, stream);
 }
 
 // As veles_flash_bwd_dkv, with the one output dQ [B, T, H, D].
@@ -1020,26 +1257,44 @@ int veles_flash_bwd_dq(const void* q, const void* k, const void* v,
                        const int64_t* maps, void* stream) {
   const Args a{q, k, v, d_o,
                static_cast<const float*>(l), static_cast<const float*>(m),
-               static_cast<const float*>(di), dq, nullptr, b, t, h,
+               static_cast<const float*>(di), dq, nullptr, b, t, h, d,
                Strides{{qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh},
                        {osb, ost, osh}, {dqsb, dqst, dqsh}, {0, 0, 0}},
                causal, scale, maps};
-  return launch(false, d, dtype, a, stream);
+  return launch(false, dtype, a, stream);
 }
 
 // Dynamic shared memory of the bf16 dK/dV and dQ kernels at head dim d
-// (bytes; 0 for an unsupported d): ptxas reports static shared memory
-// only.
+// (their instance's width's; bytes, 0 for an unsupported d): ptxas
+// reports static shared memory only.
 int64_t veles_flash_bwd_dkv_smem(int64_t d) {
-  return d == 32 ? DkvTma<32>::bytes
-                 : d == 64 ? DkvTma<64>::bytes
-                           : d == 128 ? DkvTma<128>::bytes : 0;
+  switch (kernel_width(d)) {
+    case 32:
+      return DkvTma<32>::bytes;
+    case 64:
+      return DkvTma<64>::bytes;
+    case 128:
+      return DkvTma<128>::bytes;
+    case 256:
+      return DkvTma<256>::bytes;
+    default:
+      return 0;
+  }
 }
 
 int64_t veles_flash_bwd_dq_smem(int64_t d) {
-  return d == 32 ? DqTma<32>::bytes
-                 : d == 64 ? DqTma<64>::bytes
-                           : d == 128 ? DqTma<128>::bytes : 0;
+  switch (kernel_width(d)) {
+    case 32:
+      return DqTma<32>::bytes;
+    case 64:
+      return DqTma<64>::bytes;
+    case 128:
+      return DqTma<128>::bytes;
+    case 256:
+      return DqTma<256>::bytes;
+    default:
+      return 0;
+  }
 }
 
 const char* veles_error_string(int code) { return error_string(code); }

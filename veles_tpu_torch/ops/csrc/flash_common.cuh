@@ -27,15 +27,15 @@ template <int D> struct FmaTile {
   static constexpr int KS = D + 1;  // floats per smem row
 };
 
-// rows [r0, r0 + 64) of a [T, d] f32 slice into a padded smem tile of
+// rows [r0, r0 + R) of a [T, d] f32 slice into a padded smem tile of
 // D columns, zeros past t_len and in columns d..D-1 (an instance of
 // width D serves every head dim d <= D)
-template <int D>
+template <int D, int R = 64>
 __device__ inline void load_tile_f32(float* dst, const float* src,
                                      int64_t st, int r0, int t_len,
                                      int tid, int d = D) {
   constexpr int KS = FmaTile<D>::KS;
-  for (int idx = tid; idx < 64 * D; idx += FMA_THREADS) {
+  for (int idx = tid; idx < R * D; idx += FMA_THREADS) {
     const int r = idx / D, c = idx % D;
     const int t = r0 + r;
     dst[r * KS + c] = t < t_len && c < d ? src[int64_t(t) * st + c] : 0.f;

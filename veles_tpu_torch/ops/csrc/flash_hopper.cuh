@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the bf16 flash-attention kernels K1
 // (flash_fwd.cu), K2 and K3 (flash_bwd.cu): TMA tile loads through tensor
 // maps, mbarrier rings between a producer warp and consumer warpgroups,
-// register rebalancing (setmaxnreg), and warpgroup matrix products
-// (wgmma.mma_async) with their shared-memory descriptors.
+// named barriers between warpgroups, register rebalancing (setmaxnreg),
+// and warpgroup matrix products (wgmma.mma_async) with their
+// shared-memory descriptors.
 //
 // A tile of R rows x D bf16 columns lands in shared memory as TMA writes
 // it with the widest swizzle a row allows (SW = min(128, 2 D) bytes):
@@ -180,6 +181,19 @@ __device__ inline void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads') over `n` threads, a
+// multiple of 32: bar_sync waits until n threads have reached it,
+// bar_arrive counts the calling warp without waiting. Shared-memory
+// writes before a warp's arrival are visible to the threads that
+// waited on the barrier.
+__device__ inline void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ inline void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -52,13 +52,10 @@ DEFAULT_BLOCK = 512
 #: Default K/V tile of the plain decode path.
 DEFAULT_DECODE_BLOCK = 256
 
-#: Widths the forward and decode kernels (K1, K4, K5) are instantiated
-#: for. A head dim d runs on the next width (:func:`kernel_width`), its
-#: columns past d read as zeros and never stored.
+#: Widths every kernel (K1-K5) is instantiated for. A head dim d runs
+#: on the next width (:func:`kernel_width`), its columns past d read as
+#: zeros and never stored.
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
-
-#: Head dims the backward kernels K2 and K3 are instantiated for.
-BWD_HEAD_DIMS = (32, 64, 128)
 
 #: The widest head dim a kernel takes: shared memory caps the tiles.
 MAX_HEAD_DIM = 256
@@ -82,12 +79,19 @@ DECODE_CHUNK = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Rows of the TMA boxes of the bf16 Hopper kernels, (query tile, key
-#: tile): K1 (``flash_fwd.cu``) and K3 (``flash_bwd.cu``) hold 128 query
-#: rows and stream key tiles, K2 (``flash_bwd.cu``) holds 128 keys and
-#: streams query tiles. The kernels refuse a layout whose box is not
-#: their tile.
+#: tile), at instance widths up to 128: K1 (``flash_fwd.cu``) and K3
+#: (``flash_bwd.cu``) hold 128 query rows and stream key tiles, K2
+#: (``flash_bwd.cu``) holds 128 keys and streams query tiles. The
+#: kernels refuse a layout whose box is not their tile.
 TMA_TILES = {"flash_fwd": (128, 128), "flash_bwd_dq": (128, 64),
              "flash_bwd_dkv": (64, 128)}
+
+#: The same at width 256, where the card's shared memory and registers
+#: hold one 64-row tile a side: K1 and K3 one 64-row consumer
+#: warpgroup over 64-key tiles (``FwdTma``, ``DqTma``), K2 64 keys whose
+#: two warpgroups split the products (``DkvTma``).
+TMA_TILES_256 = {"flash_fwd": (64, 64), "flash_bwd_dq": (64, 64),
+                 "flash_bwd_dkv": (64, 64)}
 
 #: The widest TMA swizzle span in bytes: a wider bf16 row loads as
 #: several boxes of this many bytes (two at D = 128).
@@ -113,13 +117,9 @@ def kernel_width(d: int) -> int:
 
 def tma_tiles(entry: str, width: int):
     """(query tile, key tile) rows of the TMA kernel of ``entry`` at
-    instance width ``width``: :data:`TMA_TILES`, but K1 wider than 128
-    columns holds one 64-row consumer warpgroup over 64-key tiles
-    (``flash_fwd.cu`` FwdTma), which fit the card's shared memory and
-    registers."""
-    if entry == "flash_fwd" and width > 128:
-        return (64, 64)
-    return TMA_TILES[entry]
+    instance width ``width``: :data:`TMA_TILES`, or
+    :data:`TMA_TILES_256` past 128 columns."""
+    return (TMA_TILES_256 if width > 128 else TMA_TILES)[entry]
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -316,11 +316,6 @@ def _check_kernel_operands(entry: str, *tensors: torch.Tensor) -> None:
             "memory caps the tiles at %d columns), got %d"
             % (entry, HEAD_DIM_MULTIPLE, HEAD_DIM_MULTIPLE, MAX_HEAD_DIM,
                MAX_HEAD_DIM, d))
-    if entry.startswith("flash_bwd") and d not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            "%s kernel is instantiated for head dims %s; head dim %d is "
-            "the next slice of the port (ROADMAP.md queue 1: K2/K3 at "
-            "every head dim up to 256)" % (entry, BWD_HEAD_DIMS, d))
     for x in tensors:
         if not x.is_cuda or x.device != dev or x.dtype != dtype:
             raise ValueError("%s kernel operands must share one CUDA "
