@@ -50,7 +50,10 @@ without them, and on any failed phase. Phases, in order:
    at AlexNet's two LRN shapes at batch 1536 (bf16 and f32) and at a
    ragged row count with an odd C and an even window; the uniform fill
    (K8) bitwise against its plain version at the dropout mask's shape
-   and an odd size;
+   and an odd size, and its keyed entry (the key read from device
+   memory, above 2^32, the layer folded in there) bitwise against its
+   plain version and the by-value entry under the host-folded key,
+   both entries timed at the mask's shape;
 3. serving at full width: the repo's largest LM configuration
    (``bench_transformer.py``: vocab 8192, embed 1024, 8 heads of 128,
    12 layers, seq 2048, bf16) with random seeded weights behind
@@ -108,13 +111,19 @@ without them, and on any failed phase. Phases, in order:
 9. classifier training at full width: AlexNet as bench.py trains it
    (``alexnet_fused()``: 1000 classes, 224 x 224 x 3, seed 0; lr 0.01,
    momentum 0.9, weight decay 5e-4; batch 1536; bf16) through
-   ``FusedClassifierTrainer`` on one fixed batch (warm-up steps, a
-   timed window, one ``step_many`` of 4), every launch counter read
-   around the whole run, around one step (exactly 2 each of K6, K7 and
-   K8) and around one ``predict`` (2 of K6); ms per step, images/s,
-   model TFLOP/s, the device's busy share and time by kernel class,
-   peak memory, falling losses; conv1 timed through space-to-depth and
-   as a strided conv;
+   ``FusedClassifierTrainer`` on one fixed batch, eager
+   (``cuda_graphs=False``) then captured (the default: one CUDA graph,
+   replayed) from the same weights, each with warm-up steps (the first
+   captures), a timed window, one ``step_many`` of 4: every launch
+   counter read around the whole run, around one step or replay
+   (exactly 2 each of K6, K7 and K8's keyed entry) and around one
+   ``predict`` (2 of K6); each leg's ms per step, images/s, the
+   device's busy share and time by kernel class, peak memory; model
+   TFLOP/s, falling losses; conv1 timed through space-to-depth and as
+   a strided conv; then captured against eager and eager against eager
+   after 3 steps from the same weights under deterministic cuDNN: the
+   losses, params and momentum of captured and eager may differ by no
+   more than the two eager runs differ (0: bitwise);
 10. classifier parity on the card: the 10-class 64 x 64 AlexNet at
    f32, batch 8, dropout on, through the kernels and through their
    plain versions from one seed (the masks equal bitwise): the first
@@ -183,8 +192,11 @@ without them, and on any failed phase. Phases, in order:
    window), ``pipeline_vs_resident``, ``loader_overlap_efficiency``
    of both overlap legs, per-step wall p50/p99/max; exactly 2/2/2
    K6/K7/K8 around a loader step and 16/16/16 around a K = 8 dispatch;
-   one profiled window of the resident, pipeline and overlap-fused
-   legs (busy share, time by kernel class), the gather + normalize's
+   the resident and pipeline legs also on an eager trainer
+   (``cuda_graphs=False``; the others captured): images/s captured
+   against eager at batch 1536; one profiled window of the resident,
+   pipeline and overlap-fused legs (busy share, time by kernel class),
+   the gather + normalize's
    device time (and its index_select's and normalizer's), peak memory,
    the ring's staged bytes, finite losses, no producer thread after
    ``stop()``; the first gathered minibatch bitwise the loader's own
@@ -238,14 +250,17 @@ without them, and on any failed phase. Phases, in order:
    Adam state against run A's, bitwise or within the JAX package's
    rtol 1e-5 / atol 1e-6 (which held is logged); (b) phase 14's
    ``AlexNetWorkflow`` through ``train_fused`` for its two epochs:
-   exactly 2/2/2 K6/K7/K8 a step, device ms a step and images/s beside
-   phases 14 and 9, ``write_back`` and one unit-graph VALID pass against
-   the fused forward of the written-back params (the errors of
-   ``train_fused``'s closing sweep; rows whose argmax differ must lie
-   within bf16 rounding of a tie), a ``compression=None`` snapshot and
-   gzip's rate at the codec's level over ``GZIP_SAMPLES`` slices of it,
-   ``InferenceEngine.from_snapshot`` against ``from_workflow`` bitwise
-   (2 K6 a replay) and one ``POST /apply`` on the restored engine;
+   exactly 2/2/2 K6/K7/K8 a step after the one that captures, device ms
+   a step and images/s beside phases 14 and 9, ``write_back`` and one
+   unit-graph VALID pass against the fused forward of the written-back
+   params (the errors of ``train_fused``'s closing sweep; rows whose
+   argmax differ must lie within bf16 rounding of a tie), a
+   ``compression=None`` snapshot and gzip's rate at the codec's level
+   over ``GZIP_SAMPLES`` slices of it, ``InferenceEngine.from_snapshot``
+   against ``from_workflow`` bitwise (2 K6 a replay) and one ``POST
+   /apply`` on the restored engine; then
+   ``train_fused(cuda_graphs=False)`` on it for as many more epochs:
+   device ms a step captured against eager at minibatch 128;
 20. the state half, card against CPU at f32: the LM workflow (the JAX
    package's default configuration, its corpus cut to 8 minibatches)
    for 2 epochs, ``train_fused(MnistWorkflow)``, an ensemble of 3 MNIST
@@ -264,7 +279,7 @@ without them, and on any failed phase. Phases, in order:
    one-rank f32 steps against the bf16 ones), and at 64 x 64 f32 within
    1e-4 of each leaf's scale, the dropout masks bitwise the one-rank
    masks, exactly 2 each of
-   K6/K7/K8 a rank a step; (b) the LM (``FULL``'s widths at
+   K6/K7/K8 (its keyed entry, ``CLASSIFIER_STEP``) a rank a step; (b) the LM (``FULL``'s widths at
    ``MESH_LM_LAYERS`` layers, batch 8, bf16, remat "attn") at ``seq=2``, 2 steps, losses within ``TOL_MESH_LM`` of the
    one-rank eager steps, exactly 2 L h K1 and L h each of K2/K3 a step
    on a rank whose ring has h hops to compute (1 and 2), and the f32
@@ -272,7 +287,10 @@ without them, and on any failed phase. Phases, in order:
    (c) ``FULL``'s widths with 2 experts at ``model=2``, depth cut to
    ``MESH_MOE_LAYERS``; (d) the JAX package's pipeline configuration
    at 2 stages against ``reference_loss_fn``; (e) (a)'s data-parallel
-   step over NCCL with one rank, bitwise the unsharded step. Each leg's
+   step over NCCL with one rank, bitwise the unsharded step: the
+   classifier trainer takes a one-rank mesh for the one device, so
+   both run the captured one-device step (the leg fails if either is
+   not captured) and no collective runs. Each leg's
    step p50 and the gloo bytes staged a step are logged; the two ranks
    time-share the card, so the times say nothing of scaling over cards;
 22. sharded serving at full width (``veles_tpu_torch.serve.sharding``,
@@ -371,9 +389,10 @@ without them, and on any failed phase. Phases, in order:
    widths) and one ``mlp_step_many`` (AlexNet, batch
    1536) dispatch of K = 2 under a plan bitwise the same dispatch
    without one (losses, params and optimizer state, under deterministic
-   cuDNN), their records holding one replay's (one dispatch's)
-   launches; the LM behind ``PagedGenerativeEngine`` (1,024 16-token
-   pages) warmed under the plan, its greedy and sampled round records
+   cuDNN), both captured, their records holding one replay's (the
+   dispatch's K replays') launches; the LM behind
+   ``PagedGenerativeEngine`` (1,024 16-token pages) warmed under the
+   plan, its greedy and sampled round records
    each holding 12 K5, phase 3's prompts one at a time giving phase 3's
    tokens with 12 K1 a prefill and 12 K5 a round;
 26. the static gates and the memory plan (``veles_tpu_torch.analysis``):
@@ -1453,11 +1472,14 @@ def lrn_fill_kernels(torch, dev):
     the dropout mask's shape and an odd size. Each is timed (bf16 for
     the LRN) beside its plain version, one PyTorch call and the card's
     bound; K6/K7 also at f32, the kernels alone (``ms_f32``: twice the
-    bytes). Returns the three kernel rows."""
+    bytes). K8's keyed entry bitwise its plain version and the by-value
+    entry under the host-folded key, timed at the mask's shape. Returns
+    the four kernel rows."""
     from veles_tpu_torch.ops import lrn, rng
     import torch.nn.functional as F
 
-    log("phase 2: LRN (K6, K7) and the uniform fill (K8) vs plain PyTorch")
+    log("phase 2: LRN (K6, K7) and the uniform fill (K8, both entries) vs "
+        "plain PyTorch")
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     k, n, alpha, beta = LRN_SPEC
@@ -1532,6 +1554,26 @@ def lrn_fill_kernels(torch, dev):
                 "bitwise: %s" % (list(shape), low, high, seed, same))
             if not same:
                 raise AssertionError("uniform_fill kernel != plain")
+    # K8's keyed entry: the key read from device memory (above 2^32 and
+    # above 2^63) and the layer folded in there, bitwise its plain
+    # version and the by-value entry under the host-folded key
+    for shape, low, high in (((CLASSIFIER_BATCH, 4096), 0.0, 1.0),
+                             ((1000003,), -2.0, 3.0)):
+        for seed, fold in ((2 ** 32 + 12345, 3), (2 ** 63 + 11, None)):
+            key_t = rng.key_tensor(seed, dev)
+            a = rng.uniform_fill(key_t, shape, low=low, high=high,
+                                 fold=fold, impl="cuda")
+            b = rng.uniform_fill(key_t, shape, low=low, high=high,
+                                 fold=fold, impl="plain")
+            c = rng.uniform_fill(seed, shape, low=low, high=high,
+                                 fold=fold, device=dev, impl="cuda")
+            same = (bool(torch.equal(a, b)), bool(torch.equal(a, c)))
+            log("  uniform_fill_keyed %s [%g, %g) key %d fold %s: kernel "
+                "== plain bitwise: %s; == by value under fold_in(key, "
+                "fold): %s" % (list(shape), low, high, seed, fold, *same))
+            if not all(same):
+                raise AssertionError("uniform_fill_keyed kernel != plain "
+                                     "or != the by-value kernel")
     shape = (CLASSIFIER_BATCH, 4096)
     numel = shape[0] * shape[1]
     key = rng._key(12345)
@@ -1554,6 +1596,33 @@ def lrn_fill_kernels(torch, dev):
         library_event_ms=time_ms(lambda: torch.rand(
             shape, generator=cuda_gen, device=dev), 50),
         library_note="torch.rand on a CUDA generator (Philox too)")
+    # the keyed entry at the same mask, its layer's fold made on the
+    # card: one more Philox block a thread (at most 16 blocks of 256
+    # threads an SM) and the key's 8 bytes read
+    key_t = rng.key_tensor(2 ** 32 + 12345, dev)
+    threads = min(-(-numel // 4), torch.cuda.get_device_properties(
+        dev).multi_processor_count * 16 * 256)
+    bms, by = bound(PHILOX_OPS_PER_ELEM * (numel + 4 * threads),
+                    4 * numel + 8, "float32")
+    out["uniform_fill_keyed"] = dict(
+        name="uniform_fill_keyed", route="cuda",
+        source="veles_tpu_torch/ops/csrc/rng.cu",
+        replaces="veles_tpu/ops/rng.py:44",
+        shape="[%d, 4096] f32 (one dropout mask), the key in device "
+              "memory, fold 3" % CLASSIFIER_BATCH,
+        max_abs_err=0.0, bitwise_equal_plain=True,
+        bitwise_equal_by_value=True,
+        ms=device_ms(lambda: rng.uniform_fill_keyed_cuda(numel, key_t, 3),
+                     50),
+        event_ms=time_ms(lambda: rng.uniform_fill_keyed_cuda(
+            numel, key_t, 3), 50),
+        plain_ms=time_ms(lambda: rng._plain_fill(
+            numel, rng._tensor_key(key_t, 3), dev, 1.0, 0.0, False), 5),
+        bound_ms=bms, bound_by=by,
+        library_ms=out["uniform_fill"]["library_ms"],
+        library_event_ms=out["uniform_fill"]["library_event_ms"],
+        library_note="torch.rand on a CUDA generator (Philox too), the "
+                     "by-value row's reading")
     for row in out.values():
         log("  %s: kernel %.4f ms (back to back %.4f), plain %.4f ms, "
             "library %.4f ms, bound %.4f ms (%s), max abs err %.3e [%s]" % (
@@ -2902,57 +2971,162 @@ def _conv1_both_ways(torch, trainer, x):
     return out
 
 
-def classifier_phase(torch, counters, dev, card):
-    from veles_tpu_torch.models.flagship import alexnet_fused
+#: phase 9: each leg's timed steps and step_many K; the steps captured
+#: and eager trainers are compared over
+CLASSIFIER_TIMED = 10
+CLASSIFIER_MANY = 4
+CLASSIFIER_COMPARED = 3
+#: K6, K7 and K8 (the keyed entry) around one step, captured or eager
+CLASSIFIER_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "uniform_fill": 2,
+                   "uniform_fill_keyed": 2}
+
+
+def _classifier_leg(torch, counters, dev, card, specs, params, x, labels,
+                    graphs):
+    """One leg of phase 9 on a fresh trainer, captured (``graphs`` None:
+    the default on the card) or eager (False): 3 warm-up steps (the
+    first captures), the launches around one more, ``CLASSIFIER_TIMED``
+    steps timed, a ``step_many`` of ``CLASSIFIER_MANY``, the peak memory
+    of the leg and a profile of 2 steps. Returns (its record, the
+    trainer, its losses)."""
     from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
-
-    b = CLASSIFIER_BATCH
-    log("phase 9: classifier training, AlexNet (1000 classes, 224 x 224 "
-        "x 3, seed 0), batch %d, bf16, %s" % (b, CLASSIFIER_HYPER))
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
-    specs, params, fwd_flops = alexnet_fused()
-    n_params = sum(p["w"].size + p["b"].size for p in params if p)
-    trainer = FusedClassifierTrainer(specs, params, device=dev,
-                                     **CLASSIFIER_HYPER)
-    del params
-    data = np.random.default_rng(1)              # bench.py:85-88
-    x = torch.from_numpy(data.random((b, 224, 224, 3),
-                                     dtype=np.float32)).to(dev)
-    labels = torch.from_numpy(data.integers(0, 1000, b)).to(dev)
-    setup_s = time.monotonic() - t0
-
-    counters.reset()
-    losses = [trainer.step(x, labels)["loss"] for _ in range(3)]  # warm-up
+    label = "captured" if graphs is None else "eager"
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    trainer = FusedClassifierTrainer(specs, params, device=dev,
+                                     cuda_graphs=graphs, **CLASSIFIER_HYPER)
+    t0 = time.monotonic()
+    losses = [trainer.step(x, labels)["loss"] for _ in range(3)]
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
     before = counters.read()
     losses.append(trainer.step(x, labels)["loss"])
     torch.cuda.synchronize()
-    one_step = counters.delta(before)
-    n_timed = 10
+    one_step = _nonzero(counters.delta(before))
     t0 = time.monotonic()
-    for _ in range(n_timed):
+    for _ in range(CLASSIFIER_TIMED):
         losses.append(trainer.step(x, labels)["loss"])
     torch.cuda.synchronize()
-    step_ms = (time.monotonic() - t0) * 1e3 / n_timed
-    k_many = 4
+    step_ms = (time.monotonic() - t0) * 1e3 / CLASSIFIER_TIMED
+    k = CLASSIFIER_MANY
     t0 = time.monotonic()
-    many = trainer.step_many(x[None].expand(k_many, *x.shape),
-                             labels[None].expand(k_many, b))
+    many = trainer.step_many(x[None].expand(k, *x.shape),
+                             labels[None].expand(k, x.shape[0]))
     torch.cuda.synchronize()
-    many_ms = (time.monotonic() - t0) * 1e3 / k_many
-    launches = counters.read()
-    peak = torch.cuda.max_memory_allocated()
-    if tuple(many["loss"].shape) != (k_many,):
+    many_ms = (time.monotonic() - t0) * 1e3 / k
+    if tuple(many["loss"].shape) != (k,):
         raise AssertionError("step_many returned losses of shape %s"
                              % (tuple(many["loss"].shape),))
+    peak = torch.cuda.max_memory_allocated() - base
     losses = torch.stack(losses + list(many["loss"])).tolist()
-    expect = {"lrn_fwd": 2, "lrn_bwd": 2, "uniform_fill": 2}
-    log("  launches around one step: %s (need exactly %s)"
-        % (one_step, expect))
-    if {kk: v for kk, v in one_step.items() if v} != expect:
-        raise AssertionError("classifier step launches %s != %s"
-                             % (one_step, expect))
+    prof = profile_device(
+        torch, lambda: float(trainer.step(x, labels)["loss"]), 2)
+    graphs_n = len(trainer._graphs)
+    log("  %s: ms per step %.3f (window of %d), step_many(%d) %.3f ms per "
+        "step; %.1f images/s; warm-up (3 steps%s) %.2f s; peak memory %.2f "
+        "GB above the inputs; busy %s; launches around one step %s; %d "
+        "graph(s) [%s]" % (
+            label, step_ms, CLASSIFIER_TIMED, k, many_ms,
+            x.shape[0] * 1e3 / step_ms,
+            ", the capture" if graphs is None else "", warm_s, peak / 1e9,
+            "%.3f" % prof["busy_share"] if prof else "not measured",
+            one_step, graphs_n, card))
+    if one_step != CLASSIFIER_STEP:
+        raise AssertionError("%s classifier step launches %s != %s"
+                             % (label, one_step, CLASSIFIER_STEP))
+    if graphs_n != (1 if graphs is None else 0):
+        raise AssertionError("%s trainer holds %d graphs" % (label,
+                                                             graphs_n))
+    if prof is not None:
+        log("  profile %s step: wall %.3f ms, device %.3f ms (busy %.0f%%);"
+            " top kernels: %s" % (
+                label, prof["wall_ms"], prof["device_ms"],
+                100 * prof["busy_share"], "; ".join(
+                    "%s %.3f ms x%g" % (r["kernel"][:40], r["ms"],
+                                        r["launches"])
+                    for r in prof["top"][:6])))
+        log("  %s step device time by class: %s" % (label, "; ".join(
+            "%s %.3f ms" % kv for kv in sorted(
+                prof["by_class"].items(), key=lambda kv: -kv[1]))))
+    record = dict(step_ms=step_ms, timed_steps=CLASSIFIER_TIMED,
+                  step_many_k=k, step_many_ms_per_step=many_ms,
+                  images_per_s=x.shape[0] * 1e3 / step_ms, warm_s=warm_s,
+                  peak_mem_bytes=peak, launches_one_step=one_step,
+                  profile=prof, graphs=graphs_n)
+    return record, trainer, losses
+
+
+def _classifier_compare(torch, dev, specs, params, x, labels):
+    """Captured against eager over ``CLASSIFIER_COMPARED`` steps from the
+    same weights, with a second eager run: (the largest difference of
+    the losses and state between captured and eager, that between the
+    two eager runs). cuDNN deterministic (restored after), so both are
+    expected to be 0."""
+    from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs = []
+    try:
+        for graphs in (None, False, False):
+            t = FusedClassifierTrainer(specs, params, device=dev,
+                                       cuda_graphs=graphs,
+                                       **CLASSIFIER_HYPER)
+            losses = torch.stack([t.step(x, labels)["loss"]
+                                  for _ in range(CLASSIFIER_COMPARED)])
+            runs.append([losses] + [v.detach().clone()
+                                    for p in t.params + t.velocity
+                                    for v in p.values()])
+            del t
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+
+    def diff(a, b):
+        return max(float((u - v).abs().max()) for u, v in zip(a, b))
+
+    out = diff(runs[0], runs[1]), diff(runs[1], runs[2])
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def classifier_phase(torch, counters, dev, card):
+    from veles_tpu_torch.models.flagship import alexnet_fused
+
+    b = CLASSIFIER_BATCH
+    log("phase 9: classifier training, AlexNet (1000 classes, 224 x 224 "
+        "x 3, seed 0), batch %d, bf16, %s; captured (the default) then "
+        "eager (cuda_graphs=False) from the same weights" % (
+            b, CLASSIFIER_HYPER))
+    t0 = time.monotonic()
+    specs, params, fwd_flops = alexnet_fused()
+    n_params = sum(p["w"].size + p["b"].size for p in params if p)
+    classes = params[-1]["w"].shape[-1]
+    data = np.random.default_rng(1)              # bench.py:85-88
+    x = torch.from_numpy(data.random((b,) + APPLY_SHAPE,
+                                     dtype=np.float32)).to(dev)
+    labels = torch.from_numpy(data.integers(0, classes, b)).to(dev)
+    setup_s = time.monotonic() - t0
+
+    counters.reset()
+    eager, eager_trainer, eager_losses = _classifier_leg(
+        torch, counters, dev, card, specs, params, x, labels, False)
+    del eager_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    captured, trainer, losses = _classifier_leg(
+        torch, counters, dev, card, specs, params, x, labels, None)
+    legs = dict(captured=captured, eager=eager)
+    if losses[:CLASSIFIER_COMPARED] != eager_losses[:CLASSIFIER_COMPARED]:
+        log("  first %d losses: captured %s, eager %s (cuDNN's default "
+            "algorithms; compared below under deterministic ones)" % (
+                CLASSIFIER_COMPARED, losses[:CLASSIFIER_COMPARED],
+                eager_losses[:CLASSIFIER_COMPARED]))
     before = counters.read()
     logits = trainer.predict(x)
     torch.cuda.synchronize()
@@ -2961,52 +3135,62 @@ def classifier_phase(torch, counters, dev, card):
         % (predict_launches,))
     if {kk: v for kk, v in predict_launches.items() if v} != {"lrn_fwd": 2}:
         raise AssertionError("predict launches %s" % (predict_launches,))
-    if tuple(logits.shape) != (b, 1000) or logits.dtype != torch.float32 \
-            or not bool(torch.isfinite(logits).all()):
+    if tuple(logits.shape) != (b, classes) or \
+            logits.dtype != torch.float32 or \
+            not bool(torch.isfinite(logits).all()):
         raise AssertionError("predict gave %s %s" % (tuple(logits.shape),
                                                      logits.dtype))
     del logits
 
+    step_ms = captured["step_ms"]
     images_per_s = b * 1e3 / step_ms
     step_flops = 3 * fwd_flops * b               # bench.py's formula
-    log("  %d params; set-up %.1f s; ms per step %.3f (window of %d), "
-        "step_many(%d) %.3f ms per step; %.1f images/s; model %.1f TFLOP/s "
-        "(%.3f TFLOP per step, bf16 peak bound %.3f ms); peak memory %.2f "
-        "GB [%s]" % (n_params, setup_s, step_ms, n_timed, k_many, many_ms,
-                     images_per_s, step_flops / step_ms / 1e9,
-                     step_flops / 1e12, step_flops / PEAK_FLOPS["bfloat16"]
-                     * 1e3, peak / 1e9, card))
-    log("  losses: %s" % ", ".join("%.4f" % v for v in losses))
-    if not all(np.isfinite(losses)) or trainer.nonfinite_count:
+    log("  %d params; set-up %.1f s; captured %.3f ms a step (%.1f "
+        "images/s, model %.1f TFLOP/s), eager %.3f ms (%.1f images/s): "
+        "%.4fx; step_many(%d) %.3f / %.3f ms a step; %.3f TFLOP a step, "
+        "bf16 peak bound %.3f ms; peak memory %.2f / %.2f GB [%s]"
+        % (n_params, setup_s, step_ms, images_per_s,
+           step_flops / step_ms / 1e9, eager["step_ms"],
+           eager["images_per_s"], eager["step_ms"] / step_ms,
+           CLASSIFIER_MANY, captured["step_many_ms_per_step"],
+           eager["step_many_ms_per_step"], step_flops / 1e12,
+           step_flops / PEAK_FLOPS["bfloat16"] * 1e3,
+           captured["peak_mem_bytes"] / 1e9, eager["peak_mem_bytes"] / 1e9,
+           card))
+    log("  losses (captured): %s" % ", ".join("%.4f" % v for v in losses))
+    if not all(np.isfinite(losses + eager_losses)) or \
+            trainer.nonfinite_count:
         raise AssertionError("non-finite classifier loss: %s" % losses)
     if not losses[-1] < losses[0]:
         raise AssertionError("loss did not fall on the fixed batch: %s"
                              % losses)
-
-    prof = profile_device(
-        torch, lambda: float(trainer.step(x, labels)["loss"]), 2)
-    if prof is None:
-        log("  profile classifier step: no device time recorded")
-    else:
-        log("  profile classifier step: wall %.3f ms, device %.3f ms (busy "
-            "%.0f%%); top kernels: %s" % (
-                prof["wall_ms"], prof["device_ms"], 100 * prof["busy_share"],
-                "; ".join("%s %.3f ms x%g" % (r["kernel"][:40], r["ms"],
-                                              r["launches"])
-                          for r in prof["top"][:6])))
-        log("  classifier step device time by class: %s" % "; ".join(
-            "%s %.3f ms" % kv for kv in sorted(
-                prof["by_class"].items(), key=lambda kv: -kv[1])))
     conv1 = _conv1_both_ways(torch, trainer, x)
-    del trainer, x, labels, many
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    d_captured, d_eager = _classifier_compare(torch, dev, specs, params, x,
+                                              labels)
+    log("  captured against eager after %d steps, cuDNN deterministic: "
+        "losses and params and momentum differ by at most %.3e; two eager "
+        "runs by %.3e (the bound) [%s]" % (CLASSIFIER_COMPARED, d_captured,
+                                           d_eager, card))
+    if not d_captured <= d_eager:
+        raise AssertionError("captured differs from eager by %.3e, two "
+                             "eager runs by %.3e" % (d_captured, d_eager))
+    launches = counters.read()
+    del x, labels
     return dict(batch=b, n_params=n_params, hyper=CLASSIFIER_HYPER,
-                setup_s=setup_s, step_ms=step_ms, timed_steps=n_timed,
-                step_many_k=k_many, step_many_ms_per_step=many_ms,
+                setup_s=setup_s, step_ms=step_ms,
+                timed_steps=CLASSIFIER_TIMED, step_many_k=CLASSIFIER_MANY,
+                step_many_ms_per_step=captured["step_many_ms_per_step"],
                 images_per_s=images_per_s, fwd_flops_per_image=fwd_flops,
                 model_tflops=step_flops / step_ms / 1e9,
-                peak_mem_bytes=peak, losses=losses,
-                launches_one_step=one_step,
-                launches_predict=predict_launches, profile=prof,
+                peak_mem_bytes=captured["peak_mem_bytes"], losses=losses,
+                eager_losses=eager_losses,
+                launches_one_step=captured["launches_one_step"],
+                launches_predict=predict_launches,
+                profile=captured["profile"], legs=legs,
+                captured_vs_eager=d_captured, eager_vs_eager=d_eager,
                 conv1=conv1), launches
 
 
@@ -3042,10 +3226,15 @@ def classifier_parity_phase(torch, dev):
                                    kernel_impl=impl, device=dev,
                                    **CLASSIFIER_HYPER)
         x0, y0 = batches[0]
-        loss, _ = _loss_fn(t.specs, True, t.params, x0, y0,
-                           fold_in(t.dropout_seed, 1), t.compute_dtype, impl)
+        loss, logits = _loss_fn(t.specs, True, t.params, x0, y0,
+                                fold_in(t.dropout_seed, 1), t.compute_dtype,
+                                impl)
         grads = [g.detach() for g in torch.autograd.grad(
             loss, _leaves(t.params))]
+        # the first step captures its own backward: an autograd graph
+        # over the params left alive here would tie the capture to the
+        # stream this one ran on (a capture error)
+        del loss, logits
         losses = [float(t.step(x, y)["loss"]) for x, y in batches]
         runs[impl] = (losses, grads, _leaves(t.params))
         del t
@@ -4279,7 +4468,8 @@ PIPE_IMAGE = (224, 224, 3)
 #: minibatch of the flagship's images, InputJoiner of its output and a
 #: [rows, 1000] block
 PIPE_UNIT_ROWS = 64
-PIPE_LEGS = ("resident", "pipeline", "overlap-fused", "overlap-prefetch")
+PIPE_LEGS = ("resident", "pipeline", "overlap-fused", "overlap-prefetch",
+             "resident-eager", "pipeline-eager")
 
 
 def _synth_images(batch, seed, device):
@@ -4314,12 +4504,12 @@ def _synth_images(batch, seed, device):
     return loader
 
 
-def _pipe_trainer(dev):
+def _pipe_trainer(dev, **kw):
     from veles_tpu_torch.models import flagship
     from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
     specs, params, fwd_flops = flagship.alexnet_fused()
     return FusedClassifierTrainer(specs, params, device=dev,
-                                  **CLASSIFIER_HYPER), fwd_flops
+                                  **CLASSIFIER_HYPER, **kw), fwd_flops
 
 
 def _leg_window(torch, dispatch, n_dispatch, k):
@@ -4471,9 +4661,10 @@ def pipeline_phase(torch, counters, dev, card):
     log("phase 16: the flagship's input pipeline: AlexNet (1000 classes, "
         "%s, seed 0), batch %d, bf16, %s; uint8 synthetic images, 2 x %d "
         "a loader, range_linear; %d interleaved windows of %d steps a leg, "
-        "K = %d, prefetch depth %d" % (" x ".join(map(str, PIPE_IMAGE)), b,
-                                       CLASSIFIER_HYPER, b, PIPE_WINDOWS,
-                                       PIPE_STEPS, PIPE_K, PIPE_DEPTH))
+        "K = %d, prefetch depth %d; the resident and K = 1 loader legs also "
+        "on an eager trainer (cuda_graphs=False)" % (
+            " x ".join(map(str, PIPE_IMAGE)), b, CLASSIFIER_HYPER, b,
+            PIPE_WINDOWS, PIPE_STEPS, PIPE_K, PIPE_DEPTH))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -4492,6 +4683,9 @@ def pipeline_phase(torch, counters, dev, card):
     pipe_step = trainer.make_loader_step(pipe_loader)
     fused_k = trainer.make_loader_step(fused_loader,
                                        steps_per_dispatch=PIPE_K)
+    eager, _ = _pipe_trainer(dev, cuda_graphs=False)
+    eager_loader = _synth_images(b, 2, Device())
+    eager_step = eager.make_loader_step(eager_loader)
     server = PrefetchingServer(
         ring_loader, depth=PIPE_DEPTH,
         transform=lambda d: d.to(trainer.compute_dtype)).start()
@@ -4508,9 +4702,18 @@ def pipeline_phase(torch, counters, dev, card):
         return trainer.step_many([bt.data for bt in batches],
                                  [bt.labels for bt in batches])
 
+    def resident_eager():
+        return eager.step(xd, ld)
+
+    def pipeline_eager():
+        eager_loader.run()
+        return eager_step()
+
     dispatches = {"resident": (resident, 1), "pipeline": (pipeline, 1),
                   "overlap-fused": (fused_k, PIPE_K),
-                  "overlap-prefetch": (prefetched, PIPE_K)}
+                  "overlap-prefetch": (prefetched, PIPE_K),
+                  "resident-eager": (resident_eager, 1),
+                  "pipeline-eager": (pipeline_eager, 1)}
     try:
         for fn, _ in dispatches.values():          # warm every leg
             fn()
@@ -4521,22 +4724,23 @@ def pipeline_phase(torch, counters, dev, card):
         del staged
         setup_s = time.monotonic() - t0
         one = {}
-        for name in ("pipeline", "overlap-fused"):
+        for name in ("pipeline", "overlap-fused", "pipeline-eager"):
             fn, k = dispatches[name]
             before = counters.read()
             fn()
             torch.cuda.synchronize()
             one[name] = {kk: v for kk, v in counters.delta(before).items()
                          if v}
-        expect = {"pipeline": {"lrn_fwd": 2, "lrn_bwd": 2,
-                               "uniform_fill": 2},
-                  "overlap-fused": {"lrn_fwd": 2 * PIPE_K,
-                                    "lrn_bwd": 2 * PIPE_K,
-                                    "uniform_fill": 2 * PIPE_K}}
-        log("  launches around one K = 1 loader step: %s; around one K = %d "
-            "dispatch: %s (need exactly %s and %s)" % (
+        expect = {"pipeline": CLASSIFIER_STEP,
+                  "overlap-fused": {kk: PIPE_K * v for kk, v in
+                                    CLASSIFIER_STEP.items()},
+                  "pipeline-eager": CLASSIFIER_STEP}
+        log("  launches around one K = 1 loader step (a replay): %s; around "
+            "one K = %d dispatch: %s; around an eager K = 1 loader step: %s "
+            "(need exactly %s, %s and %s)" % (
                 one["pipeline"], PIPE_K, one["overlap-fused"],
-                expect["pipeline"], expect["overlap-fused"]))
+                one["pipeline-eager"], expect["pipeline"],
+                expect["overlap-fused"], expect["pipeline-eager"]))
         if one != expect:
             raise AssertionError("loader-step launches %s != %s"
                                  % (one, expect))
@@ -4575,7 +4779,7 @@ def pipeline_phase(torch, counters, dev, card):
         raise AssertionError("prefetch threads left: %s" % leaked)
     peak = torch.cuda.max_memory_allocated()
     gather_ms = device_ms(lambda: pipe_loader.gather(0, b), 3)
-    window = pipe_loader._window(0, b)
+    window = pipe_loader._perm_dev_[:b]
     rows = pipe_loader._dataset_dev_.index_select(0, window)
     index_ms = device_ms(
         lambda: pipe_loader._dataset_dev_.index_select(0, window), 3)
@@ -4598,6 +4802,17 @@ def pipeline_phase(torch, counters, dev, card):
             "%.3f ms over %d steps [%s]" % (
                 name, b * 1e3 / best, best, b * 1e3 / mean, mean, st["p50"],
                 st["p99"], st["max"], len(walls[name]), card))
+    log("  captured against eager at batch %d: resident %.1f against %.1f "
+        "images/s (%.4fx), the K = 1 loader step %.1f against %.1f (%.4fx), "
+        "best windows [%s]" % (
+            b, legs["resident"]["images_per_s_best"],
+            legs["resident-eager"]["images_per_s_best"],
+            legs["resident"]["images_per_s_best"] /
+            legs["resident-eager"]["images_per_s_best"],
+            legs["pipeline"]["images_per_s_best"],
+            legs["pipeline-eager"]["images_per_s_best"],
+            legs["pipeline"]["images_per_s_best"] /
+            legs["pipeline-eager"]["images_per_s_best"], card))
     res = legs["resident"]["images_per_s_best"]
     ratios = dict(
         pipeline_vs_resident=legs["pipeline"]["images_per_s_best"] / res,
@@ -4641,10 +4856,11 @@ def pipeline_phase(torch, counters, dev, card):
         "%s %s" % (name, ", ".join("%.4f" % v for v in ls))
         for name, ls in losses.items()))
     if not all(np.isfinite(v) for ls in losses.values() for v in ls) or \
-            trainer.nonfinite_count:
+            trainer.nonfinite_count or eager.nonfinite_count:
         raise AssertionError("non-finite pipeline losses: %s" % losses)
     del trainer, xd, ld, pipe_loader, fused_loader, ring_loader, server
-    del dispatches, pipe_step, fused_k, last
+    del dispatches, pipe_step, fused_k, last, eager, eager_loader
+    del eager_step
     gc.collect()
     parity = _pipeline_parity(torch, dev, b)
     units = _pipeline_units(torch)
@@ -5227,7 +5443,7 @@ STATE_LM_STEP = {"flash_fwd": 2 * STATE_LM_LAYERS,
                  "flash_bwd_dkv": STATE_LM_LAYERS,
                  "flash_bwd_dq": STATE_LM_LAYERS}
 STATE_LM_VALID = {"flash_fwd": STATE_LM_LAYERS}
-STATE_FUSED_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "uniform_fill": 2}
+STATE_FUSED_STEP = CLASSIFIER_STEP
 #: the JAX package's own bound on a resumed run's params
 #: (tests/test_snapshot.py), held where they are not bitwise
 RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6
@@ -5590,6 +5806,7 @@ def state_fused_phase(torch, counters, dev, card, fused, graph):
     wf.initialize(device=Device())
     mbs = wf.loader.max_minibatch_size
     steps, counts = [], []
+    sink = [steps]      # where timed_step records: the captured run's
     step, count = (FusedClassifierTrainer.step,
                    FusedClassifierTrainer.count_errors)
 
@@ -5599,7 +5816,7 @@ def state_fused_phase(torch, counters, dev, card, fused, graph):
         start.record()
         out = step(trainer, x, labels)
         end.record()
-        steps.append((start, end, _nonzero(counters.delta(before))))
+        sink[0].append((start, end, _nonzero(counters.delta(before))))
         return out
 
     def recording(trainer, x, labels):
@@ -5616,7 +5833,8 @@ def state_fused_phase(torch, counters, dev, card, fused, graph):
     finally:
         FusedClassifierTrainer.step = step
         FusedClassifierTrainer.count_errors = count
-    for _, _, launches in steps:
+    # the first step captures: its warm-ups launch for real
+    for _, _, launches in steps[1:]:
         if launches != STATE_FUSED_STEP:
             raise AssertionError("a train_fused step launched %s, not %s"
                                  % (launches, STATE_FUSED_STEP))
@@ -5625,10 +5843,11 @@ def state_fused_phase(torch, counters, dev, card, fused, graph):
     images_per_s = mbs * 1e3 / p50
     n_valid_mb = -(-wf.loader.class_lengths[1] // mbs)
     last_valid = sum(counts[-n_valid_mb:])
-    log("  train_fused: %s in %.1f s; %d steps, device ms per step p50 %.3f"
-        " (the first excluded) -> %.1f images/s, against phase 14's unit "
-        "graph %.1f and phase 9's fused step %.1f images/s; launches a "
-        "step %s; the closing VALID sweep %d errors of %d [%s]"
+    log("  train_fused (captured): %s in %.1f s; %d steps, device ms per "
+        "step p50 %.3f (the first, which captures, excluded) -> %.1f "
+        "images/s, against phase 14's unit graph %.1f and phase 9's fused "
+        "step %.1f images/s; launches a step %s; the closing VALID sweep "
+        "%d errors of %d [%s]"
         % (result, run_s, len(steps), p50, images_per_s,
            graph["images_per_s"], fused["images_per_s"],
            STATE_FUSED_STEP, last_valid, wf.loader.class_lengths[1], card))
@@ -5701,6 +5920,27 @@ def state_fused_phase(torch, counters, dev, card, fused, graph):
         server.stop()
     check("POST /apply on the restored engine vs apply (absolute)",
           float(np.abs(answer - got[:2]).max()), TOL_APPLY)
+    # the workflow trained on eagerly for as many more epochs: the
+    # captured steps' rate against the eager ones' at minibatch 128
+    eager_steps = []
+    sink[0] = eager_steps
+    FusedClassifierTrainer.step = timed_step
+    try:
+        train_fused(wf, max_epochs=2 * UG_EPOCHS, cuda_graphs=False)
+        torch.cuda.synchronize()
+    finally:
+        FusedClassifierTrainer.step = step
+    for _, _, launches in eager_steps:
+        if launches != STATE_FUSED_STEP:
+            raise AssertionError("an eager train_fused step launched %s, "
+                                 "not %s" % (launches, STATE_FUSED_STEP))
+    eager_ms = [s.elapsed_time(e) for s, e, _ in eager_steps]
+    eager_p50 = float(np.percentile(eager_ms[1:], 50))
+    log("  train_fused at minibatch %d, device ms per step p50 (the first "
+        "excluded): captured %.3f (%.1f images/s) against eager %.3f (%.1f "
+        "images/s), %d and %d steps: %.4fx [%s]"
+        % (mbs, p50, images_per_s, eager_p50, mbs * 1e3 / eager_p50,
+           len(steps), len(eager_steps), eager_p50 / p50, card))
     peak = torch.cuda.max_memory_allocated()
     wf.thread_pool.shutdown()
     del wf, live, restored, registry
@@ -5709,6 +5949,8 @@ def state_fused_phase(torch, counters, dev, card, fused, graph):
     shutil.rmtree(snapdir, ignore_errors=True)
     return dict(result=result, run_s=run_s, steps=len(steps),
                 step_ms=step_ms, step_p50_ms=p50, images_per_s=images_per_s,
+                eager_step_ms=eager_ms, eager_step_p50_ms=eager_p50,
+                eager_images_per_s=mbs * 1e3 / eager_p50,
                 graph_images_per_s=graph["images_per_s"],
                 fused_images_per_s=fused["images_per_s"],
                 launches_step=STATE_FUSED_STEP, last_valid_errors=last_valid,
@@ -6232,7 +6474,9 @@ def mesh_rank(rank, plan):
 def nccl_rank(rank, plan):
     """(e): (a)'s data-parallel steps over NCCL with one rank, against
     the unsharded steps in this process, bitwise (two steps each, the
-    second timed)."""
+    second timed). A one-rank mesh is the one device to the classifier
+    trainer: both trainers capture their step, which ``captured``
+    reports."""
     import torch
 
     from veles_tpu_torch.models.flagship import alexnet_fused
@@ -6265,10 +6509,12 @@ def nccl_rank(rank, plan):
             _mesh_sync(torch, dev)
             ms.append((time.monotonic() - t0) * 1e3)
         runs[key] = (losses, [v.detach().clone() for p in t.params
-                              for v in p.values()], ms[-1])
+                              for v in p.values()], ms[-1],
+                     len(t._graphs))
         del t
-    (lu, pu, ms_u), (ln, pn, ms_n) = runs["unsharded"], runs["nccl"]
+    (lu, pu, ms_u, gu), (ln, pn, ms_n, gn) = runs["unsharded"], runs["nccl"]
     return dict(backend=mesh.backend, losses=(lu, ln), ms=(ms_u, ms_n),
+                captured=(gu, gn),
                 bitwise=all(torch.equal(a, b) for a, b in zip(pu, pn)),
                 staged=sum(collectives.STAGED_BYTES.values()),
                 launches=counters.delta(compared))
@@ -6360,7 +6606,7 @@ def mesh_phase(torch, dev, card, plan=None):
                bf16_floor=floor,
                one_rank_lm_ms=lm_ms, one_rank_lm_losses=lm_one,
                one_rank_moe_losses=moe_one, ranks=ranks, nccl=nccl)
-    expect_cls = {"lrn_fwd": 2, "lrn_bwd": 2, "uniform_fill": 2}
+    expect_cls = CLASSIFIER_STEP
     layers = full["layers"]
     for rank, r in enumerate(ranks):
         log("  rank %d on %s:" % (rank, r["device"]))
@@ -6422,13 +6668,15 @@ def mesh_phase(torch, dev, card, plan=None):
         check("(d) pipeline loss vs reference_loss_fn (relative)",
               abs(leg["loss"] - leg["ref"]) / abs(leg["ref"]), TOL_MESH_PIPE)
     if nccl is not None:
-        log("  (e) NCCL world 1 (%s): second step %.1f ms vs unsharded "
-            "%.1f ms, losses %s, staged bytes %d, params bitwise the "
-            "unsharded steps: %s [%s]" % (nccl["backend"], nccl["ms"][1], nccl["ms"][0],
-                               nccl["losses"], nccl["staged"],
-                               nccl["bitwise"], card))
+        log("  (e) NCCL world 1 (%s): a one-rank mesh runs the one-device "
+            "step, captured (graphs: unsharded %d, NCCL %d); second step "
+            "%.1f ms vs unsharded %.1f ms, losses %s, staged bytes %d, "
+            "params bitwise the unsharded steps: %s [%s]"
+            % (nccl["backend"], nccl["captured"][0], nccl["captured"][1],
+               nccl["ms"][1], nccl["ms"][0], nccl["losses"], nccl["staged"],
+               nccl["bitwise"], card))
         if nccl["backend"] != "nccl" or not nccl["bitwise"] or \
-                nccl["staged"]:
+                nccl["staged"] or nccl["captured"] != (1, 1):
             raise AssertionError("(e) NCCL at world 1: %s" % (nccl,))
     launches = {}
     for r in ranks + ([nccl] if nccl is not None else []):
@@ -7865,8 +8113,7 @@ AOT_TIMEOUT_S = 600
 AOT_LM_LAYERS = 2
 AOT_LM_TALLY = {"flash_fwd": 2 * AOT_LM_LAYERS,
                 "flash_bwd_dkv": AOT_LM_LAYERS, "flash_bwd_dq": AOT_LM_LAYERS}
-AOT_MLP_TALLY = {"lrn_fwd": 2 * AOT_K, "lrn_bwd": 2 * AOT_K,
-                 "uniform_fill": 2 * AOT_K}
+AOT_MLP_TALLY = {kk: AOT_K * v for kk, v in CLASSIFIER_STEP.items()}
 #: eager warm-up calls before each capture (``graphs.StepGraph.WARMUP``)
 AOT_CAPTURE_WARMUP = 2
 
@@ -8320,12 +8567,16 @@ def _aot_trainers(torch, dev, card, cache, out):
             mlp_rec["launches"] != AOT_MLP_TALLY:
         raise AssertionError("(d) records %s / %s" % (lm_rec["launches"],
                                                       mlp_rec["launches"]))
+    if not (lm_rec["captured"] and mlp_rec["captured"]):
+        raise AssertionError("(d) a trainer's dispatch ran eagerly: %s / %s"
+                             % (lm_rec, mlp_rec))
     log("  (d) lm_step_many and mlp_step_many (K = %d) under a plan: losses "
         "and state bitwise the unplanned dispatch's; records: LM replay %s "
-        "(captured %s), AlexNet dispatch %s (eager), kernels %s [%s]"
-        % (AOT_K, lm_rec["launches"], lm_rec["captured"],
-           mlp_rec["launches"], sorted(set(lm_rec["kernels"]) |
-                                       set(mlp_rec["kernels"])), card))
+        "(captured %s), AlexNet dispatch of %d replays %s (captured %s), "
+        "kernels %s [%s]"
+        % (AOT_K, lm_rec["launches"], lm_rec["captured"], AOT_K,
+           mlp_rec["launches"], mlp_rec["captured"],
+           sorted(set(lm_rec["kernels"]) | set(mlp_rec["kernels"])), card))
     out["d_trainers"] = dict(lm_record=lm_rec, mlp_record=mlp_rec,
                              s={str(k): v["s"] for k, v in runs.items()})
     del runs, plain, planned, xs, tokens

@@ -782,7 +782,8 @@ def test_classifier_step_kernels_match_plain(cuda):
     power differs by a few f32 ulps (base-2 log and exp on the
     special-function unit), so the losses and the
     updated params agree to 1e-5 of their scale; the launches are two
-    of K6, two of K7 and one of K8 per step."""
+    of K6, two of K7 and one of K8 per step (an eager step: a captured
+    one's first call also runs the capture's warm-ups)."""
     from veles_tpu_torch.models.flagship import fused_from_layer_dicts
     from veles_tpu_torch.ops import lrn, rng
     from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
@@ -808,20 +809,59 @@ def test_classifier_step_kernels_match_plain(cuda):
         t = FusedClassifierTrainer(specs, params, learning_rate=0.01,
                                    momentum=0.9, weight_decay=5e-4,
                                    compute_dtype="float32",
-                                   kernel_impl=impl, device=cuda)
+                                   kernel_impl=impl, device=cuda,
+                                   cuda_graphs=False)
         lrn.reset_launches()
         rng.reset_launches()
         loss = float(t.step(x, y)["loss"])
         launches = dict(lrn.LAUNCHES, **rng.LAUNCHES)
         runs[impl] = (loss, t.params_numpy(), launches)
     (lk, pk, nk), (lp, pp, np_) = runs["cuda"], runs["plain"]
-    assert nk == {"lrn_fwd": 2, "lrn_bwd": 2, "uniform_fill": 1}
+    assert nk == {"lrn_fwd": 2, "lrn_bwd": 2, "uniform_fill": 1,
+                  "uniform_fill_keyed": 1}
     assert set(np_.values()) == {0}
     assert abs(lk - lp) <= 1e-5 * abs(lp)
     for a, b in zip(pk, pp):
         for key in a:
             assert np.abs(a[key] - b[key]).max() <= \
                 1e-5 * max(np.abs(b[key]).max(), 1e-30)
+
+
+@pytest.mark.parametrize("shape", [(1,), (7, 3), (1536, 4096),
+                                   (4 * 33 * 256 + 3,)])
+@pytest.mark.parametrize("fold", [None, 0, 7, 2 ** 32 + 3])
+def test_keyed_fill_kernel_equals_plain_and_by_value_bitwise(cuda, shape,
+                                                             fold):
+    """K8's keyed entry reads the key from device memory and folds the
+    layer in there: bitwise its plain version (tensor arithmetic on the
+    same key tensor) and the by-value entry under the host-folded key,
+    one launch a call."""
+    from veles_tpu_torch.ops import rng
+    for seed in (0, 2 ** 32 + 12345, 2 ** 63 + 5):
+        key = rng.key_tensor(seed, cuda)
+        host = seed if fold is None else rng.fold_in(seed, fold)
+        rng.reset_launches()
+        out = rng.uniform_fill(key, shape, fold=fold)
+        assert rng.LAUNCHES == {"uniform_fill": 1, "uniform_fill_keyed": 1}
+        assert torch.equal(out, rng.uniform_fill(key, shape, fold=fold,
+                                                 impl="plain"))
+        assert torch.equal(out, rng.uniform_fill(host, shape, device=cuda))
+
+
+def test_keyed_fill_replays_read_the_rewritten_key(cuda):
+    """A captured keyed fill replays with the key written before each
+    replay, where a by-value key would repeat the captured masks."""
+    from veles_tpu_torch.graphs import StepGraph
+    from veles_tpu_torch.ops import rng
+    key = rng.key_tensor(3, cuda)
+    graph = StepGraph(lambda: rng.uniform_fill(key, (1536, 4096), fold=5))
+    for seed in (3, 4, 2 ** 63 + 1):
+        rng.write_key(key, seed)
+        rng.reset_launches()
+        out = graph.replay().clone()
+        assert rng.LAUNCHES == {"uniform_fill": 1, "uniform_fill_keyed": 1}
+        assert torch.equal(out, rng.uniform_fill(rng.fold_in(seed, 5),
+                                                 (1536, 4096), device=cuda))
 
 
 # ---------------------------------------------------------------------------
@@ -944,6 +984,129 @@ def test_train_step_graph_equals_eager(cuda, moe):
     assert all(torch.equal(a, b) for a, b in zip(pg, pe))
     assert ng == 1 and ne == 0
     assert bool(torch.isfinite(lg).all()) and float(lg[-1]) < float(lg[0])
+
+
+#: a small conv + LRN + dropout + FC stack: the flagship's layer kinds,
+#: so a step launches 2 K6, 2 K7 and 1 K8
+GRAPH_CLASSIFIER = [
+    {"type": "conv_relu", "n_kernels": 16, "kx": 5, "sliding": (2, 2),
+     "padding": 2},
+    {"type": "lrn"},
+    {"type": "max_pooling", "kx": 3, "sliding": (2, 2)},
+    {"type": "conv_relu", "n_kernels": 96, "kx": 3, "padding": 1},
+    {"type": "lrn"},
+    {"type": "max_pooling", "kx": 3, "sliding": (2, 2)},
+    {"type": "all2all_relu", "output_sample_shape": 64},
+    {"type": "dropout", "dropout_ratio": 0.5},
+    {"type": "softmax", "output_sample_shape": 10}]
+
+
+def _graph_classifier(device, **kw):
+    from veles_tpu_torch.models.flagship import fused_from_layer_dicts
+    from veles_tpu_torch.parallel.fused import FusedClassifierTrainer
+    specs, params, _ = fused_from_layer_dicts(GRAPH_CLASSIFIER, (32, 32, 3))
+    return FusedClassifierTrainer(specs, params, learning_rate=0.01,
+                                  momentum=0.9, weight_decay=5e-4,
+                                  device=device, **kw)
+
+
+def _classifier_state(trainer):
+    return [v.detach().clone() for p in trainer.params + trainer.velocity
+            for v in p.values()]
+
+
+def _max_diff(a, b):
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def _assert_captured_like_eager(runs):
+    """Captured against eager: bitwise, or where two eager runs already
+    differ (a nondeterministic cuDNN backward), within their
+    difference (the bound ``chip_smoke.py`` phase 9 holds)."""
+    cap, eager, again = (runs[k][0] + runs[k][1]
+                         for k in ("captured", "eager", "again"))
+    bound = _max_diff(eager, again)
+    assert _max_diff(cap, eager) <= bound, (_max_diff(cap, eager), bound)
+
+
+@pytest.mark.parametrize("mode", ["step", "step_many", "lr_policy"])
+def test_classifier_graph_equals_eager(deterministic, mode):
+    """5 bf16 steps of the small stack, captured (the default on the
+    card) and eager: ``step`` alone, ``step_many`` at K = 3 then 2, and
+    steps under an lr policy that changes every step with a momentum
+    change before the fourth; the same losses and state, one capture,
+    none eagerly."""
+    cuda = deterministic
+    data = np.random.default_rng(3)
+    xs = torch.from_numpy(data.random((5, 8, 32, 32, 3),
+                                      dtype=np.float32)).to(cuda)
+    ys = torch.from_numpy(data.integers(0, 10, (5, 8))).to(cuda)
+    kw = dict(lr_policy=lambda base, epoch, step: base / step) \
+        if mode == "lr_policy" else {}
+    runs = {}
+    for name, graphs in (("captured", None), ("eager", False),
+                         ("again", False)):
+        t = _graph_classifier(cuda, cuda_graphs=graphs, **kw)
+        if mode == "step_many":
+            losses = torch.cat([t.step_many(xs[:3], ys[:3])["loss"],
+                                t.step_many(xs[3:], ys[3:])["loss"]])
+        else:
+            losses = []
+            for i in range(5):
+                if i == 3 and mode == "lr_policy":
+                    t.momentum = 0.5
+                losses.append(t.step(xs[i], ys[i])["loss"])
+            losses = torch.stack(losses)
+        assert len(t._graphs) == (1 if graphs is None else 0)
+        runs[name] = ([losses], _classifier_state(t))
+    _assert_captured_like_eager(runs)
+    losses = runs["captured"][0][0]
+    assert bool(torch.isfinite(losses).all())
+
+
+def test_classifier_replay_counts_an_eager_steps_launches(cuda):
+    """Around one replay the counters rise as around one eager step: 2
+    K6, 2 K7 and 1 K8 (the capture's warm-ups launched for real and
+    were counted then); the keyed K8 is what the graph replays."""
+    from veles_tpu_torch.ops import lrn, rng
+    x = torch.rand((8, 32, 32, 3), device=cuda)
+    y = torch.randint(0, 10, (8,), device=cuda)
+    counts = {}
+    for graphs in (None, False):
+        t = _graph_classifier(cuda, cuda_graphs=graphs)
+        t.step(x, y)                               # the capture
+        torch.cuda.synchronize()
+        lrn.reset_launches()
+        rng.reset_launches()
+        t.step(x, y)
+        torch.cuda.synchronize()
+        counts[graphs] = dict(lrn.LAUNCHES, **rng.LAUNCHES)
+        if graphs is None:
+            graph, = t._graphs.values()
+            assert graph.tally() == counts[None]
+    assert counts[None] == counts[False] == \
+        {"lrn_fwd": 2, "lrn_bwd": 2, "uniform_fill": 1,
+         "uniform_fill_keyed": 1}
+
+
+def test_classifier_eager_step_never_syncs_the_host(cuda):
+    """An eager step after a warm one, under ``set_sync_debug_mode(
+    "error")``: nothing in it reads the card, so a capture of it holds
+    no sync (nan_policy="skip": the sentinel never reads)."""
+    t = _graph_classifier(cuda, cuda_graphs=False, nan_policy="skip")
+    x = torch.rand((8, 32, 32, 3), device=cuda)
+    y = torch.randint(0, 10, (8,), device=cuda)
+    t.step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = t.step(x, y)
+        many = t.step_many(x[None].expand(2, *x.shape),
+                           y[None].expand(2, 8))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(out["loss"])) and many["loss"].shape == (2,)
 
 
 def test_capture_outlasts_a_dead_cycle_holding_a_graph(cuda):
@@ -1605,6 +1768,38 @@ def test_loader_steps_never_sync_the_host(cuda):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert bool(torch.isfinite(out["loss"]).all())
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_loader_step_graph_equals_eager(deterministic, k):
+    """The loader step captured against eager over 12 steps at K = 1 and
+    K = 4: 37 images in windows of 16, 16 and a short 5 (two graphs), a
+    reshuffle every epoch (inside each K = 4 dispatch, after windows of
+    the epoch before were taken) and a re-upload of the dataset between
+    two dispatches (the graphs captured anew); the same losses and
+    state."""
+    cuda = deterministic
+    runs = {}
+    for name, graphs in (("captured", None), ("eager", False),
+                         ("again", False)):
+        from veles_tpu_torch import prng
+        prng.reset()
+        trainer = _pipe_trainer(cuda, cuda_graphs=graphs)
+        loader = _pipe_loader(cuda, n=37)
+        loader.shuffle_limit = 10
+        step = trainer.make_loader_step(loader, steps_per_dispatch=k)
+        fresh = np.random.default_rng(5).integers(
+            0, 256, (37, PIPE_IMAGE, PIPE_IMAGE, 3), dtype=np.uint8)
+        losses = []
+        for d in range(12 // k):
+            if d == 6 // k:
+                loader._dataset_dev_ = loader.device.put(fresh)
+            if k == 1:
+                loader.run()
+            losses.extend(step()["loss"].reshape(-1))
+        runs[name] = ([torch.stack(losses)], _classifier_state(trainer))
+    _assert_captured_like_eager(runs)
+    assert bool(torch.isfinite(runs["captured"][0][0]).all())
 
 
 def test_prefetch_ring_feeds_step_many_like_the_sequential_path(

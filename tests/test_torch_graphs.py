@@ -63,6 +63,10 @@ ENTRY_POINTS = {
                                                   **kw),
     "forward": lambda **kw: InferenceEngine(lambda p, x: x, [],
                                             device="cpu", **kw),
+    "classifier": lambda **kw: FusedClassifierTrainer(
+        (("fc", "softmax"),), [{"w": np.eye(3, dtype=np.float32),
+                                "b": np.zeros(3, np.float32)}],
+        device="cpu", **kw),
 }
 
 

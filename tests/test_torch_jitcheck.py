@@ -109,6 +109,43 @@ def test_vj001_host_control_flow_is_clean():
     assert not check_source(src)
 
 
+def test_vj001_conditional_expression_on_a_tensor_in_a_capture():
+    src = textwrap.dedent("""
+        import torch
+        from veles_tpu_torch.graphs import StepGraph
+
+        class Step:
+            def __init__(self):
+                self.graph = StepGraph(self._body)
+
+            def _body(self, x):
+                m = x.max()
+                y = x / m if m > 0 else x
+                return y * 2 if (y < 0).any() else y
+    """)
+    findings = check_source(src)
+    assert [(f.rule, f.line) for f in findings] == [("VJ001", 11),
+                                                   ("VJ001", 12)]
+    assert "if-else" in findings[0].message
+
+
+def test_vj001_identity_test_of_a_tensor_name_is_clean():
+    # ``n`` is bound to a tensor below, and ``is None`` reads no value
+    src = textwrap.dedent("""
+        import torch
+        from veles_tpu_torch.graphs import StepGraph
+
+        def body(x, n=None):
+            if n is None:
+                n = x.sum().clamp_min(1)
+            scale = 1.0 if n is not None else 0.0
+            return x / n * scale
+
+        g = StepGraph(body)
+    """)
+    assert not check_source(src)
+
+
 # ---------------------------------------------------------------------------
 # VJ002
 # ---------------------------------------------------------------------------

@@ -20,11 +20,13 @@ registry's computations actually dispatch — lives in
 Rules:
 
 =======  ============================================================
-VJ001    Python ``if``/``while``/``assert`` on a tensor inside a
-         capture root: the test reads a device value (a sync, which
-         raises during the capture on the card), or the capture bakes
-         the one branch it took into every replay. Checked
-         interprocedurally over the capture surface.
+VJ001    Python ``if``/``while``/``assert`` or a conditional
+         expression (``a if t else b``) on a tensor inside a capture
+         root: the test reads a device value (a sync, which raises
+         during the capture on the card), or the capture bakes the one
+         branch it took into every replay. An identity test (``x is
+         None``) reads no value. Checked interprocedurally over the
+         capture surface.
 VJ002    a captured method reads ``self.X`` that some OTHER method
          rebinds after ``__init__``: the graph keeps the address of
          the tensor the capture saw, and every replay reads (or
@@ -96,9 +98,9 @@ _CTOR_METHODS = {"__init__", "init_unpickled", "__post_init__"}
 def _check_vj001(fn: Function, findings: List[Finding]) -> None:
     names = tensor_names(fn.node)
     for node in ast.walk(fn.node):
-        if isinstance(node, (ast.If, ast.While)):
-            test, kind = node.test, \
-                "if" if isinstance(node, ast.If) else "while"
+        if isinstance(node, (ast.If, ast.While, ast.IfExp)):
+            test, kind = node.test, {ast.If: "if", ast.While: "while",
+                                     ast.IfExp: "if-else"}[type(node)]
         elif isinstance(node, ast.Assert):
             test, kind = node.test, "assert"
         else:

@@ -465,8 +465,9 @@ def tensor_names(fn_node: ast.AST) -> Set[str]:
 def is_tensor_expr(expr: ast.AST, names: Set[str]) -> bool:
     """Does ``expr`` evaluate to a tensor? A ``torch.*`` call (not one
     that returns host values), a tensor reduction method, arithmetic,
-    indexing or comparison of one, or a name bound to one. Shape,
-    dtype and size reads are host metadata."""
+    indexing or comparison of one (not an identity test, ``is``), or a
+    name bound to one. Shape, dtype and size reads are host
+    metadata."""
     if isinstance(expr, ast.Call):
         func = expr.func
         if isinstance(func, ast.Attribute):
@@ -498,6 +499,8 @@ def is_tensor_expr(expr: ast.AST, names: Set[str]) -> bool:
     if isinstance(expr, ast.UnaryOp):
         return is_tensor_expr(expr.operand, names)
     if isinstance(expr, ast.Compare):
+        if all(isinstance(op, (ast.Is, ast.IsNot)) for op in expr.ops):
+            return False        # an identity test reads no tensor
         return is_tensor_expr(expr.left, names) or any(
             is_tensor_expr(c, names) for c in expr.comparators)
     if isinstance(expr, ast.BoolOp):

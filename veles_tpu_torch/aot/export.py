@@ -255,6 +255,7 @@ def _fused_trainer_payload(trainer) -> Dict[str, Any]:
         "kernel_impl": trainer.kernel_impl,
         "mesh": _mesh_shape(trainer.mesh),
         "tensor_parallel": bool(trainer.tensor_parallel),
+        "cuda_graphs": bool(trainer._graphs_on),
     }
 
 

@@ -36,10 +36,12 @@ its public entry point.
 - ``paged_copy``: the copy-on-write page copy (eager);
 - ``lm_step_many``: ``TransformerTrainer``'s step, captured per token
   shape and replayed K times a ``step_many``;
-- ``mlp_step_many``: ``FusedClassifierTrainer.step_many`` (eager: the
-  dropout key rides by value, ROADMAP.md lever 1a);
+- ``mlp_step_many``: ``FusedClassifierTrainer.step_many``, its step
+  captured per batch shape and replayed K times a dispatch (the
+  dropout key, learning rate and rates read from device scalars);
 - ``loader_step_many``: ``make_loader_step``'s gather + normalize +
-  train dispatch (eager).
+  train dispatch, captured per window kind (full, short) and replayed
+  K times.
 """
 
 from __future__ import annotations
@@ -330,17 +332,21 @@ def canonical_computations() -> List[Computation]:
                   "and backward (22) and of the score tiles (8)"),
         Computation(
             "mlp_step_many", _build_mlp_step_many,
-            "parallel/fused.py:FusedClassifierTrainer.step_many",
-            ("mlp_step_many/",), False, ("params", "velocity"),
+            "parallel/fused.py:FusedClassifierTrainer._dispatch",
+            ("mlp_step_many/",), True, ("params", "velocity"),
             allowed_f32_upcasts=0,
-            notes="eager: K8's key rides by value (lever 1a); f32 "
-                  "throughout"),
+            notes="captured per batch shape, replayed K times a "
+                  "step_many; K8 reads its key from device memory, the "
+                  "rates are device scalars; eager on a mesh of more "
+                  "than one rank; f32 throughout"),
         Computation(
             "loader_step_many", _build_loader_step_many,
-            "parallel/fused.py:FusedClassifierTrainer.make_loader_step",
-            ("loader_step_many/",), False, ("params", "velocity"),
+            "parallel/fused.py:FusedClassifierTrainer._dispatch",
+            ("loader_step_many/",), True, ("params", "velocity"),
             allowed_f32_upcasts=0,
-            notes="as mlp_step_many; the gather adds no f32 island"),
+            notes="as mlp_step_many, one graph for full windows and one "
+                  "for a short window, the window's indices copied in "
+                  "on the device; the gather adds no f32 island"),
     ]
 
 

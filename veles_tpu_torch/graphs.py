@@ -10,7 +10,9 @@ caller rewrites them in place (``copy_``) between replays and never
 rebinds them. Its outputs live in the graph's memory pool, and every
 replay overwrites them; graphs that share a pool reuse each other's
 freed scratch, so read or copy a replay's outputs before the next
-replay of any graph of that pool.
+replay of any graph of that pool. A pool all of whose graphs were
+dropped takes no further capture: :class:`GraphPool` opens a fresh one
+then.
 
 The kernel wrappers count their launches on the host, once per Python
 call. A capture makes those calls but launches nothing, and a replay
@@ -44,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import threading
+import weakref
 from typing import Any, Callable, Iterator, Optional, Sequence
 
 import torch
@@ -103,6 +106,26 @@ def use_graphs(cuda_graphs: Optional[bool], device: torch.device) -> bool:
     return bool(cuda_graphs)
 
 
+class GraphPool:
+    """The memory pool that the graphs of one engine or trainer share
+    (``StepGraph(pool=)``), opened at the first capture. A pool whose
+    graphs were all dropped (a trainer drops its loader step's graphs
+    when the dataset is uploaded anew) refuses another capture, so a
+    capture while none of the graphs it served lives opens a fresh
+    pool."""
+
+    def __init__(self) -> None:
+        self._handle = None
+        self._graphs: "weakref.WeakSet[StepGraph]" = weakref.WeakSet()
+
+    def handle(self, graph: "StepGraph") -> Any:
+        """The pool handle for ``graph``'s capture."""
+        if not self._graphs:
+            self._handle = torch.cuda.graph_pool_handle()
+        self._graphs.add(graph)
+        return self._handle
+
+
 class StepGraph:
     """One call of ``fn(*inputs)`` captured into a CUDA graph.
 
@@ -110,8 +133,9 @@ class StepGraph:
     copies new values into them). ``keep``: tensors ``fn`` updates in
     place (a step count, parameters) whose values the warm-up calls must
     not advance: they are saved before the warm-up and copied back
-    after it. ``pool``: a ``torch.cuda.graph_pool_handle()`` shared by
-    the graphs of one engine or trainer. A capture that fails raises.
+    after it. ``pool``: the :class:`GraphPool` of the engine or trainer
+    whose graphs share one (default: a pool of the graph's own). A
+    capture that fails raises.
     """
 
     #: eager calls on a side stream before the capture: they build the
@@ -122,10 +146,9 @@ class StepGraph:
     def __init__(self, fn: Callable[..., Any],
                  inputs: Sequence[torch.Tensor] = (),
                  keep: Sequence[torch.Tensor] = (),
-                 pool: Any = None) -> None:
+                 pool: Optional[GraphPool] = None) -> None:
         self.inputs = tuple(inputs)
-        self.pool = pool if pool is not None else \
-            torch.cuda.graph_pool_handle()
+        self.pool = (GraphPool() if pool is None else pool).handle(self)
         with torch.no_grad():
             saved = [t.detach().clone() for t in keep]
         side = torch.cuda.Stream()

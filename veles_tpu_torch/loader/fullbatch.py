@@ -106,46 +106,51 @@ class FullBatchLoader(Loader, AcceleratedUnit):
         self._stats_dev_ = {k: self.device.put(v) for k, v in
                             self.normalizer.stat_arrays().items()}
 
-    def _window(self, start: int, size: int,
-                perm: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The permutation's window ``[start, start +
-        max_minibatch_size)`` on the device, rows from ``size`` on
-        pointing at sample 0 (masked by the caller). ``perm``: a
-        permutation taken earlier (a reshuffle replaces
-        ``_perm_dev_``; the old tensor stays valid), default the
-        current one."""
-        perm = self._perm_dev_ if perm is None else perm
-        indices = perm[start:start + self.max_minibatch_size]
-        if size < self.max_minibatch_size:
-            indices = indices.clone()
-            indices[size:] = 0
-        return indices
-
     def gather(self, start: int, size: int,
                dataset: Optional[torch.Tensor] = None,
                perm: Optional[torch.Tensor] = None):
-        """Minibatch ``(data, labels)`` of the permutation's window at
-        ``start``, rows from ``size`` on zeroed (labels -1): one gather
-        on the device, then the normalizer. A full window skips the
-        padding mask. ``dataset`` (default ``_dataset_dev_``) and
-        ``perm`` (default ``_perm_dev_``) let a fused step gather from
-        its compute-dtype copy and from a window taken before a
-        reshuffle."""
-        indices = self._window(start, size, perm)
+        """Minibatch ``(data, labels)`` of the permutation's window
+        ``[start, start + max_minibatch_size)``, rows from ``size`` on
+        zeroed (labels -1): :meth:`gather_indices` of that window.
+        ``dataset`` (default ``_dataset_dev_``) and ``perm`` (default
+        ``_perm_dev_``) let a fused step gather from its compute-dtype
+        copy and from a window taken before a reshuffle."""
+        perm = self._perm_dev_ if perm is None else perm
+        indices = perm[start:start + self.max_minibatch_size]
+        valid = None if size == len(indices) else torch.full(
+            (), size, dtype=torch.int64, device=indices.device)
+        return self.gather_indices(indices, valid, dataset)
+
+    def gather_indices(self, indices: torch.Tensor,
+                       size: Optional[torch.Tensor] = None,
+                       dataset: Optional[torch.Tensor] = None):
+        """Minibatch ``(data, labels)`` of a window already on the
+        device: ``indices`` holds its ``max_minibatch_size`` sample
+        indices (a slice of a permutation), ``size`` (a 0-d integer
+        tensor on the device, or None for a full window) its valid
+        rows; rows from ``size`` on read sample 0 and are zeroed
+        (labels -1). One gather on the device, then the normalizer.
+        Nothing is read back to the host, so a captured loader step
+        gathers this way, its window and size rewritten in place
+        between replays."""
         if dataset is None:
             dataset = self._dataset_dev_
+        keep = None
+        if size is not None:
+            keep = torch.arange(len(indices), device=indices.device) < size
+            indices = torch.where(keep, indices, 0)
         data = self.normalizer.apply_torch(
             dataset.index_select(0, indices), self._stats_dev_)
-        full = size == len(indices)
-        if not full:
-            data[size:] = 0
         if self.has_labels:
             labels = self._labels_dev_.index_select(0, indices)
-            if not full:
-                labels[size:] = -1
         else:
             labels = torch.zeros(len(indices), dtype=torch.int32,
                                  device=data.device)
+        if keep is not None:
+            data = torch.where(
+                keep.view((-1,) + (1,) * (data.ndim - 1)), data, 0)
+            if self.has_labels:
+                labels = torch.where(keep, labels, -1)
         return data, labels
 
     def shuffle(self) -> bool:
@@ -253,7 +258,8 @@ class FullBatchLoaderMSE(FullBatchLoader):
     def gather_targets(self, start: int, size: int) -> torch.Tensor:
         """The targets of the window :meth:`gather` serves, rows from
         ``size`` on zeroed."""
-        out = self._targets_dev_.index_select(0, self._window(start, size))
+        out = self._targets_dev_.index_select(
+            0, self._perm_dev_[start:start + self.max_minibatch_size])
         out[size:] = 0
         return out
 

@@ -64,7 +64,7 @@ from veles_tpu_torch.aot import warmup as aot_warmup
 from veles_tpu_torch.config import get, root
 from veles_tpu_torch.device import compute_dtype as _compute_dtype
 from veles_tpu_torch.device import resolve
-from veles_tpu_torch.graphs import StepGraph, use_graphs
+from veles_tpu_torch.graphs import GraphPool, StepGraph, use_graphs
 from veles_tpu_torch.obs import profile as obs_profile
 from veles_tpu_torch.ops import launches
 from veles_tpu_torch.ops.flash_attention import (flash_attention,
@@ -987,7 +987,7 @@ class TransformerTrainer:
         self.learning_rate = learning_rate
         #: captured steps by token-batch shape, sharing one pool
         self._graphs: Dict[Any, StepGraph] = {}
-        self._pool = None
+        self._pool = GraphPool()
         #: token shapes whose eager step made its AOT record
         self._eager_noted: set = set()
         self.aot_hits = self.aot_misses = self.aot_fallbacks = 0
@@ -1179,8 +1179,6 @@ class TransformerTrainer:
             return out
         graph = self._graphs.get(shape)
         if graph is None:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
             state = (_tree_leaves(self.params) + _tree_leaves(self.opt_m) +
                      _tree_leaves(self.opt_v) + [self._step])
             graph = StepGraph(self._train_step, inputs=(tokens.clone(),),

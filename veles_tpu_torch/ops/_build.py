@@ -52,7 +52,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIBRARY_OF = {"flash_fwd": "flash_fwd", "flash_bwd_dkv": "flash_bwd",
               "flash_bwd_dq": "flash_bwd", "flash_decode": "flash_decode",
               "flash_decode_paged": "flash_decode", "lrn_fwd": "lrn",
-              "lrn_bwd": "lrn", "uniform_fill": "rng"}
+              "lrn_bwd": "lrn", "uniform_fill": "rng",
+              "uniform_fill_keyed": "rng"}
 
 #: guards ``_libs``, ``_name_locks``, ``BUILDS`` and ``_COUNTED``; held
 #: only for dictionary work, never across a build

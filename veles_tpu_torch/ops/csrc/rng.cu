@@ -26,6 +26,13 @@
 // element. The optional affine map (u * scale + low) uses round-to-
 // nearest intrinsics so no fused multiply-add changes a bit against the
 // plain version.
+//
+// Two entries. veles_uniform_fill takes the key by value, fixed at the
+// launch. veles_uniform_fill_keyed reads it from device memory, as the
+// TPU kernel reads its seed operand (seed_ref, in memory space ANY),
+// and can fold an integer into it first (ops/rng.py:fold_in): a
+// captured train step replays with the key its host wrote into that
+// memory, where a by-value key would repeat the captured step's masks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,10 +67,12 @@ __device__ inline float to_unit(uint32_t bits, float scale, float low,
   return affine ? __fadd_rn(__fmul_rn(f, scale), low) : f;
 }
 
-__global__ void __launch_bounds__(NT)
-    uniform_fill_kernel(float* __restrict__ out, int64_t n, int64_t n_blocks,
-                        uint32_t k0, uint32_t k1, float scale, float low,
-                        int affine) {
+// The Philox stream of key (k0, k1) over blocks [0, n_blocks), a grid
+// stride apart, written as floats: the body both kernels share.
+__device__ inline void fill_blocks(float* __restrict__ out, int64_t n,
+                                   int64_t n_blocks, uint32_t k0,
+                                   uint32_t k1, float scale, float low,
+                                   int affine) {
   const int64_t stride = int64_t(gridDim.x) * NT;
   for (int64_t i = int64_t(blockIdx.x) * NT + threadIdx.x; i < n_blocks;
        i += stride) {
@@ -82,6 +91,45 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+__global__ void __launch_bounds__(NT)
+    uniform_fill_kernel(float* __restrict__ out, int64_t n, int64_t n_blocks,
+                        uint32_t k0, uint32_t k1, float scale, float low,
+                        int affine) {
+  fill_blocks(out, n, n_blocks, k0, k1, scale, low, affine);
+}
+
+// The key in device memory, as _fill_tpu reads seed_ref[0]: every
+// thread reads its two words (one 8-byte line, served by L1 after the
+// first warp) and, with has_fold, folds ``fold`` in first (fold_in:
+// the first two words of the block at counter (fold_lo, fold_hi, 0, 0)
+// under the key). One Philox block a thread, a tenth of what the fill
+// costs it, and no barrier: a thread needs no other thread's result.
+__global__ void __launch_bounds__(NT)
+    uniform_fill_keyed_kernel(float* __restrict__ out, int64_t n,
+                              int64_t n_blocks,
+                              const uint32_t* __restrict__ key,
+                              uint64_t fold, int has_fold, float scale,
+                              float low, int affine) {
+  uint32_t k0 = __ldg(key), k1 = __ldg(key + 1);
+  if (has_fold) {
+    const uint4 f = philox(
+        make_uint4(uint32_t(fold), uint32_t(fold >> 32), 0u, 0u), k0, k1);
+    k0 = f.x;
+    k1 = f.y;
+  }
+  fill_blocks(out, n, n_blocks, k0, k1, scale, low, affine);
+}
+
+// At most 16 blocks of NT threads per SM, fewer for a small fill.
+unsigned grid_for(int64_t n_blocks) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int64_t grid = (n_blocks + NT - 1) / NT;
+  if (grid > int64_t(sms) * 16) grid = int64_t(sms) * 16;
+  return unsigned(grid);
+}
+
 }  // namespace
 
 extern "C" {
@@ -93,14 +141,27 @@ int veles_uniform_fill(void* out, int64_t n, uint32_t k0, uint32_t k1,
                        float scale, float low, int affine, void* stream) {
   if (n <= 0) return cudaSuccess;
   const int64_t n_blocks = (n + 3) / 4;
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int64_t grid = (n_blocks + NT - 1) / NT;
-  if (grid > int64_t(sms) * 16) grid = int64_t(sms) * 16;
-  uniform_fill_kernel<<<unsigned(grid), NT, 0,
+  uniform_fill_kernel<<<grid_for(n_blocks), NT, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(out), n, n_blocks, k0, k1, scale, low, affine);
+  return cudaGetLastError();
+}
+
+// K8 with its key in device memory: key points at the 64-bit key (two
+// 32-bit words, low first: the int64 the caller holds); has_fold != 0
+// folds ``fold`` in on the device. The result is bitwise
+// veles_uniform_fill's under the key fold_in(key, fold). A CUDA graph
+// that captures this launch reads the key anew at every replay.
+int veles_uniform_fill_keyed(void* out, int64_t n, const void* key,
+                             uint64_t fold, int has_fold, float scale,
+                             float low, int affine, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  const int64_t n_blocks = (n + 3) / 4;
+  uniform_fill_keyed_kernel<<<grid_for(n_blocks), NT, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), n, n_blocks,
+      static_cast<const uint32_t*>(key), fold, has_fold, scale, low,
+      affine);
   return cudaGetLastError();
 }
 

@@ -15,6 +15,12 @@ bits under exponent 127 give [1, 2), minus 1 gives [0, 1).
 :func:`fold_in` derives a new seed from a seed and an integer, as
 ``jax.random.fold_in`` derives keys: the fused trainer keys its dropout
 masks by ``fold_in(fold_in(seed, step), layer)``.
+
+The seed reaches the kernel by value (``veles_uniform_fill``) or, as
+the TPU kernel reads its seed operand from memory, from an int64
+tensor on the card (``veles_uniform_fill_keyed``, with the layer's
+fold made there): a CUDA graph that captures the fill then reads the
+key the host wrote before each replay.
 """
 
 from __future__ import annotations
@@ -36,8 +42,10 @@ PHILOX_ROUNDS = 10
 _MASK32 = 0xFFFFFFFF
 _MASK64 = 0xFFFFFFFFFFFFFFFF
 
-#: Kernel launches since the last :func:`reset_launches`.
-LAUNCHES: Dict[str, int] = {"uniform_fill": 0}
+#: Kernel launches since the last :func:`reset_launches`: every K8
+#: launch, by either entry, under ``uniform_fill``; the keyed entry's
+#: alone under ``uniform_fill_keyed`` too.
+LAUNCHES: Dict[str, int] = {"uniform_fill": 0, "uniform_fill_keyed": 0}
 
 
 def reset_launches() -> None:
@@ -90,16 +98,9 @@ def _mulhilo(a: torch.Tensor, m: int):
     return (big >> 16) + (low >> 32), low & _MASK32
 
 
-def _plain_bits(n_blocks: int, key: Tuple[int, int], device
-                ) -> torch.Tensor:
-    """Philox-4x32-10 over counters (i, 0, 0, 0) with the block index
-    i split in two words, i < n_blocks: int64 [n_blocks, 4] holding
-    32-bit words."""
-    idx = torch.arange(n_blocks, dtype=torch.int64, device=device)
-    c0, c1 = idx & _MASK32, idx >> 32
-    c2 = torch.zeros_like(idx)
-    c3 = torch.zeros_like(idx)
-    k0, k1 = key
+def _philox_words(c0, c1, c2, c3, k0, k1):
+    """Philox-4x32-10 on int64 tensors (or host integers) holding
+    32-bit words: the counter's four words under the key's two."""
     for r in range(PHILOX_ROUNDS):
         if r:
             k0 = (k0 + PHILOX_W[0]) & _MASK32
@@ -107,7 +108,31 @@ def _plain_bits(n_blocks: int, key: Tuple[int, int], device
         hi0, lo0 = _mulhilo(c0, PHILOX_M[0])
         hi1, lo1 = _mulhilo(c2, PHILOX_M[1])
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return torch.stack((c0, c1, c2, c3), dim=1)
+    return c0, c1, c2, c3
+
+
+def _plain_bits(n_blocks: int, key, device) -> torch.Tensor:
+    """Philox-4x32-10 over counters (i, 0, 0, 0) with the block index
+    i split in two words, i < n_blocks: int64 [n_blocks, 4] holding
+    32-bit words. ``key``: two words, host integers or 0-d int64
+    tensors on ``device``."""
+    idx = torch.arange(n_blocks, dtype=torch.int64, device=device)
+    zeros = torch.zeros_like(idx)
+    return torch.stack(_philox_words(idx & _MASK32, idx >> 32, zeros,
+                                     zeros, *key), dim=1)
+
+
+def _tensor_key(key: torch.Tensor, fold: Optional[int]):
+    """The two key words of the 64-bit key an int64 tensor holds, with
+    ``fold`` folded in (:func:`fold_in`), as 0-d int64 tensors on its
+    device: read there, with no host sync."""
+    key = key.reshape(())
+    k0, k1 = key & _MASK32, (key >> 32) & _MASK32
+    if fold is None:
+        return k0, k1
+    fold = int(fold) & _MASK64
+    w = _philox_words(fold & _MASK32, fold >> 32, 0, 0, k0, k1)
+    return w[0], w[1]
 
 
 def _plain_fill(n: int, key, device, scale: float, low: float,
@@ -118,6 +143,22 @@ def _plain_fill(n: int, key, device, scale: float, low: float,
     if affine:
         out = out * scale + low
     return out
+
+
+def key_tensor(seed: int, device) -> torch.Tensor:
+    """A 0-d int64 tensor on ``device`` holding the 64-bit ``seed``
+    (as its two's complement), the form :func:`uniform_fill` reads a
+    key from device memory in; :func:`write_key` rewrites it."""
+    return write_key(torch.zeros((), dtype=torch.int64, device=device),
+                     seed)
+
+
+def write_key(key: torch.Tensor, seed: int) -> torch.Tensor:
+    """Write the 64-bit ``seed`` into the int64 tensor ``key`` in place
+    (a fill on its device: no host-to-device copy, nothing to wait
+    for); returns ``key``."""
+    seed = int(seed) & _MASK64
+    return key.fill_(seed - (1 << 64) if seed >> 63 else seed)
 
 
 # ---------------------------------------------------------------------------
@@ -132,15 +173,18 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_uint32, ctypes.c_float, ctypes.c_float, ctypes.c_int,
             ctypes.c_void_p]
         lib.veles_uniform_fill.restype = ctypes.c_int
+        lib.veles_uniform_fill_keyed.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_uint64, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.veles_uniform_fill_keyed.restype = ctypes.c_int
     return lib
 
 
-def uniform_fill_cuda(n: int, key: Tuple[int, int], device,
-                      scale: float = 1.0, low: float = 0.0,
-                      affine: bool = False) -> torch.Tensor:
-    """K8: ``n`` uniform f32 values on a CUDA device, the Philox stream
-    of ``key`` (two 32-bit words); with ``affine``, ``u * scale +
-    low``. Returns a contiguous [n] tensor."""
+def _launch(n: int, device, entry: str, counted: Tuple[str, ...],
+            *args) -> torch.Tensor:
+    """One launch of C entry ``entry`` filling a new [n] f32 tensor:
+    ``entry(out, n, *args, stream)``, counted under ``counted``."""
     out = torch.empty(n, dtype=torch.float32, device=device)
     if n == 0:
         return out
@@ -150,31 +194,84 @@ def uniform_fill_cuda(n: int, key: Tuple[int, int], device,
     lib = _lib()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.veles_uniform_fill(out.data_ptr(), n, key[0], key[1],
-                                    scale, low, int(affine), stream)
-    _build.check(lib, "uniform_fill", rc)
-    launches.count(LAUNCHES, "uniform_fill")
+        rc = getattr(lib, entry)(out.data_ptr(), n, *args, stream)
+    _build.check(lib, counted[-1], rc)
+    for name in counted:
+        launches.count(LAUNCHES, name)
     return out
 
 
-def uniform_fill(seed: int, shape, dtype: Optional[torch.dtype] = None,
+def uniform_fill_cuda(n: int, key: Tuple[int, int], device,
+                      scale: float = 1.0, low: float = 0.0,
+                      affine: bool = False) -> torch.Tensor:
+    """K8: ``n`` uniform f32 values on a CUDA device, the Philox stream
+    of ``key`` (two 32-bit words); with ``affine``, ``u * scale +
+    low``. Returns a contiguous [n] tensor."""
+    return _launch(n, device, "veles_uniform_fill", ("uniform_fill",),
+                   key[0], key[1], scale, low, int(affine))
+
+
+def uniform_fill_keyed_cuda(n: int, key: torch.Tensor,
+                            fold: Optional[int], scale: float = 1.0,
+                            low: float = 0.0,
+                            affine: bool = False) -> torch.Tensor:
+    """K8's keyed entry: as :func:`uniform_fill_cuda` under the 64-bit
+    key the int64 CUDA tensor ``key`` holds, read by the kernel from
+    device memory, with ``fold`` (an integer, or None) folded in there
+    first: bitwise the by-value entry under ``fold_in(key, fold)``."""
+    if key.dtype != torch.int64 or key.numel() != 1:
+        raise ValueError("a key tensor holds one int64, got %s %s"
+                         % (key.dtype, tuple(key.shape)))
+    return _launch(n, key.device, "veles_uniform_fill_keyed",
+                   ("uniform_fill", "uniform_fill_keyed"), key.data_ptr(),
+                   0 if fold is None else int(fold) & _MASK64,
+                   int(fold is not None), scale, low, int(affine))
+
+
+def uniform_fill(seed, shape, dtype: Optional[torch.dtype] = None,
                  low: float = 0.0, high: float = 1.0, device=None,
-                 impl: Optional[str] = None) -> torch.Tensor:
+                 impl: Optional[str] = None,
+                 fold: Optional[int] = None) -> torch.Tensor:
     """Uniform [low, high) tensor of ``shape``, deterministic per
     (seed, element count) on every device.
 
-    ``device=None`` is the current CUDA device (raises without one).
-    ``impl``: "cuda" (the K8 kernel), "plain", or None = "cuda" on a
-    CUDA device, else "plain". Drawn in f32, then cast to ``dtype``
-    (default float32). Any element count works: the reference's
-    ``jax.random`` fallback for counts that are not a multiple of 128
-    has no counterpart here.
+    ``seed``: an integer, or an int64 tensor holding the 64-bit key
+    (:func:`key_tensor`) on the fill's device, which the fill reads
+    there (the K8 kernel from device memory, the plain version in
+    tensor arithmetic): a CUDA graph that captures the fill reads the
+    key the host last wrote. ``fold``: an integer folded into the key
+    first, as :func:`fold_in` does (on the host for an integer seed, on
+    the device for a tensor); the bits equal those of the integer seed
+    ``fold_in(seed, fold)``.
+
+    ``device=None`` is the key tensor's device, or for an integer seed
+    the current CUDA device (raises without one). ``impl``: "cuda" (the
+    K8 kernel), "plain", or None = "cuda" on a CUDA device, else
+    "plain". Drawn in f32, then cast to ``dtype`` (default float32).
+    Any element count works: the reference's ``jax.random`` fallback
+    for counts that are not a multiple of 128 has no counterpart here.
     """
-    device = resolve(device)
+    keyed = torch.is_tensor(seed)
+    if keyed:
+        device = seed.device if device is None else torch.device(device)
+        if device.type != seed.device.type or \
+                device.index not in (None, seed.device.index):
+            raise ValueError("the key tensor lies on %s, the fill on %s"
+                             % (seed.device, device))
+        device = seed.device
+    else:
+        device = resolve(device)
+        if fold is not None:
+            seed, fold = fold_in(seed, fold), None
     shape = tuple(int(d) for d in shape)
     n = int(np.prod(shape)) if shape else 1
     impl = _build.resolve_impl(impl, device, "uniform_fill")
     affine = low != 0.0 or high != 1.0
-    args = (n, _key(seed), device, high - low, low, affine)
-    out = uniform_fill_cuda(*args) if impl == "cuda" else _plain_fill(*args)
+    if impl == "cuda":
+        out = uniform_fill_keyed_cuda(n, seed, fold, high - low, low,
+                                      affine) if keyed else \
+            uniform_fill_cuda(n, _key(seed), device, high - low, low, affine)
+    else:
+        key = _tensor_key(seed, fold) if keyed else _key(seed)
+        out = _plain_fill(n, key, device, high - low, low, affine)
     return out.reshape(shape).to(dtype or torch.float32)

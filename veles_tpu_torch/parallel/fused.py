@@ -5,11 +5,18 @@ Port of ``veles_tpu/parallel/fused.py``: :func:`normalize_specs`,
 :func:`_apply` (the forward: conv, FC, pooling, LRN, dropout),
 :func:`_loss_fn` (masked softmax cross-entropy), :func:`_train_step`
 (autograd backward, SGD with momentum and weight decay, the in-
-arithmetic ``skip`` policy), :func:`_train_multi_step` and
-:class:`FusedClassifierTrainer`, with ``update_ok`` and the sentinel
-that the transformer trainer shares. The reference compiles a step
-into one XLA computation; here it is the same sequence of ops run
-eagerly, and the update writes the params and momentum in place.
+arithmetic ``skip`` policy) and :class:`FusedClassifierTrainer`, with
+``update_ok`` and the sentinel that the transformer trainer shares.
+The reference compiles a step into one XLA computation; on a CUDA
+device the trainer captures it into one CUDA graph per batch shape
+(``graphs.StepGraph``) and replays it, and the update writes the
+params and momentum in place. The graph reads the step's dropout key,
+learning rate, momentum and weight decay from device scalars the host
+rewrites before each replay (the reference's ``counters`` and ``lrs``
+operands), and K8 reads the key from device memory as the TPU kernel
+reads its seed operand; the eager step (the CPU, ``cuda_graphs=False``)
+reads the same scalars, so captured and eager steps compute the same
+bits.
 
 Layer specs are the reference's tuples: ``("fc", act)``, ``("conv",
 act, strides_hw, padding)``, ``("pool", kind, ky, kx, strides_hw)``,
@@ -30,9 +37,11 @@ the identity.
 :meth:`FusedClassifierTrainer.make_loader_step` folds a
 ``FullBatchLoader``'s device gather into the step: the loader keeps
 its host bookkeeping (``external_gather``) and the step gathers and
-normalizes its window through ``FullBatchLoader.gather``, one step a
-call or K a call (``steps_per_dispatch``), on the same counters,
-dropout keys and learning rates as ``step``/``step_many``.
+normalizes its window through ``FullBatchLoader.gather_indices``, one
+step a call or K a call (``steps_per_dispatch``), on the same counters,
+dropout keys and learning rates as ``step``/``step_many``; captured,
+one graph for full windows and one for a short last window, fed the
+window's indices by a device-to-device copy.
 
 A trainer whose ``sched_tenant`` is set runs each ``step``/``step_many``
 and each loader-step dispatch as one quantum of a shared device
@@ -46,7 +55,10 @@ Over a mesh (``parallel.mesh``; ``mesh=``, ``tensor_parallel=``) the
 trainer is SPMD, one process a rank: data parallelism over ``data``
 and the reference's Megatron layout (:func:`param_specs`) over
 ``model``, with the collectives written out (``parallel.collectives``)
-where the reference's GSPMD inserts them.
+where the reference's GSPMD inserts them. On a mesh of more than one
+rank the step runs eagerly (host-staged gloo collectives cannot be
+captured), on the same device scalars; a mesh of one rank is the one
+device, captured.
 
 Under an AOT plan (``aot/warmup.py``) the first dispatch of each
 ``step_many`` shape and of each loader step hands its record to the
@@ -72,6 +84,7 @@ from veles_tpu_torch.aot import warmup as aot_warmup
 from veles_tpu_torch.config import get, root
 from veles_tpu_torch.device import compute_dtype as _dtype_of
 from veles_tpu_torch.device import resolve
+from veles_tpu_torch.graphs import GraphPool, StepGraph
 from veles_tpu_torch.nn.activation import ACTIVATIONS
 from veles_tpu_torch.nn.conv import conv_raw, conv_s2d_raw
 from veles_tpu_torch.nn.lr_policy import make_policy
@@ -79,7 +92,8 @@ from veles_tpu_torch.nn.lrn import lrn_raw
 from veles_tpu_torch.nn.pooling import pool_raw
 from veles_tpu_torch.obs import profile as obs_profile
 from veles_tpu_torch.ops import _build, launches
-from veles_tpu_torch.ops.rng import fold_in, uniform_fill
+from veles_tpu_torch.ops.rng import (fold_in, key_tensor, uniform_fill,
+                                     write_key)
 from veles_tpu_torch.parallel import collectives
 from veles_tpu_torch.parallel.mesh import check_mesh
 from veles_tpu_torch.sched import quantum_or_null
@@ -360,8 +374,10 @@ def _apply(specs: Tuple[Any, ...], train: bool, params, x, key: int,
     """Forward pass; a softmax tail returns LOGITS (the loss takes
     log_softmax). Inter-layer activations live in the compute dtype,
     the logits head in the params' dtype (f32). ``key`` is the step's
-    dropout seed (unused unless ``train``); ``kernel_impl`` goes to the
-    LRN and fill wrappers.
+    dropout seed (unused unless ``train``): an integer, or the int64
+    device tensor that holds it (``ops.rng.key_tensor``), which the
+    fills read on the device, each folding in its layer index there;
+    ``kernel_impl`` goes to the LRN and fill wrappers.
 
     ``shards`` (a mesh): ``x`` is this rank's rows and ``params`` its
     shards. A column layer computes its output channels; a row layer
@@ -439,8 +455,8 @@ def _apply(specs: Tuple[Any, ...], train: bool, params, x, key: int,
                 if shards is not None:
                     shape = (shape[0] * shards.data.size,) + shape[1:-1] + (
                         shape[-1] * (model.size if sharded else 1),)
-                fill = uniform_fill(fold_in(key, i), shape,
-                                    device=h.device, impl=kernel_impl)
+                fill = uniform_fill(key, shape, fold=i, device=h.device,
+                                    impl=kernel_impl)
                 if shards is not None:
                     fill = shards.rows(fill)
                     if sharded:
@@ -484,8 +500,8 @@ def _leaves(params) -> List[torch.Tensor]:
     return [t for p in params if p for t in (p["w"], p["b"])]
 
 
-def _train_step(specs, params, velocity, x, labels, key, lr: float,
-                weight_decay: float, momentum: float, compute_dtype,
+def _train_step(specs, params, velocity, x, labels, key, lr, weight_decay,
+                momentum, compute_dtype,
                 skip_nonfinite: bool = False,
                 kernel_impl: Optional[str] = None,
                 shards: Optional[_Shards] = None, n_valid=None,
@@ -493,10 +509,15 @@ def _train_step(specs, params, velocity, x, labels, key, lr: float,
     """One step in place on ``params`` and ``velocity``: forward, loss,
     autograd backward, then ``v = momentum v - lr (g + wd w)`` (no
     decay on biases) and ``p += v``. Returns (loss, n_err, nonfinite)
-    as 0-d device tensors. On a mesh (``shards``; ``x``/``labels`` this
-    rank's rows, ``n_valid`` the global batch's valid rows) the
-    gradients, the loss and the error count are summed over ``data``
-    by ONE all-reduce of one flat buffer before the update."""
+    as 0-d device tensors. ``key`` (the dropout seed, :func:`_apply`'s)
+    and ``lr``, ``weight_decay``, ``momentum`` are host numbers or 0-d
+    device tensors (f32 for the three rates): a tensor is read where
+    the step runs, so a captured step reads the values written before
+    each replay, and the bits are those of the host numbers. On a mesh
+    (``shards``; ``x``/``labels`` this rank's rows, ``n_valid`` the
+    global batch's valid rows) the gradients, the loss and the error
+    count are summed over ``data`` by ONE all-reduce of one flat buffer
+    before the update."""
     loss, logits = _loss_fn(specs, True, params, x, labels, key,
                             compute_dtype, kernel_impl, shards, n_valid,
                             masks)
@@ -540,26 +561,6 @@ def _train_step(specs, params, velocity, x, labels, key, lr: float,
     return loss, n_err.to(torch.int32), (~ok).to(torch.int32)
 
 
-def _train_multi_step(specs, params, velocity, xs, labels, key: int,
-                      counters, lrs, weight_decay, momentum, compute_dtype,
-                      skip_nonfinite=False, kernel_impl=None, local=None):
-    """K steps over ``xs``/``labels`` ([K, B, ...]), step k's dropout
-    seed folded from ``counters[k]`` and its learning rate ``lrs[k]``:
-    the same ops as K :func:`_train_step` calls. Returns the [K] losses,
-    error counts and non-finite flags. ``local``: a mesh rank's
-    ``(x, labels) -> (x, labels, shards, n_valid)``."""
-    out = []
-    for x, lbl, c, lr in zip(xs, labels, counters, lrs):
-        extra = ()
-        if local is not None:
-            x, lbl, *extra = local(x, lbl)
-        out.append(_train_step(specs, params, velocity, x, lbl,
-                               fold_in(key, c), lr, weight_decay, momentum,
-                               compute_dtype, skip_nonfinite, kernel_impl,
-                               *extra))
-    return tuple(torch.stack(m) for m in zip(*out))
-
-
 # ---------------------------------------------------------------------------
 # the trainer
 # ---------------------------------------------------------------------------
@@ -600,6 +601,20 @@ class FusedClassifierTrainer:
     shards. The loss is the mean over the global batch, and the
     gradients are summed over ``data`` by one all-reduce of one flat
     buffer a step.
+
+    ``cuda_graphs`` (None = on a CUDA device): :meth:`step` captures
+    one CUDA graph per batch shape (and ``nan_policy="skip"`` or not) at
+    its first call and replays it; :meth:`step_many` replays it K times
+    and each loader step its window's graph, with no host sync between.
+    Before each step the host writes the step's dropout key
+    (``fold_in(dropout_seed, step)``), learning rate, momentum and
+    weight decay into device scalars, which the graph and the eager
+    step read alike. A capture that fails raises; ``cuda_graphs=False``
+    runs eagerly, as a trainer does while ``record_masks`` is set. On a
+    mesh of more than one rank the step runs eagerly and ``True``
+    raises. A loss the caller computed over the params outside the
+    step keeps their autograd graph alive on its stream: drop it before
+    a step captures (PyTorch refuses the capture's backward otherwise).
     """
 
     def __init__(self, specs: Sequence[Any], params: List[Dict[str, Any]],
@@ -608,7 +623,8 @@ class FusedClassifierTrainer:
                  dropout_seed: int = 0, steps_per_dispatch: int = 1,
                  nan_policy: Optional[str] = None,
                  kernel_impl: Optional[str] = None, device=None,
-                 mesh=None, tensor_parallel: bool = False) -> None:
+                 mesh=None, tensor_parallel: bool = False,
+                 cuda_graphs: Optional[bool] = None) -> None:
         check_mesh(mesh)
         if mesh is not None:
             if device is not None and torch.device(device) != mesh.device:
@@ -618,6 +634,15 @@ class FusedClassifierTrainer:
         elif tensor_parallel:
             raise ValueError("tensor_parallel needs a mesh")
         self.device = resolve(device)
+        meshed = mesh is not None and mesh.n_devices > 1
+        if meshed and cuda_graphs:
+            raise ValueError(
+                "cuda_graphs=True on a mesh of %d ranks: the step's "
+                "collectives (%s) run on the host and cannot be "
+                "captured; the meshed step runs eagerly"
+                % (mesh.n_devices, mesh.backend))
+        self._graphs_on = graphs.use_graphs(
+            False if meshed else cuda_graphs, self.device)
         if steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1, got %d" %
                              steps_per_dispatch)
@@ -641,8 +666,10 @@ class FusedClassifierTrainer:
         self.dropout_seed = int(dropout_seed)
         self.mesh = mesh
         self.tensor_parallel = bool(tensor_parallel)
-        self._shards = None if mesh is None else _Shards(
-            mesh, self.specs, self.tensor_parallel)
+        # a one-rank mesh runs the one-device step (its collectives are
+        # the identity), captured on the card
+        self._shards = _Shards(mesh, self.specs, self.tensor_parallel) \
+            if meshed else None
         #: a list to receive each step's dropout keep masks (this rank's
         #: part), or None
         self.record_masks: Optional[list] = None
@@ -662,7 +689,20 @@ class FusedClassifierTrainer:
         #: dispatch shapes whose AOT record was made
         self._aot_seen: set = set()
         self.aot_hits = self.aot_misses = self.aot_fallbacks = 0
-        self.load_state(params)
+        #: the step's device scalars (:meth:`_write_scalars`): the
+        #: dropout key, the learning rate, momentum and weight decay,
+        #: and the (momentum, weight decay) last written
+        self._key = key_tensor(0, self.device)
+        self._lr_dev, self._momentum_dev, self._decay_dev = (
+            torch.zeros((), dtype=torch.float32, device=self.device)
+            for _ in range(3))
+        self._written: Optional[Tuple[float, float]] = None
+        #: captured steps by batch shape; every graph of the trainer
+        #: (its loader steps' too) shares one pool
+        self._graphs: Dict[Any, StepGraph] = {}
+        self._pool = GraphPool()
+        self.params, self.velocity = self._state_tensors(params)
+        self._step_counter = 0
 
     @classmethod
     def from_forwards(cls, forwards: Sequence[Any],
@@ -678,7 +718,24 @@ class FusedClassifierTrainer:
         """Take params (and momentum and the step count) as numpy or
         tensors in the reference's layout, e.g. a JAX trainer's through
         ``jax.device_get``: training continues where that trainer
-        stopped. Missing momentum starts at zero."""
+        stopped. Missing momentum starts at zero. The values are copied
+        into the trainer's tensors, which a captured step reads."""
+        new_params, new_velocity = self._state_tensors(params, velocity)
+        with torch.no_grad():
+            for dst, src in zip(
+                    _leaves(self.params) + _leaves(self.velocity),
+                    _leaves(new_params) + _leaves(new_velocity)):
+                if dst.shape != src.shape:
+                    raise ValueError("a state leaf of shape %s for the "
+                                     "trainer's %s" % (tuple(src.shape),
+                                                       tuple(dst.shape)))
+                dst.copy_(src)
+        self._step_counter = int(step)
+
+    def _state_tensors(self, params, velocity=None):
+        """(params, velocity) as the trainer's f32 tensors on its device
+        (this rank's shards on a mesh), the params' leaves requiring
+        grad; zero momentum where ``velocity`` is None."""
         def tensor(v, spec):
             if self._shards is not None:
                 v = self._shards.local(v, spec)
@@ -693,13 +750,13 @@ class FusedClassifierTrainer:
             return [{k: tensor(v, sp[k]) for k, v in p.items()}
                     for p, sp in zip(tree, specs)]
 
-        self.params = tensors(params)
-        for leaf in _leaves(self.params):
+        new_params = tensors(params)
+        for leaf in _leaves(new_params):
             leaf.requires_grad_(True)
-        self.velocity = tensors(velocity) if velocity is not None else [
+        new_velocity = tensors(velocity) if velocity is not None else [
             {k: torch.zeros_like(v, requires_grad=False)
-             for k, v in p.items()} for p in self.params]
-        self._step_counter = int(step)
+             for k, v in p.items()} for p in new_params]
+        return new_params, new_velocity
 
     def params_numpy(self, whole: bool = False
                      ) -> List[Dict[str, np.ndarray]]:
@@ -729,13 +786,13 @@ class FusedClassifierTrainer:
 
     def _local(self, x, labels):
         """(x, labels) of a global batch -> this rank's (x rows, label
-        rows, shards, global valid-row count) on the device; only the
-        rank's rows cross to it."""
+        rows, global valid-row count) on the device; only the rank's
+        rows cross to it."""
         sh = self._shards
         labels = self._labels(labels)
         n_valid = (labels >= 0).sum().clamp_min(1)
         x = sh.rows(x)
-        return (self._x(x), sh.rows(labels), sh, n_valid)
+        return (self._x(x), sh.rows(labels), n_valid)
 
     def _step_args(self, x, labels):
         """The batch arguments of :func:`_train_step` for this trainer:
@@ -745,7 +802,7 @@ class FusedClassifierTrainer:
         if placed is not None:
             if self._shards is None:
                 return (x, labels)
-            return (x, labels, self._shards, self._n_valid(placed))
+            return (x, labels, self._n_valid(placed))
         if self._shards is not None:
             return self._local(x, labels)
         return (self._x(x), self._labels(labels))
@@ -839,16 +896,10 @@ class FusedClassifierTrainer:
         flat rows; ``labels < 0`` rows are padding). Returns ``{"loss",
         "n_err", "nonfinite"}`` as 0-d device tensors."""
         self._step_counter += 1
-        key = fold_in(self.dropout_seed, self._step_counter)
-        x, labels, *extra = self._step_args(x, labels)
-        lr = self._lr(self._step_counter)
+        step = self._batch_step(self._step_counter,
+                                self._step_args(x, labels))
         with self._quantum():
-            loss, n_err, nonfinite = _train_step(
-                self.specs, self.params, self.velocity, x, labels, key,
-                lr, float(self.weight_decay), float(self.momentum),
-                self.compute_dtype, self.nan_policy == "skip",
-                self.kernel_impl, *(extra or (None, None)),
-                self.record_masks)
+            loss, n_err, nonfinite = (m[0] for m in self._dispatch([step]))
         self._sentinel.note(nonfinite)
         obs_profile.on_step()
         return {"loss": loss, "n_err": n_err, "nonfinite": nonfinite}
@@ -859,38 +910,28 @@ class FusedClassifierTrainer:
         device tensors; numerics equal K sequential :meth:`step` calls
         (same dropout seeds and learning-rate stream). A stack that
         :meth:`shard_batch_stack` placed is taken as it is."""
-        local = None
         placed = placement_of(self, labels)
-        if placed is not None:
-            if self._shards is not None:
-                n_valid = iter(self._n_valid(placed))
-                shards = self._shards
-
-                def local(x, lbl):
-                    return x, lbl, shards, next(n_valid)
-        else:
-            if isinstance(xs, (list, tuple)):
-                xs = torch.stack([torch.as_tensor(x) for x in xs])
-                labels = torch.stack([torch.as_tensor(lb) for lb in labels])
-            if self._shards is not None:
-                local = self._local
-            else:
+        if placed is None and isinstance(xs, (list, tuple)):
+            xs = torch.stack([torch.as_tensor(x) for x in xs])
+            labels = torch.stack([torch.as_tensor(lb) for lb in labels])
+        if self._shards is None:
+            if placed is None:
                 xs, labels = self._x(xs), self._labels(labels)
+            batches = list(zip(xs, labels))
+        elif placed is None:
+            batches = [self._local(x, lbl) for x, lbl in zip(xs, labels)]
+        else:
+            batches = list(zip(xs, labels, self._n_valid(placed)))
         k = int(xs.shape[0])
-        counters = list(range(self._step_counter + 1,
-                              self._step_counter + k + 1))
+        counters = range(self._step_counter + 1, self._step_counter + k + 1)
         self._step_counter += k
-        lrs = [self._lr(c) for c in counters]
+        steps = [self._batch_step(c, b) for c, b in zip(counters, batches)]
         name = "mlp_step_many/k%d_%s_%s" % (
             k, "x".join(str(d) for d in xs.shape[1:]),
             "x".join(str(d) for d in labels.shape[1:]))
-        with self._quantum(), self._dispatch_record(name, (xs, labels)):
-            losses, n_errs, nonfinite = _train_multi_step(
-                self.specs, self.params, self.velocity, xs, labels,
-                self.dropout_seed, counters, lrs,
-                float(self.weight_decay), float(self.momentum),
-                self.compute_dtype, self.nan_policy == "skip",
-                self.kernel_impl, local)
+        with self._quantum():
+            losses, n_errs, nonfinite = self._dispatch(
+                steps, record=(name, (xs, labels)))
         self._sentinel.note(nonfinite)
         obs_profile.on_step(k)
         return {"loss": losses, "n_err": n_errs, "nonfinite": nonfinite}
@@ -916,9 +957,13 @@ class FusedClassifierTrainer:
         the cast cached on the source tensor's identity. The K windows
         are slices of the permutation each ``run()`` left, kept with
         the tensor they slice, so a reshuffle inside a dispatch cannot
-        move them and no index is uploaded. The counters, dropout keys
-        and learning rates are ``step``'s: K steps in one dispatch
-        equal K single loader steps bitwise."""
+        move them; each step's window is copied on the device into the
+        step's index buffer (a short window's size too). Captured, a
+        full window and a short one replay a graph each, captured
+        anew, the old ones dropped, when the loader's device dataset,
+        labels or statistics change. The counters, dropout keys and
+        learning rates are ``step``'s: K steps in one dispatch equal K
+        single loader steps bitwise."""
         if getattr(loader, "_dataset_dev_", None) is None:
             raise RuntimeError(
                 "make_loader_step needs an initialized loader: "
@@ -929,8 +974,11 @@ class FusedClassifierTrainer:
         if k < 1:
             raise ValueError("steps_per_dispatch must be >= 1, got %d" % k)
         loader.external_gather = True
-        # closure-local, so one trainer may step over several loaders
-        cast_cache: Dict[str, Any] = {"src": None, "out": None}
+        # closure-local, so one trainer may step over several loaders:
+        # the device tensors the steps read, the dataset's cast and the
+        # graphs captured over them
+        held: Dict[str, Any] = {"sources": None, "dataset": None,
+                                "graphs": {}}
 
         def current_dataset() -> torch.Tensor:
             src = loader._dataset_dev_
@@ -938,40 +986,56 @@ class FusedClassifierTrainer:
                 raise RuntimeError(
                     "the loader's device dataset vanished (initialize "
                     "the loader again before stepping)")
-            if src is not cast_cache["src"]:
+            sources = (src, getattr(loader, "_labels_dev_", None),
+                       loader._stats_dev_)
+            if held["sources"] is None or any(
+                    a is not b for a, b in zip(sources, held["sources"])):
                 out = src
                 if src.is_floating_point() and \
                         torch.finfo(self.compute_dtype).bits < \
                         torch.finfo(src.dtype).bits:
                     out = src.to(self.compute_dtype)
-                cast_cache["src"], cast_cache["out"] = src, out
-            return cast_cache["out"]
+                # the old graphs read the old tensors: dropped
+                held.update(sources=sources, dataset=out, graphs={})
+            return held["dataset"]
 
         def served_window():
             size = loader.minibatch_size
             return loader._perm_dev_, loader.minibatch_offset - size, size
 
+        def window_step(dataset, window, counter):
+            perm, start, size = window
+            idx = perm[start:start + loader.max_minibatch_size]
+            body = partial(self._loader_body, loader, dataset)
+            skip = self.nan_policy == "skip"
+            if size == len(idx):
+                return counter, (True, skip), body, (idx,)
+            # the short window's size, filled on the device
+            valid = torch.full((), size, dtype=torch.int64,
+                               device=self.device)
+            return counter, (False, skip), body, (idx, valid)
+
         def dispatch(windows):
-            counters = list(range(self._step_counter + 1,
-                                  self._step_counter + len(windows) + 1))
+            counters = range(self._step_counter + 1,
+                             self._step_counter + len(windows) + 1)
             self._step_counter += len(windows)
-            lrs = [self._lr(c) for c in counters]
             with self._quantum():
                 # inside the quantum: a first cast of the dataset is a
                 # whole-dataset device copy, scheduled like the steps
                 dataset = current_dataset()
                 name = "loader_step_many/k%d_%s" % (
                     len(windows), "x".join(str(d) for d in dataset.shape))
-                with self._dispatch_record(name, (dataset,), partial(
+                return self._dispatch(
+                    [window_step(dataset, w, c)
+                     for w, c in zip(windows, counters)],
+                    held["graphs"], (name, (dataset,), partial(
                         aot_export.loader_fingerprint, self,
                         loader.normalizer, loader.minibatch_size, dataset,
-                        "step_many")):
-                    out = [self._window_step(loader, dataset, window, c, lr)
-                           for window, c, lr in zip(windows, counters, lrs)]
-            return out
+                        "step_many")))
 
         def step() -> Dict[str, Any]:
-            (loss, n_err, nonfinite), = dispatch([served_window()])
+            loss, n_err, nonfinite = (
+                m[0] for m in dispatch([served_window()]))
             self._sentinel.note(nonfinite)
             obs_profile.on_step()
             return {"loss": loss, "n_err": n_err, "nonfinite": nonfinite}
@@ -984,41 +1048,129 @@ class FusedClassifierTrainer:
             for _ in range(k):
                 loader.run()
                 windows.append(served_window())
-            losses, n_errs, nonfinite = (
-                torch.stack(m) for m in zip(*dispatch(windows)))
+            losses, n_errs, nonfinite = dispatch(windows)
             self._sentinel.note(nonfinite)
             obs_profile.on_step(k)
             return {"loss": losses, "n_err": n_errs, "nonfinite": nonfinite}
 
         return multi_step
 
-    def _window_step(self, loader, dataset, window, counter, lr):
-        """One loader step over ``window`` (perm, start, size)."""
-        perm, start, size = window
-        x, labels = loader.gather(start, size, dataset, perm)
-        x, labels, *extra = self._step_args(x, labels)
+    # -- the steps a dispatch runs -------------------------------------------
+    def _batch_step(self, counter: int, args):
+        """Step ``counter`` on a batch, as :meth:`_dispatch` takes it:
+        ``(counter, graph key, body, args)``; ``args`` is
+        :meth:`_step_args` of the batch."""
+        x, labels = args[:2]
+        return counter, (tuple(x.shape), x.dtype, tuple(labels.shape),
+                         self.nan_policy == "skip"), self._step_body, args
+
+    def _step_body(  # veles-lint: capture-context
+            self, x, labels, n_valid=None):
+        """One step on a batch, its dropout key and rates read from the
+        device scalars: what a graph captures and an eager step runs
+        (on a mesh, over this rank's rows, ``n_valid`` the global
+        batch's valid rows). The params and momentum are updated in
+        place, and only ever copied into (``load_state``), so a graph's
+        addresses stay theirs."""
         return _train_step(
-            self.specs, self.params, self.velocity, x, labels,
-            fold_in(self.dropout_seed, counter), lr,
-            float(self.weight_decay), float(self.momentum),
-            self.compute_dtype, self.nan_policy == "skip",
-            self.kernel_impl, *(extra or (None, None)), self.record_masks)
+            self.specs, self.params, self.velocity, x, labels, self._key,
+            self._lr_dev, self._decay_dev, self._momentum_dev,
+            self.compute_dtype, self.nan_policy == "skip", self.kernel_impl,
+            self._shards, n_valid, self.record_masks)
+
+    def _loader_body(  # veles-lint: capture-context
+            self, loader, dataset, idx, size=None):
+        """One loader step: the window ``idx`` (and a short window's
+        ``size``, a 0-d device tensor) gathered from ``dataset`` and
+        normalized on the device, then :meth:`_step_body` (on a mesh,
+        over this rank's rows of it)."""
+        x, labels = loader.gather_indices(idx, size, dataset)
+        if self._shards is not None:
+            return self._step_body(*self._local(x, labels))
+        return self._step_body(x, labels.to(torch.int64))
+
+    def _write_scalars(self, counter: int) -> None:
+        """Step ``counter``'s dropout key and learning rate, and the
+        momentum and weight decay when they changed, into the device
+        scalars the step reads: fills on the device, with nothing
+        copied from the host or waited for."""
+        write_key(self._key, fold_in(self.dropout_seed, counter))
+        self._lr_dev.fill_(self._lr(counter))
+        rates = (float(self.momentum), float(self.weight_decay))
+        if rates != self._written:
+            self._momentum_dev.fill_(rates[0])
+            self._decay_dev.fill_(rates[1])
+            self._written = rates
+
+    def _dispatch(self, steps,
+                  graphs_: Optional[Dict[Any, StepGraph]] = None,
+                  record=(None, ())):
+        """One dispatch of K steps, each ``(counter, graph key, body,
+        args)``. Each step writes its scalars (:meth:`_write_scalars`);
+        captured, it then replays the graph of its key in ``graphs_``
+        (default: the trainer's), fed with ``args``, the key's first
+        step capturing ``body`` over copies of ``args`` (a capture that
+        fails raises). An eager trainer (a mesh of more than one rank
+        too), or one whose ``record_masks`` is set, calls
+        ``body(*args)``. ``record``: the
+        dispatch's AOT ``(name, inputs[, fingerprint])``
+        (:meth:`_dispatch_record`). Returns the [K] losses, error counts
+        and non-finite flags, each step's copied out before the next
+        one runs (a replay overwrites its outputs)."""
+        graphs_ = self._graphs if graphs_ is None else graphs_
+        eager = not self._graphs_on or self.record_masks is not None
+
+        def run(key, body, args, replays):
+            if eager:
+                return body(*args)
+            graph = graphs_.get(key)
+            if graph is None:
+                graph = graphs_[key] = StepGraph(
+                    body, inputs=[
+                        a.clone(memory_format=torch.contiguous_format)
+                        for a in args],
+                    keep=_leaves(self.params) + _leaves(self.velocity),
+                    pool=self._pool)
+            if replays is not None:
+                replays.append(graph.tally())
+            return graph.replay(*args)
+
+        k = len(steps)
+        losses = torch.empty(k, dtype=torch.float32, device=self.device)
+        n_errs = torch.empty(k, dtype=torch.int32, device=self.device)
+        flags = torch.empty(k, dtype=torch.int32, device=self.device)
+        with self._dispatch_record(*record) as replays:
+            for i, (counter, key, body, args) in enumerate(steps):
+                self._write_scalars(counter)
+                losses[i], n_errs[i], flags[i] = run(key, body, args,
+                                                     replays)
+        return losses, n_errs, flags
 
     @contextlib.contextmanager
-    def _dispatch_record(self, name: str, inputs, fingerprint=None):
+    def _dispatch_record(self, name: Optional[str], inputs,
+                         fingerprint=None):
         """Around a dispatch: its AOT record at the first dispatch of
-        ``name`` (the launches it made, observed; an eager dispatch
-        has no replay), nothing at a later one."""
-        if name in self._aot_seen:
-            yield
+        ``name``, nothing at a later one or for ``name`` None. Yields
+        the list that collects the tallies of the graphs the dispatch
+        replays: a captured dispatch's record holds their sum, an eager
+        one's the launches it made, observed."""
+        if name is None or name in self._aot_seen:
+            yield None
             return
+        replays: List[Dict[str, int]] = []
         with launches.observing(self.device) as seen:
-            yield
+            yield replays
         self._aot_seen.add(name)
-        graphs.note_shape()
+        tally: Dict[str, int] = {}
+        for one in replays:
+            for kernel, n in one.items():
+                tally[kernel] = tally.get(kernel, 0) + n
+        if not replays:
+            graphs.note_shape()
         aot_warmup.note(self, fingerprint or partial(
             aot_export.fused_trainer_fingerprint, self), name, inputs,
-            ("params", "velocity"), seen, captured=False, owner="trainer")
+            ("params", "velocity"), tally if replays else seen,
+            captured=bool(replays), owner="trainer")
 
     def predict(self, x) -> torch.Tensor:
         """Logits [B, classes] f32 of the forward without dropout (on a
@@ -1055,7 +1207,8 @@ class FusedClassifierTrainer:
 def train_fused(workflow, mesh=None, tensor_parallel: bool = False,
                 max_epochs: Optional[int] = None,
                 compute_dtype=None, steps_per_dispatch: int = 1,
-                kernel_impl: Optional[str] = None):
+                kernel_impl: Optional[str] = None,
+                cuda_graphs: Optional[bool] = None):
     """Train an initialized StandardWorkflow through
     :class:`FusedClassifierTrainer`, then write the params back into
     its unit graph.
@@ -1076,10 +1229,10 @@ def train_fused(workflow, mesh=None, tensor_parallel: bool = False,
     scores them. Returns the decision's metrics (min validation error
     %, its epoch, min train error %, epochs).
 
-    ``mesh``/``tensor_parallel``: the fused trainer's (every rank runs
-    the same workflow, whose loader serves the same global minibatches;
-    each rank steps on its rows and shards, and the whole params are
-    written back on every rank)."""
+    ``mesh``/``tensor_parallel``/``cuda_graphs``: the fused trainer's
+    (on a mesh every rank runs the same workflow, whose loader serves
+    the same global minibatches; each rank steps on its rows and
+    shards, and the whole params are written back on every rank)."""
     from veles_tpu_torch.loader.base import TRAIN, VALID
 
     if workflow.device is None:
@@ -1103,7 +1256,7 @@ def train_fused(workflow, mesh=None, tensor_parallel: bool = False,
         lr_policy=policy, compute_dtype=compute_dtype,
         steps_per_dispatch=steps_per_dispatch, kernel_impl=kernel_impl,
         device=workflow.device.torch_device, mesh=mesh,
-        tensor_parallel=tensor_parallel)
+        tensor_parallel=tensor_parallel, cuda_graphs=cuda_graphs)
 
     if max_epochs is None:
         max_epochs = getattr(workflow.decision, "max_epochs", 10) or 10

@@ -52,7 +52,7 @@ from veles_tpu_torch.aot.export import (normalizer_signature,
 from veles_tpu_torch.aot.package import read_package
 from veles_tpu_torch.device import compute_dtype as _compute_dtype
 from veles_tpu_torch.device import resolve
-from veles_tpu_torch.graphs import StepGraph, use_graphs
+from veles_tpu_torch.graphs import GraphPool, StepGraph, use_graphs
 from veles_tpu_torch.models.transformer import (ServeContext, _encode,
                                                 _lm_head, _tree_map,
                                                 compute_weights,
@@ -464,7 +464,7 @@ class InferenceEngine(_Sharded):
         self.params = self._place(params)
         #: shape -> its captured graph (None where nothing is captured)
         self._cache: Dict[Tuple[int, ...], Optional[StepGraph]] = {}
-        self._pool = None
+        self._pool = GraphPool()
         self._swap_lock = threading.Lock()
         #: trailing params entries a body-only swap keeps (the
         #: normalizer's statistics of from_specs)
@@ -506,8 +506,6 @@ class InferenceEngine(_Sharded):
         batch to its ``bucket_for`` size before it gets here)."""
         graph = self._cache.get(shape)
         if graph is None:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
             static = torch.zeros(shape, dtype=torch.from_numpy(
                 np.zeros(0, self.input_dtype)).dtype, device=self.device)
             graph = StepGraph(lambda x: self._forward_fn(self.params, x),
@@ -1474,7 +1472,7 @@ class PagedGenerativeEngine(_Sharded):
         self._inject = np.zeros(self.slots, bool)
         #: captured rounds by body, ``sampling`` -> graph, sharing a pool
         self._graphs: Dict[bool, StepGraph] = {}
-        self._pool = None
+        self._pool = GraphPool()
         #: serializes the dispatch thread's device work with a hot swap
         self._lock = threading.Lock()
         self._slot_pages: List[List[int]] = [[] for _ in
@@ -1959,8 +1957,6 @@ class PagedGenerativeEngine(_Sharded):
             return out
         graph = self._graphs.get(sampling)
         if graph is None:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
             # the warm-up rounds write K/V (the draft's too) only at
             # and past each slot's length, which every read masks and
             # the captured round rewrites; the state they advance comes
